@@ -1,0 +1,124 @@
+"""``repro_torch.api`` — the public Bloom-filter surface of the port.
+
+Counterpart of ``repro.api`` for a scalar blocked Bloom filter::
+
+    import repro_torch.api as api
+
+    f = api.filter_for_n_items(1_000_000, bits_per_key=16)   # on the card
+    f = f.add(keys)                       # immutable: returns a new Filter
+    hits = f.contains(keys)
+    g = api.union(f, other)               # OR-union, cross-engine OK
+
+    api.backends()                        # ('cuda-dram', 'cuda-l2', 'torch')
+    f2 = api.make_filter("sbf", m_bits=1 << 24, k=8, device="cpu")
+
+``device=None`` means the card; without one a call raises ``RuntimeError``.
+The JAX engine names are aliases: on a CPU device ``jnp``, ``pallas``,
+``pallas-vmem`` and ``pallas-hbm`` all resolve to ``torch``; on a CUDA
+device ``pallas-vmem`` is ``cuda-l2``, ``pallas-hbm`` is ``cuda-dram``, and
+``jnp`` and ``pallas`` pick the CUDA engine by L2 fit.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from repro_torch import not_ported
+from repro_torch.core import variants as _V
+from repro_torch.core.variants import FilterSpec
+from repro_torch.api import registry
+from repro_torch.api.filter import BackendOptions, Filter, as_keys
+from repro_torch.api import backends as _backends
+
+_backends.register_all()
+
+
+def _alias(cuda_engine: Optional[str]):
+    """Alias resolver: ``torch`` on a CPU device; on a CUDA device
+    ``cuda_engine``, or the L2-resident engine while it fits when None."""
+    def resolve(spec: FilterSpec, ctx: registry.SelectionContext) -> str:
+        if ctx.device.type == "cpu":
+            return "torch"
+        if cuda_engine is not None:
+            return cuda_engine
+        return ("cuda-l2" if registry.get("cuda-l2").supports(spec, ctx)
+                else "cuda-dram")
+    return resolve
+
+
+registry.register_alias("jnp", _alias(None))
+registry.register_alias("pallas", _alias(None))
+registry.register_alias("pallas-vmem", _alias("cuda-l2"))
+registry.register_alias("pallas-hbm", _alias("cuda-dram"))
+
+
+def make_filter(variant: str = "sbf", m_bits: int = 1 << 20, k: int = 8,
+                block_bits: int = 256, z: int = 1, backend: str = "auto",
+                layout=None, tile: Optional[int] = None,
+                probe: str = "auto", depth: Optional[int] = None,
+                coop: str = "auto", mix: str = "auto",
+                device=None) -> Filter:
+    """Build an empty :class:`Filter` for an explicit geometry on ``device``
+    (``None`` = the card). ``backend="auto"`` runs the registry's ranked
+    query; the kernel knobs are validated and passed to ``kernels.ops``."""
+    spec = FilterSpec(variant=variant, m_bits=m_bits, k=k,
+                      block_bits=block_bits, z=z)
+    options = BackendOptions(layout=layout, tile=tile, probe=probe,
+                             depth=depth, coop=coop, mix=mix)
+    ctx = options.ctx(device)
+    eng = registry.select(spec, backend, ctx)
+    return Filter(spec=spec, words=eng.init(spec, options, ctx.device),
+                  backend=eng.name, options=options)
+
+
+def filter_for_n_items(n: int, bits_per_key: float = 16.0,
+                       variant: str = "sbf", block_bits: int = 256,
+                       k: Optional[int] = None, bank=None,
+                       target_fpr: Optional[float] = None, **kw) -> Filter:
+    """Size a Bloom filter for ~n items at c = bits_per_key (m rounded up to
+    a power of two), with k near the space-optimal k* = c ln 2 snapped to
+    the variant's constraints. ``target_fpr`` sizes by the analytic FPR
+    instead. ``**kw`` goes to :func:`make_filter` (``device``, ``backend``,
+    kernel knobs)."""
+    if bank is not None:
+        raise not_ported("filter banks", "queue 1 item 7")
+    if variant in ("cuckoo", "quotient", "countingbf"):
+        raise not_ported(f"{variant} filters", "queue 1 items 5, 9, 10")
+    if target_fpr is not None:
+        bits_per_key = _V.space_optimal_c(
+            variant, block_bits, kw.get("z", 1), n, target_fpr)
+    m = 1 << max(int(np.ceil(np.log2(max(n, 1) * bits_per_key))), 10)
+    if k is None:
+        k = _V.snap_k(variant, m / max(n, 1), block_bits, kw.get("z", 1))
+    return make_filter(variant=variant, m_bits=m, k=k, block_bits=block_bits,
+                       **kw)
+
+
+def union(*filters: Filter) -> Filter:
+    """OR-union of same-spec filters (cross-engine allowed); the result
+    lives on the first filter's engine and device."""
+    if not filters:
+        raise ValueError("union() needs at least one filter")
+    out = filters[0]
+    for f in filters[1:]:
+        out = out.merge(f)
+    return out
+
+
+def backends() -> tuple:
+    """Registered engine names."""
+    return registry.names()
+
+
+def describe_backends() -> tuple:
+    return registry.describe()
+
+
+def get_backend(name: str) -> registry.Backend:
+    return registry.get(name)
+
+
+__all__ = ["Filter", "FilterSpec", "BackendOptions", "as_keys", "registry",
+           "make_filter", "filter_for_n_items", "union", "backends",
+           "describe_backends", "get_backend"]

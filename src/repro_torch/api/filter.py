@@ -1,0 +1,214 @@
+"""The immutable ``Filter``: one interface over every engine.
+
+Counterpart of ``repro.api.filter`` for a scalar filter. A ``Filter`` holds
+its spec, its words (a ``(n_words,)`` int32 tensor on the filter's device),
+its engine name and its engine options. Every operation that looks like a
+mutation returns a new ``Filter`` and leaves the old one as it was: the
+engines clone the words before an insert, as JAX's immutable arrays behave.
+
+Banks, routed ops, ``remove``, ``decay`` and ``advance`` are later slices of
+the port; the methods raise ``NotImplementedError`` naming the ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import not_ported
+from repro_torch.core import hashing as H
+from repro_torch.core import variants as V
+from repro_torch.core.variants import FilterSpec
+from repro_torch.api import registry
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendOptions:
+    """Kernel parameters carried by a filter. ``layout``/``tile``/``probe``/
+    ``depth``/``coop``/``mix`` are validated and passed to
+    ``kernels.ops``; ``"auto"`` and ``None`` resolve to its fixed defaults."""
+
+    layout: Optional[object] = None    # kernels.sbf.Layout
+    tile: Optional[int] = None
+    probe: str = "auto"                # "loop" | "gather" | "auto"
+    depth: Optional[int] = None        # DRAM-regime keys per thread
+    coop: str = "auto"                 # "none" | "subtile" | "auto"
+    mix: str = "auto"                  # "full" | "cheap" | "auto"
+
+    def ctx(self, device=None) -> registry.SelectionContext:
+        return registry.SelectionContext.current(device=device)
+
+
+def _int32_bits(x) -> torch.Tensor:
+    """A tensor or array of u32 values as an int32 tensor of the same bits
+    (torch cannot wrap a read-only array, such as a JAX array's view)."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.uint32:
+            return x.view(torch.int32)
+        return x if x.dtype == torch.int32 else H.to_i32(H.u32(x))
+    arr = np.ascontiguousarray(np.asarray(x).astype(np.uint32, copy=False))
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return torch.from_numpy(arr.view(np.int32))
+
+
+def as_keys(keys, device=None) -> torch.Tensor:
+    """Keys as a contiguous ``(n, 2)`` int32 ``[hi, lo]`` tensor on ``device``
+    (``None`` keeps a tensor's own device, and puts arrays on the CPU).
+
+    Accepts ``np.uint64`` keys ``(n,)``, ``(n, 2)`` u32 arrays, and torch
+    tensors of ``(n, 2)`` int32, uint32 or int64 u32 values."""
+    if isinstance(keys, np.ndarray) and keys.dtype == np.uint64:
+        keys = H.u64x2_from_u64(keys)
+    keys = _int32_bits(keys)
+    if keys.ndim != 2 or keys.shape[-1] != 2:
+        raise ValueError(f"keys must be (n, 2) [hi, lo] words or (n,) "
+                         f"np.uint64; got shape {tuple(keys.shape)}")
+    if device is not None:
+        keys = keys.to(device)
+    return keys.contiguous()
+
+
+def as_words(words, device=None) -> torch.Tensor:
+    """Filter words (u32 array or int32/uint32 tensor) as a contiguous int32
+    tensor on ``device``, bits unchanged."""
+    words = _int32_bits(words)
+    if device is not None:
+        words = words.to(device)
+    return words.contiguous()
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Filter:
+    """Immutable Bloom filter bound to a registry engine.
+
+    Build one with :func:`repro_torch.api.make_filter` /
+    :func:`repro_torch.api.filter_for_n_items`, or :meth:`from_state`.
+    ``eq=False``: compare ``dense_words()`` to test equality."""
+
+    spec: FilterSpec
+    words: torch.Tensor
+    backend: str = "torch"
+    options: BackendOptions = BackendOptions()
+
+    @property
+    def engine(self) -> registry.Backend:
+        return registry.get(self.backend)
+
+    @property
+    def device(self) -> torch.device:
+        return self.words.device
+
+    def replace(self, **kw) -> "Filter":
+        return dataclasses.replace(self, **kw)
+
+    # -- bulk ops ------------------------------------------------------------
+    def add(self, keys, tenants=None, valid=None) -> "Filter":
+        """OR ``keys`` in; returns the updated filter (self unchanged)."""
+        if tenants is not None or valid is not None:
+            raise not_ported("routed and valid-masked (bank) adds",
+                             "queue 1 item 7")
+        keys = as_keys(keys, self.device)
+        if keys.shape[0] == 0:
+            return self
+        return self.replace(words=self.engine.add(self.spec, self.words, keys,
+                                                  self.options))
+
+    def contains(self, keys, tenants=None) -> torch.Tensor:
+        """Membership: (n,) bool on the filter's device. No false
+        negatives; false positives at about ``fpr_theory``."""
+        if tenants is not None:
+            raise not_ported("routed (bank) contains", "queue 1 item 7")
+        keys = as_keys(keys, self.device)
+        if keys.shape[0] == 0:
+            return torch.zeros((0,), dtype=torch.bool, device=self.device)
+        return self.engine.contains(self.spec, self.words, keys, self.options)
+
+    def remove(self, keys, tenants=None, valid=None) -> "Filter":
+        raise not_ported("remove (counting filters)", "queue 1 item 5")
+
+    def decay(self, steps: int = 1) -> "Filter":
+        raise not_ported("decay (counting filters)", "queue 1 item 5")
+
+    def advance(self) -> "Filter":
+        raise not_ported("advance (windowed filters)", "queue 1 item 6")
+
+    def merge(self, other: "Filter") -> "Filter":
+        """OR-union. Same spec required; engines and devices may differ
+        (the result lives on self's engine and device)."""
+        if other.spec != self.spec:
+            raise ValueError(f"cannot merge {other.spec} into {self.spec}")
+        dense = other.dense_words().to(self.device)
+        new = self.engine.from_dense(self.spec, self.dense_words() | dense,
+                                     self.options)
+        return self.replace(words=new)
+
+    __or__ = merge
+
+    # -- introspection -------------------------------------------------------
+    def dense_words(self) -> torch.Tensor:
+        """Canonical (n_words,) int32 words (u32 bits)."""
+        return self.engine.to_dense(self.spec, self.words, self.options)
+
+    def fill_fraction(self) -> float:
+        return V.fill_fraction(self.dense_words())
+
+    def fpr_theory(self, n: int) -> float:
+        """Analytic FPR at load n."""
+        return V.fpr_theory(self.spec, n)
+
+    def measure_fpr(self, n_probe: int = 1 << 16, seed: int = 1234) -> float:
+        """Empirical FPR against probes from the reserved keyspace
+        (``hashing.probe_u64x2``), disjoint from every insert set."""
+        probes = as_keys(H.probe_u64x2(n_probe, seed=seed), self.device)
+        hits = self.contains(probes)
+        return float(hits.to(torch.float64).mean().item())
+
+    def approx_count(self) -> float:
+        """Swamidass-Baldi estimate of the distinct keys inserted."""
+        fill = min(self.fill_fraction(), 1.0 - 1e-12)
+        return max(0.0, -(self.spec.m_bits / self.spec.k)
+                   * math.log(1.0 - fill))
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.words.numel()) * self.words.element_size()
+
+    # -- checkpointing -------------------------------------------------------
+    def to_state(self) -> dict:
+        """Engine-independent state: dense words + spec fields + engine."""
+        return {"words": self.dense_words(),
+                "spec": dataclasses.asdict(self.spec),
+                "backend": self.backend}
+
+    @classmethod
+    def from_state(cls, state: dict, backend: Optional[str] = None,
+                   options: BackendOptions = BackendOptions(),
+                   device=None) -> "Filter":
+        """Rebuild a filter from :meth:`to_state` output (or the JAX
+        package's, whose engine names are registered as aliases).
+        ``device=None`` is the card."""
+        if state.get("bank_shape"):
+            raise not_ported("filter banks", "queue 1 item 7")
+        if "engine_state" in state:
+            raise not_ported("fingerprint engine state", "queue 1 item 9")
+        if (state.get("options") or {}).get("generations") is not None:
+            raise not_ported("windowed filters", "queue 1 item 6")
+        spec = FilterSpec(**{k: (v if isinstance(v, str) else int(v))
+                             for k, v in state["spec"].items()})
+        name = backend or state.get("backend", "auto")
+        ctx = options.ctx(device)
+        eng = registry.select(spec, name, ctx)
+        words = as_words(state["words"], ctx.device)
+        if words.shape != (spec.storage_words,):
+            raise ValueError(f"state words {tuple(words.shape)} do not match "
+                             f"{spec} ({spec.storage_words} words)")
+        return cls(spec=spec, words=eng.from_dense(spec, words, options),
+                   backend=eng.name, options=options)
+
+    def __repr__(self):
+        return (f"Filter({self.spec}, backend={self.backend!r}, "
+                f"words={tuple(self.words.shape)}, device={self.device})")

@@ -1,0 +1,140 @@
+"""Dispatch of bulk ``add``/``contains`` to the blocked Bloom kernels.
+
+Counterpart of ``repro.kernels.ops.bloom_contains`` / ``bloom_add``:
+
+* regime: a filter of at most ``L2_FILTER_BYTES`` runs the L2-resident
+  kernels (``sbf.contains_vmem`` / ``add_vmem``), a larger one the
+  DRAM-resident kernels (``contains_hbm`` / ``add_hbm``). The regime names
+  stay ``"vmem"`` and ``"hbm"`` as in the JAX package. The regime never
+  changes a result;
+* ``probe``/``coop``/``mix``/``depth``/``layout``/``tile`` are validated as
+  the JAX package does. ``"auto"`` resolves to the fixed defaults below
+  (the tuner, ``core/tuning.py``, is ROADMAP queue 1 item 11). Which of
+  them the CUDA kernels act on is set out in ``kernels/sbf.py``;
+* keys on the CPU are padded to a tile multiple by repeating the last key
+  (``_pad_keys``) before the plain path, as in the JAX package; the CUDA
+  kernels mask the ragged tail themselves;
+* ``bloom_add(..., inplace=False)`` clones the words first, as JAX's
+  immutable arrays behave; ``inplace=True`` is the counterpart of the
+  buffer donation of ``ops.bloom_add_jit`` and updates ``filt`` itself.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import not_ported
+from repro_torch.core.variants import BLOCKED, FilterSpec
+from repro_torch.kernels import sbf as sbf_k
+from repro_torch.kernels.sbf import (COOPS, DEFAULT_DMA_DEPTH, DEFAULT_TILE,
+                                     MIXES, PROBES, Layout, default_layout)
+
+# Filters of at most this many bytes run the L2-resident kernels. A guess
+# below the H100's 50 MB L2, leaving room for the keys and results that
+# stream through it; not yet measured.
+L2_FILTER_BYTES = 32 * 1024 * 1024
+
+# What "auto" resolves to until the tuner is ported.
+AUTO_PROBE = "loop"
+AUTO_COOP = "none"
+AUTO_MIX = "full"
+
+REGIMES = ("vmem", "hbm")
+
+
+def kernel_supported(spec: FilterSpec) -> bool:
+    """Specs the CUDA kernels serve: blocked variants, s <= 32 words."""
+    return spec.variant in BLOCKED and spec.s <= 32
+
+
+def fits_l2(spec: FilterSpec) -> bool:
+    return spec.storage_words * 4 <= L2_FILTER_BYTES
+
+
+def _regime(spec: FilterSpec, regime: str) -> str:
+    if regime == "auto":
+        return "vmem" if fits_l2(spec) else "hbm"
+    if regime not in REGIMES:
+        raise ValueError(f"regime={regime!r} not in {REGIMES} or 'auto'")
+    return regime
+
+
+def _clamp_tile(n: int, tile: int) -> int:
+    """Shrink the key tile for small batches: next pow2 >= n, floor 8."""
+    return min(tile, max(8, 1 << int(np.ceil(np.log2(n)))))
+
+
+def _resolve(value: str, choices, auto: str, axis: str) -> str:
+    if value == "auto":
+        return auto
+    if value not in choices:
+        raise ValueError(f"{axis}={value!r} not in {choices} or 'auto'")
+    return value
+
+
+def _pad_keys(keys: torch.Tensor, tile: int) -> torch.Tensor:
+    """Pad to a tile multiple by repeating the last key — valid for the
+    OR-idempotent bit-filter ops only (a repeated add is a no-op, a repeated
+    contains result is cut off)."""
+    pad = (-keys.shape[0]) % tile
+    if pad == 0:
+        return keys
+    return torch.cat([keys, keys[-1:].expand(pad, 2)])
+
+
+def _check_spec(spec: FilterSpec) -> None:
+    if spec.variant not in BLOCKED:
+        raise not_ported(f"bloom_add/bloom_contains for {spec.variant}",
+                         "queue 1 items 4-10")
+
+
+def bloom_contains(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+                   layout: Optional[Layout] = None, regime: str = "auto",
+                   tile: int = DEFAULT_TILE, probe: str = "auto",
+                   depth: Optional[int] = None, coop: str = "auto",
+                   mix: str = "auto") -> torch.Tensor:
+    """(n,) bool membership of ``keys`` (n, 2) int32 in ``filt``."""
+    _check_spec(spec)
+    n = keys.shape[0]
+    if n == 0:
+        return torch.zeros((0,), dtype=torch.bool, device=keys.device)
+    tile = _clamp_tile(n, tile)
+    padded = keys if keys.is_cuda else _pad_keys(keys, tile)
+    c = _resolve(coop, COOPS, AUTO_COOP, "coop")
+    m = _resolve(mix, MIXES, AUTO_MIX, "mix")
+    if _regime(spec, regime) == "vmem":
+        out = sbf_k.contains_vmem(
+            spec, filt, padded, layout or default_layout(spec, "contains"),
+            tile=tile, probe=_resolve(probe, PROBES, AUTO_PROBE, "probe"),
+            coop=c, mix=m)
+    else:
+        out = sbf_k.contains_hbm(
+            spec, filt, padded, coop=c, mix=m,
+            depth=DEFAULT_DMA_DEPTH if depth is None else depth)
+    return out[:n]
+
+
+def bloom_add(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+              layout: Optional[Layout] = None, regime: str = "auto",
+              tile: int = DEFAULT_TILE, probe: str = "auto",
+              coop: str = "auto", mix: str = "auto",
+              inplace: bool = False) -> torch.Tensor:
+    """OR ``keys`` into the filter; returns the words (``filt`` itself when
+    ``inplace``, else a new tensor and ``filt`` is unchanged)."""
+    _check_spec(spec)
+    out = filt if inplace else filt.clone()
+    n = keys.shape[0]
+    if n == 0:
+        return out
+    tile = _clamp_tile(n, tile)
+    padded = keys if keys.is_cuda else _pad_keys(keys, tile)
+    c = _resolve(coop, COOPS, AUTO_COOP, "coop")
+    m = _resolve(mix, MIXES, AUTO_MIX, "mix")
+    if _regime(spec, regime) == "vmem":
+        return sbf_k.add_vmem(
+            spec, out, padded, layout or default_layout(spec, "add"),
+            tile=tile, probe=_resolve(probe, PROBES, AUTO_PROBE, "probe"),
+            coop=c, mix=m)
+    return sbf_k.add_hbm(spec, out, padded, coop=c, mix=m)

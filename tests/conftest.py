@@ -82,3 +82,8 @@ try:  # pragma: no cover - exercised implicitly by every property test
     import hypothesis  # noqa: F401
 except ImportError:
     _install_hypothesis_stub()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skipped where none is present")

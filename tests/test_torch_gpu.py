@@ -1,0 +1,173 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``gpu`` and skips where no card is present (the
+``cuda`` fixture decides). This file imports no JAX, so it also runs on a
+machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Comparisons are exact (tolerance 0): words as u32 bits, results as bool.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.api.filter import as_keys
+from repro_torch.core import hashing as H
+from repro_torch.core import variants as V
+from repro_torch.kernels import ops, sbf
+
+M = 1 << 16
+
+SPECS = [
+    V.FilterSpec("sbf", M, 8, block_bits=256),
+    V.FilterSpec("sbf", M, 16, block_bits=512),
+    V.FilterSpec("sbf", M, 4, block_bits=128),
+    V.FilterSpec("sbf", M, 2, block_bits=64),
+    V.FilterSpec("rbbf", M, 4),
+    V.FilterSpec("bbf", M, 8, block_bits=256),
+    V.FilterSpec("csbf", M, 8, block_bits=512, z=2),
+    V.FilterSpec("csbf", M, 16, block_bits=1024, z=4),
+    V.FilterSpec("sbf", 1 << 20, 32, block_bits=1024),
+    V.FilterSpec("sbf", 1 << 20, 3, block_bits=256),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _keys(n, seed, device):
+    return as_keys(H.random_u64x2(n, seed=seed), device)
+
+
+def _probes(n, seed, device):
+    return as_keys(H.probe_u64x2(n, seed=seed), device)
+
+
+def _u32(t):
+    return t.cpu().numpy().view(np.uint32)
+
+
+def _filled(spec, n, device, seed=0):
+    return sbf.add_plain(spec, V.init(spec, device), _keys(n, seed, device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", SPECS, ids=str)
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 65537])
+def test_add_kernels_match_plain(cuda, spec, n):
+    keys = _keys(n, n + 1, cuda)
+    want = sbf.add_plain(spec, V.init(spec, cuda), keys)
+    lay = sbf.default_layout(spec, "add")
+    got_l2 = sbf.add_vmem(spec, V.init(spec, cuda), keys, lay)
+    got_dram = sbf.add_hbm(spec, V.init(spec, cuda), keys)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(_u32(got_l2), _u32(want))
+    np.testing.assert_array_equal(_u32(got_dram), _u32(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", SPECS, ids=str)
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 65537])
+def test_contains_kernels_match_plain(cuda, spec, n):
+    filt = _filled(spec, 4096, cuda)
+    keys = torch.cat([_keys(n // 2, 0, cuda), _probes(n - n // 2, n, cuda)])
+    want = sbf.contains_plain(spec, filt, keys)
+    lay = sbf.default_layout(spec, "contains")
+    got_l2 = sbf.contains_vmem(spec, filt, keys, lay)
+    got_dram = sbf.contains_hbm(spec, filt, keys)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got_l2.cpu().numpy(), want.cpu().numpy())
+    np.testing.assert_array_equal(got_dram.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", SPECS, ids=str)
+def test_schedule_axes_never_change_results(cuda, spec):
+    """Every phi, depth, probe, coop and mix value gives the plain result."""
+    filt = _filled(spec, 8192, cuda)
+    keys = torch.cat([_keys(3000, 0, cuda), _probes(3000, 1, cuda)])
+    want = sbf.contains_plain(spec, filt, keys).cpu().numpy()
+    for phi in (1, 2, 4, 8):
+        got = sbf.contains_vmem(spec, filt, keys, sbf.Layout(1, phi),
+                                probe="gather", coop="subtile", mix="cheap")
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    for depth in sbf.DMA_DEPTHS:
+        got = sbf.contains_hbm(spec, filt, keys, depth=depth, coop="subtile",
+                               mix="cheap")
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    add_keys = _keys(5000, 9, cuda)
+    words = _u32(sbf.add_plain(spec, filt, add_keys))
+    got = sbf.add_vmem(spec, filt.clone(), add_keys, sbf.Layout(1, 1),
+                       probe="gather", coop="subtile", mix="cheap")
+    np.testing.assert_array_equal(_u32(got), words)
+    got = sbf.add_hbm(spec, filt.clone(), add_keys, coop="subtile",
+                      mix="cheap")
+    np.testing.assert_array_equal(_u32(got), words)
+
+
+@pytest.mark.gpu
+def test_launch_counters_count_kernel_launches_only(cuda):
+    spec = SPECS[0]
+    filt = V.init(spec, cuda)
+    keys = _keys(1000, 3, cuda)
+    sbf.reset_launches()
+    sbf.add_vmem(spec, filt, keys, sbf.default_layout(spec, "add"))
+    sbf.add_hbm(spec, filt, keys)
+    sbf.contains_vmem(spec, filt, keys, sbf.default_layout(spec, "contains"))
+    sbf.contains_hbm(spec, filt, keys)
+    sbf.contains_hbm(spec, filt, keys[:0])        # n == 0 launches nothing
+    sbf.contains_plain(spec, filt, keys)          # the plain path counts none
+    assert sbf.LAUNCHES == {"contains_vmem": 1, "add_vmem": 1,
+                            "contains_hbm": 1, "add_hbm": 1}
+
+
+@pytest.mark.gpu
+def test_ops_regimes_and_inplace(cuda):
+    spec = V.FilterSpec("sbf", 1 << 18, 16, block_bits=256)
+    keys = _keys(20000, 5, cuda)
+    want = _u32(sbf.add_plain(spec, V.init(spec, cuda), keys))
+    for regime in ("vmem", "hbm", "auto"):
+        base = V.init(spec, cuda)
+        new = ops.bloom_add(spec, base, keys, regime=regime)
+        assert not base.any()                     # inplace=False clones
+        np.testing.assert_array_equal(_u32(new), want)
+        same = ops.bloom_add(spec, base, keys, regime=regime, inplace=True)
+        assert same.data_ptr() == base.data_ptr()
+        np.testing.assert_array_equal(_u32(base), want)
+        assert ops.bloom_contains(spec, new, keys, regime=regime).all()
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_bad_tensors(cuda):
+    spec = SPECS[0]
+    filt = V.init(spec, cuda)
+    keys = _keys(64, 0, cuda)
+    misaligned = keys.reshape(-1)[1:-1].reshape(-1, 2)   # 4-byte offset
+    with pytest.raises(ValueError, match="aligned"):
+        sbf.contains_vmem(spec, filt, misaligned, sbf.Layout(1, 8))
+    with pytest.raises(ValueError, match="device|cpu"):
+        sbf.add_hbm(spec, filt, keys.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        sbf.contains_hbm(spec, filt, keys.to(torch.int64))
+
+
+@pytest.mark.gpu
+def test_api_defaults_to_the_card(cuda):
+    import repro_torch.api as api
+    f = api.filter_for_n_items(50000, bits_per_key=16)
+    assert f.device.type == "cuda" and f.backend == "cuda-l2"
+    keys = H.random_u64x2(50000, seed=4)
+    g = f.add(keys)
+    assert not f.dense_words().any()              # f is unchanged
+    assert g.contains(keys).all()
+    big = api.make_filter("sbf", m_bits=1 << 30, k=16, backend="jnp")
+    assert big.backend == "cuda-dram"
+    small = api.make_filter("sbf", m_bits=1 << 20, k=16, backend="pallas-hbm")
+    assert small.backend == "cuda-dram"
+    with pytest.raises(ValueError):
+        api.make_filter("sbf", m_bits=1 << 20, k=16, backend="torch")
