@@ -7,20 +7,36 @@ Phases, each ending in ``torch.cuda.synchronize()``; any failure raises and
 the script exits non-zero without printing a result:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the count;
-2. build: compile ``src/repro_torch/kernels/csrc/bloom.cu`` and time it;
-3. every kernel wrapper against its plain PyTorch version on the card, at
-   m = 2^20 bits and 65537 keys, for six blocked specs and every value of
-   the schedule axes; words and results must be equal bit for bit, and the
-   FPR measured on 2^20 probes must lie within 0.5-2.0x theory;
-4. the main path, ``repro_torch.api.filter_for_n_items(...)`` then
+2. build: compile every source of ``src/repro_torch/kernels/csrc/``
+   (``bloom.cu``, ``counting.cu``; one nvcc each, in parallel) and time it;
+3. every blocked-filter kernel wrapper against its plain PyTorch version on
+   the card, at m = 2^20 bits and 65537 keys, for six blocked specs and
+   every value of the schedule axes; words and results must be equal bit
+   for bit, and the FPR measured on 2^20 probes must lie within 0.5-2.0x
+   theory;
+3b. the same for the counting kernels: four countingbf specs (B = 64 ...
+   512) at m = 2^20, 65537 keys inserted 1-3 times each plus one key 20
+   times (it saturates), then removes of a subset and of keys never added,
+   and two decays; every schedule value, ragged sizes and a valid mask;
+4. the blocked main path, ``repro_torch.api.filter_for_n_items(...)`` then
    ``Filter.add`` / ``Filter.contains``, at an L2-resident size (2^23 keys,
    2^27 bits) and a DRAM-resident size (2^28 keys, 2^32 bits): no false
-   negatives, an FPR on 2^22 probes equal to the plain version's (its ratio
-   to theory is printed), kernel words equal to the plain version's on a
-   2^22-key subset into an empty full-size filter, and every wrapper of the
+   negatives, the main path's words, hits and results on 2^22 probes equal
+   to the plain version's in full (the plain version runs in 2^22-key
+   chunks; the FPR's ratio to theory is printed), and every wrapper of the
    regime launched during the main path;
-5. times with CUDA events (warm-up, then 20 repetitions), printed with the
-   card's name and power limit, and one JSON line with a record per kernel.
+4b. the counting main path, ``filter_for_n_items(n, variant="countingbf")``
+   then ``add``, ``contains``, ``remove`` of half the keys, ``contains`` of
+   the other half and ``decay(1)``, at an L2-resident size (2^22 keys, 2^26
+   bits, 32 MiB of counters) and a DRAM-resident size (2^26 keys, 2^30
+   bits, 512 MiB): no false negatives, every step's words and results
+   equal to the plain version's in full (in 2^22-key chunks), and every
+   counting wrapper of the regime launched;
+5. times with CUDA events (warm-up, then 5 rounds of 20 calls; an update is
+   timed on state restored before each call, outside the events) at the
+   main path's size and, against the plain version, on 2^22 keys into an
+   empty full-size filter; printed with the card's name and power limit,
+   and one JSON line with a record per kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs one CUDA card; the
 script exits non-zero where there is none, or where the repository's
@@ -28,6 +44,7 @@ script exits non-zero where there is none, or where the repository's
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -42,18 +59,31 @@ import torch  # noqa: E402
 from repro_torch import api  # noqa: E402
 from repro_torch.core import hashing as H  # noqa: E402
 from repro_torch.core import variants as V  # noqa: E402
-from repro_torch.kernels import _build, sbf  # noqa: E402
+from repro_torch.kernels import _build, ops, sbf  # noqa: E402
+from repro_torch.kernels import countingbf as cnt  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 OPS_PER_S = 67e12              # non-tensor peak (fp32 rate, the guide's table)
+# 32-bit atomics per second that this script's blocked-filter add timings
+# give on an H100 80GB HBM3 at 700 W: atomicOr in the L2 cell, and on
+# lines fetched from DRAM
+CAS_PER_S = {"L2": 8.8e10, "DRAM": 5.5e10}
 REPS = 20                      # calls per timing round
 ROUNDS = 5                     # timing rounds; the median is reported
+PLAIN_REPS, PLAIN_ROUNDS = 3, 3    # the plain versions take 10-100 ms a call
 SUBSET = 1 << 22               # keys of the kernel-vs-plain comparison
 SOURCE = "src/repro_torch/kernels/csrc/bloom.cu"
+COUNTING_SOURCE = "src/repro_torch/kernels/csrc/counting.cu"
 REPLACES = {"contains_vmem": "src/repro/kernels/sbf.py:311",
             "add_vmem": "src/repro/kernels/sbf.py:348",
             "contains_hbm": "src/repro/kernels/sbf.py:503",
             "add_hbm": "src/repro/kernels/sbf.py:537"}
+COUNTING_REPLACES = {
+    "update_vmem": "src/repro/kernels/countingbf.py:258",
+    "contains_vmem": "src/repro/kernels/countingbf.py:296",
+    "update_hbm": "src/repro/kernels/countingbf.py:592",
+    "contains_hbm": "src/repro/kernels/countingbf.py:624",
+    "decay": "src/repro/kernels/countingbf.py:725"}
 
 PHASE3_SPECS = [
     V.FilterSpec("sbf", 1 << 20, 16, block_bits=256),
@@ -63,6 +93,8 @@ PHASE3_SPECS = [
     V.FilterSpec("rbbf", 1 << 20, 4),
     V.FilterSpec("csbf", 1 << 20, 8, block_bits=512, z=2),
 ]
+PHASE3B_SPECS = [V.FilterSpec("countingbf", 1 << 20, k, block_bits=b)
+                 for b, k in ((64, 2), (128, 4), (256, 8), (512, 16))]
 
 
 def gen_keys(n: int, seed: int, probe: bool = False) -> torch.Tensor:
@@ -87,6 +119,23 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> int:
         raise AssertionError(f"kernel differs from its plain version "
                              f"(max abs err {err})")
     return err
+
+
+def update_in_chunks(update, words: torch.Tensor, keys: torch.Tensor
+                     ) -> torch.Tensor:
+    """``update(words, chunk)`` over ``SUBSET``-key chunks, the plain
+    versions' working memory kept to one chunk. An OR, a saturating add or a
+    guarded subtract split into chunks gives the words of one call on all
+    keys."""
+    for chunk in keys.split(SUBSET):
+        words = update(words, chunk)
+    return words
+
+
+def contains_in_chunks(contains, words: torch.Tensor, keys: torch.Tensor
+                       ) -> torch.Tensor:
+    """``contains(words, chunk)`` over ``SUBSET``-key chunks, concatenated."""
+    return torch.cat([contains(words, chunk) for chunk in keys.split(SUBSET)])
 
 
 SPREAD = {}                    # label -> (min, max) ms of the timing rounds
@@ -144,14 +193,18 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    _build.library()
-    print(f"build: {_build.library_path().name} in "
+    paths = _build.build()                    # one nvcc per source, together
+    print(f"build: {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.1f} s")
-    spills = [ln for ln in _build.build_log().splitlines()
-              if "spill" in ln and not ln.strip().startswith("ptxas info    : "
-                                                             "Function")]
-    n_spill = sum(1 for ln in spills if " 0 bytes spill stores" not in ln)
-    print(f"build: {len(spills)} kernel instances, {n_spill} with spills")
+    _build.library()                          # binds every entry point
+    for name in _build.SOURCES:
+        log = _build.build_log(name)
+        spills = [ln for ln in log.splitlines() if "spill" in ln and not
+                  ln.strip().startswith("ptxas info    : Function")]
+        n_spill = sum(1 for ln in spills if " 0 bytes spill stores" not in ln)
+        arch = "sm_90a" if "sm_90a" in log else "arch not reported"
+        print(f"build: {name}: {len(spills)} kernel instances for {arch}, "
+              f"{n_spill} with spills")
     torch.cuda.synchronize()
 
 
@@ -253,22 +306,29 @@ def phase_main(regime: str, n: int, errs: dict, records: dict, launches: dict,
     if not bool(hits.all()):
         raise AssertionError(f"{regime}: {int((~hits).sum())} false "
                              f"negatives")
-    # The measured FPR must be the plain version's on the same probes. Its
-    # ratio to theory is printed, not bounded: at this load the reference's
-    # two xxh32 streams are dependent and the FPR exceeds theory (PERF.md).
+    # the main path's words and results against the plain version, in full;
+    # the FPR's ratio to theory is printed, not bounded: at this load the
+    # reference's two xxh32 streams are dependent and the FPR exceeds
+    # theory (PERF.md)
+    want_words = update_in_chunks(functools.partial(sbf.add_plain, spec),
+                                  V.init(spec, "cuda"), keys)
+    errs[add_name] = max(errs[add_name], max_err(g.words, want_words))
+    plain_contains = functools.partial(sbf.contains_plain, spec)
+    errs[contains_name] = max(errs[contains_name], max_err(
+        hits, contains_in_chunks(plain_contains, want_words, keys)))
+    errs[contains_name] = max(errs[contains_name], max_err(
+        false_pos, plain_contains(want_words, probes)))
+    del want_words
     fpr = float(false_pos.to(torch.float64).mean().item())
-    fpr_plain = float(sbf.contains_plain(spec, g.words, probes)
-                      .to(torch.float64).mean().item())
-    if fpr != fpr_plain:
-        raise AssertionError(f"{regime}: FPR {fpr} != plain {fpr_plain}")
     theory = g.fpr_theory(n)
     print(f"main {regime}: {spec} on {g.backend}, {n} keys, "
           f"{g.nbytes / 2**20:.0f} MiB filter: add+contains+probe "
-          f"{wall * 1e3:.1f} ms host clock, no false negatives, FPR "
-          f"{fpr:.6f} = plain, {fpr / theory:.3f} x theory {theory:.6f}, "
+          f"{wall * 1e3:.1f} ms host clock, no false negatives, words, hits "
+          f"and probe results equal to the plain version's in full, FPR "
+          f"{fpr:.6f}, {fpr / theory:.3f} x theory {theory:.6f}, "
           f"launches {counted}")
 
-    # kernel against the plain version on a subset, full-size filter
+    # the timing columns' subset: 2^22 keys into an empty full-size filter
     sub = keys[:SUBSET]
     lay_add = sbf.default_layout(spec, "add")
     lay_con = sbf.default_layout(spec, "contains")
@@ -284,16 +344,8 @@ def phase_main(regime: str, n: int, errs: dict, records: dict, launches: dict,
         return sbf.contains_hbm(spec, words, q)
 
     want_words = sbf.add_plain(spec, V.init(spec, "cuda"), sub)
-    got_words = run_add(V.init(spec, "cuda"), sub)
-    errs[add_name] = max(errs[add_name], max_err(got_words, want_words))
     queries = torch.cat([sub[: SUBSET // 2], probes[: SUBSET // 2]])
-    want = sbf.contains_plain(spec, want_words, queries)
-    errs[contains_name] = max(errs[contains_name],
-                              max_err(run_contains(want_words, queries), want))
-    del got_words
     torch.cuda.synchronize()
-    print(f"main {regime}: kernel words and results equal the plain "
-          f"version's on {SUBSET} keys into an empty {spec}")
 
     # times: the main path at full size, and kernel vs plain on the subset
     words = g.words.clone()
@@ -345,6 +397,366 @@ def phase_main(regime: str, n: int, errs: dict, records: dict, launches: dict,
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------------------
+# The counting filter (phases 3b, 4b and its times)
+# ---------------------------------------------------------------------------
+
+def multiset(keys: torch.Tensor, seed: int) -> torch.Tensor:
+    """Each key 1-3 times plus ``keys[0]`` 20 more times (its counters
+    saturate), in a seeded random order, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    reps = torch.randint(1, 4, (keys.shape[0],), device="cuda", generator=g)
+    batch = torch.cat([keys.repeat_interleave(reps, dim=0),
+                       keys[:1].expand(20, 2)])
+    perm = torch.randperm(batch.shape[0], device="cuda", generator=g)
+    return batch[perm].contiguous()
+
+
+def valid_mask(n: int, seed: int) -> torch.Tensor:
+    """(n,) uint8, about a quarter zeros."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.rand(n, device="cuda", generator=g) > 0.25).to(torch.uint8)
+
+
+def phase_counting_kernels(errs: dict):
+    n = 65537
+    for i, spec in enumerate(PHASE3B_SPECS):
+        keys = gen_keys(n, 400 + i)
+        batch = multiset(keys, 500 + i)
+        gone = torch.cat([keys[: n // 2],                    # a subset
+                          gen_keys(4096, 600 + i, probe=True)])  # never added
+        queries = torch.cat([keys, gen_keys(n, 700 + i, probe=True)])
+        valid = valid_mask(batch.shape[0], 800 + i)
+        init = V.init(spec, "cuda")
+        want_add = cnt.update_plain(spec, init, batch, None, "add")
+        want_rm = cnt.update_plain(spec, want_add, gone, None, "remove")
+        want_valid = cnt.update_plain(spec, init, batch, valid, "add")
+        # removing added keys leaves no false negative among the rest (keys
+        # never added may clear a shared counter: the guard only floors at 0)
+        if not bool(cnt.contains_plain(spec, cnt.update_plain(
+                spec, want_add, keys[: n // 2], None, "remove"),
+                keys[n // 2:]).all()):
+            raise AssertionError(f"{spec}: remove made a false negative")
+        runs = 0
+        cs = spec.counter_row_words
+        vmem_axes = ({}, {"probe": "gather"}, {"coop": "subtile"},
+                     {"mix": "cheap"}, {"layout": sbf.Layout(1, 1)},
+                     {"layout": sbf.Layout(min(spec.s, 8), min(cs, 4)),
+                      "tile": 64})
+        for name, axes in (("update_vmem", vmem_axes),
+                           ("update_hbm", ({}, {"coop": "subtile"},
+                                           {"mix": "cheap"}))):
+            update = getattr(cnt, name)
+            for kw in axes:
+                w = update(spec, V.init(spec, "cuda"), batch, None, "add", **kw)
+                errs[name] = max(errs[name], max_err(w, want_add))
+                update(spec, w, gone, None, "remove", **kw)
+                errs[name] = max(errs[name], max_err(w, want_rm))
+                runs += 2
+            w = update(spec, V.init(spec, "cuda"), batch, valid, "add")
+            errs[name] = max(errs[name], max_err(w, want_valid))
+            w = update(spec, V.init(spec, "cuda"), batch,
+                       valid.to(torch.bool), "add")
+            errs[name] = max(errs[name], max_err(w, want_valid))
+            runs += 2
+        for words in (want_add, want_rm):
+            want = cnt.contains_plain(spec, words, queries)
+            phis = [p for p in (1, 2, 4, 8, 16, 32, 64, 128) if p <= cs]
+            for kw in ([{"layout": sbf.Layout(1, p)} for p in phis]
+                       + [{"probe": "gather"}, {"coop": "subtile"},
+                          {"mix": "cheap"}]):
+                got = cnt.contains_vmem(spec, words, queries, **kw)
+                errs["contains_vmem"] = max(errs["contains_vmem"],
+                                            max_err(got, want))
+                runs += 1
+            for kw in ([{"depth": d} for d in sbf.DMA_DEPTHS]
+                       + [{"coop": "subtile"}, {"mix": "cheap"}]):
+                got = cnt.contains_hbm(spec, words, queries, **kw)
+                errs["contains_hbm"] = max(errs["contains_hbm"],
+                                           max_err(got, want))
+                runs += 1
+        w = want_rm.clone()
+        for _ in range(2):                                 # decay twice
+            want = cnt.decay_plain(spec, w)
+            cnt.decay(spec, w)
+            errs["decay"] = max(errs["decay"], max_err(w, want))
+            runs += 1
+        if i == 2:                                   # ragged tails, B = 256
+            for m in (1, 255, 257):
+                sub, v = batch[:m], valid[:m]
+                want = cnt.update_plain(spec, init, sub, v, "add")
+                for name in ("update_vmem", "update_hbm"):
+                    got = getattr(cnt, name)(spec, V.init(spec, "cuda"), sub,
+                                             v, "add")
+                    errs[name] = max(errs[name], max_err(got, want))
+                    want_r = cnt.update_plain(spec, want, sub[: m // 2 + 1],
+                                              None, "remove")
+                    getattr(cnt, name)(spec, got, sub[: m // 2 + 1], None,
+                                       "remove")
+                    errs[name] = max(errs[name], max_err(got, want_r))
+                c = cnt.contains_plain(spec, want, queries[:m])
+                for name in ("contains_vmem", "contains_hbm"):
+                    got = getattr(cnt, name)(spec, want, queries[:m])
+                    errs[name] = max(errs[name], max_err(got, c))
+                runs += 6
+        fpr = float(cnt.contains_vmem(
+            spec, want_add, gen_keys(1 << 20, 900 + i, probe=True)
+        ).to(torch.float64).mean().item())
+        theory = V.fpr_theory(spec, n)
+        if not 0.5 * theory <= fpr <= 2.0 * theory:
+            raise AssertionError(f"{spec}: FPR {fpr} outside 0.5-2.0 x "
+                                 f"theory {theory}")
+        torch.cuda.synchronize()
+        print(f"kernels: {spec}: {runs} counting kernel runs equal to the "
+              f"plain version ({batch.shape[0]} inserts of {n} keys, "
+              f"removes, decays, valid masks); FPR {fpr:.6f} = "
+              f"{fpr / theory:.3f} x theory on 2^20 probes")
+
+
+def time_restored_ms(fn, restore, label: str, reps: int = REPS,
+                     rounds: int = ROUNDS) -> float:
+    """Like :func:`time_ms` for a call that changes its state: ``restore()``
+    runs before every call, outside the CUDA events that time the call."""
+    for _ in range(2):
+        restore()
+        fn()
+    torch.cuda.synchronize()
+    per_round = []
+    for _ in range(rounds):
+        events = []
+        for _ in range(reps):
+            restore()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        per_round.append(sum(a.elapsed_time(b) for a, b in events) / reps)
+    per_round.sort()
+    SPREAD[label] = (per_round[0], per_round[-1])
+    return per_round[len(per_round) // 2]
+
+
+def counter_updates(spec: V.FilterSpec, keys: torch.Tensor) -> int:
+    """Counter words the keys' masks touch, summed over keys: the atomicCAS
+    loops an update runs (at least one CAS each)."""
+    total = 0
+    for chunk in keys.split(SUBSET):
+        masks = V.block_patterns(spec, H.hash_keys(chunk)[0])
+        for c in range(4):
+            total += int((((masks >> (8 * c)) & 0xFF) != 0).sum().item())
+    return total
+
+
+def touched_sectors(words: torch.Tensor) -> int:
+    """32-byte counter sectors holding a nonzero word."""
+    return int((words.view(-1, 8) != 0).any(dim=1).sum().item())
+
+
+def counting_bound_ms(spec: V.FilterSpec, n: int, op: str, sectors: int,
+                      updates: int):
+    """Least time: max(bytes / memory rate, ops / peak rate). Bytes: 8 per
+    key and 1 per result (contains), plus the touched 32-byte sectors read
+    (contains), read and written (updates), or every counter byte read and
+    written (decay). Ops: 40 per key for the two hash streams, 4 per salt
+    bit, and 12 (contains) or 20 (update) per touched counter word; 12 per
+    word for decay."""
+    if op == "decay":
+        nbytes = 2 * 4 * spec.storage_words
+        n_ops = 12 * spec.storage_words
+    else:
+        per_word = 12 if op == "contains" else 20
+        nbytes = 8 * n + (n + 32 * sectors if op == "contains"
+                          else 2 * 32 * sectors)
+        n_ops = n * (40 + 4 * spec.k) + per_word * updates
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_counting_main(regime: str, n: int, errs: dict, records: dict,
+                        launches: dict, card: str):
+    upd, con = (("update_vmem", "contains_vmem") if regime == "L2"
+                else ("update_hbm", "contains_hbm"))
+    f = api.filter_for_n_items(n, bits_per_key=16, variant="countingbf",
+                               block_bits=256, device="cuda")
+    spec = f.spec
+    if f.backend != "counting" or spec.k != 8:
+        raise AssertionError(f"counting {regime}: {spec} on {f.backend}")
+    if ops.fits_l2(spec) != (regime == "L2"):
+        raise AssertionError(f"counting {regime}: {spec} in the wrong regime")
+    keys = gen_keys(n, 11)
+    probes = gen_keys(SUBSET, 12, probe=True)
+    half = n // 2
+    torch.cuda.synchronize()
+
+    cnt.reset_launches()                   # the main path, counted
+    t0 = time.perf_counter()
+    g = f.add(keys)
+    hits = g.contains(keys)
+    h = g.remove(keys[:half])
+    kept = h.contains(keys[half:])
+    d = h.decay(1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = dict(cnt.LAUNCHES)
+    for name in (upd, con, "decay"):
+        if counted[name] == 0:
+            raise AssertionError(f"{name} was not launched on the counting "
+                                 f"main path")
+        launches[name] = launches.get(name, 0) + counted[name]
+    if not (bool(hits.all()) and bool(kept.all())):
+        raise AssertionError(f"counting {regime}: false negatives")
+    false_pos = g.contains(probes)
+
+    # the main path's words and results against the plain version, in full
+    def plain_update(op):
+        return lambda w, c: cnt.update_plain(spec, w, c, None, op)
+    plain_contains = functools.partial(cnt.contains_plain, spec)
+    want_add = update_in_chunks(plain_update("add"), V.init(spec, "cuda"),
+                                keys)
+    errs[upd] = max(errs[upd], max_err(g.words, want_add))
+    errs[con] = max(errs[con], max_err(
+        hits, contains_in_chunks(plain_contains, want_add, keys)))
+    errs[con] = max(errs[con], max_err(false_pos,
+                                       plain_contains(want_add, probes)))
+    want_rm = update_in_chunks(plain_update("remove"), want_add, keys[:half])
+    errs[upd] = max(errs[upd], max_err(h.words, want_rm))
+    errs[con] = max(errs[con], max_err(
+        kept, contains_in_chunks(plain_contains, want_rm, keys[half:])))
+    errs["decay"] = max(errs["decay"], max_err(
+        d.words, cnt.decay_plain(spec, want_rm)))
+    del want_add, want_rm
+    fpr = float(false_pos.to(torch.float64).mean().item())
+    theory = g.fpr_theory(n)
+    print(f"main counting {regime}: {spec} on {g.backend}, {n} keys, "
+          f"{g.nbytes / 2**20:.0f} MiB of counters: add, contains, remove "
+          f"of {half}, contains of the rest, decay(1) in {wall * 1e3:.1f} ms "
+          f"host clock, no false negatives; every step's words, hits and "
+          f"probe results equal to the plain version's in full; FPR "
+          f"{fpr:.6f}, {fpr / theory:.3f} x theory {theory:.6f}, launches "
+          f"{counted}")
+
+    # the timing columns' subset: 2^22 keys into an empty full-size filter
+    sub = keys[:SUBSET]
+    sub_half = sub.shape[0] // 2
+    sub_add = cnt.update_plain(spec, V.init(spec, "cuda"), sub, None, "add")
+    torch.cuda.synchronize()
+
+    # times: the main path at full size, and kernel vs plain on 2^22 keys
+    run_upd = getattr(cnt, upd)
+    run_con = getattr(cnt, con)
+    scratch = V.init(spec, "cuda")
+    t = {
+        "add": time_restored_ms(
+            lambda: run_upd(spec, scratch, keys, None, "add"),
+            scratch.zero_, f"{regime} add"),
+        "contains": time_ms(lambda: run_con(spec, g.words, keys),
+                            f"{regime} contains"),
+        "remove": time_restored_ms(
+            lambda: run_upd(spec, scratch, keys[:half], None, "remove"),
+            lambda: scratch.copy_(g.words), f"{regime} remove"),
+        "decay": time_restored_ms(
+            lambda: cnt.decay(spec, scratch),
+            lambda: scratch.copy_(h.words), f"{regime} decay"),
+        "Filter.add": time_ms(lambda: f.add(keys), f"{regime} Filter.add"),
+        "Filter.contains": time_ms(lambda: g.contains(keys),
+                                   f"{regime} Filter.contains"),
+        "Filter.remove": time_ms(lambda: g.remove(keys[:half]),
+                                 f"{regime} Filter.remove"),
+        "Filter.decay": time_ms(lambda: h.decay(1), f"{regime} Filter.decay"),
+        "add sub": time_restored_ms(
+            lambda: run_upd(spec, scratch, sub, None, "add"),
+            scratch.zero_, f"{regime} add sub"),
+        "contains sub": time_ms(lambda: run_con(spec, sub_add, sub),
+                                f"{regime} contains sub"),
+        "remove sub": time_restored_ms(
+            lambda: run_upd(spec, scratch, sub[:sub_half], None, "remove"),
+            lambda: scratch.copy_(sub_add), f"{regime} remove sub"),
+        "add plain": time_ms(
+            lambda: cnt.update_plain(spec, V.init(spec, "cuda"), sub, None,
+                                     "add"),
+            f"{regime} add plain", PLAIN_REPS, PLAIN_ROUNDS),
+        "contains plain": time_ms(
+            lambda: cnt.contains_plain(spec, sub_add, sub),
+            f"{regime} contains plain", PLAIN_REPS, PLAIN_ROUNDS),
+        "remove plain": time_ms(
+            lambda: cnt.update_plain(spec, sub_add, sub[:sub_half], None,
+                                     "remove"),
+            f"{regime} remove plain", PLAIN_REPS, PLAIN_ROUNDS),
+        "decay plain": time_ms(lambda: cnt.decay_plain(spec, h.words),
+                               f"{regime} decay plain", PLAIN_REPS,
+                               PLAIN_ROUNDS),
+    }
+    # the bound's data-dependent terms: sectors and counter words touched
+    full = {"add": (n, touched_sectors(g.words), counter_updates(spec, keys)),
+            "remove": (half, touched_sectors(run_upd(
+                spec, V.init(spec, "cuda"), keys[:half], None, "add")),
+                counter_updates(spec, keys[:half]))}
+    full["contains"] = full["add"]
+    part = {"add": (sub.shape[0], touched_sectors(sub_add),
+                    counter_updates(spec, sub)),
+            "remove": (sub_half, touched_sectors(cnt.update_plain(
+                spec, V.init(spec, "cuda"), sub[:sub_half], None, "add")),
+                counter_updates(spec, sub[:sub_half]))}
+    part["contains"] = part["add"]
+    for op in ("add", "contains", "remove"):
+        nk, sectors, updates = full[op]
+        b_full, by_full = counting_bound_ms(spec, nk, op, sectors, updates)
+        nk_s, sectors_s, updates_s = part[op]
+        b_sub, by_sub = counting_bound_ms(spec, nk_s, op, sectors_s,
+                                          updates_s)
+        lo, hi = SPREAD[f"{regime} {op}"]
+        cas = ("" if op == "contains" else
+               f"; atomics estimate {updates / CAS_PER_S[regime] * 1e3:.4f} "
+               f"ms ({updates} CAS at {CAS_PER_S[regime]:.2g}/s)")
+        print(f"time counting {regime} {op} [{card}]: kernel "
+              f"{t[op]:.4f} ms (rounds {lo:.4f}-{hi:.4f}; "
+              f"{nk / t[op] / 1e3:.1f} Mops/s) at {nk} keys, bound "
+              f"{b_full:.4f} ms ({by_full}; {sectors} sectors), "
+              f"{b_full / t[op]:.1%} of it{cas}; Filter.{op} "
+              f"{t[f'Filter.{op}']:.4f} ms; at {nk_s} keys kernel "
+              f"{t[f'{op} sub']:.4f} ms, plain {t[f'{op} plain']:.4f} ms, "
+              f"bound {b_sub:.4f} ms ({by_sub})")
+        name = upd if op != "contains" else con
+        if op == "remove":
+            records[name].update(remove_ms=t["remove sub"],
+                                 remove_plain_ms=t["remove plain"],
+                                 remove_bound_ms=b_sub,
+                                 main_remove_ms=t["remove"],
+                                 api_remove_ms=t["Filter.remove"])
+            continue
+        records[name] = {
+            "name": f"counting_{name}", "route": "cuda",
+            "source": COUNTING_SOURCE, "replaces": COUNTING_REPLACES[name],
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": t[f"{op} sub"], "plain_ms": t[f"{op} plain"],
+            "bound_ms": b_sub, "bound_by": by_sub, "library_ms": None,
+            "n_keys": nk_s, "m_bits": spec.m_bits, "main_n_keys": nk,
+            "main_ms": t[op], "main_bound_ms": b_full,
+            "api_ms": t[f"Filter.{op}"]}
+    b_dec, by_dec = counting_bound_ms(spec, 0, "decay", 0, 0)
+    lo, hi = SPREAD[f"{regime} decay"]
+    print(f"time counting {regime} decay [{card}]: kernel {t['decay']:.4f} ms "
+          f"(rounds {lo:.4f}-{hi:.4f}) over {g.nbytes / 2**20:.0f} MiB, bound "
+          f"{b_dec:.4f} ms ({by_dec}), {b_dec / t['decay']:.1%} of it; "
+          f"Filter.decay {t['Filter.decay']:.4f} ms; plain "
+          f"{t['decay plain']:.4f} ms")
+    if regime == "DRAM":     # decay streams the counters: the DRAM cell
+        records["decay"] = {
+            "name": "counting_decay", "route": "cuda",
+            "source": COUNTING_SOURCE, "replaces": COUNTING_REPLACES["decay"],
+            "launches": launches["decay"], "max_abs_err": errs["decay"],
+            "ms": t["decay"], "plain_ms": t["decay plain"],
+            "bound_ms": b_dec, "bound_by": by_dec, "library_ms": None,
+            "m_bits": spec.m_bits, "api_ms": t["Filter.decay"]}
+    del f, g, h, d, keys, scratch, sub_add
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -352,13 +764,19 @@ def main() -> int:
     card, name, count = phase_device()
     phase_build()
     errs = {k: 0 for k in sbf.LAUNCHES}
+    cerrs = {k: 0 for k in cnt.LAUNCHES}
     phase_kernels(errs)
+    phase_counting_kernels(cerrs)
     records, launches = {}, {}
     phase_main("L2", 1 << 23, errs, records, launches, card)
     phase_main("DRAM", 1 << 28, errs, records, launches, card)
+    crecords, claunches = {}, {}
+    phase_counting_main("L2", 1 << 22, cerrs, crecords, claunches, card)
+    phase_counting_main("DRAM", 1 << 26, cerrs, crecords, claunches, card)
     print(json.dumps({"kernels": [records[k] for k in
                                   ("contains_vmem", "add_vmem",
-                                   "contains_hbm", "add_hbm")]}))
+                                   "contains_hbm", "add_hbm")]
+                      + [crecords[k] for k in cnt.LAUNCHES]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
     return 0

@@ -1,6 +1,7 @@
 """``repro_torch.api`` — the public Bloom-filter surface of the port.
 
-Counterpart of ``repro.api`` for a scalar blocked Bloom filter::
+Counterpart of ``repro.api`` for a scalar blocked Bloom filter and the
+counting Bloom filter::
 
     import repro_torch.api as api
 
@@ -9,7 +10,10 @@ Counterpart of ``repro.api`` for a scalar blocked Bloom filter::
     hits = f.contains(keys)
     g = api.union(f, other)               # OR-union, cross-engine OK
 
-    api.backends()                        # ('cuda-dram', 'cuda-l2', 'torch')
+    c = api.filter_for_n_items(1_000_000, variant="countingbf")
+    c = c.add(keys).remove(keys[:10]).decay(1)    # engine 'counting'
+
+    api.backends()       # ('counting', 'cuda-dram', 'cuda-l2', 'torch')
     f2 = api.make_filter("sbf", m_bits=1 << 24, k=8, device="cpu")
 
 ``device=None`` means the card; without one a call raises ``RuntimeError``.
@@ -83,8 +87,8 @@ def filter_for_n_items(n: int, bits_per_key: float = 16.0,
     kernel knobs)."""
     if bank is not None:
         raise not_ported("filter banks", "queue 1 item 7")
-    if variant in ("cuckoo", "quotient", "countingbf"):
-        raise not_ported(f"{variant} filters", "queue 1 items 5, 9, 10")
+    if variant in ("cuckoo", "quotient"):
+        raise not_ported(f"{variant} filters", "queue 1 items 9, 10")
     if target_fpr is not None:
         bits_per_key = _V.space_optimal_c(
             variant, block_bits, kw.get("z", 1), n, target_fpr)

@@ -1,15 +1,23 @@
-"""Single-host engines: the plain PyTorch engine and the two CUDA regimes.
+"""Single-host engines: the plain PyTorch engine, the two CUDA regimes and
+the counting engine.
 
 Counterpart of ``repro.api.backends`` (``jnp``, ``pallas-vmem``,
-``pallas-hbm``). The device decides first: ``torch`` serves CPU devices
-only, and the CUDA engines serve CUDA devices only, so a CUDA tensor never
-reaches a plain version. The CUDA engines take the blocked variants with
-``s <= 32`` words per block and decline ``cbf``, so ``"auto"`` never picks
-an engine that would raise. Among the CUDA engines the L2-resident one wins
-while the filter fits ``ops.L2_FILTER_BYTES``.
+``pallas-hbm``, ``counting``). For the bit filters the device decides
+first: ``torch`` serves CPU devices only, and the CUDA engines serve CUDA
+devices only, so a CUDA tensor never reaches a plain version. The CUDA
+engines take the blocked variants with ``s <= 32`` words per block and
+decline ``cbf``, so ``"auto"`` never picks an engine that would raise.
+Among the CUDA engines the L2-resident one wins while the filter fits
+``ops.L2_FILTER_BYTES``.
+
+``counting`` claims ``countingbf`` specs alone, on both devices, and the
+bit engines decline them: on the CPU it runs the plain versions, on a CUDA
+device the counting kernels through ``ops.counting_*`` (the regime by L2
+fit), so there too a CUDA tensor never reaches a plain version.
 """
 from __future__ import annotations
 
+from repro_torch.core import hashing as H
 from repro_torch.core import variants as V
 from repro_torch.core.variants import FilterSpec
 from repro_torch.api.registry import Backend, SelectionContext, register
@@ -24,6 +32,7 @@ class TorchBackend(Backend):
     name = "torch"
 
     def supports(self, spec: FilterSpec, ctx: SelectionContext) -> bool:
+        # BLOCKED excludes countingbf, which belongs to the counting engine
         return ctx.device.type == "cpu" and spec.variant in V.BLOCKED
 
     def cost(self, spec: FilterSpec, ctx: SelectionContext) -> float:
@@ -95,7 +104,77 @@ class CudaDramBackend(_CudaBackend):
         return 1.2 if ops.fits_l2(spec) else 0.7
 
 
+class CountingBackend(Backend):
+    """Counting Bloom filter (variant='countingbf'): packed 4-bit saturating
+    counters, so keys can be removed and the filter decayed. The plain
+    versions on the CPU, the CUDA counting kernels on the card (atomicCAS
+    nibble updates). 4x the memory of the equivalent bit filter."""
+
+    name = "counting"
+    supports_remove = True
+    supports_decay = True
+    supports_count = True              # counting_count multiplicity bound
+
+    def supports(self, spec: FilterSpec, ctx: SelectionContext) -> bool:
+        if ctx.device.type == "cuda":
+            return ops.counting_kernel_supported(spec)
+        return ctx.device.type == "cpu" and spec.is_counting
+
+    def bits_per_key(self, target_fpr: float = Backend.REF_FPR) -> float:
+        """4-bit counters store 4x the equivalent bit filter."""
+        return 4.0 * super().bits_per_key(target_fpr)
+
+    def cost(self, spec: FilterSpec, ctx: SelectionContext) -> float:
+        return 1.0   # sole claimant of countingbf specs
+
+    def init(self, spec, options, device):
+        return V.init(spec, device)                # (storage_words,) counters
+
+    def _kw(self, options):
+        kw = {"layout": options.layout, "probe": options.probe,
+              "coop": options.coop, "mix": options.mix}
+        if options.tile is not None:
+            kw["tile"] = options.tile
+        return kw
+
+    def add(self, spec, words, keys, options):
+        if words.is_cuda:
+            return ops.counting_add(spec, words, keys, **self._kw(options))
+        return V.counting_add(spec, words, keys)
+
+    def remove(self, spec, words, keys, options):
+        if words.is_cuda:
+            return ops.counting_remove(spec, words, keys, **self._kw(options))
+        return V.counting_remove(spec, words, keys)
+
+    def contains(self, spec, words, keys, options):
+        if words.is_cuda:
+            return ops.counting_contains(spec, words, keys,
+                                         depth=options.depth,
+                                         **self._kw(options))
+        return V.counting_contains(spec, words, keys)
+
+    def decay(self, spec, words, options):
+        if words.is_cuda:
+            return ops.counting_decay(spec, words)
+        return V.counting_decay(spec, words)
+
+    def merge(self, spec, a, b, options):
+        """Counter-true union: nibble-wise saturating add (not OR, so the
+        merged counts support the merged removes)."""
+        return H.to_i32(V.nib_sat_add_words(a, b))
+
+    def to_dense(self, spec, words, options):
+        """The occupancy bit filter (counts are an engine detail)."""
+        return V.counting_to_bloom(spec, words)
+
+    def from_dense(self, spec, dense, options):
+        """Occupancy -> counters at 1: membership-preserving, count-lossy."""
+        return V.counting_from_bloom(spec, dense)
+
+
 def register_all():
     register(TorchBackend())
     register(CudaL2Backend())
     register(CudaDramBackend())
+    register(CountingBackend())

@@ -1,13 +1,17 @@
 """The immutable ``Filter``: one interface over every engine.
 
 Counterpart of ``repro.api.filter`` for a scalar filter. A ``Filter`` holds
-its spec, its words (a ``(n_words,)`` int32 tensor on the filter's device),
-its engine name and its engine options. Every operation that looks like a
-mutation returns a new ``Filter`` and leaves the old one as it was: the
-engines clone the words before an insert, as JAX's immutable arrays behave.
+its spec, its words (the engine's int32 storage on the filter's device:
+``(n_words,)`` bits, or ``(storage_words,)`` counters for the counting
+engine), its engine name and its engine options. Every operation that looks
+like a mutation returns a new ``Filter`` and leaves the old one as it was:
+the engines clone the words before an update, as JAX's immutable arrays
+behave.
 
-Banks, routed ops, ``remove``, ``decay`` and ``advance`` are later slices of
-the port; the methods raise ``NotImplementedError`` naming the ROADMAP item.
+``remove`` and ``decay`` run on engines that support them (``counting``)
+and raise the JAX package's ``NotImplementedError`` elsewhere. Banks,
+routed ops and ``advance`` are later slices of the port; they raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -106,11 +110,17 @@ class Filter:
         return dataclasses.replace(self, **kw)
 
     # -- bulk ops ------------------------------------------------------------
+    def _check_scalar_form(self, op: str, tenants, valid) -> None:
+        if tenants is not None:
+            raise not_ported(f"routed (bank) {op}", "queue 1 item 7")
+        if valid is not None:
+            raise ValueError(f"valid= masks apply to bank ops only; filter "
+                             f"the keys instead for a scalar {op}")
+
     def add(self, keys, tenants=None, valid=None) -> "Filter":
-        """OR ``keys`` in; returns the updated filter (self unchanged)."""
-        if tenants is not None or valid is not None:
-            raise not_ported("routed and valid-masked (bank) adds",
-                             "queue 1 item 7")
+        """Insert ``keys`` (OR the bits, or increment the counters); returns
+        the updated filter (self unchanged)."""
+        self._check_scalar_form("add", tenants, valid)
         keys = as_keys(keys, self.device)
         if keys.shape[0] == 0:
             return self
@@ -128,22 +138,56 @@ class Filter:
         return self.engine.contains(self.spec, self.words, keys, self.options)
 
     def remove(self, keys, tenants=None, valid=None) -> "Filter":
-        raise not_ported("remove (counting filters)", "queue 1 item 5")
+        """Delete keys (counting engine): guarded decrements (a counter at 0
+        stays 0, one at 15 stays 15). Removing keys that were added leaves
+        no false negative among the keys still present; removing a key that
+        was never added can clear a counter it shares with one."""
+        if not self.engine.supports_remove:
+            raise NotImplementedError(
+                f"backend {self.backend!r} cannot remove keys; build the "
+                f"filter with variant='countingbf' (engine 'counting'), "
+                f"variant='cuckoo' or variant='quotient' (~1x storage)")
+        self._check_scalar_form("remove", tenants, valid)
+        keys = as_keys(keys, self.device)
+        if keys.shape[0] == 0:
+            return self
+        return self.replace(words=self.engine.remove(
+            self.spec, self.words, keys, self.options))
 
     def decay(self, steps: int = 1) -> "Filter":
-        raise not_ported("decay (counting filters)", "queue 1 item 5")
+        """Age the filter: ``steps`` uniform decrements of every nonzero
+        counter (counting engine). Keys inserted once disappear after one
+        step; keys re-inserted every step persist."""
+        if not self.engine.supports_decay:
+            raise NotImplementedError(
+                f"backend {self.backend!r} cannot decay; build the filter "
+                f"with variant='countingbf' (engine 'counting')")
+        out = self
+        for _ in range(steps):
+            out = out.replace(words=out.engine.decay(out.spec, out.words,
+                                                     out.options))
+        return out
 
     def advance(self) -> "Filter":
         raise not_ported("advance (windowed filters)", "queue 1 item 6")
 
     def merge(self, other: "Filter") -> "Filter":
-        """OR-union. Same spec required; engines and devices may differ
-        (the result lives on self's engine and device)."""
+        """Union. Same spec required; engines and devices may differ (the
+        result lives on self's engine and device). Same engine and shape:
+        the engine's own merge (OR for bits, a saturating counter add for
+        the counting engine); otherwise the OR of the dense words, re-homed
+        into self's engine."""
         if other.spec != self.spec:
             raise ValueError(f"cannot merge {other.spec} into {self.spec}")
-        dense = other.dense_words().to(self.device)
-        new = self.engine.from_dense(self.spec, self.dense_words() | dense,
-                                     self.options)
+        if (other.backend == self.backend
+                and other.words.shape == self.words.shape):
+            new = self.engine.merge(self.spec, self.words,
+                                    other.words.to(self.device), self.options)
+        else:
+            dense = other.dense_words().to(self.device)
+            new = self.engine.from_dense(self.spec,
+                                         self.dense_words() | dense,
+                                         self.options)
         return self.replace(words=new)
 
     __or__ = merge
@@ -179,7 +223,8 @@ class Filter:
 
     # -- checkpointing -------------------------------------------------------
     def to_state(self) -> dict:
-        """Engine-independent state: dense words + spec fields + engine."""
+        """Engine-independent state: dense words (occupancy bits for the
+        counting engine) + spec fields + engine."""
         return {"words": self.dense_words(),
                 "spec": dataclasses.asdict(self.spec),
                 "backend": self.backend}
@@ -203,9 +248,9 @@ class Filter:
         ctx = options.ctx(device)
         eng = registry.select(spec, name, ctx)
         words = as_words(state["words"], ctx.device)
-        if words.shape != (spec.storage_words,):
+        if words.shape != (spec.n_words,):
             raise ValueError(f"state words {tuple(words.shape)} do not match "
-                             f"{spec} ({spec.storage_words} words)")
+                             f"{spec} ({spec.n_words} dense words)")
         return cls(spec=spec, words=eng.from_dense(spec, words, options),
                    backend=eng.name, options=options)
 

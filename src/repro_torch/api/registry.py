@@ -14,6 +14,9 @@ cuda-l2     the CUDA kernels, L2-resident regime (``pallas-vmem``'s
             counterpart)
 cuda-dram   the CUDA kernels, DRAM-resident regime (``pallas-hbm``'s
             counterpart)
+counting    the counting filter (countingbf, 4-bit counters: ``remove``,
+            ``decay``); its plain versions on the CPU, its CUDA kernels in
+            either regime on the card
 =========== ==============================================================
 
 The JAX engine names are registered as aliases (see ``repro_torch.api``),
@@ -44,9 +47,9 @@ class SelectionContext:
 
 class Backend:
     """Engine interface. Engines are stateless; the words travel in the
-    :class:`repro_torch.api.Filter`. In this slice every engine stores the
-    dense ``(n_words,)`` int32 words, so ``to_dense``/``from_dense`` are the
-    identity."""
+    :class:`repro_torch.api.Filter`. The bit engines store the dense
+    ``(n_words,)`` int32 words, so ``to_dense``/``from_dense`` are the
+    identity; the counting engine stores ``(storage_words,)`` counters."""
 
     name: str = "?"
 
@@ -108,6 +111,25 @@ class Backend:
                  keys: torch.Tensor, options) -> torch.Tensor:
         """(n,) bool membership for ``keys`` (n, 2) int32."""
         raise NotImplementedError
+
+    def merge(self, spec: FilterSpec, a: torch.Tensor, b: torch.Tensor,
+              options) -> torch.Tensor:
+        """OR-union of two same-shape word tensors (default: elementwise)."""
+        return a | b
+
+    def remove(self, spec: FilterSpec, words: torch.Tensor,
+               keys: torch.Tensor, options) -> torch.Tensor:
+        """Delete ``keys`` (counting engines); returns new words."""
+        raise NotImplementedError(
+            f"engine {self.name!r} does not support remove(); use the "
+            f"'counting' engine (variant='countingbf')")
+
+    def decay(self, spec: FilterSpec, words: torch.Tensor, options
+              ) -> torch.Tensor:
+        """One uniform aging step (counting engines); returns new words."""
+        raise NotImplementedError(
+            f"engine {self.name!r} does not support decay(); use the "
+            f"'counting' engine (variant='countingbf')")
 
 
 _REGISTRY: Dict[str, Backend] = {}

@@ -1,15 +1,19 @@
 """Blocked Bloom filter variants (paper §2.1) — the port's plain oracle.
 
-Counterpart of the bit-filter half of ``repro.core.variants``: the
-``FilterSpec`` geometry, ``block_patterns`` for sbf/bbf/rbbf/csbf, the
-``contains``/``add`` references and the FPR theory. These functions run on
-any device; the tests hold them bit-exact against the JAX package, and the
-CUDA kernels in ``repro_torch.kernels`` are held against them.
+Counterpart of the bit-filter and counting halves of
+``repro.core.variants``: the ``FilterSpec`` geometry, ``block_patterns``
+for sbf/bbf/rbbf/csbf/countingbf, the ``contains``/``add`` references, the
+counting filter's nibble helpers and ``counting_*`` references, and the FPR
+theory. These functions run on any device; the tests hold them bit-exact
+against the JAX package, and the CUDA kernels in ``repro_torch.kernels``
+are held against them.
 
-Storage: a filter is a flat ``(n_words,)`` ``int32`` tensor holding u32
-words. Hash and mask math runs in ``int64`` holding u32 values (see
-``core.hashing``). The classical ``cbf`` variant and the counting, bank and
-fingerprint helpers are not ported yet (ROADMAP queue 1 items 4-10).
+Storage: a filter is a flat ``(storage_words,)`` ``int32`` tensor holding
+u32 words (``4 * n_words`` packed 4-bit counters for countingbf). Hash,
+mask and nibble math runs in ``int64`` holding u32 values (see
+``core.hashing``), so every shift is logical even where bit 31 is set.
+The classical ``cbf`` variant and the bank and fingerprint helpers are not
+ported yet (ROADMAP queue 1 items 5, 7, 9, 10).
 """
 from __future__ import annotations
 
@@ -37,6 +41,8 @@ QF_META_BITS = 3
 COUNTER_BITS = 4
 NIBBLES_PER_WORD = WORD_BITS // COUNTER_BITS          # 8
 COUNTER_WORDS_PER_WORD = WORD_BITS // NIBBLES_PER_WORD  # 4
+COUNTER_MAX = (1 << COUNTER_BITS) - 1                 # 15 (saturation value)
+_NIB_LSB = 0x11111111                                 # LSB of every nibble
 
 
 def _log2i(x: int) -> int:
@@ -125,6 +131,11 @@ class FilterSpec:
         return self.block_bits // WORD_BITS
 
     @property
+    def counter_row_words(self) -> int:
+        """Counter words per block (countingbf): 4 per logical word."""
+        return self.s * COUNTER_WORDS_PER_WORD
+
+    @property
     def n_blocks(self) -> int:
         return self.m_bits // self.block_bits
 
@@ -151,9 +162,10 @@ class FilterSpec:
 
 def _require_blocked(spec: FilterSpec) -> None:
     if spec.variant == "cbf":
-        raise not_ported("the classical filter (cbf)", "queue 1 item 4")
+        raise not_ported("the classical filter (cbf)", "queue 1 item 5")
     if spec.is_counting:
-        raise not_ported("the counting filter (countingbf)", "queue 1 item 5")
+        raise ValueError(f"{spec} holds counters: use the counting_* "
+                         f"functions")
     if spec.variant == "cuckoo":
         raise not_ported("the cuckoo filter", "queue 1 item 9")
     if spec.is_quotient:
@@ -242,6 +254,8 @@ def _blocks_and_masks(spec: FilterSpec, keys: torch.Tensor):
 def contains(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor
              ) -> torch.Tensor:
     """Vectorized bulk membership test: one row gather per key. (n,) bool."""
+    if spec.is_counting:
+        return counting_contains(spec, filt, keys)
     blk, masks = _blocks_and_masks(spec, keys)
     rows = H.u32(filt.reshape(spec.n_blocks, spec.s)[blk])      # (n, s)
     return ((rows & masks) == masks).all(dim=-1)
@@ -309,12 +323,14 @@ def add_rows(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor
 
 def add(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
         method: str = "rows") -> torch.Tensor:
+    if spec.is_counting:
+        return counting_add(spec, filt, keys)
     if method == "loop":
         return add_loop(spec, filt, keys)
     if method == "rows":
         return add_rows(spec, filt, keys)
     if method == "scatter":
-        raise not_ported("add(method='scatter')", "queue 1 item 4")
+        raise not_ported("add(method='scatter')", "queue 1 item 5")
     raise ValueError(method)
 
 
@@ -325,6 +341,248 @@ def fill_fraction(filt: torch.Tensor) -> float:
     for b in range(WORD_BITS):
         pop += (w >> b) & 1
     return float(pop.sum().item()) / (filt.numel() * WORD_BITS)
+
+
+# ---------------------------------------------------------------------------
+# Counting filter (countingbf): packed 4-bit saturating counters
+# ---------------------------------------------------------------------------
+# Nibble-parallel bit tricks on all 8 counters of a word at once, as in the
+# JAX package. Each helper takes int32 or int64 tensors and returns int64
+# tensors of u32 values: the words are widened first (``hashing.u32``), so
+# ``>>`` is logical even for a counter in bits 28-31, where int32 holds the
+# sign bit and its ``>>`` would be arithmetic.
+#
+# Update semantics (order-independent within one bulk op, which is what
+# lets unordered atomic updates match the sequential reference bit for bit):
+#   increment: saturate at 15; a saturated counter sticks for good.
+#   remove:    decrement counters in (0, 15); 0 is an underflow guard, 15
+#              is sticky.
+#   decay:     decrement EVERY nonzero counter, saturated ones included.
+
+_NIB_EVEN = 0x0F0F0F0F     # even-nibble byte lanes
+_BYTE_BIT4 = 0x10101010    # bit 4 of every byte (carry/borrow flag)
+
+
+def nib_saturated(w) -> torch.Tensor:
+    """1 at the LSB of each nibble that equals 15 (saturated)."""
+    w = H.u32(w)
+    return w & (w >> 1) & (w >> 2) & (w >> 3) & _NIB_LSB
+
+
+def nib_nonzero(w) -> torch.Tensor:
+    """1 at the LSB of each nibble that is nonzero."""
+    w = H.u32(w)
+    return (w | (w >> 1) | (w >> 2) | (w >> 3)) & _NIB_LSB
+
+
+def sat_inc_word(w, inc) -> torch.Tensor:
+    """Saturating +1 on the nibbles flagged (value 1) in ``inc``."""
+    w = H.u32(w)
+    return w + (H.u32(inc) & ~nib_saturated(w))
+
+
+def guard_dec_word(w, dec) -> torch.Tensor:
+    """Guarded -1 on flagged nibbles: skips 0 (underflow) and 15 (sticky)."""
+    w = H.u32(w)
+    return w - (H.u32(dec) & nib_nonzero(w) & ~nib_saturated(w))
+
+
+def decay_word(w) -> torch.Tensor:
+    """-1 on every nonzero nibble (aging step; saturated counters too)."""
+    w = H.u32(w)
+    return w - nib_nonzero(w)
+
+
+def _halves(w: torch.Tensor):
+    """Even/odd nibbles in byte lanes (carry-free per-byte +/-)."""
+    return w & _NIB_EVEN, (w >> 4) & _NIB_EVEN
+
+
+def nib_sat_add_words(a, b) -> torch.Tensor:
+    """Nibble-wise saturating add of two packed counter words: min(a+b, 15).
+    Associative and commutative (the counting analogue of OR)."""
+    def half(x, y):
+        s = x + y                               # per-byte sums <= 30
+        ov = s & _BYTE_BIT4                     # set iff the byte is >= 16
+        return (s | (ov - (ov >> 4))) & _NIB_EVEN
+    ae, ao = _halves(H.u32(a))
+    be, bo = _halves(H.u32(b))
+    return half(ae, be) | (half(ao, bo) << 4)
+
+
+def nib_guard_sub_words(w, c) -> torch.Tensor:
+    """Nibble-wise guarded multi-decrement: where(w == 15, 15, max(w-c, 0)),
+    the batched form of ``c`` applications of :func:`guard_dec_word`."""
+    def half(x, y):
+        d = (x | _BYTE_BIT4) - y                # bias: per-byte in [1, 31]
+        ok = d & _BYTE_BIT4                     # set iff x >= y (no borrow)
+        return d & (ok - (ok >> 4)) & _NIB_EVEN
+    w = H.u32(w)
+    we, wo = _halves(w)
+    ce, co = _halves(H.u32(c))
+    sub = half(we, ce) | (half(wo, co) << 4)
+    return sub | (nib_saturated(w) * COUNTER_MAX)         # 15 sticks
+
+
+def expand_mask_words(masks) -> torch.Tensor:
+    """Logical bit masks -> nibble-increment words, (..., s) -> (..., 4s).
+    Byte c of logical word j maps to counter word 4j+c; bit b of that byte
+    becomes nibble b (value 1)."""
+    masks = H.u32(masks)
+    cols = []
+    for c in range(COUNTER_WORDS_PER_WORD):
+        byte = (masks >> (8 * c)) & 0xFF
+        inc = torch.zeros_like(masks)
+        for b in range(NIBBLES_PER_WORD):
+            inc = inc | (((byte >> b) & 1) << (COUNTER_BITS * b))
+        cols.append(inc)
+    out = torch.stack(cols, dim=-1)
+    return out.reshape(*masks.shape[:-1],
+                       masks.shape[-1] * COUNTER_WORDS_PER_WORD)
+
+
+def collapse_counter_words(cwords) -> torch.Tensor:
+    """Occupancy view: counter words -> logical bit words, (..., 4s) ->
+    (..., s). Bit i is set iff the counter of logical bit i is nonzero."""
+    nzb = nib_nonzero(cwords)                 # bit 4b <-> nibble b nonzero
+    byte = torch.zeros_like(nzb)
+    for b in range(NIBBLES_PER_WORD):
+        byte = byte | (((nzb >> (COUNTER_BITS * b)) & 1) << b)
+    b4 = byte.reshape(*nzb.shape[:-1],
+                      nzb.shape[-1] // COUNTER_WORDS_PER_WORD,
+                      COUNTER_WORDS_PER_WORD)
+    return (b4[..., 0] | (b4[..., 1] << 8) | (b4[..., 2] << 16)
+            | (b4[..., 3] << 24))
+
+
+def counting_to_bloom(spec: FilterSpec, counters: torch.Tensor
+                      ) -> torch.Tensor:
+    """Collapse a counting filter to the equivalent (n_words,) int32 bit
+    filter."""
+    _check(spec.is_counting, f"{spec} is not a counting spec")
+    return H.to_i32(collapse_counter_words(counters[None])[0])
+
+
+def counting_from_bloom(spec: FilterSpec, bits: torch.Tensor) -> torch.Tensor:
+    """Bit filter -> (storage_words,) int32 counters with every set bit's
+    counter at 1: membership-preserving, count-lossy."""
+    _check(spec.is_counting, f"{spec} is not a counting spec")
+    return H.to_i32(expand_mask_words(bits[None])[0])
+
+
+def _counting_layout(spec: FilterSpec, keys: torch.Tensor):
+    _check(spec.is_counting, f"{spec} is not a counting spec")
+    h1, h2 = H.hash_keys(keys)
+    return H.block_index(h2, spec.n_blocks), block_patterns(spec, h1)
+
+
+def _valid_masks(masks: torch.Tensor, valid) -> torch.Tensor:
+    """Zero the mask rows of invalid (padding) keys."""
+    if valid is None:
+        return masks
+    return masks * (valid.to(masks.device) != 0).to(masks.dtype)[:, None]
+
+
+def _counting_update(spec: FilterSpec, counters: torch.Tensor,
+                     keys: torch.Tensor, valid, op: str) -> torch.Tensor:
+    """Sort-and-count bulk update, in memory proportional to the keys.
+
+    The flat index of logical bit ``i`` is also the flat index of its
+    nibble (``blk * B + 32 j + b``). Every set bit of every valid key's mask
+    is listed, the list is counted per nibble (``torch.unique``), and each
+    touched nibble becomes min(old + count, 15) (add) or, unless it is 15,
+    max(old - count, 0) (remove): the result of any sequential order. The
+    per-nibble changes are summed per word and applied with one gather and
+    one scatter of the touched words."""
+    blk, masks = _counting_layout(spec, keys)
+    masks = _valid_masks(masks, valid)
+    parts = []
+    for b in range(WORD_BITS):
+        row, col = (((masks >> b) & 1) != 0).nonzero(as_tuple=True)
+        parts.append(blk[row] * spec.block_bits + col * WORD_BITS + b)
+    out = counters.clone()
+    pos = torch.cat(parts)
+    if pos.numel() == 0:
+        return out
+    nib, count = torch.unique(pos, sorted=True, return_counts=True)
+    word = nib >> 3
+    shift = (nib & (NIBBLES_PER_WORD - 1)) * COUNTER_BITS
+    old = (H.u32(counters[word]) >> shift) & COUNTER_MAX
+    if op == "add":
+        new = torch.clamp(old + count, max=COUNTER_MAX)
+    else:
+        new = torch.where(old == COUNTER_MAX, old,
+                          torch.clamp(old - count, min=0))
+    words, inv = torch.unique_consecutive(word, return_inverse=True)
+    delta = torch.zeros_like(words).index_add_(
+        0, inv, (new - old) * (torch.ones_like(shift) << shift))
+    out[words] = H.to_i32(H.u32(counters[words]) + delta)
+    return out
+
+
+def counting_add(spec: FilterSpec, counters: torch.Tensor, keys: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Bulk saturating increment: new (storage_words,) int32 counters with
+    every counter at min(old + count, 15). ``valid`` (n,) masks padded
+    slots: counting updates are not idempotent, so a repeated padding key
+    would count twice."""
+    return _counting_update(spec, counters, keys, valid, "add")
+
+
+def counting_remove(spec: FilterSpec, counters: torch.Tensor,
+                    keys: torch.Tensor, valid: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Bulk guarded decrement (0 floors, 15 is sticky)."""
+    return _counting_update(spec, counters, keys, valid, "remove")
+
+
+def _counter_rows(spec: FilterSpec, counters: torch.Tensor, blk):
+    return counters.reshape(spec.n_blocks, spec.counter_row_words)[blk]
+
+
+def counting_contains(spec: FilterSpec, counters: torch.Tensor,
+                      keys: torch.Tensor) -> torch.Tensor:
+    """(n,) bool: all k counters of the key nonzero (one row gather/key)."""
+    blk, masks = _counting_layout(spec, keys)
+    logical = collapse_counter_words(_counter_rows(spec, counters, blk))
+    return ((logical & masks) == masks).all(dim=-1)
+
+
+def counting_count(spec: FilterSpec, counters: torch.Tensor,
+                   keys: torch.Tensor) -> torch.Tensor:
+    """(n,) int64 min-counter estimate of each key's multiplicity
+    (count-min style upper bound; 15 means 'at least 15')."""
+    blk, masks = _counting_layout(spec, keys)
+    rows = H.u32(_counter_rows(spec, counters, blk))             # (n, 4s)
+    nib = torch.stack([(rows >> (COUNTER_BITS * b)) & COUNTER_MAX
+                       for b in range(NIBBLES_PER_WORD)], dim=-1)
+    nib = nib.reshape(rows.shape[0], spec.s, WORD_BITS)          # (n, s, 32)
+    bit = (masks[:, :, None] >> torch.arange(
+        WORD_BITS, device=masks.device)[None, None, :]) & 1
+    sel = torch.where(bit == 1, nib, COUNTER_MAX + 1)
+    return sel.reshape(rows.shape[0], -1).min(dim=-1).values
+
+
+def counting_decay(spec: FilterSpec, counters: torch.Tensor) -> torch.Tensor:
+    """One aging step: every nonzero counter loses 1 (elementwise)."""
+    _check(spec.is_counting, f"{spec} is not a counting spec")
+    return H.to_i32(decay_word(counters))
+
+
+def counting_update_loop(spec: FilterSpec, counters: torch.Tensor,
+                         keys: torch.Tensor, valid: Optional[torch.Tensor],
+                         op: str) -> torch.Tensor:
+    """Sequential oracle: one read-modify-write of the key's 4s-word
+    counter row per key, in key order. Slow, meant for small inputs."""
+    _check(op in ("add", "remove"), f"op={op!r}")
+    blk, masks = _counting_layout(spec, keys)
+    cmasks = expand_mask_words(_valid_masks(masks, valid))      # (n, 4s)
+    cs = spec.counter_row_words
+    update = sat_inc_word if op == "add" else guard_dec_word
+    out = H.u32(counters).clone()
+    for b, m in zip(blk.tolist(), cmasks):
+        out[b * cs:(b + 1) * cs] = update(out[b * cs:(b + 1) * cs], m)
+    return H.to_i32(out)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,16 @@
-"""Build ``csrc/bloom.cu`` with ``nvcc`` at first use and load it with ctypes.
+"""Build the CUDA sources in ``csrc/`` with ``nvcc`` at first use and load
+them with ctypes.
 
-The library goes to ``build/repro_torch/`` at the root of the checkout, named
-by a hash of the source, so an edited source never loads a stale library.
-``nvcc``'s output, including ``-Xptxas -v``'s register and spill report, is
-kept beside it as ``<library>.log`` (:func:`build_log`). A failed build
-raises; nothing falls back to the plain PyTorch versions.
+Each source ``csrc/<name>.cu`` becomes its own library
+``build/repro_torch/<name>-<hash>.so`` at the root of the checkout; the
+hash covers every file under ``csrc/`` (sources and shared headers) and the
+flags, so an edited source or header never loads a stale library. The
+libraries that are missing are compiled together, one ``nvcc`` process per
+source, and :func:`library` binds every entry point of ``ENTRY_POINTS`` in
+one namespace. ``nvcc``'s output, including ``-Xptxas -v``'s register and
+spill report, is kept beside each library as ``<library>.log``
+(:func:`build_log`). A failed build raises; nothing falls back to the plain
+PyTorch versions.
 """
 from __future__ import annotations
 
@@ -14,14 +20,31 @@ import os
 import shutil
 import subprocess
 import threading
+import types
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCE = _CSRC / "bloom.cu"
+SOURCES = ("bloom", "counting")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_vp, _ll, _u32, _i = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32,
+                      ctypes.c_int)
+# extern "C" entry point -> (source, argument types); each returns an int
+# error code (0: launched; see ``sbf._raise_on``)
+ENTRY_POINTS = {
+    "bloom_contains": ("bloom", [_vp, _vp, _vp, _vp, _ll, _u32, _i, _i, _i,
+                                 _i, _i, _i, _i, _vp]),
+    "bloom_add": ("bloom", [_vp, _vp, _vp, _ll, _u32, _i, _i, _i, _i, _i,
+                            _vp]),
+    "counting_update": ("counting", [_vp, _vp, _vp, _vp, _ll, _u32, _i, _i,
+                                     _i, _vp]),
+    "counting_contains": ("counting", [_vp, _vp, _vp, _vp, _ll, _u32, _i, _i,
+                                       _i, _i, _vp]),
+    "counting_decay": ("counting", [_vp, _ll, _vp]),
+}
 
 _lock = threading.Lock()
 _lib = None
@@ -37,50 +60,67 @@ def _nvcc() -> str:
                        "toolkit (put nvcc on PATH)")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha1(_SOURCE.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"bloom-{digest}.so"
+def _digest() -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(p for p in _CSRC.rglob("*") if p.is_file()):
+        h.update(path.relative_to(_CSRC).as_posix().encode() + b"\0")
+        h.update(path.read_bytes())
+    return h.hexdigest()[:12]
 
 
-def build() -> Path:
-    """Compile the library unless it is already built; return its path."""
-    out = library_path()
-    if out.exists():
-        return out
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest()}.so"
+
+
+def build() -> list:
+    """Compile the libraries of ``SOURCES`` that are not built yet, all at
+    once; return their paths in the order of ``SOURCES``."""
+    outs = [library_path(name) for name in SOURCES]
+    todo = [(name, out) for name, out in zip(SOURCES, outs)
+            if not out.exists()]
+    if not todo:
+        return outs
     nvcc = _nvcc()
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
-    Path(str(out) + ".log").write_text(log)
-    os.replace(tmp, out)
-    return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        procs.append((out, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for out, tmp, cmd, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{log}")
+            continue
+        Path(str(out) + ".log").write_text(log)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
-def build_log() -> str:
-    """nvcc's output for the current library ('' if it was never built)."""
-    log = Path(str(library_path()) + ".log")
+def build_log(name: str) -> str:
+    """nvcc's output for library ``name`` ('' if it was never built)."""
+    log = Path(str(library_path(name)) + ".log")
     return log.read_text() if log.exists() else ""
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+def library() -> types.SimpleNamespace:
+    """Every entry point of ``ENTRY_POINTS``, bound with its argument types;
+    the first call builds the libraries that are missing."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, ll, u32, i = (ctypes.c_void_p, ctypes.c_longlong,
-                              ctypes.c_uint32, ctypes.c_int)
-            lib.bloom_contains.argtypes = [vp, vp, vp, vp, ll, u32, i, i, i,
-                                           i, i, i, i, vp]
-            lib.bloom_contains.restype = i
-            lib.bloom_add.argtypes = [vp, vp, vp, ll, u32, i, i, i, i, i, vp]
-            lib.bloom_add.restype = i
+            loaded = {name: ctypes.CDLL(str(path))
+                      for name, path in zip(SOURCES, build())}
+            lib = types.SimpleNamespace()
+            for symbol, (source, argtypes) in ENTRY_POINTS.items():
+                fn = getattr(loaded[source], symbol)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                setattr(lib, symbol, fn)
             _lib = lib
         return _lib

@@ -1,0 +1,291 @@
+"""Counting Bloom filter kernels (countingbf) for Hopper, and their plain
+PyTorch versions.
+
+Counterpart of ``repro.kernels.countingbf``. The five wrappers keep the JAX
+names, so each row of the kernel table maps one to one:
+
+============== ================================== ===========================
+wrapper        replaces (repro/kernels/           CUDA kernel
+               countingbf.py)                     (csrc/counting.cu)
+============== ================================== ===========================
+update_vmem    update_vmem (L2 regime)            counting_update_kernel
+contains_vmem  contains_vmem (L2 regime)          counting_contains_kernel,
+                                                  DEPTH=1, PHI=min(phi, 4)
+update_hbm     update_hbm (DRAM regime)           counting_update_kernel
+contains_hbm   contains_hbm (DRAM regime)         counting_contains_kernel,
+                                                  DEPTH=depth, PHI=4
+decay          decay                              counting_decay_kernel
+============== ================================== ===========================
+
+Schedule axes. The kernels act on ``layout.phi`` (the vector width of the
+counter-row loads, capped at 4 words = 128 bits) in ``contains_vmem`` and on
+``depth`` (keys per thread, their loads in flight together) in
+``contains_hbm``; at most 64 mask words stay in registers per thread, so
+``depth`` is capped at ``64 // s``. Every other axis is accepted and
+validated as the JAX package does it, and runs the same kernel:
+``layout.theta``, ``tile`` and ``tile_words`` (a CUDA thread owns its keys
+or words), ``probe="gather"`` and ``coop="subtile"`` (per-thread atomic
+updates need neither the sorted segment totals nor the per-word sort, and
+the contains walk already stops at a key's first failing word), and
+``mix="cheap"`` (the kernels always share the two hash streams' lane
+products, which gives the same hashes). No axis changes a result.
+
+Wrappers take ``int32`` tensors: keys ``(n, 2)`` holding ``[hi, lo]``,
+counters ``(storage_words,)`` and ``valid`` ``(n,)`` uint8 or bool (or
+``None``: every key valid). For CPU tensors a wrapper runs its plain version
+(:func:`update_plain`, :func:`contains_plain`, :func:`decay_plain`); for
+CUDA tensors it launches its kernel or raises. The update wrappers and
+``decay`` change ``filt`` in place and return it. ``LAUNCHES`` counts
+kernel launches per wrapper.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import variants as V
+from repro_torch.core.variants import FilterSpec
+from repro_torch.kernels.sbf import (DEFAULT_DMA_DEPTH, DEFAULT_TILE,
+                                     DMA_DEPTHS, MAX_WORDS_IN_FLIGHT, Layout,
+                                     _check_axes, _on_cuda, _raise_on, _salts)
+
+OPS = ("add", "remove")
+_OP_CODE = {"add": 0, "remove": 1}
+
+# Kernel launches per wrapper (a launch adds one; the plain path adds none).
+LAUNCHES = {"update_vmem": 0, "contains_vmem": 0, "update_hbm": 0,
+            "contains_hbm": 0, "decay": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def counting_layout(spec: FilterSpec, layout: Layout, tile: int) -> Layout:
+    """Validate a (Θ, Φ) layout against the expanded 4s-word counter row."""
+    cs = spec.counter_row_words
+    phi = min(layout.phi, cs)
+    if phi < 1 or cs % phi:
+        raise ValueError(f"phi={phi} must divide 4s={cs}")
+    if layout.theta < 1 or tile % layout.theta:
+        raise ValueError(f"theta={layout.theta} must divide tile={tile}")
+    return Layout(layout.theta, phi)
+
+
+def default_counting_layout(spec: FilterSpec, op: str) -> Layout:
+    """Counting analogue of ``sbf.default_layout``: the same Θ rules, Φ
+    scaled to the 4x-wider counter row."""
+    cs = spec.counter_row_words
+    if op == "contains":
+        theta = min(max(1, spec.block_bits // 256), 8)
+        return Layout(theta, max(1, min(8, cs // theta)))
+    theta = min(spec.s, 8)
+    return Layout(theta, max(1, min(cs // theta, 8)))
+
+
+def _check_op(op: str) -> None:
+    if op not in OPS:
+        raise ValueError(f"op={op!r} not in {OPS}")
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path, and the kernels' yardstick on the card)
+# ---------------------------------------------------------------------------
+
+def update_plain(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+                 valid: Optional[torch.Tensor], op: str) -> torch.Tensor:
+    """Plain version of ``update_vmem`` and ``update_hbm``: new
+    (storage_words,) int32 counters (``filt`` is not modified), in memory
+    proportional to the keys."""
+    _check_op(op)
+    if op == "add":
+        return V.counting_add(spec, filt, keys, valid)
+    return V.counting_remove(spec, filt, keys, valid)
+
+
+def contains_plain(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor
+                   ) -> torch.Tensor:
+    """Plain version of ``contains_vmem`` and ``contains_hbm``: (n,) bool."""
+    return V.counting_contains(spec, filt, keys)
+
+
+def decay_plain(spec: FilterSpec, filt: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``decay``: new (storage_words,) int32 counters."""
+    return V.counting_decay(spec, filt)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launch plumbing
+# ---------------------------------------------------------------------------
+
+def _check_counters(spec: FilterSpec, filt: torch.Tensor) -> None:
+    if not spec.is_counting or spec.s > 32:
+        raise ValueError(f"the CUDA counting kernels serve countingbf with "
+                         f"s <= 32 words per block, not {spec}")
+    if spec.storage_words >= 1 << 31:
+        raise ValueError(f"{spec} has {spec.storage_words} counter words; "
+                         f"counter-row starts must fit int32")
+    if filt.numel() != spec.storage_words:
+        raise ValueError(f"filter has {filt.numel()} words, spec "
+                         f"{spec.storage_words}")
+    if not filt.is_contiguous() or filt.data_ptr() % 16:
+        raise ValueError("counter words must be contiguous and 16-byte "
+                         "aligned")
+
+
+def _check_keys(keys: torch.Tensor) -> None:
+    if not keys.is_contiguous() or keys.data_ptr() % 8:
+        raise ValueError("keys must be contiguous and 8-byte aligned")
+
+
+def _valid_u8(valid: Optional[torch.Tensor], keys: torch.Tensor):
+    if valid is None:
+        return None
+    if valid.shape != (keys.shape[0],):
+        raise ValueError(f"valid must be ({keys.shape[0]},), got "
+                         f"{tuple(valid.shape)}")
+    if valid.device != keys.device:
+        raise ValueError(f"valid on {valid.device}, keys on {keys.device}")
+    if valid.dtype not in (torch.uint8, torch.bool):
+        raise ValueError(f"valid must be uint8 or bool, got {valid.dtype}")
+    return valid.contiguous().view(torch.uint8)
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch_update(name: str, spec, filt, keys, valid, op: str
+                   ) -> torch.Tensor:
+    from repro_torch.kernels._build import library
+    _check_counters(spec, filt)
+    _check_keys(keys)
+    valid = _valid_u8(valid, keys)
+    n = keys.shape[0]
+    if n == 0:
+        return filt
+    lib = library()
+    with torch.cuda.device(keys.device):
+        err = lib.counting_update(
+            keys.data_ptr(), None if valid is None else valid.data_ptr(),
+            filt.data_ptr(), _salts(keys.device).data_ptr(), n,
+            spec.n_blocks - 1, spec.s, spec.k, _OP_CODE[op],
+            _stream(keys.device))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return filt
+
+
+def _launch_contains(name: str, spec, filt, keys, phi: int, depth: int
+                     ) -> torch.Tensor:
+    from repro_torch.kernels._build import library
+    _check_counters(spec, filt)
+    _check_keys(keys)
+    n = keys.shape[0]
+    out = torch.empty((n,), dtype=torch.bool, device=keys.device)
+    if n == 0:
+        return out
+    lib = library()
+    with torch.cuda.device(keys.device):
+        err = lib.counting_contains(
+            keys.data_ptr(), filt.data_ptr(), out.data_ptr(),
+            _salts(keys.device).data_ptr(), n, spec.n_blocks - 1, spec.s,
+            phi, depth, spec.k, _stream(keys.device))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _depth_in_flight(spec: FilterSpec, depth: int) -> int:
+    return min(depth, max(1, MAX_WORDS_IN_FLIGHT // spec.s))
+
+
+def _update_on_cuda(filt, keys, valid, op) -> bool:
+    """Validate an update's inputs; True for CUDA tensors."""
+    _check_op(op)
+    on_cuda = _on_cuda(filt, keys)
+    _valid_u8(valid, keys)
+    return on_cuda
+
+
+# ---------------------------------------------------------------------------
+# The five wrappers
+# ---------------------------------------------------------------------------
+
+def update_vmem(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+                valid: Optional[torch.Tensor], op: str,
+                layout: Optional[Layout] = None, tile: int = DEFAULT_TILE,
+                probe: str = "loop", coop: str = "none",
+                mix: str = "full") -> torch.Tensor:
+    """Bulk increment (``op="add"``) or guarded decrement (``"remove"``),
+    L2-resident regime; updates ``filt`` in place."""
+    _check_axes(probe, coop, mix)
+    counting_layout(spec, layout or default_counting_layout(spec, op), tile)
+    if not _update_on_cuda(filt, keys, valid, op):
+        return filt.copy_(update_plain(spec, filt, keys, valid, op))
+    return _launch_update("update_vmem", spec, filt, keys, valid, op)
+
+
+def contains_vmem(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+                  layout: Optional[Layout] = None, tile: int = DEFAULT_TILE,
+                  probe: str = "loop", coop: str = "none",
+                  mix: str = "full") -> torch.Tensor:
+    """Bulk membership on counter occupancy, L2-resident regime. (n,) bool."""
+    _check_axes(probe, coop, mix)
+    layout = counting_layout(
+        spec, layout or default_counting_layout(spec, "contains"), tile)
+    if not _on_cuda(filt, keys):
+        return contains_plain(spec, filt, keys)
+    return _launch_contains("contains_vmem", spec, filt, keys,
+                            phi=min(layout.phi, 4), depth=1)
+
+
+def update_hbm(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+               valid: Optional[torch.Tensor], op: str, coop: str = "none",
+               mix: str = "full") -> torch.Tensor:
+    """Bulk update, DRAM-resident regime; updates ``filt`` in place."""
+    _check_axes(coop=coop, mix=mix)
+    if not _update_on_cuda(filt, keys, valid, op):
+        return filt.copy_(update_plain(spec, filt, keys, valid, op))
+    return _launch_update("update_hbm", spec, filt, keys, valid, op)
+
+
+def contains_hbm(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+                 depth: int = DEFAULT_DMA_DEPTH, coop: str = "none",
+                 mix: str = "full") -> torch.Tensor:
+    """Bulk membership, DRAM-resident regime. (n,) bool."""
+    _check_axes(coop=coop, mix=mix)
+    if depth not in DMA_DEPTHS:
+        raise ValueError(f"depth={depth} not in {DMA_DEPTHS}")
+    if not _on_cuda(filt, keys):
+        return contains_plain(spec, filt, keys)
+    return _launch_contains("contains_hbm", spec, filt, keys, phi=4,
+                            depth=_depth_in_flight(spec, depth))
+
+
+def decay(spec: FilterSpec, filt: torch.Tensor, tile_words: int = 4096
+          ) -> torch.Tensor:
+    """One aging step over the whole counter array (every nonzero counter
+    -1); updates ``filt`` in place."""
+    nw = spec.storage_words
+    tile_words = min(tile_words, nw)
+    if tile_words < 1 or nw % tile_words:
+        raise ValueError(f"tile_words={tile_words} must divide {nw}")
+    if filt.ndim != 1 or filt.dtype != torch.int32:
+        raise ValueError(f"counter words must be (storage_words,) int32, "
+                         f"got {tuple(filt.shape)} {filt.dtype}")
+    if filt.device.type == "cpu":
+        return filt.copy_(decay_plain(spec, filt))
+    if filt.device.type != "cuda":
+        raise ValueError(f"unsupported device {filt.device}")
+    from repro_torch.kernels._build import library
+    _check_counters(spec, filt)
+    lib = library()
+    with torch.cuda.device(filt.device):
+        err = lib.counting_decay(filt.data_ptr(), nw, _stream(filt.device))
+    _raise_on(err, "decay")
+    LAUNCHES["decay"] += 1
+    return filt
+

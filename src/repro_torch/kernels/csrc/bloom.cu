@@ -44,137 +44,9 @@
 // C interface for ctypes: each entry point returns cudaGetLastError() after
 // its launch (or -1 for a shape that has no instantiation).
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "bloom_common.cuh"
 
 namespace {
-
-constexpr int kMaxSalts = 96;
-constexpr int kThreads = 256;
-
-enum Variant : int { kSbf = 0, kBbf = 1, kCsbf = 2 };  // rbbf is bbf, S = 1
-
-constexpr uint32_t P2 = 2246822519u;
-constexpr uint32_t P3 = 3266489917u;
-constexpr uint32_t P4 = 668265263u;
-constexpr uint32_t P5 = 374761393u;
-constexpr uint32_t kSeedPattern = 0xCAFEBABEu;
-constexpr uint32_t kSeedBlock = 0xDEADBEEFu;
-
-__device__ __forceinline__ uint32_t rotl17(uint32_t x) {
-  return (x << 17) | (x >> 15);
-}
-
-// xxHash32 of an 8-byte key from its precomputed lane products (lo first).
-__device__ __forceinline__ uint32_t xxh32_from_products(uint32_t plo,
-                                                        uint32_t phi,
-                                                        uint32_t seed) {
-  uint32_t acc = seed + P5 + 8u;
-  acc = rotl17(acc + plo) * P4;
-  acc = rotl17(acc + phi) * P4;
-  acc ^= acc >> 15;
-  acc *= P2;
-  acc ^= acc >> 13;
-  acc *= P3;
-  acc ^= acc >> 16;
-  return acc;
-}
-
-// Keys are stored [hi, lo]; xxh32 consumes lo before hi.
-__device__ __forceinline__ void hash_key(uint2 key, uint32_t& h_pattern,
-                                         uint32_t& h_block) {
-  const uint32_t plo = key.y * P3;
-  const uint32_t phi = key.x * P3;
-  h_pattern = xxh32_from_products(plo, phi, kSeedPattern);
-  h_block = xxh32_from_products(plo, phi, kSeedBlock);
-}
-
-__device__ __forceinline__ uint32_t bit_of(uint32_t h, uint32_t salt) {
-  return 1u << ((h * salt) >> 27);
-}
-
-__host__ __device__ constexpr int log2_of(int s) {
-  return s <= 1 ? 0 : 1 + log2_of(s / 2);
-}
-
-// The s-word mask of one key (variants.py block_patterns).
-template <int S>
-__device__ __forceinline__ void build_mask(uint32_t (&m)[S], uint32_t h,
-                                           const uint32_t* salt,
-                                           const uint32_t* wsalt,
-                                           const uint32_t* gsalt, int variant,
-                                           int k, int z, int log2g) {
-#pragma unroll
-  for (int j = 0; j < S; ++j) m[j] = 0u;
-  if (variant == kSbf) {
-    // salt i lands in word i % S
-    for (int r = 0; r < k; r += S) {
-#pragma unroll
-      for (int j = 0; j < S; ++j)
-        if (r + j < k) m[j] |= bit_of(h, salt[r + j]);
-    }
-  } else if (variant == kBbf) {
-    constexpr int log2s = log2_of(S);
-    for (int i = 0; i < k; ++i) {
-      const uint32_t bit = bit_of(h, salt[i]);
-      if constexpr (log2s == 0) {
-        m[0] |= bit;
-      } else {
-        const uint32_t w = (h * wsalt[i]) >> (32 - log2s);
-#pragma unroll
-        for (int j = 0; j < S; ++j) m[j] |= (w == uint32_t(j)) ? bit : 0u;
-      }
-    }
-  } else {  // csbf: word j*g + mulshift(h, GROUP_SALTS[j], log2 g) per group
-    const int kz = k / z;
-    const int g = S / z;
-    for (int jg = 0; jg < z; ++jg) {
-      uint32_t w = uint32_t(jg * g);
-      if (log2g > 0) w += (h * gsalt[jg]) >> (32 - log2g);
-      uint32_t gm = 0u;
-      for (int t = 0; t < kz; ++t) gm |= bit_of(h, salt[jg * kz + t]);
-#pragma unroll
-      for (int j = 0; j < S; ++j) m[j] |= (w == uint32_t(j)) ? gm : 0u;
-    }
-  }
-}
-
-__device__ __forceinline__ void stage_salts(uint32_t* smem,
-                                            const uint32_t* salts) {
-  for (int i = threadIdx.x; i < 3 * kMaxSalts; i += blockDim.x)
-    smem[i] = salts[i];
-  __syncthreads();
-}
-
-template <int PHI>
-struct Vec;
-template <>
-struct Vec<1> {
-  __device__ __forceinline__ static void load(const uint32_t* p,
-                                              uint32_t* dst) {
-    dst[0] = p[0];
-  }
-};
-template <>
-struct Vec<2> {
-  __device__ __forceinline__ static void load(const uint32_t* p,
-                                              uint32_t* dst) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    dst[0] = v.x;
-    dst[1] = v.y;
-  }
-};
-template <>
-struct Vec<4> {
-  __device__ __forceinline__ static void load(const uint32_t* p,
-                                              uint32_t* dst) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    dst[0] = v.x;
-    dst[1] = v.y;
-    dst[2] = v.z;
-    dst[3] = v.w;
-  }
-};
 
 template <int S, int PHI, int DEPTH>
 __global__ void __launch_bounds__(kThreads)

@@ -1,0 +1,362 @@
+// Counting Bloom filter kernels for Hopper (sm_90a): bulk update of packed
+// 4-bit counters (saturating increment, guarded decrement), membership on
+// counter occupancy, and the decay pass, for the countingbf variant.
+//
+// Replaces the five Pallas entry points of repro/kernels/countingbf.py:
+//   counting_update_kernel   <- update_vmem (_update_vmem_kernel,
+//                               _update_vmem_gather_kernel,
+//                               _update_vmem_coop_kernel) and update_hbm
+//                               (_update_hbm_kernel)
+//   counting_contains_kernel <- contains_vmem (_contains_vmem_kernel,
+//                               _contains_vmem_gather_kernel,
+//                               _contains_vmem_coop_kernel) and
+//                               contains_hbm (_contains_hbm_kernel,
+//                               _contains_hbm_coop_kernel)
+//   counting_decay_kernel    <- decay (_decay_kernel)
+//
+// Layout. Logical bit i of the sbf-placed mask owns nibble i of the flat
+// counter array: logical word j of a block is counter words 4j..4j+3 (one
+// aligned 16-byte group), byte c of the mask word goes to counter word
+// 4j+c, bit b of that byte to nibble b.
+//
+// Design. The TPU has no atomics, so its kernels sort each tile by counter
+// row and own every read-modify-write. Hopper has 32-bit atomics but none
+// of 4 bits, and atomicAdd would carry out of a nibble at 15 into its
+// neighbour. So:
+// * counting_update_kernel<S>: one thread per key. It hashes the key,
+//   builds its sbf mask and, for every nonzero mask byte, runs an atomicCAS
+//   loop on that counter word with sat_inc_word (add) or guard_dec_word
+//   (remove) applied to all the byte's nibbles at once. Both updates are
+//   order-free per nibble (add gives min(old + count, 15); remove gives
+//   old == 15 ? 15 : max(old - count, 0)), so any interleaving of the CAS
+//   loops gives the sequential reference's words bit for bit. A loop stops
+//   as soon as the update would not change the word: within one launch the
+//   counters only move one way, so a saturated (add) or 0/15 (remove)
+//   nibble seen once stays so. Bound: L2 atomic throughput (k CAS per key
+//   for one bit per logical word, as B = 256, k = 8 gives); in the DRAM
+//   regime each touched sector is also fetched from DRAM. A sorted,
+//   coalesced update (the TPU's schedule) is later perf work.
+// * counting_contains_kernel<S, PHI, DEPTH>: a thread owns DEPTH keys
+//   (strided by blockDim so key loads coalesce). It hashes them and builds
+//   their masks, then walks the logical words: for each one it loads, for
+//   every key still alive, the PHI-word chunks (at most 128 bits) whose
+//   mask bytes are nonzero, and tests (nib_nonzero(w) & inc) == inc. A key
+//   dies at its first failing word and loads nothing more; the walk ends
+//   when all DEPTH keys are dead. The DEPTH keys' loads in flight take the
+//   place of contains_hbm's DMA ring. Bound: DRAM bytes in the DRAM regime
+//   (the touched 32-byte sectors of a 16 s-byte counter row, 128 B a key
+//   for B = 256), L2 bandwidth in the L2 regime.
+// * counting_decay_kernel: a grid-stride pass of w - nib_nonzero(w) with
+//   128-bit loads and stores. Bound: DRAM bytes (every counter read and
+//   written once).
+//
+// C interface for ctypes: each entry point returns cudaGetLastError() after
+// its launch (or -1 for a shape that has no instantiation).
+
+#include "bloom_common.cuh"
+
+namespace {
+
+constexpr uint32_t kNibLsb = 0x11111111u;
+constexpr int kMaxInFlight = 64;  // mask words a contains thread holds
+
+enum Op : int { kAdd = 0, kRemove = 1 };
+
+__device__ __forceinline__ uint32_t nib_nonzero(uint32_t w) {
+  return (w | (w >> 1) | (w >> 2) | (w >> 3)) & kNibLsb;
+}
+
+__device__ __forceinline__ uint32_t nib_saturated(uint32_t w) {
+  return w & (w >> 1) & (w >> 2) & (w >> 3) & kNibLsb;
+}
+
+__device__ __forceinline__ uint32_t sat_inc_word(uint32_t w, uint32_t inc) {
+  return w + (inc & ~nib_saturated(w));
+}
+
+__device__ __forceinline__ uint32_t guard_dec_word(uint32_t w, uint32_t dec) {
+  return w - (dec & nib_nonzero(w) & ~nib_saturated(w));
+}
+
+// Bit b of a byte to bit 4b: one byte of variants.py expand_mask_words.
+__device__ __forceinline__ uint32_t spread_byte(uint32_t x) {
+  x = (x | (x << 12)) & 0x000F000Fu;
+  x = (x | (x << 6)) & 0x03030303u;
+  return (x | (x << 3)) & kNibLsb;
+}
+
+template <int S>
+__global__ void __launch_bounds__(kThreads)
+    counting_update_kernel(const uint2* __restrict__ keys,
+                           const uint8_t* __restrict__ valid,
+                           uint32_t* counters,
+                           const uint32_t* __restrict__ salts, int64_t n,
+                           uint32_t block_mask, int k, int op) {
+  __shared__ uint32_t smem[3 * kMaxSalts];
+  stage_salts(smem, salts);
+  const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n || (valid != nullptr && valid[i] == 0)) return;
+  uint32_t h_pat, h_blk;
+  hash_key(keys[i], h_pat, h_blk);
+  uint32_t m[S];
+  build_mask<S>(m, h_pat, smem, smem + kMaxSalts, smem + 2 * kMaxSalts, kSbf,
+                k, 1, 0);
+  uint32_t* row = counters + uint64_t(h_blk & block_mask) * uint64_t(4 * S);
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+#pragma unroll 1
+    for (int c = 0; c < 4; ++c) {
+      const uint32_t byte = (m[j] >> (8 * c)) & 0xFFu;
+      if (byte == 0u) continue;
+      const uint32_t inc = spread_byte(byte);
+      uint32_t* p = row + 4 * j + c;
+      uint32_t cur = __ldcg(p);
+      while (true) {
+        const uint32_t next =
+            op == kAdd ? sat_inc_word(cur, inc) : guard_dec_word(cur, inc);
+        if (next == cur) break;
+        const uint32_t seen = atomicCAS(p, cur, next);
+        if (seen == cur) break;
+        cur = seen;
+      }
+    }
+  }
+}
+
+template <int S, int PHI, int DEPTH>
+__global__ void __launch_bounds__(kThreads)
+    counting_contains_kernel(const uint2* __restrict__ keys,
+                             const uint32_t* __restrict__ counters,
+                             bool* __restrict__ out,
+                             const uint32_t* __restrict__ salts, int64_t n,
+                             uint32_t block_mask, int k) {
+  static_assert(PHI == 1 || PHI == 2 || PHI == 4, "PHI must divide 4");
+  __shared__ uint32_t smem[3 * kMaxSalts];
+  stage_salts(smem, salts);
+
+  const int64_t base =
+      int64_t(blockIdx.x) * (kThreads * DEPTH) + threadIdx.x;
+  uint32_t m[DEPTH][S];
+  const uint32_t* row[DEPTH];
+  bool alive[DEPTH];
+#pragma unroll
+  for (int d = 0; d < DEPTH; ++d) {
+    const int64_t i = base + int64_t(d) * kThreads;
+    alive[d] = i < n;
+    uint32_t h_pat = 0u, h_blk = 0u;
+    if (alive[d]) hash_key(keys[i], h_pat, h_blk);
+    build_mask<S>(m[d], h_pat, smem, smem + kMaxSalts, smem + 2 * kMaxSalts,
+                  kSbf, k, 1, 0);
+    row[d] = counters + uint64_t(h_blk & block_mask) * uint64_t(4 * S);
+  }
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+#pragma unroll
+    for (int c = 0; c < 4 / PHI; ++c) {
+      uint32_t w[DEPTH][PHI];
+#pragma unroll
+      for (int d = 0; d < DEPTH; ++d) {
+        uint32_t chunk = m[d][j];
+        if constexpr (PHI < 4)
+          chunk = (chunk >> (8 * c * PHI)) & ((1u << (8 * PHI)) - 1u);
+        if (alive[d] && chunk != 0u) {
+          Vec<PHI>::load(row[d] + 4 * j + c * PHI, w[d]);
+        } else {
+#pragma unroll
+          for (int p = 0; p < PHI; ++p) w[d][p] = 0u;
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < DEPTH; ++d) {
+#pragma unroll
+        for (int p = 0; p < PHI; ++p) {
+          const uint32_t inc =
+              spread_byte((m[d][j] >> (8 * (c * PHI + p))) & 0xFFu);
+          if ((nib_nonzero(w[d][p]) & inc) != inc) alive[d] = false;
+        }
+      }
+    }
+    bool any = false;
+#pragma unroll
+    for (int d = 0; d < DEPTH; ++d) any |= alive[d];
+    if (!any) break;
+  }
+#pragma unroll
+  for (int d = 0; d < DEPTH; ++d) {
+    const int64_t i = base + int64_t(d) * kThreads;
+    if (i < n) out[i] = alive[d];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    counting_decay_kernel(uint32_t* counters, int64_t n_words) {
+  const int64_t n4 = n_words / 4;
+  const int64_t stride = int64_t(gridDim.x) * kThreads;
+  const int64_t first = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  uint4* vec = reinterpret_cast<uint4*>(counters);
+  for (int64_t i = first; i < n4; i += stride) {
+    uint4 w = vec[i];
+    w.x -= nib_nonzero(w.x);
+    w.y -= nib_nonzero(w.y);
+    w.z -= nib_nonzero(w.z);
+    w.w -= nib_nonzero(w.w);
+    vec[i] = w;
+  }
+  for (int64_t i = 4 * n4 + first; i < n_words; i += stride)
+    counters[i] -= nib_nonzero(counters[i]);
+}
+
+template <int S>
+int launch_update(const void* keys, const void* valid, void* counters,
+                  const void* salts, int64_t n, uint32_t block_mask, int k,
+                  int op, cudaStream_t stream) {
+  const unsigned grid = unsigned((n + kThreads - 1) / kThreads);
+  counting_update_kernel<S><<<grid, kThreads, 0, stream>>>(
+      static_cast<const uint2*>(keys), static_cast<const uint8_t*>(valid),
+      static_cast<uint32_t*>(counters), static_cast<const uint32_t*>(salts),
+      n, block_mask, k, op);
+  return int(cudaGetLastError());
+}
+
+template <int S, int PHI, int DEPTH>
+int launch_contains(const void* keys, const void* counters, void* out,
+                    const void* salts, int64_t n, uint32_t block_mask, int k,
+                    cudaStream_t stream) {
+  const int64_t per_cta = int64_t(kThreads) * DEPTH;
+  const unsigned grid = unsigned((n + per_cta - 1) / per_cta);
+  counting_contains_kernel<S, PHI, DEPTH><<<grid, kThreads, 0, stream>>>(
+      static_cast<const uint2*>(keys), static_cast<const uint32_t*>(counters),
+      static_cast<bool*>(out), static_cast<const uint32_t*>(salts), n,
+      block_mask, k);
+  return int(cudaGetLastError());
+}
+
+template <int S, int PHI>
+int dispatch_depth(int depth, const void* keys, const void* counters,
+                   void* out, const void* salts, int64_t n,
+                   uint32_t block_mask, int k, cudaStream_t st) {
+  // contains_vmem runs DEPTH = 1 at any PHI; contains_hbm runs PHI = 4 at
+  // any DEPTH, with at most kMaxInFlight mask words per thread
+  constexpr bool kDeep = PHI == 4;
+  if (depth > 1 && !kDeep) return -1;
+  switch (depth) {
+    case 1:
+      return launch_contains<S, PHI, 1>(keys, counters, out, salts, n,
+                                        block_mask, k, st);
+    case 2:
+      if constexpr (kDeep && 2 * S <= kMaxInFlight)
+        return launch_contains<S, PHI, 2>(keys, counters, out, salts, n,
+                                          block_mask, k, st);
+      break;
+    case 4:
+      if constexpr (kDeep && 4 * S <= kMaxInFlight)
+        return launch_contains<S, PHI, 4>(keys, counters, out, salts, n,
+                                          block_mask, k, st);
+      break;
+    case 8:
+      if constexpr (kDeep && 8 * S <= kMaxInFlight)
+        return launch_contains<S, PHI, 8>(keys, counters, out, salts, n,
+                                          block_mask, k, st);
+      break;
+  }
+  return -1;
+}
+
+template <int S>
+int dispatch_phi(int phi, int depth, const void* keys, const void* counters,
+                 void* out, const void* salts, int64_t n, uint32_t block_mask,
+                 int k, cudaStream_t st) {
+  switch (phi) {
+    case 1:
+      return dispatch_depth<S, 1>(depth, keys, counters, out, salts, n,
+                                  block_mask, k, st);
+    case 2:
+      return dispatch_depth<S, 2>(depth, keys, counters, out, salts, n,
+                                  block_mask, k, st);
+    case 4:
+      return dispatch_depth<S, 4>(depth, keys, counters, out, salts, n,
+                                  block_mask, k, st);
+  }
+  return -1;
+}
+
+}  // namespace
+
+extern "C" {
+
+// keys: (n, 2) int32 [hi, lo], 8-byte aligned; valid: (n,) uint8 or null
+// (every key valid); counters: (storage_words,) int32, 16-byte aligned;
+// salts: (3, 96) int32; op: 0 add, 1 remove.
+int counting_update(const void* keys, const void* valid, void* counters,
+                    const void* salts, long long n, unsigned block_mask,
+                    int s, int k, int op, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (op != kAdd && op != kRemove) return -1;
+  switch (s) {
+    case 1:
+      return launch_update<1>(keys, valid, counters, salts, n, block_mask, k,
+                              op, st);
+    case 2:
+      return launch_update<2>(keys, valid, counters, salts, n, block_mask, k,
+                              op, st);
+    case 4:
+      return launch_update<4>(keys, valid, counters, salts, n, block_mask, k,
+                              op, st);
+    case 8:
+      return launch_update<8>(keys, valid, counters, salts, n, block_mask, k,
+                              op, st);
+    case 16:
+      return launch_update<16>(keys, valid, counters, salts, n, block_mask, k,
+                               op, st);
+    case 32:
+      return launch_update<32>(keys, valid, counters, salts, n, block_mask, k,
+                               op, st);
+  }
+  return -1;
+}
+
+// out: (n,) bool; phi in {1, 2, 4}; depth in {1, 2, 4, 8}.
+int counting_contains(const void* keys, const void* counters, void* out,
+                      const void* salts, long long n, unsigned block_mask,
+                      int s, int phi, int depth, int k, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (s) {
+    case 1:
+      return dispatch_phi<1>(phi, depth, keys, counters, out, salts, n,
+                             block_mask, k, st);
+    case 2:
+      return dispatch_phi<2>(phi, depth, keys, counters, out, salts, n,
+                             block_mask, k, st);
+    case 4:
+      return dispatch_phi<4>(phi, depth, keys, counters, out, salts, n,
+                             block_mask, k, st);
+    case 8:
+      return dispatch_phi<8>(phi, depth, keys, counters, out, salts, n,
+                             block_mask, k, st);
+    case 16:
+      return dispatch_phi<16>(phi, depth, keys, counters, out, salts, n,
+                              block_mask, k, st);
+    case 32:
+      return dispatch_phi<32>(phi, depth, keys, counters, out, salts, n,
+                              block_mask, k, st);
+  }
+  return -1;
+}
+
+// counters: (n_words,) int32, 16-byte aligned; updated in place.
+int counting_decay(void* counters, long long n_words, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long n4 = (n_words + 3) / 4;
+  long long grid = (n4 + kThreads - 1) / kThreads;
+  const long long cap = 8LL * (sms > 0 ? sms : 1);
+  if (grid > cap) grid = cap;
+  if (grid < 1) grid = 1;
+  counting_decay_kernel<<<unsigned(grid), kThreads, 0, st>>>(
+      static_cast<uint32_t*>(counters), n_words);
+  return int(cudaGetLastError());
+}
+
+}  // extern "C"

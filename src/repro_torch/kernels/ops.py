@@ -1,22 +1,29 @@
-"""Dispatch of bulk ``add``/``contains`` to the blocked Bloom kernels.
+"""Dispatch of bulk ``add``/``contains`` to the blocked Bloom kernels, and
+of the counting filter's ``add``/``remove``/``contains``/``decay`` to the
+counting kernels.
 
-Counterpart of ``repro.kernels.ops.bloom_contains`` / ``bloom_add``:
+Counterpart of ``repro.kernels.ops.bloom_contains`` / ``bloom_add`` and
+``counting_add`` / ``counting_remove`` / ``counting_contains`` /
+``counting_decay``:
 
-* regime: a filter of at most ``L2_FILTER_BYTES`` runs the L2-resident
-  kernels (``sbf.contains_vmem`` / ``add_vmem``), a larger one the
-  DRAM-resident kernels (``contains_hbm`` / ``add_hbm``). The regime names
+* regime: a filter whose storage is at most ``L2_FILTER_BYTES`` runs the
+  L2-resident kernels (``*_vmem``), a larger one the DRAM-resident kernels
+  (``*_hbm``); decay is one kernel for both. The regime names
   stay ``"vmem"`` and ``"hbm"`` as in the JAX package. The regime never
   changes a result;
 * ``probe``/``coop``/``mix``/``depth``/``layout``/``tile`` are validated as
   the JAX package does. ``"auto"`` resolves to the fixed defaults below
   (the tuner, ``core/tuning.py``, is ROADMAP queue 1 item 11). Which of
-  them the CUDA kernels act on is set out in ``kernels/sbf.py``;
-* keys on the CPU are padded to a tile multiple by repeating the last key
-  (``_pad_keys``) before the plain path, as in the JAX package; the CUDA
-  kernels mask the ragged tail themselves;
-* ``bloom_add(..., inplace=False)`` clones the words first, as JAX's
-  immutable arrays behave; ``inplace=True`` is the counterpart of the
-  buffer donation of ``ops.bloom_add_jit`` and updates ``filt`` itself.
+  them the CUDA kernels act on is set out in ``kernels/sbf.py`` and
+  ``kernels/countingbf.py``;
+* keys on the CPU are padded to a tile multiple before the plain path, as
+  in the JAX package: by repeating the last key (``_pad_keys``) for the
+  OR-idempotent bit ops and for every contains, and with zero keys marked
+  invalid (``_pad_keys_valid``) for counting updates, which are not
+  idempotent. The CUDA kernels mask the ragged tail themselves;
+* ``bloom_add``/``counting_*(..., inplace=False)`` clone the words first,
+  as JAX's immutable arrays behave; ``inplace=True`` is the counterpart of
+  the JAX package's buffer donation and updates ``filt`` itself.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch
 
 from repro_torch import not_ported
 from repro_torch.core.variants import BLOCKED, FilterSpec
+from repro_torch.kernels import countingbf as cnt_k
 from repro_torch.kernels import sbf as sbf_k
 from repro_torch.kernels.sbf import (COOPS, DEFAULT_DMA_DEPTH, DEFAULT_TILE,
                                      MIXES, PROBES, Layout, default_layout)
@@ -84,10 +92,30 @@ def _pad_keys(keys: torch.Tensor, tile: int) -> torch.Tensor:
     return torch.cat([keys, keys[-1:].expand(pad, 2)])
 
 
+def _pad_keys_valid(keys: torch.Tensor, tile: int,
+                    valid: Optional[torch.Tensor] = None):
+    """Pad to a tile multiple with zero keys marked invalid (never a
+    repeated key: counting updates are not idempotent). Returns (padded
+    keys, (n_padded,) uint8 valid)."""
+    n = keys.shape[0]
+    if valid is None:
+        valid = torch.ones((n,), dtype=torch.uint8, device=keys.device)
+    else:
+        valid = valid.to(torch.uint8)
+    pad = (-n) % tile
+    if pad == 0:
+        return keys, valid
+    return (torch.cat([keys, keys.new_zeros((pad, 2))]),
+            torch.cat([valid, valid.new_zeros((pad,))]))
+
+
 def _check_spec(spec: FilterSpec) -> None:
+    if spec.is_counting:
+        raise ValueError("countingbf specs go through counting_add/"
+                         "counting_remove/counting_contains")
     if spec.variant not in BLOCKED:
         raise not_ported(f"bloom_add/bloom_contains for {spec.variant}",
-                         "queue 1 items 4-10")
+                         "queue 1 items 5-10")
 
 
 def bloom_contains(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
@@ -138,3 +166,94 @@ def bloom_add(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
             tile=tile, probe=_resolve(probe, PROBES, AUTO_PROBE, "probe"),
             coop=c, mix=m)
     return sbf_k.add_hbm(spec, out, padded, coop=c, mix=m)
+
+
+# ---------------------------------------------------------------------------
+# Counting-filter dispatch (valid-masked padding on the plain path)
+# ---------------------------------------------------------------------------
+
+def counting_kernel_supported(spec: FilterSpec) -> bool:
+    """Specs the CUDA counting kernels serve: countingbf, s <= 32 words."""
+    return spec.is_counting and spec.s <= 32
+
+
+def _check_counting(spec: FilterSpec) -> None:
+    if not spec.is_counting:
+        raise ValueError(f"{spec} is not a countingbf spec; use bloom_*")
+
+
+def _counting_update(spec: FilterSpec, filt: torch.Tensor,
+                     keys: torch.Tensor, op: str, layout: Optional[Layout],
+                     regime: str, tile: int, valid: Optional[torch.Tensor],
+                     probe: str, coop: str, mix: str,
+                     inplace: bool) -> torch.Tensor:
+    _check_counting(spec)
+    out = filt if inplace else filt.clone()
+    n = keys.shape[0]
+    if n == 0:
+        return out
+    tile = _clamp_tile(n, tile)
+    if not keys.is_cuda:
+        keys, valid = _pad_keys_valid(keys, tile, valid)
+    c = _resolve(coop, COOPS, AUTO_COOP, "coop")
+    m = _resolve(mix, MIXES, AUTO_MIX, "mix")
+    if _regime(spec, regime) == "vmem":
+        return cnt_k.update_vmem(
+            spec, out, keys, valid, op, layout=layout, tile=tile,
+            probe=_resolve(probe, PROBES, AUTO_PROBE, "probe"), coop=c, mix=m)
+    return cnt_k.update_hbm(spec, out, keys, valid, op, coop=c, mix=m)
+
+
+def counting_add(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+                 layout: Optional[Layout] = None, regime: str = "auto",
+                 tile: int = DEFAULT_TILE,
+                 valid: Optional[torch.Tensor] = None, probe: str = "auto",
+                 coop: str = "auto", mix: str = "auto",
+                 inplace: bool = False) -> torch.Tensor:
+    """Bulk saturating increment of each valid key's k counters."""
+    return _counting_update(spec, filt, keys, "add", layout, regime, tile,
+                            valid, probe, coop, mix, inplace)
+
+
+def counting_remove(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+                    layout: Optional[Layout] = None, regime: str = "auto",
+                    tile: int = DEFAULT_TILE,
+                    valid: Optional[torch.Tensor] = None, probe: str = "auto",
+                    coop: str = "auto", mix: str = "auto",
+                    inplace: bool = False) -> torch.Tensor:
+    """Bulk guarded decrement (0 floors, saturated counters stick)."""
+    return _counting_update(spec, filt, keys, "remove", layout, regime, tile,
+                            valid, probe, coop, mix, inplace)
+
+
+def counting_contains(spec: FilterSpec, filt: torch.Tensor,
+                      keys: torch.Tensor, layout: Optional[Layout] = None,
+                      regime: str = "auto", tile: int = DEFAULT_TILE,
+                      probe: str = "auto", depth: Optional[int] = None,
+                      coop: str = "auto", mix: str = "auto") -> torch.Tensor:
+    """(n,) bool membership against the counter occupancy (read-only, so
+    repeat-key padding is safe here: the padded results are cut off)."""
+    _check_counting(spec)
+    n = keys.shape[0]
+    if n == 0:
+        return torch.zeros((0,), dtype=torch.bool, device=keys.device)
+    tile = _clamp_tile(n, tile)
+    padded = keys if keys.is_cuda else _pad_keys(keys, tile)
+    c = _resolve(coop, COOPS, AUTO_COOP, "coop")
+    m = _resolve(mix, MIXES, AUTO_MIX, "mix")
+    if _regime(spec, regime) == "vmem":
+        out = cnt_k.contains_vmem(
+            spec, filt, padded, layout=layout, tile=tile,
+            probe=_resolve(probe, PROBES, AUTO_PROBE, "probe"), coop=c, mix=m)
+    else:
+        out = cnt_k.contains_hbm(
+            spec, filt, padded, coop=c, mix=m,
+            depth=DEFAULT_DMA_DEPTH if depth is None else depth)
+    return out[:n]
+
+
+def counting_decay(spec: FilterSpec, filt: torch.Tensor,
+                   inplace: bool = False) -> torch.Tensor:
+    """One aging step (every nonzero counter -1), one kernel launch."""
+    _check_counting(spec)
+    return cnt_k.decay(spec, filt if inplace else filt.clone())

@@ -132,8 +132,14 @@ def test_filter_is_immutable_and_merges():
 def test_unported_operations_name_the_roadmap_item():
     f = api.make_filter("sbf", m_bits=M, k=8, device="cpu")
     keys = JH.random_u64x2(4, seed=0)
-    for call in (lambda: f.remove(keys), lambda: f.decay(),
-                 lambda: f.advance(),
+    # remove and decay are ported: on a bit engine they raise the JAX
+    # package's capability error, which names the counting engine
+    for call in (lambda: f.remove(keys), lambda: f.decay()):
+        with pytest.raises(NotImplementedError, match="'counting'"):
+            call()
+    with pytest.raises(ValueError, match="valid="):
+        f.add(keys, valid=np.ones(4, np.uint8))
+    for call in (lambda: f.advance(),
                  lambda: f.add(keys, tenants=np.zeros(4, np.int32)),
                  lambda: f.contains(keys, tenants=np.zeros(4, np.int32)),
                  lambda: api.filter_for_n_items(100, bank=4, device="cpu"),
@@ -166,7 +172,13 @@ def test_engine_selection_by_device():
                             ("auto", cbf, cpu), ("auto", cbf, gpu)):
         with pytest.raises(ValueError):
             registry.select(spec, name, ctx)
-    assert api.backends() == ("cuda-dram", "cuda-l2", "torch")
+    counting = api.FilterSpec("countingbf", M, 8)
+    for ctx in (cpu, gpu):
+        assert registry.select(counting, "auto", ctx).name == "counting"
+        for name in ("torch", "cuda-l2", "cuda-dram"):
+            with pytest.raises(ValueError):
+                registry.select(counting, name, ctx)
+    assert api.backends() == ("counting", "cuda-dram", "cuda-l2", "torch")
     assert {d["name"] for d in api.describe_backends()} == set(api.backends())
     assert api.get_backend("torch").name == "torch"
 
@@ -196,11 +208,21 @@ def test_from_state_rejects_state_of_unported_engines():
     with pytest.raises(ValueError):
         api.Filter.from_state({**state, "words": state["words"][:-1]},
                               device="cpu")
+    # a counting filter's state holds its dense (n_words,) occupancy words
+    c = api.make_filter("countingbf", m_bits=M, k=8, device="cpu")
+    cstate = interop.to_jax_state(c.add(JH.random_u64x2(100, seed=1)))
+    assert cstate["words"].shape == (M // 32,)
+    back = api.Filter.from_state(cstate, device="cpu")
+    assert back.words.shape == (c.spec.storage_words,)
+    with pytest.raises(ValueError):
+        api.Filter.from_state({**cstate, "words": np.zeros(
+            c.spec.storage_words, np.uint32)}, device="cpu")
 
 
 def test_port_imports_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.api, "
-            "repro_torch.kernels.ops, repro_torch.interop; "
+            "repro_torch.kernels.ops, repro_torch.kernels.countingbf, "
+            "repro_torch.kernels._build, repro_torch.interop; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); assert not bad, bad")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}

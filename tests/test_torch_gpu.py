@@ -15,6 +15,7 @@ import torch
 from repro_torch.api.filter import as_keys
 from repro_torch.core import hashing as H
 from repro_torch.core import variants as V
+from repro_torch.kernels import countingbf as cnt
 from repro_torch.kernels import ops, sbf
 
 M = 1 << 16
@@ -171,3 +172,117 @@ def test_api_defaults_to_the_card(cuda):
     assert small.backend == "cuda-dram"
     with pytest.raises(ValueError):
         api.make_filter("sbf", m_bits=1 << 20, k=16, backend="torch")
+
+
+# ---------------------------------------------------------------------------
+# Counting filter kernels (kernels/countingbf.py, csrc/counting.cu)
+# ---------------------------------------------------------------------------
+
+CSPECS = [V.FilterSpec("countingbf", M, 8, block_bits=256),
+          V.FilterSpec("countingbf", M, 16, block_bits=512),
+          V.FilterSpec("countingbf", M, 4, block_bits=128),
+          V.FilterSpec("countingbf", M, 2, block_bits=64)]
+
+
+def _multiset(n, seed, device):
+    """n keys, each 1-3 times, plus one key 20 times (it saturates)."""
+    keys = _keys(n, seed, device)
+    g = torch.Generator().manual_seed(seed)
+    reps = torch.randint(1, 4, (n,), generator=g).to(device)
+    batch = torch.cat([keys.repeat_interleave(reps, dim=0),
+                       keys[:1].expand(20 if n else 0, 2)])
+    perm = torch.randperm(batch.shape[0], generator=g).to(device)
+    return batch[perm].contiguous()
+
+
+def _valid_mask(n, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(n, generator=g) > 0.25).to(torch.uint8).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", CSPECS, ids=str)
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 65537])
+def test_counting_update_kernels_match_plain(cuda, spec, n):
+    batch = _multiset(n, n + 1, cuda)
+    valid = _valid_mask(batch.shape[0], n, cuda)
+    gone = torch.cat([batch[: batch.shape[0] // 2], _probes(100, n, cuda)])
+    for vmask in (None, valid):
+        want = cnt.update_plain(spec, V.init(spec, cuda), batch, vmask, "add")
+        want_rm = cnt.update_plain(spec, want, gone, None, "remove")
+        for update in (cnt.update_vmem, cnt.update_hbm):
+            words = update(spec, V.init(spec, cuda), batch, vmask, "add")
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(_u32(words), _u32(want))
+            update(spec, words, gone, None, "remove")
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(_u32(words), _u32(want_rm))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", CSPECS, ids=str)
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 65537])
+def test_counting_contains_and_decay_kernels_match_plain(cuda, spec, n):
+    words = cnt.update_plain(spec, V.init(spec, cuda),
+                             _multiset(2048, 7, cuda), None, "add")
+    keys = torch.cat([_keys(n // 2, 7, cuda), _probes(n - n // 2, n, cuda)])
+    for _ in range(3):                                  # down to empty
+        want = cnt.contains_plain(spec, words, keys).cpu().numpy()
+        for phi in (1, 2, 4, 8, 32):
+            got = cnt.contains_vmem(spec, words, keys, sbf.Layout(1, phi),
+                                    probe="gather", coop="subtile",
+                                    mix="cheap")
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+        for depth in sbf.DMA_DEPTHS:
+            got = cnt.contains_hbm(spec, words, keys, depth=depth)
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+        want_words = _u32(cnt.decay_plain(spec, words))
+        assert cnt.decay(spec, words) is words
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(_u32(words), want_words)
+
+
+@pytest.mark.gpu
+def test_counting_launch_counters_and_filter_path(cuda):
+    import repro_torch.api as api
+    f = api.filter_for_n_items(50000, bits_per_key=16, variant="countingbf")
+    assert f.device.type == "cuda" and f.backend == "counting"
+    keys = _keys(50000, 4, cuda)
+    cnt.reset_launches()
+    g = f.add(keys).add(keys[:1000])
+    assert not f.words.any()                      # f is unchanged
+    h = g.remove(keys[:25000])
+    assert h.contains(keys[25000:]).all()
+    d = h.decay(2)
+    assert cnt.LAUNCHES == {"update_vmem": 3, "contains_vmem": 1,
+                            "update_hbm": 0, "contains_hbm": 0, "decay": 2}
+    want = cnt.update_plain(f.spec, V.init(f.spec, cuda), keys, None, "add")
+    want = cnt.update_plain(f.spec, want, keys[:1000], None, "add")
+    want = cnt.update_plain(f.spec, want, keys[:25000], None, "remove")
+    want = cnt.decay_plain(f.spec, cnt.decay_plain(f.spec, want))
+    np.testing.assert_array_equal(_u32(d.words), _u32(want))
+    big = api.make_filter("countingbf", m_bits=1 << 28, k=8)
+    assert not ops.fits_l2(big.spec)
+    cnt.reset_launches()
+    big.add(keys).remove(keys[:10]).contains(keys)
+    assert cnt.LAUNCHES["update_hbm"] == 2 and cnt.LAUNCHES["contains_hbm"] == 1
+
+
+@pytest.mark.gpu
+def test_counting_wrappers_refuse_bad_tensors(cuda):
+    spec = CSPECS[0]
+    words = V.init(spec, cuda)
+    keys = _keys(64, 0, cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        cnt.update_vmem(spec, words, keys.reshape(-1)[1:-1].reshape(-1, 2),
+                        None, "add")
+    with pytest.raises(ValueError, match="aligned"):
+        cnt.decay(spec, torch.zeros(spec.storage_words + 1, dtype=torch.int32,
+                                    device=cuda)[1:])
+    with pytest.raises(ValueError, match="device|cpu"):
+        cnt.contains_hbm(spec, words, keys.cpu())
+    with pytest.raises(ValueError, match="valid"):
+        cnt.update_hbm(spec, words, keys, _valid_mask(64, 0, cuda).cpu(),
+                       "add")
+    with pytest.raises(ValueError, match="counting"):
+        ops.bloom_add(spec, words, keys)

@@ -238,7 +238,31 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build, "NVCC_DEFAULT", tmp_path / "no-nvcc")
     monkeypatch.setattr(_build, "library_path",
-                        lambda: tmp_path / "lib" / "bloom.so")
+                        lambda name="bloom": tmp_path / "lib" / f"{name}.so")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build()
     assert not (tmp_path / "lib").exists()
+
+
+def test_library_names_hash_every_source_file(monkeypatch, tmp_path):
+    """An edited header (or any file under csrc/) renames every library,
+    so a stale build is never loaded."""
+    for path in _build._CSRC.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "_CSRC", tmp_path)
+    before = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert len({p.name.split("-")[1] for p in before.values()}) == 1
+    header = tmp_path / "bloom_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.SOURCES}
+    for name in _build.SOURCES:
+        assert after[name] != before[name]
+        assert after[name].name.startswith(f"{name}-")
+    # every bound entry point is declared in its source with as many
+    # parameters as it has argument types
+    for symbol, (source, argtypes) in _build.ENTRY_POINTS.items():
+        assert source in _build.SOURCES
+        text = (tmp_path / f"{source}.cu").read_text()
+        head = text.index(f"int {symbol}(") + len(f"int {symbol}(")
+        params = text[head:text.index(")", head)]
+        assert params.count(",") + 1 == len(argtypes), symbol
