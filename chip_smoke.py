@@ -8,7 +8,8 @@ the script exits non-zero without printing a result:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the count;
 2. build: compile every source of ``src/repro_torch/kernels/csrc/``
-   (``bloom.cu``, ``counting.cu``; one nvcc each, in parallel) and time it;
+   (``bloom.cu``, ``counting.cu``, ``cbf.cu``, ``ring.cu``; one nvcc each,
+   in parallel) and time it;
 3. every blocked-filter kernel wrapper against its plain PyTorch version on
    the card, at m = 2^20 bits and 65537 keys, for six blocked specs and
    every value of the schedule axes; words and results must be equal bit
@@ -18,6 +19,12 @@ the script exits non-zero without printing a result:
    512) at m = 2^20, 65537 keys inserted 1-3 times each plus one key 20
    times (it saturates), then removes of a subset and of keys never added,
    and two decays; every schedule value, ragged sizes and a valid mask;
+3c. the classical-filter kernels at m = 2^20 for k in 1/7/11/32 (65537
+   keys, n = 0/1/255/257) and at m = 2^32 (2^20 keys; positions use all 32
+   bits), and the generation-ring kernel for sbf/bbf/rbbf/csbf with G in
+   2/3/4/8 through both wrappers and every depth, ragged n and n = 0;
+   words and results equal bit for bit, FPR within 0.5-2.0x theory at
+   m = 2^20;
 4. the blocked main path, ``repro_torch.api.filter_for_n_items(...)`` then
    ``Filter.add`` / ``Filter.contains``, at an L2-resident size (2^23 keys,
    2^27 bits) and a DRAM-resident size (2^28 keys, 2^32 bits): no false
@@ -32,11 +39,23 @@ the script exits non-zero without printing a result:
    bits, 512 MiB): no false negatives, every step's words and results
    equal to the plain version's in full (in 2^22-key chunks), and every
    counting wrapper of the regime launched;
+4c. the classical main path, ``filter_for_n_items(n, variant="cbf")`` (k =
+   11) then ``add`` of all keys and ``contains`` of them and of 2^22
+   probes, at 2^23 keys (2^27 bits, 16 MiB, engine ``cuda-l2``) and 2^28
+   keys (2^32 bits, 512 MiB, ``cuda-dram``); and the windowed main path,
+   ``filter_for_n_items(W, block_bits=256, generations=4)``: five batches
+   of W/4 keys with ``advance()`` after each of the first four, then
+   ``contains`` of batches 1-4 (no false negatives), of the retired batch
+   0 and of W fresh probes, at W = 2^22 (2^26 bits a generation, a 32 MiB
+   ring) and W = 2^26 (2^30 bits, a 512 MiB ring). The ring and head after
+   every step and every result equal the plain path's in full (in 2^22-key
+   chunks); engines and launches checked in each cell;
 5. times with CUDA events (warm-up, then 5 rounds of 20 calls; an update is
    timed on state restored before each call, outside the events) at the
    main path's size and, against the plain version, on 2^22 keys into an
-   empty full-size filter; printed with the card's name and power limit,
-   and one JSON line with a record per kernel.
+   empty full-size filter (the DRAM cbf cell's full-size calls: 3 rounds of
+   5); printed with the card's name and power limit, and one JSON line with
+   a record per kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs one CUDA card; the
 script exits non-zero where there is none, or where the repository's
@@ -59,7 +78,7 @@ import torch  # noqa: E402
 from repro_torch import api  # noqa: E402
 from repro_torch.core import hashing as H  # noqa: E402
 from repro_torch.core import variants as V  # noqa: E402
-from repro_torch.kernels import _build, ops, sbf  # noqa: E402
+from repro_torch.kernels import _build, cbf, ops, ring, sbf  # noqa: E402
 from repro_torch.kernels import countingbf as cnt  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
@@ -757,27 +776,454 @@ def phase_counting_main(regime: str, n: int, errs: dict, records: dict,
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------------------
+# The classical filter and the windowed filter (phases 3c, 4c and their times)
+# ---------------------------------------------------------------------------
+
+CBF_SOURCE = "src/repro_torch/kernels/csrc/cbf.cu"
+RING_SOURCE = "src/repro_torch/kernels/csrc/ring.cu"
+CBF_REPLACES = {"contains_vmem": "src/repro/kernels/cbf.py:64",
+                "add_vmem": "src/repro/kernels/cbf.py:80"}
+RING_REPLACES = {"ring_contains_vmem": "src/repro/kernels/ring.py:99",
+                 "ring_contains_hbm": "src/repro/kernels/ring.py:120"}
+PHASE3C_RING_SPECS = [
+    V.FilterSpec("sbf", 1 << 20, 16, block_bits=256),
+    V.FilterSpec("bbf", 1 << 20, 8, block_bits=256),
+    V.FilterSpec("rbbf", 1 << 20, 4),
+    V.FilterSpec("csbf", 1 << 20, 8, block_bits=512, z=2),
+]
+DRAM_CBF_REPS, DRAM_CBF_ROUNDS = 5, 3   # the DRAM cbf cell's calls take ~0.1 s
+
+
+def phase_cbf_kernels(errs: dict):
+    n = 65537
+    for i, k in enumerate((1, 7, 11, 32)):
+        spec = V.FilterSpec("cbf", 1 << 20, k)
+        keys = gen_keys(n, 1000 + i)
+        queries = torch.cat([keys, gen_keys(n, 1100 + i, probe=True)])
+        want_words = cbf.add_plain(spec, V.init(spec, "cuda"), keys)
+        want = cbf.contains_plain(spec, want_words, queries)
+        got = cbf.add_vmem(spec, V.init(spec, "cuda"), keys)
+        errs["add_vmem"] = max(errs["add_vmem"], max_err(got, want_words))
+        got = cbf.contains_vmem(spec, want_words, queries)
+        errs["contains_vmem"] = max(errs["contains_vmem"], max_err(got, want))
+        for m in (0, 1, 255, 257):                     # ragged and empty
+            w = cbf.add_plain(spec, V.init(spec, "cuda"), keys[:m])
+            got = cbf.add_vmem(spec, V.init(spec, "cuda"), keys[:m])
+            errs["add_vmem"] = max(errs["add_vmem"], max_err(got, w))
+            got = cbf.contains_vmem(spec, w, queries[:m])
+            errs["contains_vmem"] = max(errs["contains_vmem"], max_err(
+                got, cbf.contains_plain(spec, w, queries[:m])))
+        fpr = float(cbf.contains_vmem(
+            spec, want_words, gen_keys(1 << 20, 1200 + i, probe=True)
+        ).to(torch.float64).mean().item())
+        theory = V.fpr_theory(spec, n)
+        if not 0.5 * theory <= fpr <= 2.0 * theory:
+            raise AssertionError(f"{spec}: FPR {fpr} outside 0.5-2.0 x "
+                                 f"theory {theory}")
+        torch.cuda.synchronize()
+        print(f"kernels: {spec}: add and contains equal to the plain "
+              f"version ({n} keys, {n} probes, n in 0/1/255/257); FPR "
+              f"{fpr:.6f} = {fpr / theory:.3f} x theory on 2^20 probes")
+    # all 32 bits of a position at m = 2^32 (the shift is 0)
+    spec = V.FilterSpec("cbf", 1 << 32, 11)
+    keys = gen_keys(1 << 20, 1300)
+    h1, h2 = H.hash_keys(keys[:4096])
+    if int(V.cbf_positions(spec, h1, h2).max().item()) < 1 << 31:
+        raise AssertionError("cbf positions at m = 2^32 miss the top bit")
+    want_words = cbf.add_plain(spec, V.init(spec, "cuda"), keys)
+    got = cbf.add_vmem(spec, V.init(spec, "cuda"), keys)
+    errs["add_vmem"] = max(errs["add_vmem"], max_err(got, want_words))
+    queries = torch.cat([keys, gen_keys(1 << 20, 1301, probe=True)])
+    errs["contains_vmem"] = max(errs["contains_vmem"], max_err(
+        cbf.contains_vmem(spec, want_words, queries),
+        cbf.contains_plain(spec, want_words, queries)))
+    del got, want_words
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"kernels: {spec}: add of 2^20 keys and contains of 2^21 equal "
+          f"to the plain version (positions use all 32 bits)")
+
+
+def phase_ring_kernels(errs: dict):
+    for i, spec in enumerate(PHASE3C_RING_SPECS):
+        for G in (2, 3, 4, 8):
+            per_gen = 65536 // G
+            rings = torch.stack([
+                sbf.add_plain(spec, V.init(spec, "cuda"),
+                              gen_keys(per_gen, 1400 + 10 * i + g))
+                for g in range(G)])
+            live = gen_keys(per_gen, 1400 + 10 * i + G - 1)
+            queries = torch.cat([live, gen_keys(65537, 1500 + i, probe=True)])
+            want = ring.ring_contains_ref(spec, rings, queries)
+            if not bool(want[:per_gen].all()):
+                raise AssertionError(f"{spec} G={G}: false negatives")
+            runs = 0
+            for m in (queries.shape[0], 0, 1, 255, 257):
+                got = ring.ring_contains_vmem(spec, rings, queries[:m])
+                errs["ring_contains_vmem"] = max(
+                    errs["ring_contains_vmem"], max_err(got, want[:m]))
+                for depth in sbf.DMA_DEPTHS:
+                    got = ring.ring_contains_hbm(spec, rings, queries[:m],
+                                                 depth=depth)
+                    errs["ring_contains_hbm"] = max(
+                        errs["ring_contains_hbm"], max_err(got, want[:m]))
+                runs += 1 + len(sbf.DMA_DEPTHS)
+            # the union of G generations holds all 65536 keys
+            fpr = float(ring.ring_contains_vmem(
+                spec, rings, gen_keys(1 << 20, 1600 + i, probe=True)
+            ).to(torch.float64).mean().item())
+            theory = V.fpr_theory(spec, per_gen * G)
+            if not 0.5 * theory <= fpr <= 2.0 * theory:
+                raise AssertionError(f"{spec} G={G}: FPR {fpr} outside "
+                                     f"0.5-2.0 x theory {theory}")
+            torch.cuda.synchronize()
+            print(f"kernels: ring of {G} x {spec}: {runs} ring kernel runs "
+                  f"equal to the plain version; FPR {fpr:.6f} = "
+                  f"{fpr / theory:.3f} x theory on 2^20 probes")
+
+
+def cbf_probes_needed(spec: V.FilterSpec, words: torch.Tensor,
+                      keys: torch.Tensor) -> int:
+    """Probes a contains must make: every probe of a member key, and for
+    any other key the probes up to and including its first miss."""
+    total = 0
+    for chunk in keys.split(SUBSET):
+        h1, h2 = H.hash_keys(chunk)
+        pos = V.cbf_positions(spec, h1, h2)
+        hit = (H.u32(words[pos >> 5]) >> (pos & 31)) & 1 == 1
+        miss = ~hit
+        first = torch.where(miss.any(dim=1), miss.to(torch.int8).argmax(dim=1)
+                            + 1, spec.k)
+        total += int(first.sum().item())
+    return total
+
+
+def cbf_bound_ms(spec: V.FilterSpec, n: int, op: str, probes: int):
+    """Least time: max(bytes / memory rate, ops / peak rate). Bytes: 8 per
+    key, 1 per result (contains), and one 32-byte sector per probe needed
+    (``probes``; k a key for add), capped by the filter, read (contains) or
+    read and written (add). Ops: 40 per key for the hash, 6 per probe."""
+    sectors = min(spec.m_bits // 8, 32 * probes)
+    nbytes = 8 * n + (n + sectors if op == "contains" else 2 * sectors)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (40 * n + 6 * probes) / OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ring_bound_ms(spec: V.FilterSpec, generations: int, n: int):
+    """Least time of a ring contains: 8 B per key and 1 per result, and the
+    key's block row in each generation, at least one 32-byte sector (for
+    B = 256 the row is one sector, so the early exit saves no bytes),
+    capped by the ring; ops as a blocked contains plus one OR per word and
+    generation."""
+    row = max(spec.block_bits // 8, 32)
+    ring_bytes = min(generations * spec.m_bits // 8, generations * row * n)
+    t_bytes = (9 * n + ring_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = n * (ops_per_key(spec, "contains") + generations * spec.s
+                 ) / OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_cbf_main(regime: str, n: int, errs: dict, records: dict,
+                   launches: dict, card: str):
+    engine = "cuda-l2" if regime == "L2" else "cuda-dram"
+    f = api.filter_for_n_items(n, bits_per_key=16, variant="cbf",
+                               device="cuda")
+    spec = f.spec
+    if f.backend != engine or spec.k != 11:
+        raise AssertionError(f"cbf {regime}: {spec} on {f.backend}, not "
+                             f"{engine} with k = 11")
+    keys = gen_keys(n, 21)
+    probes = gen_keys(SUBSET, 22, probe=True)
+    torch.cuda.synchronize()
+
+    cbf.reset_launches()                   # the main path, counted
+    t0 = time.perf_counter()
+    g = f.add(keys)
+    hits = g.contains(keys)
+    false_pos = g.contains(probes)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = dict(cbf.LAUNCHES)
+    for name in ("add_vmem", "contains_vmem"):
+        if counted[name] == 0:
+            raise AssertionError(f"cbf {name} was not launched on the main "
+                                 f"path")
+        launches[name] = launches.get(name, 0) + counted[name]
+    if not bool(hits.all()):
+        raise AssertionError(f"cbf {regime}: {int((~hits).sum())} false "
+                             f"negatives")
+    want_words = update_in_chunks(functools.partial(cbf.add_plain, spec),
+                                  V.init(spec, "cuda"), keys)
+    errs["add_vmem"] = max(errs["add_vmem"], max_err(g.words, want_words))
+    plain_contains = functools.partial(cbf.contains_plain, spec)
+    errs["contains_vmem"] = max(errs["contains_vmem"], max_err(
+        hits, contains_in_chunks(plain_contains, want_words, keys)))
+    errs["contains_vmem"] = max(errs["contains_vmem"], max_err(
+        false_pos, plain_contains(want_words, probes)))
+    del want_words
+    fpr = float(false_pos.to(torch.float64).mean().item())
+    theory = g.fpr_theory(n)
+    print(f"main cbf {regime}: {spec} on {g.backend}, {n} keys, "
+          f"{g.nbytes / 2**20:.0f} MiB filter: add+contains+probe "
+          f"{wall * 1e3:.1f} ms host clock, no false negatives, words, hits "
+          f"and probe results equal to the plain version's in full, FPR "
+          f"{fpr:.6f}, {fpr / theory:.3f} x theory {theory:.6f}, launches "
+          f"{counted}")
+
+    sub = keys[:SUBSET]
+    sub_words = cbf.add_plain(spec, V.init(spec, "cuda"), sub)
+    queries = torch.cat([sub[: SUBSET // 2], probes[: SUBSET // 2]])
+    words = g.words.clone()
+    scratch = sub_words.clone()
+    torch.cuda.synchronize()
+    reps, rounds = ((REPS, ROUNDS) if regime == "L2"
+                    else (DRAM_CBF_REPS, DRAM_CBF_ROUNDS))
+    t = {}
+    for label, fn, r, rd in (
+            ("add", lambda: cbf.add_vmem(spec, words, keys), reps, rounds),
+            ("contains", lambda: cbf.contains_vmem(spec, g.words, keys),
+             reps, rounds),
+            ("Filter.add", lambda: f.add(keys), reps, rounds),
+            ("Filter.contains", lambda: g.contains(keys), reps, rounds),
+            ("add sub", lambda: cbf.add_vmem(spec, scratch, sub), REPS,
+             ROUNDS),
+            ("contains sub", lambda: cbf.contains_vmem(spec, sub_words,
+                                                       queries), REPS, ROUNDS),
+            ("add plain", lambda: cbf.add_plain(spec, sub_words, sub),
+             PLAIN_REPS, PLAIN_ROUNDS),
+            ("contains plain", lambda: cbf.contains_plain(spec, sub_words,
+                                                          queries),
+             PLAIN_REPS, PLAIN_ROUNDS)):
+        t[label] = time_ms(fn, f"cbf {regime} {label}", r, rd)
+    probes_full = cbf_probes_needed(spec, g.words, keys)
+    probes_sub = cbf_probes_needed(spec, sub_words, queries)
+    for name, op in (("add_vmem", "add"), ("contains_vmem", "contains")):
+        full_probes = n * spec.k if op == "add" else probes_full
+        sub_probes = SUBSET * spec.k if op == "add" else probes_sub
+        b_full, by_full = cbf_bound_ms(spec, n, op, full_probes)
+        b_sub, by_sub = cbf_bound_ms(spec, SUBSET, op, sub_probes)
+        lo, hi = SPREAD[f"cbf {regime} {op}"]
+        print(f"time cbf {regime} {op} [{card}]: kernel {t[op]:.4f} ms "
+              f"(rounds {lo:.4f}-{hi:.4f}; {n / t[op] / 1e3:.1f} Mops/s) at "
+              f"{n} keys ({full_probes} probes), bound {b_full:.4f} ms "
+              f"({by_full}), {b_full / t[op]:.1%} of it; Filter.{op} "
+              f"{t[f'Filter.{op}']:.4f} ms; at {SUBSET} keys kernel "
+              f"{t[f'{op} sub']:.4f} ms, plain {t[f'{op} plain']:.4f} ms, "
+              f"bound {b_sub:.4f} ms ({by_sub})")
+        cell = {"ms": t[f"{op} sub"], "plain_ms": t[f"{op} plain"],
+                "bound_ms": b_sub, "bound_by": by_sub, "m_bits": spec.m_bits,
+                "main_n_keys": n, "main_ms": t[op], "main_bound_ms": b_full,
+                "api_ms": t[f"Filter.{op}"]}
+        if regime == "L2":
+            records[name] = {
+                "name": f"cbf_{name}", "route": "cuda", "source": CBF_SOURCE,
+                "replaces": CBF_REPLACES[name], "launches": 0,
+                "max_abs_err": 0, "library_ms": None, "n_keys": SUBSET,
+                **cell}
+        else:
+            records[name].update({f"dram_{k}": v for k, v in cell.items()})
+    del f, g, keys, words, scratch, sub_words
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def phase_windowed_main(regime: str, window: int, errs: dict, records: dict,
+                        launches: dict, card: str):
+    add_name = "add_vmem" if regime == "L2" else "add_hbm"
+    con_name = ("ring_contains_vmem" if regime == "L2"
+                else "ring_contains_hbm")
+    G = 4
+    f = api.filter_for_n_items(window, bits_per_key=16, block_bits=256,
+                               generations=G, device="cuda")
+    spec = f.spec
+    if f.backend != "windowed" or f.words.shape != (G, spec.n_words):
+        raise AssertionError(f"windowed {regime}: {f}")
+    if (ops.fits_l2(spec, G) != (regime == "L2")
+            or ops.fits_l2(spec) != (regime == "L2")):
+        raise AssertionError(f"windowed {regime}: {spec} x {G} in the "
+                             f"wrong regime")
+    batch = window // G
+    batches = [gen_keys(batch, 31 + i) for i in range(G + 1)]
+    fresh = gen_keys(window, 40, probe=True)
+    torch.cuda.synchronize()
+
+    sbf.reset_launches()                   # the main path, counted
+    ring.reset_launches()
+    t0 = time.perf_counter()
+    states = []
+    w = f
+    for i, b in enumerate(batches):
+        w = w.add(b)
+        states.append((w.words, w.head))
+        if i < G:
+            w = w.advance()
+            states.append((w.words, w.head))
+    live = torch.cat(batches[1:])
+    hits = w.contains(live)
+    retired = w.contains(batches[0])
+    false_pos = w.contains(fresh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = {**sbf.LAUNCHES, **ring.LAUNCHES}
+    for name in (add_name, con_name):
+        if counted[name] == 0:
+            raise AssertionError(f"{name} was not launched on the windowed "
+                                 f"main path")
+    launches[con_name] = counted[con_name]
+    launches[f"windowed {add_name}"] = counted[add_name]
+    if not bool(hits.all()):
+        raise AssertionError(f"windowed {regime}: {int((~hits).sum())} "
+                             f"false negatives among live keys")
+    # every step's ring and head, and every result, against the plain path
+    plain = torch.zeros_like(f.words)
+    head, step = 0, 0
+    for i, b in enumerate(batches):
+        plain[head] = update_in_chunks(functools.partial(sbf.add_plain, spec),
+                                       plain[head], b)
+        words, h = states[step]
+        max_err(words, plain)                  # add: exact or raise
+        step += 1
+        if h != head:
+            raise AssertionError(f"windowed {regime}: head {h}, not {head}")
+        if i < G:
+            head = (head + 1) % G
+            plain[head] = 0
+            words, h = states[step]
+            max_err(words, plain)              # advance: exact or raise
+            step += 1
+            if h != head:
+                raise AssertionError(f"windowed {regime}: head {h} after "
+                                     f"advance, not {head}")
+    del states
+    plain_contains = functools.partial(ring.ring_contains_ref, spec)
+    for got, q in ((hits, live), (retired, batches[0]), (false_pos, fresh)):
+        errs[con_name] = max(errs[con_name], max_err(
+            got, contains_in_chunks(plain_contains, plain, q)))
+    fpr = float(false_pos.to(torch.float64).mean().item())
+    theory = w.fpr_theory(window)
+    print(f"main windowed {regime}: {G} x {spec} on {w.backend}, window "
+          f"{window} keys in batches of {batch}, {w.nbytes / 2**20:.0f} MiB "
+          f"ring: 5 adds, 4 advances and 3 contains in {wall * 1e3:.1f} ms "
+          f"host clock; no false negatives among {live.shape[0]} live keys, "
+          f"{float(retired.to(torch.float64).mean().item()):.4f} of the "
+          f"retired batch still hit; ring and head after every step and "
+          f"every result equal to the plain path's in full; FPR {fpr:.6f}, "
+          f"{fpr / theory:.3f} x theory {theory:.6f}; launches "
+          f"{add_name} {counted[add_name]}, {con_name} {counted[con_name]}")
+
+    # times: the main path at full size, and kernel vs plain on 2^22 keys
+    n_sub = min(SUBSET, window)
+    queries = torch.cat([live[: n_sub // 2], fresh[: n_sub - n_sub // 2]])
+    run_con = getattr(ring, con_name)
+    t = {
+        "contains": time_ms(lambda: run_con(spec, w.words, live),
+                            f"windowed {regime} contains"),
+        "contains sub": time_ms(lambda: run_con(spec, w.words, queries),
+                                f"windowed {regime} contains sub"),
+        "contains plain": time_ms(lambda: ring.ring_contains_ref(
+            spec, w.words, queries), f"windowed {regime} contains plain",
+            PLAIN_REPS, PLAIN_ROUNDS),
+        "Filter.add": time_ms(lambda: w.add(batches[0]),
+                              f"windowed {regime} Filter.add"),
+        "Filter.contains": time_ms(lambda: w.contains(live),
+                                   f"windowed {regime} Filter.contains"),
+        "Filter.advance": time_ms(w.advance,
+                                  f"windowed {regime} Filter.advance"),
+    }
+    b_full, by_full = ring_bound_ms(spec, G, live.shape[0])
+    b_sub, by_sub = ring_bound_ms(spec, G, n_sub)
+    lo, hi = SPREAD[f"windowed {regime} contains"]
+    print(f"time windowed {regime} {con_name} [{card}]: kernel "
+          f"{t['contains']:.4f} ms (rounds {lo:.4f}-{hi:.4f}; "
+          f"{live.shape[0] / t['contains'] / 1e3:.1f} Mops/s) at "
+          f"{live.shape[0]} keys, bound {b_full:.4f} ms ({by_full}), "
+          f"{b_full / t['contains']:.1%} of it; Filter.contains "
+          f"{t['Filter.contains']:.4f} ms; at {n_sub} keys kernel "
+          f"{t['contains sub']:.4f} ms, plain {t['contains plain']:.4f} ms, "
+          f"bound {b_sub:.4f} ms ({by_sub}); Filter.add of {batch} keys "
+          f"{t['Filter.add']:.4f} ms ({add_name} on the head generation, "
+          f"after a clone of the ring); Filter.advance "
+          f"{t['Filter.advance']:.4f} ms")
+    # where a ring contains' time goes: each depth, and against the union
+    # as a ring of one generation and as a blocked filter (one row a key)
+    dense = ring.ring_dense(w.words)
+    union = dense[None].contiguous()
+    if regime == "L2":
+        sweep = {}
+        blocked = functools.partial(sbf.contains_vmem, spec, dense, live,
+                                    sbf.default_layout(spec, "contains"))
+    else:
+        sweep = {f"depth={d}": time_ms(
+            lambda d=d: ring.ring_contains_hbm(spec, w.words, live, depth=d),
+            f"windowed DRAM depth={d}", 5, 3) for d in (1, 2, 4)}
+        blocked = functools.partial(sbf.contains_hbm, spec, dense, live)
+    sweep["one-generation ring of the union"] = time_ms(
+        lambda: run_con(spec, union, live), f"windowed {regime} G=1", 5, 3)
+    sweep["blocked contains of the union"] = time_ms(
+        blocked, f"windowed {regime} blocked", 5, 3)
+    print(f"time windowed {regime} {con_name} sweep [{card}] at "
+          f"{live.shape[0]} keys: " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in sweep.items()))
+    records[con_name] = {
+        "name": con_name, "route": "cuda", "source": RING_SOURCE,
+        "replaces": RING_REPLACES[con_name], "launches": 0,
+        "max_abs_err": 0, "ms": t["contains sub"],
+        "plain_ms": t["contains plain"], "bound_ms": b_sub,
+        "bound_by": by_sub, "library_ms": None, "n_keys": n_sub,
+        "generations": G, "m_bits": spec.m_bits,
+        "main_n_keys": live.shape[0], "main_ms": t["contains"],
+        "main_bound_ms": b_full, "api_ms": t["Filter.contains"],
+        "api_add_ms": t["Filter.add"], "api_advance_ms": t["Filter.advance"]}
+    del f, w, plain, batches, live, fresh, dense, union
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    card, name, count = phase_device()
+    t_start = time.perf_counter()
+    card, kind, count = phase_device()
     phase_build()
     errs = {k: 0 for k in sbf.LAUNCHES}
     cerrs = {k: 0 for k in cnt.LAUNCHES}
+    berrs = {k: 0 for k in cbf.LAUNCHES}
+    rerrs = {k: 0 for k in ring.LAUNCHES}
     phase_kernels(errs)
     phase_counting_kernels(cerrs)
+    phase_cbf_kernels(berrs)
+    phase_ring_kernels(rerrs)
     records, launches = {}, {}
     phase_main("L2", 1 << 23, errs, records, launches, card)
     phase_main("DRAM", 1 << 28, errs, records, launches, card)
     crecords, claunches = {}, {}
     phase_counting_main("L2", 1 << 22, cerrs, crecords, claunches, card)
     phase_counting_main("DRAM", 1 << 26, cerrs, crecords, claunches, card)
+    brecords, blaunches = {}, {}
+    phase_cbf_main("L2", 1 << 23, berrs, brecords, blaunches, card)
+    phase_cbf_main("DRAM", 1 << 28, berrs, brecords, blaunches, card)
+    for kernel, rec in brecords.items():
+        rec.update(launches=blaunches[kernel], max_abs_err=berrs[kernel])
+    wrecords, wlaunches = {}, {}
+    phase_windowed_main("L2", 1 << 22, rerrs, wrecords, wlaunches, card)
+    phase_windowed_main("DRAM", 1 << 26, rerrs, wrecords, wlaunches, card)
+    for kernel, rec in wrecords.items():
+        rec.update(launches=wlaunches[kernel], max_abs_err=rerrs[kernel])
+    print(f"windowed main path launches of the blocked add kernels: "
+          f"add_vmem {wlaunches['windowed add_vmem']} (L2 cell), "
+          f"add_hbm {wlaunches['windowed add_hbm']} (DRAM cell)")
+    print(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} "
+          f"s, the build included")
     print(json.dumps({"kernels": [records[k] for k in
                                   ("contains_vmem", "add_vmem",
                                    "contains_hbm", "add_hbm")]
-                      + [crecords[k] for k in cnt.LAUNCHES]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                      + [crecords[k] for k in cnt.LAUNCHES]
+                      + [brecords[k] for k in cbf.LAUNCHES]
+                      + [wrecords[k] for k in ring.LAUNCHES]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0
 

@@ -1,7 +1,7 @@
 """``repro_torch.api`` — the public Bloom-filter surface of the port.
 
-Counterpart of ``repro.api`` for a scalar blocked Bloom filter and the
-counting Bloom filter::
+Counterpart of ``repro.api`` for a scalar blocked or classical Bloom
+filter, the counting Bloom filter and the windowed filter::
 
     import repro_torch.api as api
 
@@ -13,7 +13,13 @@ counting Bloom filter::
     c = api.filter_for_n_items(1_000_000, variant="countingbf")
     c = c.add(keys).remove(keys[:10]).decay(1)    # engine 'counting'
 
-    api.backends()       # ('counting', 'cuda-dram', 'cuda-l2', 'torch')
+    w = api.filter_for_n_items(1_000_000, generations=4)   # 'windowed'
+    w = w.add(keys).advance().add(more)   # the oldest generation retires
+
+    b = api.filter_for_n_items(1_000_000, variant="cbf")   # classical
+
+    api.backends()
+    # ('counting', 'cuda-dram', 'cuda-l2', 'torch', 'windowed')
     f2 = api.make_filter("sbf", m_bits=1 << 24, k=8, device="cpu")
 
 ``device=None`` means the card; without one a call raises ``RuntimeError``.
@@ -62,18 +68,21 @@ def make_filter(variant: str = "sbf", m_bits: int = 1 << 20, k: int = 8,
                 layout=None, tile: Optional[int] = None,
                 probe: str = "auto", depth: Optional[int] = None,
                 coop: str = "auto", mix: str = "auto",
-                device=None) -> Filter:
+                generations: Optional[int] = None, device=None) -> Filter:
     """Build an empty :class:`Filter` for an explicit geometry on ``device``
     (``None`` = the card). ``backend="auto"`` runs the registry's ranked
-    query; the kernel knobs are validated and passed to ``kernels.ops``."""
+    query; ``generations=G`` selects the windowed engine (``advance``); the
+    kernel knobs are validated and passed to ``kernels.ops``."""
     spec = FilterSpec(variant=variant, m_bits=m_bits, k=k,
                       block_bits=block_bits, z=z)
     options = BackendOptions(layout=layout, tile=tile, probe=probe,
-                             depth=depth, coop=coop, mix=mix)
+                             depth=depth, coop=coop, mix=mix,
+                             generations=generations)
     ctx = options.ctx(device)
     eng = registry.select(spec, backend, ctx)
     return Filter(spec=spec, words=eng.init(spec, options, ctx.device),
-                  backend=eng.name, options=options)
+                  backend=eng.name, options=options,
+                  state=eng.init_state(spec, options))
 
 
 def filter_for_n_items(n: int, bits_per_key: float = 16.0,
@@ -84,7 +93,7 @@ def filter_for_n_items(n: int, bits_per_key: float = 16.0,
     a power of two), with k near the space-optimal k* = c ln 2 snapped to
     the variant's constraints. ``target_fpr`` sizes by the analytic FPR
     instead. ``**kw`` goes to :func:`make_filter` (``device``, ``backend``,
-    kernel knobs)."""
+    ``generations``, kernel knobs)."""
     if bank is not None:
         raise not_ported("filter banks", "queue 1 item 7")
     if variant in ("cuckoo", "quotient"):

@@ -1,19 +1,21 @@
-"""Single-host engines: the plain PyTorch engine, the two CUDA regimes and
-the counting engine.
+"""Single-host engines: the plain PyTorch engine, the two CUDA regimes, the
+counting engine and the windowed engine.
 
 Counterpart of ``repro.api.backends`` (``jnp``, ``pallas-vmem``,
-``pallas-hbm``, ``counting``). For the bit filters the device decides
-first: ``torch`` serves CPU devices only, and the CUDA engines serve CUDA
-devices only, so a CUDA tensor never reaches a plain version. The CUDA
-engines take the blocked variants with ``s <= 32`` words per block and
-decline ``cbf``, so ``"auto"`` never picks an engine that would raise.
-Among the CUDA engines the L2-resident one wins while the filter fits
-``ops.L2_FILTER_BYTES``.
+``pallas-hbm``, ``counting``, ``windowed``). For the bit filters the
+device decides first: ``torch`` serves CPU devices only, and the CUDA
+engines serve CUDA devices only, so a CUDA tensor never reaches a plain
+version. The CUDA engines take the blocked variants with ``s <= 32`` words
+per block and the classical filter ``cbf`` up to 2^32 bits, so ``"auto"``
+never picks an engine that would raise. Among the CUDA engines the
+L2-resident one wins while the filter fits ``ops.L2_FILTER_BYTES``.
 
-``counting`` claims ``countingbf`` specs alone, on both devices, and the
-bit engines decline them: on the CPU it runs the plain versions, on a CUDA
-device the counting kernels through ``ops.counting_*`` (the regime by L2
-fit), so there too a CUDA tensor never reaches a plain version.
+The ``counting`` and ``windowed`` engines claim their workloads alone, on
+both devices: ``countingbf`` specs belong to ``counting`` and a context
+with ``generations`` set belongs to ``windowed``, so the bit engines
+decline both (``_plain_bits``). Each runs its plain versions on the CPU and
+its CUDA kernels on the card (the regime by L2 fit), so there too a CUDA
+tensor never reaches a plain version.
 """
 from __future__ import annotations
 
@@ -22,6 +24,15 @@ from repro_torch.core import variants as V
 from repro_torch.core.variants import FilterSpec
 from repro_torch.api.registry import Backend, SelectionContext, register
 from repro_torch.kernels import ops
+from repro_torch.kernels.ring import ring_dense
+from repro_torch.window import ring as R
+
+
+def _plain_bits(spec: FilterSpec, ctx: SelectionContext) -> bool:
+    """Workloads the bit engines compete for: not a counting or fingerprint
+    spec, not a windowed (generations) context."""
+    return (not spec.is_counting and not spec.is_fingerprint
+            and ctx.generations is None)
 
 
 class TorchBackend(Backend):
@@ -32,8 +43,7 @@ class TorchBackend(Backend):
     name = "torch"
 
     def supports(self, spec: FilterSpec, ctx: SelectionContext) -> bool:
-        # BLOCKED excludes countingbf, which belongs to the counting engine
-        return ctx.device.type == "cpu" and spec.variant in V.BLOCKED
+        return ctx.device.type == "cpu" and _plain_bits(spec, ctx)
 
     def cost(self, spec: FilterSpec, ctx: SelectionContext) -> float:
         return 1.0
@@ -52,7 +62,8 @@ class _CudaBackend(Backend):
     regime = "auto"
 
     def _runs(self, spec: FilterSpec, ctx: SelectionContext) -> bool:
-        return ctx.device.type == "cuda" and ops.kernel_supported(spec)
+        return (ctx.device.type == "cuda" and _plain_bits(spec, ctx)
+                and ops.kernel_supported(spec))
 
     def init(self, spec, options, device):
         return V.init(spec, device)
@@ -116,6 +127,8 @@ class CountingBackend(Backend):
     supports_count = True              # counting_count multiplicity bound
 
     def supports(self, spec: FilterSpec, ctx: SelectionContext) -> bool:
+        if ctx.generations is not None:
+            return False
         if ctx.device.type == "cuda":
             return ops.counting_kernel_supported(spec)
         return ctx.device.type == "cpu" and spec.is_counting
@@ -173,8 +186,61 @@ class CountingBackend(Backend):
         return V.counting_from_bloom(spec, dense)
 
 
+class WindowedBackend(Backend):
+    """Generation-ring sliding window (``options.generations`` = G):
+    inserts land in the head generation, queries OR the ring in one fused
+    pass, ``advance()`` retires the oldest generation in O(1). Forgets by
+    age class, not per key; G x the memory of one generation. The head is
+    per-filter host state (``Filter.state``). On the card the add runs the
+    blocked add kernel on the head row and the query the ring kernel, the
+    regime by L2 fit; on the CPU their plain versions."""
+
+    name = "windowed"
+    supports_advance = True
+    words_ndim = 2                     # (G, n_words)
+
+    def supports(self, spec: FilterSpec, ctx: SelectionContext) -> bool:
+        if ctx.generations is None or spec.variant not in V.BLOCKED:
+            return False               # declines countingbf, cbf, fingerprints
+        if ctx.device.type == "cuda":
+            return ops.kernel_supported(spec)
+        return ctx.device.type == "cpu"
+
+    def cost(self, spec: FilterSpec, ctx: SelectionContext) -> float:
+        return 1.0   # sole claimant of generations contexts
+
+    def bits_per_key(self, target_fpr: float = Backend.REF_FPR):
+        return None      # G generations: the cost depends on the ring length
+
+    def init(self, spec, options, device):
+        return R.ring_init(spec, options.generations, device)
+
+    def init_state(self, spec, options):
+        return 0                                   # the insert head
+
+    def add(self, spec, words, keys, options, state=None):
+        return R.ring_add(spec, words, keys, 0 if state is None else state)
+
+    def contains(self, spec, words, keys, options):
+        return R.ring_contains_dispatch(spec, words, keys)
+
+    def advance(self, spec, words, options, state=None):
+        return R.ring_advance(words, 0 if state is None else state)
+
+    def to_dense(self, spec, words, options):
+        return ring_dense(words)
+
+    def from_dense(self, spec, dense, options):
+        """The whole window in generation 0 (age classes are not
+        recoverable from the canonical form); the head restarts at 0."""
+        words = R.ring_init(spec, options.generations, dense.device)
+        words[0] = dense
+        return words
+
+
 def register_all():
     register(TorchBackend())
     register(CudaL2Backend())
     register(CudaDramBackend())
     register(CountingBackend())
+    register(WindowedBackend())

@@ -2,16 +2,17 @@
 
 Counterpart of ``repro.api.filter`` for a scalar filter. A ``Filter`` holds
 its spec, its words (the engine's int32 storage on the filter's device:
-``(n_words,)`` bits, or ``(storage_words,)`` counters for the counting
-engine), its engine name and its engine options. Every operation that looks
-like a mutation returns a new ``Filter`` and leaves the old one as it was:
-the engines clone the words before an update, as JAX's immutable arrays
-behave.
+``(n_words,)`` bits, ``(storage_words,)`` counters for the counting engine,
+or a ``(G, n_words)`` ring for the windowed engine), its engine name, its
+engine options and its engine state (the windowed engine's ring head, a
+Python ``int``; ``None`` elsewhere). Every operation that looks like a
+mutation returns a new ``Filter`` and leaves the old one as it was: the
+engines clone the words before an update, as JAX's immutable arrays behave.
 
-``remove`` and ``decay`` run on engines that support them (``counting``)
-and raise the JAX package's ``NotImplementedError`` elsewhere. Banks,
-routed ops and ``advance`` are later slices of the port; they raise
-``NotImplementedError`` naming the ROADMAP item.
+``remove`` and ``decay`` run on engines that support them (``counting``),
+``advance`` on the ``windowed`` engine, and each raises the JAX package's
+``NotImplementedError`` elsewhere. Banks and routed ops are a later slice
+of the port; they raise ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from repro_torch.core import hashing as H
 from repro_torch.core import variants as V
 from repro_torch.core.variants import FilterSpec
 from repro_torch.api import registry
+from repro_torch.window.ring import ring_merge_dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,9 +43,11 @@ class BackendOptions:
     depth: Optional[int] = None        # DRAM-regime keys per thread
     coop: str = "auto"                 # "none" | "subtile" | "auto"
     mix: str = "auto"                  # "full" | "cheap" | "auto"
+    generations: Optional[int] = None  # windowed engine: ring size G
 
     def ctx(self, device=None) -> registry.SelectionContext:
-        return registry.SelectionContext.current(device=device)
+        return registry.SelectionContext.current(
+            device=device, generations=self.generations)
 
 
 def _int32_bits(x) -> torch.Tensor:
@@ -97,10 +101,16 @@ class Filter:
     words: torch.Tensor
     backend: str = "torch"
     options: BackendOptions = BackendOptions()
+    state: Optional[int] = None        # engine state (the ring head)
 
     @property
     def engine(self) -> registry.Backend:
         return registry.get(self.backend)
+
+    @property
+    def head(self) -> Optional[int]:
+        """Windowed engine: the generation that takes inserts."""
+        return self.state
 
     @property
     def device(self) -> torch.device:
@@ -124,8 +134,12 @@ class Filter:
         keys = as_keys(keys, self.device)
         if keys.shape[0] == 0:
             return self
-        return self.replace(words=self.engine.add(self.spec, self.words, keys,
-                                                  self.options))
+        if self.state is None:
+            new = self.engine.add(self.spec, self.words, keys, self.options)
+        else:
+            new = self.engine.add(self.spec, self.words, keys, self.options,
+                                  state=self.state)
+        return self.replace(words=new)
 
     def contains(self, keys, tenants=None) -> torch.Tensor:
         """Membership: (n,) bool on the filter's device. No false
@@ -169,17 +183,31 @@ class Filter:
         return out
 
     def advance(self) -> "Filter":
-        raise not_ported("advance (windowed filters)", "queue 1 item 6")
+        """Slide the window one generation (windowed engine only): the
+        oldest generation is cleared in O(1) in keys and becomes the new
+        insert target."""
+        if not self.engine.supports_advance:
+            raise NotImplementedError(
+                f"backend {self.backend!r} cannot advance; build the filter "
+                f"with generations=G (engine 'windowed')")
+        words, state = self.engine.advance(self.spec, self.words,
+                                           self.options, state=self.state)
+        return self.replace(words=words, state=state)
 
     def merge(self, other: "Filter") -> "Filter":
         """Union. Same spec required; engines and devices may differ (the
-        result lives on self's engine and device). Same engine and shape:
-        the engine's own merge (OR for bits, a saturating counter add for
-        the counting engine); otherwise the OR of the dense words, re-homed
-        into self's engine."""
+        result lives on self's engine and device). A windowed self lands
+        the other filter's dense union in its own head generation (rings
+        cannot be merged slot by slot: slot g is a different age class in
+        each). Otherwise, same engine and shape: the engine's own merge (OR
+        for bits, a saturating counter add for the counting engine); else
+        the OR of the dense words, re-homed into self's engine."""
         if other.spec != self.spec:
             raise ValueError(f"cannot merge {other.spec} into {self.spec}")
-        if (other.backend == self.backend
+        if self.engine.supports_advance:
+            new = ring_merge_dense(self.words, self.state,
+                                   other.dense_words().to(self.device))
+        elif (other.backend == self.backend
                 and other.words.shape == self.words.shape):
             new = self.engine.merge(self.spec, self.words,
                                     other.words.to(self.device), self.options)
@@ -224,10 +252,17 @@ class Filter:
     # -- checkpointing -------------------------------------------------------
     def to_state(self) -> dict:
         """Engine-independent state: dense words (occupancy bits for the
-        counting engine) + spec fields + engine."""
-        return {"words": self.dense_words(),
-                "spec": dataclasses.asdict(self.spec),
-                "backend": self.backend}
+        counting engine, the ring's union for the windowed engine) + spec
+        fields + engine, and a windowed filter's ring size under
+        ``"options"``. The head is not recorded: the dense form collapses
+        the age classes, so :meth:`from_state` restores the union into
+        generation 0 with head 0."""
+        state = {"words": self.dense_words(),
+                 "spec": dataclasses.asdict(self.spec),
+                 "backend": self.backend}
+        if self.options.generations is not None:
+            state["options"] = {"generations": self.options.generations}
+        return state
 
     @classmethod
     def from_state(cls, state: dict, backend: Optional[str] = None,
@@ -235,16 +270,21 @@ class Filter:
                    device=None) -> "Filter":
         """Rebuild a filter from :meth:`to_state` output (or the JAX
         package's, whose engine names are registered as aliases).
-        ``device=None`` is the card."""
+        ``device=None`` is the card. A windowed state comes back windowed,
+        with its ring size, unless ``backend=`` names another engine (which
+        then takes the dense union)."""
         if state.get("bank_shape"):
             raise not_ported("filter banks", "queue 1 item 7")
         if "engine_state" in state:
             raise not_ported("fingerprint engine state", "queue 1 item 9")
-        if (state.get("options") or {}).get("generations") is not None:
-            raise not_ported("windowed filters", "queue 1 item 6")
         spec = FilterSpec(**{k: (v if isinstance(v, str) else int(v))
                              for k, v in state["spec"].items()})
         name = backend or state.get("backend", "auto")
+        st_opts = state.get("options") or {}
+        if (name == "windowed" and options.generations is None
+                and "generations" in st_opts):
+            options = dataclasses.replace(
+                options, generations=int(st_opts["generations"]))
         ctx = options.ctx(device)
         eng = registry.select(spec, name, ctx)
         words = as_words(state["words"], ctx.device)
@@ -252,7 +292,8 @@ class Filter:
             raise ValueError(f"state words {tuple(words.shape)} do not match "
                              f"{spec} ({spec.n_words} dense words)")
         return cls(spec=spec, words=eng.from_dense(spec, words, options),
-                   backend=eng.name, options=options)
+                   backend=eng.name, options=options,
+                   state=eng.init_state(spec, options))
 
     def __repr__(self):
         return (f"Filter({self.spec}, backend={self.backend!r}, "

@@ -17,6 +17,8 @@ cuda-dram   the CUDA kernels, DRAM-resident regime (``pallas-hbm``'s
 counting    the counting filter (countingbf, 4-bit counters: ``remove``,
             ``decay``); its plain versions on the CPU, its CUDA kernels in
             either regime on the card
+windowed    the generation-ring sliding window (``generations`` = G:
+            ``advance``); sole claimant of contexts with ``generations``
 =========== ==============================================================
 
 The JAX engine names are registered as aliases (see ``repro_torch.api``),
@@ -38,20 +40,26 @@ class SelectionContext:
     """Everything ``supports``/``cost`` may rank on, besides the spec."""
 
     device: torch.device
+    generations: Optional[int] = None  # ring size -> the windowed engine
 
     @classmethod
-    def current(cls, device=None) -> "SelectionContext":
+    def current(cls, device=None, generations: Optional[int] = None
+                ) -> "SelectionContext":
         from repro_torch import resolve_device
-        return cls(device=resolve_device(device))
+        return cls(device=resolve_device(device), generations=generations)
 
 
 class Backend:
     """Engine interface. Engines are stateless; the words travel in the
     :class:`repro_torch.api.Filter`. The bit engines store the dense
     ``(n_words,)`` int32 words, so ``to_dense``/``from_dense`` are the
-    identity; the counting engine stores ``(storage_words,)`` counters."""
+    identity; the counting engine stores ``(storage_words,)`` counters and
+    the windowed engine a ``(G, n_words)`` ring."""
 
     name: str = "?"
+
+    # Array dims of one filter's words.
+    words_ndim: int = 1
 
     supports_remove: bool = False
     supports_decay: bool = False
@@ -93,6 +101,11 @@ class Backend:
     def init(self, spec: FilterSpec, options, device) -> torch.Tensor:
         raise NotImplementedError
 
+    def init_state(self, spec: FilterSpec, options):
+        """Per-filter engine state beside the words (``Filter.state``): the
+        windowed engine's ring head; ``None`` for every other engine."""
+        return None
+
     def to_dense(self, spec: FilterSpec, words: torch.Tensor, options
                  ) -> torch.Tensor:
         return words
@@ -130,6 +143,13 @@ class Backend:
         raise NotImplementedError(
             f"engine {self.name!r} does not support decay(); use the "
             f"'counting' engine (variant='countingbf')")
+
+    def advance(self, spec: FilterSpec, words: torch.Tensor, options,
+                state=None):
+        """Slide the window (windowed engine): returns (words, state)."""
+        raise NotImplementedError(
+            f"engine {self.name!r} does not support advance(); use the "
+            f"'windowed' engine (generations=...)")
 
 
 _REGISTRY: Dict[str, Backend] = {}

@@ -1,19 +1,19 @@
-"""Blocked Bloom filter variants (paper §2.1) — the port's plain oracle.
+"""Bloom filter variants (paper §2.1) — the port's plain oracle.
 
 Counterpart of the bit-filter and counting halves of
 ``repro.core.variants``: the ``FilterSpec`` geometry, ``block_patterns``
-for sbf/bbf/rbbf/csbf/countingbf, the ``contains``/``add`` references, the
-counting filter's nibble helpers and ``counting_*`` references, and the FPR
-theory. These functions run on any device; the tests hold them bit-exact
-against the JAX package, and the CUDA kernels in ``repro_torch.kernels``
-are held against them.
+for sbf/bbf/rbbf/csbf/countingbf, ``cbf_positions`` for the classical
+filter, the ``contains``/``add`` references, the counting filter's nibble
+helpers and ``counting_*`` references, and the FPR theory. These functions
+run on any device; the tests hold them bit-exact against the JAX package,
+and the CUDA kernels in ``repro_torch.kernels`` are held against them.
 
 Storage: a filter is a flat ``(storage_words,)`` ``int32`` tensor holding
 u32 words (``4 * n_words`` packed 4-bit counters for countingbf). Hash,
 mask and nibble math runs in ``int64`` holding u32 values (see
 ``core.hashing``), so every shift is logical even where bit 31 is set.
-The classical ``cbf`` variant and the bank and fingerprint helpers are not
-ported yet (ROADMAP queue 1 items 5, 7, 9, 10).
+The bank and fingerprint helpers are not ported yet (ROADMAP queue 1 items
+7, 9, 10).
 """
 from __future__ import annotations
 
@@ -162,7 +162,8 @@ class FilterSpec:
 
 def _require_blocked(spec: FilterSpec) -> None:
     if spec.variant == "cbf":
-        raise not_ported("the classical filter (cbf)", "queue 1 item 5")
+        raise ValueError(f"{spec} has no blocks: its bits come from "
+                         f"cbf_positions")
     if spec.is_counting:
         raise ValueError(f"{spec} holds counters: use the counting_* "
                          f"functions")
@@ -242,6 +243,52 @@ def block_patterns(spec: FilterSpec, h_pattern: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The classical filter (cbf): k single-bit probes anywhere in m bits
+# ---------------------------------------------------------------------------
+
+def cbf_positions(spec: FilterSpec, h_pattern: torch.Tensor,
+                  h_block: torch.Tensor) -> torch.Tensor:
+    """(n, k) int64 global bit positions for the classical filter.
+
+    Kirsch-Mitzenmacher double hashing ``h1 + i*h2`` (mod 2^32), re-mixed
+    per index by ``mulshift(., SALTS[i], min(log2 m, 32))`` and masked to
+    ``m - 1``. At m = 2^32 the shift is 0 and the mask keeps all 32 bits."""
+    _check(spec.m_bits <= 1 << 32,
+           f"cbf positions are u32: m_bits={spec.m_bits} exceeds 2^32")
+    bits = min(_log2i(spec.m_bits), 32)
+    h1, h2 = H.u32(h_pattern), H.u32(h_block)
+    cols = [H.mulshift((h1 + H._mul32(h2, i)) & H.M32, H.SALTS[i], bits)
+            & (spec.m_bits - 1) for i in range(spec.k)]
+    return torch.stack(cols, dim=-1)
+
+
+def _cbf_words_and_bits(spec: FilterSpec, keys: torch.Tensor):
+    """(word index (n, k), bit value (n, k)) of each key's k positions."""
+    h1, h2 = H.hash_keys(keys)
+    pos = cbf_positions(spec, h1, h2)
+    return pos >> _LOG2_WORD, torch.ones_like(pos) << (pos & (WORD_BITS - 1))
+
+
+def or_positions(filt: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """New words: ``filt`` with the global bit positions ``pos`` set.
+
+    The unique positions' bits ``1 << (pos & 31)`` are summed per word with
+    ``index_add_`` (distinct bits of one word sum to their OR) and ORed
+    into the touched words: memory in proportion to ``pos``, not to the
+    filter."""
+    out = filt.clone()
+    if pos.numel() == 0:
+        return out
+    pos = torch.unique(pos)                                  # sorted
+    words, inv = torch.unique_consecutive(pos >> _LOG2_WORD,
+                                          return_inverse=True)
+    acc = torch.zeros_like(words).index_add_(
+        0, inv, torch.ones_like(pos) << (pos & (WORD_BITS - 1)))
+    out[words] = H.to_i32(H.u32(filt[words]) | acc)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # contains / add — vectorized references
 # ---------------------------------------------------------------------------
 
@@ -256,6 +303,9 @@ def contains(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor
     """Vectorized bulk membership test: one row gather per key. (n,) bool."""
     if spec.is_counting:
         return counting_contains(spec, filt, keys)
+    if spec.variant == "cbf":
+        widx, bits = _cbf_words_and_bits(spec, keys)            # (n, k)
+        return ((H.u32(filt[widx]) & bits) != 0).all(dim=-1)
     blk, masks = _blocks_and_masks(spec, keys)
     rows = H.u32(filt.reshape(spec.n_blocks, spec.s)[blk])      # (n, s)
     return ((rows & masks) == masks).all(dim=-1)
@@ -264,7 +314,16 @@ def contains(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor
 def add_loop(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor
              ) -> torch.Tensor:
     """Sequential insert — one read-modify-write per key, in key order. The
-    ownership-ordered reference; slow, meant for small inputs."""
+    ownership-ordered reference (k single-word updates a key for cbf);
+    slow, meant for small inputs."""
+    if spec.variant == "cbf":
+        widx, bits = _cbf_words_and_bits(spec, keys)
+        out = H.u32(filt).tolist()
+        for w_row, b_row in zip(widx.tolist(), bits.tolist()):
+            for w, b in zip(w_row, b_row):
+                out[w] |= b
+        return H.to_i32(torch.tensor(out, dtype=torch.int64,
+                                     device=filt.device))
     blk, masks = _blocks_and_masks(spec, keys)
     s = spec.s
     out = H.u32(filt).clone()
@@ -316,9 +375,29 @@ def or_rows(spec: FilterSpec, filt: torch.Tensor, blk: torch.Tensor,
 
 def add_rows(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor
              ) -> torch.Tensor:
-    """Sorted segmented-OR bulk insert (the JAX ``jnp`` engine's add)."""
+    """Sorted segmented-OR bulk insert (the JAX ``jnp`` engine's add); the
+    classical filter, which has no rows, goes to :func:`add_scatter`."""
+    if spec.variant == "cbf":
+        return add_scatter(spec, filt, keys)
     blk, masks = _blocks_and_masks(spec, keys)
     return or_rows(spec, filt, blk, masks)
+
+
+def add_scatter(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor
+                ) -> torch.Tensor:
+    """Bulk insert through the batch's unique global bit positions: k a key
+    for cbf, every set mask bit (``blk * B + 32 j + b``) for the blocked
+    variants (:func:`or_positions`). The JAX package scatters 32 bit planes
+    of the whole filter instead; the words are the same."""
+    if spec.variant == "cbf":
+        h1, h2 = H.hash_keys(keys)
+        return or_positions(filt, cbf_positions(spec, h1, h2).reshape(-1))
+    blk, masks = _blocks_and_masks(spec, keys)
+    parts = []
+    for b in range(WORD_BITS):
+        row, col = (((masks >> b) & 1) != 0).nonzero(as_tuple=True)
+        parts.append(blk[row] * spec.block_bits + col * WORD_BITS + b)
+    return or_positions(filt, torch.cat(parts))
 
 
 def add(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
@@ -330,7 +409,7 @@ def add(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
     if method == "rows":
         return add_rows(spec, filt, keys)
     if method == "scatter":
-        raise not_ported("add(method='scatter')", "queue 1 item 5")
+        return add_scatter(spec, filt, keys)
     raise ValueError(method)
 
 

@@ -8,14 +8,19 @@ same bits.
 * ``from_jax_state`` / ``to_jax_state`` carry the dict of
   ``repro.api.Filter.to_state()`` / ``from_state``: the dense words, which
   for a counting filter are its occupancy bits only (counters come back at
-  1), as in the JAX package.
+  1) and for a windowed filter the union of its ring (restored into
+  generation 0 with head 0, its ring size under ``"options"``), as in the
+  JAX package.
 * ``from_jax_words`` / ``to_jax_words`` carry an engine's raw words
   (``repro.api.Filter.words``) and the spec fields, losslessly: a counting
-  filter keeps its counts.
+  filter keeps its counts, and a windowed filter its ``(G, n_words)`` ring
+  and its head (``int(repro.api.Filter.head)``), so a ring built by either
+  package goes on sliding in the other.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -25,7 +30,8 @@ from repro_torch.api.filter import as_keys, as_words
 
 # The JAX engine each port engine stands in for.
 JAX_ENGINE = {"torch": "jnp", "cuda-l2": "pallas-vmem",
-              "cuda-dram": "pallas-hbm", "counting": "counting"}
+              "cuda-dram": "pallas-hbm", "counting": "counting",
+              "windowed": "windowed"}
 
 
 def from_jax_state(state: dict, device=None) -> Filter:
@@ -42,38 +48,55 @@ def from_jax_state(state: dict, device=None) -> Filter:
 
 def to_jax_state(filt: Filter) -> dict:
     """A dict that ``repro.api.Filter.from_state`` reads: uint32 words,
-    the spec fields, and the JAX counterpart of the port's engine."""
-    words = filt.dense_words().cpu().numpy().view(np.uint32).copy()
-    return {"words": words, "spec": dataclasses.asdict(filt.spec),
-            "backend": JAX_ENGINE[filt.backend]}
+    the spec fields, the JAX counterpart of the port's engine, and a
+    windowed filter's ring size."""
+    state = filt.to_state()
+    state["words"] = state["words"].cpu().numpy().view(np.uint32).copy()
+    state["backend"] = JAX_ENGINE[filt.backend]
+    return state
 
 
 def from_jax_words(spec_fields: dict, words_u32, backend: str = "auto",
-                   device=None) -> Filter:
+                   device=None, head: Optional[int] = None) -> Filter:
     """The port's filter holding the raw engine words ``words_u32`` (the
     ``repro.api.Filter.words`` of a scalar filter, as numpy uint32) for the
     spec with ``spec_fields`` (``dataclasses.asdict`` of its spec), on
-    ``device`` (``None`` = the card)."""
+    ``device`` (``None`` = the card). A 2-D ``(G, n_words)`` array is a
+    windowed filter's ring, and ``head`` its insert generation (0 when
+    ``None``)."""
     words = np.asarray(words_u32)
     if words.dtype != np.uint32:
         raise ValueError(f"JAX words must be uint32, got {words.dtype}")
     spec = FilterSpec(**{k: (v if isinstance(v, str) else int(v))
                          for k, v in spec_fields.items()})
-    options = BackendOptions()
+    ring = words.ndim == 2
+    options = BackendOptions(generations=words.shape[0] if ring else None)
     ctx = options.ctx(device)
     eng = registry.select(spec, backend, ctx)
-    if words.shape != (spec.storage_words,):
+    want = ((words.shape[0], spec.storage_words) if ring
+            else (spec.storage_words,))
+    if words.shape != want:
         raise ValueError(f"words {words.shape} do not match {spec} "
                          f"({spec.storage_words} storage words)")
-    words = as_words(words, ctx.device)
-    return Filter(spec=spec, words=words, backend=eng.name, options=options)
+    state = eng.init_state(spec, options)
+    if head is not None:
+        if not (ring and 0 <= head < words.shape[0]):
+            raise ValueError(f"head={head} needs a ring of more than {head} "
+                             f"generations, got words {words.shape}")
+        state = int(head)
+    return Filter(spec=spec, words=as_words(words, ctx.device),
+                  backend=eng.name, options=options, state=state)
 
 
 def to_jax_words(filt: Filter):
     """(spec fields, raw engine words as numpy uint32) of a port filter,
-    the inverse of :func:`from_jax_words`."""
-    return (dataclasses.asdict(filt.spec),
-            filt.words.cpu().numpy().view(np.uint32).copy())
+    the inverse of :func:`from_jax_words`; for a windowed filter
+    (spec fields, ``(G, n_words)`` ring, head)."""
+    fields = dataclasses.asdict(filt.spec)
+    words = filt.words.cpu().numpy().view(np.uint32).copy()
+    if filt.head is None:
+        return fields, words
+    return fields, words, filt.head
 
 
 def keys_to_torch(np_keys: np.ndarray, device=None) -> torch.Tensor:

@@ -24,7 +24,7 @@ import types
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bloom", "counting")
+SOURCES = ("bloom", "counting", "cbf", "ring")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -44,6 +44,11 @@ ENTRY_POINTS = {
     "counting_contains": ("counting", [_vp, _vp, _vp, _vp, _ll, _u32, _i, _i,
                                        _i, _i, _vp]),
     "counting_decay": ("counting", [_vp, _ll, _vp]),
+    # sizes as log2 m: m_bits = 2^32 does not fit a c_uint32
+    "cbf_contains": ("cbf", [_vp, _vp, _vp, _vp, _ll, _i, _i, _vp]),
+    "cbf_add": ("cbf", [_vp, _vp, _vp, _ll, _i, _i, _vp]),
+    "ring_contains": ("ring", [_vp, _vp, _vp, _vp, _ll, _ll, _i, _u32, _i,
+                               _i, _i, _i, _i, _i, _vp]),
 }
 
 _lock = threading.Lock()

@@ -1,16 +1,18 @@
-"""Dispatch of bulk ``add``/``contains`` to the blocked Bloom kernels, and
-of the counting filter's ``add``/``remove``/``contains``/``decay`` to the
-counting kernels.
+"""Dispatch of bulk ``add``/``contains`` to the blocked and classical
+Bloom kernels, of the counting filter's ``add``/``remove``/``contains``/
+``decay`` to the counting kernels, and of the windowed filter's query to
+the generation-ring kernel.
 
-Counterpart of ``repro.kernels.ops.bloom_contains`` / ``bloom_add`` and
+Counterpart of ``repro.kernels.ops.bloom_contains`` / ``bloom_add``,
 ``counting_add`` / ``counting_remove`` / ``counting_contains`` /
-``counting_decay``:
+``counting_decay`` and ``ring_contains``:
 
 * regime: a filter whose storage is at most ``L2_FILTER_BYTES`` runs the
   L2-resident kernels (``*_vmem``), a larger one the DRAM-resident kernels
-  (``*_hbm``); decay is one kernel for both. The regime names
-  stay ``"vmem"`` and ``"hbm"`` as in the JAX package. The regime never
-  changes a result;
+  (``*_hbm``); for a ring the bytes of all G generations count. Decay is
+  one kernel for both, and so is each classical-filter op
+  (``kernels/cbf.py`` says why). The regime names stay ``"vmem"`` and
+  ``"hbm"`` as in the JAX package. The regime never changes a result;
 * ``probe``/``coop``/``mix``/``depth``/``layout``/``tile`` are validated as
   the JAX package does. ``"auto"`` resolves to the fixed defaults below
   (the tuner, ``core/tuning.py``, is ROADMAP queue 1 item 11). Which of
@@ -34,7 +36,9 @@ import torch
 
 from repro_torch import not_ported
 from repro_torch.core.variants import BLOCKED, FilterSpec
+from repro_torch.kernels import cbf as cbf_k
 from repro_torch.kernels import countingbf as cnt_k
+from repro_torch.kernels import ring as ring_k
 from repro_torch.kernels import sbf as sbf_k
 from repro_torch.kernels.sbf import (COOPS, DEFAULT_DMA_DEPTH, DEFAULT_TILE,
                                      MIXES, PROBES, Layout, default_layout)
@@ -53,17 +57,22 @@ REGIMES = ("vmem", "hbm")
 
 
 def kernel_supported(spec: FilterSpec) -> bool:
-    """Specs the CUDA kernels serve: blocked variants, s <= 32 words."""
+    """Specs the CUDA bit-filter kernels serve: blocked variants with s <= 32
+    words, and classical filters of at most 2^32 bits."""
+    if spec.variant == "cbf":
+        return spec.m_bits <= 1 << 32
     return spec.variant in BLOCKED and spec.s <= 32
 
 
-def fits_l2(spec: FilterSpec) -> bool:
-    return spec.storage_words * 4 <= L2_FILTER_BYTES
+def fits_l2(spec: FilterSpec, generations: int = 1) -> bool:
+    """The filter's storage (times ``generations`` for a ring) fits
+    ``L2_FILTER_BYTES``."""
+    return generations * spec.storage_words * 4 <= L2_FILTER_BYTES
 
 
-def _regime(spec: FilterSpec, regime: str) -> str:
+def _regime(spec: FilterSpec, regime: str, generations: int = 1) -> str:
     if regime == "auto":
-        return "vmem" if fits_l2(spec) else "hbm"
+        return "vmem" if fits_l2(spec, generations) else "hbm"
     if regime not in REGIMES:
         raise ValueError(f"regime={regime!r} not in {REGIMES} or 'auto'")
     return regime
@@ -113,9 +122,9 @@ def _check_spec(spec: FilterSpec) -> None:
     if spec.is_counting:
         raise ValueError("countingbf specs go through counting_add/"
                          "counting_remove/counting_contains")
-    if spec.variant not in BLOCKED:
+    if spec.is_fingerprint:
         raise not_ported(f"bloom_add/bloom_contains for {spec.variant}",
-                         "queue 1 items 5-10")
+                         "queue 1 items 9-10")
 
 
 def bloom_contains(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
@@ -132,7 +141,10 @@ def bloom_contains(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
     padded = keys if keys.is_cuda else _pad_keys(keys, tile)
     c = _resolve(coop, COOPS, AUTO_COOP, "coop")
     m = _resolve(mix, MIXES, AUTO_MIX, "mix")
-    if _regime(spec, regime) == "vmem":
+    if spec.variant == "cbf":
+        _regime(spec, regime)         # validated: one kernel serves both
+        out = cbf_k.contains_vmem(spec, filt, padded)
+    elif _regime(spec, regime) == "vmem":
         out = sbf_k.contains_vmem(
             spec, filt, padded, layout or default_layout(spec, "contains"),
             tile=tile, probe=_resolve(probe, PROBES, AUTO_PROBE, "probe"),
@@ -160,6 +172,9 @@ def bloom_add(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
     padded = keys if keys.is_cuda else _pad_keys(keys, tile)
     c = _resolve(coop, COOPS, AUTO_COOP, "coop")
     m = _resolve(mix, MIXES, AUTO_MIX, "mix")
+    if spec.variant == "cbf":
+        _regime(spec, regime)         # validated: one kernel serves both
+        return cbf_k.add_vmem(spec, out, padded)
     if _regime(spec, regime) == "vmem":
         return sbf_k.add_vmem(
             spec, out, padded, layout or default_layout(spec, "add"),
@@ -257,3 +272,26 @@ def counting_decay(spec: FilterSpec, filt: torch.Tensor,
     """One aging step (every nonzero counter -1), one kernel launch."""
     _check_counting(spec)
     return cnt_k.decay(spec, filt if inplace else filt.clone())
+
+
+# ---------------------------------------------------------------------------
+# Generation-ring dispatch (the windowed filter's query)
+# ---------------------------------------------------------------------------
+
+def ring_contains(spec: FilterSpec, rings: torch.Tensor, keys: torch.Tensor,
+                  regime: str = "auto", tile: int = DEFAULT_TILE
+                  ) -> torch.Tensor:
+    """Fused membership across a (G, n_words) generation ring: one hash per
+    key, G row loads ORed before a single mask test. The regime comes from
+    the whole ring's bytes, ``G * n_words * 4``."""
+    _check_spec(spec)
+    n = keys.shape[0]
+    if n == 0:
+        return torch.zeros((0,), dtype=torch.bool, device=keys.device)
+    tile = _clamp_tile(n, tile)
+    padded = keys if keys.is_cuda else _pad_keys(keys, tile)
+    if _regime(spec, regime, rings.shape[0]) == "vmem":
+        out = ring_k.ring_contains_vmem(spec, rings, padded)
+    else:
+        out = ring_k.ring_contains_hbm(spec, rings, padded)
+    return out[:n]

@@ -132,15 +132,16 @@ def test_filter_is_immutable_and_merges():
 def test_unported_operations_name_the_roadmap_item():
     f = api.make_filter("sbf", m_bits=M, k=8, device="cpu")
     keys = JH.random_u64x2(4, seed=0)
-    # remove and decay are ported: on a bit engine they raise the JAX
-    # package's capability error, which names the counting engine
+    # remove, decay and advance are ported: on a bit engine they raise the
+    # JAX package's capability error, which names the engine that has them
     for call in (lambda: f.remove(keys), lambda: f.decay()):
         with pytest.raises(NotImplementedError, match="'counting'"):
             call()
+    with pytest.raises(NotImplementedError, match="'windowed'"):
+        f.advance()
     with pytest.raises(ValueError, match="valid="):
         f.add(keys, valid=np.ones(4, np.uint8))
-    for call in (lambda: f.advance(),
-                 lambda: f.add(keys, tenants=np.zeros(4, np.int32)),
+    for call in (lambda: f.add(keys, tenants=np.zeros(4, np.int32)),
                  lambda: f.contains(keys, tenants=np.zeros(4, np.int32)),
                  lambda: api.filter_for_n_items(100, bank=4, device="cpu"),
                  lambda: api.filter_for_n_items(100, variant="cuckoo",
@@ -159,6 +160,8 @@ def test_engine_selection_by_device():
     for name in ("auto", "torch", "jnp", "pallas", "pallas-vmem",
                  "pallas-hbm"):
         assert registry.select(small, name, cpu).name == "torch"
+        assert registry.select(cbf, name, cpu).name == "torch"
+    assert registry.select(cbf, "auto", gpu).name == "cuda-l2"
     for name, spec, want in (("auto", small, "cuda-l2"),
                              ("auto", large, "cuda-dram"),
                              ("jnp", small, "cuda-l2"),
@@ -169,7 +172,7 @@ def test_engine_selection_by_device():
         assert registry.select(spec, name, gpu).name == want, (name, spec)
     for name, spec, ctx in (("torch", small, gpu), ("cuda-l2", small, cpu),
                             ("pallas-vmem", large, gpu), ("auto", wide, gpu),
-                            ("auto", cbf, cpu), ("auto", cbf, gpu)):
+                            ("torch", cbf, gpu), ("cuda-l2", cbf, cpu)):
         with pytest.raises(ValueError):
             registry.select(spec, name, ctx)
     counting = api.FilterSpec("countingbf", M, 8)
@@ -178,7 +181,8 @@ def test_engine_selection_by_device():
         for name in ("torch", "cuda-l2", "cuda-dram"):
             with pytest.raises(ValueError):
                 registry.select(counting, name, ctx)
-    assert api.backends() == ("counting", "cuda-dram", "cuda-l2", "torch")
+    assert api.backends() == ("counting", "cuda-dram", "cuda-l2", "torch",
+                              "windowed")
     assert {d["name"] for d in api.describe_backends()} == set(api.backends())
     assert api.get_backend("torch").name == "torch"
 
@@ -201,10 +205,16 @@ def test_as_keys_accepts_every_key_form():
 def test_from_state_rejects_state_of_unported_engines():
     f = api.make_filter("sbf", m_bits=M, k=8, device="cpu")
     state = interop.to_jax_state(f)
-    for extra in ({"bank_shape": [2]}, {"engine_state": 0},
-                  {"options": {"generations": 3}}):
+    for extra in ({"bank_shape": [2]}, {"engine_state": 0}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.Filter.from_state({**state, **extra}, device="cpu")
+    # a windowed state is ported: it comes back as a ring, the union in
+    # generation 0 and the head at 0
+    ring = api.Filter.from_state({**state, "backend": "windowed",
+                                  "options": {"generations": 3}},
+                                 device="cpu")
+    assert ring.backend == "windowed" and ring.head == 0
+    assert ring.words.shape == (3, M // 32)
     with pytest.raises(ValueError):
         api.Filter.from_state({**state, "words": state["words"][:-1]},
                               device="cpu")
@@ -222,7 +232,9 @@ def test_from_state_rejects_state_of_unported_engines():
 def test_port_imports_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.api, "
             "repro_torch.kernels.ops, repro_torch.kernels.countingbf, "
-            "repro_torch.kernels._build, repro_torch.interop; "
+            "repro_torch.kernels.cbf, repro_torch.kernels.ring, "
+            "repro_torch.kernels._build, repro_torch.interop, "
+            "repro_torch.window, repro_torch.window.ring; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); assert not bad, bad")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
@@ -231,6 +243,10 @@ def test_port_imports_neither_jax_nor_repro():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                          re.M)
     sources = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    names = {p.relative_to(ROOT / "src").as_posix() for p in sources}
+    assert {"repro_torch/window/ring.py", "repro_torch/window/__init__.py",
+            "repro_torch/kernels/cbf.py",
+            "repro_torch/kernels/ring.py"} <= names
     sources.append(ROOT / "chip_smoke.py")
     assert len(sources) > 10
     for path in sources:

@@ -15,8 +15,9 @@ import torch
 from repro_torch.api.filter import as_keys
 from repro_torch.core import hashing as H
 from repro_torch.core import variants as V
+from repro_torch.kernels import cbf
 from repro_torch.kernels import countingbf as cnt
-from repro_torch.kernels import ops, sbf
+from repro_torch.kernels import ops, ring, sbf
 
 M = 1 << 16
 
@@ -286,3 +287,131 @@ def test_counting_wrappers_refuse_bad_tensors(cuda):
                        "add")
     with pytest.raises(ValueError, match="counting"):
         ops.bloom_add(spec, words, keys)
+
+
+# ---------------------------------------------------------------------------
+# The classical filter (cbf) and the generation ring (windowed filter)
+# ---------------------------------------------------------------------------
+
+CBF_SPECS = [V.FilterSpec("cbf", m, k) for m in (1 << 16, 1 << 20)
+             for k in (1, 7, 11, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", CBF_SPECS, ids=str)
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 65537])
+def test_cbf_kernels_match_plain(cuda, spec, n):
+    keys = _keys(n, n + 3, cuda)
+    want = cbf.add_plain(spec, V.init(spec, cuda), keys)
+    words = V.init(spec, cuda)
+    assert cbf.add_vmem(spec, words, keys) is words
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(_u32(words), _u32(want))
+    q = torch.cat([keys, _probes(n, n, cuda)])
+    got = cbf.contains_vmem(spec, want, q)
+    torch.cuda.synchronize()
+    want_hits = cbf.contains_plain(spec, want, q)
+    np.testing.assert_array_equal(got.cpu().numpy(), want_hits.cpu().numpy())
+    assert got[:n].all()
+
+
+@pytest.mark.gpu
+def test_cbf_kernels_keep_all_32_bits_at_m_2_32(cuda):
+    spec = V.FilterSpec("cbf", 1 << 32, 11)
+    keys = _keys(1 << 20, 5, cuda)
+    words = cbf.add_vmem(spec, V.init(spec, cuda), keys)
+    want = cbf.add_plain(spec, V.init(spec, cuda), keys)
+    torch.cuda.synchronize()
+    assert torch.equal(words, want)
+    assert bool(words[spec.n_words // 2:].any())       # the top half is used
+    q = torch.cat([keys[:4096], _probes(4096, 6, cuda)])
+    assert torch.equal(cbf.contains_vmem(spec, words, q),
+                       cbf.contains_plain(spec, words, q))
+    del words, want
+    torch.cuda.empty_cache()
+
+
+def _ring(spec, G, device):
+    return torch.stack([sbf.add_plain(spec, V.init(spec, device),
+                                      _keys(3000, 20 + g, device))
+                        for g in range(G)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", SPECS, ids=str)
+@pytest.mark.parametrize("G", [2, 3, 4, 8, 9])
+def test_ring_kernel_matches_plain(cuda, spec, G):
+    rings = _ring(spec, G, cuda)
+    for n in (0, 1, 255, 257, 65537):
+        q = torch.cat([_keys(3000, 20, cuda)[: n // 2],
+                       _probes(n - min(n // 2, 3000), n, cuda)])
+        want = ring.ring_contains_ref(spec, rings, q).cpu().numpy()
+        got = ring.ring_contains_vmem(spec, rings, q)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+        for depth in sbf.DMA_DEPTHS:
+            got = ring.ring_contains_hbm(spec, rings, q, depth=depth)
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+    live = _keys(3000, 20 + G - 1, cuda)
+    assert ring.ring_contains_vmem(spec, rings, live).all()
+
+
+@pytest.mark.gpu
+def test_windowed_and_cbf_filter_paths_on_the_card(cuda):
+    import repro_torch.api as api
+    w = api.filter_for_n_items(50000, bits_per_key=16, generations=4)
+    assert w.device.type == "cuda" and w.backend == "windowed"
+    batches = [_keys(12500, 40 + i, cuda) for i in range(5)]
+    sbf.reset_launches()
+    ring.reset_launches()
+    plain = V.init(w.spec, cuda).expand(4, -1).clone()
+    head = 0
+    for i, b in enumerate(batches):
+        w = w.add(b)
+        plain[head] = sbf.add_plain(w.spec, plain[head], b)
+        if i < 4:
+            w = w.advance()
+            head = (head + 1) % 4
+            plain[head] = 0
+        assert w.head == head and torch.equal(w.words, plain)
+    assert w.contains(torch.cat(batches[1:])).all()
+    q = torch.cat([batches[0], _probes(50000, 8, cuda)])
+    assert torch.equal(w.contains(q), ring.ring_contains_ref(w.spec, plain, q))
+    assert sbf.LAUNCHES["add_vmem"] == 5
+    assert ring.LAUNCHES == {"ring_contains_vmem": 2, "ring_contains_hbm": 0}
+    c = api.filter_for_n_items(50000, bits_per_key=16, variant="cbf")
+    assert c.backend == "cuda-l2"
+    keys = _keys(50000, 9, cuda)
+    cbf.reset_launches()
+    g = c.add(keys)
+    assert not c.words.any() and g.contains(keys).all()
+    assert torch.equal(g.words, cbf.add_plain(c.spec, c.words, keys))
+    big = api.make_filter("cbf", m_bits=1 << 30, k=11)
+    assert big.backend == "cuda-dram"
+    big.add(keys).contains(keys)
+    assert cbf.LAUNCHES == {"contains_vmem": 2, "add_vmem": 2}
+
+
+@pytest.mark.gpu
+def test_cbf_and_ring_wrappers_refuse_bad_tensors(cuda):
+    spec = CBF_SPECS[0]
+    words = V.init(spec, cuda)
+    keys = _keys(64, 0, cuda)
+    misaligned = keys.reshape(-1)[1:-1].reshape(-1, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        cbf.contains_vmem(spec, words, misaligned)
+    with pytest.raises(ValueError, match="device|cpu"):
+        cbf.add_vmem(spec, words, keys.cpu())
+    with pytest.raises(ValueError, match="words"):
+        cbf.add_vmem(spec, words[:-1], keys)
+    rspec = SPECS[0]
+    rings = _ring(rspec, 3, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ring.ring_contains_vmem(rspec, rings.t().contiguous().t(), keys)
+    with pytest.raises(ValueError, match="G, n_words"):
+        ring.ring_contains_hbm(rspec, rings[0], keys)
+    with pytest.raises(ValueError, match="s <= 32"):
+        ring.ring_contains_vmem(V.FilterSpec("sbf", M, 64, block_bits=2048),
+                                V.init(V.FilterSpec("sbf", M, 64,
+                                                    block_bits=2048),
+                                       cuda).expand(2, -1).contiguous(),
+                                keys)

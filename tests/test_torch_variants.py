@@ -169,7 +169,8 @@ def test_filterspec_rejects_what_jax_rejects(bad):
 
 def test_unported_variants_raise_not_implemented():
     keys = as_keys(JH.random_u64x2(8, seed=0))
-    for spec in (TV.FilterSpec("cbf", M, 8),):
+    for spec in (TV.FilterSpec("cuckoo", M, 8),
+                 TV.FilterSpec("quotient", M, 1, slot_bits=8, r_bits=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TV.contains(spec, TV.init(spec), keys)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
