@@ -25,6 +25,15 @@ the script exits non-zero without printing a result:
    2/3/4/8 through both wrappers and every depth, ragged n and n = 0;
    words and results equal bit for bit, FPR within 0.5-2.0x theory at
    m = 2^20;
+3d. the bank kernels (the bank forms of ``bloom.cu`` and ``counting.cu``)
+   against their plain versions: sbf/bbf/rbbf/csbf banks of B = 1, 7, 64
+   members of 2^17, 2^16, 2^14 bits, 65537 routed keys with ~25 % invalid
+   slots, uniform and skewed (half on member 0) member mixes, the
+   contains in both regimes through ``ops`` and at depth 1/2/4, ragged n; the countingbf bank
+   (add of keys 1-3 times, remove incl. keys never added, contains, decay
+   of the whole bank); and the generic per-member path of a cbf bank and a
+   windowed bank (G = 4, one advance) at B = 8 against per-member plain
+   filters;
 4. the blocked main path, ``repro_torch.api.filter_for_n_items(...)`` then
    ``Filter.add`` / ``Filter.contains``, at an L2-resident size (2^23 keys,
    2^27 bits) and a DRAM-resident size (2^28 keys, 2^32 bits): no false
@@ -50,6 +59,15 @@ the script exits non-zero without printing a result:
    ring) and W = 2^26 (2^30 bits, a 512 MiB ring). The ring and head after
    every step and every result equal the plain path's in full (in 2^22-key
    chunks); engines and launches checked in each cell;
+4d. the bank cells: ``filter_for_n_items(n, bits_per_key=16, bank=1024)``
+   then routed ``add`` of uniformly routed keys, routed ``contains`` of
+   them and of 2^22 probes: sbf at 2^13 keys a member (16 MiB bank,
+   ``cuda-l2``, 2^23 keys) and 2^18 (512 MiB, ``cuda-dram``, 2^28 keys);
+   countingbf at 2^12 (32 MiB, 2^22 keys) and 2^16 (512 MiB, 2^26 keys),
+   which also removes half, queries the rest and decays once. Words and
+   results equal to the plain version's in full (2^22-key chunks), no
+   false negatives, exactly one kernel launch per routed call; then the
+   generic cbf and windowed banks' routed ops timed at B = 64;
 5. times with CUDA events (warm-up, then 5 rounds of 20 calls; an update is
    timed on state restored before each call, outside the events) at the
    main path's size and, against the plain version, on 2^22 keys into an
@@ -188,12 +206,14 @@ def ops_per_key(spec: V.FilterSpec, op: str) -> int:
     return 40 + 4 * spec.k + (2 * spec.s if op == "contains" else spec.s)
 
 
-def bound_ms(spec: V.FilterSpec, n: int, op: str):
+def bound_ms(spec: V.FilterSpec, n: int, op: str, extra_bytes: int = 0):
     """Least time for the work: max(bytes / memory rate, ops / peak rate).
     Bytes: 8 per key, 1 per result (contains), and min(m/8, B/8 per key) of
-    filter read, written again for add."""
+    filter read, written again for add; plus ``extra_bytes`` (a bank's
+    member ids and valid bytes)."""
     filt = min(spec.m_bits // 8, spec.block_bits // 8 * n)
-    nbytes = 8 * n + (n + filt if op == "contains" else 2 * filt)
+    nbytes = (8 * n + extra_bytes
+              + (n + filt if op == "contains" else 2 * filt))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = n * ops_per_key(spec, op) / OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -222,8 +242,20 @@ def phase_build():
                   ln.strip().startswith("ptxas info    : Function")]
         n_spill = sum(1 for ln in spills if " 0 bytes spill stores" not in ln)
         arch = "sm_90a" if "sm_90a" in log else "arch not reported"
+        # the bank forms (template flag BANK = true, mangled "Lb1E")
+        bank, fn = [], ""
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                fn = ln
+            elif "spill stores" in ln and "Lb1E" in fn:
+                bank.append([" 0 bytes spill stores" not in ln, 0])
+            elif "Used" in ln and "registers" in ln and "Lb1E" in fn and bank:
+                bank[-1][1] = int(ln.split("Used")[1].split()[0])
+        extra = (f"; bank forms: {len(bank)} instances, "
+                 f"{sum(b[0] for b in bank)} with spills, at most "
+                 f"{max(b[1] for b in bank)} registers" if bank else "")
         print(f"build: {name}: {len(spills)} kernel instances for {arch}, "
-              f"{n_spill} with spills")
+              f"{n_spill} with spills{extra}")
     torch.cuda.synchronize()
 
 
@@ -575,20 +607,21 @@ def touched_sectors(words: torch.Tensor) -> int:
 
 
 def counting_bound_ms(spec: V.FilterSpec, n: int, op: str, sectors: int,
-                      updates: int):
+                      updates: int, extra_bytes: int = 0):
     """Least time: max(bytes / memory rate, ops / peak rate). Bytes: 8 per
     key and 1 per result (contains), plus the touched 32-byte sectors read
     (contains), read and written (updates), or every counter byte read and
-    written (decay). Ops: 40 per key for the two hash streams, 4 per salt
-    bit, and 12 (contains) or 20 (update) per touched counter word; 12 per
-    word for decay."""
+    written (decay), plus ``extra_bytes`` (a bank's member ids and valid
+    bytes). Ops: 40 per key for the two hash streams, 4 per salt bit, and 12
+    (contains) or 20 (update) per touched counter word; 12 per word for
+    decay."""
     if op == "decay":
         nbytes = 2 * 4 * spec.storage_words
         n_ops = 12 * spec.storage_words
     else:
         per_word = 12 if op == "contains" else 20
-        nbytes = 8 * n + (n + 32 * sectors if op == "contains"
-                          else 2 * 32 * sectors)
+        nbytes = 8 * n + extra_bytes + (n + 32 * sectors if op == "contains"
+                                        else 2 * 32 * sectors)
         n_ops = n * (40 + 4 * spec.k) + per_word * updates
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / OPS_PER_S * 1e3
@@ -1181,6 +1214,533 @@ def phase_windowed_main(regime: str, window: int, errs: dict, records: dict,
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------------------
+# Filter banks (phases 3d, 4d and their times)
+# ---------------------------------------------------------------------------
+
+BANK_REPLACES = {
+    "bank_contains_vmem": "src/repro/kernels/sbf.py:663",
+    "bank_add_vmem": "src/repro/kernels/sbf.py:694"}
+COUNTING_BANK_REPLACES = {
+    "bank_update_vmem": "src/repro/kernels/countingbf.py:410",
+    "bank_contains_vmem": "src/repro/kernels/countingbf.py:445"}
+BANK_MEMBERS = 1024             # the bank cells' tenants
+PHASE3D_BANKS = ((1, 17), (7, 16), (64, 14))      # (B, log2 member bits)
+
+
+def gen_members(n: int, B: int, seed: int, skewed: bool = False
+                ) -> torch.Tensor:
+    """(n,) int32 member ids on the card, uniform over [0, B) from a seeded
+    generator; ``skewed`` puts about half of them on member 0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    member = torch.randint(0, B, (n,), dtype=torch.int32, device="cuda",
+                           generator=g)
+    if skewed:
+        member[torch.rand(n, device="cuda", generator=g) < 0.5] = 0
+    return member
+
+
+def bank_update_in_chunks(update, words, keys, member, valid=None):
+    """``update(words, keys, member, valid)`` over ``SUBSET``-key chunks."""
+    for i in range(0, keys.shape[0], SUBSET):
+        words = update(words, keys[i:i + SUBSET], member[i:i + SUBSET],
+                       None if valid is None else valid[i:i + SUBSET])
+    return words
+
+
+def bank_contains_in_chunks(contains, words, keys, member):
+    """``contains(words, keys, member)`` over ``SUBSET``-key chunks."""
+    return torch.cat([contains(words, keys[i:i + SUBSET],
+                               member[i:i + SUBSET])
+                      for i in range(0, keys.shape[0], SUBSET)])
+
+
+def bank_contains_launch(spec, bank, keys, member, regime: str):
+    """The bank contains kernel alone (no member range check), with the
+    schedule ``ops.bloom_bank_contains`` gives the regime."""
+    if regime == "L2":
+        phi = min(sbf.default_layout(spec, "contains").phi, 4)
+        return sbf._launch_bank_contains(spec, bank, keys, member, phi, 1)
+    return sbf._launch_bank_contains(
+        spec, bank, keys, member, min(spec.s, 4),
+        sbf._depth_in_flight(spec, sbf.DEFAULT_DMA_DEPTH))
+
+
+def counting_bank_contains_launch(spec, bank, keys, member, regime: str):
+    depth = (1 if regime == "L2"
+             else cnt._depth_in_flight(spec, sbf.DEFAULT_DMA_DEPTH))
+    return cnt._launch_bank_contains(spec, bank, keys, member, depth)
+
+
+def phase_bank_kernels(errs: dict, cerrs: dict):
+    n = 65537
+    for B, log2m in PHASE3D_BANKS:
+        m = 1 << log2m
+        specs = [V.FilterSpec("sbf", m, 8, block_bits=256),
+                 V.FilterSpec("bbf", m, 8, block_bits=256),
+                 V.FilterSpec("rbbf", m, 4),
+                 V.FilterSpec("csbf", m, 8, block_bits=512, z=2)]
+        for i, spec in enumerate(specs):
+            runs = 0
+            for skewed in (False, True):
+                seed = 2000 + 100 * B + 10 * i + skewed
+                keys = gen_keys(n, seed)
+                member = gen_members(n, B, seed, skewed)
+                valid = valid_mask(n, seed)
+                empty = torch.zeros((B, spec.n_words), dtype=torch.int32,
+                                    device="cuda")
+                want = sbf.bank_add_plain(spec, empty, keys, member, valid)
+                got = sbf.bank_add_vmem(spec, empty.clone(), keys, member,
+                                        valid, sbf.default_layout(spec, "add"))
+                errs["bank_add_vmem"] = max(errs["bank_add_vmem"],
+                                            max_err(got, want))
+                got = ops.bloom_bank_add(spec, empty, keys, member,
+                                         valid=valid)
+                errs["bank_add_vmem"] = max(errs["bank_add_vmem"],
+                                            max_err(got, want))
+                queries = torch.cat([keys, gen_keys(n, seed, probe=True)])
+                qm = torch.cat([member, member.flip(0)])
+                hits = sbf.bank_contains_plain(spec, want, queries, qm)
+                if not bool(hits[:n][valid.bool()].all()):
+                    raise AssertionError(f"bank {spec} B={B}: false "
+                                         f"negatives")
+                lay = sbf.default_layout(spec, "contains")
+                for depth in (1, 2, 4):
+                    got = sbf.bank_contains_vmem(spec, want, queries, qm, lay,
+                                                 depth=depth)
+                    errs["bank_contains_vmem"] = max(
+                        errs["bank_contains_vmem"], max_err(got, hits))
+                for regime in ("vmem", "hbm"):
+                    got = ops.bloom_bank_contains(spec, want, queries, qm,
+                                                  regime=regime)
+                    errs["bank_contains_vmem"] = max(
+                        errs["bank_contains_vmem"], max_err(got, hits))
+                runs += 7
+                if i == 0 and skewed:                  # ragged tails
+                    for r in (1, 255, 257):
+                        w = sbf.bank_add_plain(spec, empty, keys[:r],
+                                               member[:r], valid[:r])
+                        got = ops.bloom_bank_add(spec, empty, keys[:r],
+                                                 member[:r], valid=valid[:r])
+                        errs["bank_add_vmem"] = max(errs["bank_add_vmem"],
+                                                    max_err(got, w))
+                        got = ops.bloom_bank_contains(spec, w, queries[:r],
+                                                      qm[:r], regime="hbm")
+                        errs["bank_contains_vmem"] = max(
+                            errs["bank_contains_vmem"], max_err(
+                                got, sbf.bank_contains_plain(
+                                    spec, w, queries[:r], qm[:r])))
+                        runs += 2
+            torch.cuda.synchronize()
+            print(f"kernels: bank of {B} x {spec}: {runs} bank kernel runs "
+                  f"equal to the plain version ({n} routed keys, ~25 % "
+                  f"invalid, uniform and skewed members, depth 1/2/4)")
+        # the counting bank: add (keys 1-3 times, one saturating), remove
+        # of a subset and of keys never added, contains, decay of the bank
+        cspec = V.FilterSpec("countingbf", m, 8, block_bits=256)
+        runs = 0
+        for skewed in (False, True):
+            seed = 3000 + 100 * B + skewed
+            keys = gen_keys(n, seed)
+            batch = multiset(keys, seed)
+            member = gen_members(batch.shape[0], B, seed, skewed)
+            valid = valid_mask(batch.shape[0], seed)
+            empty = torch.zeros((B, cspec.storage_words), dtype=torch.int32,
+                                device="cuda")
+            want = cnt.bank_update_plain(cspec, empty, batch, member, valid,
+                                         "add")
+            got = cnt.bank_update_vmem(cspec, empty.clone(), batch, member,
+                                       valid, "add")
+            cerrs["bank_update_vmem"] = max(cerrs["bank_update_vmem"],
+                                            max_err(got, want))
+            gone = torch.cat([batch[: n // 2],
+                              gen_keys(4096, seed, probe=True)])
+            gm = torch.cat([member[: n // 2],
+                            gen_members(4096, B, seed + 1)])
+            want_rm = cnt.bank_update_plain(cspec, want, gone, gm, None,
+                                            "remove")
+            got = ops.counting_bank_update(cspec, want, gone, gm, "remove")
+            cerrs["bank_update_vmem"] = max(cerrs["bank_update_vmem"],
+                                            max_err(got, want_rm))
+            queries = torch.cat([batch, gen_keys(n, seed, probe=True)])
+            qm = torch.cat([member, gen_members(n, B, seed + 2, skewed)])
+            for words in (want, want_rm):
+                hits = cnt.bank_contains_plain(cspec, words, queries, qm)
+                for depth in (1, 2, 4):
+                    got = cnt.bank_contains_vmem(cspec, words, queries, qm,
+                                                 depth=depth)
+                    cerrs["bank_contains_vmem"] = max(
+                        cerrs["bank_contains_vmem"], max_err(got, hits))
+            hits = cnt.bank_contains_plain(cspec, want, batch, member)
+            if not bool(hits[valid.bool()].all()):
+                raise AssertionError(f"counting bank B={B}: false negatives")
+            got = cnt.decay(cspec, want_rm.clone())
+            cerrs["decay"] = max(cerrs["decay"], max_err(
+                got, cnt.decay_plain(cspec, want_rm)))
+            runs += 9
+        torch.cuda.synchronize()
+        print(f"kernels: bank of {B} x {cspec}: {runs} counting bank kernel "
+              f"runs equal to the plain version ({batch.shape[0]} routed "
+              f"inserts, removes incl. keys never added, uniform and skewed "
+              f"members, depth 1/2/4, bank decay)")
+
+
+def phase_generic_banks(card: str, B: int = 8, time_it: bool = False):
+    """The cbf and windowed banks run the generic per-member path (one
+    scalar launch a member): hold them against per-member plain filters at
+    B members; with ``time_it``, time routed add and contains and count
+    their launches."""
+    n = 1 << 16
+    keys = gen_keys(n, 4000 + B)
+    member = gen_members(n, B, 4000 + B)
+    valid = valid_mask(n, 4000 + B)
+    probes = gen_keys(n, 4100 + B, probe=True)
+    out = {}
+    # classical bank
+    c = api.make_filter_bank(B, "cbf", m_bits=1 << 16, k=7, device="cuda")
+    spec = c.spec
+    cbf.reset_launches()
+    g = c.add(keys, tenants=member, valid=valid)
+    hits = g.contains(keys, tenants=member)
+    fp = g.contains(probes, tenants=member)
+    torch.cuda.synchronize()
+    out["cbf"] = dict(cbf.LAUNCHES)
+    if c.backend != "cuda-l2" or out["cbf"] != {"contains_vmem": 2 * B,
+                                                "add_vmem": B}:
+        raise AssertionError(f"cbf bank on {c.backend}: {out['cbf']}")
+    ok = valid.bool()
+    for b in range(B):
+        sel = member == b
+        w = cbf.add_plain(spec, V.init(spec, "cuda"), keys[sel & ok])
+        max_err(g.words[b], w)
+        max_err(hits[sel], cbf.contains_plain(spec, w, keys[sel]))
+        max_err(fp[sel], cbf.contains_plain(spec, w, probes[sel]))
+    if not bool(hits[ok].all()):
+        raise AssertionError("cbf bank: false negatives")
+    # windowed bank: add, advance (lockstep), add, contains
+    G = 4
+    w0 = api.make_filter_bank(B, "sbf", m_bits=1 << 16, k=8, generations=G,
+                              device="cuda")
+    wspec = w0.spec
+    half = n // 2
+    sbf.reset_launches()
+    ring.reset_launches()
+    w1 = w0.add(keys[:half], tenants=member[:half])
+    w2 = w1.advance().add(keys[half:], tenants=member[half:])
+    whits = w2.contains(keys, tenants=member)
+    wfp = w2.contains(probes, tenants=member)
+    torch.cuda.synchronize()
+    out["windowed"] = {**{k: v for k, v in sbf.LAUNCHES.items() if v},
+                       **{k: v for k, v in ring.LAUNCHES.items() if v}}
+    if w2.head != (1,) * B:
+        raise AssertionError(f"windowed bank heads {w2.head}")
+    for b in range(B):
+        plain = torch.zeros((G, wspec.n_words), dtype=torch.int32,
+                            device="cuda")
+        sel0, sel1 = member[:half] == b, member[half:] == b
+        plain[0] = sbf.add_plain(wspec, plain[0], keys[:half][sel0])
+        plain[1] = sbf.add_plain(wspec, plain[1], keys[half:][sel1])
+        max_err(w2.words[b], plain)
+        sel = member == b
+        max_err(whits[sel], ring.ring_contains_ref(wspec, plain, keys[sel]))
+        max_err(wfp[sel], ring.ring_contains_ref(wspec, plain, probes[sel]))
+    if not bool(whits.all()):
+        raise AssertionError("windowed bank: false negatives")
+    print(f"kernels: generic banks of {B}: cbf (m = 2^16, k = 7) add and "
+          f"contains, windowed ({G} x {wspec}) add, advance, add and "
+          f"contains of {n} routed keys equal to per-member plain filters; "
+          f"launches cbf {out['cbf']}, windowed {out['windowed']}")
+    if not time_it:
+        return None
+    t = {"cbf add": time_ms(lambda: c.add(keys, tenants=member, valid=valid),
+                            "generic cbf add", 5, 3),
+         "cbf contains": time_ms(lambda: g.contains(keys, tenants=member),
+                                 "generic cbf contains", 5, 3),
+         "windowed add": time_ms(lambda: w1.add(keys[half:],
+                                                tenants=member[half:]),
+                                 "generic windowed add", 5, 3),
+         "windowed advance": time_ms(w1.advance, "generic windowed advance",
+                                     5, 3),
+         "windowed contains": time_ms(lambda: w2.contains(keys,
+                                                          tenants=member),
+                                      "generic windowed contains", 5, 3)}
+    print(f"time generic banks of {B} [{card}] ({n} routed keys; one scalar "
+          f"launch a member): " + ", ".join(f"{k} {v:.4f} ms"
+                                            for k, v in t.items()))
+    return {"members": B, "n_keys": n, "launches": out, "ms": t}
+
+
+def phase_bank_main(kind: str, regime: str, n_per: int, n: int, errs: dict,
+                    records: dict, launches: dict, card: str):
+    """A bank cell: ``filter_for_n_items(n_per, bank=1024)``, routed add of
+    ``n`` keys (member ids uniform from the seed), routed contains of them
+    and of 2^22 probes; a counting bank also removes half, queries the
+    rest and decays once."""
+    B = BANK_MEMBERS
+    counting = kind == "countingbf"
+    mod = cnt if counting else sbf
+    add_name = "bank_update_vmem" if counting else "bank_add_vmem"
+    con_name = "bank_contains_vmem"
+    f = api.filter_for_n_items(n_per, bits_per_key=16, variant=kind,
+                               block_bits=256, bank=B, device="cuda")
+    spec = f.spec
+    engine = ("counting" if counting else
+              "cuda-l2" if regime == "L2" else "cuda-dram")
+    if (f.backend != engine or spec.k != 8 or f.bank_shape != (B,)
+            or ops.bank_l2_resident(spec, B) != (regime == "L2")):
+        raise AssertionError(f"bank {kind} {regime}: {f}")
+    label = f"bank {kind} {regime}"
+    keys = gen_keys(n, 51)
+    member = gen_members(n, B, 52)
+    valid = torch.ones((n,), dtype=torch.uint8, device="cuda")
+    probes = gen_keys(SUBSET, 53, probe=True)
+    pmember = gen_members(SUBSET, B, 54)
+    half = n // 2
+    torch.cuda.synchronize()
+
+    mod.reset_launches()                   # the main path, counted
+    t0 = time.perf_counter()
+    g = f.add(keys, tenants=member, valid=valid)
+    hits = g.contains(keys, tenants=member)
+    false_pos = g.contains(probes, tenants=pmember)
+    calls = {add_name: 1, con_name: 2}
+    if counting:
+        h = g.remove(keys[:half], tenants=member[:half])
+        kept = h.contains(keys[half:], tenants=member[half:])
+        d = h.decay(1)
+        calls = {add_name: 2, con_name: 3, "decay": 1}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = {k: v for k, v in mod.LAUNCHES.items() if v}
+    if counted != calls:
+        raise AssertionError(f"{label}: launches {counted}, not one per "
+                             f"routed call {calls}")
+    for name in (add_name, con_name):
+        launches[name] = launches.get(name, 0) + counted[name]
+    if not bool(hits.all()) or (counting and not bool(kept.all())):
+        raise AssertionError(f"{label}: false negatives")
+
+    # the main path's words and results against the plain version, in full
+    empty = torch.zeros_like(f.words)
+    if counting:
+        def plain_update(op):
+            return lambda w, k, m, v: cnt.bank_update_plain(spec, w, k, m, v,
+                                                            op)
+        plain_contains = functools.partial(cnt.bank_contains_plain, spec)
+    else:
+        def plain_update(op):
+            return lambda w, k, m, v: sbf.bank_add_plain(spec, w, k, m, v)
+        plain_contains = functools.partial(sbf.bank_contains_plain, spec)
+    err = errs.setdefault(add_name, 0)
+    want = bank_update_in_chunks(plain_update("add"), empty, keys, member,
+                                 valid)
+    errs[add_name] = max(err, max_err(g.words, want))
+    errs[con_name] = max(errs.get(con_name, 0), max_err(
+        hits, bank_contains_in_chunks(plain_contains, want, keys, member)))
+    errs[con_name] = max(errs[con_name], max_err(
+        false_pos, plain_contains(want, probes, pmember)))
+    extra = ""
+    if counting:
+        want_rm = bank_update_in_chunks(plain_update("remove"), want,
+                                        keys[:half], member[:half])
+        errs[add_name] = max(errs[add_name], max_err(h.words, want_rm))
+        errs[con_name] = max(errs[con_name], max_err(
+            kept, bank_contains_in_chunks(plain_contains, want_rm,
+                                          keys[half:], member[half:])))
+        errs["decay"] = max(errs["decay"], max_err(
+            d.words, cnt.decay_plain(spec, want_rm)))
+        del want_rm
+        extra = (f", remove of {half}, contains of the rest, decay(1) of "
+                 f"the whole bank")
+    del want, empty
+    fpr = float(false_pos.to(torch.float64).mean().item())
+    theory = g.fpr_theory(n // B)
+    print(f"main {label}: {B} x {spec} on {g.backend}, {n} routed keys "
+          f"({n // B} a member), {g.nbytes / 2**20:.0f} MiB bank: routed add, "
+          f"contains and 2^22 probes{extra} in {wall * 1e3:.1f} ms host "
+          f"clock, no false negatives; words and results equal to the plain "
+          f"version's in full; FPR {fpr:.6f}, {fpr / theory:.3f} x theory "
+          f"{theory:.6f}; launches {counted} (one per routed call)")
+
+    # times: the kernel alone, the wrapper (+ member range check) and the
+    # Filter call at full size; kernel, plain version and bound on 2^22
+    # keys into the full-size bank
+    sub, msub, vsub = keys[:SUBSET], member[:SUBSET], valid[:SUBSET]
+    sub_half = SUBSET // 2
+    scratch = f.words.clone()
+    if counting:
+        sub_words = cnt.bank_update_plain(spec, torch.zeros_like(f.words),
+                                          sub, msub, vsub, "add")
+        queries, qm = sub, msub
+
+        def run_update(words, k, m, v, op):
+            return cnt._launch_bank_update(spec, words, k, m, v, op)
+
+        def run_contains(words, k, m):
+            return counting_bank_contains_launch(spec, words, k, m, regime)
+        t = {"add": time_restored_ms(
+                lambda: run_update(scratch, keys, member, valid, "add"),
+                scratch.zero_, f"{label} add"),
+             "remove": time_restored_ms(
+                lambda: run_update(scratch, keys[:half], member[:half], None,
+                                   "remove"),
+                lambda: scratch.copy_(g.words), f"{label} remove"),
+             "wrapper add": time_restored_ms(
+                lambda: cnt.bank_update_vmem(spec, scratch, keys, member,
+                                             valid, "add"),
+                scratch.zero_, f"{label} wrapper add"),
+             "decay": time_restored_ms(
+                lambda: cnt.decay(spec, scratch),
+                lambda: scratch.copy_(h.words), f"{label} decay"),
+             "Filter.remove": time_ms(
+                lambda: g.remove(keys[:half], tenants=member[:half]),
+                f"{label} Filter.remove"),
+             "remove sub": time_restored_ms(
+                lambda: run_update(scratch, sub[:sub_half], msub[:sub_half],
+                                   None, "remove"),
+                lambda: scratch.copy_(sub_words), f"{label} remove sub"),
+             "remove plain": time_ms(
+                lambda: cnt.bank_update_plain(spec, sub_words,
+                                              sub[:sub_half],
+                                              msub[:sub_half], None,
+                                              "remove"),
+                f"{label} remove plain", PLAIN_REPS, PLAIN_ROUNDS),
+             "add sub": time_restored_ms(
+                lambda: run_update(scratch, sub, msub, vsub, "add"),
+                scratch.zero_, f"{label} add sub"),
+             "add plain": time_ms(
+                lambda: cnt.bank_update_plain(spec, torch.zeros_like(f.words),
+                                              sub, msub, vsub, "add"),
+                f"{label} add plain", PLAIN_REPS, PLAIN_ROUNDS)}
+    else:
+        sub_words = sbf.bank_add_plain(spec, torch.zeros_like(f.words), sub,
+                                       msub, vsub)
+        queries = torch.cat([sub[:sub_half], probes[:SUBSET - sub_half]])
+        qm = torch.cat([msub[:sub_half], pmember[:SUBSET - sub_half]])
+
+        def run_contains(words, k, m):
+            return bank_contains_launch(spec, words, k, m, regime)
+        sub_scratch = sub_words.clone()
+        t = {"add": time_ms(lambda: sbf._launch_bank_add(
+                spec, scratch, keys, member, valid), f"{label} add"),
+             "wrapper add": time_ms(lambda: sbf.bank_add_vmem(
+                spec, scratch, keys, member, valid,
+                sbf.default_layout(spec, "add")), f"{label} wrapper add"),
+             "add sub": time_ms(lambda: sbf._launch_bank_add(
+                spec, sub_scratch, sub, msub, vsub), f"{label} add sub"),
+             "add plain": time_ms(
+                lambda: sbf.bank_add_plain(spec, sub_words, sub, msub, vsub),
+                f"{label} add plain", PLAIN_REPS, PLAIN_ROUNDS)}
+    t.update({
+        "contains": time_ms(lambda: run_contains(g.words, keys, member),
+                            f"{label} contains"),
+        "wrapper contains": time_ms(
+            lambda: (cnt.bank_contains_vmem(
+                spec, g.words, keys, member,
+                depth=1 if regime == "L2" else sbf.DEFAULT_DMA_DEPTH)
+                if counting else sbf.bank_contains_vmem(
+                    spec, g.words, keys, member,
+                    sbf.default_layout(spec, "contains"),
+                    depth=1 if regime == "L2" else sbf.DEFAULT_DMA_DEPTH)),
+            f"{label} wrapper contains"),
+        "Filter.add": time_ms(lambda: f.add(keys, tenants=member,
+                                            valid=valid),
+                              f"{label} Filter.add"),
+        "Filter.contains": time_ms(lambda: g.contains(keys, tenants=member),
+                                   f"{label} Filter.contains"),
+        "contains sub": time_ms(lambda: run_contains(sub_words, queries, qm),
+                                f"{label} contains sub"),
+        "contains plain": time_ms(lambda: plain_contains(sub_words, queries,
+                                                         qm),
+                                  f"{label} contains plain", PLAIN_REPS,
+                                  PLAIN_ROUNDS)})
+    # bounds: the super-filter of B members, plus 4 B a key of member id
+    # and 1 B a key of valid mask where one is read
+    ops_name = {"add": add_name, "contains": con_name}
+    if counting:
+        full = {"add": (n, touched_sectors(g.words),
+                        counter_updates(spec, keys), 5 * n),
+                "remove": (half, touched_sectors(bank_update_in_chunks(
+                    plain_update("add"), torch.zeros_like(f.words),
+                    keys[:half], member[:half])),
+                    counter_updates(spec, keys[:half]), 4 * half)}
+        full["contains"] = full["add"][:3] + (4 * n,)
+        part = {"add": (SUBSET, touched_sectors(sub_words),
+                        counter_updates(spec, sub), 5 * SUBSET),
+                "remove": (sub_half, touched_sectors(cnt.bank_update_plain(
+                    spec, torch.zeros_like(f.words), sub[:sub_half],
+                    msub[:sub_half], None, "add")),
+                    counter_updates(spec, sub[:sub_half]), 4 * sub_half)}
+        part["contains"] = part["add"][:3] + (4 * SUBSET,)
+        def cb(op, nk, sectors, updates, extra):
+            return counting_bound_ms(spec, nk, op, sectors, updates,
+                                     extra_bytes=extra)
+        bounds = {op: (cb(op, *full[op]), cb(op, *part[op]))
+                  for op in ("add", "remove", "contains")}
+        ops_list = ("add", "contains", "remove")
+    else:
+        whole = V.FilterSpec(spec.variant, spec.m_bits * B, spec.k,
+                             block_bits=spec.block_bits)
+        bounds = {"add": (bound_ms(whole, n, "add", extra_bytes=5 * n),
+                          bound_ms(whole, SUBSET, "add",
+                                   extra_bytes=5 * SUBSET)),
+                  "contains": (bound_ms(whole, n, "contains",
+                                        extra_bytes=4 * n),
+                               bound_ms(whole, SUBSET, "contains",
+                                        extra_bytes=4 * SUBSET))}
+        ops_list = ("add", "contains")
+    for op in ops_list:
+        (b_full, by_full), (b_sub, by_sub) = bounds[op]
+        nk = half if op == "remove" else n
+        lo, hi = SPREAD[f"{label} {op}"]
+        wrap = (f"; wrapper (with the member range check) "
+                f"{t['wrapper ' + op]:.4f} ms" if f"wrapper {op}" in t
+                else "")
+        print(f"time {label} {op} [{card}]: kernel {t[op]:.4f} ms (rounds "
+              f"{lo:.4f}-{hi:.4f}; {nk / t[op] / 1e3:.1f} Mops/s) at {nk} "
+              f"keys, bound {b_full:.4f} ms ({by_full}), "
+              f"{b_full / t[op]:.1%} of it{wrap}; Filter.{op} "
+              f"{t[f'Filter.{op}']:.4f} ms; at {SUBSET if op != 'remove' else sub_half} "
+              f"keys kernel {t[f'{op} sub']:.4f} ms, plain "
+              f"{t[f'{op} plain']:.4f} ms, bound {b_sub:.4f} ms ({by_sub})")
+        if op == "remove":
+            records[add_name].update(
+                {f"{'dram_' if regime == 'DRAM' else ''}{k}": v for k, v in {
+                    "remove_ms": t["remove sub"],
+                    "remove_plain_ms": t["remove plain"],
+                    "remove_bound_ms": b_sub, "main_remove_ms": t["remove"],
+                    "api_remove_ms": t["Filter.remove"]}.items()})
+            continue
+        cell = {"ms": t[f"{op} sub"], "plain_ms": t[f"{op} plain"],
+                "bound_ms": b_sub, "bound_by": by_sub, "main_n_keys": n,
+                "main_ms": t[op], "main_bound_ms": b_full,
+                "wrapper_ms": t[f"wrapper {op}"],
+                "api_ms": t[f"Filter.{op}"], "m_bits": spec.m_bits,
+                "members": B}
+        name = ops_name[op]
+        if regime == "L2":
+            records[name] = {
+                "name": f"{'counting_' if counting else ''}{name}",
+                "route": "cuda",
+                "source": COUNTING_SOURCE if counting else SOURCE,
+                "replaces": (COUNTING_BANK_REPLACES if counting
+                             else BANK_REPLACES)[name],
+                "launches": 0, "max_abs_err": 0, "library_ms": None,
+                "n_keys": SUBSET, **cell}
+        else:
+            records[name].update({f"dram_{k}": v for k, v in cell.items()})
+    if counting:
+        lo, hi = SPREAD[f"{label} decay"]
+        print(f"time {label} decay [{card}]: kernel {t['decay']:.4f} ms "
+              f"(rounds {lo:.4f}-{hi:.4f}) over the {g.nbytes / 2**20:.0f} "
+              f"MiB bank, one launch")
+    del f, g, keys, member, valid, scratch, sub_words
+    if counting:
+        del h, d
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1196,6 +1756,8 @@ def main() -> int:
     phase_counting_kernels(cerrs)
     phase_cbf_kernels(berrs)
     phase_ring_kernels(rerrs)
+    phase_bank_kernels(errs, cerrs)
+    phase_generic_banks(card, B=8)
     records, launches = {}, {}
     phase_main("L2", 1 << 23, errs, records, launches, card)
     phase_main("DRAM", 1 << 28, errs, records, launches, card)
@@ -1215,14 +1777,36 @@ def main() -> int:
     print(f"windowed main path launches of the blocked add kernels: "
           f"add_vmem {wlaunches['windowed add_vmem']} (L2 cell), "
           f"add_hbm {wlaunches['windowed add_hbm']} (DRAM cell)")
+    bkrecords, bklaunches = {}, {}
+    phase_bank_main("sbf", "L2", 1 << 13, 1 << 23, errs, bkrecords,
+                    bklaunches, card)
+    phase_bank_main("sbf", "DRAM", 1 << 18, 1 << 28, errs, bkrecords,
+                    bklaunches, card)
+    for kernel, rec in bkrecords.items():
+        rec.update(launches=bklaunches[kernel], max_abs_err=errs[kernel])
+    cbkrecords, cbklaunches = {}, {}
+    phase_bank_main("countingbf", "L2", 1 << 12, 1 << 22, cerrs, cbkrecords,
+                    cbklaunches, card)
+    phase_bank_main("countingbf", "DRAM", 1 << 16, 1 << 26, cerrs,
+                    cbkrecords, cbklaunches, card)
+    for kernel, rec in cbkrecords.items():
+        rec.update(launches=cbklaunches[kernel], max_abs_err=cerrs[kernel])
+    generic = phase_generic_banks(card, B=64, time_it=True)
+    print(f"generic bank path at B = 64: {json.dumps(generic)}")
     print(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} "
           f"s, the build included")
     print(json.dumps({"kernels": [records[k] for k in
                                   ("contains_vmem", "add_vmem",
                                    "contains_hbm", "add_hbm")]
-                      + [crecords[k] for k in cnt.LAUNCHES]
+                      + [crecords[k] for k in ("update_vmem", "contains_vmem",
+                                               "update_hbm", "contains_hbm",
+                                               "decay")]
                       + [brecords[k] for k in cbf.LAUNCHES]
-                      + [wrecords[k] for k in ring.LAUNCHES]}))
+                      + [wrecords[k] for k in ring.LAUNCHES]
+                      + [bkrecords["bank_contains_vmem"],
+                         bkrecords["bank_add_vmem"],
+                         cbkrecords["bank_update_vmem"],
+                         cbkrecords["bank_contains_vmem"]]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

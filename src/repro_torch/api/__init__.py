@@ -1,7 +1,8 @@
 """``repro_torch.api`` — the public Bloom-filter surface of the port.
 
-Counterpart of ``repro.api`` for a scalar blocked or classical Bloom
-filter, the counting Bloom filter and the windowed filter::
+Counterpart of ``repro.api`` for the blocked and classical Bloom filters,
+the counting Bloom filter and the windowed filter, scalar or as banks of
+same-spec members::
 
     import repro_torch.api as api
 
@@ -18,6 +19,11 @@ filter, the counting Bloom filter and the windowed filter::
 
     b = api.filter_for_n_items(1_000_000, variant="cbf")   # classical
 
+    t = api.filter_for_n_items(8192, bank=1024)   # 1024 tenant filters
+    t = t.add(keys, tenants=ids)          # routed: one launch for the bank
+    hits = t.contains(keys, tenants=ids)
+    kb, valid = api.route(keys, ids, 1024)         # per-tenant batches
+
     api.backends()
     # ('counting', 'cuda-dram', 'cuda-l2', 'torch', 'windowed')
     f2 = api.make_filter("sbf", m_bits=1 << 24, k=8, device="cpu")
@@ -33,9 +39,11 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch import not_ported
 from repro_torch.core import variants as _V
+from repro_torch.core.partition import route_by_id
 from repro_torch.core.variants import FilterSpec
 from repro_torch.api import registry
 from repro_torch.api.filter import BackendOptions, Filter, as_keys
@@ -85,6 +93,55 @@ def make_filter(variant: str = "sbf", m_bits: int = 1 << 20, k: int = 8,
                   state=eng.init_state(spec, options))
 
 
+def make_filter_bank(bank, variant: str = "sbf", m_bits: int = 1 << 14,
+                     k: int = 8, block_bits: int = 256, z: int = 1,
+                     backend: str = "auto", layout=None,
+                     tile: Optional[int] = None, probe: str = "auto",
+                     depth: Optional[int] = None, coop: str = "auto",
+                     mix: str = "auto", generations: Optional[int] = None,
+                     device=None) -> Filter:
+    """Build an empty bank: ``bank`` (an int, or a shape tuple) independent
+    same-spec member filters of ``m_bits`` bits each behind one
+    :class:`Filter`, the bank dims leading its words. Per-member batches
+    address members by position (``keys: bank_shape + (n, 2)``); routed ops
+    take flat ``(keys, tenants)`` with ``tenants`` indexing a 1-D bank. The
+    engine is selected for the whole bank's bytes; the other knobs are
+    :func:`make_filter`'s."""
+    bank_shape = ((int(bank),) if isinstance(bank, (int, np.integer))
+                  else tuple(int(d) for d in bank))
+    if not bank_shape or any(d <= 0 for d in bank_shape):
+        raise ValueError(f"bank shape must be non-empty and positive; "
+                         f"got {bank_shape}")
+    spec = FilterSpec(variant=variant, m_bits=m_bits, k=k,
+                      block_bits=block_bits, z=z)
+    options = BackendOptions(layout=layout, tile=tile, probe=probe,
+                             depth=depth, coop=coop, mix=mix,
+                             generations=generations)
+    ctx = options.ctx(device, bank=int(np.prod(bank_shape)))
+    eng = registry.select(spec, backend, ctx)
+    state = eng.init_state(spec, options)
+    if state is not None:
+        state = (state,) * ctx.bank
+    return Filter(spec=spec,
+                  words=eng.init_bank(spec, bank_shape, options, ctx.device),
+                  backend=eng.name, options=options, state=state)
+
+
+def route(keys, tenants, n_tenants: int, capacity: Optional[int] = None):
+    """Scatter flat routed keys into fixed-shape per-tenant batches:
+    ``(keys_by_tenant (T, cap, 2) int32, valid (T, cap) uint8)``, on the
+    keys' device (the CPU for arrays). ``capacity`` defaults to
+    ``len(keys)`` (nothing can overflow); a smaller capacity bounds memory
+    and drops each tenant's keys beyond it (the routed bank ops are exact).
+    Tenant ids outside ``[0, n_tenants)`` raise ``ValueError``."""
+    keys = as_keys(keys)
+    ids = (tenants if isinstance(tenants, torch.Tensor)
+           else torch.as_tensor(np.asarray(tenants, dtype=np.int64)))
+    part = route_by_id(keys, ids, int(n_tenants),
+                       int(capacity or max(keys.shape[0], 1)))
+    return part.keys_by_seg, part.valid
+
+
 def filter_for_n_items(n: int, bits_per_key: float = 16.0,
                        variant: str = "sbf", block_bits: int = 256,
                        k: Optional[int] = None, bank=None,
@@ -92,10 +149,9 @@ def filter_for_n_items(n: int, bits_per_key: float = 16.0,
     """Size a Bloom filter for ~n items at c = bits_per_key (m rounded up to
     a power of two), with k near the space-optimal k* = c ln 2 snapped to
     the variant's constraints. ``target_fpr`` sizes by the analytic FPR
-    instead. ``**kw`` goes to :func:`make_filter` (``device``, ``backend``,
+    instead. ``bank=B`` sizes each of B members for ~n items and returns the
+    bank. ``**kw`` goes to :func:`make_filter` (``device``, ``backend``,
     ``generations``, kernel knobs)."""
-    if bank is not None:
-        raise not_ported("filter banks", "queue 1 item 7")
     if variant in ("cuckoo", "quotient"):
         raise not_ported(f"{variant} filters", "queue 1 items 9, 10")
     if target_fpr is not None:
@@ -104,6 +160,9 @@ def filter_for_n_items(n: int, bits_per_key: float = 16.0,
     m = 1 << max(int(np.ceil(np.log2(max(n, 1) * bits_per_key))), 10)
     if k is None:
         k = _V.snap_k(variant, m / max(n, 1), block_bits, kw.get("z", 1))
+    if bank is not None:
+        return make_filter_bank(bank, variant=variant, m_bits=m, k=k,
+                                block_bits=block_bits, **kw)
     return make_filter(variant=variant, m_bits=m, k=k, block_bits=block_bits,
                        **kw)
 
@@ -133,5 +192,5 @@ def get_backend(name: str) -> registry.Backend:
 
 
 __all__ = ["Filter", "FilterSpec", "BackendOptions", "as_keys", "registry",
-           "make_filter", "filter_for_n_items", "union", "backends",
-           "describe_backends", "get_backend"]
+           "make_filter", "make_filter_bank", "route", "filter_for_n_items",
+           "union", "backends", "describe_backends", "get_backend"]

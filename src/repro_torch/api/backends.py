@@ -16,13 +16,22 @@ with ``generations`` set belongs to ``windowed``, so the bit engines
 decline both (``_plain_bits``). Each runs its plain versions on the CPU and
 its CUDA kernels on the card (the regime by L2 fit), so there too a CUDA
 tensor never reaches a plain version.
+
+Banks (``ctx.bank`` set). ``torch`` runs the plain ``bank_*_rows`` on the
+CPU; ``cuda-l2`` and ``cuda-dram`` the bank kernels, one launch for the
+whole bank, the engine chosen by the whole bank's bytes
+(``ops.bank_l2_resident``); ``counting`` its bank kernels (and one decay
+launch over the flat bank). A ``cbf`` bank has no bank kernel and a
+windowed bank keeps one head per member: both take the registry's generic
+path, one scalar op per member (on the card, the scalar CUDA kernels).
 """
 from __future__ import annotations
 
 from repro_torch.core import hashing as H
 from repro_torch.core import variants as V
 from repro_torch.core.variants import FilterSpec
-from repro_torch.api.registry import Backend, SelectionContext, register
+from repro_torch.api.registry import (Backend, SelectionContext,
+                                      flat_members, register)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ring import ring_dense
 from repro_torch.window import ring as R
@@ -35,7 +44,46 @@ def _plain_bits(spec: FilterSpec, ctx: SelectionContext) -> bool:
             and ctx.generations is None)
 
 
-class TorchBackend(Backend):
+class _BitBankBackend(Backend):
+    """The native bank path of the bit engines: per-member batches flatten
+    to routed keys, and a routed op is one ``_bank_add`` / ``_bank_contains``
+    over the whole bank. A cbf bank has no bank form and takes the generic
+    per-member path."""
+
+    supports_bank = True
+
+    def add_bank(self, spec, words, keys, options, valid=None, state=None):
+        if spec.variant == "cbf":
+            return super().add_bank(spec, words, keys, options, valid=valid,
+                                    state=state)
+        flat, member = flat_members(keys)
+        vf = None if valid is None else valid.reshape(-1)
+        return self._bank_add(spec, words, flat, member, options, vf)
+
+    def contains_bank(self, spec, words, keys, options, state=None):
+        if spec.variant == "cbf":
+            return super().contains_bank(spec, words, keys, options,
+                                         state=state)
+        flat, member = flat_members(keys)
+        return self._bank_contains(spec, words, flat, member, options
+                                   ).reshape(keys.shape[:2])
+
+    def add_bank_routed(self, spec, words, keys, member, options, valid=None,
+                        state=None):
+        if spec.variant == "cbf":
+            return super().add_bank_routed(spec, words, keys, member, options,
+                                           valid=valid, state=state)
+        return self._bank_add(spec, words, keys, member, options, valid)
+
+    def contains_bank_routed(self, spec, words, keys, member, options,
+                             state=None):
+        if spec.variant == "cbf":
+            return super().contains_bank_routed(spec, words, keys, member,
+                                                options, state=state)
+        return self._bank_contains(spec, words, keys, member, options)
+
+
+class TorchBackend(_BitBankBackend):
     """The plain PyTorch versions on the CPU: one row gather per lookup
     (``contains``) and the sorted segmented-OR bulk insert (``add_rows``).
     The semantic oracle of the port."""
@@ -57,8 +105,22 @@ class TorchBackend(Backend):
     def contains(self, spec, words, keys, options):
         return V.contains(spec, words, keys)
 
+    def _bank_add(self, spec, words, keys, member, options, valid):
+        return V.bank_add_rows(spec, words, keys, member, valid=valid)
 
-class _CudaBackend(Backend):
+    def _bank_contains(self, spec, words, keys, member, options):
+        return V.bank_contains_rows(spec, words, keys, member)
+
+
+def _fits_l2(spec: FilterSpec, ctx: SelectionContext) -> bool:
+    """The filter, or the whole bank when ``ctx.bank`` is set, fits the
+    L2-resident regime."""
+    if ctx.bank is not None:
+        return ops.bank_l2_resident(spec, ctx.bank)
+    return ops.fits_l2(spec)
+
+
+class _CudaBackend(_BitBankBackend):
     regime = "auto"
 
     def _runs(self, spec: FilterSpec, ctx: SelectionContext) -> bool:
@@ -85,6 +147,25 @@ class _CudaBackend(Backend):
         return ops.bloom_contains(spec, words, keys, depth=options.depth,
                                   **self._kw(options))
 
+    # -- native bank path: one bank-kernel launch for the whole bank -------
+    def _bank_kw(self, options):
+        kw = {"probe": options.probe, "mix": options.mix}
+        if options.layout is not None:
+            kw["layout"] = options.layout
+        if options.tile is not None:
+            kw["tile"] = options.tile
+        return kw
+
+    def _bank_add(self, spec, words, keys, member, options, valid):
+        return ops.bloom_bank_add(spec, words, keys, member, valid=valid,
+                                  **self._bank_kw(options))
+
+    def _bank_contains(self, spec, words, keys, member, options):
+        return ops.bloom_bank_contains(spec, words, keys, member,
+                                       regime=self.regime,
+                                       depth=options.depth,
+                                       **self._bank_kw(options))
+
 
 class CudaL2Backend(_CudaBackend):
     """CUDA kernels for a filter that fits the L2 cache (the paper's
@@ -94,7 +175,7 @@ class CudaL2Backend(_CudaBackend):
     regime = "vmem"
 
     def supports(self, spec: FilterSpec, ctx: SelectionContext) -> bool:
-        return self._runs(spec, ctx) and ops.fits_l2(spec)
+        return self._runs(spec, ctx) and _fits_l2(spec, ctx)
 
     def cost(self, spec: FilterSpec, ctx: SelectionContext) -> float:
         return 0.4
@@ -111,8 +192,8 @@ class CudaDramBackend(_CudaBackend):
         return self._runs(spec, ctx)
 
     def cost(self, spec: FilterSpec, ctx: SelectionContext) -> float:
-        # dispreferred while the filter still fits the L2
-        return 1.2 if ops.fits_l2(spec) else 0.7
+        # dispreferred while the filter (or bank) still fits the L2
+        return 1.2 if _fits_l2(spec, ctx) else 0.7
 
 
 class CountingBackend(Backend):
@@ -124,6 +205,7 @@ class CountingBackend(Backend):
     name = "counting"
     supports_remove = True
     supports_decay = True
+    supports_bank = True
     supports_count = True              # counting_count multiplicity bound
 
     def supports(self, spec: FilterSpec, ctx: SelectionContext) -> bool:
@@ -185,6 +267,56 @@ class CountingBackend(Backend):
         """Occupancy -> counters at 1: membership-preserving, count-lossy."""
         return V.counting_from_bloom(spec, dense)
 
+    # -- native bank path: the counter super-filter, one launch ------------
+    def _bank_update(self, spec, words, keys, member, valid, op, options):
+        if words.is_cuda:
+            kw = {"layout": options.layout, "probe": options.probe,
+                  "mix": options.mix}
+            if options.tile is not None:
+                kw["tile"] = options.tile
+            return ops.counting_bank_update(spec, words, keys, member, op,
+                                            valid=valid, **kw)
+        return V.bank_counting_update(spec, words, keys, member, valid, op)
+
+    def add_bank(self, spec, words, keys, options, valid=None, state=None):
+        flat, member = flat_members(keys)
+        vf = None if valid is None else valid.reshape(-1)
+        return self._bank_update(spec, words, flat, member, vf, "add",
+                                 options)
+
+    def remove_bank(self, spec, words, keys, options, valid=None, state=None):
+        flat, member = flat_members(keys)
+        vf = None if valid is None else valid.reshape(-1)
+        return self._bank_update(spec, words, flat, member, vf, "remove",
+                                 options)
+
+    def contains_bank(self, spec, words, keys, options, state=None):
+        flat, member = flat_members(keys)
+        return self.contains_bank_routed(spec, words, flat, member, options
+                                         ).reshape(keys.shape[:2])
+
+    def add_bank_routed(self, spec, words, keys, member, options, valid=None,
+                        state=None):
+        return self._bank_update(spec, words, keys, member, valid, "add",
+                                 options)
+
+    def remove_bank_routed(self, spec, words, keys, member, options,
+                           valid=None, state=None):
+        return self._bank_update(spec, words, keys, member, valid, "remove",
+                                 options)
+
+    def contains_bank_routed(self, spec, words, keys, member, options,
+                             state=None):
+        if words.is_cuda:
+            return ops.counting_bank_contains(spec, words, keys, member,
+                                              depth=options.depth)
+        return V.bank_counting_contains(spec, words, keys, member)
+
+    def decay_bank(self, spec, words, options):
+        """Aging is elementwise on packed counters: the bank decays whole
+        (one launch over the flat bank on the card)."""
+        return self.decay(spec, words, options)
+
 
 class WindowedBackend(Backend):
     """Generation-ring sliding window (``options.generations`` = G):
@@ -193,7 +325,8 @@ class WindowedBackend(Backend):
     age class, not per key; G x the memory of one generation. The head is
     per-filter host state (``Filter.state``). On the card the add runs the
     blocked add kernel on the head row and the query the ring kernel, the
-    regime by L2 fit; on the CPU their plain versions."""
+    regime by L2 fit; on the CPU their plain versions. A bank keeps one
+    head per member and runs the generic per-member bank path."""
 
     name = "windowed"
     supports_advance = True
@@ -232,9 +365,12 @@ class WindowedBackend(Backend):
 
     def from_dense(self, spec, dense, options):
         """The whole window in generation 0 (age classes are not
-        recoverable from the canonical form); the head restarts at 0."""
-        words = R.ring_init(spec, options.generations, dense.device)
-        words[0] = dense
+        recoverable from the canonical form); the head restarts at 0.
+        Leading bank dims of ``dense`` lead the rings."""
+        ring = R.ring_init(spec, options.generations, dense.device)
+        words = ring.expand(tuple(dense.shape[:-1]) + tuple(ring.shape))
+        words = words.clone()
+        words[..., 0, :] = dense
         return words
 
 

@@ -1,24 +1,33 @@
 """The immutable ``Filter``: one interface over every engine.
 
-Counterpart of ``repro.api.filter`` for a scalar filter. A ``Filter`` holds
-its spec, its words (the engine's int32 storage on the filter's device:
-``(n_words,)`` bits, ``(storage_words,)`` counters for the counting engine,
-or a ``(G, n_words)`` ring for the windowed engine), its engine name, its
-engine options and its engine state (the windowed engine's ring head, a
-Python ``int``; ``None`` elsewhere). Every operation that looks like a
-mutation returns a new ``Filter`` and leaves the old one as it was: the
-engines clone the words before an update, as JAX's immutable arrays behave.
+Counterpart of ``repro.api.filter``. A ``Filter`` holds its spec, its words
+(the engine's int32 storage on the filter's device: ``(n_words,)`` bits,
+``(storage_words,)`` counters for the counting engine, or a
+``(G, n_words)`` ring for the windowed engine), its engine name, its engine
+options and its engine state (the windowed engine's ring head, a Python
+``int``; ``None`` elsewhere). Every operation that looks like a mutation
+returns a new ``Filter`` and leaves the old one as it was: the engines
+clone the words before an update, as JAX's immutable arrays behave.
 
 ``remove`` and ``decay`` run on engines that support them (``counting``),
 ``advance`` on the ``windowed`` engine, and each raises the JAX package's
-``NotImplementedError`` elsewhere. Banks and routed ops are a later slice
-of the port; they raise ``NotImplementedError`` naming the ROADMAP item.
+``NotImplementedError`` elsewhere.
+
+**Banks.** A filter may carry leading bank dims: ``bank_shape`` is
+``words.shape[:words.ndim - engine.words_ndim]``, so ``(B, n_words)``
+words are a bank of B same-spec filters (``make_filter_bank``). Bank ops
+take per-member batches (``bank_shape + (n, 2)`` keys, optional
+``valid bank_shape + (n,)``) or routed flat keys ``(n, 2)`` with
+``tenants (n,)`` member ids in ``[0, B)`` (optional ``valid (n,)``); an
+engine with a native bank path runs the whole bank in one launch. A
+windowed bank's state is one head per member, a tuple of ints in
+row-major member order (JAX: a bank-shaped head array).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +35,7 @@ import torch
 from repro_torch import not_ported
 from repro_torch.core import hashing as H
 from repro_torch.core import variants as V
+from repro_torch.core.partition import check_ids
 from repro_torch.core.variants import FilterSpec
 from repro_torch.api import registry
 from repro_torch.window.ring import ring_merge_dense
@@ -45,9 +55,10 @@ class BackendOptions:
     mix: str = "auto"                  # "full" | "cheap" | "auto"
     generations: Optional[int] = None  # windowed engine: ring size G
 
-    def ctx(self, device=None) -> registry.SelectionContext:
+    def ctx(self, device=None, bank: Optional[int] = None
+            ) -> registry.SelectionContext:
         return registry.SelectionContext.current(
-            device=device, generations=self.generations)
+            device=device, generations=self.generations, bank=bank)
 
 
 def _int32_bits(x) -> torch.Tensor:
@@ -63,21 +74,60 @@ def _int32_bits(x) -> torch.Tensor:
     return torch.from_numpy(arr.view(np.int32))
 
 
-def as_keys(keys, device=None) -> torch.Tensor:
-    """Keys as a contiguous ``(n, 2)`` int32 ``[hi, lo]`` tensor on ``device``
-    (``None`` keeps a tensor's own device, and puts arrays on the CPU).
+def as_keys(keys, device=None, batch_shape: Tuple[int, ...] = ()
+            ) -> torch.Tensor:
+    """Keys as a contiguous ``batch_shape + (n, 2)`` int32 ``[hi, lo]``
+    tensor on ``device`` (``None`` keeps a tensor's own device, and puts
+    arrays on the CPU); ``batch_shape`` is a bank's, for per-member batches.
 
-    Accepts ``np.uint64`` keys ``(n,)``, ``(n, 2)`` u32 arrays, and torch
-    tensors of ``(n, 2)`` int32, uint32 or int64 u32 values."""
+    Accepts ``np.uint64`` keys ``batch_shape + (n,)``, u32 arrays, and torch
+    tensors of int32, uint32 or int64 u32 values."""
     if isinstance(keys, np.ndarray) and keys.dtype == np.uint64:
         keys = H.u64x2_from_u64(keys)
     keys = _int32_bits(keys)
-    if keys.ndim != 2 or keys.shape[-1] != 2:
-        raise ValueError(f"keys must be (n, 2) [hi, lo] words or (n,) "
+    nd = len(batch_shape)
+    if (keys.ndim != nd + 2 or keys.shape[-1] != 2
+            or tuple(keys.shape[:nd]) != tuple(batch_shape)):
+        raise ValueError(f"keys must be {tuple(batch_shape) + ('n', 2)} "
+                         f"[hi, lo] words or {tuple(batch_shape) + ('n',)} "
                          f"np.uint64; got shape {tuple(keys.shape)}")
     if device is not None:
         keys = keys.to(device)
     return keys.contiguous()
+
+
+def _members(tenants, bank: int, n: int, device) -> torch.Tensor:
+    """Routed tenant ids as an (n,) int32 tensor on ``device``, each in
+    ``[0, bank)`` (``ValueError`` otherwise). Ids already on the card for a
+    bank on the card are checked once downstream, by the bank kernel's
+    wrapper or by ``route_by_id`` on the generic path (one host sync a
+    call); all other ids are checked here, host ids before the upload."""
+    ids = (tenants if isinstance(tenants, torch.Tensor)
+           else torch.as_tensor(np.asarray(tenants, dtype=np.int64)))
+    if ids.shape != (n,):
+        raise ValueError(f"tenants must be ({n},), got {tuple(ids.shape)}")
+    if ids.is_cuda and torch.device(device).type == "cuda":
+        if ids.dtype != torch.int32:
+            ids = ids.clamp(-1, bank)   # out of range stays so in int32
+    else:
+        check_ids(ids, bank)
+    return ids.to(device=device, dtype=torch.int32).contiguous()
+
+
+def _valid(valid, shape, device) -> Optional[torch.Tensor]:
+    """A validity mask as a uint8 tensor of ``shape`` on ``device``."""
+    if valid is None:
+        return None
+    v = (valid if isinstance(valid, torch.Tensor)
+         else torch.as_tensor(np.asarray(valid)))
+    if tuple(v.shape) != tuple(shape):
+        raise ValueError(f"valid must be {tuple(shape)}, got "
+                         f"{tuple(v.shape)}")
+    return (v != 0).to(device=device, dtype=torch.uint8)
+
+
+def _prod(shape) -> int:
+    return int(math.prod(shape))
 
 
 def as_words(words, device=None) -> torch.Tensor:
@@ -91,9 +141,10 @@ def as_words(words, device=None) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Filter:
-    """Immutable Bloom filter bound to a registry engine.
+    """Immutable Bloom filter (or filter bank) bound to a registry engine.
 
-    Build one with :func:`repro_torch.api.make_filter` /
+    Build one with :func:`repro_torch.api.make_filter`,
+    :func:`repro_torch.api.make_filter_bank`,
     :func:`repro_torch.api.filter_for_n_items`, or :meth:`from_state`.
     ``eq=False``: compare ``dense_words()`` to test equality."""
 
@@ -101,15 +152,16 @@ class Filter:
     words: torch.Tensor
     backend: str = "torch"
     options: BackendOptions = BackendOptions()
-    state: Optional[int] = None        # engine state (the ring head)
+    state: Optional[object] = None     # ring head(s): int, or a bank's tuple
 
     @property
     def engine(self) -> registry.Backend:
         return registry.get(self.backend)
 
     @property
-    def head(self) -> Optional[int]:
-        """Windowed engine: the generation that takes inserts."""
+    def head(self):
+        """Windowed engine: the generation that takes inserts (a tuple of
+        one head per member for a bank)."""
         return self.state
 
     @property
@@ -119,98 +171,242 @@ class Filter:
     def replace(self, **kw) -> "Filter":
         return dataclasses.replace(self, **kw)
 
+    # -- bank geometry -------------------------------------------------------
+    @property
+    def bank_shape(self) -> Tuple[int, ...]:
+        """Leading bank dims of the words; ``()`` for a scalar filter."""
+        nd = self.words.ndim - self.engine.words_ndim
+        return tuple(int(d) for d in self.words.shape[:max(nd, 0)])
+
+    @property
+    def bank_size(self) -> int:
+        """Total member count (1 for a scalar filter)."""
+        return _prod(self.bank_shape)
+
+    def _flat(self):
+        """(words (B, *base), state: B heads or None) for bank dispatch."""
+        base = tuple(self.words.shape[len(self.bank_shape):])
+        return self.words.reshape((self.bank_size,) + base), self.state
+
+    def _heads(self) -> np.ndarray:
+        return np.asarray(self.state, dtype=np.int64).reshape(
+            self.bank_shape)
+
+    @staticmethod
+    def _index(idx):
+        return idx.cpu().numpy() if isinstance(idx, torch.Tensor) else idx
+
+    def select(self, idx) -> "Filter":
+        """Index the bank axis: ``select(3)`` is member 3 as a scalar
+        filter; a slice or an index tensor gives a sub-bank."""
+        if not self.bank_shape:
+            raise ValueError("select() needs a bank; this is a scalar filter")
+        state = self.state
+        if state is not None:
+            heads = self._heads()[self._index(idx)]
+            state = (int(heads) if heads.ndim == 0
+                     else tuple(int(h) for h in heads.reshape(-1)))
+        return self.replace(words=self.words[idx], state=state)
+
+    def scatter_update(self, idx, sub: "Filter") -> "Filter":
+        """Replace member(s) ``idx`` with ``sub``'s words (and heads): the
+        write half of :meth:`select`; spec and backend must match. Members
+        of a windowed bank may end up with different heads."""
+        if not self.bank_shape:
+            raise ValueError("scatter_update() needs a bank")
+        if sub.spec != self.spec or sub.backend != self.backend:
+            raise ValueError("scatter_update: spec/backend mismatch")
+        words = self.words.clone()
+        words[idx] = sub.words.to(self.device)
+        state = self.state
+        if state is not None:
+            heads = self._heads().copy()
+            at = self._index(idx)
+            heads[at] = np.asarray(sub.state, np.int64).reshape(
+                heads[at].shape)
+            state = tuple(int(h) for h in heads.reshape(-1))
+        return self.replace(words=words, state=state)
+
     # -- bulk ops ------------------------------------------------------------
-    def _check_scalar_form(self, op: str, tenants, valid) -> None:
+    def _check_routed(self) -> None:
+        if not self.bank_shape:
+            raise ValueError(
+                "routed (keys, tenants) ops need a bank; build one with "
+                "repro_torch.api.make_filter_bank(...)")
+        if len(self.bank_shape) != 1:
+            raise ValueError("routed ops address a 1-D bank axis; "
+                             f"bank_shape={self.bank_shape}")
+
+    def _update(self, op: str, keys, tenants, valid) -> "Filter":
+        """The routed, batched and scalar forms of add/remove."""
+        eng = self.engine
         if tenants is not None:
-            raise not_ported(f"routed (bank) {op}", "queue 1 item 7")
+            self._check_routed()
+            keys = as_keys(keys, self.device)
+            n = keys.shape[0]
+            if n == 0:
+                return self
+            member = _members(tenants, self.bank_size, n, self.device)
+            wf, st = self._flat()
+            run = getattr(eng, f"{op}_bank_routed")
+            new = run(self.spec, wf, keys, member, self.options,
+                      valid=_valid(valid, (n,), self.device), state=st)
+            return self.replace(words=new.reshape(self.words.shape))
+        if self.bank_shape:
+            keys = as_keys(keys, self.device, self.bank_shape)
+            n = keys.shape[-2]
+            if n == 0:
+                return self
+            B = self.bank_size
+            vf = _valid(valid, self.bank_shape + (n,), self.device)
+            wf, st = self._flat()
+            run = getattr(eng, f"{op}_bank")
+            new = run(self.spec, wf, keys.reshape(B, n, 2), self.options,
+                      valid=None if vf is None else vf.reshape(B, n),
+                      state=st)
+            return self.replace(words=new.reshape(self.words.shape))
         if valid is not None:
             raise ValueError(f"valid= masks apply to bank ops only; filter "
                              f"the keys instead for a scalar {op}")
-
-    def add(self, keys, tenants=None, valid=None) -> "Filter":
-        """Insert ``keys`` (OR the bits, or increment the counters); returns
-        the updated filter (self unchanged)."""
-        self._check_scalar_form("add", tenants, valid)
         keys = as_keys(keys, self.device)
         if keys.shape[0] == 0:
             return self
         if self.state is None:
-            new = self.engine.add(self.spec, self.words, keys, self.options)
+            new = getattr(eng, op)(self.spec, self.words, keys, self.options)
         else:
-            new = self.engine.add(self.spec, self.words, keys, self.options,
-                                  state=self.state)
+            new = getattr(eng, op)(self.spec, self.words, keys, self.options,
+                                   state=self.state)
         return self.replace(words=new)
 
+    def add(self, keys, tenants=None, valid=None) -> "Filter":
+        """Insert keys (OR the bits, or increment the counters); returns the
+        updated filter (self unchanged). Scalar filter: ``keys (n, 2)``.
+        Bank: per-member batches ``bank_shape + (n, 2)`` (optionally
+        ``valid bank_shape + (n,)``), or routed flat ``keys (n, 2)`` with
+        ``tenants (n,)`` member ids (optionally ``valid (n,)``)."""
+        return self._update("add", keys, tenants, valid)
+
     def contains(self, keys, tenants=None) -> torch.Tensor:
-        """Membership: (n,) bool on the filter's device. No false
-        negatives; false positives at about ``fpr_theory``."""
+        """Membership on the filter's device: (n,) bool for a scalar filter
+        or routed keys (each tested against its tenant's member only),
+        ``bank_shape + (n,)`` for per-member batches. No false negatives;
+        false positives at about ``fpr_theory``."""
         if tenants is not None:
-            raise not_ported("routed (bank) contains", "queue 1 item 7")
+            self._check_routed()
+            keys = as_keys(keys, self.device)
+            n = keys.shape[0]
+            if n == 0:
+                return torch.zeros((0,), dtype=torch.bool, device=self.device)
+            member = _members(tenants, self.bank_size, n, self.device)
+            wf, st = self._flat()
+            return self.engine.contains_bank_routed(
+                self.spec, wf, keys, member, self.options, state=st)
+        if self.bank_shape:
+            keys = as_keys(keys, self.device, self.bank_shape)
+            n = keys.shape[-2]
+            if n == 0:
+                return torch.zeros(self.bank_shape + (0,), dtype=torch.bool,
+                                   device=self.device)
+            wf, st = self._flat()
+            out = self.engine.contains_bank(
+                self.spec, wf, keys.reshape(self.bank_size, n, 2),
+                self.options, state=st)
+            return out.reshape(self.bank_shape + (n,))
         keys = as_keys(keys, self.device)
         if keys.shape[0] == 0:
             return torch.zeros((0,), dtype=torch.bool, device=self.device)
         return self.engine.contains(self.spec, self.words, keys, self.options)
 
     def remove(self, keys, tenants=None, valid=None) -> "Filter":
-        """Delete keys (counting engine): guarded decrements (a counter at 0
-        stays 0, one at 15 stays 15). Removing keys that were added leaves
-        no false negative among the keys still present; removing a key that
-        was never added can clear a counter it shares with one."""
+        """Delete keys (counting engine; the shapes of :meth:`add`):
+        guarded decrements (a counter at 0 stays 0, one at 15 stays 15).
+        Removing keys that were added leaves no false negative among the
+        keys still present; removing a key that was never added can clear
+        a counter it shares with one."""
         if not self.engine.supports_remove:
             raise NotImplementedError(
                 f"backend {self.backend!r} cannot remove keys; build the "
                 f"filter with variant='countingbf' (engine 'counting'), "
                 f"variant='cuckoo' or variant='quotient' (~1x storage)")
-        self._check_scalar_form("remove", tenants, valid)
-        keys = as_keys(keys, self.device)
-        if keys.shape[0] == 0:
-            return self
-        return self.replace(words=self.engine.remove(
-            self.spec, self.words, keys, self.options))
+        return self._update("remove", keys, tenants, valid)
 
     def decay(self, steps: int = 1) -> "Filter":
-        """Age the filter: ``steps`` uniform decrements of every nonzero
-        counter (counting engine). Keys inserted once disappear after one
-        step; keys re-inserted every step persist."""
+        """Age the filter (or every bank member): ``steps`` uniform
+        decrements of every nonzero counter (counting engine). Keys
+        inserted once disappear after one step; keys re-inserted every step
+        persist."""
         if not self.engine.supports_decay:
             raise NotImplementedError(
                 f"backend {self.backend!r} cannot decay; build the filter "
                 f"with variant='countingbf' (engine 'counting')")
         out = self
         for _ in range(steps):
-            out = out.replace(words=out.engine.decay(out.spec, out.words,
-                                                     out.options))
+            if out.bank_shape:
+                wf, _ = out._flat()
+                new = out.engine.decay_bank(out.spec, wf, out.options)
+                out = out.replace(words=new.reshape(out.words.shape))
+            else:
+                out = out.replace(words=out.engine.decay(
+                    out.spec, out.words, out.options))
         return out
 
     def advance(self) -> "Filter":
         """Slide the window one generation (windowed engine only): the
         oldest generation is cleared in O(1) in keys and becomes the new
-        insert target."""
+        insert target. A bank advances every member by its own head."""
         if not self.engine.supports_advance:
             raise NotImplementedError(
                 f"backend {self.backend!r} cannot advance; build the filter "
                 f"with generations=G (engine 'windowed')")
+        if self.bank_shape:
+            wf, st = self._flat()
+            words, state = self.engine.advance_bank(self.spec, wf,
+                                                    self.options, st)
+            return self.replace(words=words.reshape(self.words.shape),
+                                state=state)
         words, state = self.engine.advance(self.spec, self.words,
                                            self.options, state=self.state)
         return self.replace(words=words, state=state)
 
+    def _merge_windowed(self, other: "Filter") -> torch.Tensor:
+        """OR the other window's dense union into my head generation (each
+        member's own head for a bank). Rings cannot be merged slot by slot:
+        slot g is a different age class in each, and a later advance would
+        retire merged keys early (a false negative inside the window)."""
+        dense = other.dense_words().to(self.device)
+        if not self.bank_shape:
+            return ring_merge_dense(self.words, self.state, dense)
+        wf, heads = self._flat()
+        new = wf.clone()
+        rows = torch.arange(wf.shape[0], device=wf.device)
+        head = torch.tensor(heads, dtype=torch.int64, device=wf.device)
+        new[rows, head] |= dense.reshape(wf.shape[0], -1)
+        return new.reshape(self.words.shape)
+
     def merge(self, other: "Filter") -> "Filter":
         """Union. Same spec required; engines and devices may differ (the
         result lives on self's engine and device). A windowed self lands
-        the other filter's dense union in its own head generation (rings
-        cannot be merged slot by slot: slot g is a different age class in
-        each). Otherwise, same engine and shape: the engine's own merge (OR
-        for bits, a saturating counter add for the counting engine); else
-        the OR of the dense words, re-homed into self's engine."""
+        the other filter's dense union in its own head generation(s). Same
+        engine and shape: the engine's own merge (OR for bits, a saturating
+        counter add for the counting engine; member-wise for banks); else,
+        for scalar filters, the OR of the dense words re-homed into self's
+        engine."""
         if other.spec != self.spec:
             raise ValueError(f"cannot merge {other.spec} into {self.spec}")
         if self.engine.supports_advance:
-            new = ring_merge_dense(self.words, self.state,
-                                   other.dense_words().to(self.device))
+            if other.bank_shape != self.bank_shape:
+                raise ValueError(
+                    "windowed merge needs matching bank shapes; got "
+                    f"{other.bank_shape} vs {self.bank_shape}")
+            new = self._merge_windowed(other)
         elif (other.backend == self.backend
                 and other.words.shape == self.words.shape):
             new = self.engine.merge(self.spec, self.words,
                                     other.words.to(self.device), self.options)
+        elif self.bank_shape or other.bank_shape:
+            raise ValueError(
+                "cross-engine/shape merge is not defined for banks; use "
+                "bank_merge on same-backend banks, or select() members")
         else:
             dense = other.dense_words().to(self.device)
             new = self.engine.from_dense(self.spec,
@@ -220,46 +416,79 @@ class Filter:
 
     __or__ = merge
 
+    def bank_merge(self, other: "Filter") -> "Filter":
+        """Member-wise union of two same-shape banks (member i with member
+        i): bit banks OR, counting banks saturating-add their counters,
+        windowed banks land the other union in each member's head."""
+        if not self.bank_shape:
+            raise ValueError("bank_merge() needs banks; use merge()")
+        if (other.spec != self.spec or other.backend != self.backend
+                or other.bank_shape != self.bank_shape):
+            raise ValueError(
+                f"bank_merge needs matching (spec, backend, bank_shape); "
+                f"got {other.spec}/{other.backend}/{other.bank_shape} vs "
+                f"{self.spec}/{self.backend}/{self.bank_shape}")
+        if self.engine.supports_advance:
+            new = self._merge_windowed(other)
+        else:
+            new = self.engine.merge(self.spec, self.words,
+                                    other.words.to(self.device), self.options)
+        return self.replace(words=new)
+
     # -- introspection -------------------------------------------------------
     def dense_words(self) -> torch.Tensor:
-        """Canonical (n_words,) int32 words (u32 bits)."""
-        return self.engine.to_dense(self.spec, self.words, self.options)
+        """Canonical int32 words (u32 bits): (n_words,) for a scalar filter,
+        ``bank_shape + (n_words,)`` for a bank."""
+        if not self.bank_shape:
+            return self.engine.to_dense(self.spec, self.words, self.options)
+        wf, _ = self._flat()
+        dense = self.engine.to_dense(self.spec, wf, self.options)
+        return dense.reshape(self.bank_shape + (self.spec.n_words,))
 
     def fill_fraction(self) -> float:
+        """Fill of the canonical bit view (over the whole bank)."""
         return V.fill_fraction(self.dense_words())
 
     def fpr_theory(self, n: int) -> float:
-        """Analytic FPR at load n."""
+        """Analytic FPR at load n (per member, for banks)."""
         return V.fpr_theory(self.spec, n)
 
     def measure_fpr(self, n_probe: int = 1 << 16, seed: int = 1234) -> float:
         """Empirical FPR against probes from the reserved keyspace
-        (``hashing.probe_u64x2``), disjoint from every insert set."""
+        (``hashing.probe_u64x2``), disjoint from every insert set; a bank
+        probes every member and reports the mean."""
         probes = as_keys(H.probe_u64x2(n_probe, seed=seed), self.device)
+        if self.bank_shape:
+            probes = probes.expand(self.bank_shape + tuple(probes.shape))
         hits = self.contains(probes)
         return float(hits.to(torch.float64).mean().item())
 
     def approx_count(self) -> float:
-        """Swamidass-Baldi estimate of the distinct keys inserted."""
+        """Swamidass-Baldi estimate of the distinct keys inserted (over the
+        whole bank's bits)."""
         fill = min(self.fill_fraction(), 1.0 - 1e-12)
-        return max(0.0, -(self.spec.m_bits / self.spec.k)
-                   * math.log(1.0 - fill))
+        m_total = self.spec.m_bits * self.bank_size
+        return max(0.0, -(m_total / self.spec.k) * math.log(1.0 - fill))
 
     @property
     def nbytes(self) -> int:
+        """Backing storage (summed over a bank's members)."""
         return int(self.words.numel()) * self.words.element_size()
 
     # -- checkpointing -------------------------------------------------------
     def to_state(self) -> dict:
         """Engine-independent state: dense words (occupancy bits for the
-        counting engine, the ring's union for the windowed engine) + spec
-        fields + engine, and a windowed filter's ring size under
-        ``"options"``. The head is not recorded: the dense form collapses
-        the age classes, so :meth:`from_state` restores the union into
-        generation 0 with head 0."""
+        counting engine, the ring's union for the windowed engine; the bank
+        dims lead) + spec fields + engine, a bank's ``"bank_shape"``, and a
+        windowed filter's ring size under ``"options"``. The head is not
+        recorded: the dense form collapses the age classes, so
+        :meth:`from_state` restores the union into generation 0 with head
+        0."""
         state = {"words": self.dense_words(),
                  "spec": dataclasses.asdict(self.spec),
                  "backend": self.backend}
+        if self.bank_shape:
+            state["bank_shape"] = list(self.bank_shape)
         if self.options.generations is not None:
             state["options"] = {"generations": self.options.generations}
         return state
@@ -268,33 +497,43 @@ class Filter:
     def from_state(cls, state: dict, backend: Optional[str] = None,
                    options: BackendOptions = BackendOptions(),
                    device=None) -> "Filter":
-        """Rebuild a filter from :meth:`to_state` output (or the JAX
-        package's, whose engine names are registered as aliases).
+        """Rebuild a filter or bank from :meth:`to_state` output (or the
+        JAX package's, whose engine names are registered as aliases).
         ``device=None`` is the card. A windowed state comes back windowed,
         with its ring size, unless ``backend=`` names another engine (which
         then takes the dense union)."""
-        if state.get("bank_shape"):
-            raise not_ported("filter banks", "queue 1 item 7")
         if "engine_state" in state:
             raise not_ported("fingerprint engine state", "queue 1 item 9")
         spec = FilterSpec(**{k: (v if isinstance(v, str) else int(v))
                              for k, v in state["spec"].items()})
         name = backend or state.get("backend", "auto")
+        bank_shape = tuple(int(d) for d in state.get("bank_shape") or ())
         st_opts = state.get("options") or {}
         if (name == "windowed" and options.generations is None
                 and "generations" in st_opts):
             options = dataclasses.replace(
                 options, generations=int(st_opts["generations"]))
-        ctx = options.ctx(device)
+        ctx = options.ctx(device, bank=_prod(bank_shape) if bank_shape
+                          else None)
         eng = registry.select(spec, name, ctx)
         words = as_words(state["words"], ctx.device)
-        if words.shape != (spec.n_words,):
+        if tuple(words.shape) != bank_shape + (spec.n_words,):
             raise ValueError(f"state words {tuple(words.shape)} do not match "
-                             f"{spec} ({spec.n_words} dense words)")
-        return cls(spec=spec, words=eng.from_dense(spec, words, options),
-                   backend=eng.name, options=options,
-                   state=eng.init_state(spec, options))
+                             f"{spec} ({spec.n_words} dense words) in bank "
+                             f"{bank_shape}")
+        st = eng.init_state(spec, options)
+        if bank_shape:
+            flat = words.reshape(-1, spec.n_words)
+            new = eng.from_dense(spec, flat, options)
+            words = new.reshape(bank_shape + tuple(new.shape[1:]))
+            st = None if st is None else (st,) * flat.shape[0]
+        else:
+            words = eng.from_dense(spec, words, options)
+        return cls(spec=spec, words=words, backend=eng.name, options=options,
+                   state=st)
 
     def __repr__(self):
+        bank = f", bank={self.bank_shape}" if self.bank_shape else ""
         return (f"Filter({self.spec}, backend={self.backend!r}, "
-                f"words={tuple(self.words.shape)}, device={self.device})")
+                f"words={tuple(self.words.shape)}{bank}, "
+                f"device={self.device})")

@@ -23,6 +23,14 @@ windowed    the generation-ring sliding window (``generations`` = G:
 
 The JAX engine names are registered as aliases (see ``repro_torch.api``),
 so a state dict written by the JAX package names a port engine.
+
+Banks. A bank's words are ``(B, *base)``: per-member batches
+``(B, n, 2)`` (with ``valid (B, n)``) or routed flat keys ``(N, 2)`` with
+member ids ``(N,)``. The ``*_bank`` defaults below are the generic path: a
+loop over the members of the engine's scalar op, one launch per member
+(JAX: a ``vmap`` of the scalar op). Engines with a native member-offset
+path (one launch for the whole bank) override them and set
+``supports_bank``.
 """
 from __future__ import annotations
 
@@ -32,7 +40,17 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.partition import route_by_id
 from repro_torch.core.variants import FilterSpec
+
+
+def flat_members(keys: torch.Tensor):
+    """(B, n, 2) per-member batches -> flat (keys (B*n, 2), member (B*n,)
+    int32): the one batch-to-routed flattening convention."""
+    B, n = keys.shape[0], keys.shape[1]
+    member = torch.arange(B, dtype=torch.int32,
+                          device=keys.device).repeat_interleave(n)
+    return keys.reshape(-1, 2), member
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,12 +59,14 @@ class SelectionContext:
 
     device: torch.device
     generations: Optional[int] = None  # ring size -> the windowed engine
+    bank: Optional[int] = None         # bank member count (None = scalar)
 
     @classmethod
-    def current(cls, device=None, generations: Optional[int] = None
-                ) -> "SelectionContext":
+    def current(cls, device=None, generations: Optional[int] = None,
+                bank: Optional[int] = None) -> "SelectionContext":
         from repro_torch import resolve_device
-        return cls(device=resolve_device(device), generations=generations)
+        return cls(device=resolve_device(device), generations=generations,
+                   bank=bank)
 
 
 class Backend:
@@ -106,8 +126,17 @@ class Backend:
         windowed engine's ring head; ``None`` for every other engine."""
         return None
 
+    def init_bank(self, spec: FilterSpec, bank_shape: Tuple[int, ...],
+                  options, device) -> torch.Tensor:
+        """Zeroed words for a whole bank: the bank dims lead."""
+        base = self.init(spec, options, device)
+        return torch.zeros(tuple(bank_shape) + tuple(base.shape),
+                           dtype=base.dtype, device=device)
+
     def to_dense(self, spec: FilterSpec, words: torch.Tensor, options
                  ) -> torch.Tensor:
+        """Canonical (n_words,) bit words; leading bank dims pass through
+        (every engine's conversion is elementwise over them)."""
         return words
 
     def from_dense(self, spec: FilterSpec, dense: torch.Tensor, options
@@ -150,6 +179,104 @@ class Backend:
         raise NotImplementedError(
             f"engine {self.name!r} does not support advance(); use the "
             f"'windowed' engine (generations=...)")
+
+
+    # -- bank ops (the generic path: one scalar op per member) --------------
+    # Batched form: ``words`` (B, *base), keys (B, n, 2), optional valid
+    # (B, n). Routed form: flat keys (N, 2) + member ids (N,). ``state`` is
+    # one engine state per member (the windowed heads) or None. A member's
+    # invalid keys are dropped before its op (JAX repeats one of its valid
+    # keys instead: OR is idempotent, so the words are the same); a member
+    # with no valid key keeps its words.
+
+    def add_bank(self, spec: FilterSpec, words: torch.Tensor,
+                 keys: torch.Tensor, options, valid=None, state=None
+                 ) -> torch.Tensor:
+        out = words.clone()
+        for b in range(words.shape[0]):
+            kb = keys[b] if valid is None else keys[b][valid[b] != 0]
+            kw = {} if state is None else {"state": state[b]}
+            if kb.shape[0]:
+                out[b] = self.add(spec, words[b], kb.contiguous(), options,
+                                  **kw)
+        return out
+
+    def contains_bank(self, spec: FilterSpec, words: torch.Tensor,
+                      keys: torch.Tensor, options, state=None
+                      ) -> torch.Tensor:
+        return torch.stack([self.contains(spec, words[b], keys[b], options)
+                            for b in range(words.shape[0])])
+
+    def remove_bank(self, spec: FilterSpec, words: torch.Tensor,
+                    keys: torch.Tensor, options, valid=None, state=None
+                    ) -> torch.Tensor:
+        raise NotImplementedError(
+            f"engine {self.name!r} does not support remove(); use the "
+            f"'counting' engine (variant='countingbf')")
+
+    def decay_bank(self, spec: FilterSpec, words: torch.Tensor, options
+                   ) -> torch.Tensor:
+        return torch.stack([self.decay(spec, words[b], options)
+                            for b in range(words.shape[0])])
+
+    def advance_bank(self, spec: FilterSpec, words: torch.Tensor, options,
+                     state):
+        """Advance every member by its own head: (words, heads tuple)."""
+        out, heads = words.clone(), []
+        for b in range(words.shape[0]):
+            out[b], head = self.advance(spec, words[b], options,
+                                        state=state[b])
+            heads.append(head)
+        return out, tuple(heads)
+
+    # The routed generic path scatters into a (B, N) batch (capacity N, so
+    # no key can overflow: exactness over memory). Beyond this many slots
+    # the cost is certainly a mistake: fail loudly instead.
+    _ROUTE_FALLBACK_MAX_SLOTS = 1 << 22
+
+    def _route(self, words: torch.Tensor, keys: torch.Tensor,
+               member: torch.Tensor, valid=None):
+        """Scatter flat routed keys into per-member batches (capacity N).
+        Returns (keys (B, N, 2), valid (B, N), rank (N,)). O(B·N) memory
+        and work: for the engines without a native routed path (cbf and
+        windowed banks) at serving batch sizes."""
+        B, n = words.shape[0], keys.shape[0]
+        if B * n > self._ROUTE_FALLBACK_MAX_SLOTS:
+            raise ValueError(
+                f"routed fallback on engine {self.name!r} would scatter "
+                f"{B} members x {n} keys = {B * n} slots; route this "
+                f"traffic through an engine with native bank support or "
+                f"pre-scatter with repro_torch.api.route(..., capacity=...)")
+        part = route_by_id(keys, member, B, capacity=max(n, 1))
+        v = part.valid
+        if valid is not None:
+            # the caller's validity rides along to the same slots
+            flat_v = torch.zeros(v.numel(), dtype=torch.uint8,
+                                 device=v.device)
+            flat_v[member.to(torch.int64) * v.shape[1] + part.rank] = (
+                valid.to(torch.uint8))
+            v = v * flat_v.reshape(v.shape)
+        return part.keys_by_seg, v, part.rank
+
+    def add_bank_routed(self, spec: FilterSpec, words: torch.Tensor,
+                        keys: torch.Tensor, member: torch.Tensor, options,
+                        valid=None, state=None) -> torch.Tensor:
+        kb, vb, _ = self._route(words, keys, member, valid)
+        return self.add_bank(spec, words, kb, options, valid=vb, state=state)
+
+    def contains_bank_routed(self, spec: FilterSpec, words: torch.Tensor,
+                             keys: torch.Tensor, member: torch.Tensor,
+                             options, state=None) -> torch.Tensor:
+        kb, _, rank = self._route(words, keys, member)
+        res = self.contains_bank(spec, words, kb, options, state=state)
+        return res[member.to(torch.int64), rank]
+
+    def remove_bank_routed(self, spec: FilterSpec, words: torch.Tensor,
+                           keys: torch.Tensor, member: torch.Tensor, options,
+                           valid=None, state=None) -> torch.Tensor:
+        kb, vb, _ = self._route(words, keys, member, valid)
+        return self.remove_bank(spec, words, kb, options, valid=vb,
+                                state=state)
 
 
 _REGISTRY: Dict[str, Backend] = {}

@@ -12,8 +12,12 @@ Storage: a filter is a flat ``(storage_words,)`` ``int32`` tensor holding
 u32 words (``4 * n_words`` packed 4-bit counters for countingbf). Hash,
 mask and nibble math runs in ``int64`` holding u32 values (see
 ``core.hashing``), so every shift is logical even where bit 31 is set.
-The bank and fingerprint helpers are not ported yet (ROADMAP queue 1 items
-7, 9, 10).
+
+Banks: a ``(B, n_words)`` stack of same-spec filters is one filter of
+``B * n_blocks`` blocks in which key i's block id is offset by
+``member[i] * n_blocks``; the ``bank_*`` helpers lift each bulk op to the
+whole bank that way (offsets in ``int64``). The fingerprint helpers are
+not ported yet (ROADMAP queue 1 items 9, 10).
 """
 from __future__ import annotations
 
@@ -536,17 +540,17 @@ def collapse_counter_words(cwords) -> torch.Tensor:
 
 def counting_to_bloom(spec: FilterSpec, counters: torch.Tensor
                       ) -> torch.Tensor:
-    """Collapse a counting filter to the equivalent (n_words,) int32 bit
-    filter."""
+    """Collapse a counting filter (or bank, leading dims kept) to the
+    equivalent (..., n_words) int32 bit filter."""
     _check(spec.is_counting, f"{spec} is not a counting spec")
-    return H.to_i32(collapse_counter_words(counters[None])[0])
+    return H.to_i32(collapse_counter_words(counters))
 
 
 def counting_from_bloom(spec: FilterSpec, bits: torch.Tensor) -> torch.Tensor:
-    """Bit filter -> (storage_words,) int32 counters with every set bit's
-    counter at 1: membership-preserving, count-lossy."""
+    """Bit filter -> (..., storage_words) int32 counters with every set
+    bit's counter at 1: membership-preserving, count-lossy."""
     _check(spec.is_counting, f"{spec} is not a counting spec")
-    return H.to_i32(expand_mask_words(bits[None])[0])
+    return H.to_i32(expand_mask_words(bits))
 
 
 def _counting_layout(spec: FilterSpec, keys: torch.Tensor):
@@ -563,7 +567,8 @@ def _valid_masks(masks: torch.Tensor, valid) -> torch.Tensor:
 
 
 def _counting_update(spec: FilterSpec, counters: torch.Tensor,
-                     keys: torch.Tensor, valid, op: str) -> torch.Tensor:
+                     keys: torch.Tensor, valid, op: str,
+                     member: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sort-and-count bulk update, in memory proportional to the keys.
 
     The flat index of logical bit ``i`` is also the flat index of its
@@ -572,8 +577,11 @@ def _counting_update(spec: FilterSpec, counters: torch.Tensor,
     touched nibble becomes min(old + count, 15) (add) or, unless it is 15,
     max(old - count, 0) (remove): the result of any sequential order. The
     per-nibble changes are summed per word and applied with one gather and
-    one scatter of the touched words."""
+    one scatter of the touched words. ``member`` (n,) offsets each key's
+    block by ``member * n_blocks`` in a flat bank of counters."""
     blk, masks = _counting_layout(spec, keys)
+    if member is not None:
+        blk = member.to(torch.int64) * spec.n_blocks + blk
     masks = _valid_masks(masks, valid)
     parts = []
     for b in range(WORD_BITS):
@@ -662,6 +670,77 @@ def counting_update_loop(spec: FilterSpec, counters: torch.Tensor,
     for b, m in zip(blk.tolist(), cmasks):
         out[b * cs:(b + 1) * cs] = update(out[b * cs:(b + 1) * cs], m)
     return H.to_i32(out)
+
+
+# ---------------------------------------------------------------------------
+# Bank references: B same-spec filters as one super-filter
+# ---------------------------------------------------------------------------
+# A (B, n_words) stack of blocked filters is bit-identical to one filter of
+# B * n_blocks blocks in which key i's block id is offset by
+# member[i] * n_blocks, so every bulk op lifts to the whole bank as one op
+# over flat routed keys (keys (N, 2), member (N,)). The CUDA bank kernels
+# (kernels/sbf.py, kernels/countingbf.py) are held against these.
+
+
+def bank_block_ids(spec: FilterSpec, keys: torch.Tensor,
+                   member: torch.Tensor):
+    """(member-offset block ids (N,) int64, masks (N, s)) for flat routed
+    keys; ``member`` indexes the bank's leading axis."""
+    h1, h2 = H.hash_keys(keys)
+    blk = H.block_index(h2, spec.n_blocks)
+    return (member.to(torch.int64) * spec.n_blocks + blk,
+            block_patterns(spec, h1))
+
+
+def bank_contains_rows(spec: FilterSpec, words: torch.Tensor,
+                       keys: torch.Tensor, member: torch.Tensor
+                       ) -> torch.Tensor:
+    """(N,) bool membership of flat routed keys against a (B, n_words)
+    bank: one row gather over the B * n_blocks super-filter."""
+    _require_blocked(spec)
+    blk, masks = bank_block_ids(spec, keys, member)
+    rows = H.u32(words.reshape(-1, spec.s)[blk])
+    return ((rows & masks) == masks).all(dim=-1)
+
+
+def bank_add_rows(spec: FilterSpec, words: torch.Tensor, keys: torch.Tensor,
+                  member: torch.Tensor, valid: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Bulk OR of flat routed keys into a (B, n_words) bank: one sorted
+    segmented OR and one row scatter over the super-filter. ``valid`` zeroes
+    the masks of padding slots (an OR no-op). Returns new words."""
+    _require_blocked(spec)
+    blk, masks = bank_block_ids(spec, keys, member)
+    flat = or_rows(spec, words.reshape(-1), blk, _valid_masks(masks, valid),
+                   n_rows=words.shape[0] * spec.n_blocks)
+    return flat.reshape(words.shape)
+
+
+def bank_counting_update(spec: FilterSpec, counters: torch.Tensor,
+                         keys: torch.Tensor, member: torch.Tensor,
+                         valid: Optional[torch.Tensor], op: str
+                         ) -> torch.Tensor:
+    """Bulk saturating increment (``op="add"``) or guarded decrement
+    (``"remove"``) of flat routed keys into a (B, 4 n_words) counter bank:
+    the sort-and-count update of :func:`counting_add` with each nibble
+    index offset by the member's counters, in memory proportional to the
+    keys. Returns new counters."""
+    _check(op in ("add", "remove"), f"op={op!r}")
+    flat = _counting_update(spec, counters.reshape(-1), keys, valid, op,
+                            member=member)
+    return flat.reshape(counters.shape)
+
+
+def bank_counting_contains(spec: FilterSpec, counters: torch.Tensor,
+                           keys: torch.Tensor, member: torch.Tensor
+                           ) -> torch.Tensor:
+    """(N,) bool occupancy membership against a (B, 4 n_words) counter
+    bank (one counter-row gather per key)."""
+    blk, masks = _counting_layout(spec, keys)
+    rows = counters.reshape(-1, spec.counter_row_words)[
+        member.to(torch.int64) * spec.n_blocks + blk]
+    logical = collapse_counter_words(rows)
+    return ((logical & masks) == masks).all(dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -15,12 +15,16 @@ same bits.
   (``repro.api.Filter.words``) and the spec fields, losslessly: a counting
   filter keeps its counts, and a windowed filter its ``(G, n_words)`` ring
   and its head (``int(repro.api.Filter.head)``), so a ring built by either
-  package goes on sliding in the other.
+  package goes on sliding in the other. A bank's leading dims are named
+  by ``bank_shape=``, so ``(B, n_words)`` bits, ``(B, 4 n_words)``
+  counters and a ``(B, G, n_words)`` windowed bank (with its
+  ``np.asarray(repro.api.Filter.head)`` heads) each load unambiguously.
+
+Bank states (``"bank_shape"`` in the dict) go both ways as well.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 import numpy as np
 import torch
@@ -57,43 +61,68 @@ def to_jax_state(filt: Filter) -> dict:
 
 
 def from_jax_words(spec_fields: dict, words_u32, backend: str = "auto",
-                   device=None, head: Optional[int] = None) -> Filter:
+                   device=None, head=None, bank_shape=None) -> Filter:
     """The port's filter holding the raw engine words ``words_u32`` (the
-    ``repro.api.Filter.words`` of a scalar filter, as numpy uint32) for the
-    spec with ``spec_fields`` (``dataclasses.asdict`` of its spec), on
-    ``device`` (``None`` = the card). A 2-D ``(G, n_words)`` array is a
-    windowed filter's ring, and ``head`` its insert generation (0 when
-    ``None``)."""
+    ``repro.api.Filter.words`` of a filter or bank, as numpy uint32) for
+    the spec with ``spec_fields`` (``dataclasses.asdict`` of its spec), on
+    ``device`` (``None`` = the card).
+
+    ``bank_shape`` names the leading bank dims (``None`` or ``()``: a
+    scalar filter). After them, one dim is a filter's words (counters for a
+    counting spec) and two dims a windowed ``(G, n_words)`` ring, whose
+    ``head`` is the insert generation (0 when ``None``): an int for a
+    scalar ring, an array or sequence of ``bank_shape`` for a bank."""
     words = np.asarray(words_u32)
     if words.dtype != np.uint32:
         raise ValueError(f"JAX words must be uint32, got {words.dtype}")
     spec = FilterSpec(**{k: (v if isinstance(v, str) else int(v))
                          for k, v in spec_fields.items()})
-    ring = words.ndim == 2
-    options = BackendOptions(generations=words.shape[0] if ring else None)
-    ctx = options.ctx(device)
+    bank_shape = tuple(int(d) for d in (bank_shape or ()))
+    nb = len(bank_shape)
+    if tuple(words.shape[:nb]) != bank_shape or words.ndim not in (nb + 1,
+                                                                  nb + 2):
+        raise ValueError(f"words {words.shape} do not start with the bank "
+                         f"shape {bank_shape} followed by one or two dims")
+    ring = words.ndim == nb + 2
+    options = BackendOptions(generations=words.shape[nb] if ring else None)
+    B = int(np.prod(bank_shape)) if nb else None
+    ctx = options.ctx(device, bank=B)
     eng = registry.select(spec, backend, ctx)
-    want = ((words.shape[0], spec.storage_words) if ring
+    base = ((words.shape[nb], spec.storage_words) if ring
             else (spec.storage_words,))
-    if words.shape != want:
+    if words.shape[nb:] != base:
         raise ValueError(f"words {words.shape} do not match {spec} "
                          f"({spec.storage_words} storage words)")
     state = eng.init_state(spec, options)
-    if head is not None:
-        if not (ring and 0 <= head < words.shape[0]):
-            raise ValueError(f"head={head} needs a ring of more than {head} "
-                             f"generations, got words {words.shape}")
-        state = int(head)
+    if head is not None and not ring:
+        raise ValueError(f"head= needs a ring of generations, got words "
+                         f"{words.shape}")
+    if ring:
+        heads = np.broadcast_to(np.asarray(0 if head is None else head,
+                                           np.int64), bank_shape)
+        if heads.size and not ((heads >= 0).all()
+                               and (heads < words.shape[nb]).all()):
+            raise ValueError(f"heads must lie in [0, {words.shape[nb]})")
+        state = (tuple(int(h) for h in heads.reshape(-1)) if nb
+                 else int(heads))
+    elif nb and state is not None:
+        state = (state,) * B
     return Filter(spec=spec, words=as_words(words, ctx.device),
                   backend=eng.name, options=options, state=state)
 
 
 def to_jax_words(filt: Filter):
-    """(spec fields, raw engine words as numpy uint32) of a port filter,
-    the inverse of :func:`from_jax_words`; for a windowed filter
-    (spec fields, ``(G, n_words)`` ring, head)."""
+    """The inverse of :func:`from_jax_words`: (spec fields, raw engine words
+    as numpy uint32) for a scalar filter, (fields, ``(G, n_words)`` ring,
+    head) for a windowed one, and (fields, words, heads, bank_shape) for a
+    bank, heads being an int32 array of ``bank_shape`` for a windowed bank
+    (JAX's head array) and ``None`` otherwise."""
     fields = dataclasses.asdict(filt.spec)
     words = filt.words.cpu().numpy().view(np.uint32).copy()
+    if filt.bank_shape:
+        heads = (None if filt.head is None else
+                 np.asarray(filt.head, np.int32).reshape(filt.bank_shape))
+        return fields, words, heads, filt.bank_shape
     if filt.head is None:
         return fields, words
     return fields, words, filt.head

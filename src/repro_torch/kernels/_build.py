@@ -30,8 +30,8 @@ NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_vp, _ll, _u32, _i = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32,
-                      ctypes.c_int)
+_vp, _ll, _ull, _u32, _i = (ctypes.c_void_p, ctypes.c_longlong,
+                            ctypes.c_ulonglong, ctypes.c_uint32, ctypes.c_int)
 # extern "C" entry point -> (source, argument types); each returns an int
 # error code (0: launched; see ``sbf._raise_on``)
 ENTRY_POINTS = {
@@ -44,6 +44,16 @@ ENTRY_POINTS = {
     "counting_contains": ("counting", [_vp, _vp, _vp, _vp, _ll, _u32, _i, _i,
                                        _i, _i, _vp]),
     "counting_decay": ("counting", [_vp, _ll, _vp]),
+    # bank forms: + member ids and the words of one member (c_ulonglong)
+    "bloom_bank_contains": ("bloom", [_vp, _vp, _vp, _vp, _vp, _ll, _ull,
+                                      _u32, _i, _i, _i, _i, _i, _i, _i, _vp]),
+    "bloom_bank_add": ("bloom", [_vp, _vp, _vp, _vp, _vp, _ll, _ull, _u32,
+                                 _i, _i, _i, _i, _i, _vp]),
+    "counting_bank_update": ("counting", [_vp, _vp, _vp, _vp, _vp, _ll, _ull,
+                                          _u32, _i, _i, _i, _vp]),
+    "counting_bank_contains": ("counting", [_vp, _vp, _vp, _vp, _vp, _ll,
+                                            _ull, _u32, _i, _i, _i, _i,
+                                            _vp]),
     # sizes as log2 m: m_bits = 2^32 does not fit a c_uint32
     "cbf_contains": ("cbf", [_vp, _vp, _vp, _vp, _ll, _i, _i, _vp]),
     "cbf_add": ("cbf", [_vp, _vp, _vp, _ll, _i, _i, _vp]),

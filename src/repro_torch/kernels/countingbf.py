@@ -1,8 +1,8 @@
 """Counting Bloom filter kernels (countingbf) for Hopper, and their plain
 PyTorch versions.
 
-Counterpart of ``repro.kernels.countingbf``. The five wrappers keep the JAX
-names, so each row of the kernel table maps one to one:
+Counterpart of ``repro.kernels.countingbf``. The seven wrappers keep the
+JAX names, so each row of the kernel table maps one to one:
 
 ============== ================================== ===========================
 wrapper        replaces (repro/kernels/           CUDA kernel
@@ -15,7 +15,18 @@ update_hbm     update_hbm (DRAM regime)           counting_update_kernel
 contains_hbm   contains_hbm (DRAM regime)         counting_contains_kernel,
                                                   DEPTH=depth, PHI=4
 decay          decay                              counting_decay_kernel
+bank_update_   bank_update_vmem                   counting_update_kernel,
+vmem                                              bank form
+bank_contains_ bank_contains_vmem                 counting_contains_kernel,
+vmem                                              bank form, PHI=4,
+                                                  DEPTH=depth
 ============== ================================== ===========================
+
+The bank wrappers take a ``(B, storage_words)`` counter bank, flat keys
+and ``member`` ``(n,)`` int32 ids in ``[0, B)`` (checked: a ``ValueError``
+otherwise). One kernel serves a bank in L2 (``depth=1``) and one in DRAM
+(``depth`` keys a thread); the JAX package has only the VMEM kernels. A
+whole bank decays with one ``decay`` launch over its flat counters.
 
 Schedule axes. The kernels act on ``layout.phi`` (the vector width of the
 counter-row loads, capped at 4 words = 128 bits) in ``contains_vmem`` and on
@@ -48,14 +59,16 @@ from repro_torch.core import variants as V
 from repro_torch.core.variants import FilterSpec
 from repro_torch.kernels.sbf import (DEFAULT_DMA_DEPTH, DEFAULT_TILE,
                                      DMA_DEPTHS, MAX_WORDS_IN_FLIGHT, Layout,
-                                     _check_axes, _on_cuda, _raise_on, _salts)
+                                     _check_axes, _on_cuda, _raise_on, _salts,
+                                     check_bank)
 
 OPS = ("add", "remove")
 _OP_CODE = {"add": 0, "remove": 1}
 
 # Kernel launches per wrapper (a launch adds one; the plain path adds none).
 LAUNCHES = {"update_vmem": 0, "contains_vmem": 0, "update_hbm": 0,
-            "contains_hbm": 0, "decay": 0}
+            "contains_hbm": 0, "decay": 0, "bank_update_vmem": 0,
+            "bank_contains_vmem": 0}
 
 
 def reset_launches() -> None:
@@ -112,24 +125,42 @@ def contains_plain(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor
 
 
 def decay_plain(spec: FilterSpec, filt: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``decay``: new (storage_words,) int32 counters."""
+    """Plain version of ``decay``: new counters of ``filt``'s shape."""
     return V.counting_decay(spec, filt)
+
+
+def bank_update_plain(spec: FilterSpec, bank: torch.Tensor,
+                      keys: torch.Tensor, member: torch.Tensor,
+                      valid: Optional[torch.Tensor], op: str) -> torch.Tensor:
+    """Plain version of ``bank_update_vmem``: new (B, storage_words) int32
+    counters (``bank`` is not modified), in memory proportional to the
+    keys."""
+    _check_op(op)
+    return V.bank_counting_update(spec, bank, keys, member, valid, op)
+
+
+def bank_contains_plain(spec: FilterSpec, bank: torch.Tensor,
+                        keys: torch.Tensor, member: torch.Tensor
+                        ) -> torch.Tensor:
+    """Plain version of ``bank_contains_vmem``: (n,) bool."""
+    return V.bank_counting_contains(spec, bank, keys, member)
 
 
 # ---------------------------------------------------------------------------
 # CUDA launch plumbing
 # ---------------------------------------------------------------------------
 
-def _check_counters(spec: FilterSpec, filt: torch.Tensor) -> None:
+def _check_counters(spec: FilterSpec, filt: torch.Tensor,
+                    members: int = 1) -> None:
     if not spec.is_counting or spec.s > 32:
         raise ValueError(f"the CUDA counting kernels serve countingbf with "
                          f"s <= 32 words per block, not {spec}")
     if spec.storage_words >= 1 << 31:
         raise ValueError(f"{spec} has {spec.storage_words} counter words; "
                          f"counter-row starts must fit int32")
-    if filt.numel() != spec.storage_words:
-        raise ValueError(f"filter has {filt.numel()} words, spec "
-                         f"{spec.storage_words}")
+    if filt.numel() != members * spec.storage_words:
+        raise ValueError(f"counters have {filt.numel()} words, spec "
+                         f"{members} x {spec.storage_words}")
     if not filt.is_contiguous() or filt.data_ptr() % 16:
         raise ValueError("counter words must be contiguous and 16-byte "
                          "aligned")
@@ -195,6 +226,49 @@ def _launch_contains(name: str, spec, filt, keys, phi: int, depth: int
             phi, depth, spec.k, _stream(keys.device))
     _raise_on(err, name)
     LAUNCHES[name] += 1
+    return out
+
+
+def _launch_bank_update(spec, bank, keys, member, valid, op: str
+                        ) -> torch.Tensor:
+    from repro_torch.kernels._build import library
+    _check_counters(spec, bank, bank.shape[0])
+    _check_keys(keys)
+    valid = _valid_u8(valid, keys)
+    n = keys.shape[0]
+    if n == 0:
+        return bank
+    lib = library()
+    with torch.cuda.device(keys.device):
+        err = lib.counting_bank_update(
+            keys.data_ptr(), member.data_ptr(),
+            None if valid is None else valid.data_ptr(), bank.data_ptr(),
+            _salts(keys.device).data_ptr(), n, spec.storage_words,
+            spec.n_blocks - 1, spec.s, spec.k, _OP_CODE[op],
+            _stream(keys.device))
+    _raise_on(err, "bank_update_vmem")
+    LAUNCHES["bank_update_vmem"] += 1
+    return bank
+
+
+def _launch_bank_contains(spec, bank, keys, member, depth: int
+                          ) -> torch.Tensor:
+    from repro_torch.kernels._build import library
+    _check_counters(spec, bank, bank.shape[0])
+    _check_keys(keys)
+    n = keys.shape[0]
+    out = torch.empty((n,), dtype=torch.bool, device=keys.device)
+    if n == 0:
+        return out
+    lib = library()
+    with torch.cuda.device(keys.device):
+        err = lib.counting_bank_contains(
+            keys.data_ptr(), member.data_ptr(), bank.data_ptr(),
+            out.data_ptr(), _salts(keys.device).data_ptr(), n,
+            spec.storage_words, spec.n_blocks - 1, spec.s, 4, depth, spec.k,
+            _stream(keys.device))
+    _raise_on(err, "bank_contains_vmem")
+    LAUNCHES["bank_contains_vmem"] += 1
     return out
 
 
@@ -268,24 +342,64 @@ def contains_hbm(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
 def decay(spec: FilterSpec, filt: torch.Tensor, tile_words: int = 4096
           ) -> torch.Tensor:
     """One aging step over the whole counter array (every nonzero counter
-    -1); updates ``filt`` in place."""
+    -1); updates ``filt`` in place. ``filt`` is one filter's
+    ``(storage_words,)`` counters or a bank's ``(B, storage_words)``: a
+    bank decays whole in one launch."""
     nw = spec.storage_words
     tile_words = min(tile_words, nw)
     if tile_words < 1 or nw % tile_words:
         raise ValueError(f"tile_words={tile_words} must divide {nw}")
-    if filt.ndim != 1 or filt.dtype != torch.int32:
-        raise ValueError(f"counter words must be (storage_words,) int32, "
-                         f"got {tuple(filt.shape)} {filt.dtype}")
+    if (filt.ndim not in (1, 2) or filt.dtype != torch.int32
+            or filt.shape[-1] != nw):
+        raise ValueError(f"counter words must be (storage_words,) or "
+                         f"(B, storage_words) int32, got "
+                         f"{tuple(filt.shape)} {filt.dtype}")
     if filt.device.type == "cpu":
         return filt.copy_(decay_plain(spec, filt))
     if filt.device.type != "cuda":
         raise ValueError(f"unsupported device {filt.device}")
     from repro_torch.kernels._build import library
-    _check_counters(spec, filt)
+    _check_counters(spec, filt, filt.numel() // nw)
     lib = library()
     with torch.cuda.device(filt.device):
-        err = lib.counting_decay(filt.data_ptr(), nw, _stream(filt.device))
+        err = lib.counting_decay(filt.data_ptr(), filt.numel(),
+                                 _stream(filt.device))
     _raise_on(err, "decay")
     LAUNCHES["decay"] += 1
     return filt
 
+
+def bank_update_vmem(spec: FilterSpec, bank: torch.Tensor,
+                     keys: torch.Tensor, member: torch.Tensor,
+                     valid: Optional[torch.Tensor], op: str,
+                     layout: Optional[Layout] = None,
+                     tile: int = DEFAULT_TILE, probe: str = "gather",
+                     mix: str = "full") -> torch.Tensor:
+    """Flat routed increment (``op="add"``) or guarded decrement
+    (``"remove"``) of a (B, storage_words) counter bank, one launch, both
+    regimes; slots with ``valid`` 0 are skipped. Updates ``bank`` in
+    place."""
+    _check_axes(probe=probe, mix=mix)
+    _check_op(op)
+    counting_layout(spec, layout or default_counting_layout(spec, op), tile)
+    if not check_bank(spec, bank, keys, member, valid,
+                      width=spec.storage_words):
+        return bank.copy_(bank_update_plain(spec, bank, keys, member, valid,
+                                            op))
+    return _launch_bank_update(spec, bank, keys, member, valid, op)
+
+
+def bank_contains_vmem(spec: FilterSpec, bank: torch.Tensor,
+                       keys: torch.Tensor, member: torch.Tensor,
+                       mix: str = "full", depth: int = 1) -> torch.Tensor:
+    """Flat routed occupancy membership against a counter bank, one
+    launch; ``depth=1`` is the L2 regime, a larger ``depth`` the DRAM
+    regime. The JAX wrapper's key ``tile`` exists for the plain path's
+    padding (``ops``), so this one takes none. (n,) bool."""
+    _check_axes(mix=mix)
+    if depth not in DMA_DEPTHS:
+        raise ValueError(f"depth={depth} not in {DMA_DEPTHS}")
+    if not check_bank(spec, bank, keys, member, width=spec.storage_words):
+        return bank_contains_plain(spec, bank, keys, member)
+    return _launch_bank_contains(spec, bank, keys, member,
+                                 depth=_depth_in_flight(spec, depth))

@@ -1,14 +1,19 @@
 // Blocked Bloom filter kernels for Hopper (sm_90a): bulk contains and add
 // for the sbf / bbf / rbbf / csbf variants.
 //
-// Replaces the four Pallas entry points of repro/kernels/sbf.py:
-//   bloom_contains_kernel <- contains_vmem (_contains_vmem_kernel,
+// Replaces six Pallas entry points of repro/kernels/sbf.py:
+//   bloom_contains_kernel<.., false> <- contains_vmem (_contains_vmem_kernel,
 //                            _contains_vmem_gather_kernel,
 //                            _contains_vmem_coop_kernel) and contains_hbm
 //                            (_contains_hbm_kernel, _contains_hbm_coop_kernel)
-//   bloom_add_kernel      <- add_vmem (_add_vmem_kernel,
+//   bloom_add_kernel<S, false>       <- add_vmem (_add_vmem_kernel,
 //                            _add_vmem_gather_kernel, _add_vmem_coop_kernel)
 //                            and add_hbm (_add_hbm_kernel)
+//   bloom_contains_kernel<.., true>  <- bank_contains_vmem
+//                            (_bank_contains_vmem_kernel,
+//                            _bank_contains_vmem_gather_kernel)
+//   bloom_add_kernel<S, true>        <- bank_add_vmem (_bank_add_vmem_kernel,
+//                            _bank_add_vmem_gather_kernel)
 //
 // Design. A TPU core must either pin the filter in VMEM or stream blocks
 // through a DMA ring, and it has no atomics, so the Pallas kernels sort each
@@ -35,6 +40,18 @@
 //   The TPU's block sort (sbf.py _add_hbm_kernel) existed only because the
 //   TPU has no atomics; a sorted, coalesced add is later work.
 //
+// Banks (BANK = true). A (B, n_words) bank of same-spec filters is one
+// filter of B * n_blocks blocks: key i's block row starts at
+// member[i] * member_words + (h_blk & block_mask) * S (64-bit offsets;
+// block_mask is one member's n_blocks - 1), so B members take one launch
+// and the single-filter design carries over unchanged. The bank add skips
+// slots whose valid byte is 0: write padding is the all-zero key routed to
+// member 0, a real key. The JAX package has only the VMEM bank kernels and
+// sends a bank too large for VMEM to jnp; here the same kernels serve a
+// bank in L2 (contains DEPTH = 1) and one in DRAM (DEPTH = depth). Routed
+// traffic is often skewed: many keys on one member's words only contend in
+// the atomics, and OR stays order-free, so the words stay exact.
+//
 // Salts (3 x 96 u32: bit salts, bbf word salts, csbf group salts) arrive as
 // a device pointer and are staged in shared memory once per CTA. The
 // variant, k, z, log2 g and n_blocks - 1 are kernel arguments; S, PHI and
@@ -42,20 +59,66 @@
 // registers.
 //
 // C interface for ctypes: each entry point returns cudaGetLastError() after
-// its launch (or -1 for a shape that has no instantiation).
+// its launch (or -1 for a shape that has no instantiation). The wrappers
+// check every member id against [0, B) before a bank launch.
 
 #include "bloom_common.cuh"
 
 namespace {
 
-template <int S, int PHI, int DEPTH>
+// Launch arguments, carried through the host-side dispatch. The kernels
+// take them as separate parameters so that the read-only pointers keep
+// their __restrict__ (and the loads their read-only path). member and
+// member_words are read only by the bank forms; valid (nullable: every key
+// valid) only by the add.
+struct ContainsArgs {
+  const uint2* keys;
+  const int32_t* member;
+  const uint32_t* words;
+  bool* out;
+  const uint32_t* salts;
+  int64_t n;
+  uint64_t member_words;
+  uint32_t block_mask;
+  int variant, k, z, log2g;
+};
+
+struct AddArgs {
+  const uint2* keys;
+  const int32_t* member;
+  const uint8_t* valid;
+  uint32_t* words;
+  const uint32_t* salts;
+  int64_t n;
+  uint64_t member_words;
+  uint32_t block_mask;
+  int variant, k, z, log2g;
+};
+
+// First word of key i's block row; a bank adds the member's offset for a
+// live key.
+template <int S, bool BANK>
+__device__ __forceinline__ uint64_t row_start(const int32_t* member,
+                                              uint64_t member_words,
+                                              int64_t i, bool live,
+                                              uint32_t h_blk,
+                                              uint32_t block_mask) {
+  uint64_t start = uint64_t(h_blk & block_mask) * uint64_t(S);
+  if constexpr (BANK) {
+    if (live) start += uint64_t(uint32_t(member[i])) * member_words;
+  }
+  return start;
+}
+
+template <int S, int PHI, int DEPTH, bool BANK>
 __global__ void __launch_bounds__(kThreads)
     bloom_contains_kernel(const uint2* __restrict__ keys,
+                          const int32_t* __restrict__ member,
                           const uint32_t* __restrict__ words,
                           bool* __restrict__ out,
                           const uint32_t* __restrict__ salts, int64_t n,
-                          uint32_t block_mask, int variant, int k, int z,
-                          int log2g) {
+                          uint64_t member_words, uint32_t block_mask,
+                          int variant, int k, int z, int log2g) {
   static_assert(S % PHI == 0, "PHI must divide S");
   __shared__ uint32_t smem[3 * kMaxSalts];
   stage_salts(smem, salts);
@@ -73,7 +136,8 @@ __global__ void __launch_bounds__(kThreads)
     h_pat[d] = 0u;
     if (live) hash_key(keys[i], h_pat[d], h_blk);
     const uint32_t* row =
-        words + uint64_t(h_blk & block_mask) * uint64_t(S);
+        words + row_start<S, BANK>(member, member_words, i, live, h_blk,
+                                   block_mask);
 #pragma unroll
     for (int c = 0; c < S / PHI; ++c) {
       if (live) {
@@ -107,107 +171,126 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int S>
+template <int S, bool BANK>
 __global__ void __launch_bounds__(kThreads)
-    bloom_add_kernel(const uint2* __restrict__ keys, uint32_t* words,
+    bloom_add_kernel(const uint2* __restrict__ keys,
+                     const int32_t* __restrict__ member,
+                     const uint8_t* __restrict__ valid, uint32_t* words,
                      const uint32_t* __restrict__ salts, int64_t n,
-                     uint32_t block_mask, int variant, int k, int z,
-                     int log2g) {
+                     uint64_t member_words, uint32_t block_mask, int variant,
+                     int k, int z, int log2g) {
   __shared__ uint32_t smem[3 * kMaxSalts];
   stage_salts(smem, salts);
   const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
+  if (i >= n || (valid != nullptr && valid[i] == 0)) return;
   uint32_t h_pat, h_blk;
   hash_key(keys[i], h_pat, h_blk);
   uint32_t m[S];
   build_mask<S>(m, h_pat, smem, smem + kMaxSalts, smem + 2 * kMaxSalts,
                 variant, k, z, log2g);
-  uint32_t* row = words + uint64_t(h_blk & block_mask) * uint64_t(S);
+  uint32_t* row = words + row_start<S, BANK>(member, member_words, i, true,
+                                             h_blk, block_mask);
 #pragma unroll
   for (int j = 0; j < S; ++j)
     if (m[j]) atomicOr(row + j, m[j]);
 }
 
-template <int S, int PHI, int DEPTH>
-int launch_contains(const void* keys, const void* words, void* out,
-                    const void* salts, int64_t n, uint32_t block_mask,
-                    int variant, int k, int z, int log2g,
-                    cudaStream_t stream) {
+template <int S, int PHI, int DEPTH, bool BANK>
+int launch_contains(const ContainsArgs& a, cudaStream_t stream) {
   const int64_t per_cta = int64_t(kThreads) * DEPTH;
-  const unsigned grid = unsigned((n + per_cta - 1) / per_cta);
-  bloom_contains_kernel<S, PHI, DEPTH><<<grid, kThreads, 0, stream>>>(
-      static_cast<const uint2*>(keys), static_cast<const uint32_t*>(words),
-      static_cast<bool*>(out), static_cast<const uint32_t*>(salts), n,
-      block_mask, variant, k, z, log2g);
+  const unsigned grid = unsigned((a.n + per_cta - 1) / per_cta);
+  bloom_contains_kernel<S, PHI, DEPTH, BANK><<<grid, kThreads, 0, stream>>>(
+      a.keys, a.member, a.words, a.out, a.salts, a.n, a.member_words,
+      a.block_mask, a.variant, a.k, a.z, a.log2g);
   return int(cudaGetLastError());
 }
 
-template <int S, int PHI>
-int dispatch_depth(int depth, const void* keys, const void* words, void* out,
-                   const void* salts, int64_t n, uint32_t block_mask,
-                   int variant, int k, int z, int log2g, cudaStream_t st) {
+template <int S, int PHI, bool BANK>
+int dispatch_depth(int depth, const ContainsArgs& a, cudaStream_t st) {
   // contains_vmem runs DEPTH = 1 at any PHI; contains_hbm runs the widest
   // PHI at any DEPTH, with at most 64 block words in flight per thread
   constexpr bool kDeep = PHI == (S < 4 ? S : 4);
   if (depth > 1 && !kDeep) return -1;
   switch (depth) {
     case 1:
-      return launch_contains<S, PHI, 1>(keys, words, out, salts, n,
-                                        block_mask, variant, k, z, log2g, st);
+      return launch_contains<S, PHI, 1, BANK>(a, st);
     case 2:
       if constexpr (kDeep && 2 * S <= 64)
-        return launch_contains<S, PHI, 2>(keys, words, out, salts, n,
-                                          block_mask, variant, k, z, log2g,
-                                          st);
+        return launch_contains<S, PHI, 2, BANK>(a, st);
       break;
     case 4:
       if constexpr (kDeep && 4 * S <= 64)
-        return launch_contains<S, PHI, 4>(keys, words, out, salts, n,
-                                          block_mask, variant, k, z, log2g,
-                                          st);
+        return launch_contains<S, PHI, 4, BANK>(a, st);
       break;
     case 8:
       if constexpr (kDeep && 8 * S <= 64)
-        return launch_contains<S, PHI, 8>(keys, words, out, salts, n,
-                                          block_mask, variant, k, z, log2g,
-                                          st);
+        return launch_contains<S, PHI, 8, BANK>(a, st);
       break;
   }
   return -1;
 }
 
-template <int S>
-int dispatch_phi(int phi, int depth, const void* keys, const void* words,
-                 void* out, const void* salts, int64_t n, uint32_t block_mask,
-                 int variant, int k, int z, int log2g, cudaStream_t st) {
+template <int S, bool BANK>
+int dispatch_phi(int phi, int depth, const ContainsArgs& a, cudaStream_t st) {
   switch (phi) {
     case 1:
-      return dispatch_depth<S, 1>(depth, keys, words, out, salts, n,
-                                  block_mask, variant, k, z, log2g, st);
+      return dispatch_depth<S, 1, BANK>(depth, a, st);
     case 2:
-      if constexpr (S >= 2)
-        return dispatch_depth<S, 2>(depth, keys, words, out, salts, n,
-                                    block_mask, variant, k, z, log2g, st);
+      if constexpr (S >= 2) return dispatch_depth<S, 2, BANK>(depth, a, st);
       break;
     case 4:
-      if constexpr (S >= 4)
-        return dispatch_depth<S, 4>(depth, keys, words, out, salts, n,
-                                    block_mask, variant, k, z, log2g, st);
+      if constexpr (S >= 4) return dispatch_depth<S, 4, BANK>(depth, a, st);
       break;
   }
   return -1;
 }
 
-template <int S>
-int launch_add(const void* keys, void* words, const void* salts, int64_t n,
-               uint32_t block_mask, int variant, int k, int z, int log2g,
-               cudaStream_t stream) {
-  const unsigned grid = unsigned((n + kThreads - 1) / kThreads);
-  bloom_add_kernel<S><<<grid, kThreads, 0, stream>>>(
-      static_cast<const uint2*>(keys), static_cast<uint32_t*>(words),
-      static_cast<const uint32_t*>(salts), n, block_mask, variant, k, z,
-      log2g);
+template <bool BANK>
+int contains_entry(int s, int phi, int depth, const ContainsArgs& a,
+                   cudaStream_t st) {
+  switch (s) {
+    case 1:
+      return dispatch_phi<1, BANK>(phi, depth, a, st);
+    case 2:
+      return dispatch_phi<2, BANK>(phi, depth, a, st);
+    case 4:
+      return dispatch_phi<4, BANK>(phi, depth, a, st);
+    case 8:
+      return dispatch_phi<8, BANK>(phi, depth, a, st);
+    case 16:
+      return dispatch_phi<16, BANK>(phi, depth, a, st);
+    case 32:
+      return dispatch_phi<32, BANK>(phi, depth, a, st);
+  }
+  return -1;
+}
+
+template <int S, bool BANK>
+int launch_add(const AddArgs& a, cudaStream_t stream) {
+  const unsigned grid = unsigned((a.n + kThreads - 1) / kThreads);
+  bloom_add_kernel<S, BANK><<<grid, kThreads, 0, stream>>>(
+      a.keys, a.member, a.valid, a.words, a.salts, a.n, a.member_words,
+      a.block_mask, a.variant, a.k, a.z, a.log2g);
   return int(cudaGetLastError());
+}
+
+template <bool BANK>
+int add_entry(int s, const AddArgs& a, cudaStream_t st) {
+  switch (s) {
+    case 1:
+      return launch_add<1, BANK>(a, st);
+    case 2:
+      return launch_add<2, BANK>(a, st);
+    case 4:
+      return launch_add<4, BANK>(a, st);
+    case 8:
+      return launch_add<8, BANK>(a, st);
+    case 16:
+      return launch_add<16, BANK>(a, st);
+    case 32:
+      return launch_add<32, BANK>(a, st);
+  }
+  return -1;
 }
 
 }  // namespace
@@ -220,55 +303,54 @@ int bloom_contains(const void* keys, const void* words, void* out,
                    const void* salts, long long n, unsigned block_mask, int s,
                    int phi, int depth, int variant, int k, int z, int log2g,
                    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (s) {
-    case 1:
-      return dispatch_phi<1>(phi, depth, keys, words, out, salts, n,
-                             block_mask, variant, k, z, log2g, st);
-    case 2:
-      return dispatch_phi<2>(phi, depth, keys, words, out, salts, n,
-                             block_mask, variant, k, z, log2g, st);
-    case 4:
-      return dispatch_phi<4>(phi, depth, keys, words, out, salts, n,
-                             block_mask, variant, k, z, log2g, st);
-    case 8:
-      return dispatch_phi<8>(phi, depth, keys, words, out, salts, n,
-                             block_mask, variant, k, z, log2g, st);
-    case 16:
-      return dispatch_phi<16>(phi, depth, keys, words, out, salts, n,
-                              block_mask, variant, k, z, log2g, st);
-    case 32:
-      return dispatch_phi<32>(phi, depth, keys, words, out, salts, n,
-                              block_mask, variant, k, z, log2g, st);
-  }
-  return -1;
+  const ContainsArgs a{static_cast<const uint2*>(keys), nullptr,
+                       static_cast<const uint32_t*>(words),
+                       static_cast<bool*>(out),
+                       static_cast<const uint32_t*>(salts), n, 0u, block_mask,
+                       variant, k, z, log2g};
+  return contains_entry<false>(s, phi, depth, a,
+                               static_cast<cudaStream_t>(stream));
 }
 
 int bloom_add(const void* keys, void* words, const void* salts, long long n,
               unsigned block_mask, int s, int variant, int k, int z,
               int log2g, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (s) {
-    case 1:
-      return launch_add<1>(keys, words, salts, n, block_mask, variant, k, z,
-                           log2g, st);
-    case 2:
-      return launch_add<2>(keys, words, salts, n, block_mask, variant, k, z,
-                           log2g, st);
-    case 4:
-      return launch_add<4>(keys, words, salts, n, block_mask, variant, k, z,
-                           log2g, st);
-    case 8:
-      return launch_add<8>(keys, words, salts, n, block_mask, variant, k, z,
-                           log2g, st);
-    case 16:
-      return launch_add<16>(keys, words, salts, n, block_mask, variant, k, z,
-                            log2g, st);
-    case 32:
-      return launch_add<32>(keys, words, salts, n, block_mask, variant, k, z,
-                            log2g, st);
-  }
-  return -1;
+  const AddArgs a{static_cast<const uint2*>(keys), nullptr, nullptr,
+                  static_cast<uint32_t*>(words),
+                  static_cast<const uint32_t*>(salts), n, 0u, block_mask,
+                  variant, k, z, log2g};
+  return add_entry<false>(s, a, static_cast<cudaStream_t>(stream));
+}
+
+// Bank forms. member: (n,) int32 in [0, B); words: the (B, member_words)
+// bank, 16-byte aligned; valid: (n,) uint8 or null (every key valid).
+int bloom_bank_contains(const void* keys, const void* member,
+                        const void* words, void* out, const void* salts,
+                        long long n, unsigned long long member_words,
+                        unsigned block_mask, int s, int phi, int depth,
+                        int variant, int k, int z, int log2g, void* stream) {
+  const ContainsArgs a{static_cast<const uint2*>(keys),
+                       static_cast<const int32_t*>(member),
+                       static_cast<const uint32_t*>(words),
+                       static_cast<bool*>(out),
+                       static_cast<const uint32_t*>(salts), n, member_words,
+                       block_mask, variant, k, z, log2g};
+  return contains_entry<true>(s, phi, depth, a,
+                              static_cast<cudaStream_t>(stream));
+}
+
+int bloom_bank_add(const void* keys, const void* member, const void* valid,
+                   void* words, const void* salts, long long n,
+                   unsigned long long member_words, unsigned block_mask,
+                   int s, int variant, int k, int z, int log2g,
+                   void* stream) {
+  const AddArgs a{static_cast<const uint2*>(keys),
+                  static_cast<const int32_t*>(member),
+                  static_cast<const uint8_t*>(valid),
+                  static_cast<uint32_t*>(words),
+                  static_cast<const uint32_t*>(salts), n, member_words,
+                  block_mask, variant, k, z, log2g};
+  return add_entry<true>(s, a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

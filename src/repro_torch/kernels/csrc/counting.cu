@@ -2,7 +2,7 @@
 // 4-bit counters (saturating increment, guarded decrement), membership on
 // counter occupancy, and the decay pass, for the countingbf variant.
 //
-// Replaces the five Pallas entry points of repro/kernels/countingbf.py:
+// Replaces seven Pallas entry points of repro/kernels/countingbf.py:
 //   counting_update_kernel   <- update_vmem (_update_vmem_kernel,
 //                               _update_vmem_gather_kernel,
 //                               _update_vmem_coop_kernel) and update_hbm
@@ -13,6 +13,11 @@
 //                               contains_hbm (_contains_hbm_kernel,
 //                               _contains_hbm_coop_kernel)
 //   counting_decay_kernel    <- decay (_decay_kernel)
+//   counting_update_kernel<S, true>   <- bank_update_vmem
+//                               (_bank_update_vmem_kernel,
+//                               _bank_update_vmem_gather_kernel)
+//   counting_contains_kernel<.., true> <- bank_contains_vmem
+//                               (_bank_contains_vmem_gather_kernel)
 //
 // Layout. Logical bit i of the sbf-placed mask owns nibble i of the flat
 // counter array: logical word j of a block is counter words 4j..4j+3 (one
@@ -50,8 +55,20 @@
 //   128-bit loads and stores. Bound: DRAM bytes (every counter read and
 //   written once).
 //
+// * Banks (BANK = true): a (B, 4 n_words) counter bank is one counter
+//   array of B * n_blocks rows; key i's counter row starts at
+//   member[i] * member_words + (h_blk & block_mask) * 4S (64-bit offsets,
+//   member_words = 4 n_words), so B members take one launch in either
+//   regime (the JAX package has only the VMEM bank kernels). The update is
+//   valid-masked (write padding is the zero key on member 0, a real key)
+//   and its atomicCAS loop is unchanged: order-free per nibble, so exact
+//   under skewed member mixes too. The bank contains uses PHI = 4 and
+//   DEPTH keys a thread, as contains_hbm does. The whole bank decays with
+//   one counting_decay_kernel launch over its flat words.
+//
 // C interface for ctypes: each entry point returns cudaGetLastError() after
-// its launch (or -1 for a shape that has no instantiation).
+// its launch (or -1 for a shape that has no instantiation). The wrappers
+// check every member id against [0, B) before a bank launch.
 
 #include "bloom_common.cuh"
 
@@ -85,13 +102,57 @@ __device__ __forceinline__ uint32_t spread_byte(uint32_t x) {
   return (x | (x << 3)) & kNibLsb;
 }
 
-template <int S>
+// Launch arguments, carried through the host-side dispatch; the kernels
+// take them as separate parameters so that the read-only pointers keep
+// their __restrict__ (and the loads their read-only path).
+struct UpdateArgs {
+  const uint2* keys;
+  const int32_t* member;
+  const uint8_t* valid;
+  uint32_t* counters;
+  const uint32_t* salts;
+  int64_t n;
+  uint64_t member_words;
+  uint32_t block_mask;
+  int k, op;
+};
+
+struct ContainsArgs {
+  const uint2* keys;
+  const int32_t* member;
+  const uint32_t* counters;
+  bool* out;
+  const uint32_t* salts;
+  int64_t n;
+  uint64_t member_words;
+  uint32_t block_mask;
+  int k;
+};
+
+// First counter word of key i's row (4S words a block); a bank adds the
+// member's offset for a live key.
+template <int S, bool BANK>
+__device__ __forceinline__ uint64_t counter_row(const int32_t* member,
+                                                uint64_t member_words,
+                                                int64_t i, bool live,
+                                                uint32_t h_blk,
+                                                uint32_t block_mask) {
+  uint64_t start = uint64_t(h_blk & block_mask) * uint64_t(4 * S);
+  if constexpr (BANK) {
+    if (live) start += uint64_t(uint32_t(member[i])) * member_words;
+  }
+  return start;
+}
+
+template <int S, bool BANK>
 __global__ void __launch_bounds__(kThreads)
     counting_update_kernel(const uint2* __restrict__ keys,
+                           const int32_t* __restrict__ member,
                            const uint8_t* __restrict__ valid,
                            uint32_t* counters,
                            const uint32_t* __restrict__ salts, int64_t n,
-                           uint32_t block_mask, int k, int op) {
+                           uint64_t member_words, uint32_t block_mask, int k,
+                           int op) {
   __shared__ uint32_t smem[3 * kMaxSalts];
   stage_salts(smem, salts);
   const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
@@ -101,7 +162,8 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t m[S];
   build_mask<S>(m, h_pat, smem, smem + kMaxSalts, smem + 2 * kMaxSalts, kSbf,
                 k, 1, 0);
-  uint32_t* row = counters + uint64_t(h_blk & block_mask) * uint64_t(4 * S);
+  uint32_t* row = counters + counter_row<S, BANK>(member, member_words, i,
+                                                  true, h_blk, block_mask);
 #pragma unroll
   for (int j = 0; j < S; ++j) {
 #pragma unroll 1
@@ -123,13 +185,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int S, int PHI, int DEPTH>
+template <int S, int PHI, int DEPTH, bool BANK>
 __global__ void __launch_bounds__(kThreads)
     counting_contains_kernel(const uint2* __restrict__ keys,
+                             const int32_t* __restrict__ member,
                              const uint32_t* __restrict__ counters,
                              bool* __restrict__ out,
                              const uint32_t* __restrict__ salts, int64_t n,
-                             uint32_t block_mask, int k) {
+                             uint64_t member_words, uint32_t block_mask,
+                             int k) {
   static_assert(PHI == 1 || PHI == 2 || PHI == 4, "PHI must divide 4");
   __shared__ uint32_t smem[3 * kMaxSalts];
   stage_salts(smem, salts);
@@ -147,7 +211,8 @@ __global__ void __launch_bounds__(kThreads)
     if (alive[d]) hash_key(keys[i], h_pat, h_blk);
     build_mask<S>(m[d], h_pat, smem, smem + kMaxSalts, smem + 2 * kMaxSalts,
                   kSbf, k, 1, 0);
-    row[d] = counters + uint64_t(h_blk & block_mask) * uint64_t(4 * S);
+    row[d] = counters + counter_row<S, BANK>(member, member_words, i,
+                                             alive[d], h_blk, block_mask);
   }
 #pragma unroll
   for (int j = 0; j < S; ++j) {
@@ -206,76 +271,103 @@ __global__ void __launch_bounds__(kThreads)
     counters[i] -= nib_nonzero(counters[i]);
 }
 
-template <int S>
-int launch_update(const void* keys, const void* valid, void* counters,
-                  const void* salts, int64_t n, uint32_t block_mask, int k,
-                  int op, cudaStream_t stream) {
-  const unsigned grid = unsigned((n + kThreads - 1) / kThreads);
-  counting_update_kernel<S><<<grid, kThreads, 0, stream>>>(
-      static_cast<const uint2*>(keys), static_cast<const uint8_t*>(valid),
-      static_cast<uint32_t*>(counters), static_cast<const uint32_t*>(salts),
-      n, block_mask, k, op);
+template <int S, bool BANK>
+int launch_update(const UpdateArgs& a, cudaStream_t stream) {
+  const unsigned grid = unsigned((a.n + kThreads - 1) / kThreads);
+  counting_update_kernel<S, BANK><<<grid, kThreads, 0, stream>>>(
+      a.keys, a.member, a.valid, a.counters, a.salts, a.n, a.member_words,
+      a.block_mask, a.k, a.op);
   return int(cudaGetLastError());
 }
 
-template <int S, int PHI, int DEPTH>
-int launch_contains(const void* keys, const void* counters, void* out,
-                    const void* salts, int64_t n, uint32_t block_mask, int k,
-                    cudaStream_t stream) {
+template <bool BANK>
+int update_entry(int s, const UpdateArgs& a, cudaStream_t st) {
+  if (a.op != kAdd && a.op != kRemove) return -1;
+  switch (s) {
+    case 1:
+      return launch_update<1, BANK>(a, st);
+    case 2:
+      return launch_update<2, BANK>(a, st);
+    case 4:
+      return launch_update<4, BANK>(a, st);
+    case 8:
+      return launch_update<8, BANK>(a, st);
+    case 16:
+      return launch_update<16, BANK>(a, st);
+    case 32:
+      return launch_update<32, BANK>(a, st);
+  }
+  return -1;
+}
+
+template <int S, int PHI, int DEPTH, bool BANK>
+int launch_contains(const ContainsArgs& a, cudaStream_t stream) {
   const int64_t per_cta = int64_t(kThreads) * DEPTH;
-  const unsigned grid = unsigned((n + per_cta - 1) / per_cta);
-  counting_contains_kernel<S, PHI, DEPTH><<<grid, kThreads, 0, stream>>>(
-      static_cast<const uint2*>(keys), static_cast<const uint32_t*>(counters),
-      static_cast<bool*>(out), static_cast<const uint32_t*>(salts), n,
-      block_mask, k);
+  const unsigned grid = unsigned((a.n + per_cta - 1) / per_cta);
+  counting_contains_kernel<S, PHI, DEPTH, BANK>
+      <<<grid, kThreads, 0, stream>>>(a.keys, a.member, a.counters, a.out,
+                                      a.salts, a.n, a.member_words,
+                                      a.block_mask, a.k);
   return int(cudaGetLastError());
 }
 
-template <int S, int PHI>
-int dispatch_depth(int depth, const void* keys, const void* counters,
-                   void* out, const void* salts, int64_t n,
-                   uint32_t block_mask, int k, cudaStream_t st) {
-  // contains_vmem runs DEPTH = 1 at any PHI; contains_hbm runs PHI = 4 at
-  // any DEPTH, with at most kMaxInFlight mask words per thread
+template <int S, int PHI, bool BANK>
+int dispatch_depth(int depth, const ContainsArgs& a, cudaStream_t st) {
+  // contains_vmem runs DEPTH = 1 at any PHI; contains_hbm and the bank
+  // contains run PHI = 4 at any DEPTH, with at most kMaxInFlight mask words
+  // per thread
   constexpr bool kDeep = PHI == 4;
   if (depth > 1 && !kDeep) return -1;
   switch (depth) {
     case 1:
-      return launch_contains<S, PHI, 1>(keys, counters, out, salts, n,
-                                        block_mask, k, st);
+      return launch_contains<S, PHI, 1, BANK>(a, st);
     case 2:
       if constexpr (kDeep && 2 * S <= kMaxInFlight)
-        return launch_contains<S, PHI, 2>(keys, counters, out, salts, n,
-                                          block_mask, k, st);
+        return launch_contains<S, PHI, 2, BANK>(a, st);
       break;
     case 4:
       if constexpr (kDeep && 4 * S <= kMaxInFlight)
-        return launch_contains<S, PHI, 4>(keys, counters, out, salts, n,
-                                          block_mask, k, st);
+        return launch_contains<S, PHI, 4, BANK>(a, st);
       break;
     case 8:
       if constexpr (kDeep && 8 * S <= kMaxInFlight)
-        return launch_contains<S, PHI, 8>(keys, counters, out, salts, n,
-                                          block_mask, k, st);
+        return launch_contains<S, PHI, 8, BANK>(a, st);
       break;
   }
   return -1;
 }
 
-template <int S>
-int dispatch_phi(int phi, int depth, const void* keys, const void* counters,
-                 void* out, const void* salts, int64_t n, uint32_t block_mask,
-                 int k, cudaStream_t st) {
+template <int S, bool BANK>
+int dispatch_phi(int phi, int depth, const ContainsArgs& a, cudaStream_t st) {
   switch (phi) {
     case 1:
-      return dispatch_depth<S, 1>(depth, keys, counters, out, salts, n,
-                                  block_mask, k, st);
+      if constexpr (!BANK) return dispatch_depth<S, 1, BANK>(depth, a, st);
+      break;
     case 2:
-      return dispatch_depth<S, 2>(depth, keys, counters, out, salts, n,
-                                  block_mask, k, st);
+      if constexpr (!BANK) return dispatch_depth<S, 2, BANK>(depth, a, st);
+      break;
     case 4:
-      return dispatch_depth<S, 4>(depth, keys, counters, out, salts, n,
-                                  block_mask, k, st);
+      return dispatch_depth<S, 4, BANK>(depth, a, st);
+  }
+  return -1;
+}
+
+template <bool BANK>
+int contains_entry(int s, int phi, int depth, const ContainsArgs& a,
+                   cudaStream_t st) {
+  switch (s) {
+    case 1:
+      return dispatch_phi<1, BANK>(phi, depth, a, st);
+    case 2:
+      return dispatch_phi<2, BANK>(phi, depth, a, st);
+    case 4:
+      return dispatch_phi<4, BANK>(phi, depth, a, st);
+    case 8:
+      return dispatch_phi<8, BANK>(phi, depth, a, st);
+    case 16:
+      return dispatch_phi<16, BANK>(phi, depth, a, st);
+    case 32:
+      return dispatch_phi<32, BANK>(phi, depth, a, st);
   }
   return -1;
 }
@@ -290,57 +382,57 @@ extern "C" {
 int counting_update(const void* keys, const void* valid, void* counters,
                     const void* salts, long long n, unsigned block_mask,
                     int s, int k, int op, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (op != kAdd && op != kRemove) return -1;
-  switch (s) {
-    case 1:
-      return launch_update<1>(keys, valid, counters, salts, n, block_mask, k,
-                              op, st);
-    case 2:
-      return launch_update<2>(keys, valid, counters, salts, n, block_mask, k,
-                              op, st);
-    case 4:
-      return launch_update<4>(keys, valid, counters, salts, n, block_mask, k,
-                              op, st);
-    case 8:
-      return launch_update<8>(keys, valid, counters, salts, n, block_mask, k,
-                              op, st);
-    case 16:
-      return launch_update<16>(keys, valid, counters, salts, n, block_mask, k,
-                               op, st);
-    case 32:
-      return launch_update<32>(keys, valid, counters, salts, n, block_mask, k,
-                               op, st);
-  }
-  return -1;
+  const UpdateArgs a{static_cast<const uint2*>(keys), nullptr,
+                     static_cast<const uint8_t*>(valid),
+                     static_cast<uint32_t*>(counters),
+                     static_cast<const uint32_t*>(salts), n, 0u, block_mask,
+                     k, op};
+  return update_entry<false>(s, a, static_cast<cudaStream_t>(stream));
 }
 
 // out: (n,) bool; phi in {1, 2, 4}; depth in {1, 2, 4, 8}.
 int counting_contains(const void* keys, const void* counters, void* out,
                       const void* salts, long long n, unsigned block_mask,
                       int s, int phi, int depth, int k, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (s) {
-    case 1:
-      return dispatch_phi<1>(phi, depth, keys, counters, out, salts, n,
-                             block_mask, k, st);
-    case 2:
-      return dispatch_phi<2>(phi, depth, keys, counters, out, salts, n,
-                             block_mask, k, st);
-    case 4:
-      return dispatch_phi<4>(phi, depth, keys, counters, out, salts, n,
-                             block_mask, k, st);
-    case 8:
-      return dispatch_phi<8>(phi, depth, keys, counters, out, salts, n,
-                             block_mask, k, st);
-    case 16:
-      return dispatch_phi<16>(phi, depth, keys, counters, out, salts, n,
-                              block_mask, k, st);
-    case 32:
-      return dispatch_phi<32>(phi, depth, keys, counters, out, salts, n,
-                              block_mask, k, st);
-  }
-  return -1;
+  const ContainsArgs a{static_cast<const uint2*>(keys), nullptr,
+                       static_cast<const uint32_t*>(counters),
+                       static_cast<bool*>(out),
+                       static_cast<const uint32_t*>(salts), n, 0u, block_mask,
+                       k};
+  return contains_entry<false>(s, phi, depth, a,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// Bank forms. member: (n,) int32 in [0, B); counters: the
+// (B, member_words) bank, 16-byte aligned, member_words = 4 n_words.
+int counting_bank_update(const void* keys, const void* member,
+                         const void* valid, void* counters, const void* salts,
+                         long long n, unsigned long long member_words,
+                         unsigned block_mask, int s, int k, int op,
+                         void* stream) {
+  const UpdateArgs a{static_cast<const uint2*>(keys),
+                     static_cast<const int32_t*>(member),
+                     static_cast<const uint8_t*>(valid),
+                     static_cast<uint32_t*>(counters),
+                     static_cast<const uint32_t*>(salts), n, member_words,
+                     block_mask, k, op};
+  return update_entry<true>(s, a, static_cast<cudaStream_t>(stream));
+}
+
+// phi must be 4; depth in {1, 2, 4, 8}.
+int counting_bank_contains(const void* keys, const void* member,
+                           const void* counters, void* out, const void* salts,
+                           long long n, unsigned long long member_words,
+                           unsigned block_mask, int s, int phi, int depth,
+                           int k, void* stream) {
+  const ContainsArgs a{static_cast<const uint2*>(keys),
+                       static_cast<const int32_t*>(member),
+                       static_cast<const uint32_t*>(counters),
+                       static_cast<bool*>(out),
+                       static_cast<const uint32_t*>(salts), n, member_words,
+                       block_mask, k};
+  return contains_entry<true>(s, phi, depth, a,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // counters: (n_words,) int32, 16-byte aligned; updated in place.

@@ -5,14 +5,20 @@ the generation-ring kernel.
 
 Counterpart of ``repro.kernels.ops.bloom_contains`` / ``bloom_add``,
 ``counting_add`` / ``counting_remove`` / ``counting_contains`` /
-``counting_decay`` and ``ring_contains``:
+``counting_decay``, ``ring_contains`` and the bank forms
+``bloom_bank_contains`` / ``bloom_bank_add`` / ``counting_bank_update`` /
+``counting_bank_contains``:
 
 * regime: a filter whose storage is at most ``L2_FILTER_BYTES`` runs the
   L2-resident kernels (``*_vmem``), a larger one the DRAM-resident kernels
   (``*_hbm``); for a ring the bytes of all G generations count. Decay is
   one kernel for both, and so is each classical-filter op
-  (``kernels/cbf.py`` says why). The regime names stay ``"vmem"`` and
-  ``"hbm"`` as in the JAX package. The regime never changes a result;
+  (``kernels/cbf.py`` says why). A bank's regime comes from the whole
+  bank's bytes (``bank_l2_resident``); the JAX package runs its bank kernels
+  only on a VMEM-resident bank and sends the rest to jnp, while here the
+  same bank kernel serves both regimes (``depth`` keys a thread in DRAM).
+  The regime names stay ``"vmem"`` and ``"hbm"`` as in the JAX package.
+  The regime never changes a result;
 * ``probe``/``coop``/``mix``/``depth``/``layout``/``tile`` are validated as
   the JAX package does. ``"auto"`` resolves to the fixed defaults below
   (the tuner, ``core/tuning.py``, is ROADMAP queue 1 item 11). Which of
@@ -22,7 +28,10 @@ Counterpart of ``repro.kernels.ops.bloom_contains`` / ``bloom_add``,
   in the JAX package: by repeating the last key (``_pad_keys``) for the
   OR-idempotent bit ops and for every contains, and with zero keys marked
   invalid (``_pad_keys_valid``) for counting updates, which are not
-  idempotent. The CUDA kernels mask the ragged tail themselves;
+  idempotent. Flat routed bank keys pad the same way with their member
+  ids (``_pad_flat`` for reads; ``_pad_flat_valid`` for every bank write:
+  zero keys on member 0, marked invalid). The CUDA kernels mask the ragged
+  tail themselves;
 * ``bloom_add``/``counting_*(..., inplace=False)`` clone the words first,
   as JAX's immutable arrays behave; ``inplace=True`` is the counterpart of
   the JAX package's buffer donation and updates ``filt`` itself.
@@ -294,4 +303,150 @@ def ring_contains(spec: FilterSpec, rings: torch.Tensor, keys: torch.Tensor,
         out = ring_k.ring_contains_vmem(spec, rings, padded)
     else:
         out = ring_k.ring_contains_hbm(spec, rings, padded)
+    return out[:n]
+
+
+# ---------------------------------------------------------------------------
+# Bank dispatch: flat routed keys (keys (N, 2), member (N,)) against a
+# (B, storage_words) bank, one launch for the whole bank in either regime
+# ---------------------------------------------------------------------------
+
+def bank_l2_resident(spec: FilterSpec, bank: int) -> bool:
+    """Does a B-member bank fit ``L2_FILTER_BYTES`` whole?"""
+    return bank * spec.storage_words * 4 <= L2_FILTER_BYTES
+
+
+def _bank_regime(spec: FilterSpec, bank: int, regime: str) -> str:
+    if regime == "auto":
+        return "vmem" if bank_l2_resident(spec, bank) else "hbm"
+    return _regime(spec, regime)
+
+
+def _pad_flat(keys: torch.Tensor, member: torch.Tensor, tile: int):
+    """Repeat-last padding of (keys, member) to a tile multiple: reads
+    only."""
+    pad = (-keys.shape[0]) % tile
+    if pad == 0:
+        return keys, member
+    return (torch.cat([keys, keys[-1:].expand(pad, 2)]),
+            torch.cat([member, member[-1:].expand(pad)]))
+
+
+def _pad_flat_valid(keys: torch.Tensor, member: torch.Tensor,
+                    valid: Optional[torch.Tensor], tile: int):
+    """Zero padding of (keys, member) to a tile multiple with an explicit
+    (n_padded,) uint8 validity mask: writes. A padded slot is the zero key
+    on member 0, a real key, so the mask must be honoured."""
+    n = keys.shape[0]
+    if valid is None:
+        valid = torch.ones((n,), dtype=torch.uint8, device=keys.device)
+    valid = valid.to(torch.uint8)
+    pad = (-n) % tile
+    if pad == 0:
+        return keys, member, valid
+    return (torch.cat([keys, keys.new_zeros((pad, 2))]),
+            torch.cat([member, member.new_zeros((pad,))]),
+            torch.cat([valid, valid.new_zeros((pad,))]))
+
+
+def _check_bank_spec(spec: FilterSpec) -> None:
+    _check_spec(spec)
+    if spec.variant == "cbf":
+        raise ValueError("cbf banks have no bank kernel: they run the scalar "
+                         "cbf kernel member by member (the engines' generic "
+                         "bank path)")
+
+
+def bloom_bank_contains(spec: FilterSpec, bank: torch.Tensor,
+                        keys: torch.Tensor, member: torch.Tensor,
+                        layout: Optional[Layout] = None, regime: str = "auto",
+                        tile: int = DEFAULT_TILE, probe: str = "auto",
+                        depth: Optional[int] = None, mix: str = "auto"
+                        ) -> torch.Tensor:
+    """(N,) bool membership of flat routed keys against a (B, n_words)
+    bank."""
+    _check_bank_spec(spec)
+    n = keys.shape[0]
+    if n == 0:
+        return torch.zeros((0,), dtype=torch.bool, device=keys.device)
+    tile = _clamp_tile(n, tile)
+    member = member.to(torch.int32)
+    if not keys.is_cuda:
+        keys, member = _pad_flat(keys, member, tile)
+    if _bank_regime(spec, bank.shape[0], regime) == "vmem":
+        d = 1
+    else:
+        d = DEFAULT_DMA_DEPTH if depth is None else depth
+    out = sbf_k.bank_contains_vmem(
+        spec, bank, keys, member, layout or default_layout(spec, "contains"),
+        tile=tile, probe=_resolve(probe, PROBES, AUTO_PROBE, "probe"),
+        mix=_resolve(mix, MIXES, AUTO_MIX, "mix"), depth=d)
+    return out[:n]
+
+
+def bloom_bank_add(spec: FilterSpec, bank: torch.Tensor, keys: torch.Tensor,
+                   member: torch.Tensor, valid: Optional[torch.Tensor] = None,
+                   layout: Optional[Layout] = None, tile: int = DEFAULT_TILE,
+                   probe: str = "auto", mix: str = "auto",
+                   inplace: bool = False) -> torch.Tensor:
+    """Valid-masked bulk OR of flat routed keys into a (B, n_words) bank;
+    one kernel serves a bank in L2 and one in DRAM alike."""
+    _check_bank_spec(spec)
+    out = bank if inplace else bank.clone()
+    n = keys.shape[0]
+    if n == 0:
+        return out
+    tile = _clamp_tile(n, tile)
+    member = member.to(torch.int32)
+    if not keys.is_cuda:
+        keys, member, valid = _pad_flat_valid(keys, member, valid, tile)
+    return sbf_k.bank_add_vmem(
+        spec, out, keys, member, valid, layout or default_layout(spec, "add"),
+        tile=tile, probe=_resolve(probe, PROBES, AUTO_PROBE, "probe"),
+        mix=_resolve(mix, MIXES, AUTO_MIX, "mix"))
+
+
+def counting_bank_update(spec: FilterSpec, bank: torch.Tensor,
+                         keys: torch.Tensor, member: torch.Tensor,
+                         op: str = "add",
+                         valid: Optional[torch.Tensor] = None,
+                         layout: Optional[Layout] = None,
+                         tile: int = DEFAULT_TILE, probe: str = "auto",
+                         mix: str = "auto", inplace: bool = False
+                         ) -> torch.Tensor:
+    """Flat routed counter increment/decrement of a (B, storage_words)
+    bank; one kernel serves a bank in L2 and one in DRAM alike."""
+    _check_counting(spec)
+    out = bank if inplace else bank.clone()
+    n = keys.shape[0]
+    if n == 0:
+        return out
+    tile = _clamp_tile(n, tile)
+    member = member.to(torch.int32)
+    if not keys.is_cuda:
+        keys, member, valid = _pad_flat_valid(keys, member, valid, tile)
+    return cnt_k.bank_update_vmem(
+        spec, out, keys, member, valid, op, layout=layout, tile=tile,
+        probe=_resolve(probe, PROBES, AUTO_PROBE, "probe"),
+        mix=_resolve(mix, MIXES, AUTO_MIX, "mix"))
+
+
+def counting_bank_contains(spec: FilterSpec, bank: torch.Tensor,
+                           keys: torch.Tensor, member: torch.Tensor,
+                           regime: str = "auto", tile: int = DEFAULT_TILE,
+                           depth: Optional[int] = None) -> torch.Tensor:
+    """(N,) bool occupancy membership against a counter bank."""
+    _check_counting(spec)
+    n = keys.shape[0]
+    if n == 0:
+        return torch.zeros((0,), dtype=torch.bool, device=keys.device)
+    tile = _clamp_tile(n, tile)
+    member = member.to(torch.int32)
+    if not keys.is_cuda:
+        keys, member = _pad_flat(keys, member, tile)
+    if _bank_regime(spec, bank.shape[0], regime) == "vmem":
+        d = 1
+    else:
+        d = DEFAULT_DMA_DEPTH if depth is None else depth
+    out = cnt_k.bank_contains_vmem(spec, bank, keys, member, depth=d)
     return out[:n]

@@ -49,10 +49,10 @@ def reset_launches() -> None:
 
 
 def ring_dense(rings: torch.Tensor) -> torch.Tensor:
-    """(n_words,) OR-fold of the (G, n_words) generations."""
-    dense = rings[0]
-    for g in range(1, rings.shape[0]):
-        dense = dense | rings[g]
+    """(..., n_words) OR-fold of the (..., G, n_words) generations."""
+    dense = rings[..., 0, :]
+    for g in range(1, rings.shape[-2]):
+        dense = dense | rings[..., g, :]
     return dense
 
 

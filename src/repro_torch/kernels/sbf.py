@@ -1,19 +1,30 @@
 """Blocked Bloom filter kernels (sbf/bbf/rbbf/csbf) for Hopper, and their
 plain PyTorch versions.
 
-Counterpart of ``repro.kernels.sbf``. The four wrappers keep the JAX names,
+Counterpart of ``repro.kernels.sbf``. The six wrappers keep the JAX names,
 so each row of the kernel table maps one to one:
 
-=============== ================================ ===========================
-wrapper         replaces (repro/kernels/sbf.py)  CUDA kernel (csrc/bloom.cu)
-=============== ================================ ===========================
-contains_vmem   contains_vmem (L2 regime)        bloom_contains_kernel,
+================== ============================= ===========================
+wrapper            replaces (repro/kernels/      CUDA kernel (csrc/bloom.cu)
+                   sbf.py)
+================== ============================= ===========================
+contains_vmem      contains_vmem (L2 regime)     bloom_contains_kernel,
                                                  DEPTH=1, PHI=min(phi, 4)
-contains_hbm    contains_hbm (DRAM regime)       bloom_contains_kernel,
+contains_hbm       contains_hbm (DRAM regime)    bloom_contains_kernel,
                                                  DEPTH=depth, PHI=min(s, 4)
-add_vmem        add_vmem                         bloom_add_kernel
-add_hbm         add_hbm                          bloom_add_kernel
-=============== ================================ ===========================
+add_vmem           add_vmem                      bloom_add_kernel
+add_hbm            add_hbm                       bloom_add_kernel
+bank_contains_vmem bank_contains_vmem            bloom_contains_kernel, bank
+                                                 form; DEPTH=depth (1: PHI=
+                                                 min(phi, 4), else min(s, 4))
+bank_add_vmem      bank_add_vmem                 bloom_add_kernel, bank form
+================== ============================= ===========================
+
+The bank wrappers take a ``(B, n_words)`` bank, flat keys and ``member``
+``(n,)`` int32 ids in ``[0, B)`` (checked: a ``ValueError`` otherwise, so
+no launch writes outside the bank). The JAX package runs them only on a
+bank that fits VMEM; here one kernel serves a bank in L2 (``depth=1``) and
+one in DRAM (``depth`` keys a thread), as ``ops.bloom_bank_*`` picks.
 
 Schedule axes. The kernels act on ``layout.phi`` (the vector width of the
 block loads, capped at 4 words = 128 bits, the widest load) in
@@ -42,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import hashing as H
+from repro_torch.core.partition import check_ids
 from repro_torch.core import variants as V
 from repro_torch.core.variants import FilterSpec
 
@@ -55,7 +67,7 @@ MAX_WORDS_IN_FLIGHT = 64        # block words a contains thread holds
 
 # Kernel launches per wrapper (a launch adds one; the plain path adds none).
 LAUNCHES = {"contains_vmem": 0, "add_vmem": 0, "contains_hbm": 0,
-            "add_hbm": 0}
+            "add_hbm": 0, "bank_contains_vmem": 0, "bank_add_vmem": 0}
 
 _VARIANT_CODE = {"sbf": 0, "bbf": 1, "rbbf": 1, "csbf": 2}
 _salts_on: dict = {}
@@ -129,6 +141,20 @@ def add_plain(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor
     """Plain version of ``add_vmem`` and ``add_hbm``: new (n_words,) int32
     words (sort-and-segment OR; ``filt`` is not modified)."""
     return V.add_rows(spec, filt, keys)
+
+
+def bank_contains_plain(spec: FilterSpec, bank: torch.Tensor,
+                        keys: torch.Tensor, member: torch.Tensor
+                        ) -> torch.Tensor:
+    """Plain version of ``bank_contains_vmem``: (n,) bool."""
+    return V.bank_contains_rows(spec, bank, keys, member)
+
+
+def bank_add_plain(spec: FilterSpec, bank: torch.Tensor, keys: torch.Tensor,
+                   member: torch.Tensor, valid=None) -> torch.Tensor:
+    """Plain version of ``bank_add_vmem``: new (B, n_words) int32 words
+    (``bank`` is not modified)."""
+    return V.bank_add_rows(spec, bank, keys, member, valid)
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +254,80 @@ def _depth_in_flight(spec: FilterSpec, depth: int) -> int:
     return min(depth, max(1, MAX_WORDS_IN_FLIGHT // spec.s))
 
 
+def check_bank(spec: FilterSpec, bank: torch.Tensor, keys: torch.Tensor,
+               member: torch.Tensor, valid=None, width: int = None) -> bool:
+    """Validate a bank call's tensors (shared by the counting wrappers,
+    whose rows are ``width = storage_words`` wide): bank ``(B, width)``
+    int32, keys ``(n, 2)`` int32, member ``(n,)`` int32 in ``[0, B)`` and
+    valid ``(n,)`` uint8/bool or None, all on one device. True for CUDA
+    tensors, False for CPU tensors; raises ``ValueError`` otherwise."""
+    width = spec.n_words if width is None else width
+    if bank.ndim != 2 or bank.dtype != torch.int32 or bank.shape[1] != width:
+        raise ValueError(f"bank must be (B, {width}) int32, got "
+                         f"{tuple(bank.shape)} {bank.dtype}")
+    on_cuda = _on_cuda(bank[0], keys)
+    if member.shape != (keys.shape[0],) or member.dtype != torch.int32:
+        raise ValueError(f"member must be ({keys.shape[0]},) int32, got "
+                         f"{tuple(member.shape)} {member.dtype}")
+    if member.device != keys.device:
+        raise ValueError(f"member on {member.device}, keys on {keys.device}")
+    if valid is not None:
+        if valid.shape != (keys.shape[0],):
+            raise ValueError(f"valid must be ({keys.shape[0]},), got "
+                             f"{tuple(valid.shape)}")
+        if valid.device != keys.device:
+            raise ValueError(f"valid on {valid.device}, keys on "
+                             f"{keys.device}")
+        if valid.dtype not in (torch.uint8, torch.bool):
+            raise ValueError(f"valid must be uint8 or bool, got "
+                             f"{valid.dtype}")
+    check_ids(member, bank.shape[0])
+    if on_cuda and not (bank.is_contiguous() and member.is_contiguous()):
+        raise ValueError("bank and member ids must be contiguous")
+    return on_cuda
+
+
+def _launch_bank_contains(spec, bank, keys, member, phi: int, depth: int
+                          ) -> torch.Tensor:
+    from repro_torch.kernels._build import library
+    block_mask, s, variant, k, z, log2g = _geometry(spec, bank[0], keys)
+    n = keys.shape[0]
+    out = torch.empty((n,), dtype=torch.bool, device=keys.device)
+    if n == 0:
+        return out
+    lib = library()
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        err = lib.bloom_bank_contains(
+            keys.data_ptr(), member.data_ptr(), bank.data_ptr(),
+            out.data_ptr(), _salts(keys.device).data_ptr(), n, spec.n_words,
+            block_mask, s, phi, depth, variant, k, z, log2g, stream)
+    _raise_on(err, "bank_contains_vmem")
+    LAUNCHES["bank_contains_vmem"] += 1
+    return out
+
+
+def _launch_bank_add(spec, bank, keys, member, valid) -> torch.Tensor:
+    from repro_torch.kernels._build import library
+    block_mask, s, variant, k, z, log2g = _geometry(spec, bank[0], keys)
+    n = keys.shape[0]
+    if n == 0:
+        return bank
+    if valid is not None:
+        valid = valid.contiguous().view(torch.uint8)
+    lib = library()
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        err = lib.bloom_bank_add(
+            keys.data_ptr(), member.data_ptr(),
+            None if valid is None else valid.data_ptr(), bank.data_ptr(),
+            _salts(keys.device).data_ptr(), n, spec.n_words, block_mask, s,
+            variant, k, z, log2g, stream)
+    _raise_on(err, "bank_add_vmem")
+    LAUNCHES["bank_add_vmem"] += 1
+    return bank
+
+
 # ---------------------------------------------------------------------------
 # The four wrappers
 # ---------------------------------------------------------------------------
@@ -277,3 +377,39 @@ def add_hbm(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
     if not _on_cuda(filt, keys):
         return filt.copy_(add_plain(spec, filt, keys))
     return _launch_add("add_hbm", spec, filt, keys)
+
+
+def bank_contains_vmem(spec: FilterSpec, bank: torch.Tensor,
+                       keys: torch.Tensor, member: torch.Tensor,
+                       layout: Layout, tile: int = DEFAULT_TILE,
+                       probe: str = "gather", mix: str = "full",
+                       depth: int = 1) -> torch.Tensor:
+    """Flat routed membership against a (B, n_words) bank, one launch.
+    ``depth=1`` is the L2 regime (``layout.phi`` acts); a larger ``depth``
+    (a value of ``DMA_DEPTHS``) the DRAM regime. (n,) bool."""
+    _check_axes(probe=probe, mix=mix)
+    layout = layout.validate(spec, tile)
+    if depth not in DMA_DEPTHS:
+        raise ValueError(f"depth={depth} not in {DMA_DEPTHS}")
+    if not check_bank(spec, bank, keys, member):
+        return bank_contains_plain(spec, bank, keys, member)
+    if depth == 1:
+        return _launch_bank_contains(spec, bank, keys, member,
+                                     phi=min(layout.phi, 4), depth=1)
+    return _launch_bank_contains(spec, bank, keys, member,
+                                 phi=min(spec.s, 4),
+                                 depth=_depth_in_flight(spec, depth))
+
+
+def bank_add_vmem(spec: FilterSpec, bank: torch.Tensor, keys: torch.Tensor,
+                  member: torch.Tensor, valid, layout: Layout,
+                  tile: int = DEFAULT_TILE, probe: str = "gather",
+                  mix: str = "full") -> torch.Tensor:
+    """Flat routed insert into a (B, n_words) bank, one launch, both
+    regimes; slots with ``valid`` 0 are skipped (``None``: every key
+    valid). Updates ``bank`` in place."""
+    _check_axes(probe=probe, mix=mix)
+    layout.validate(spec, tile)
+    if not check_bank(spec, bank, keys, member, valid):
+        return bank.copy_(bank_add_plain(spec, bank, keys, member, valid))
+    return _launch_bank_add(spec, bank, keys, member, valid)

@@ -141,13 +141,15 @@ def test_unported_operations_name_the_roadmap_item():
         f.advance()
     with pytest.raises(ValueError, match="valid="):
         f.add(keys, valid=np.ones(4, np.uint8))
+    # banks are ported: routed keys on a scalar filter raise the JAX
+    # package's ValueError, and filter_for_n_items(bank=) builds a bank
     for call in (lambda: f.add(keys, tenants=np.zeros(4, np.int32)),
-                 lambda: f.contains(keys, tenants=np.zeros(4, np.int32)),
-                 lambda: api.filter_for_n_items(100, bank=4, device="cpu"),
-                 lambda: api.filter_for_n_items(100, variant="cuckoo",
-                                                device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                 lambda: f.contains(keys, tenants=np.zeros(4, np.int32))):
+        with pytest.raises(ValueError, match="need a bank"):
             call()
+    assert api.filter_for_n_items(100, bank=4, device="cpu").bank_shape == (4,)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.filter_for_n_items(100, variant="cuckoo", device="cpu")
 
 
 def test_engine_selection_by_device():
@@ -205,9 +207,15 @@ def test_as_keys_accepts_every_key_form():
 def test_from_state_rejects_state_of_unported_engines():
     f = api.make_filter("sbf", m_bits=M, k=8, device="cpu")
     state = interop.to_jax_state(f)
-    for extra in ({"bank_shape": [2]}, {"engine_state": 0}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.Filter.from_state({**state, **extra}, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.Filter.from_state({**state, "engine_state": 0}, device="cpu")
+    # a bank state is ported: its words must carry the bank dims
+    with pytest.raises(ValueError):
+        api.Filter.from_state({**state, "bank_shape": [2]}, device="cpu")
+    bank = api.Filter.from_state(
+        {**state, "bank_shape": [2],
+         "words": np.stack([state["words"]] * 2)}, device="cpu")
+    assert bank.bank_shape == (2,) and bank.words.shape == (2, M // 32)
     # a windowed state is ported: it comes back as a ring, the union in
     # generation 0 and the head at 0
     ring = api.Filter.from_state({**state, "backend": "windowed",
@@ -234,6 +242,7 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.ops, repro_torch.kernels.countingbf, "
             "repro_torch.kernels.cbf, repro_torch.kernels.ring, "
             "repro_torch.kernels._build, repro_torch.interop, "
+            "repro_torch.core.partition, "
             "repro_torch.window, repro_torch.window.ring; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); assert not bad, bad")
@@ -245,8 +254,8 @@ def test_port_imports_neither_jax_nor_repro():
     sources = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     names = {p.relative_to(ROOT / "src").as_posix() for p in sources}
     assert {"repro_torch/window/ring.py", "repro_torch/window/__init__.py",
-            "repro_torch/kernels/cbf.py",
-            "repro_torch/kernels/ring.py"} <= names
+            "repro_torch/kernels/cbf.py", "repro_torch/kernels/ring.py",
+            "repro_torch/core/partition.py"} <= names
     sources.append(ROOT / "chip_smoke.py")
     assert len(sources) > 10
     for path in sources:

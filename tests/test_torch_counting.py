@@ -474,7 +474,7 @@ def test_remove_and_decay_need_the_counting_engine():
                  lambda: cf.remove(keys, valid=np.ones(4, np.uint8))):
         with pytest.raises(ValueError, match="valid="):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="need a bank"):
         cf.remove(keys, tenants=np.zeros(4, np.int32))
     assert cf.remove(keys[:0]) is cf
     assert cf.decay(0) is cf

@@ -7,6 +7,9 @@ machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Comparisons are exact (tolerance 0): words as u32 bits, results as bool.
+The bank cases at the end hold the four bank kernels against their plain
+versions for B in 1/7/64, uniform and skewed member mixes, both regimes'
+depths and valid-masked, ragged batches.
 """
 import numpy as np
 import pytest
@@ -125,7 +128,8 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     sbf.contains_hbm(spec, filt, keys[:0])        # n == 0 launches nothing
     sbf.contains_plain(spec, filt, keys)          # the plain path counts none
     assert sbf.LAUNCHES == {"contains_vmem": 1, "add_vmem": 1,
-                            "contains_hbm": 1, "add_hbm": 1}
+                            "contains_hbm": 1, "add_hbm": 1,
+                            "bank_contains_vmem": 0, "bank_add_vmem": 0}
 
 
 @pytest.mark.gpu
@@ -256,7 +260,8 @@ def test_counting_launch_counters_and_filter_path(cuda):
     assert h.contains(keys[25000:]).all()
     d = h.decay(2)
     assert cnt.LAUNCHES == {"update_vmem": 3, "contains_vmem": 1,
-                            "update_hbm": 0, "contains_hbm": 0, "decay": 2}
+                            "update_hbm": 0, "contains_hbm": 0, "decay": 2,
+                            "bank_update_vmem": 0, "bank_contains_vmem": 0}
     want = cnt.update_plain(f.spec, V.init(f.spec, cuda), keys, None, "add")
     want = cnt.update_plain(f.spec, want, keys[:1000], None, "add")
     want = cnt.update_plain(f.spec, want, keys[:25000], None, "remove")
@@ -415,3 +420,172 @@ def test_cbf_and_ring_wrappers_refuse_bad_tensors(cuda):
                                                     block_bits=2048),
                                        cuda).expand(2, -1).contiguous(),
                                 keys)
+
+
+# ---------------------------------------------------------------------------
+# Bank kernels (bank forms of bloom.cu and counting.cu)
+# ---------------------------------------------------------------------------
+
+BANK_SPECS = [V.FilterSpec("sbf", 1 << 14, 8, block_bits=256),
+              V.FilterSpec("bbf", 1 << 14, 8, block_bits=256),
+              V.FilterSpec("rbbf", 1 << 14, 4),
+              V.FilterSpec("csbf", 1 << 14, 8, block_bits=512, z=2)]
+
+
+def _routed(B, n, seed, device, skewed=False):
+    """(keys, member int32, valid uint8 with about a quarter zeros)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    member = torch.randint(0, B, (n,), generator=g, dtype=torch.int32)
+    if skewed:
+        member[torch.rand(n, generator=g) < 0.5] = 0
+    valid = (torch.rand(n, generator=g) > 0.25).to(torch.uint8)
+    return (_keys(n, seed, device), member.to(device), valid.to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", BANK_SPECS, ids=str)
+@pytest.mark.parametrize("B", [1, 7, 64])
+@pytest.mark.parametrize("skewed", [False, True], ids=["uniform", "skewed"])
+def test_bank_kernels_match_plain(cuda, spec, B, skewed):
+    for n in (0, 1, 257, 65537):
+        keys, member, valid = _routed(B, n, n + B, cuda, skewed)
+        empty = torch.zeros((B, spec.n_words), dtype=torch.int32, device=cuda)
+        want = sbf.bank_add_plain(spec, empty, keys, member, valid)
+        got = sbf.bank_add_vmem(spec, empty.clone(), keys, member, valid,
+                                sbf.default_layout(spec, "add"))
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(_u32(got), _u32(want))
+        q = torch.cat([keys, _probes(n, n, cuda)])
+        qm = torch.cat([member, member.flip(0)])
+        hits = sbf.bank_contains_plain(spec, want, q, qm)
+        lay = sbf.default_layout(spec, "contains")
+        for depth in (1, 2, 4):
+            got = sbf.bank_contains_vmem(spec, want, q, qm, lay, depth=depth)
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          hits.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", CSPECS[:2], ids=str)
+@pytest.mark.parametrize("B", [1, 7, 64])
+@pytest.mark.parametrize("skewed", [False, True], ids=["uniform", "skewed"])
+def test_counting_bank_kernels_match_plain(cuda, spec, B, skewed):
+    for n in (0, 1, 257, 65537):
+        keys, member, valid = _routed(B, n, n + B, cuda, skewed)
+        keys = torch.cat([keys, keys[: n // 3]])           # counts of 2
+        member = torch.cat([member, member[: n // 3]])
+        valid = torch.cat([valid, valid[: n // 3]])
+        empty = torch.zeros((B, spec.storage_words), dtype=torch.int32,
+                            device=cuda)
+        want = cnt.bank_update_plain(spec, empty, keys, member, valid, "add")
+        got = cnt.bank_update_vmem(spec, empty.clone(), keys, member, valid,
+                                   "add")
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(_u32(got), _u32(want))
+        half = keys.shape[0] // 2
+        want_rm = cnt.bank_update_plain(spec, want, keys[:half],
+                                        member[:half], None, "remove")
+        cnt.bank_update_vmem(spec, got, keys[:half], member[:half], None,
+                             "remove")
+        np.testing.assert_array_equal(_u32(got), _u32(want_rm))
+        q = torch.cat([keys, _probes(keys.shape[0], n, cuda)])
+        qm = torch.cat([member, member.flip(0)])
+        hits = cnt.bank_contains_plain(spec, want_rm, q, qm)
+        for depth in (1, 2, 4):
+            out = cnt.bank_contains_vmem(spec, want_rm, q, qm, depth=depth)
+            np.testing.assert_array_equal(out.cpu().numpy(),
+                                          hits.cpu().numpy())
+        decayed = cnt.decay(spec, want_rm.clone())
+        np.testing.assert_array_equal(
+            _u32(decayed), _u32(cnt.decay_plain(spec, want_rm)))
+
+
+@pytest.mark.gpu
+def test_bank_filter_paths_are_one_launch_per_routed_op(cuda):
+    import repro_torch.api as api
+    B = 64
+    keys, member, valid = _routed(B, 50000, 3, cuda, skewed=True)
+    for variant in ("sbf", "countingbf"):
+        t = api.filter_for_n_items(2048, bits_per_key=16, variant=variant,
+                                   bank=B)
+        assert t.device.type == "cuda" and t.bank_shape == (B,)
+        assert t.backend == ("cuda-l2" if variant == "sbf" else "counting")
+        sbf.reset_launches()
+        cnt.reset_launches()
+        g = t.add(keys, tenants=member, valid=valid)
+        hits = g.contains(keys, tenants=member)
+        mod = sbf if variant == "sbf" else cnt
+        add_name = ("bank_add_vmem" if variant == "sbf"
+                    else "bank_update_vmem")
+        assert mod.LAUNCHES[add_name] == 1
+        assert mod.LAUNCHES["bank_contains_vmem"] == 1
+        assert hits[valid.bool()].all()
+        plain = (sbf.bank_add_plain(t.spec, t.words, keys, member, valid)
+                 if variant == "sbf" else cnt.bank_update_plain(
+                     t.spec, t.words, keys, member, valid, "add"))
+        assert torch.equal(g.words, plain) and not t.words.any()
+    cnt.reset_launches()
+    d = g.remove(keys[:20000], tenants=member[:20000]).decay(1)
+    assert cnt.LAUNCHES["bank_update_vmem"] == 1 and cnt.LAUNCHES["decay"] == 1
+    want = cnt.decay_plain(g.spec, cnt.bank_update_plain(
+        g.spec, g.words, keys[:20000], member[:20000], None, "remove"))
+    assert torch.equal(d.words, want)
+    big = api.make_filter_bank(B, "sbf", m_bits=1 << 23, k=8)
+    assert big.backend == "cuda-dram"
+    sbf.reset_launches()
+    big.add(keys, tenants=member).contains(keys, tenants=member)
+    assert (sbf.LAUNCHES["bank_add_vmem"], sbf.LAUNCHES["bank_contains_vmem"]
+            ) == (1, 1)
+    # cbf and windowed banks: the generic path, one scalar launch a member
+    c = api.make_filter_bank(8, "cbf", m_bits=1 << 16, k=7)
+    cbf.reset_launches()
+    c2 = c.add(keys[:4000], tenants=member[:4000] % 8)
+    assert cbf.LAUNCHES["add_vmem"] == 8
+    assert c2.contains(keys[:4000], tenants=member[:4000] % 8).all()
+    w = api.make_filter_bank(8, "sbf", m_bits=1 << 16, k=8, generations=3)
+    w2 = w.add(keys[:4000], tenants=member[:4000] % 8).advance()
+    assert w2.head == (1,) * 8
+    assert w2.contains(keys[:4000], tenants=member[:4000] % 8).all()
+
+
+@pytest.mark.gpu
+def test_bank_filter_refuses_out_of_range_card_tenants(cuda):
+    import repro_torch.api as api
+    keys, member, _ = _routed(4, 64, 0, cuda)
+    wide = member.to(torch.int64)
+    wide[5] = 1 << 32                  # 0 after a bare cast to int32
+    for bad in (member + 1, member - 1, wide):
+        for variant, g in (("sbf", None), ("countingbf", None),
+                           ("cbf", None), ("sbf", 3)):
+            t = api.make_filter_bank(4, variant, m_bits=1 << 16, k=8,
+                                     generations=g)
+            for call in (lambda: t.add(keys, tenants=bad),
+                         lambda: t.contains(keys, tenants=bad)):
+                with pytest.raises(ValueError, match=r"\[0, 4\)"):
+                    call()
+
+
+@pytest.mark.gpu
+def test_bank_wrappers_refuse_bad_tensors(cuda):
+    spec = BANK_SPECS[0]
+    bank = torch.zeros((4, spec.n_words), dtype=torch.int32, device=cuda)
+    keys, member, valid = _routed(4, 64, 0, cuda)
+    lay = sbf.default_layout(spec, "add")
+    with pytest.raises(ValueError, match=r"\[0, 4\)"):
+        sbf.bank_add_vmem(spec, bank, keys, member + 1, valid, lay)
+    with pytest.raises(ValueError, match=r"\[0, 4\)"):
+        sbf.bank_contains_vmem(spec, bank, keys, member - 1, lay)
+    with pytest.raises(ValueError, match="member on"):
+        sbf.bank_contains_vmem(spec, bank, keys, member.cpu(), lay)
+    with pytest.raises(ValueError, match="aligned"):
+        sbf.bank_contains_vmem(spec, bank,
+                               keys.reshape(-1)[1:-1].reshape(-1, 2),
+                               member[:63], lay)
+    cspec = CSPECS[0]
+    cbank = torch.zeros((4, cspec.storage_words), dtype=torch.int32,
+                        device=cuda)
+    with pytest.raises(ValueError, match=r"\[0, 4\)"):
+        cnt.bank_update_vmem(cspec, cbank, keys, member + 1, None, "add")
+    with pytest.raises(ValueError, match="valid"):
+        cnt.bank_update_vmem(cspec, cbank, keys, member, valid.cpu(), "add")
+    assert not bank.any() and not cbank.any()
