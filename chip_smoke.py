@@ -8,8 +8,8 @@ the script exits non-zero without printing a result:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the count;
 2. build: compile every source of ``src/repro_torch/kernels/csrc/``
-   (``bloom.cu``, ``counting.cu``, ``cbf.cu``, ``ring.cu``; one nvcc each,
-   in parallel) and time it;
+   (``bloom.cu``, ``counting.cu``, ``cbf.cu``, ``ring.cu``, ``cuckoo.cu``;
+   one nvcc each, in parallel) and time it;
 3. every blocked-filter kernel wrapper against its plain PyTorch version on
    the card, at m = 2^20 bits and 65537 keys, for six blocked specs and
    every value of the schedule axes; words and results must be equal bit
@@ -34,6 +34,15 @@ the script exits non-zero without printing a result:
    of the whole bank); and the generic per-member path of a cbf bank and a
    windowed bank (G = 4, one advance) at B = 8 against per-member plain
    filters;
+3e. the partitioned kernels (``sbf.add_partitioned``,
+   ``countingbf.update_partitioned``) for sbf/bbf/rbbf/csbf and countingbf
+   at m = 2^20 (and sbf at 2^22) through ``ops`` at n_segments 1/8/64 with
+   the capacity escalated, pinned so that it overflows (the residual pass)
+   and the host partition, on the path ``ops`` picks and with global
+   atomics forced; and the cuckoo kernels for u8 x 4, u8 x 8, u16 x 2 and
+   u16 x 4 slots, 2^12 buckets, batches at 0.9 and 1.2 of the slots (kick
+   failures) with duplicates, valid masks and 256-key tiles: words, flags
+   and contains equal to the plain version's;
 4. the blocked main path, ``repro_torch.api.filter_for_n_items(...)`` then
    ``Filter.add`` / ``Filter.contains``, at an L2-resident size (2^23 keys,
    2^27 bits) and a DRAM-resident size (2^28 keys, 2^32 bits): no false
@@ -68,6 +77,22 @@ the script exits non-zero without printing a result:
    results equal to the plain version's in full (2^22-key chunks), no
    false negatives, exactly one kernel launch per routed call; then the
    generic cbf and windowed banks' routed ops timed at B = 64;
+4e. the partitioned cells: ``ops.bloom_add_partitioned`` of the sbf cells'
+   keys (2^23 into 2^27 bits; 2^28 into 2^32 bits in 2^24-key batches) and
+   ``ops.counting_update_partitioned`` add and remove of half of the
+   countingbf cells' keys (2^22 into 32 MiB; 2^26 into 512 MiB in 2^24-key
+   batches), at n_segments 8 and the smallest count whose segment fits
+   shared memory, the words equal to the plain version's in full, the
+   partition step, the kernel and the atomic kernel timed on one batch;
+   and the cuckoo cell, ``filter_for_n_items(2^22, bits_per_key=16,
+   variant="cuckoo")`` (u16 x 4, 2^21 buckets, 16 MiB): add 2^22 keys, add
+   3,355,443 more (load 0.9), contains of all and of 2^22 probes, remove
+   half, contains the rest; occupied slots equal to the inserts that
+   succeeded, false negatives and unfound removes at most the failed
+   inserts, every contains equal to the plain version's in full, and the
+   update's words and flags equal to the plain version's on 2^18 keys into
+   the empty full-size table and from the load-0.9 table (2^16 inserts,
+   2^18 removes); the updates timed one call each;
 5. times with CUDA events (warm-up, then 5 rounds of 20 calls; an update is
    timed on state restored before each call, outside the events) at the
    main path's size and, against the plain version, on 2^22 keys into an
@@ -81,6 +106,7 @@ script exits non-zero where there is none, or where the repository's
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import subprocess
@@ -96,8 +122,11 @@ import torch  # noqa: E402
 from repro_torch import api  # noqa: E402
 from repro_torch.core import hashing as H  # noqa: E402
 from repro_torch.core import variants as V  # noqa: E402
+from repro_torch.core import fingerprint as F  # noqa: E402
+from repro_torch.core import partition as P  # noqa: E402
 from repro_torch.kernels import _build, cbf, ops, ring, sbf  # noqa: E402
 from repro_torch.kernels import countingbf as cnt  # noqa: E402
+from repro_torch.kernels import cuckoofilter as ckoo  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 OPS_PER_S = 67e12              # non-tensor peak (fp32 rate, the guide's table)
@@ -565,10 +594,10 @@ def phase_counting_kernels(errs: dict):
 
 
 def time_restored_ms(fn, restore, label: str, reps: int = REPS,
-                     rounds: int = ROUNDS) -> float:
+                     rounds: int = ROUNDS, warmup: int = 2) -> float:
     """Like :func:`time_ms` for a call that changes its state: ``restore()``
     runs before every call, outside the CUDA events that time the call."""
-    for _ in range(2):
+    for _ in range(warmup):
         restore()
         fn()
     torch.cuda.synchronize()
@@ -1741,13 +1770,708 @@ def phase_bank_main(kind: str, regime: str, n_per: int, n: int, errs: dict,
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------------------
+# Partitioned updates and the cuckoo filter (phases 3e, 4e and their times)
+# ---------------------------------------------------------------------------
+
+PART_REPLACES = {"add_partitioned": "src/repro/kernels/sbf.py:759",
+                 "update_partitioned": "src/repro/kernels/countingbf.py:689"}
+CUCKOO_SOURCE = "src/repro_torch/kernels/csrc/cuckoo.cu"
+CUCKOO_REPLACES = {"cuckoo_contains": "src/repro/kernels/cuckoofilter.py:47",
+                   "cuckoo_update": "src/repro/kernels/cuckoofilter.py:87"}
+PHASE3E_SPECS = [V.FilterSpec("sbf", 1 << 20, 16, block_bits=256),
+                 V.FilterSpec("bbf", 1 << 20, 8, block_bits=256),
+                 V.FilterSpec("rbbf", 1 << 20, 4),
+                 V.FilterSpec("csbf", 1 << 20, 8, block_bits=512, z=2),
+                 V.FilterSpec("countingbf", 1 << 20, 8, block_bits=256),
+                 V.FilterSpec("sbf", 1 << 22, 16, block_bits=256)]
+PHASE3E_CUCKOO = ((8, 4), (8, 8), (16, 2), (16, 4))   # (slot bits, slots)
+DRAM_BATCH = 1 << 24           # keys a partitioned call takes in DRAM cells
+CUCKOO_SUB = 1 << 18           # keys of the cuckoo kernel-vs-plain checks
+
+
+def partitioned_update(spec, words, keys, n_segments, op="add", **kw):
+    """``ops.bloom_add_partitioned`` / ``counting_update_partitioned`` in
+    place: the partitioned main path."""
+    if spec.is_counting:
+        return ops.counting_update_partitioned(
+            spec, words, keys, op, n_segments=n_segments, inplace=True, **kw)
+    return ops.bloom_add_partitioned(spec, words, keys, n_segments=n_segments,
+                                     inplace=True, **kw)
+
+
+@contextlib.contextmanager
+def global_atomics():
+    """Send the partitioned kernels down their global-atomic path: no
+    segment fits a shared-memory budget of 0."""
+    budget = sbf.partition_smem_bytes
+    sbf.partition_smem_bytes = lambda device: 0
+    try:
+        yield
+    finally:
+        sbf.partition_smem_bytes = budget
+
+
+def fitting_segments(spec: V.FilterSpec) -> int:
+    """The smallest n_segments whose segment fits a CTA's shared memory."""
+    budget = sbf.partition_smem_bytes("cuda")
+    n_seg = 1
+    while spec.storage_words * 4 // n_seg > budget:
+        n_seg *= 2
+    return n_seg
+
+
+def phase_partitioned_kernels(errs: dict):
+    """Phase 3e, partitioned: every spec at n_segments 1/8/64, the default
+    capacity (escalated for a batch that falls in one segment), pinned to
+    half the mean (the residual pass) and the host partition, each on the
+    path ``ops`` picks (shared memory where a segment fits) and with global
+    atomics forced; the words against the plain version and the atomic
+    kernels of rows 2 and 10."""
+    n = 65537
+    budget = sbf.partition_smem_bytes("cuda")
+    for i, spec in enumerate(PHASE3E_SPECS):
+        counting = spec.is_counting
+        name = "update_partitioned" if counting else "add_partitioned"
+        keys = gen_keys(n, 600 + i)
+        init = functools.partial(V.init, spec, "cuda")
+        if counting:
+            batch = multiset(keys, 610 + i)
+            gone = torch.cat([batch[: batch.shape[0] // 2],
+                              gen_keys(1000, 620 + i, probe=True)])
+            want = cnt.update_plain(spec, init(), batch, None, "add")
+            want_rm = cnt.update_plain(spec, want, gone, None, "remove")
+            max_err(ops.counting_add(spec, init(), batch), want)
+        else:
+            batch = keys
+            want = sbf.add_plain(spec, init(), keys)
+            max_err(ops.bloom_add(spec, init(), keys), want)
+        runs, paths = 0, set()
+        for n_seg in (1, 8, 64):
+            fits = spec.storage_words * 4 // n_seg <= budget
+            paths.add("shared" if fits else "global")
+            mean = batch.shape[0] // n_seg
+            for kw in ({}, {"capacity": max(8, mean // 2)},
+                       {"partition": "host"}):
+                for forced in (False, True):
+                    with (global_atomics() if forced
+                          else contextlib.nullcontext()):
+                        got = partitioned_update(spec, init(), batch, n_seg,
+                                                 **kw)
+                        errs[name] = max(errs[name], max_err(got, want))
+                        runs += 1
+                        if counting:
+                            got = partitioned_update(spec, got, gone, n_seg,
+                                                     op="remove", **kw)
+                            errs[name] = max(errs[name],
+                                             max_err(got, want_rm))
+                            runs += 1
+            # a batch in one segment: the default capacity escalates
+            skew = batch[P.segment_ids(spec, batch, n_seg) == 0]
+            got = partitioned_update(spec, init(), skew, n_seg)
+            plain = (cnt.update_plain(spec, init(), skew, None, "add")
+                     if counting else sbf.add_plain(spec, init(), skew))
+            errs[name] = max(errs[name], max_err(got, plain))
+            runs += 1
+            part = P.partition_jit(spec, batch, n_seg, max(8, mean // 2))
+            if counting:
+                plain = cnt.update_partitioned_plain(
+                    spec, init(), part.keys_by_seg, part.valid, "add")
+                got = cnt.update_partitioned(spec, init(), part.keys_by_seg,
+                                             part.valid, n_seg, "add")
+            else:
+                plain = sbf.add_partitioned_plain(spec, init(),
+                                                  part.keys_by_seg,
+                                                  part.valid)
+                got = sbf.add_partitioned(spec, init(), part.keys_by_seg,
+                                          part.valid, n_seg)
+            errs[name] = max(errs[name], max_err(got, plain))
+            runs += 1
+        torch.cuda.synchronize()
+        print(f"partitioned: {spec}: {runs} kernel runs equal to the plain "
+              f"version and the atomic kernel ({batch.shape[0]} keys; "
+              f"n_segments 1/8/64; the default capacity, escalated for a "
+              f"batch in one segment, pinned with overflow, host partition; "
+              f"paths {sorted(paths)} and global forced)")
+
+
+def phase_cuckoo_kernels(errs: dict):
+    """Phase 3e, cuckoo: u8/u16 slots, 2-8 slots a bucket, 2^12 buckets;
+    batches at 0.9 and 1.2 of the slots (kick failures), 5 % duplicates,
+    in 256-key tiles, and with a valid mask in the default tile; the words,
+    ok/found flags and contains (both coop values) against the plain
+    version."""
+    for i, (sb, spb) in enumerate(PHASE3E_CUCKOO):
+        spec = V.FilterSpec("cuckoo", (1 << 12) * spb * sb, 2, slot_bits=sb,
+                            slots_per_bucket=spb)
+        runs, fails = 0, 0
+        for load in (0.9, 1.2):
+            n = int(spec.n_slots * load)
+            keys = gen_keys(n, 700 + i)
+            keys = torch.cat([keys, keys[: n // 20]])
+            valid = valid_mask(keys.shape[0], 710 + i)
+            probes = gen_keys(4096, 720 + i, probe=True)
+            for vmask, tile in ((None, 256), (valid, None)):
+                t = tile or F.CUCKOO_ADD_TILE
+                want, ok = ckoo.update_plain(spec, F.init(spec, "cuda"),
+                                             keys, vmask, "add", t)
+                got, got_ok = ops.cuckoo_add(spec, F.init(spec, "cuda"),
+                                             keys, valid=vmask, tile=tile)
+                errs["cuckoo_update"] = max(errs["cuckoo_update"],
+                                            max_err(got, want),
+                                            max_err(got_ok, ok))
+                if load > 1 and vmask is None and bool(ok.all()):
+                    raise AssertionError(f"{spec}: no kick failure at load "
+                                         f"{load}")
+                if int(F.occupied_slots(spec, got)) != int(
+                        (ok & (torch.ones_like(ok) if vmask is None
+                               else vmask.bool())).sum()):
+                    raise AssertionError(f"{spec}: occupied slots != ok")
+                fails += int((~ok).sum())
+                queries = torch.cat([keys, probes])
+                hit = ckoo.contains_plain(spec, want, queries)
+                for coop in ("none", "subtile"):
+                    errs["cuckoo_contains"] = max(
+                        errs["cuckoo_contains"], max_err(ops.cuckoo_contains(
+                            spec, got, queries, coop=coop), hit))
+                gone = torch.cat([keys[: keys.shape[0] // 2], probes[:64]])
+                want_rm, found = ckoo.update_plain(spec, want, gone, None,
+                                                   "remove", t)
+                got_rm, got_found = ops.cuckoo_remove(spec, got, gone,
+                                                      tile=tile)
+                errs["cuckoo_update"] = max(errs["cuckoo_update"],
+                                            max_err(got_rm, want_rm),
+                                            max_err(got_found, found))
+                runs += 5
+        torch.cuda.synchronize()
+        print(f"cuckoo: {spec}: {runs} kernel runs equal to the plain "
+              f"version (loads 0.9 and 1.2 of {spec.n_slots} slots, 5 % "
+              f"duplicates; 256-key tiles, and a valid mask with the "
+              f"2048-key tile; {fails} kick failures, matched flag for "
+              f"flag)")
+
+
+def partitioned_bound_ms(spec, n: int, slots: int, sectors=0, updates=0):
+    """The bound of rows 2/4 (bits) or 10/12 (counters) for n keys, plus the
+    partition's valid bytes: 1 B a slot. The kernels read a slot's valid
+    byte first and load its key only when it is set, and the invalid slots
+    are each segment row's tail, so only the n valid keys' 8 B move."""
+    extra = slots
+    if spec.is_counting:
+        return counting_bound_ms(spec, n, "add", sectors, updates,
+                                 extra_bytes=extra)
+    return bound_ms(spec, n, "add", extra_bytes=extra)
+
+
+def phase_partitioned_main(kind: str, regime: str, n: int, errs: dict,
+                           records: dict, launches: dict, card: str):
+    """Phase 4e, partitioned: ``ops.bloom_add_partitioned`` (sbf) or
+    ``ops.counting_update_partitioned`` (countingbf) of n keys into the
+    filter of ``filter_for_n_items(n, bits_per_key=16)``, at JAX's default
+    n_segments = 8 and at the smallest count whose segment fits shared
+    memory; DRAM cells in batches of 2^24 keys. Words against the plain
+    version in full; the partition step, the partitioned kernel and the
+    atomic kernel timed on one batch."""
+    counting = kind == "countingbf"
+    name = "update_partitioned" if counting else "add_partitioned"
+    mod = cnt if counting else sbf
+    f = api.filter_for_n_items(n, bits_per_key=16, variant=kind,
+                               block_bits=256, device="cuda")
+    spec = f.spec
+    if ops.fits_l2(spec) != (regime == "L2"):
+        raise AssertionError(f"partitioned {kind} {regime}: {spec}")
+    label = f"partitioned {kind} {regime}"
+    keys = gen_keys(n, 81 if counting else 82)
+    batch = n if regime == "L2" else DRAM_BATCH
+    half = n // 2
+    if counting:
+        want = update_in_chunks(
+            lambda w, k: cnt.update_plain(spec, w, k, None, "add"),
+            V.init(spec, "cuda"), keys)
+        want_rm = update_in_chunks(
+            lambda w, k: cnt.update_plain(spec, w, k, None, "remove"),
+            want.clone(), keys[:half])
+    else:
+        want = update_in_chunks(functools.partial(sbf.add_plain, spec),
+                                V.init(spec, "cuda"), keys)
+    sub = keys[:SUBSET]
+    cell = {}
+    for n_seg in (8, fitting_segments(spec)):
+        words = V.init(spec, "cuda")
+        torch.cuda.synchronize()
+        mod.reset_launches()               # the main path, counted
+        t0 = time.perf_counter()
+        for chunk in keys.split(batch):
+            partitioned_update(spec, words, chunk, n_seg)
+        if counting:
+            for chunk in keys[:half].split(batch):
+                partitioned_update(spec, words, chunk, n_seg, op="remove")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted = mod.LAUNCHES[name]
+        if counted == 0:
+            raise AssertionError(f"{label}: {name} was not launched")
+        launches[name] = launches.get(name, 0) + counted
+        errs[name] = max(errs[name],
+                         max_err(words, want_rm if counting else want))
+        # one batch, the partition step and the kernel apart
+        first = keys[:batch]
+        part = ops._partition_device(spec, first, n_seg, None)
+        fits = spec.storage_words * 4 // n_seg <= sbf.partition_smem_bytes(
+            "cuda")
+        scratch = V.init(spec, "cuda")
+        reps, rounds = (REPS, ROUNDS) if regime == "L2" else (5, 3)
+        t_part = time_ms(lambda: ops._partition_device(spec, first, n_seg,
+                                                       None),
+                         f"{label} {n_seg} partition", reps, rounds)
+        if counting:
+            t_kernel = time_restored_ms(
+                lambda: cnt.update_partitioned(spec, scratch,
+                                               part.keys_by_seg, part.valid,
+                                               n_seg, "add"),
+                scratch.zero_, f"{label} {n_seg} kernel", reps, rounds)
+        else:
+            t_kernel = time_ms(lambda: sbf.add_partitioned(
+                spec, scratch, part.keys_by_seg, part.valid, n_seg),
+                f"{label} {n_seg} kernel", reps, rounds)
+        slots = part.valid.numel()
+        lo, hi = SPREAD[f"{label} {n_seg} kernel"]
+        print(f"main {label}: {spec}, {n} keys in batches of {batch}, "
+              f"n_segments {n_seg} ({'shared memory' if fits else 'global atomics'}, "
+              f"capacity {part.valid.shape[1]}): "
+              f"{'add and remove of half' if counting else 'add'} in "
+              f"{wall * 1e3:.1f} ms host clock, words equal to the plain "
+              f"version's in full, {counted} launches [{card}]; one batch: "
+              f"partition {t_part:.4f} ms, kernel {t_kernel:.4f} ms (rounds "
+              f"{lo:.4f}-{hi:.4f}), {batch / t_kernel / 1e3:.1f} Mops/s")
+        cell[n_seg] = {"partition_ms": t_part, "kernel_ms": t_kernel,
+                       "slots": slots, "shared": fits,
+                       "capacity": part.valid.shape[1]}
+        del words, part, scratch
+    # the schedule axis: smaller segments put more CTAs on an SM
+    first = keys[:batch]
+    reps, rounds = (REPS, ROUNDS) if regime == "L2" else (5, 3)
+    sweep = {}
+    for n_seg in (fitting_segments(spec) * f for f in (2, 4, 8, 16)):
+        part = ops._partition_device(spec, first, n_seg, None)
+        scratch = V.init(spec, "cuda")
+        if counting:
+            sweep[n_seg] = time_restored_ms(
+                lambda: cnt.update_partitioned(spec, scratch,
+                                               part.keys_by_seg, part.valid,
+                                               n_seg, "add"),
+                scratch.zero_, f"{label} sweep {n_seg}", reps, rounds)
+        else:
+            sweep[n_seg] = time_ms(lambda: sbf.add_partitioned(
+                spec, scratch, part.keys_by_seg, part.valid, n_seg),
+                f"{label} sweep {n_seg}", reps, rounds)
+    print(f"time {label} n_segments sweep [{card}]: one batch: " + ", ".join(
+        f"n_segments {k} {v:.4f} ms" for k, v in sweep.items()))
+    # the global-atomic path at the fitting count, which the segment size
+    # does not select there: the other side of the path choice
+    n_fit = fitting_segments(spec)
+    part = ops._partition_device(spec, first, n_fit, None)
+    scratch = V.init(spec, "cuda")
+    with global_atomics():
+        if counting:
+            t_global = time_restored_ms(
+                lambda: cnt.update_partitioned(spec, scratch,
+                                               part.keys_by_seg, part.valid,
+                                               n_fit, "add"),
+                scratch.zero_, f"{label} global {n_fit}", reps, rounds)
+            want_first = update_in_chunks(
+                lambda w, k: cnt.update_plain(spec, w, k, None, "add"),
+                V.init(spec, "cuda"), first)
+        else:
+            t_global = time_ms(lambda: sbf.add_partitioned(
+                spec, scratch, part.keys_by_seg, part.valid, n_fit),
+                f"{label} global {n_fit}", reps, rounds)
+            want_first = update_in_chunks(functools.partial(sbf.add_plain,
+                                                            spec),
+                                          V.init(spec, "cuda"), first)
+    errs[name] = max(errs[name], max_err(scratch, want_first))
+    print(f"time {label} path choice [{card}]: one batch at n_segments "
+          f"{n_fit}: shared memory {cell[n_fit]['kernel_ms']:.4f} ms, global "
+          f"atomics {t_global:.4f} ms (words equal to the plain version's)")
+    # beside them: the atomic kernel of rows 2/4 or 10/12 on the same batch
+    scratch = V.init(spec, "cuda")
+    if counting:
+        t_atomic = time_restored_ms(
+            lambda: (cnt.update_vmem if regime == "L2" else cnt.update_hbm)(
+                spec, scratch, first, None, "add"), scratch.zero_,
+            f"{label} atomic", *((REPS, ROUNDS) if regime == "L2" else (5, 3)))
+    else:
+        t_atomic = time_ms(
+            lambda: (sbf.add_vmem(spec, scratch, first,
+                                  sbf.default_layout(spec, "add"))
+                     if regime == "L2" else sbf.add_hbm(spec, scratch, first)),
+            f"{label} atomic", *((REPS, ROUNDS) if regime == "L2" else (5, 3)))
+    # kernel vs plain and bound on 2^22 keys at the fitting n_segments
+    part =ops._partition_device(spec, sub, n_fit, None)
+    scratch = V.init(spec, "cuda")
+    if counting:
+        t_sub = time_restored_ms(lambda: cnt.update_partitioned(
+            spec, scratch, part.keys_by_seg, part.valid, n_fit, "add"),
+            scratch.zero_, f"{label} sub")
+        t_plain = time_ms(lambda: cnt.update_partitioned_plain(
+            spec, V.init(spec, "cuda"), part.keys_by_seg, part.valid, "add"),
+            f"{label} plain", PLAIN_REPS, PLAIN_ROUNDS)
+        sub_words = cnt.update_plain(spec, V.init(spec, "cuda"), sub, None,
+                                     "add")
+        b_sub = partitioned_bound_ms(spec, SUBSET, part.valid.numel(),
+                                     touched_sectors(sub_words),
+                                     counter_updates(spec, sub))
+        b_batch = partitioned_bound_ms(
+            spec, batch, cell[n_fit]["slots"], touched_sectors(want_first),
+            counter_updates(spec, first))
+    else:
+        t_sub = time_ms(lambda: sbf.add_partitioned(
+            spec, scratch, part.keys_by_seg, part.valid, n_fit),
+            f"{label} sub")
+        t_plain = time_ms(lambda: sbf.add_partitioned_plain(
+            spec, V.init(spec, "cuda"), part.keys_by_seg, part.valid),
+            f"{label} plain", PLAIN_REPS, PLAIN_ROUNDS)
+        b_sub = partitioned_bound_ms(spec, SUBSET, part.valid.numel())
+        b_batch = partitioned_bound_ms(spec, batch, cell[n_fit]["slots"])
+    n_batches = -(-n // batch)
+    print(f"time {label} [{card}]: one batch of {batch} keys: atomic kernel "
+          f"{t_atomic:.4f} ms; " + "; ".join(
+              f"n_segments {s}: partition {c['partition_ms']:.4f} + kernel "
+              f"{c['kernel_ms']:.4f} ms" for s, c in cell.items())
+          + f"; bound {b_batch[0]:.4f} ms ({b_batch[1]}); cell ({n_batches} "
+          f"batch{'es' if n_batches > 1 else ''}) kernel at n_segments "
+          f"{n_fit} {n_batches * cell[n_fit]['kernel_ms']:.4f} ms; at "
+          f"{SUBSET} keys kernel {t_sub:.4f} ms, plain {t_plain:.4f} ms, "
+          f"bound {b_sub[0]:.4f} ms ({b_sub[1]})")
+    rec = records.setdefault(name, {
+        "name": name, "route": "cuda",
+        "source": COUNTING_SOURCE if counting else SOURCE,
+        "replaces": PART_REPLACES[name], "launches": 0, "max_abs_err": 0,
+        "library_ms": None, "n_keys": SUBSET})
+    prefix = "" if regime == "L2" else "dram_"
+    if regime == "L2":
+        rec.update({"ms": t_sub, "plain_ms": t_plain, "bound_ms": b_sub[0],
+                    "bound_by": b_sub[1], "m_bits": spec.m_bits,
+                    "n_segments": n_fit})
+    rec.update({f"{prefix}main_n_keys": n, f"{prefix}batch": batch,
+                f"{prefix}atomic_ms": t_atomic,
+                f"{prefix}batch_bound_ms": b_batch[0],
+                f"{prefix}global_ms": t_global,
+                f"{prefix}cells": {str(s): c for s, c in cell.items()},
+                f"{prefix}sweep_ms": {str(s): v for s, v in sweep.items()}})
+    del keys, want, want_first, scratch, part
+    if counting:
+        del want_rm
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def plain_bucket_accesses(fn):
+    """``fn()`` with the plain cuckoo loop's bucket reads and writes
+    counted: (result, reads, writes), the dependent accesses the update's
+    bound counts."""
+    count = {"read": 0, "write": 0}
+    read, write = F._bucket_slots, F._store_bucket
+
+    def counted_read(*a):
+        count["read"] += 1
+        return read(*a)
+
+    def counted_write(*a):
+        count["write"] += 1
+        return write(*a)
+
+    F._bucket_slots, F._store_bucket = counted_read, counted_write
+    try:
+        out = fn()
+    finally:
+        F._bucket_slots, F._store_bucket = read, write
+    return out, count["read"], count["write"]
+
+
+def cuckoo_update_bound_ms(spec, n: int, reads: int, writes: int):
+    """Least time of an update: 8 B of key and 1 B of flag a key, one
+    32-byte sector a dependent bucket read and a write (at most the table,
+    read and written once); 40 operations a key for the hashes and 10 a
+    bucket access. The chain is one thread's, so its latency (the reads
+    times ``dependent_load_ns``) is reported beside the bound."""
+    table = spec.n_words * 4
+    nbytes = 9 * n + min(32 * reads, table) + min(32 * writes, table)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (40 * n + 10 * (reads + writes)) / OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def dependent_load_ns(nbytes: int, stride: int, steps: int = 1 << 17
+                      ) -> float:
+    """ns a load of one thread's chain of dependent loads through a random
+    cycle over ``nbytes`` on the card (a link every ``stride`` bytes), read
+    once beforehand so that it sits in L2: the round trip each of the cuckoo
+    update's bucket reads waits for. Median of 3 calls, by CUDA events."""
+    step = stride // 4
+    nodes = (nbytes // 4) // step
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(95)
+    order = torch.randperm(nodes, device="cuda", generator=gen) * step
+    chain = torch.zeros(nbytes // 4, dtype=torch.int32, device="cuda")
+    chain[order] = torch.roll(order, -1).to(torch.int32)   # one cycle, word 0 in it
+    out = torch.empty(1, dtype=torch.int32, device="cuda")
+    int(chain.sum())
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def chase():
+        if lib.cuckoo_chase(chain.data_ptr(), steps, out.data_ptr(), stream):
+            raise RuntimeError("cuckoo_chase did not launch")
+
+    ms = time_ms(chase, "dependent load", 1, 3, warmup=1)
+    return ms * 1e6 / steps
+
+
+def cuckoo_contains_bound_ms(spec, table, keys):
+    """Least time of a contains: 8 B of key and 1 B of result a key, and one
+    32-byte sector for its primary bucket and one more where the primary
+    bucket misses, at most the table once; 40 operations a key and 8 a
+    bucket."""
+    b1, fp, _ = F.cuckoo_hashes(spec, keys)
+    second = int((~F._hit(spec, table, b1, fp)).sum())
+    n = keys.shape[0]
+    nbytes = 9 * n + min(32 * (n + second), spec.n_words * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (40 * n + 8 * (n + second)) / OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_cuckoo_main(errs: dict, records: dict, launches: dict, card: str):
+    """Phase 4e, cuckoo: ``filter_for_n_items(2^22, bits_per_key=16,
+    variant="cuckoo")`` (u16 slots, 2^21 buckets of 4, 16 MiB); add 2^22
+    keys (load 0.5), add 3,355,443 more (load 0.9), contains of all keys and
+    of 2^22 probes, remove of half, contains of the rest. Invariants in
+    full; every contains against the plain version in full; the update
+    words and flags against the plain version on 2^18 keys into the full
+    table (fresh; from the load-0.9 table a remove, and an add of 2^16
+    keys, whose kick chains make the plain loop slow)."""
+    n1, n2 = 1 << 22, 3355443
+    f = api.filter_for_n_items(n1, bits_per_key=16, variant="cuckoo",
+                               device="cuda")
+    spec = f.spec
+    if (f.backend != "cuckoo" or spec.slot_bits != 16
+            or spec.slots_per_bucket != 4 or spec.n_buckets != 1 << 21
+            or f.nbytes != 16 << 20):
+        raise AssertionError(f"cuckoo cell: {f}")
+    keys1, keys2 = gen_keys(n1, 91), gen_keys(n2, 92)
+    allkeys = torch.cat([keys1, keys2])
+    probes = gen_keys(SUBSET, 93, probe=True)
+    half = allkeys.shape[0] // 2
+    torch.cuda.synchronize()
+    steps = ("add", "add more", "contains", "contains probes", "remove",
+             "contains rest")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(steps) + 1)]
+    ckoo.reset_launches()                  # the main path, counted
+    t0 = time.perf_counter()
+    ev[0].record()
+    g1 = f.add(keys1)
+    ev[1].record()
+    g2 = g1.add(keys2)
+    ev[2].record()
+    hits = g2.contains(allkeys)
+    ev[3].record()
+    false_pos = g2.contains(probes)
+    ev[4].record()
+    g3 = g2.remove(allkeys[:half])
+    ev[5].record()
+    kept = g3.contains(allkeys[half:])
+    ev[6].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = {s: ev[i].elapsed_time(ev[i + 1]) for i, s in enumerate(steps)}
+    counted = dict(ckoo.LAUNCHES)
+    if counted != {"contains_vmem": 3, "add_vmem": 2, "remove_vmem": 1}:
+        raise AssertionError(f"cuckoo cell: launches {counted}")
+    launches["cuckoo_contains"] = counted["contains_vmem"]
+    launches["cuckoo_update"] = counted["add_vmem"] + counted["remove_vmem"]
+    # invariants, in full
+    fails1, fails2 = int(g1.insert_failures), int(g2.insert_failures)
+    occ1 = int(F.occupied_slots(spec, g1.words))
+    occ2 = int(F.occupied_slots(spec, g2.words))
+    occ3 = int(F.occupied_slots(spec, g3.words))
+    if occ1 != n1 - fails1 or occ2 != n1 + n2 - fails2:
+        raise AssertionError(f"cuckoo cell: occupied {occ1}/{occ2} != sum "
+                             f"ok {n1 - fails1}/{n1 + n2 - fails2}")
+    # a failed insert leaves one fingerprint homeless (the kick chain's last
+    # victim, maybe another key's): with no failure every key is found and
+    # every removed key clears a slot; with f failures at most f keys of
+    # the same fingerprint and bucket pair can miss
+    missing = half - (occ2 - occ3)             # removes that found nothing
+    neg, neg_kept = int((~hits).sum()), int((~kept).sum())
+    if max(missing, neg, neg_kept) > fails2:
+        raise AssertionError(f"cuckoo cell: {neg} false negatives, {missing}"
+                             f" removes not found, {neg_kept} false negatives"
+                             f" after the remove, for {fails2} failed inserts")
+    plain_contains = functools.partial(ckoo.contains_plain, spec)
+    e = errs["cuckoo_contains"]
+    e = max(e, max_err(hits, contains_in_chunks(plain_contains, g2.words,
+                                                allkeys)))
+    e = max(e, max_err(false_pos, plain_contains(g2.words, probes)))
+    e = max(e, max_err(kept, contains_in_chunks(plain_contains, g3.words,
+                                                allkeys[half:])))
+    errs["cuckoo_contains"] = e
+    load = occ2 / spec.n_slots
+    fpr = float(false_pos.to(torch.float64).mean().item())
+    theory = F.fpr_cuckoo(spec.slot_bits, spec.slots_per_bucket, load)
+    # the update against the plain version on 2^18 keys into the full table
+    sub1 = keys1[:CUCKOO_SUB]
+    sub2 = gen_keys(CUCKOO_SUB // 4, 94)        # an insert at 0.9 kicks a lot
+    checks = []
+    for label, start, k, op in (("fresh add", F.init(spec, "cuda"), sub1,
+                                 "add"),
+                                ("add at load 0.9", g2.words, sub2, "add"),
+                                ("remove at load 0.9", g2.words,
+                                 allkeys[:CUCKOO_SUB], "remove")):
+        t_p = time.perf_counter()
+        (want, flags), reads, writes = plain_bucket_accesses(
+            lambda: ckoo.update_plain(spec, start, k, None, op))
+        t_p = time.perf_counter() - t_p
+        fn = ckoo.add_vmem if op == "add" else ckoo.remove_vmem
+        got, got_flags = fn(spec, start.clone(), k, None)
+        errs["cuckoo_update"] = max(errs["cuckoo_update"],
+                                    max_err(got, want),
+                                    max_err(got_flags, flags))
+        if op == "remove" and int((~flags).sum()) > fails2:
+            raise AssertionError("cuckoo cell: removes not found beyond the "
+                                 "failed inserts")
+        checks.append((label, k, start, op, reads, writes,
+                       int((~flags).sum()), t_p))
+    print(f"main cuckoo [{card}]: {spec} on {g2.backend}, "
+          f"{f.nbytes / 2**20:.0f} MiB: add {n1} (load {occ1 / spec.n_slots:.4f}),"
+          f" add {n2} (load {load:.4f}), contains {allkeys.shape[0]} + "
+          f"{SUBSET} probes, remove {half}, contains {allkeys.shape[0] - half} "
+          f"in {wall * 1e3:.1f} ms host clock; insert failures {fails1} / "
+          f"{fails2}; occupied slots = sum ok; {neg} false negatives, "
+          f"{missing} removes not found, {neg_kept} false negatives after "
+          f"the remove (each at most the failures); every contains equal to "
+          f"the plain version's in "
+          f"full; the update's words and flags equal to the plain version's "
+          f"into the full table: " + ", ".join(
+              f"{c[0]} of {c[1].shape[0]} keys ({c[6]} failed)"
+              for c in checks)
+          + f"; FPR {fpr:.6f} at load {load:.4f}, {fpr / theory:.3f} x "
+          f"fpr_cuckoo {theory:.6f}; launches {counted}")
+    print(f"time cuckoo main path [{card}] (Filter calls, CUDA events, one "
+          f"run): " + ", ".join(f"{s} {v:.4f} ms" for s, v in step_ms.items()))
+    # times: the kernels alone (the full-size updates one call each, on
+    # restored state, beside the main path's own run), the plain version
+    # and the bounds on 2^18 keys
+    scratch = f.words.clone()
+    t = {"add": time_restored_ms(
+            lambda: ckoo.add_vmem(spec, scratch, keys1, None),
+            scratch.zero_, "cuckoo add", 1, 1, warmup=0),
+         "add more": time_restored_ms(
+            lambda: ckoo.add_vmem(spec, scratch, keys2, None),
+            lambda: scratch.copy_(g1.words), "cuckoo add more", 1, 1,
+            warmup=0),
+         "remove": time_restored_ms(
+            lambda: ckoo.remove_vmem(spec, scratch, allkeys[:half], None),
+            lambda: scratch.copy_(g2.words), "cuckoo remove", 1, 1,
+            warmup=0),
+         "contains": time_ms(lambda: ckoo.contains_vmem(spec, g2.words,
+                                                        allkeys),
+                             "cuckoo contains"),
+         "Filter.contains": time_ms(lambda: g2.contains(allkeys),
+                                    "cuckoo Filter.contains"),
+         "contains sub": time_ms(lambda: ckoo.contains_vmem(
+            spec, g2.words, torch.cat([keys1[: SUBSET // 2],
+                                       probes[: SUBSET // 2]])),
+            "cuckoo contains sub"),
+         "contains plain": time_ms(lambda: ckoo.contains_plain(
+            spec, g2.words, torch.cat([keys1[: SUBSET // 2],
+                                       probes[: SUBSET // 2]])),
+            "cuckoo contains plain", PLAIN_REPS, PLAIN_ROUNDS)}
+    # the checks' updates again, the kernel alone on the same keys and
+    # table, beside their counted accesses' bound and the latency of those
+    # reads taken one after another, as the order makes them
+    load_ns = dependent_load_ns(spec.n_words * 4,
+                                spec.n_words * 4 // spec.n_buckets)
+    upd = {}
+    for label, k, start, op, reads, writes, failed, t_p in checks:
+        fn = ckoo.add_vmem if op == "add" else ckoo.remove_vmem
+        ms = time_restored_ms(lambda fn=fn, k=k: fn(spec, scratch, k, None),
+                              lambda start=start: scratch.copy_(start),
+                              f"cuckoo {label}", 1, 3, warmup=1)
+        b = cuckoo_update_bound_ms(spec, k.shape[0], reads, writes)
+        upd[label] = {"n_keys": k.shape[0], "ms": ms, "plain_ms": t_p * 1e3,
+                      "reads": reads, "writes": writes, "failed": failed,
+                      "bound_ms": b[0], "bound_by": b[1],
+                      "latency_ms": reads * load_ns * 1e-6}
+    b_con = cuckoo_contains_bound_ms(spec, g2.words, torch.cat(
+        [keys1[: SUBSET // 2], probes[: SUBSET // 2]]))
+    b_con_full = cuckoo_contains_bound_ms(spec, g2.words, allkeys)
+    print(f"time dependent load [{card}]: {load_ns:.1f} ns a load, one "
+          f"thread's chain through {spec.n_words * 4 >> 20} MiB in L2")
+    for label, u in upd.items():
+        print(f"time cuckoo {label} [{card}]: {u['n_keys']} keys "
+              f"({u['failed']} failed): kernel {u['ms']:.4f} ms (median of "
+              f"3 calls), plain {u['plain_ms']:.1f} ms host clock, "
+              f"{u['reads']} bucket reads and {u['writes']} writes, bound "
+              f"{u['bound_ms']:.4f} ms ({u['bound_by']}, "
+              f"{u['bound_ms'] / u['ms']:.4%} of the kernel), reads x "
+              f"{load_ns:.1f} ns {u['latency_ms']:.4f} ms "
+              f"({u['latency_ms'] / u['ms']:.1%} of the kernel)")
+    print(f"time cuckoo update [{card}]: kernel add {t['add']:.4f} ms at "
+          f"{n1} keys ({n1 / t['add'] / 1e3:.2f} Mops/s), add more "
+          f"{t['add more']:.4f} ms at {n2}, remove {t['remove']:.4f} ms at "
+          f"{half} (one call each; their accesses not counted)")
+    print(f"time cuckoo contains [{card}]: kernel {t['contains']:.4f} ms at "
+          f"{allkeys.shape[0]} keys ({allkeys.shape[0] / t['contains'] / 1e3:.1f}"
+          f" Mops/s), bound {b_con_full[0]:.4f} ms, Filter.contains "
+          f"{t['Filter.contains']:.4f} ms; at {SUBSET} keys (half probes) "
+          f"kernel {t['contains sub']:.4f} ms, plain {t['contains plain']:.4f}"
+          f" ms, bound {b_con[0]:.4f} ms ({b_con[1]})")
+    records["cuckoo_contains"] = {
+        "name": "cuckoo_contains", "route": "cuda", "source": CUCKOO_SOURCE,
+        "replaces": CUCKOO_REPLACES["cuckoo_contains"],
+        "launches": launches["cuckoo_contains"],
+        "max_abs_err": errs["cuckoo_contains"], "ms": t["contains sub"],
+        "plain_ms": t["contains plain"], "bound_ms": b_con[0],
+        "bound_by": b_con[1], "library_ms": None, "n_keys": SUBSET,
+        "m_bits": spec.m_bits, "main_n_keys": allkeys.shape[0],
+        "main_ms": t["contains"], "main_bound_ms": b_con_full[0],
+        "api_ms": t["Filter.contains"]}
+    at09 = upd["add at load 0.9"]          # the cell's regime, headline
+    records["cuckoo_update"] = {
+        "name": "cuckoo_update", "route": "cuda", "source": CUCKOO_SOURCE,
+        "replaces": CUCKOO_REPLACES["cuckoo_update"],
+        "launches": launches["cuckoo_update"],
+        "max_abs_err": errs["cuckoo_update"], "ms": at09["ms"],
+        "plain_ms": at09["plain_ms"], "bound_ms": at09["bound_ms"],
+        "bound_by": at09["bound_by"], "library_ms": None,
+        "n_keys": at09["n_keys"], "m_bits": spec.m_bits,
+        "latency_ms": at09["latency_ms"], "load_ns": load_ns,
+        "checks": upd, "main_add_ms": t["add"],
+        "main_add_more_ms": t["add more"], "main_remove_ms": t["remove"],
+        "api_step_ms": step_ms, "insert_failures": fails2,
+        "fpr": fpr, "fpr_theory": theory}
+    del g1, g2, g3, scratch, allkeys, keys1, keys2
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    t_start = time.perf_counter()
+    t_start = t_lap = time.perf_counter()
+    laps = []
+
+    def lap(name: str) -> None:
+        nonlocal t_lap
+        now = time.perf_counter()
+        laps.append(f"{name} {now - t_lap:.1f} s")
+        t_lap = now
+
     card, kind, count = phase_device()
     phase_build()
+    lap("device and build")
     errs = {k: 0 for k in sbf.LAUNCHES}
     cerrs = {k: 0 for k in cnt.LAUNCHES}
     berrs = {k: 0 for k in cbf.LAUNCHES}
@@ -1758,6 +2482,7 @@ def main() -> int:
     phase_ring_kernels(rerrs)
     phase_bank_kernels(errs, cerrs)
     phase_generic_banks(card, B=8)
+    lap("phases 3-3d")
     records, launches = {}, {}
     phase_main("L2", 1 << 23, errs, records, launches, card)
     phase_main("DRAM", 1 << 28, errs, records, launches, card)
@@ -1793,6 +2518,28 @@ def main() -> int:
         rec.update(launches=cbklaunches[kernel], max_abs_err=cerrs[kernel])
     generic = phase_generic_banks(card, B=64, time_it=True)
     print(f"generic bank path at B = 64: {json.dumps(generic)}")
+    lap("phases 4-4d")
+    perrs = {"add_partitioned": 0, "update_partitioned": 0}
+    kerrs = {"cuckoo_contains": 0, "cuckoo_update": 0}
+    phase_partitioned_kernels(perrs)
+    phase_cuckoo_kernels(kerrs)
+    lap("phase 3e")
+    precords, plaunches = {}, {}
+    phase_partitioned_main("sbf", "L2", 1 << 23, perrs, precords, plaunches,
+                           card)
+    phase_partitioned_main("sbf", "DRAM", 1 << 28, perrs, precords,
+                           plaunches, card)
+    phase_partitioned_main("countingbf", "L2", 1 << 22, perrs, precords,
+                           plaunches, card)
+    phase_partitioned_main("countingbf", "DRAM", 1 << 26, perrs, precords,
+                           plaunches, card)
+    for kernel, rec in precords.items():
+        rec.update(launches=plaunches[kernel], max_abs_err=perrs[kernel])
+    lap("phase 4e partitioned")
+    krecords, klaunches = {}, {}
+    phase_cuckoo_main(kerrs, krecords, klaunches, card)
+    lap("phase 4e cuckoo")
+    print(f"smoke phases: {', '.join(laps)}")
     print(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} "
           f"s, the build included")
     print(json.dumps({"kernels": [records[k] for k in
@@ -1806,7 +2553,11 @@ def main() -> int:
                       + [bkrecords["bank_contains_vmem"],
                          bkrecords["bank_add_vmem"],
                          cbkrecords["bank_update_vmem"],
-                         cbkrecords["bank_contains_vmem"]]}))
+                         cbkrecords["bank_contains_vmem"]]
+                      + [precords["add_partitioned"],
+                         precords["update_partitioned"],
+                         krecords["cuckoo_contains"],
+                         krecords["cuckoo_update"]]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

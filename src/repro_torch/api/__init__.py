@@ -19,13 +19,16 @@ same-spec members::
 
     b = api.filter_for_n_items(1_000_000, variant="cbf")   # classical
 
+    q = api.filter_for_n_items(1_000_000, variant="cuckoo")  # 'cuckoo'
+    q = q.add(keys).remove(keys[:10])     # q.insert_failures, q.load_factor()
+
     t = api.filter_for_n_items(8192, bank=1024)   # 1024 tenant filters
     t = t.add(keys, tenants=ids)          # routed: one launch for the bank
     hits = t.contains(keys, tenants=ids)
     kb, valid = api.route(keys, ids, 1024)         # per-tenant batches
 
     api.backends()
-    # ('counting', 'cuda-dram', 'cuda-l2', 'torch', 'windowed')
+    # ('counting', 'cuckoo', 'cuda-dram', 'cuda-l2', 'torch', 'windowed')
     f2 = api.make_filter("sbf", m_bits=1 << 24, k=8, device="cpu")
 
 ``device=None`` means the card; without one a call raises ``RuntimeError``.
@@ -42,11 +45,12 @@ import numpy as np
 import torch
 
 from repro_torch import not_ported
+from repro_torch.core import fingerprint as _F
 from repro_torch.core import variants as _V
 from repro_torch.core.partition import route_by_id
 from repro_torch.core.variants import FilterSpec
 from repro_torch.api import registry
-from repro_torch.api.filter import BackendOptions, Filter, as_keys
+from repro_torch.api.filter import BackendOptions, Filter, as_keys, bank_state
 from repro_torch.api import backends as _backends
 
 _backends.register_all()
@@ -76,21 +80,26 @@ def make_filter(variant: str = "sbf", m_bits: int = 1 << 20, k: int = 8,
                 layout=None, tile: Optional[int] = None,
                 probe: str = "auto", depth: Optional[int] = None,
                 coop: str = "auto", mix: str = "auto",
-                generations: Optional[int] = None, device=None) -> Filter:
+                generations: Optional[int] = None, slot_bits: int = 8,
+                slots_per_bucket: int = 4, impl: Optional[str] = None,
+                device=None) -> Filter:
     """Build an empty :class:`Filter` for an explicit geometry on ``device``
     (``None`` = the card). ``backend="auto"`` runs the registry's ranked
-    query; ``generations=G`` selects the windowed engine (``advance``); the
-    kernel knobs are validated and passed to ``kernels.ops``."""
+    query; ``generations=G`` selects the windowed engine (``advance``);
+    ``variant="cuckoo"`` the cuckoo engine (``remove``, ``slot_bits`` /
+    ``slots_per_bucket`` geometry, ``impl`` pins its kernel or plain path);
+    the kernel knobs are validated and passed to ``kernels.ops``."""
     spec = FilterSpec(variant=variant, m_bits=m_bits, k=k,
-                      block_bits=block_bits, z=z)
+                      block_bits=block_bits, z=z, slot_bits=slot_bits,
+                      slots_per_bucket=slots_per_bucket)
     options = BackendOptions(layout=layout, tile=tile, probe=probe,
                              depth=depth, coop=coop, mix=mix,
-                             generations=generations)
+                             generations=generations, impl=impl)
     ctx = options.ctx(device)
     eng = registry.select(spec, backend, ctx)
     return Filter(spec=spec, words=eng.init(spec, options, ctx.device),
                   backend=eng.name, options=options,
-                  state=eng.init_state(spec, options))
+                  state=eng.init_state(spec, options, ctx.device))
 
 
 def make_filter_bank(bank, variant: str = "sbf", m_bits: int = 1 << 14,
@@ -99,7 +108,8 @@ def make_filter_bank(bank, variant: str = "sbf", m_bits: int = 1 << 14,
                      tile: Optional[int] = None, probe: str = "auto",
                      depth: Optional[int] = None, coop: str = "auto",
                      mix: str = "auto", generations: Optional[int] = None,
-                     device=None) -> Filter:
+                     slot_bits: int = 8, slots_per_bucket: int = 4,
+                     impl: Optional[str] = None, device=None) -> Filter:
     """Build an empty bank: ``bank`` (an int, or a shape tuple) independent
     same-spec member filters of ``m_bits`` bits each behind one
     :class:`Filter`, the bank dims leading its words. Per-member batches
@@ -113,15 +123,14 @@ def make_filter_bank(bank, variant: str = "sbf", m_bits: int = 1 << 14,
         raise ValueError(f"bank shape must be non-empty and positive; "
                          f"got {bank_shape}")
     spec = FilterSpec(variant=variant, m_bits=m_bits, k=k,
-                      block_bits=block_bits, z=z)
+                      block_bits=block_bits, z=z, slot_bits=slot_bits,
+                      slots_per_bucket=slots_per_bucket)
     options = BackendOptions(layout=layout, tile=tile, probe=probe,
                              depth=depth, coop=coop, mix=mix,
-                             generations=generations)
+                             generations=generations, impl=impl)
     ctx = options.ctx(device, bank=int(np.prod(bank_shape)))
     eng = registry.select(spec, backend, ctx)
-    state = eng.init_state(spec, options)
-    if state is not None:
-        state = (state,) * ctx.bank
+    state = bank_state(eng.init_state(spec, options, ctx.device), bank_shape)
     return Filter(spec=spec,
                   words=eng.init_bank(spec, bank_shape, options, ctx.device),
                   backend=eng.name, options=options, state=state)
@@ -151,9 +160,26 @@ def filter_for_n_items(n: int, bits_per_key: float = 16.0,
     the variant's constraints. ``target_fpr`` sizes by the analytic FPR
     instead. ``bank=B`` sizes each of B members for ~n items and returns the
     bank. ``**kw`` goes to :func:`make_filter` (``device``, ``backend``,
-    ``generations``, kernel knobs)."""
-    if variant in ("cuckoo", "quotient"):
-        raise not_ported(f"{variant} filters", "queue 1 items 9, 10")
+    ``generations``, kernel knobs).
+
+    ``variant="cuckoo"`` sizes buckets for ~n keys at load factor <=
+    ``fingerprint.CUCKOO_MAX_LOAD`` (0.95) instead: the slot width is the
+    smallest meeting ``target_fpr`` when one is given, else u8 up to 12
+    bits a key and u16 above; ``slot_bits=`` pins it."""
+    if variant == "quotient":
+        raise not_ported("quotient filters", "queue 1 item 10")
+    if variant == "cuckoo":
+        sb = kw.pop("slot_bits", None)
+        spb = kw.pop("slots_per_bucket", 4)
+        if sb is None and target_fpr is None:
+            sb = 8 if bits_per_key <= 12.0 else 16
+        spec = _F.spec_for_n(n, target_fpr=target_fpr, slot_bits=sb,
+                             slots_per_bucket=spb)
+        common = dict(m_bits=spec.m_bits, k=spec.k, slot_bits=spec.slot_bits,
+                      slots_per_bucket=spec.slots_per_bucket, **kw)
+        if bank is not None:
+            return make_filter_bank(bank, variant="cuckoo", **common)
+        return make_filter(variant="cuckoo", **common)
     if target_fpr is not None:
         bits_per_key = _V.space_optimal_c(
             variant, block_bits, kw.get("z", 1), n, target_fpr)

@@ -1,11 +1,11 @@
 """Single-host engines: the plain PyTorch engine, the two CUDA regimes, the
-counting engine and the windowed engine.
+counting engine, the windowed engine and the cuckoo engine.
 
 Counterpart of ``repro.api.backends`` (``jnp``, ``pallas-vmem``,
-``pallas-hbm``, ``counting``, ``windowed``). For the bit filters the
-device decides first: ``torch`` serves CPU devices only, and the CUDA
-engines serve CUDA devices only, so a CUDA tensor never reaches a plain
-version. The CUDA engines take the blocked variants with ``s <= 32`` words
+``pallas-hbm``, ``counting``, ``windowed``, ``cuckoo``). For the bit
+filters the device decides first: ``torch`` serves CPU devices only, and
+the CUDA engines serve CUDA devices only, so a CUDA tensor never reaches a
+plain version. The CUDA engines take the blocked variants with ``s <= 32`` words
 per block and the classical filter ``cbf`` up to 2^32 bits, so ``"auto"``
 never picks an engine that would raise. Among the CUDA engines the
 L2-resident one wins while the filter fits ``ops.L2_FILTER_BYTES``.
@@ -15,7 +15,8 @@ both devices: ``countingbf`` specs belong to ``counting`` and a context
 with ``generations`` set belongs to ``windowed``, so the bit engines
 decline both (``_plain_bits``). Each runs its plain versions on the CPU and
 its CUDA kernels on the card (the regime by L2 fit), so there too a CUDA
-tensor never reaches a plain version.
+tensor never reaches a plain version. The ``cuckoo`` engine likewise
+claims ``variant="cuckoo"`` alone.
 
 Banks (``ctx.bank`` set). ``torch`` runs the plain ``bank_*_rows`` on the
 CPU; ``cuda-l2`` and ``cuda-dram`` the bank kernels, one launch for the
@@ -23,10 +24,14 @@ whole bank, the engine chosen by the whole bank's bytes
 (``ops.bank_l2_resident``); ``counting`` its bank kernels (and one decay
 launch over the flat bank). A ``cbf`` bank has no bank kernel and a
 windowed bank keeps one head per member: both take the registry's generic
-path, one scalar op per member (on the card, the scalar CUDA kernels).
+path, one scalar op per member (on the card, the scalar CUDA kernels), and
+so does a cuckoo bank, each member with its whole batch and valid mask.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.core import fingerprint as F
 from repro_torch.core import hashing as H
 from repro_torch.core import variants as V
 from repro_torch.core.variants import FilterSpec
@@ -348,7 +353,7 @@ class WindowedBackend(Backend):
     def init(self, spec, options, device):
         return R.ring_init(spec, options.generations, device)
 
-    def init_state(self, spec, options):
+    def init_state(self, spec, options, device=None):
         return 0                                   # the insert head
 
     def add(self, spec, words, keys, options, state=None):
@@ -374,9 +379,105 @@ class WindowedBackend(Backend):
         return words
 
 
+IMPLS = (None, "pallas", "jnp")
+
+
+class CuckooBackend(Backend):
+    """Bucketed cuckoo fingerprint filter (variant='cuckoo'): u8/u16
+    fingerprints in buckets of 2-16 slots, partial-key hashing,
+    bounded-kick eviction. ``remove`` at ~1x storage, with an explicit
+    insert-failure count as engine state (``Filter.insert_failures``, a
+    0-d int64 tensor on the words' device, so an add syncs nothing); no
+    counters, no decay, no merge. On the card the CUDA kernels (ordered
+    single-CTA updates, one-thread-a-key contains), on the CPU the plain
+    versions; ``options.impl`` pins the path: ``None`` or ``"pallas"`` the
+    kernels on the card and the plain versions on the CPU, ``"jnp"`` the
+    plain versions, on the CPU only (``ValueError`` on the card). Banks take
+    the generic path with real valid masks (inserts are not idempotent)."""
+
+    name = "cuckoo"
+    supports_remove = True
+    supports_merge = False             # slots hold values, not OR-able bits
+    stateful_ops = True
+
+    def supports(self, spec: FilterSpec, ctx: SelectionContext) -> bool:
+        if spec.variant != "cuckoo" or ctx.generations is not None:
+            return False
+        if ctx.device.type == "cuda":
+            return ops.cuckoo_kernel_supported(spec)
+        return ctx.device.type == "cpu"
+
+    def cost(self, spec: FilterSpec, ctx: SelectionContext) -> float:
+        return 1.0   # sole claimant of cuckoo specs
+
+    def bits_per_key(self, target_fpr: float = Backend.REF_FPR):
+        """f / 0.95: the slot width meeting the target, at the standard
+        0.95 achievable load of 4-slot buckets."""
+        f = F.slot_bits_for_fpr(target_fpr)
+        return None if f is None else f / F.CUCKOO_MAX_LOAD
+
+    def init(self, spec, options, device):
+        return F.init(spec, device)
+
+    def init_state(self, spec, options, device=None):
+        return torch.zeros((), dtype=torch.int64, device=device)
+
+    def _kernels(self, words, options) -> bool:
+        """True where the CUDA kernels run; raises for ``impl="jnp"`` on
+        the card (nothing switches path quietly)."""
+        if options.impl not in IMPLS:
+            raise ValueError(f"impl={options.impl!r} not in {IMPLS}")
+        if not words.is_cuda:
+            return False
+        if options.impl == "jnp":
+            raise ValueError("impl='jnp' pins the plain versions, which run "
+                             "on the CPU only; use impl=None or 'pallas' on "
+                             "the card")
+        return True
+
+    def _update(self, spec, words, keys, options, state, valid, op):
+        if self._kernels(words, options):
+            fn = ops.cuckoo_add if op == "add" else ops.cuckoo_remove
+            new, flags = fn(spec, words, keys, valid=valid,
+                            tile=options.tile)
+        else:
+            fn = F.cuckoo_add if op == "add" else F.cuckoo_remove
+            new, flags = fn(spec, words, keys, valid=valid,
+                            tile=options.tile)
+        st = (self.init_state(spec, options, words.device) if state is None
+              else state)
+        if op == "add":
+            # the failure signal is never dropped: it accumulates in the
+            # state, on the device (no host sync)
+            st = st + (~flags).sum()
+        return new, st
+
+    def add(self, spec, words, keys, options, state=None, valid=None):
+        return self._update(spec, words, keys, options, state, valid, "add")
+
+    def remove(self, spec, words, keys, options, state=None, valid=None):
+        return self._update(spec, words, keys, options, state, valid,
+                            "remove")
+
+    def contains(self, spec, words, keys, options):
+        if self._kernels(words, options):
+            return ops.cuckoo_contains(spec, words, keys,
+                                       tile=options.tile or None,
+                                       coop=options.coop)
+        return F.cuckoo_contains(spec, words, keys)
+
+    def merge(self, spec, a, b, options):
+        raise NotImplementedError(
+            "cuckoo filters cannot be merged by elementwise union (slots "
+            "hold fingerprint values, not OR-able bits); re-insert the "
+            "other filter's keys, or use variant='quotient' (lossless "
+            "fingerprint merge) when union is required")
+
+
 def register_all():
     register(TorchBackend())
     register(CudaL2Backend())
     register(CudaDramBackend())
     register(CountingBackend())
     register(WindowedBackend())
+    register(CuckooBackend())

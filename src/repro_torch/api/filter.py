@@ -2,16 +2,20 @@
 
 Counterpart of ``repro.api.filter``. A ``Filter`` holds its spec, its words
 (the engine's int32 storage on the filter's device: ``(n_words,)`` bits,
-``(storage_words,)`` counters for the counting engine, or a
-``(G, n_words)`` ring for the windowed engine), its engine name, its engine
-options and its engine state (the windowed engine's ring head, a Python
-``int``; ``None`` elsewhere). Every operation that looks like a mutation
+``(storage_words,)`` counters for the counting engine, a ``(G, n_words)``
+ring for the windowed engine, or the slot table of the cuckoo engine), its
+engine name, its engine options and its engine state (the windowed
+engine's ring head, a Python ``int``; the cuckoo engine's cumulative count
+of failed inserts, a 0-d int64 tensor on the words' device; ``None``
+elsewhere). Every operation that looks like a mutation
 returns a new ``Filter`` and leaves the old one as it was: the engines
 clone the words before an update, as JAX's immutable arrays behave.
 
-``remove`` and ``decay`` run on engines that support them (``counting``),
-``advance`` on the ``windowed`` engine, and each raises the JAX package's
-``NotImplementedError`` elsewhere.
+``remove`` runs on the engines that support it (``counting``, ``cuckoo``),
+``decay`` on ``counting``, ``advance`` on the ``windowed`` engine, and each
+raises the JAX package's ``NotImplementedError`` elsewhere. A stateful
+engine (``cuckoo``) takes ``valid=`` on a scalar add or remove too, since
+its inserts are not idempotent, and a cuckoo filter cannot be merged.
 
 **Banks.** A filter may carry leading bank dims: ``bank_shape`` is
 ``words.shape[:words.ndim - engine.words_ndim]``, so ``(B, n_words)``
@@ -21,7 +25,8 @@ take per-member batches (``bank_shape + (n, 2)`` keys, optional
 ``tenants (n,)`` member ids in ``[0, B)`` (optional ``valid (n,)``); an
 engine with a native bank path runs the whole bank in one launch. A
 windowed bank's state is one head per member, a tuple of ints in
-row-major member order (JAX: a bank-shaped head array).
+row-major member order (JAX: a bank-shaped head array); a cuckoo bank's is
+a ``bank_shape`` int64 tensor of failure counts.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import not_ported
+from repro_torch.core import fingerprint as F
 from repro_torch.core import hashing as H
 from repro_torch.core import variants as V
 from repro_torch.core.partition import check_ids
@@ -54,6 +59,7 @@ class BackendOptions:
     coop: str = "auto"                 # "none" | "subtile" | "auto"
     mix: str = "auto"                  # "full" | "cheap" | "auto"
     generations: Optional[int] = None  # windowed engine: ring size G
+    impl: Optional[str] = None         # cuckoo engine: "jnp"|"pallas"|None
 
     def ctx(self, device=None, bank: Optional[int] = None
             ) -> registry.SelectionContext:
@@ -130,6 +136,17 @@ def _prod(shape) -> int:
     return int(math.prod(shape))
 
 
+def bank_state(state, bank_shape: Tuple[int, ...]):
+    """One engine state per member of a bank: a tuple of the scalar state
+    (the windowed heads), or a ``bank_shape`` tensor of a tensor state (the
+    cuckoo failure counts); None stays None."""
+    if state is None:
+        return None
+    if isinstance(state, torch.Tensor):
+        return state.expand(bank_shape).clone()
+    return (state,) * _prod(bank_shape)
+
+
 def as_words(words, device=None) -> torch.Tensor:
     """Filter words (u32 array or int32/uint32 tensor) as a contiguous int32
     tensor on ``device``, bits unchanged."""
@@ -152,7 +169,7 @@ class Filter:
     words: torch.Tensor
     backend: str = "torch"
     options: BackendOptions = BackendOptions()
-    state: Optional[object] = None     # ring head(s): int, or a bank's tuple
+    state: Optional[object] = None     # ring head(s), or failure counts
 
     @property
     def engine(self) -> registry.Backend:
@@ -184,9 +201,13 @@ class Filter:
         return _prod(self.bank_shape)
 
     def _flat(self):
-        """(words (B, *base), state: B heads or None) for bank dispatch."""
+        """(words (B, *base), state: B heads, a (B,) tensor of failure
+        counts, or None) for bank dispatch."""
         base = tuple(self.words.shape[len(self.bank_shape):])
-        return self.words.reshape((self.bank_size,) + base), self.state
+        state = self.state
+        if isinstance(state, torch.Tensor):
+            state = state.reshape(self.bank_size)
+        return self.words.reshape((self.bank_size,) + base), state
 
     def _heads(self) -> np.ndarray:
         return np.asarray(self.state, dtype=np.int64).reshape(
@@ -202,7 +223,9 @@ class Filter:
         if not self.bank_shape:
             raise ValueError("select() needs a bank; this is a scalar filter")
         state = self.state
-        if state is not None:
+        if isinstance(state, torch.Tensor):
+            state = state[idx]
+        elif state is not None:
             heads = self._heads()[self._index(idx)]
             state = (int(heads) if heads.ndim == 0
                      else tuple(int(h) for h in heads.reshape(-1)))
@@ -219,7 +242,10 @@ class Filter:
         words = self.words.clone()
         words[idx] = sub.words.to(self.device)
         state = self.state
-        if state is not None:
+        if isinstance(state, torch.Tensor):
+            state = state.clone()
+            state[idx] = sub.state.to(self.device)
+        elif state is not None:
             heads = self._heads().copy()
             at = self._index(idx)
             heads[at] = np.asarray(sub.state, np.int64).reshape(
@@ -237,6 +263,15 @@ class Filter:
             raise ValueError("routed ops address a 1-D bank axis; "
                              f"bank_shape={self.bank_shape}")
 
+    def _repack(self, new) -> "Filter":
+        """A bank op's result in the filter's bank shape; a stateful
+        engine's ``(words, states)`` repack both."""
+        if self.engine.stateful_ops:
+            words, st = new
+            return self.replace(words=words.reshape(self.words.shape),
+                                state=st.reshape(self.bank_shape))
+        return self.replace(words=new.reshape(self.words.shape))
+
     def _update(self, op: str, keys, tenants, valid) -> "Filter":
         """The routed, batched and scalar forms of add/remove."""
         eng = self.engine
@@ -249,9 +284,9 @@ class Filter:
             member = _members(tenants, self.bank_size, n, self.device)
             wf, st = self._flat()
             run = getattr(eng, f"{op}_bank_routed")
-            new = run(self.spec, wf, keys, member, self.options,
-                      valid=_valid(valid, (n,), self.device), state=st)
-            return self.replace(words=new.reshape(self.words.shape))
+            return self._repack(run(
+                self.spec, wf, keys, member, self.options,
+                valid=_valid(valid, (n,), self.device), state=st))
         if self.bank_shape:
             keys = as_keys(keys, self.device, self.bank_shape)
             n = keys.shape[-2]
@@ -261,16 +296,22 @@ class Filter:
             vf = _valid(valid, self.bank_shape + (n,), self.device)
             wf, st = self._flat()
             run = getattr(eng, f"{op}_bank")
-            new = run(self.spec, wf, keys.reshape(B, n, 2), self.options,
-                      valid=None if vf is None else vf.reshape(B, n),
-                      state=st)
-            return self.replace(words=new.reshape(self.words.shape))
-        if valid is not None:
+            return self._repack(run(
+                self.spec, wf, keys.reshape(B, n, 2), self.options,
+                valid=None if vf is None else vf.reshape(B, n), state=st))
+        if valid is not None and not eng.stateful_ops:
             raise ValueError(f"valid= masks apply to bank ops only; filter "
                              f"the keys instead for a scalar {op}")
         keys = as_keys(keys, self.device)
-        if keys.shape[0] == 0:
+        n = keys.shape[0]
+        if n == 0:
             return self
+        if eng.stateful_ops:
+            # non-idempotent inserts take a mask even in scalar form
+            new, st = getattr(eng, op)(
+                self.spec, self.words, keys, self.options, state=self.state,
+                valid=_valid(valid, (n,), self.device))
+            return self.replace(words=new, state=st)
         if self.state is None:
             new = getattr(eng, op)(self.spec, self.words, keys, self.options)
         else:
@@ -283,7 +324,9 @@ class Filter:
         updated filter (self unchanged). Scalar filter: ``keys (n, 2)``.
         Bank: per-member batches ``bank_shape + (n, 2)`` (optionally
         ``valid bank_shape + (n,)``), or routed flat ``keys (n, 2)`` with
-        ``tenants (n,)`` member ids (optionally ``valid (n,)``)."""
+        ``tenants (n,)`` member ids (optionally ``valid (n,)``). A cuckoo
+        filter also takes ``valid (n,)`` on a scalar add, and counts the
+        keys its kick chains could not place in ``insert_failures``."""
         return self._update("add", keys, tenants, valid)
 
     def contains(self, keys, tenants=None) -> torch.Tensor:
@@ -322,7 +365,9 @@ class Filter:
         guarded decrements (a counter at 0 stays 0, one at 15 stays 15).
         Removing keys that were added leaves no false negative among the
         keys still present; removing a key that was never added can clear
-        a counter it shares with one."""
+        a counter it shares with one. Cuckoo: each key clears one slot
+        holding its fingerprint; remove only keys that were inserted, or a
+        colliding key's fingerprint may be cleared."""
         if not self.engine.supports_remove:
             raise NotImplementedError(
                 f"backend {self.backend!r} cannot remove keys; build the "
@@ -368,6 +413,16 @@ class Filter:
                                            self.options, state=self.state)
         return self.replace(words=words, state=state)
 
+    def _check_merge_supported(self) -> None:
+        """Engines whose slots hold values rather than OR-able bits (cuckoo)
+        cannot union: say so before any engine dispatch."""
+        if not self.engine.supports_merge:
+            raise ValueError(
+                f"engine {self.backend!r} does not support merge(); the "
+                f"nearest deletable engine with lossless union is "
+                f"'quotient' (variant='quotient') — or rebuild from the "
+                f"combined key stream")
+
     def _merge_windowed(self, other: "Filter") -> torch.Tensor:
         """OR the other window's dense union into my head generation (each
         member's own head for a bank). Rings cannot be merged slot by slot:
@@ -393,6 +448,7 @@ class Filter:
         engine."""
         if other.spec != self.spec:
             raise ValueError(f"cannot merge {other.spec} into {self.spec}")
+        self._check_merge_supported()
         if self.engine.supports_advance:
             if other.bank_shape != self.bank_shape:
                 raise ValueError(
@@ -428,6 +484,7 @@ class Filter:
                 f"bank_merge needs matching (spec, backend, bank_shape); "
                 f"got {other.spec}/{other.backend}/{other.bank_shape} vs "
                 f"{self.spec}/{self.backend}/{self.bank_shape}")
+        self._check_merge_supported()
         if self.engine.supports_advance:
             new = self._merge_windowed(other)
         else:
@@ -463,9 +520,56 @@ class Filter:
         hits = self.contains(probes)
         return float(hits.to(torch.float64).mean().item())
 
+    @property
+    def insert_failures(self) -> torch.Tensor:
+        """Fingerprint engines: the cumulative count of inserts whose kick
+        chain ran out (a 0-d int64 tensor on the words' device; bank-shaped
+        for a bank). Nonzero means keys were not stored: resize the filter
+        or shed load. No op resets it."""
+        if not self.engine.stateful_ops:
+            raise NotImplementedError(
+                f"backend {self.backend!r} has no insert-failure state; "
+                f"only fingerprint engines (variant='cuckoo'/'quotient') "
+                f"can fail an insert")
+        return self.state
+
+    def load_factor(self):
+        """Fingerprint engines: occupied fraction of all slots (a float; a
+        bank-shaped float32 tensor for a bank)."""
+        if not self.spec.is_fingerprint:
+            raise NotImplementedError(
+                f"load_factor() is a fingerprint-filter metric; "
+                f"{self.spec.variant!r} filters report fill_fraction()")
+        lf = F.cuckoo_load_factor(self.spec, self.words)
+        return float(lf) if not self.bank_shape else lf
+
+    def health(self) -> dict:
+        """One JSON-able operational-health dict: engine, variant, bank
+        shape, bytes and ``approx_count``; Bloom-family filters add
+        ``fill_fraction``, fingerprint filters ``load_factor`` (the worst
+        member) and the summed ``insert_failures``, windowed filters
+        ``generations`` and ``head``."""
+        out = {"backend": self.backend, "variant": self.spec.variant,
+               "bank_shape": list(self.bank_shape), "nbytes": self.nbytes,
+               "approx_count": self.approx_count()}
+        if self.spec.is_fingerprint:
+            lf = F.cuckoo_load_factor(self.spec, self.words)
+            out["load_factor"] = float(lf.max())
+            out["insert_failures"] = int(self.state.sum())
+        else:
+            out["fill_fraction"] = self.fill_fraction()
+        if self.engine.supports_advance and self.state is not None:
+            out["generations"] = int(self.options.generations)
+            out["head"] = (list(self.state) if self.bank_shape
+                           else int(self.state))
+        return out
+
     def approx_count(self) -> float:
-        """Swamidass-Baldi estimate of the distinct keys inserted (over the
-        whole bank's bits)."""
+        """Estimated distinct keys inserted: a fingerprint filter's occupied
+        slots (exact, failed inserts excluded), else the Swamidass-Baldi
+        estimate over the whole bank's bits."""
+        if self.spec.is_fingerprint:
+            return float(F.occupied_slots(self.spec, self.words).sum())
         fill = min(self.fill_fraction(), 1.0 - 1e-12)
         m_total = self.spec.m_bits * self.bank_size
         return max(0.0, -(m_total / self.spec.k) * math.log(1.0 - fill))
@@ -487,6 +591,10 @@ class Filter:
         state = {"words": self.dense_words(),
                  "spec": dataclasses.asdict(self.spec),
                  "backend": self.backend}
+        if self.engine.stateful_ops and self.state is not None:
+            # the cuckoo table is canonical and its failure count real
+            # state: both round-trip exactly
+            state["engine_state"] = self.state
         if self.bank_shape:
             state["bank_shape"] = list(self.bank_shape)
         if self.options.generations is not None:
@@ -501,9 +609,9 @@ class Filter:
         JAX package's, whose engine names are registered as aliases).
         ``device=None`` is the card. A windowed state comes back windowed,
         with its ring size, unless ``backend=`` names another engine (which
-        then takes the dense union)."""
-        if "engine_state" in state:
-            raise not_ported("fingerprint engine state", "queue 1 item 9")
+        then takes the dense union). A cuckoo state's ``engine_state`` (its
+        failure count) comes back when it is restored into the same
+        engine."""
         spec = FilterSpec(**{k: (v if isinstance(v, str) else int(v))
                              for k, v in state["spec"].items()})
         name = backend or state.get("backend", "auto")
@@ -521,14 +629,21 @@ class Filter:
             raise ValueError(f"state words {tuple(words.shape)} do not match "
                              f"{spec} ({spec.n_words} dense words) in bank "
                              f"{bank_shape}")
-        st = eng.init_state(spec, options)
+        st = eng.init_state(spec, options, ctx.device)
         if bank_shape:
             flat = words.reshape(-1, spec.n_words)
             new = eng.from_dense(spec, flat, options)
             words = new.reshape(bank_shape + tuple(new.shape[1:]))
-            st = None if st is None else (st,) * flat.shape[0]
+            st = bank_state(st, bank_shape)
         else:
             words = eng.from_dense(spec, words, options)
+        if (eng.stateful_ops and "engine_state" in state
+                and eng.name == state.get("backend")):
+            es = state["engine_state"]
+            es = (es.cpu().numpy() if isinstance(es, torch.Tensor)
+                  else np.asarray(es))
+            st = torch.from_numpy(es.astype(np.int64).reshape(bank_shape)
+                                  ).to(ctx.device)
         return cls(spec=spec, words=words, backend=eng.name, options=options,
                    state=st)
 

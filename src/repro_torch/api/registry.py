@@ -19,6 +19,9 @@ counting    the counting filter (countingbf, 4-bit counters: ``remove``,
             either regime on the card
 windowed    the generation-ring sliding window (``generations`` = G:
             ``advance``); sole claimant of contexts with ``generations``
+cuckoo      the cuckoo fingerprint filter (variant='cuckoo': ``remove``,
+            an insert-failure count as engine state); its plain versions
+            on the CPU, its CUDA kernels on the card
 =========== ==============================================================
 
 The JAX engine names are registered as aliases (see ``repro_torch.api``),
@@ -30,7 +33,10 @@ member ids ``(N,)``. The ``*_bank`` defaults below are the generic path: a
 loop over the members of the engine's scalar op, one launch per member
 (JAX: a ``vmap`` of the scalar op). Engines with a native member-offset
 path (one launch for the whole bank) override them and set
-``supports_bank``.
+``supports_bank``. A stateful engine (``stateful_ops``: its add and remove
+return ``(words, state)``) gets each member's whole batch with its valid
+mask, as JAX's ``vmap`` hands it over, and the generic path returns the
+bank's words and a ``(B,)`` tensor of member states.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import not_ported
 from repro_torch.core.partition import route_by_id
 from repro_torch.core.variants import FilterSpec
 
@@ -88,6 +95,8 @@ class Backend:
     supports_count: bool = False
     supports_merge: bool = True
     supports_resize: bool = False
+    # add/remove return (words, state) and take ``state=`` and ``valid=``
+    stateful_ops: bool = False
 
     REF_FPR = 1e-3
 
@@ -121,9 +130,10 @@ class Backend:
     def init(self, spec: FilterSpec, options, device) -> torch.Tensor:
         raise NotImplementedError
 
-    def init_state(self, spec: FilterSpec, options):
+    def init_state(self, spec: FilterSpec, options, device=None):
         """Per-filter engine state beside the words (``Filter.state``): the
-        windowed engine's ring head; ``None`` for every other engine."""
+        windowed engine's ring head, the cuckoo engine's failure count (a
+        0-d tensor on ``device``); ``None`` for every other engine."""
         return None
 
     def init_bank(self, spec: FilterSpec, bank_shape: Tuple[int, ...],
@@ -184,22 +194,38 @@ class Backend:
     # -- bank ops (the generic path: one scalar op per member) --------------
     # Batched form: ``words`` (B, *base), keys (B, n, 2), optional valid
     # (B, n). Routed form: flat keys (N, 2) + member ids (N,). ``state`` is
-    # one engine state per member (the windowed heads) or None. A member's
-    # invalid keys are dropped before its op (JAX repeats one of its valid
-    # keys instead: OR is idempotent, so the words are the same); a member
-    # with no valid key keeps its words.
+    # one engine state per member (the windowed heads, the cuckoo failure
+    # counts) or None. A stateless engine's member drops its invalid keys
+    # before its op (JAX repeats one of its valid keys instead: OR is
+    # idempotent, so the words are the same). A stateful engine's member
+    # gets its whole batch and valid mask: its inserts are not idempotent,
+    # and dropping keys would move the tile boundaries that fix its words.
+    # A member with no valid key keeps its words (and state).
 
-    def add_bank(self, spec: FilterSpec, words: torch.Tensor,
-                 keys: torch.Tensor, options, valid=None, state=None
-                 ) -> torch.Tensor:
+    def _update_bank(self, op: str, spec: FilterSpec, words: torch.Tensor,
+                     keys: torch.Tensor, options, valid, state):
         out = words.clone()
+        run = getattr(self, op)
+        if self.stateful_ops:
+            states = []
+            for b in range(words.shape[0]):
+                out[b], st = run(spec, words[b], keys[b].contiguous(),
+                                 options,
+                                 state=None if state is None else state[b],
+                                 valid=None if valid is None else valid[b])
+                states.append(st)
+            return out, torch.stack(states)
         for b in range(words.shape[0]):
             kb = keys[b] if valid is None else keys[b][valid[b] != 0]
             kw = {} if state is None else {"state": state[b]}
             if kb.shape[0]:
-                out[b] = self.add(spec, words[b], kb.contiguous(), options,
-                                  **kw)
+                out[b] = run(spec, words[b], kb.contiguous(), options, **kw)
         return out
+
+    def add_bank(self, spec: FilterSpec, words: torch.Tensor,
+                 keys: torch.Tensor, options, valid=None, state=None):
+        return self._update_bank("add", spec, words, keys, options, valid,
+                                 state)
 
     def contains_bank(self, spec: FilterSpec, words: torch.Tensor,
                       keys: torch.Tensor, options, state=None
@@ -208,11 +234,9 @@ class Backend:
                             for b in range(words.shape[0])])
 
     def remove_bank(self, spec: FilterSpec, words: torch.Tensor,
-                    keys: torch.Tensor, options, valid=None, state=None
-                    ) -> torch.Tensor:
-        raise NotImplementedError(
-            f"engine {self.name!r} does not support remove(); use the "
-            f"'counting' engine (variant='countingbf')")
+                    keys: torch.Tensor, options, valid=None, state=None):
+        return self._update_bank("remove", spec, words, keys, options,
+                                 valid, state)
 
     def decay_bank(self, spec: FilterSpec, words: torch.Tensor, options
                    ) -> torch.Tensor:
@@ -314,6 +338,8 @@ def describe() -> Tuple[Dict[str, object], ...]:
 def select(spec: FilterSpec, backend: str = "auto",
            ctx: Optional[SelectionContext] = None) -> Backend:
     """Resolve a backend name (or ``"auto"``/alias) to an engine."""
+    if spec.is_quotient:
+        raise not_ported("the quotient filter", "queue 1 item 10")
     ctx = ctx or SelectionContext.current()
     if backend in _ALIASES:
         backend = _ALIASES[backend](spec, ctx)

@@ -16,8 +16,9 @@ mask and nibble math runs in ``int64`` holding u32 values (see
 Banks: a ``(B, n_words)`` stack of same-spec filters is one filter of
 ``B * n_blocks`` blocks in which key i's block id is offset by
 ``member[i] * n_blocks``; the ``bank_*`` helpers lift each bulk op to the
-whole bank that way (offsets in ``int64``). The fingerprint helpers are
-not ported yet (ROADMAP queue 1 items 9, 10).
+whole bank that way (offsets in ``int64``). The cuckoo filter's helpers
+live in ``core.fingerprint``; the quotient filter is not ported yet
+(ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -148,6 +149,22 @@ class FilterSpec:
         """CSBF: words per group."""
         return self.s // self.z
 
+    # -- fingerprint geometry (is_fingerprint specs only) -------------------
+    @property
+    def slots_per_word(self) -> int:
+        return WORD_BITS // self.slot_bits
+
+    @property
+    def n_buckets(self) -> int:
+        return self.n_blocks
+
+    @property
+    def n_slots(self) -> int:
+        """Total fingerprint slots: the capacity at load factor 1.0."""
+        if self.is_quotient:
+            return self.m_bits // self.slot_bits
+        return self.n_buckets * self.slots_per_bucket
+
     def bits_per_element(self, n: int) -> float:
         return self.m_bits / max(n, 1)
 
@@ -172,7 +189,8 @@ def _require_blocked(spec: FilterSpec) -> None:
         raise ValueError(f"{spec} holds counters: use the counting_* "
                          f"functions")
     if spec.variant == "cuckoo":
-        raise not_ported("the cuckoo filter", "queue 1 item 9")
+        raise ValueError(f"{spec} holds fingerprint slots: use the "
+                         f"core.fingerprint functions")
     if spec.is_quotient:
         raise not_ported("the quotient filter", "queue 1 item 10")
 
@@ -568,7 +586,8 @@ def _valid_masks(masks: torch.Tensor, valid) -> torch.Tensor:
 
 def _counting_update(spec: FilterSpec, counters: torch.Tensor,
                      keys: torch.Tensor, valid, op: str,
-                     member: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     member: Optional[torch.Tensor] = None,
+                     segments=None) -> torch.Tensor:
     """Sort-and-count bulk update, in memory proportional to the keys.
 
     The flat index of logical bit ``i`` is also the flat index of its
@@ -578,10 +597,14 @@ def _counting_update(spec: FilterSpec, counters: torch.Tensor,
     max(old - count, 0) (remove): the result of any sequential order. The
     per-nibble changes are summed per word and applied with one gather and
     one scatter of the touched words. ``member`` (n,) offsets each key's
-    block by ``member * n_blocks`` in a flat bank of counters."""
+    block by ``member * n_blocks`` in a flat bank of counters;
+    ``segments = (seg (n,), n_segments)`` places it in the segment that owns
+    its slot (:func:`partitioned_blocks`)."""
     blk, masks = _counting_layout(spec, keys)
     if member is not None:
         blk = member.to(torch.int64) * spec.n_blocks + blk
+    if segments is not None:
+        blk = partitioned_blocks(spec, blk, *segments)
     masks = _valid_masks(masks, valid)
     parts = []
     for b in range(WORD_BITS):
@@ -744,6 +767,51 @@ def bank_counting_contains(spec: FilterSpec, counters: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Partitioned updates: keys pre-bucketed by the filter segment that owns
+# them, (n_segments, capacity) slots with a valid mask; the kernels
+# (kernels/sbf.py add_partitioned, kernels/countingbf.py
+# update_partitioned) are held against these.
+# ---------------------------------------------------------------------------
+
+def partitioned_blocks(spec: FilterSpec, blk: torch.Tensor, seg: torch.Tensor,
+                       n_segments: int) -> torch.Tensor:
+    """The block a slot's key updates: its block modulo the blocks of a
+    segment, inside the segment ``seg`` that owns the slot (the word offset
+    ``start mod seg_words`` of the partitioned kernels). For a key in its
+    own segment this is its block."""
+    bps = spec.n_blocks // n_segments
+    return seg.to(torch.int64) * bps + blk % bps
+
+
+def _slots(keys_by_seg: torch.Tensor, valid: torch.Tensor):
+    n_seg, cap = keys_by_seg.shape[0], keys_by_seg.shape[1]
+    seg = torch.arange(n_seg, device=keys_by_seg.device).repeat_interleave(cap)
+    return keys_by_seg.reshape(-1, 2), valid.reshape(-1), seg, n_seg
+
+
+def partitioned_add(spec: FilterSpec, filt: torch.Tensor,
+                    keys_by_seg: torch.Tensor, valid: torch.Tensor
+                    ) -> torch.Tensor:
+    """OR the valid slots of ``keys_by_seg`` (n_segments, capacity, 2) into
+    the blocked filter, each in its segment. Returns new words."""
+    keys, valid, seg, n_seg = _slots(keys_by_seg, valid)
+    blk, masks = _blocks_and_masks(spec, keys)
+    return or_rows(spec, filt, partitioned_blocks(spec, blk, seg, n_seg),
+                   _valid_masks(masks, valid))
+
+
+def partitioned_counting_update(spec: FilterSpec, counters: torch.Tensor,
+                                keys_by_seg: torch.Tensor,
+                                valid: torch.Tensor, op: str) -> torch.Tensor:
+    """Saturating increment (``op="add"``) or guarded decrement of the
+    valid slots' counters, each in its segment. Returns new counters."""
+    _check(op in ("add", "remove"), f"op={op!r}")
+    keys, valid, seg, n_seg = _slots(keys_by_seg, valid)
+    return _counting_update(spec, counters, keys, valid, op,
+                            segments=(seg, n_seg))
+
+
+# ---------------------------------------------------------------------------
 # FPR theory (paper Eq. 1-3 + blocked/sectorized extensions)
 # ---------------------------------------------------------------------------
 
@@ -809,7 +877,9 @@ def fpr_theory(spec: FilterSpec, n: int) -> float:
     if spec.is_quotient:
         raise not_ported("quotient FPR theory", "queue 1 item 10")
     if spec.is_fingerprint:
-        raise not_ported("cuckoo FPR theory", "queue 1 item 9")
+        from repro_torch.core import fingerprint as F   # import cycle
+        return F.fpr_cuckoo(spec.slot_bits, spec.slots_per_bucket,
+                            min(n / spec.n_slots, 1.0))
     c = spec.bits_per_element(n)
     if spec.variant == "cbf":
         return fpr_cbf(spec.m_bits, n, spec.k)
@@ -855,9 +925,13 @@ def space_optimal_n(spec: FilterSpec, target_fpr: float = None) -> int:
     """Load n for the spec (paper §5.1): without ``target_fpr`` the load at
     which k equals k* = c ln 2; with it, the largest n whose analytic FPR
     stays at or below the target (0 if even n = 1 exceeds it)."""
-    if spec.is_fingerprint:
-        raise not_ported("fingerprint sizing", "queue 1 items 9-10")
+    if spec.is_quotient:
+        raise not_ported("quotient sizing", "queue 1 item 10")
     if target_fpr is None:
+        if spec.is_fingerprint:
+            # cuckoo capacity is structural: the standard achievable load
+            # of 4-slot buckets is ~0.95
+            return max(int(spec.n_slots * 0.95), 1)
         c = spec.k / math.log(2.0)
         return max(int(spec.m_bits / c), 1)
     if fpr_theory(spec, 1) > target_fpr:

@@ -35,7 +35,7 @@ from repro_torch.api.filter import as_keys, as_words
 # The JAX engine each port engine stands in for.
 JAX_ENGINE = {"torch": "jnp", "cuda-l2": "pallas-vmem",
               "cuda-dram": "pallas-hbm", "counting": "counting",
-              "windowed": "windowed"}
+              "windowed": "windowed", "cuckoo": "cuckoo"}
 
 
 def from_jax_state(state: dict, device=None) -> Filter:
@@ -50,18 +50,25 @@ def from_jax_state(state: dict, device=None) -> Filter:
     return Filter.from_state(st, device=device)
 
 
+def _u32_state(state: torch.Tensor) -> np.ndarray:
+    return state.cpu().numpy().astype(np.uint32)
+
+
 def to_jax_state(filt: Filter) -> dict:
     """A dict that ``repro.api.Filter.from_state`` reads: uint32 words,
-    the spec fields, the JAX counterpart of the port's engine, and a
-    windowed filter's ring size."""
+    the spec fields, the JAX counterpart of the port's engine, a windowed
+    filter's ring size and a cuckoo filter's uint32 failure count."""
     state = filt.to_state()
     state["words"] = state["words"].cpu().numpy().view(np.uint32).copy()
     state["backend"] = JAX_ENGINE[filt.backend]
+    if "engine_state" in state:
+        state["engine_state"] = _u32_state(state["engine_state"])
     return state
 
 
 def from_jax_words(spec_fields: dict, words_u32, backend: str = "auto",
-                   device=None, head=None, bank_shape=None) -> Filter:
+                   device=None, head=None, bank_shape=None,
+                   engine_state=None) -> Filter:
     """The port's filter holding the raw engine words ``words_u32`` (the
     ``repro.api.Filter.words`` of a filter or bank, as numpy uint32) for
     the spec with ``spec_fields`` (``dataclasses.asdict`` of its spec), on
@@ -71,7 +78,9 @@ def from_jax_words(spec_fields: dict, words_u32, backend: str = "auto",
     scalar filter). After them, one dim is a filter's words (counters for a
     counting spec) and two dims a windowed ``(G, n_words)`` ring, whose
     ``head`` is the insert generation (0 when ``None``): an int for a
-    scalar ring, an array or sequence of ``bank_shape`` for a bank."""
+    scalar ring, an array or sequence of ``bank_shape`` for a bank.
+    ``engine_state`` is a cuckoo filter's failure count (0 when ``None``),
+    of ``bank_shape`` for a bank."""
     words = np.asarray(words_u32)
     if words.dtype != np.uint32:
         raise ValueError(f"JAX words must be uint32, got {words.dtype}")
@@ -93,7 +102,10 @@ def from_jax_words(spec_fields: dict, words_u32, backend: str = "auto",
     if words.shape[nb:] != base:
         raise ValueError(f"words {words.shape} do not match {spec} "
                          f"({spec.storage_words} storage words)")
-    state = eng.init_state(spec, options)
+    state = eng.init_state(spec, options, ctx.device)
+    if engine_state is not None and not eng.stateful_ops:
+        raise ValueError(f"engine_state= is a fingerprint engine's state; "
+                         f"engine {eng.name!r} has none")
     if head is not None and not ring:
         raise ValueError(f"head= needs a ring of generations, got words "
                          f"{words.shape}")
@@ -105,6 +117,10 @@ def from_jax_words(spec_fields: dict, words_u32, backend: str = "auto",
             raise ValueError(f"heads must lie in [0, {words.shape[nb]})")
         state = (tuple(int(h) for h in heads.reshape(-1)) if nb
                  else int(heads))
+    elif eng.stateful_ops:
+        es = np.asarray(0 if engine_state is None else engine_state)
+        state = torch.from_numpy(np.broadcast_to(
+            es.astype(np.int64), bank_shape).copy()).to(ctx.device)
     elif nb and state is not None:
         state = (state,) * B
     return Filter(spec=spec, words=as_words(words, ctx.device),
@@ -114,11 +130,18 @@ def from_jax_words(spec_fields: dict, words_u32, backend: str = "auto",
 def to_jax_words(filt: Filter):
     """The inverse of :func:`from_jax_words`: (spec fields, raw engine words
     as numpy uint32) for a scalar filter, (fields, ``(G, n_words)`` ring,
-    head) for a windowed one, and (fields, words, heads, bank_shape) for a
-    bank, heads being an int32 array of ``bank_shape`` for a windowed bank
-    (JAX's head array) and ``None`` otherwise."""
+    head) for a windowed one, (fields, table, failure count as a 0-d
+    uint32 array) for a cuckoo one, and (fields, words, state, bank_shape)
+    for a bank, state being an int32 array of ``bank_shape`` for a windowed
+    bank (JAX's head array), a uint32 one of failure counts for a cuckoo
+    bank and ``None`` otherwise."""
     fields = dataclasses.asdict(filt.spec)
     words = filt.words.cpu().numpy().view(np.uint32).copy()
+    if filt.engine.stateful_ops:
+        state = _u32_state(filt.state)
+        if filt.bank_shape:
+            return fields, words, state, filt.bank_shape
+        return fields, words, state
     if filt.bank_shape:
         heads = (None if filt.head is None else
                  np.asarray(filt.head, np.int32).reshape(filt.bank_shape))

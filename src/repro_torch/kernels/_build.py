@@ -24,7 +24,7 @@ import types
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bloom", "counting", "cbf", "ring")
+SOURCES = ("bloom", "counting", "cbf", "ring", "cuckoo")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -59,6 +59,20 @@ ENTRY_POINTS = {
     "cbf_add": ("cbf", [_vp, _vp, _vp, _ll, _i, _i, _vp]),
     "ring_contains": ("ring", [_vp, _vp, _vp, _vp, _ll, _ll, _i, _u32, _i,
                                _i, _i, _i, _i, _i, _vp]),
+    # partitioned updates: (n_segments, capacity) slots, the segment's words,
+    # a shared-memory flag; bloom_partition_smem(device) is the budget of both
+    "bloom_add_partitioned": ("bloom", [_vp, _vp, _vp, _vp, _ll, _ll, _u32,
+                                        _u32, _i, _i, _i, _i, _i, _i, _vp]),
+    "bloom_partition_smem": ("bloom", [_i]),
+    "counting_update_partitioned": ("counting", [_vp, _vp, _vp, _vp, _ll,
+                                                 _ll, _u32, _u32, _i, _i, _i,
+                                                 _i, _vp]),
+    "cuckoo_contains": ("cuckoo", [_vp, _vp, _vp, _ll, _u32, _i, _i, _i,
+                                   _u32, _u32, _vp]),
+    "cuckoo_update": ("cuckoo", [_vp, _vp, _vp, _vp, _ll, _i, _u32, _i, _i,
+                                 _i, _u32, _u32, _i, _vp]),
+    # the dependent-load latency probe of chip_smoke.py's cuckoo bound
+    "cuckoo_chase": ("cuckoo", [_vp, _ll, _vp, _vp]),
 }
 
 _lock = threading.Lock()

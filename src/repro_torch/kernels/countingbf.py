@@ -20,7 +20,16 @@ vmem                                              bank form
 bank_contains_ bank_contains_vmem                 counting_contains_kernel,
 vmem                                              bank form, PHI=4,
                                                   DEPTH=depth
+update_        update_partitioned                 counting_update_
+partitioned                                       partitioned_kernel
 ============== ================================== ===========================
+
+``update_partitioned`` takes keys already bucketed by the counter segment
+that owns their block, ``(n_segments, capacity, 2)`` with a valid mask, and
+updates each valid slot's counters at ``start mod seg_cwords`` of its
+segment; as ``sbf.add_partitioned``, a segment that fits shared memory is
+staged there by one CTA (no global atomics), a larger one takes the
+global CAS loops.
 
 The bank wrappers take a ``(B, storage_words)`` counter bank, flat keys
 and ``member`` ``(n,)`` int32 ids in ``[0, B)`` (checked: a ``ValueError``
@@ -60,7 +69,8 @@ from repro_torch.core.variants import FilterSpec
 from repro_torch.kernels.sbf import (DEFAULT_DMA_DEPTH, DEFAULT_TILE,
                                      DMA_DEPTHS, MAX_WORDS_IN_FLIGHT, Layout,
                                      _check_axes, _on_cuda, _raise_on, _salts,
-                                     check_bank)
+                                     check_bank, check_partitioned,
+                                     segment_fits)
 
 OPS = ("add", "remove")
 _OP_CODE = {"add": 0, "remove": 1}
@@ -68,7 +78,7 @@ _OP_CODE = {"add": 0, "remove": 1}
 # Kernel launches per wrapper (a launch adds one; the plain path adds none).
 LAUNCHES = {"update_vmem": 0, "contains_vmem": 0, "update_hbm": 0,
             "contains_hbm": 0, "decay": 0, "bank_update_vmem": 0,
-            "bank_contains_vmem": 0}
+            "bank_contains_vmem": 0, "update_partitioned": 0}
 
 
 def reset_launches() -> None:
@@ -137,6 +147,15 @@ def bank_update_plain(spec: FilterSpec, bank: torch.Tensor,
     keys."""
     _check_op(op)
     return V.bank_counting_update(spec, bank, keys, member, valid, op)
+
+
+def update_partitioned_plain(spec: FilterSpec, filt: torch.Tensor,
+                             keys_by_seg: torch.Tensor, valid: torch.Tensor,
+                             op: str) -> torch.Tensor:
+    """Plain version of ``update_partitioned``: new (storage_words,) int32
+    counters (``filt`` is not modified)."""
+    _check_op(op)
+    return V.partitioned_counting_update(spec, filt, keys_by_seg, valid, op)
 
 
 def bank_contains_plain(spec: FilterSpec, bank: torch.Tensor,
@@ -366,6 +385,39 @@ def decay(spec: FilterSpec, filt: torch.Tensor, tile_words: int = 4096
                                  _stream(filt.device))
     _raise_on(err, "decay")
     LAUNCHES["decay"] += 1
+    return filt
+
+
+def update_partitioned(spec: FilterSpec, filt: torch.Tensor,
+                       keys_by_seg: torch.Tensor, valid: torch.Tensor,
+                       n_segments: int, op: str, mix: str = "full"
+                       ) -> torch.Tensor:
+    """Increment (``op="add"``) or guarded decrement (``"remove"``) of the
+    valid slots of ``keys_by_seg`` (n_segments, capacity, 2), each in the
+    counter segment that owns it, one launch (segments in shared memory
+    where they fit). Updates ``filt`` in place."""
+    _check_axes(mix=mix)
+    _check_op(op)
+    if not spec.is_counting:
+        raise ValueError(f"{spec} is not a countingbf spec")
+    if not check_partitioned(filt, keys_by_seg, valid, n_segments,
+                             spec.storage_words):
+        return filt.copy_(update_partitioned_plain(spec, filt, keys_by_seg,
+                                                   valid, op))
+    from repro_torch.kernels._build import library
+    _check_counters(spec, filt)
+    seg_cwords = spec.storage_words // n_segments
+    sh = segment_fits(seg_cwords, filt.device)
+    valid = valid.contiguous().view(torch.uint8)
+    lib = library()
+    with torch.cuda.device(filt.device):
+        err = lib.counting_update_partitioned(
+            keys_by_seg.data_ptr(), valid.data_ptr(), filt.data_ptr(),
+            _salts(filt.device).data_ptr(), n_segments,
+            keys_by_seg.shape[1], seg_cwords, spec.n_blocks - 1, spec.s,
+            spec.k, _OP_CODE[op], int(sh), _stream(filt.device))
+    _raise_on(err, "update_partitioned")
+    LAUNCHES["update_partitioned"] += 1
     return filt
 
 

@@ -1,7 +1,7 @@
 // Blocked Bloom filter kernels for Hopper (sm_90a): bulk contains and add
 // for the sbf / bbf / rbbf / csbf variants.
 //
-// Replaces six Pallas entry points of repro/kernels/sbf.py:
+// Replaces seven Pallas entry points of repro/kernels/sbf.py:
 //   bloom_contains_kernel<.., false> <- contains_vmem (_contains_vmem_kernel,
 //                            _contains_vmem_gather_kernel,
 //                            _contains_vmem_coop_kernel) and contains_hbm
@@ -14,6 +14,8 @@
 //                            _bank_contains_vmem_gather_kernel)
 //   bloom_add_kernel<S, true>        <- bank_add_vmem (_bank_add_vmem_kernel,
 //                            _bank_add_vmem_gather_kernel)
+//   bloom_add_partitioned_kernel<S>  <- add_partitioned
+//                            (_add_partitioned_kernel)
 //
 // Design. A TPU core must either pin the filter in VMEM or stream blocks
 // through a DMA ring, and it has no atomics, so the Pallas kernels sort each
@@ -51,6 +53,25 @@
 // bank in L2 (contains DEPTH = 1) and one in DRAM (DEPTH = depth). Routed
 // traffic is often skewed: many keys on one member's words only contend in
 // the atomics, and OR stays order-free, so the words stay exact.
+//
+// Partitioned add (bloom_add_partitioned_kernel<S>). The keys arrive
+// bucketed by the filter segment their block falls in: (n_segments,
+// capacity) slots with a valid mask, segment i owning words
+// [i * seg_words, (i + 1) * seg_words). Each TPU grid step owns one
+// segment, which makes its read-modify-writes exclusive. On Hopper the
+// same ownership keeps the atomics out of global memory: where a segment
+// fits a CTA's shared memory (seg_words * 4 bytes within the opt-in limit,
+// 227 KB on the H100), one CTA per segment stages the segment in shared
+// memory, ORs its keys' masks in with shared atomicOr at (block * S) mod
+// seg_words (as the TPU kernel does, so a key placed in a foreign segment
+// lands where it lands there) and writes the segment back: the filter is
+// read and written once, in 128-bit transfers. A larger segment runs one
+// thread per slot over all segments with global atomicOr at the same
+// word, which gives the same words (OR is order-free). Which of the two
+// runs is the caller's choice (shared = 1 or 0), a schedule and not a
+// result. Invalid slots are skipped. Bound: DRAM bytes (the filter twice,
+// the slots' keys and valid bytes) on the shared path; L2 atomics on the
+// global one.
 //
 // Salts (3 x 96 u32: bit salts, bbf word salts, csbf group salts) arrive as
 // a device pointer and are staged in shared memory once per CTA. The
@@ -193,6 +214,111 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int j = 0; j < S; ++j)
     if (m[j]) atomicOr(row + j, m[j]);
+}
+
+constexpr int kPartThreads = 512;
+
+template <int S>
+__global__ void __launch_bounds__(kPartThreads)
+    bloom_add_partitioned_kernel(const uint2* __restrict__ keys,
+                                 const uint8_t* __restrict__ valid,
+                                 uint32_t* words,
+                                 const uint32_t* __restrict__ salts,
+                                 int64_t n_slots, int64_t capacity,
+                                 uint32_t seg_words, uint32_t block_mask,
+                                 int variant, int k, int z, int log2g,
+                                 int shared) {
+  __shared__ uint32_t smem[3 * kMaxSalts];
+  extern __shared__ uint4 seg_smem[];
+  stage_salts(smem, salts);
+  if (shared) {
+    uint32_t* seg = reinterpret_cast<uint32_t*>(seg_smem);
+    uint32_t* own = words + uint64_t(blockIdx.x) * seg_words;
+    copy_words(seg, own, seg_words);
+    __syncthreads();
+    const int64_t first = int64_t(blockIdx.x) * capacity;
+    for (int64_t i = threadIdx.x; i < capacity; i += blockDim.x) {
+      if (valid[first + i] == 0) continue;
+      uint32_t h_pat, h_blk;
+      hash_key(keys[first + i], h_pat, h_blk);
+      uint32_t m[S];
+      build_mask<S>(m, h_pat, smem, smem + kMaxSalts, smem + 2 * kMaxSalts,
+                    variant, k, z, log2g);
+      uint32_t* row = seg + ((h_blk & block_mask) * uint32_t(S)) % seg_words;
+#pragma unroll
+      for (int j = 0; j < S; ++j)
+        if (m[j]) atomicOr(row + j, m[j]);
+    }
+    __syncthreads();
+    copy_words(own, seg, seg_words);
+    return;
+  }
+  const int64_t i = int64_t(blockIdx.x) * kPartThreads + threadIdx.x;
+  if (i >= n_slots || valid[i] == 0) return;
+  uint32_t h_pat, h_blk;
+  hash_key(keys[i], h_pat, h_blk);
+  uint32_t m[S];
+  build_mask<S>(m, h_pat, smem, smem + kMaxSalts, smem + 2 * kMaxSalts,
+                variant, k, z, log2g);
+  uint32_t* row = words + uint64_t(i / capacity) * seg_words +
+                  ((h_blk & block_mask) * uint32_t(S)) % seg_words;
+#pragma unroll
+  for (int j = 0; j < S; ++j)
+    if (m[j]) atomicOr(row + j, m[j]);
+}
+
+struct PartitionedArgs {
+  const uint2* keys;
+  const uint8_t* valid;
+  uint32_t* words;
+  const uint32_t* salts;
+  int64_t n_segments, capacity;
+  uint32_t seg_words, block_mask;
+  int variant, k, z, log2g, shared;
+};
+
+template <int S>
+int launch_partitioned(const PartitionedArgs& a, cudaStream_t stream) {
+  const int64_t n_slots = a.n_segments * a.capacity;
+  if (a.shared) {
+    const size_t bytes = size_t(a.seg_words) * sizeof(uint32_t);
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (a.seg_words % S || int64_t(bytes) > partition_smem_bytes(dev))
+      return -1;
+    cudaFuncSetAttribute(bloom_add_partitioned_kernel<S>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         int(bytes));
+    bloom_add_partitioned_kernel<S>
+        <<<unsigned(a.n_segments), kPartThreads, bytes, stream>>>(
+            a.keys, a.valid, a.words, a.salts, n_slots, a.capacity,
+            a.seg_words, a.block_mask, a.variant, a.k, a.z, a.log2g, 1);
+  } else {
+    const unsigned grid =
+        unsigned((n_slots + kPartThreads - 1) / kPartThreads);
+    bloom_add_partitioned_kernel<S><<<grid, kPartThreads, 0, stream>>>(
+        a.keys, a.valid, a.words, a.salts, n_slots, a.capacity, a.seg_words,
+        a.block_mask, a.variant, a.k, a.z, a.log2g, 0);
+  }
+  return int(cudaGetLastError());
+}
+
+int partitioned_entry(int s, const PartitionedArgs& a, cudaStream_t st) {
+  switch (s) {
+    case 1:
+      return launch_partitioned<1>(a, st);
+    case 2:
+      return launch_partitioned<2>(a, st);
+    case 4:
+      return launch_partitioned<4>(a, st);
+    case 8:
+      return launch_partitioned<8>(a, st);
+    case 16:
+      return launch_partitioned<16>(a, st);
+    case 32:
+      return launch_partitioned<32>(a, st);
+  }
+  return -1;
 }
 
 template <int S, int PHI, int DEPTH, bool BANK>
@@ -352,5 +478,27 @@ int bloom_bank_add(const void* keys, const void* member, const void* valid,
                   block_mask, variant, k, z, log2g};
   return add_entry<true>(s, a, static_cast<cudaStream_t>(stream));
 }
+
+// Partitioned add. keys: (n_segments, capacity, 2) int32, 8-byte aligned;
+// valid: (n_segments, capacity) uint8; words: (n_segments * seg_words,)
+// int32, 16-byte aligned; shared: 1 stages each segment in shared memory
+// (seg_words * 4 <= bloom_partition_smem()), 0 runs global atomics.
+int bloom_add_partitioned(const void* keys, const void* valid, void* words,
+                          const void* salts, long long n_segments,
+                          long long capacity, unsigned seg_words,
+                          unsigned block_mask, int s, int variant, int k,
+                          int z, int log2g, int shared, void* stream) {
+  if (n_segments <= 0 || capacity <= 0) return 0;
+  const PartitionedArgs a{static_cast<const uint2*>(keys),
+                          static_cast<const uint8_t*>(valid),
+                          static_cast<uint32_t*>(words),
+                          static_cast<const uint32_t*>(salts), n_segments,
+                          capacity, seg_words, block_mask, variant, k, z,
+                          log2g, shared};
+  return partitioned_entry(s, a, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory (bytes) a partitioned CTA may take on `device`.
+int bloom_partition_smem(int device) { return partition_smem_bytes(device); }
 
 }  // extern "C"

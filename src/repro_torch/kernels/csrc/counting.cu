@@ -2,7 +2,7 @@
 // 4-bit counters (saturating increment, guarded decrement), membership on
 // counter occupancy, and the decay pass, for the countingbf variant.
 //
-// Replaces seven Pallas entry points of repro/kernels/countingbf.py:
+// Replaces eight Pallas entry points of repro/kernels/countingbf.py:
 //   counting_update_kernel   <- update_vmem (_update_vmem_kernel,
 //                               _update_vmem_gather_kernel,
 //                               _update_vmem_coop_kernel) and update_hbm
@@ -18,6 +18,8 @@
 //                               _bank_update_vmem_gather_kernel)
 //   counting_contains_kernel<.., true> <- bank_contains_vmem
 //                               (_bank_contains_vmem_gather_kernel)
+//   counting_update_partitioned_kernel<S, OP> <- update_partitioned
+//                               (_update_partitioned_kernel)
 //
 // Layout. Logical bit i of the sbf-placed mask owns nibble i of the flat
 // counter array: logical word j of a block is counter words 4j..4j+3 (one
@@ -65,6 +67,17 @@
 //   under skewed member mixes too. The bank contains uses PHI = 4 and
 //   DEPTH keys a thread, as contains_hbm does. The whole bank decays with
 //   one counting_decay_kernel launch over its flat words.
+//
+// * counting_update_partitioned_kernel<S, OP>: the keys arrive bucketed by
+//   counter segment, (n_segments, capacity) slots with a valid mask,
+//   segment i owning counter words [i * seg_cwords, (i + 1) * seg_cwords).
+//   Where a segment fits a CTA's shared memory, one CTA per segment stages
+//   it there, runs the same order-free sat_inc_word / guard_dec_word CAS
+//   loops on shared words at (block * 4S) mod seg_cwords (the TPU kernel's
+//   offset) and writes it back: no global atomics, the counters read and
+//   written once. A larger segment runs one thread per slot with the CAS
+//   loops on global words, which gives the same counters. The caller picks
+//   the path (shared = 1 or 0). Invalid slots are skipped.
 //
 // C interface for ctypes: each entry point returns cudaGetLastError() after
 // its launch (or -1 for a shape that has no instantiation). The wrappers
@@ -185,6 +198,79 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Apply one key's counter update to the row at `row` (4S counter words),
+// one CAS loop per nonzero mask byte.
+template <int S, int OP>
+__device__ __forceinline__ void update_row(uint32_t* row,
+                                           const uint32_t (&m)[S]) {
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+#pragma unroll 1
+    for (int c = 0; c < 4; ++c) {
+      const uint32_t byte = (m[j] >> (8 * c)) & 0xFFu;
+      if (byte == 0u) continue;
+      const uint32_t inc = spread_byte(byte);
+      uint32_t* p = row + 4 * j + c;
+      uint32_t cur = *reinterpret_cast<volatile uint32_t*>(p);
+      while (true) {
+        const uint32_t next =
+            OP == kAdd ? sat_inc_word(cur, inc) : guard_dec_word(cur, inc);
+        if (next == cur) break;
+        const uint32_t seen = atomicCAS(p, cur, next);
+        if (seen == cur) break;
+        cur = seen;
+      }
+    }
+  }
+}
+
+constexpr int kPartThreads = 512;
+
+template <int S, int OP>
+__global__ void __launch_bounds__(kPartThreads)
+    counting_update_partitioned_kernel(const uint2* __restrict__ keys,
+                                       const uint8_t* __restrict__ valid,
+                                       uint32_t* counters,
+                                       const uint32_t* __restrict__ salts,
+                                       int64_t n_slots, int64_t capacity,
+                                       uint32_t seg_cwords,
+                                       uint32_t block_mask, int k,
+                                       int shared) {
+  __shared__ uint32_t smem[3 * kMaxSalts];
+  extern __shared__ uint4 seg_smem[];
+  stage_salts(smem, salts);
+  if (shared) {
+    uint32_t* seg = reinterpret_cast<uint32_t*>(seg_smem);
+    uint32_t* own = counters + uint64_t(blockIdx.x) * seg_cwords;
+    copy_words(seg, own, seg_cwords);
+    __syncthreads();
+    const int64_t first = int64_t(blockIdx.x) * capacity;
+    for (int64_t i = threadIdx.x; i < capacity; i += blockDim.x) {
+      if (valid[first + i] == 0) continue;
+      uint32_t h_pat, h_blk;
+      hash_key(keys[first + i], h_pat, h_blk);
+      uint32_t m[S];
+      build_mask<S>(m, h_pat, smem, smem + kMaxSalts, smem + 2 * kMaxSalts,
+                    kSbf, k, 1, 0);
+      update_row<S, OP>(
+          seg + ((h_blk & block_mask) * uint32_t(4 * S)) % seg_cwords, m);
+    }
+    __syncthreads();
+    copy_words(own, seg, seg_cwords);
+    return;
+  }
+  const int64_t i = int64_t(blockIdx.x) * kPartThreads + threadIdx.x;
+  if (i >= n_slots || valid[i] == 0) return;
+  uint32_t h_pat, h_blk;
+  hash_key(keys[i], h_pat, h_blk);
+  uint32_t m[S];
+  build_mask<S>(m, h_pat, smem, smem + kMaxSalts, smem + 2 * kMaxSalts, kSbf,
+                k, 1, 0);
+  update_row<S, OP>(counters + uint64_t(i / capacity) * seg_cwords +
+                        ((h_blk & block_mask) * uint32_t(4 * S)) % seg_cwords,
+                    m);
+}
+
 template <int S, int PHI, int DEPTH, bool BANK>
 __global__ void __launch_bounds__(kThreads)
     counting_contains_kernel(const uint2* __restrict__ keys,
@@ -296,6 +382,63 @@ int update_entry(int s, const UpdateArgs& a, cudaStream_t st) {
       return launch_update<16, BANK>(a, st);
     case 32:
       return launch_update<32, BANK>(a, st);
+  }
+  return -1;
+}
+
+struct PartitionedArgs {
+  const uint2* keys;
+  const uint8_t* valid;
+  uint32_t* counters;
+  const uint32_t* salts;
+  int64_t n_segments, capacity;
+  uint32_t seg_cwords, block_mask;
+  int k, op, shared;
+};
+
+template <int S, int OP>
+int launch_partitioned(const PartitionedArgs& a, cudaStream_t stream) {
+  const int64_t n_slots = a.n_segments * a.capacity;
+  if (a.shared) {
+    const size_t bytes = size_t(a.seg_cwords) * sizeof(uint32_t);
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (a.seg_cwords % (4 * S) || int64_t(bytes) > partition_smem_bytes(dev))
+      return -1;
+    cudaFuncSetAttribute(counting_update_partitioned_kernel<S, OP>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         int(bytes));
+    counting_update_partitioned_kernel<S, OP>
+        <<<unsigned(a.n_segments), kPartThreads, bytes, stream>>>(
+            a.keys, a.valid, a.counters, a.salts, n_slots, a.capacity,
+            a.seg_cwords, a.block_mask, a.k, 1);
+  } else {
+    const unsigned grid =
+        unsigned((n_slots + kPartThreads - 1) / kPartThreads);
+    counting_update_partitioned_kernel<S, OP>
+        <<<grid, kPartThreads, 0, stream>>>(a.keys, a.valid, a.counters,
+                                           a.salts, n_slots, a.capacity,
+                                           a.seg_cwords, a.block_mask, a.k,
+                                           0);
+  }
+  return int(cudaGetLastError());
+}
+
+template <int OP>
+int partitioned_op(int s, const PartitionedArgs& a, cudaStream_t st) {
+  switch (s) {
+    case 1:
+      return launch_partitioned<1, OP>(a, st);
+    case 2:
+      return launch_partitioned<2, OP>(a, st);
+    case 4:
+      return launch_partitioned<4, OP>(a, st);
+    case 8:
+      return launch_partitioned<8, OP>(a, st);
+    case 16:
+      return launch_partitioned<16, OP>(a, st);
+    case 32:
+      return launch_partitioned<32, OP>(a, st);
   }
   return -1;
 }
@@ -433,6 +576,29 @@ int counting_bank_contains(const void* keys, const void* member,
                        block_mask, k};
   return contains_entry<true>(s, phi, depth, a,
                               static_cast<cudaStream_t>(stream));
+}
+
+// Partitioned update. keys: (n_segments, capacity, 2) int32, 8-byte
+// aligned; valid: (n_segments, capacity) uint8; counters:
+// (n_segments * seg_cwords,) int32, 16-byte aligned; op: 0 add, 1 remove;
+// shared: 1 stages each segment in shared memory (seg_cwords * 4 <=
+// bloom_partition_smem(), the same budget), 0 runs global CAS loops.
+int counting_update_partitioned(const void* keys, const void* valid,
+                                void* counters, const void* salts,
+                                long long n_segments, long long capacity,
+                                unsigned seg_cwords, unsigned block_mask,
+                                int s, int k, int op, int shared,
+                                void* stream) {
+  if (n_segments <= 0 || capacity <= 0) return 0;
+  const PartitionedArgs a{static_cast<const uint2*>(keys),
+                          static_cast<const uint8_t*>(valid),
+                          static_cast<uint32_t*>(counters),
+                          static_cast<const uint32_t*>(salts), n_segments,
+                          capacity, seg_cwords, block_mask, k, op, shared};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (op == kAdd) return partitioned_op<kAdd>(s, a, st);
+  if (op == kRemove) return partitioned_op<kRemove>(s, a, st);
+  return -1;
 }
 
 // counters: (n_words,) int32, 16-byte aligned; updated in place.

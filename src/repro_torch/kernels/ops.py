@@ -34,19 +34,41 @@ Counterpart of ``repro.kernels.ops.bloom_contains`` / ``bloom_add``,
   tail themselves;
 * ``bloom_add``/``counting_*(..., inplace=False)`` clone the words first,
   as JAX's immutable arrays behave; ``inplace=True`` is the counterpart of
-  the JAX package's buffer donation and updates ``filt`` itself.
+  the JAX package's buffer donation and updates ``filt`` itself;
+* ``bloom_add_partitioned`` / ``counting_update_partitioned`` bucket the
+  keys by the filter segment that owns their block (``partition="jit"``:
+  on the keys' device, doubling the capacity until nothing overflows
+  unless the caller pins it, in which case the dropped keys take a
+  residual pass through the atomic kernels; ``"host"``: the exact numpy
+  partition) and run the partitioned kernels, one CTA a segment;
+* the ``*_jit`` entry points are the JAX package's cached-jit layer as
+  thin calls: PyTorch runs eagerly, so there is no executable to cache.
+  ``jit_cache_info`` counts the configurations and batch shapes seen, as
+  the JAX cache counts its executables (an LRU of 256); ``donate=True``
+  (JAX's buffer donation) updates the passed tensor in place,
+  ``donate=False`` leaves it untouched;
+* ``cuckoo_*`` dispatch the cuckoo filter's kernels, which take any batch
+  length (no padding). The JAX package runs its cuckoo kernels only on a
+  table that fits VMEM and sends a larger one to jnp; here one kernel pair
+  serves every size. The update's tile is ``_cuckoo_tile``, the JAX
+  dispatch's, so the order of the inserts, and with it the table, is the
+  JAX package's; a small batch's tile also sizes the kernel's sort.
 """
 from __future__ import annotations
 
-from typing import Optional
+from collections import OrderedDict
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import not_ported
+from repro_torch.core import fingerprint as F
+from repro_torch.core import partition as P
 from repro_torch.core.variants import BLOCKED, FilterSpec
 from repro_torch.kernels import cbf as cbf_k
 from repro_torch.kernels import countingbf as cnt_k
+from repro_torch.kernels import cuckoofilter as ckoo_k
 from repro_torch.kernels import ring as ring_k
 from repro_torch.kernels import sbf as sbf_k
 from repro_torch.kernels.sbf import (COOPS, DEFAULT_DMA_DEPTH, DEFAULT_TILE,
@@ -131,9 +153,12 @@ def _check_spec(spec: FilterSpec) -> None:
     if spec.is_counting:
         raise ValueError("countingbf specs go through counting_add/"
                          "counting_remove/counting_contains")
-    if spec.is_fingerprint:
+    if spec.is_quotient:
         raise not_ported(f"bloom_add/bloom_contains for {spec.variant}",
-                         "queue 1 items 9-10")
+                         "queue 1 item 10")
+    if spec.is_fingerprint:
+        raise ValueError("cuckoo specs go through cuckoo_add/cuckoo_remove/"
+                         "cuckoo_contains")
 
 
 def bloom_contains(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
@@ -450,3 +475,250 @@ def counting_bank_contains(spec: FilterSpec, bank: torch.Tensor,
         d = DEFAULT_DMA_DEPTH if depth is None else depth
     out = cnt_k.bank_contains_vmem(spec, bank, keys, member, depth=d)
     return out[:n]
+
+
+# ---------------------------------------------------------------------------
+# Partitioned ownership path: keys bucketed by filter segment, one CTA a
+# segment
+# ---------------------------------------------------------------------------
+
+def _default_capacity(n: int, n_segments: int) -> int:
+    """4 x the mean keys a segment (about overflow-free for uniform
+    hashes), 8-aligned."""
+    cap = max(4 * n // n_segments, 8)
+    return (cap + 7) & ~7
+
+
+def _partition_device(spec: FilterSpec, keys: torch.Tensor, n_segments: int,
+                      capacity: Optional[int]) -> P.JitPartition:
+    """``partition_jit``, doubling the capacity until no key overflows when
+    the caller pins none (bounded: a capacity of n cannot overflow). A
+    pinned capacity is kept; the caller handles the overflow."""
+    n = keys.shape[0]
+    cap = capacity or _default_capacity(n, n_segments)
+    part = P.partition_jit(spec, keys, n_segments, cap)
+    if capacity is not None:
+        return part
+    while int(part.overflow) > 0:
+        cap = min(2 * cap, (n + 7) & ~7)
+        part = P.partition_jit(spec, keys, n_segments, cap)
+    return part
+
+
+def _residual_or(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+                 keep: torch.Tensor) -> torch.Tensor:
+    """OR the keys the partition dropped (``~keep``) into ``filt`` in place,
+    through ``bloom_add``: exact whatever the capacity."""
+    return bloom_add(spec, filt, keys[~keep], inplace=True)
+
+
+def _residual_counting(spec: FilterSpec, filt: torch.Tensor,
+                       keys: torch.Tensor, keep: torch.Tensor,
+                       op: str) -> torch.Tensor:
+    """Update the dropped keys' counters in place, valid-masked so that the
+    pass touches only them (counter updates are not idempotent)."""
+    return _counting_update(spec, filt, keys, op, None, "auto",
+                            DEFAULT_TILE, (~keep).to(torch.uint8), "auto",
+                            "auto", "auto", True)
+
+
+def _check_partition(partition: str) -> None:
+    if partition not in ("jit", "host"):
+        raise ValueError(f"partition={partition!r} not in ('jit', 'host')")
+
+
+def bloom_add_partitioned(spec: FilterSpec, filt: torch.Tensor,
+                          keys: torch.Tensor, n_segments: int = 8,
+                          capacity: Optional[int] = None,
+                          partition: str = "jit", inplace: bool = False
+                          ) -> torch.Tensor:
+    """OR ``keys`` in through the partitioned kernel: the keys are bucketed
+    by segment (``partition="jit"`` on their device, ``"host"`` exactly in
+    numpy), then each CTA owns one segment. A pinned ``capacity`` that
+    overflows sends the dropped keys through ``bloom_add``; no key is
+    lost."""
+    _check_spec(spec)
+    if spec.variant == "cbf":
+        raise ValueError("the classical filter has no block locality to "
+                         "partition by")
+    _check_partition(partition)
+    out = filt if inplace else filt.clone()
+    if keys.shape[0] == 0:
+        return out
+    if partition == "host":
+        by_seg, valid, _ = P.partition_host(spec, keys, n_segments)
+        return sbf_k.add_partitioned(spec, out, by_seg.to(out.device),
+                                     valid.to(out.device), n_segments)
+    part = _partition_device(spec, keys, n_segments, capacity)
+    sbf_k.add_partitioned(spec, out, part.keys_by_seg, part.valid,
+                          n_segments)
+    if int(part.overflow) == 0:
+        return out
+    return _residual_or(spec, out, keys, part.keep)
+
+
+def counting_update_partitioned(spec: FilterSpec, filt: torch.Tensor,
+                                keys: torch.Tensor, op: str = "add",
+                                n_segments: int = 8,
+                                capacity: Optional[int] = None,
+                                partition: str = "jit",
+                                inplace: bool = False) -> torch.Tensor:
+    """Counter increment (``op="add"``) or guarded decrement through the
+    partitioned kernel, with the partition and overflow contract of
+    :func:`bloom_add_partitioned` (the residual pass is valid-masked)."""
+    _check_counting(spec)
+    _check_partition(partition)
+    out = filt if inplace else filt.clone()
+    if keys.shape[0] == 0:
+        return out
+    if partition == "host":
+        by_seg, valid, _ = P.partition_host(spec, keys, n_segments)
+        return cnt_k.update_partitioned(spec, out, by_seg.to(out.device),
+                                        valid.to(out.device), n_segments, op)
+    part = _partition_device(spec, keys, n_segments, capacity)
+    cnt_k.update_partitioned(spec, out, part.keys_by_seg, part.valid,
+                             n_segments, op)
+    if int(part.overflow) == 0:
+        return out
+    return _residual_counting(spec, out, keys, part.keep, op)
+
+
+# ---------------------------------------------------------------------------
+# Cached dispatch layer (the JAX package's cached-jit entry points)
+# ---------------------------------------------------------------------------
+
+_JIT_KEYS: "OrderedDict" = OrderedDict()
+_JIT_KEYS_MAX = 256      # the JAX cache's LRU bound
+
+
+def jit_cache_info() -> Tuple[int, ...]:
+    """(number of distinct dispatch configurations seen,), counted as the
+    JAX package counts its cached executables."""
+    return (len(_JIT_KEYS),)
+
+
+def jit_cache_clear() -> None:
+    _JIT_KEYS.clear()
+
+
+def _seen(key) -> None:
+    _JIT_KEYS[key] = None
+    _JIT_KEYS.move_to_end(key)
+    if len(_JIT_KEYS) > _JIT_KEYS_MAX:
+        _JIT_KEYS.popitem(last=False)
+
+
+def _resolved(spec: FilterSpec, regime: str, probe: str, coop: str,
+              mix: str) -> dict:
+    """The dispatch of one configuration, its "auto" axes resolved."""
+    return {"regime": _regime(spec, regime),
+            "probe": _resolve(probe, PROBES, AUTO_PROBE, "probe"),
+            "coop": _resolve(coop, COOPS, AUTO_COOP, "coop"),
+            "mix": _resolve(mix, MIXES, AUTO_MIX, "mix")}
+
+
+def bloom_add_jit(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+                  *, layout: Optional[Layout] = None, regime: str = "auto",
+                  tile: int = DEFAULT_TILE, probe: str = "auto",
+                  coop: str = "auto", mix: str = "auto",
+                  donate: bool = True) -> torch.Tensor:
+    """Bulk add. ``donate=True`` updates ``filt`` itself and returns it
+    (JAX donates the buffer); ``donate=False`` leaves it untouched."""
+    _seen(("bloom_add", spec, layout, regime, tile, probe, coop, mix,
+           tuple(keys.shape), str(keys.dtype), bool(donate)))
+    return bloom_add(spec, filt, keys, layout=layout, tile=tile,
+                     inplace=donate,
+                     **_resolved(spec, regime, probe, coop, mix))
+
+
+def bloom_contains_jit(spec: FilterSpec, filt: torch.Tensor,
+                       keys: torch.Tensor, *, layout: Optional[Layout] = None,
+                       regime: str = "auto", tile: int = DEFAULT_TILE,
+                       probe: str = "auto", depth: Optional[int] = None,
+                       coop: str = "auto", mix: str = "auto") -> torch.Tensor:
+    """Bulk membership (read-only: nothing to donate)."""
+    _seen(("bloom_contains", spec, layout, regime, tile, probe, depth, coop,
+           mix, tuple(keys.shape), str(keys.dtype)))
+    return bloom_contains(spec, filt, keys, layout=layout, tile=tile,
+                          depth=depth,
+                          **_resolved(spec, regime, probe, coop, mix))
+
+
+def counting_update_jit(spec: FilterSpec, filt: torch.Tensor,
+                        keys: torch.Tensor, op: str = "add", *,
+                        layout: Optional[Layout] = None, regime: str = "auto",
+                        tile: int = DEFAULT_TILE, probe: str = "auto",
+                        coop: str = "auto", mix: str = "auto",
+                        donate: bool = True) -> torch.Tensor:
+    """Counter increment/decrement; ``donate`` as in
+    :func:`bloom_add_jit`."""
+    _check_counting(spec)
+    _seen(("counting_update", spec, op, layout, regime, tile, probe, coop,
+           mix, tuple(keys.shape), str(keys.dtype), bool(donate)))
+    fn = counting_add if op == "add" else counting_remove
+    return fn(spec, filt, keys, layout=layout, tile=tile, inplace=donate,
+              **_resolved(spec, regime, probe, coop, mix))
+
+
+# ---------------------------------------------------------------------------
+# Cuckoo fingerprint dispatch (valid-masked padding on the plain path)
+# ---------------------------------------------------------------------------
+
+def cuckoo_kernel_supported(spec: FilterSpec) -> bool:
+    """Cuckoo specs the CUDA cuckoo kernels serve."""
+    return ckoo_k.kernel_supported(spec)
+
+
+def _check_cuckoo(spec: FilterSpec) -> None:
+    if spec.variant != "cuckoo":
+        raise ValueError(f"{spec} is not a cuckoo spec")
+
+
+def cuckoo_contains(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+                    tile: Optional[int] = DEFAULT_TILE,
+                    coop: str = "auto") -> torch.Tensor:
+    """(n,) bool two-bucket membership, one launch for the batch. ``tile``
+    is the JAX signature's; the kernel takes a thread a key."""
+    _check_cuckoo(spec)
+    if keys.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.bool, device=keys.device)
+    return ckoo_k.contains_vmem(spec, filt, keys,
+                                coop=_resolve(coop, COOPS, AUTO_COOP, "coop"))
+
+
+def _cuckoo_tile(n: int, tile: Optional[int]) -> int:
+    """The bulk update's tile, as ``fingerprint.cuckoo_add`` chunks the
+    unpadded batch: a batch of at most T keys is one tile (padded up to a
+    power of two, at least 8), a larger one tiles of T."""
+    T = tile or F.CUCKOO_ADD_TILE
+    if n <= T:
+        return max(8, 1 << int(np.ceil(np.log2(max(n, 1)))))
+    return T
+
+
+def _cuckoo_update(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+                   op: str, valid: Optional[torch.Tensor],
+                   tile: Optional[int], inplace: bool):
+    _check_cuckoo(spec)
+    out = filt if inplace else filt.clone()
+    n = keys.shape[0]
+    if n == 0:
+        return out, torch.zeros((0,), dtype=torch.bool, device=keys.device)
+    fn = ckoo_k.add_vmem if op == "add" else ckoo_k.remove_vmem
+    return fn(spec, out, keys, valid, tile=_cuckoo_tile(n, tile))
+
+
+def cuckoo_add(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+               valid: Optional[torch.Tensor] = None,
+               tile: Optional[int] = None, inplace: bool = False):
+    """Ordered bulk insert: (table, ok); ``ok[i]`` False is key i's
+    bounded-kick failure (the API accumulates it in
+    ``Filter.insert_failures``)."""
+    return _cuckoo_update(spec, filt, keys, "add", valid, tile, inplace)
+
+
+def cuckoo_remove(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None,
+                  tile: Optional[int] = None, inplace: bool = False):
+    """Ordered bulk delete, one slot a key: (table, found)."""
+    return _cuckoo_update(spec, filt, keys, "remove", valid, tile, inplace)

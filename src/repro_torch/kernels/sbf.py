@@ -18,7 +18,16 @@ bank_contains_vmem bank_contains_vmem            bloom_contains_kernel, bank
                                                  form; DEPTH=depth (1: PHI=
                                                  min(phi, 4), else min(s, 4))
 bank_add_vmem      bank_add_vmem                 bloom_add_kernel, bank form
+add_partitioned    add_partitioned               bloom_add_partitioned_kernel
 ================== ============================= ===========================
+
+``add_partitioned`` takes keys already bucketed by the segment that owns
+their block, ``(n_segments, capacity, 2)`` with a ``(n_segments,
+capacity)`` valid mask (``core.partition``), and ORs each valid slot into
+its segment at ``start mod seg_words``. Where a segment fits a CTA's shared
+memory (:func:`partition_smem_bytes`) the kernel stages each segment there,
+one CTA a segment, and uses no global atomics; a larger segment runs global
+atomics. The two paths give the same words.
 
 The bank wrappers take a ``(B, n_words)`` bank, flat keys and ``member``
 ``(n,)`` int32 ids in ``[0, B)`` (checked: a ``ValueError`` otherwise, so
@@ -64,13 +73,16 @@ MIXES = ("full", "cheap")
 DMA_DEPTHS = (1, 2, 4, 8)
 DEFAULT_DMA_DEPTH = 2
 MAX_WORDS_IN_FLIGHT = 64        # block words a contains thread holds
+BLOCKED_VARIANTS = ("sbf", "bbf", "rbbf", "csbf")
 
 # Kernel launches per wrapper (a launch adds one; the plain path adds none).
 LAUNCHES = {"contains_vmem": 0, "add_vmem": 0, "contains_hbm": 0,
-            "add_hbm": 0, "bank_contains_vmem": 0, "bank_add_vmem": 0}
+            "add_hbm": 0, "bank_contains_vmem": 0, "bank_add_vmem": 0,
+            "add_partitioned": 0}
 
 _VARIANT_CODE = {"sbf": 0, "bbf": 1, "rbbf": 1, "csbf": 2}
 _salts_on: dict = {}
+_smem_on: dict = {}
 
 
 def reset_launches() -> None:
@@ -155,6 +167,14 @@ def bank_add_plain(spec: FilterSpec, bank: torch.Tensor, keys: torch.Tensor,
     """Plain version of ``bank_add_vmem``: new (B, n_words) int32 words
     (``bank`` is not modified)."""
     return V.bank_add_rows(spec, bank, keys, member, valid)
+
+
+def add_partitioned_plain(spec: FilterSpec, filt: torch.Tensor,
+                          keys_by_seg: torch.Tensor, valid: torch.Tensor
+                          ) -> torch.Tensor:
+    """Plain version of ``add_partitioned``: new (n_words,) int32 words
+    (``filt`` is not modified)."""
+    return V.partitioned_add(spec, filt, keys_by_seg, valid)
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +268,63 @@ def _launch_add(name: str, spec, filt, keys) -> torch.Tensor:
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return filt
+
+
+def partition_smem_bytes(device: torch.device) -> int:
+    """Shared memory (bytes) a partitioned-update CTA may give its segment
+    on a CUDA ``device``: the card's opt-in limit less the staged salts."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _smem_on:
+        from repro_torch.kernels._build import library
+        budget = library().bloom_partition_smem(index)
+        if budget < 0:
+            raise RuntimeError(f"cannot read the shared-memory limit of "
+                               f"{device}")
+        _smem_on[index] = budget
+    return _smem_on[index]
+
+
+def check_partitioned(filt: torch.Tensor, keys_by_seg: torch.Tensor,
+                      valid: torch.Tensor, n_segments: int, width: int
+                      ) -> bool:
+    """Validate a partitioned call's tensors (shared by the counting
+    wrapper, whose words are ``width = storage_words``): words ``(width,)``
+    int32 with ``width % n_segments == 0``, keys ``(n_segments, capacity,
+    2)`` int32 and valid ``(n_segments, capacity)`` uint8/bool, on one
+    device. True for CUDA tensors, False for CPU tensors; raises
+    ``ValueError`` otherwise."""
+    if n_segments < 1 or width % n_segments:
+        raise ValueError(f"n_segments={n_segments} must divide the "
+                         f"{width} words")
+    if (keys_by_seg.ndim != 3 or keys_by_seg.shape[0] != n_segments
+            or keys_by_seg.shape[2] != 2):
+        raise ValueError(f"keys_by_seg must be ({n_segments}, capacity, 2), "
+                         f"got {tuple(keys_by_seg.shape)}")
+    if filt.numel() != width:
+        raise ValueError(f"filter has {filt.numel()} words, spec {width}")
+    on_cuda = _on_cuda(filt, keys_by_seg[0])
+    if valid.shape != keys_by_seg.shape[:2]:
+        raise ValueError(f"valid must be {tuple(keys_by_seg.shape[:2])}, "
+                         f"got {tuple(valid.shape)}")
+    if valid.device != keys_by_seg.device:
+        raise ValueError(f"valid on {valid.device}, keys on "
+                         f"{keys_by_seg.device}")
+    if valid.dtype not in (torch.uint8, torch.bool):
+        raise ValueError(f"valid must be uint8 or bool, got {valid.dtype}")
+    if on_cuda and not (keys_by_seg.is_contiguous() and filt.is_contiguous()
+                        and keys_by_seg.data_ptr() % 8 == 0
+                        and filt.data_ptr() % 16 == 0):
+        raise ValueError("keys must be contiguous and 8-byte aligned, words "
+                         "contiguous and 16-byte aligned")
+    return on_cuda
+
+
+def segment_fits(seg_words: int, device) -> bool:
+    """Whether a partitioned launch stages its segments of ``seg_words``
+    words in shared memory (else it runs global atomics)."""
+    return seg_words * 4 <= partition_smem_bytes(device)
 
 
 def _depth_in_flight(spec: FilterSpec, depth: int) -> int:
@@ -377,6 +454,39 @@ def add_hbm(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
     if not _on_cuda(filt, keys):
         return filt.copy_(add_plain(spec, filt, keys))
     return _launch_add("add_hbm", spec, filt, keys)
+
+
+def add_partitioned(spec: FilterSpec, filt: torch.Tensor,
+                    keys_by_seg: torch.Tensor, valid: torch.Tensor,
+                    n_segments: int, mix: str = "full") -> torch.Tensor:
+    """OR the valid slots of ``keys_by_seg`` (n_segments, capacity, 2), each
+    into the segment that owns it, one launch (segments in shared memory
+    where they fit). Updates ``filt`` in place."""
+    _check_axes(mix=mix)
+    if spec.variant not in BLOCKED_VARIANTS:
+        raise ValueError(f"add_partitioned serves the blocked variants, not "
+                         f"{spec}")
+    if not check_partitioned(filt, keys_by_seg, valid, n_segments,
+                             spec.n_words):
+        return filt.copy_(add_partitioned_plain(spec, filt, keys_by_seg,
+                                                valid))
+    from repro_torch.kernels._build import library
+    block_mask, s, variant, k, z, log2g = _geometry(spec, filt,
+                                                    keys_by_seg[0])
+    seg_words = spec.n_words // n_segments
+    sh = segment_fits(seg_words, filt.device)
+    valid = valid.contiguous().view(torch.uint8)
+    lib = library()
+    with torch.cuda.device(filt.device):
+        stream = torch.cuda.current_stream(filt.device).cuda_stream
+        err = lib.bloom_add_partitioned(
+            keys_by_seg.data_ptr(), valid.data_ptr(), filt.data_ptr(),
+            _salts(filt.device).data_ptr(), n_segments,
+            keys_by_seg.shape[1], seg_words, block_mask, s, variant, k, z,
+            log2g, int(sh), stream)
+    _raise_on(err, "add_partitioned")
+    LAUNCHES["add_partitioned"] += 1
+    return filt
 
 
 def bank_contains_vmem(spec: FilterSpec, bank: torch.Tensor,

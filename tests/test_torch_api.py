@@ -148,8 +148,11 @@ def test_unported_operations_name_the_roadmap_item():
         with pytest.raises(ValueError, match="need a bank"):
             call()
     assert api.filter_for_n_items(100, bank=4, device="cpu").bank_shape == (4,)
+    # the cuckoo filter is ported; the quotient filter names its item
+    assert api.filter_for_n_items(100, variant="cuckoo",
+                                  device="cpu").backend == "cuckoo"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.filter_for_n_items(100, variant="cuckoo", device="cpu")
+        api.filter_for_n_items(100, variant="quotient", device="cpu")
 
 
 def test_engine_selection_by_device():
@@ -183,8 +186,8 @@ def test_engine_selection_by_device():
         for name in ("torch", "cuda-l2", "cuda-dram"):
             with pytest.raises(ValueError):
                 registry.select(counting, name, ctx)
-    assert api.backends() == ("counting", "cuda-dram", "cuda-l2", "torch",
-                              "windowed")
+    assert api.backends() == ("counting", "cuckoo", "cuda-dram", "cuda-l2",
+                              "torch", "windowed")
     assert {d["name"] for d in api.describe_backends()} == set(api.backends())
     assert api.get_backend("torch").name == "torch"
 
@@ -207,8 +210,16 @@ def test_as_keys_accepts_every_key_form():
 def test_from_state_rejects_state_of_unported_engines():
     f = api.make_filter("sbf", m_bits=M, k=8, device="cpu")
     state = interop.to_jax_state(f)
+    # engine state is ported (the cuckoo engine's failure count); a bit
+    # engine has none and ignores it, as the JAX package does, and a
+    # quotient state names its ROADMAP item
+    assert api.Filter.from_state({**state, "engine_state": 0},
+                                 device="cpu").state is None
+    qspec = dict(state["spec"], variant="quotient", k=1, slot_bits=8,
+                 r_bits=4, block_bits=32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.Filter.from_state({**state, "engine_state": 0}, device="cpu")
+        api.Filter.from_state({**state, "spec": qspec, "backend": "quotient",
+                               "engine_state": 0}, device="cpu")
     # a bank state is ported: its words must carry the bank dims
     with pytest.raises(ValueError):
         api.Filter.from_state({**state, "bank_shape": [2]}, device="cpu")
@@ -242,7 +253,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.ops, repro_torch.kernels.countingbf, "
             "repro_torch.kernels.cbf, repro_torch.kernels.ring, "
             "repro_torch.kernels._build, repro_torch.interop, "
-            "repro_torch.core.partition, "
+            "repro_torch.core.partition, repro_torch.core.fingerprint, "
+            "repro_torch.kernels.cuckoofilter, "
             "repro_torch.window, repro_torch.window.ring; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); assert not bad, bad")
@@ -255,7 +267,8 @@ def test_port_imports_neither_jax_nor_repro():
     names = {p.relative_to(ROOT / "src").as_posix() for p in sources}
     assert {"repro_torch/window/ring.py", "repro_torch/window/__init__.py",
             "repro_torch/kernels/cbf.py", "repro_torch/kernels/ring.py",
-            "repro_torch/core/partition.py"} <= names
+            "repro_torch/core/partition.py", "repro_torch/core/fingerprint.py",
+            "repro_torch/kernels/cuckoofilter.py"} <= names
     sources.append(ROOT / "chip_smoke.py")
     assert len(sources) > 10
     for path in sources:

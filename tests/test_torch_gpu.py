@@ -7,9 +7,12 @@ machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Comparisons are exact (tolerance 0): words as u32 bits, results as bool.
-The bank cases at the end hold the four bank kernels against their plain
-versions for B in 1/7/64, uniform and skewed member mixes, both regimes'
-depths and valid-masked, ragged batches.
+The bank cases hold the four bank kernels against their plain versions
+for B in 1/7/64, uniform and skewed member mixes, both regimes' depths and
+valid-masked, ragged batches. The last cases hold the partitioned kernels
+(both paths: segments staged in shared memory, and global atomics) and the
+cuckoo kernels (u8/u16 slots, 2 to 16 slots a bucket, multi-tile,
+masked, duplicate and over-full batches) against theirs.
 """
 import numpy as np
 import pytest
@@ -20,7 +23,10 @@ from repro_torch.core import hashing as H
 from repro_torch.core import variants as V
 from repro_torch.kernels import cbf
 from repro_torch.kernels import countingbf as cnt
+from repro_torch.kernels import cuckoofilter as ckoo
 from repro_torch.kernels import ops, ring, sbf
+from repro_torch.core import fingerprint as F
+from repro_torch.core import partition as P
 
 M = 1 << 16
 
@@ -129,7 +135,8 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     sbf.contains_plain(spec, filt, keys)          # the plain path counts none
     assert sbf.LAUNCHES == {"contains_vmem": 1, "add_vmem": 1,
                             "contains_hbm": 1, "add_hbm": 1,
-                            "bank_contains_vmem": 0, "bank_add_vmem": 0}
+                            "bank_contains_vmem": 0, "bank_add_vmem": 0,
+                            "add_partitioned": 0}
 
 
 @pytest.mark.gpu
@@ -261,7 +268,8 @@ def test_counting_launch_counters_and_filter_path(cuda):
     d = h.decay(2)
     assert cnt.LAUNCHES == {"update_vmem": 3, "contains_vmem": 1,
                             "update_hbm": 0, "contains_hbm": 0, "decay": 2,
-                            "bank_update_vmem": 0, "bank_contains_vmem": 0}
+                            "bank_update_vmem": 0, "bank_contains_vmem": 0,
+                            "update_partitioned": 0}
     want = cnt.update_plain(f.spec, V.init(f.spec, cuda), keys, None, "add")
     want = cnt.update_plain(f.spec, want, keys[:1000], None, "add")
     want = cnt.update_plain(f.spec, want, keys[:25000], None, "remove")
@@ -589,3 +597,208 @@ def test_bank_wrappers_refuse_bad_tensors(cuda):
     with pytest.raises(ValueError, match="valid"):
         cnt.bank_update_vmem(cspec, cbank, keys, member, valid.cpu(), "add")
     assert not bank.any() and not cbank.any()
+
+
+# ---------------------------------------------------------------------------
+# Partitioned updates and the cuckoo filter
+# ---------------------------------------------------------------------------
+
+PSPECS = [V.FilterSpec("sbf", 1 << 20, 8, block_bits=256),
+          V.FilterSpec("csbf", 1 << 20, 8, block_bits=512, z=2),
+          V.FilterSpec("rbbf", 1 << 20, 4),
+          V.FilterSpec("bbf", 1 << 20, 8, block_bits=256)]
+
+
+def _global_atomics(monkeypatch):
+    """Send the partitioned kernels down their global-atomic path: no
+    segment fits a shared-memory budget of 0."""
+    monkeypatch.setattr(sbf, "partition_smem_bytes", lambda device: 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", PSPECS, ids=str)
+@pytest.mark.parametrize("n_segments", [1, 8, 64])
+def test_partitioned_add_kernel_matches_plain(cuda, spec, n_segments,
+                                              monkeypatch):
+    keys = _keys(30001, n_segments, cuda)
+    want = _u32(sbf.add_plain(spec, V.init(spec, cuda), keys))
+    assert sbf.segment_fits(spec.n_words // n_segments, cuda)
+    for path in ("shared", "global"):
+        if path == "global":
+            _global_atomics(monkeypatch)
+        part = P.partition_jit(spec, keys, n_segments, 64)
+        plain = sbf.add_partitioned_plain(spec, V.init(spec, cuda),
+                                          part.keys_by_seg, part.valid)
+        got = sbf.add_partitioned(spec, V.init(spec, cuda),
+                                  part.keys_by_seg, part.valid, n_segments)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(_u32(got), _u32(plain))
+        for cap in (None, 64):
+            got = ops.bloom_add_partitioned(spec, V.init(spec, cuda), keys,
+                                            n_segments=n_segments,
+                                            capacity=cap)
+            np.testing.assert_array_equal(_u32(got), want)
+        got = ops.bloom_add_partitioned(spec, V.init(spec, cuda), keys,
+                                        n_segments=n_segments,
+                                        partition="host")
+        np.testing.assert_array_equal(_u32(got), want)
+        # a batch in one segment: the default capacity escalates
+        skew = keys[P.segment_ids(spec, keys, n_segments) == 0]
+        got = ops.bloom_add_partitioned(spec, V.init(spec, cuda), skew,
+                                        n_segments=n_segments)
+        np.testing.assert_array_equal(
+            _u32(got), _u32(sbf.add_plain(spec, V.init(spec, cuda), skew)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", CSPECS, ids=str)
+@pytest.mark.parametrize("n_segments", [1, 8, 64])
+def test_partitioned_counting_kernel_matches_plain(cuda, spec, n_segments,
+                                                   monkeypatch):
+    big = V.FilterSpec("countingbf", 1 << 20, spec.k,
+                       block_bits=spec.block_bits)
+    batch = _multiset(20000, n_segments, cuda)
+    gone = torch.cat([batch[: batch.shape[0] // 2], _probes(100, 3, cuda)])
+    want = cnt.update_plain(big, V.init(big, cuda), batch, None, "add")
+    want_rm = cnt.update_plain(big, want, gone, None, "remove")
+    # 512 KiB of counters: one segment does not fit, 8 and 64 do
+    assert sbf.segment_fits(big.storage_words // n_segments,
+                            cuda) == (n_segments > 1)
+    for path in ("auto", "global"):
+        if path == "global":
+            _global_atomics(monkeypatch)
+        for cap in (None, 64):
+            got = ops.counting_update_partitioned(
+                big, V.init(big, cuda), batch, "add", n_segments=n_segments,
+                capacity=cap)
+            np.testing.assert_array_equal(_u32(got), _u32(want))
+            got = ops.counting_update_partitioned(
+                big, got, gone, "remove", n_segments=n_segments,
+                capacity=cap)
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(_u32(got), _u32(want_rm))
+
+
+@pytest.mark.gpu
+def test_partitioned_launch_counts_and_refusals(cuda):
+    spec = PSPECS[0]
+    keys = _keys(5000, 1, cuda)
+    sbf.reset_launches()
+    ops.bloom_add_partitioned(spec, V.init(spec, cuda), keys, capacity=8)
+    assert sbf.LAUNCHES["add_partitioned"] == 1
+    assert sbf.LAUNCHES["add_vmem"] == 1          # the residual pass
+    part = P.partition_jit(spec, keys, 8, 2048)
+    with pytest.raises(ValueError, match="divide"):
+        sbf.add_partitioned(spec, V.init(spec, cuda), part.keys_by_seg,
+                            part.valid, 7)
+    big = V.FilterSpec("sbf", 1 << 24, 8)           # one 2 MiB segment
+    assert not sbf.segment_fits(big.n_words, cuda)
+    assert sbf.segment_fits(big.n_words // 16, cuda)
+    with pytest.raises(ValueError, match="valid"):
+        sbf.add_partitioned(spec, V.init(spec, cuda), part.keys_by_seg,
+                            part.valid.cpu(), 8)
+
+
+KSPECS = [V.FilterSpec("cuckoo", nb * spb * sb, 2, slot_bits=sb,
+                       slots_per_bucket=spb)
+          for sb, spb, nb in ((8, 4, 1 << 12), (16, 4, 1 << 12),
+                              (16, 2, 1 << 13), (8, 8, 1 << 11),
+                              (16, 8, 1 << 10), (16, 16, 1 << 9),
+                              (8, 16, 1 << 9), (8, 4, 1))]
+
+
+def _cuckoo_batch(spec, load, seed, device):
+    """Keys to fill ``load`` of the slots, a few duplicated, and a valid
+    mask with about a quarter zeros."""
+    n = max(int(spec.n_slots * load), 1)
+    keys = _keys(n, seed, device)
+    keys = torch.cat([keys, keys[: n // 20]])
+    return keys, _valid_mask(keys.shape[0], seed, device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", KSPECS, ids=str)
+@pytest.mark.parametrize("load", [0.5, 1.3])
+def test_cuckoo_kernels_match_plain(cuda, spec, load):
+    keys, valid = _cuckoo_batch(spec, load, int(load * 10), cuda)
+    for vmask, tile in ((None, 256), (valid, 256), (valid, None)):
+        t = tile or F.CUCKOO_ADD_TILE
+        want, ok = ckoo.update_plain(spec, F.init(spec, cuda), keys, vmask,
+                                     "add", t)
+        got, got_ok = ckoo.add_vmem(spec, F.init(spec, cuda), keys, vmask,
+                                    tile=t)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(_u32(got), _u32(want))
+        np.testing.assert_array_equal(got_ok.cpu().numpy(), ok.cpu().numpy())
+        if load > 1 and vmask is None:
+            assert not bool(ok.all())                 # kicks ran out
+        queries = torch.cat([keys, _probes(4000, 5, cuda)])
+        hit = ckoo.contains_plain(spec, want, queries).cpu().numpy()
+        for coop in ("none", "subtile"):
+            np.testing.assert_array_equal(
+                ckoo.contains_vmem(spec, want, queries, coop=coop)
+                .cpu().numpy(), hit)
+        gone = torch.cat([keys[: keys.shape[0] // 2], _probes(50, 6, cuda)])
+        want_rm, found = ckoo.update_plain(spec, want, gone, None, "remove",
+                                           t)
+        got_rm, got_found = ckoo.remove_vmem(spec, got, gone, None, tile=t)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(_u32(got_rm), _u32(want_rm))
+        np.testing.assert_array_equal(got_found.cpu().numpy(),
+                                      found.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 7, 2048, 2049, 5000])
+def test_cuckoo_ops_tiles_match_plain(cuda, n):
+    spec = KSPECS[1]
+    keys = _keys(n, n, cuda)
+    for tile in (None, 256, 1000):
+        eff = ops._cuckoo_tile(max(n, 1), tile)
+        want, ok = ckoo.update_plain(spec, F.init(spec, cuda), keys, None,
+                                     "add", eff)
+        got, got_ok = ops.cuckoo_add(spec, F.init(spec, cuda), keys,
+                                     tile=tile)
+        np.testing.assert_array_equal(_u32(got), _u32(want))
+        np.testing.assert_array_equal(got_ok.cpu().numpy(), ok.cpu().numpy())
+        np.testing.assert_array_equal(
+            ops.cuckoo_contains(spec, got, keys).cpu().numpy(),
+            ckoo.contains_plain(spec, want, keys).cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_cuckoo_filter_path_and_launches(cuda):
+    import repro_torch.api as api
+    f = api.filter_for_n_items(20000, variant="cuckoo", bits_per_key=16)
+    assert f.backend == "cuckoo" and f.device.type == "cuda"
+    keys = _keys(20000, 2, cuda)
+    ckoo.reset_launches()
+    g = f.add(keys)
+    assert int(g.insert_failures) == 0 and bool(g.contains(keys).all())
+    h = g.remove(keys[:5000])
+    assert bool(h.contains(keys[5000:]).all())
+    assert ckoo.LAUNCHES == {"contains_vmem": 2, "add_vmem": 1,
+                             "remove_vmem": 1}
+    want, _ = ckoo.update_plain(f.spec, F.init(f.spec, cuda), keys, None,
+                                "add")
+    want, _ = ckoo.update_plain(f.spec, want, keys[:5000], None, "remove")
+    np.testing.assert_array_equal(_u32(h.words), _u32(want))
+    with pytest.raises(ValueError, match="jnp"):
+        api.make_filter("cuckoo", m_bits=1 << 16, k=2, impl="jnp").add(keys)
+
+
+@pytest.mark.gpu
+def test_cuckoo_wrappers_refuse_bad_tensors(cuda):
+    spec = KSPECS[0]
+    table = F.init(spec, cuda)
+    keys = _keys(64, 0, cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        ckoo.contains_vmem(spec, table, keys.reshape(-1)[1:-1].reshape(-1, 2))
+    with pytest.raises(ValueError, match="tile"):
+        ckoo.add_vmem(spec, table, keys, None, tile=ckoo.MAX_TILE + 1)
+    with pytest.raises(ValueError, match="valid"):
+        ckoo.add_vmem(spec, table, keys, _valid_mask(64, 0, cuda).cpu())
+    wide = V.FilterSpec("cuckoo", 1 << 16, 2, slot_bits=8,
+                        slots_per_bucket=32)
+    with pytest.raises(ValueError, match="serve"):
+        ckoo.contains_vmem(wide, F.init(wide, cuda), keys)

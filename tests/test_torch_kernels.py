@@ -230,8 +230,11 @@ def test_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError, match="unsupported device"):
         sbf.add_vmem(ts, words.to("meta"), keys.to("meta"), sbf.Layout())
     cuckoo = TV.FilterSpec("cuckoo", M, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="cuckoo_add"):
         ops.bloom_add(cuckoo, TV.init(cuckoo), keys)
+    quotient = TV.FilterSpec("quotient", M, 1, slot_bits=8, r_bits=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.bloom_add(quotient, TV.init(quotient), keys)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -260,9 +263,10 @@ def test_library_names_hash_every_source_file(monkeypatch, tmp_path):
         assert after[name].name.startswith(f"{name}-")
     # every bound entry point is declared in its source with as many
     # parameters as it has argument types
-    assert {"cbf_contains", "cbf_add", "ring_contains"} <= set(
-        _build.ENTRY_POINTS)
-    assert {"cbf", "ring"} <= set(_build.SOURCES)
+    assert {"cbf_contains", "cbf_add", "ring_contains", "cuckoo_contains",
+            "cuckoo_update", "bloom_add_partitioned",
+            "counting_update_partitioned"} <= set(_build.ENTRY_POINTS)
+    assert {"cbf", "ring", "cuckoo"} <= set(_build.SOURCES)
     for symbol, (source, argtypes) in _build.ENTRY_POINTS.items():
         assert source in _build.SOURCES
         text = (tmp_path / f"{source}.cu").read_text()
