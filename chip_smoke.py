@@ -8,8 +8,8 @@ the script exits non-zero without printing a result:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the count;
 2. build: compile every source of ``src/repro_torch/kernels/csrc/``
-   (``bloom.cu``, ``counting.cu``, ``cbf.cu``, ``ring.cu``, ``cuckoo.cu``;
-   one nvcc each, in parallel) and time it;
+   (``bloom.cu``, ``counting.cu``, ``cbf.cu``, ``ring.cu``, ``cuckoo.cu``,
+   ``quotient.cu``; one nvcc each, in parallel) and time it;
 3. every blocked-filter kernel wrapper against its plain PyTorch version on
    the card, at m = 2^20 bits and 65537 keys, for six blocked specs and
    every value of the schedule axes; words and results must be equal bit
@@ -43,6 +43,14 @@ the script exits non-zero without printing a result:
    u16 x 4 slots, 2^12 buckets, batches at 0.9 and 1.2 of the slots (kick
    failures) with duplicates, valid masks and 256-key tiles: words, flags
    and contains equal to the plain version's;
+3f. the quotient kernels for u8, u16 and u32 lanes over six (r, q)
+   geometries: batches at 0.5, 0.9 and 1.3 of the slots (past capacity)
+   with duplicates, with and without a valid mask, a second batch into the
+   filled table, removes of half, of repeats and of absent keys, clusters
+   that wrap past the last slot, tiles 256 / 2048 / the whole batch and
+   both coop values: words, ok/found flags and contains equal to the plain
+   version's; and merge and resize (the plain decode and layout on the
+   card) equal to the update kernels' builds;
 4. the blocked main path, ``repro_torch.api.filter_for_n_items(...)`` then
    ``Filter.add`` / ``Filter.contains``, at an L2-resident size (2^23 keys,
    2^27 bits) and a DRAM-resident size (2^28 keys, 2^32 bits): no false
@@ -93,6 +101,16 @@ the script exits non-zero without printing a result:
    update's words and flags equal to the plain version's on 2^18 keys into
    the empty full-size table and from the load-0.9 table (2^16 inserts,
    2^18 removes); the updates timed one call each;
+4f. the quotient cells, ``filter_for_n_items(n, variant="quotient")`` at n
+   = 2^22 (q23 + r5, u8, an 8 MiB table in L2) and 2^25 (q26 + r5, 64 MiB,
+   the largest table the 31-bit fingerprint allows; batches of 2^24 keys):
+   add to load 0.5, then to load 0.9, contains of every key and of 2^22
+   probes, remove half, contains of the rest, merge of two half-stream
+   tables (equal to the whole stream's), resize one step up and back (equal
+   to the plain layout and the original), and a shrink that would overflow
+   refused; every update's words and flags and every contains equal to the
+   plain version's in full, no false negative, occupied slots equal to the
+   successful inserts, each kernel launched on the main path;
 5. times with CUDA events (warm-up, then 5 rounds of 20 calls; an update is
    timed on state restored before each call, outside the events) at the
    main path's size and, against the plain version, on 2^22 keys into an
@@ -103,6 +121,12 @@ the script exits non-zero without printing a result:
 The last line is ``{"ok": true, "device": {...}}``. Needs one CUDA card; the
 script exits non-zero where there is none, or where the repository's
 ``src/`` is missing beside it.
+
+    python3 chip_smoke.py --profile
+
+instead prints the device time by kernel (``torch.profiler``) of one
+quotient update and contains at the DRAM-side cell's shapes, and no
+result.
 """
 from __future__ import annotations
 
@@ -124,9 +148,11 @@ from repro_torch.core import hashing as H  # noqa: E402
 from repro_torch.core import variants as V  # noqa: E402
 from repro_torch.core import fingerprint as F  # noqa: E402
 from repro_torch.core import partition as P  # noqa: E402
+from repro_torch.core import quotient as Q  # noqa: E402
 from repro_torch.kernels import _build, cbf, ops, ring, sbf  # noqa: E402
 from repro_torch.kernels import countingbf as cnt  # noqa: E402
 from repro_torch.kernels import cuckoofilter as ckoo  # noqa: E402
+from repro_torch.kernels import quotientfilter as qf  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 OPS_PER_S = 67e12              # non-tensor peak (fp32 rate, the guide's table)
@@ -2456,6 +2482,513 @@ def phase_cuckoo_main(errs: dict, records: dict, launches: dict, card: str):
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------------------
+# The quotient filter (phases 3f, 4f and their times)
+# ---------------------------------------------------------------------------
+
+QUOTIENT_SOURCE = "src/repro_torch/kernels/csrc/quotient.cu"
+QUOTIENT_REPLACES = {
+    "quotient_contains": "src/repro/kernels/quotientfilter.py:51",
+    "quotient_update": "src/repro/kernels/quotientfilter.py:90"}
+# (slot_bits, r_bits, q_bits) of phase 3f
+PHASE3F_QUOTIENT = ((8, 5, 12), (8, 2, 11), (16, 9, 11), (16, 13, 10),
+                    (32, 20, 10), (32, 27, 4))
+
+
+def quotient_spec(slot_bits: int, r_bits: int, q_bits: int) -> V.FilterSpec:
+    return V.FilterSpec("quotient", (1 << q_bits) * slot_bits, 1,
+                        slot_bits=slot_bits, r_bits=r_bits)
+
+
+def quotient_wrapping(spec: V.FilterSpec, n: int, seed: int) -> torch.Tensor:
+    """n keys homed in the top eighth of the slots: their clusters run past
+    the last slot into slot 0."""
+    cand = gen_keys(spec.n_slots * 32, seed)
+    q = Q.split_fp(spec, Q.quotient_hashes(spec, cand))[0]
+    return cand[q >= spec.n_slots * 7 // 8][:n].contiguous()
+
+
+def quotient_check(spec, table, keys, valid, gone, probes, errs) -> tuple:
+    """The update kernels (tiles 256, 2048 and the whole batch) and the
+    contains kernel (both coop values) against their plain versions from
+    ``table``: words and flags bit for bit. Returns (the added table, ok,
+    kernel runs)."""
+    runs = 0
+    for tile in (256, 2048, None):
+        want, ok = qf.update_plain(spec, table, keys, valid, "add", tile)
+        got, got_ok = qf.add_vmem(spec, table.clone(), keys, valid,
+                                  tile=tile)
+        errs["quotient_update"] = max(errs["quotient_update"],
+                                      max_err(got, want), max_err(got_ok, ok))
+        runs += 1
+    queries = torch.cat([keys, probes])
+    hit = qf.contains_plain(spec, want, queries)
+    for coop in ("none", "subtile"):
+        errs["quotient_contains"] = max(
+            errs["quotient_contains"],
+            max_err(ops.quotient_contains(spec, want, queries, coop=coop),
+                    hit))
+        runs += 1
+    for mode in qf.CONTAINS_MODES:             # every path, whatever n
+        errs["quotient_contains"] = max(
+            errs["quotient_contains"],
+            max_err(qf._launch_contains(spec, want, queries, mode), hit))
+        runs += 1
+    want_rm, found = qf.update_plain(spec, want, gone, None, "remove")
+    got_rm, got_found = qf.remove_vmem(spec, want.clone(), gone, None)
+    errs["quotient_update"] = max(errs["quotient_update"],
+                                  max_err(got_rm, want_rm),
+                                  max_err(got_found, found))
+    return want, ok, runs + 1
+
+
+def phase_quotient_kernels(errs: dict):
+    """Phase 3f: u8/u16/u32 lanes over several remainder widths; loads 0.5,
+    0.9 and 1.3 (past capacity) with 5 % duplicates (some three times), with
+    and without a valid mask, then a second batch into the filled table;
+    removes of half the batch, of repeats and of absent keys; clusters that
+    wrap past the last slot; tiles 256, 2048 and the whole batch; both coop
+    values and both contains paths (the cluster walk and the table pass):
+    words, flags and results against the plain versions. Then the merge
+    and resize wrappers against their plain versions and the update
+    kernels' own build."""
+    for i, geom in enumerate(PHASE3F_QUOTIENT):
+        spec = quotient_spec(*geom)
+        runs, refused = 0, 0
+        probes = gen_keys(4000, 750 + i, probe=True)
+        for load in (0.5, 0.9, 1.3):
+            n = max(int(spec.n_slots * load), 1)
+            keys = gen_keys(n, 760 + i)
+            keys = torch.cat([keys, keys[: n // 20], keys[:3]])
+            gone = torch.cat([keys[: keys.shape[0] // 2], keys[:30],
+                              keys[:30], gen_keys(50, 770 + i, probe=True)])
+            for vmask in (None, valid_mask(keys.shape[0], 780 + i)):
+                table, ok, r = quotient_check(spec, Q.init(spec, "cuda"),
+                                              keys, vmask, gone, probes, errs)
+                runs += r
+                if load > 1 and vmask is None:
+                    refused += int((~ok).sum())
+                    if int(Q.occupied_slots(spec, table)) != spec.n_slots - 1:
+                        raise AssertionError(f"{spec}: not full past "
+                                             f"capacity")
+            more = gen_keys(max(spec.n_slots // 4, 1), 790 + i)
+            runs += quotient_check(spec, table, more, None,
+                                   more[::2].contiguous(), probes, errs)[2]
+        wrapped = ""
+        if spec.n_slots >= 1 << 10:
+            keys = quotient_wrapping(spec, spec.n_slots // 4, 800 + i)
+            table, _, r = quotient_check(spec, Q.init(spec, "cuda"), keys,
+                                         None, keys[::3].contiguous(),
+                                         probes, errs)
+            runs += r
+            if not int(Q.unpack_slots(spec, table)[0]) >> (
+                    spec.slot_bits - 3) & 1:
+                raise AssertionError(f"{spec}: no cluster wraps")
+            wrapped = ", a wrapping cluster"
+        torch.cuda.synchronize()
+        print(f"quotient: {spec}: {runs} kernel runs equal to the plain "
+              f"version (loads 0.5/0.9/1.3 with duplicates, masks, a second "
+              f"batch, removes of absent keys{wrapped}; tiles 256/2048/"
+              f"whole; both coop values; {refused} inserts refused past "
+              f"capacity, matched flag for flag)")
+    # merge and resize on the card against their plain versions and the
+    # tables the update kernels build
+    for geom in ((8, 5, 14), (16, 9, 12), (32, 20, 11)):
+        spec = quotient_spec(*geom)
+        keys = gen_keys(int(spec.n_slots * 0.85), 810)
+        half = keys.shape[0] // 2
+        build = functools.partial(ops.quotient_add, spec,
+                                  Q.init(spec, "cuda"))
+        a, b, both = (build(keys[:half])[0], build(keys[half:])[0],
+                      build(keys)[0])
+        merged = qf.merge_vmem(spec, a, b)
+        max_err(merged, qf.merge_plain(spec, a, b))
+        max_err(merged, both)
+        grown_spec = Q.spec_for_resize(spec, 2 * spec.m_bits)
+        grown = qf.resize_vmem(spec, both, grown_spec)
+        max_err(grown, qf.resize_plain(spec, both, grown_spec))
+        max_err(grown, ops.quotient_add(grown_spec,
+                                        Q.init(grown_spec, "cuda"),
+                                        keys)[0])
+        max_err(qf.resize_vmem(grown_spec, grown, spec), both)
+        torch.cuda.synchronize()
+        print(f"quotient: {spec}: merge of two half tables equal to the "
+              f"plain merge and to the kernels' build of the whole stream, "
+              f"resize to {grown_spec} equal to the plain resize and the "
+              f"kernels' build there, and back")
+
+
+def quotient_walk_sectors(spec, table, keys) -> int:
+    """32-byte sectors the contains kernel's cluster walks read for
+    ``keys``: one for a key whose home slot is unoccupied, else those of the
+    slots from its cluster's start to the slot after its run."""
+    n, sps = spec.n_slots, 256 // spec.slot_bits
+    lanes = Q.unpack_slots(spec, table)
+    occ, cont, shifted, in_use, _ = Q._fields(spec, lanes)
+    anchor = Q._first(~in_use)
+    rot = functools.partial(Q._rotated, anchor)
+    occ_r, cont_r, shifted_r, in_use_r = (rot(occ), rot(cont), rot(shifted),
+                                          rot(in_use))
+    idx = torch.arange(n, device=table.device)
+    start = torch.cummax(torch.where(~shifted_r, idx, -1), 0).values
+    runs_upto = torch.cumsum((in_use_r & ~cont_r).to(torch.int64), 0)
+    occ_upto = torch.cumsum(occ_r.to(torch.int64), 0)
+    boundary = torch.where(~cont_r, idx, n).flip(0)
+    next_boundary = torch.cummin(boundary, 0).values.flip(0)
+    total = 0
+    for chunk in keys.split(SUBSET):
+        q = Q.split_fp(spec, Q.quotient_hashes(spec, chunk))[0]
+        home = occ[q]
+        rq = (q - anchor - 1) % n
+        run = torch.searchsorted(runs_upto, occ_upto[rq])
+        end = next_boundary[(run + 1).clamp(max=n - 1)]
+        first = (start[rq] + anchor + 1) % n
+        length = end.clamp(max=n - 1) - start[rq] + 1
+        sectors = (first + length - 1) // sps - first // sps + 1
+        total += int(torch.where(home, sectors, 1).sum())
+    return total
+
+
+def quotient_contains_bound_ms(spec, table, keys):
+    """Least time of a contains: 8 B of key and 1 B of result a key, and the
+    sectors its walk reads, at most the table once; 40 operations a key and
+    4 a slot walked (two at most a sector, counted per sector)."""
+    sectors = quotient_walk_sectors(spec, table, keys)
+    n = keys.shape[0]
+    nbytes = 9 * n + min(32 * sectors, spec.n_words * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (40 * n + 4 * sectors) / OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def quotient_update_bound_ms(spec, n: int):
+    """Least time of an update: 8 B of key, 1 B of valid and 1 B of flag a
+    key, the old table read once and the new one written once; 40
+    operations a key for the hash and 8 a slot for the decode and rebuild."""
+    nbytes = 10 * n + 2 * spec.n_words * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (40 * n + 8 * spec.n_slots) / OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def batches(keys: torch.Tensor, batch: int) -> list:
+    return list(keys.split(batch))
+
+
+def phase_quotient_main(label: str, n: int, batch: int, errs: dict,
+                        cells: dict, launches: dict, card: str):
+    """Phase 4f, one cell: ``filter_for_n_items(n, variant="quotient")``;
+    add to load 0.5, then to load 0.9, in batches of ``batch`` keys;
+    contains of every key and of 2^22 probes; remove half, contains of the
+    rest; merge of two tables of half the stream each; resize one step up,
+    back down, and a shrink that would overflow. Every update's words and
+    flags and every contains against the plain version in full, no false
+    negative, occupied slots = successful inserts, merge = the build of the
+    whole stream, the resizes = the plain layout at the other size."""
+    f = api.filter_for_n_items(n, variant="quotient", device="cuda")
+    spec = f.spec
+    if f.backend != "quotient" or spec.slot_bits != 8 or spec.r_bits != 5:
+        raise AssertionError(f"quotient {label} cell: {f}")
+    n1, n_all = spec.n_slots // 2, int(spec.n_slots * 0.9)
+    keys = gen_keys(n_all, 820 + spec.q_bits)
+    probes = gen_keys(SUBSET, 830, probe=True)
+    half = n_all // 2
+    chunks = batches(keys[:n1], batch) + batches(keys[n1:], batch)
+    extra = gen_keys(spec.n_slots - n_all + 4096, 840)
+    torch.cuda.synchronize()
+    qf.reset_launches()                    # the main path, counted
+    t0 = time.perf_counter()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
+    ev[0].record()
+    steps = [f]
+    for chunk in chunks:
+        steps.append(steps[-1].add(chunk))
+    g2 = steps[-1]
+    ev[1].record()
+    hits = g2.contains(keys)
+    ev[2].record()
+    false_pos = g2.contains(probes)
+    ev[3].record()
+    g3 = g2
+    for chunk in batches(keys[:half], batch):
+        g3 = g3.remove(chunk)
+    kept = g3.contains(keys[half:])
+    ev[4].record()
+    fa, fb = f, f
+    for chunk in batches(keys[:half], batch):
+        fa = fa.add(chunk)
+    for chunk in batches(keys[half:], batch):
+        fb = fb.add(chunk)
+    merged = fa.merge(fb)
+    ev[5].record()
+    grown = g2.resize(2 * spec.m_bits)
+    ev[6].record()
+    back = grown.resize(spec.m_bits)
+    ev[7].record()
+    over = grown
+    for chunk in batches(extra, batch):
+        over = over.add(chunk)
+    ev[8].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = dict(qf.LAUNCHES)
+    n_rm = len(batches(keys[:half], batch))
+    expected = {"contains_vmem": 3, "remove_vmem": n_rm,
+                "add_vmem": len(chunks) + n_rm + len(batches(keys[half:],
+                                                             batch))
+                + len(batches(extra, batch)), "merge_vmem": 1,
+                "resize_vmem": 2}
+    if counted != expected:
+        raise AssertionError(f"quotient {label} cell: launches {counted}, "
+                             f"expected {expected}")
+    launches["quotient_contains"] = (launches.get("quotient_contains", 0)
+                                     + counted["contains_vmem"])
+    # merge and resize launch the update kernels on decoded fingerprints
+    launches["quotient_update"] = (launches.get("quotient_update", 0)
+                                   + counted["add_vmem"]
+                                   + counted["remove_vmem"]
+                                   + counted["merge_vmem"]
+                                   + counted["resize_vmem"])
+    step_ms = {s: ev[i].elapsed_time(ev[i + 1]) for i, s in enumerate(
+        ("add to 0.9", "contains", "contains probes",
+         "remove half + contains rest", "two half builds + merge",
+         "resize up", "resize down", "add past the shrink capacity"))}
+    stored_over = int(Q.occupied_slots(grown.spec, over.words))
+    try:
+        over.resize(spec.m_bits)
+    except ValueError as err:
+        if "shrink" not in str(err):
+            raise
+    else:
+        raise AssertionError(f"quotient {label} cell: a shrink of "
+                             f"{stored_over} fingerprints was not refused")
+    # every update against the plain version, words and flags in full
+    e = errs["quotient_update"]
+    for before, after, chunk in zip(steps, steps[1:], chunks):
+        want, ok = qf.update_plain(spec, before.words, chunk, None, "add")
+        e = max(e, max_err(after.words, want))
+        if not bool(ok.all()):
+            raise AssertionError(f"quotient {label} cell: an insert was "
+                                 f"refused below capacity")
+    prev, found_all = g2.words, 0
+    for chunk in batches(keys[:half], batch):
+        prev, found = qf.update_plain(spec, prev, chunk, None, "remove")
+        found_all += int(found.sum())
+    e = max(e, max_err(g3.words, prev))
+    errs["quotient_update"] = e
+    occ1 = int(Q.occupied_slots(spec, steps[len(batches(keys[:n1],
+                                                        batch))].words))
+    occ2 = int(Q.occupied_slots(spec, g2.words))
+    occ3 = int(Q.occupied_slots(spec, g3.words))
+    if (occ1, occ2, occ3, found_all, int(g2.insert_failures)) != (
+            n1, n_all, n_all - half, half, 0):
+        raise AssertionError(f"quotient {label} cell: occupied {occ1}/{occ2}/"
+                             f"{occ3}, {found_all} of {half} removes found, "
+                             f"{int(g2.insert_failures)} inserts refused")
+    neg, neg_kept = int((~hits).sum()), int((~kept).sum())
+    if neg or neg_kept:
+        raise AssertionError(f"quotient {label} cell: {neg} / {neg_kept} "
+                             f"false negatives")
+    plain_contains = functools.partial(qf.contains_plain, spec)
+    c = errs["quotient_contains"]
+    c = max(c, max_err(hits, contains_in_chunks(plain_contains, g2.words,
+                                                keys)))
+    c = max(c, max_err(false_pos, plain_contains(g2.words, probes)))
+    c = max(c, max_err(kept, contains_in_chunks(plain_contains, g3.words,
+                                                keys[half:])))
+    errs["quotient_contains"] = c
+    # merge = the build of the whole stream and the plain merge; the resizes
+    # = the plain layout
+    max_err(merged.words, g2.words)
+    max_err(merged.words, qf.merge_plain(spec, fa.words, fb.words))
+    max_err(grown.words, qf.resize_plain(spec, g2.words, grown.spec))
+    max_err(back.words, g2.words)
+    load = occ2 / spec.n_slots
+    fpr = float(false_pos.to(torch.float64).mean().item())
+    theory = Q.fpr_quotient(spec.q_bits, spec.r_bits, load)
+    print(f"main quotient {label} [{card}]: {spec} on {g2.backend}, "
+          f"{f.nbytes / 2**20:.0f} MiB, batches of {batch}: add {n1} (load "
+          f"0.5) and {n_all - n1} more (load {load:.4f}), contains {n_all} + "
+          f"{SUBSET} probes, remove {half}, contains {n_all - half}, merge "
+          f"of two half-stream tables, resize to {grown.spec} and back, a "
+          f"shrink of {stored_over} fingerprints refused, in "
+          f"{wall * 1e3:.1f} ms host clock; occupied slots = successful "
+          f"inserts ({occ1}, {occ2}, {occ3}); no false negative; every "
+          f"update's words and flags and every contains equal to the plain "
+          f"version's in full; merge equal to the whole stream's table and "
+          f"the plain merge, resizes equal to the plain resize and back; FPR "
+          f"{fpr:.6f} at load {load:.4f}, {fpr / theory:.3f} x fpr_quotient "
+          f"{theory:.6f}; launches {counted}")
+    print(f"time quotient {label} main path [{card}] (Filter calls, CUDA "
+          f"events, one run): " + ", ".join(f"{s} {v:.4f} ms"
+                                            for s, v in step_ms.items()))
+    # times: the kernels on the main path's inputs (an update's table
+    # restored before each call), and against the plain version on 2^22 keys
+    sub = torch.cat([keys[: SUBSET // 2], probes[: SUBSET // 2]])
+    fresh = keys[:SUBSET]
+    scratch = f.words.clone()
+    first, last, gone = chunks[0], chunks[-1], batches(keys[:half], batch)[0]
+    last_in = steps[-2].words
+    t = {"add first": time_restored_ms(
+            lambda: qf.add_vmem(spec, scratch, first, None), scratch.zero_,
+            f"quotient {label} add first"),
+         "add last": time_restored_ms(
+            lambda: qf.add_vmem(spec, scratch, last, None),
+            lambda: scratch.copy_(last_in), f"quotient {label} add last"),
+         "remove": time_restored_ms(
+            lambda: qf.remove_vmem(spec, scratch, gone, None),
+            lambda: scratch.copy_(g2.words), f"quotient {label} remove"),
+         "add 2^22": time_restored_ms(
+            lambda: qf.add_vmem(spec, scratch, fresh, None), scratch.zero_,
+            f"quotient {label} add 2^22"),
+         "add 2^22 plain": time_ms(
+            lambda: qf.update_plain(spec, f.words, fresh, None, "add"),
+            f"quotient {label} add plain", PLAIN_REPS, PLAIN_ROUNDS),
+         "contains": time_ms(lambda: qf.contains_vmem(spec, g2.words, keys),
+                             f"quotient {label} contains"),
+         "Filter.contains": time_ms(lambda: g2.contains(keys),
+                                    f"quotient {label} Filter.contains"),
+         "contains sub": time_ms(lambda: qf.contains_vmem(spec, g2.words,
+                                                          sub),
+                                 f"quotient {label} contains sub"),
+         "contains plain": time_ms(lambda: qf.contains_plain(spec, g2.words,
+                                                             sub),
+                                   f"quotient {label} contains plain",
+                                   PLAIN_REPS, PLAIN_ROUNDS),
+         "merge": time_ms(lambda: qf.merge_vmem(spec, fa.words, fb.words),
+                          f"quotient {label} merge", 3, 3),
+         "merge plain": time_ms(lambda: qf.merge_plain(spec, fa.words,
+                                                       fb.words),
+                                f"quotient {label} merge plain", 1, 3),
+         "resize": time_ms(lambda: qf.resize_vmem(spec, g2.words,
+                                                  grown.spec),
+                           f"quotient {label} resize", 3, 3),
+         "resize plain": time_ms(lambda: qf.resize_plain(spec, g2.words,
+                                                         grown.spec),
+                                 f"quotient {label} resize plain", 1, 3)}
+    # the contains paths (and the card's choice) at load 0.9 on the full
+    # batch, 2^22 and 2^16 keys, and at load 0.45 after the remove
+    paths = {}
+    for load_q, words, qkeys in ((0.9, g2.words, (keys, sub,
+                                                  sub[: 1 << 16])),
+                                 (0.45, g3.words, (keys[half:], sub))):
+        for qk in qkeys:
+            for mode in qf.CONTAINS_MODES:
+                paths[(load_q, qk.shape[0], mode)] = time_ms(
+                    lambda qk=qk, mode=mode, words=words:
+                    qf._launch_contains(spec, words, qk, mode),
+                    f"quotient {label} contains {load_q} {qk.shape[0]} "
+                    f"{mode}")
+    b = {"add first": quotient_update_bound_ms(spec, first.shape[0]),
+         "add last": quotient_update_bound_ms(spec, last.shape[0]),
+         "remove": quotient_update_bound_ms(spec, gone.shape[0]),
+         "add 2^22": quotient_update_bound_ms(spec, SUBSET),
+         "contains": quotient_contains_bound_ms(spec, g2.words, keys),
+         "contains sub": quotient_contains_bound_ms(spec, g2.words, sub)}
+    print(f"time quotient {label} update [{card}]: kernel add first batch "
+          f"{t['add first']:.4f} ms ({first.shape[0]} keys into the empty "
+          f"table), add last batch {t['add last']:.4f} ms ({last.shape[0]} "
+          f"keys to load 0.9), remove {t['remove']:.4f} ms ({gone.shape[0]} "
+          f"keys from load 0.9); bounds " + ", ".join(
+              f"{k} {b[k][0]:.4f} ms ({b[k][0] / t[k]:.1%})"
+              for k in ("add first", "add last", "remove"))
+          + f"; {SUBSET} keys into the empty table: kernel "
+          f"{t['add 2^22']:.4f} ms ({SUBSET / t['add 2^22'] / 1e3:.1f} "
+          f"Mops/s), plain {t['add 2^22 plain']:.4f} ms, bound "
+          f"{b['add 2^22'][0]:.4f} ms ({b['add 2^22'][1]}); one launch a "
+          f"call")
+    print(f"time quotient {label} contains paths [{card}] (walk / pass / "
+          f"the card's choice): " + "; ".join(
+              f"load {lq} {n_q} keys " + " / ".join(
+                  f"{paths[(lq, n_q, m)]:.4f}" for m in qf.CONTAINS_MODES)
+              + " ms" for lq, n_q in dict.fromkeys(
+                  (lq, n_q) for lq, n_q, _ in paths))
+          + f"; the wrapper lets the card choose from "
+          f"{spec.n_slots // qf.PASS_SLOTS_PER_KEY} keys on, and walks "
+          f"below")
+    print(f"time quotient {label} merge and resize [{card}]: merge "
+          f"{t['merge']:.4f} ms (plain {t['merge plain']:.4f} ms), resize to "
+          f"{grown.spec} {t['resize']:.4f} ms (plain {t['resize plain']:.4f} "
+          f"ms)")
+    print(f"time quotient {label} contains [{card}]: kernel "
+          f"{t['contains']:.4f} ms at {n_all} keys, load 0.9 "
+          f"({n_all / t['contains'] / 1e3:.1f} Mops/s), bound "
+          f"{b['contains'][0]:.4f} ms ({b['contains'][0] / t['contains']:.1%}"
+          f"), Filter.contains {t['Filter.contains']:.4f} ms; at {SUBSET} "
+          f"keys (half probes) kernel {t['contains sub']:.4f} ms, plain "
+          f"{t['contains plain']:.4f} ms, bound {b['contains sub'][0]:.4f} "
+          f"ms ({b['contains sub'][1]})")
+    cells[label] = {"m_bits": spec.m_bits, "n_keys": n_all, "batch": batch,
+                    "ms": t, "bound_ms": {k: v[0] for k, v in b.items()},
+                    "bound_by": {k: v[1] for k, v in b.items()},
+                    "step_ms": step_ms, "fpr": fpr, "fpr_theory": theory,
+                    "contains_paths_ms": {f"load {lq} {n_q} {m}": ms
+                                          for (lq, n_q, m), ms in
+                                          paths.items()}}
+    del steps, g2, g3, fa, fb, merged, grown, back, over, scratch, keys
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def quotient_records(cells: dict, errs: dict, launches: dict) -> dict:
+    """The two kernel records of the kernels line: the 2^22-key columns of
+    the DRAM-side cell, each cell's numbers beside them."""
+    dram = cells["DRAM"]
+    out = {}
+    for name, ms in (("quotient_contains", "contains sub"),
+                     ("quotient_update", "add 2^22")):
+        out[name] = {
+            "name": name, "route": "cuda", "source": QUOTIENT_SOURCE,
+            "replaces": QUOTIENT_REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": dram["ms"][ms],
+            "plain_ms": dram["ms"][("contains plain" if ms == "contains sub"
+                                    else "add 2^22 plain")],
+            "bound_ms": dram["bound_ms"][ms],
+            "bound_by": dram["bound_by"][ms], "library_ms": None,
+            "n_keys": SUBSET, "m_bits": dram["m_bits"], "cells": cells}
+    return out
+
+
+def profile_quotient(card: str):
+    """``--profile``: device time by kernel (``torch.profiler``) of one
+    update and one contains of the DRAM-side quotient cell's shapes: a
+    2^24-key add and remove on a 2^26-slot table at load 0.5, and a table
+    pass and a cluster walk of 2^22 keys."""
+    spec = Q.spec_for_n(1 << 25)
+    keys = gen_keys(1 << 25, 850)
+    table = Q.init(spec, "cuda")
+    for chunk in batches(keys, 1 << 24):
+        ops.quotient_add(spec, table, chunk, inplace=True)
+    batch, probes = gen_keys(1 << 24, 851), keys[:SUBSET]
+    calls = {"add 2^24": lambda: qf.add_vmem(spec, table.clone(), batch,
+                                             None),
+             "remove 2^24": lambda: qf.remove_vmem(spec, table.clone(),
+                                                   keys[: 1 << 24], None),
+             "contains pass 2^22": lambda: qf._launch_contains(
+                 spec, table, probes, "pass"),
+             "contains walk 2^22": lambda: qf._launch_contains(
+                 spec, table, probes, "walk"),
+             "contains auto 2^22": lambda: qf._launch_contains(
+                 spec, table, probes, "auto")}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for label, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            call()
+            torch.cuda.synchronize()
+        rows = sorted(((getattr(e, "device_time_total", 0), e.count, e.key)
+                       for e in prof.key_averages()), reverse=True)
+        rows = [r for r in rows if r[0] > 0]
+        total = sum(r[0] for r in rows)
+        print(f"profile quotient {label} [{card}] ({spec}, load 0.5): "
+              + (", ".join(f"{k[:60]} x{c} {us / 1e3:.4f} ms"
+                           for us, c, k in rows[:14])
+                 + f"; device total {total / 1e3:.4f} ms" if rows
+                 else "no device time recorded (not measured)"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2472,6 +3005,9 @@ def main() -> int:
     card, kind, count = phase_device()
     phase_build()
     lap("device and build")
+    if sys.argv[1:] == ["--profile"]:
+        profile_quotient(card)
+        return 0
     errs = {k: 0 for k in sbf.LAUNCHES}
     cerrs = {k: 0 for k in cnt.LAUNCHES}
     berrs = {k: 0 for k in cbf.LAUNCHES}
@@ -2539,6 +3075,16 @@ def main() -> int:
     krecords, klaunches = {}, {}
     phase_cuckoo_main(kerrs, krecords, klaunches, card)
     lap("phase 4e cuckoo")
+    qerrs = {"quotient_contains": 0, "quotient_update": 0}
+    phase_quotient_kernels(qerrs)
+    lap("phase 3f")
+    qcells, qlaunches = {}, {}
+    phase_quotient_main("L2", 1 << 22, 1 << 22, qerrs, qcells, qlaunches,
+                        card)
+    phase_quotient_main("DRAM", 1 << 25, 1 << 24, qerrs, qcells, qlaunches,
+                        card)
+    qrecords = quotient_records(qcells, qerrs, qlaunches)
+    lap("phase 4f")
     print(f"smoke phases: {', '.join(laps)}")
     print(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} "
           f"s, the build included")
@@ -2557,7 +3103,9 @@ def main() -> int:
                       + [precords["add_partitioned"],
                          precords["update_partitioned"],
                          krecords["cuckoo_contains"],
-                         krecords["cuckoo_update"]]}))
+                         krecords["cuckoo_update"],
+                         qrecords["quotient_contains"],
+                         qrecords["quotient_update"]]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

@@ -21,13 +21,6 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
-def not_ported(what: str, where: str) -> NotImplementedError:
-    """The error for a part of ``repro`` that a later slice ports; ``where``
-    names its ROADMAP item, e.g. ``"queue 1 item 7"``."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {where})")
-
-
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device`` (``None`` = :func:`default_device`).
 

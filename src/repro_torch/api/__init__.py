@@ -1,8 +1,8 @@
 """``repro_torch.api`` — the public Bloom-filter surface of the port.
 
 Counterpart of ``repro.api`` for the blocked and classical Bloom filters,
-the counting Bloom filter and the windowed filter, scalar or as banks of
-same-spec members::
+the counting Bloom filter, the windowed filter and the cuckoo and quotient
+fingerprint filters, scalar or as banks of same-spec members::
 
     import repro_torch.api as api
 
@@ -22,13 +22,19 @@ same-spec members::
     q = api.filter_for_n_items(1_000_000, variant="cuckoo")  # 'cuckoo'
     q = q.add(keys).remove(keys[:10])     # q.insert_failures, q.load_factor()
 
+    d = api.filter_for_n_items(1_000_000, variant="quotient")  # 'quotient'
+    d = d.add(keys).remove(keys[:10]).merge(other_d).resize(2 * d.spec.m_bits)
+    w = api.filter_for_workload(1_000_000, needs_remove=True,
+                                needs_merge=True)  # the cheapest engine
+
     t = api.filter_for_n_items(8192, bank=1024)   # 1024 tenant filters
     t = t.add(keys, tenants=ids)          # routed: one launch for the bank
     hits = t.contains(keys, tenants=ids)
     kb, valid = api.route(keys, ids, 1024)         # per-tenant batches
 
     api.backends()
-    # ('counting', 'cuckoo', 'cuda-dram', 'cuda-l2', 'torch', 'windowed')
+    # ('counting', 'cuckoo', 'cuda-dram', 'cuda-l2', 'quotient', 'torch',
+    #  'windowed')
     f2 = api.make_filter("sbf", m_bits=1 << 24, k=8, device="cpu")
 
 ``device=None`` means the card; without one a call raises ``RuntimeError``.
@@ -44,8 +50,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch.core import fingerprint as _F
+from repro_torch.core import quotient as _Q
 from repro_torch.core import variants as _V
 from repro_torch.core.partition import route_by_id
 from repro_torch.core.variants import FilterSpec
@@ -81,17 +87,20 @@ def make_filter(variant: str = "sbf", m_bits: int = 1 << 20, k: int = 8,
                 probe: str = "auto", depth: Optional[int] = None,
                 coop: str = "auto", mix: str = "auto",
                 generations: Optional[int] = None, slot_bits: int = 8,
-                slots_per_bucket: int = 4, impl: Optional[str] = None,
-                device=None) -> Filter:
+                slots_per_bucket: int = 4, r_bits: int = 0,
+                impl: Optional[str] = None, device=None) -> Filter:
     """Build an empty :class:`Filter` for an explicit geometry on ``device``
     (``None`` = the card). ``backend="auto"`` runs the registry's ranked
     query; ``generations=G`` selects the windowed engine (``advance``);
     ``variant="cuckoo"`` the cuckoo engine (``remove``, ``slot_bits`` /
     ``slots_per_bucket`` geometry, ``impl`` pins its kernel or plain path);
-    the kernel knobs are validated and passed to ``kernels.ops``."""
+    ``variant="quotient"`` the quotient engine (``remove``, lossless
+    ``merge`` / ``resize``; ``slot_bits`` lanes storing ``r_bits`` of
+    remainder); the kernel knobs are validated and passed to
+    ``kernels.ops``."""
     spec = FilterSpec(variant=variant, m_bits=m_bits, k=k,
                       block_bits=block_bits, z=z, slot_bits=slot_bits,
-                      slots_per_bucket=slots_per_bucket)
+                      slots_per_bucket=slots_per_bucket, r_bits=r_bits)
     options = BackendOptions(layout=layout, tile=tile, probe=probe,
                              depth=depth, coop=coop, mix=mix,
                              generations=generations, impl=impl)
@@ -109,7 +118,8 @@ def make_filter_bank(bank, variant: str = "sbf", m_bits: int = 1 << 14,
                      depth: Optional[int] = None, coop: str = "auto",
                      mix: str = "auto", generations: Optional[int] = None,
                      slot_bits: int = 8, slots_per_bucket: int = 4,
-                     impl: Optional[str] = None, device=None) -> Filter:
+                     r_bits: int = 0, impl: Optional[str] = None,
+                     device=None) -> Filter:
     """Build an empty bank: ``bank`` (an int, or a shape tuple) independent
     same-spec member filters of ``m_bits`` bits each behind one
     :class:`Filter`, the bank dims leading its words. Per-member batches
@@ -124,7 +134,7 @@ def make_filter_bank(bank, variant: str = "sbf", m_bits: int = 1 << 14,
                          f"got {bank_shape}")
     spec = FilterSpec(variant=variant, m_bits=m_bits, k=k,
                       block_bits=block_bits, z=z, slot_bits=slot_bits,
-                      slots_per_bucket=slots_per_bucket)
+                      slots_per_bucket=slots_per_bucket, r_bits=r_bits)
     options = BackendOptions(layout=layout, tile=tile, probe=probe,
                              depth=depth, coop=coop, mix=mix,
                              generations=generations, impl=impl)
@@ -165,9 +175,18 @@ def filter_for_n_items(n: int, bits_per_key: float = 16.0,
     ``variant="cuckoo"`` sizes buckets for ~n keys at load factor <=
     ``fingerprint.CUCKOO_MAX_LOAD`` (0.95) instead: the slot width is the
     smallest meeting ``target_fpr`` when one is given, else u8 up to 12
-    bits a key and u16 above; ``slot_bits=`` pins it."""
+    bits a key and u16 above; ``slot_bits=`` pins it.
+    ``variant="quotient"`` sizes a quotient table for ~n keys at load <=
+    ``quotient.QUOTIENT_MAX_LOAD`` (0.90), the q/r split from ``target_fpr``
+    (``slot_bits=`` pins the lane width)."""
     if variant == "quotient":
-        raise not_ported("quotient filters", "queue 1 item 10")
+        spec = _Q.spec_for_n(n, target_fpr=target_fpr,
+                             slot_bits=kw.pop("slot_bits", None))
+        common = dict(m_bits=spec.m_bits, slot_bits=spec.slot_bits,
+                      r_bits=spec.r_bits, **kw)
+        if bank is not None:
+            return make_filter_bank(bank, variant="quotient", **common)
+        return make_filter(variant="quotient", **common)
     if variant == "cuckoo":
         sb = kw.pop("slot_bits", None)
         spb = kw.pop("slots_per_bucket", 4)
@@ -191,6 +210,32 @@ def filter_for_n_items(n: int, bits_per_key: float = 16.0,
                                 block_bits=block_bits, **kw)
     return make_filter(variant=variant, m_bits=m, k=k, block_bits=block_bits,
                        **kw)
+
+
+def filter_for_workload(n: int, target_fpr: float = 1e-3,
+                        needs_remove: bool = False,
+                        needs_decay: bool = False,
+                        needs_count: bool = False,
+                        needs_merge: bool = False,
+                        needs_resize: bool = False,
+                        bank=None, **kw) -> Filter:
+    """Capability- and memory-aware ``"auto"``: the cheapest engine (by
+    ``bits_per_key`` at ``target_fpr``, :func:`registry.cheapest_engine`)
+    whose flags cover the requested ops, sized for ~n keys.
+    ``needs_remove`` alone picks the cuckoo engine over the counting one;
+    ``needs_decay`` or ``needs_count`` picks counters; ``needs_merge`` or
+    ``needs_resize`` with it the quotient engine."""
+    engine = registry.cheapest_engine(needs_remove=needs_remove,
+                                      needs_decay=needs_decay,
+                                      needs_count=needs_count,
+                                      needs_merge=needs_merge,
+                                      needs_resize=needs_resize,
+                                      target_fpr=target_fpr)
+    variant = {"counting": "countingbf", "cuckoo": "cuckoo",
+               "quotient": "quotient"}.get(engine, "sbf")
+    kw.setdefault("backend", "auto")   # the variant picks the engine family
+    return filter_for_n_items(n, variant=variant, target_fpr=target_fpr,
+                              bank=bank, **kw)
 
 
 def union(*filters: Filter) -> Filter:
@@ -219,4 +264,5 @@ def get_backend(name: str) -> registry.Backend:
 
 __all__ = ["Filter", "FilterSpec", "BackendOptions", "as_keys", "registry",
            "make_filter", "make_filter_bank", "route", "filter_for_n_items",
-           "union", "backends", "describe_backends", "get_backend"]
+           "filter_for_workload", "union", "backends", "describe_backends",
+           "get_backend"]

@@ -1,22 +1,25 @@
 """Single-host engines: the plain PyTorch engine, the two CUDA regimes, the
-counting engine, the windowed engine and the cuckoo engine.
+counting engine, the windowed engine, the cuckoo engine and the quotient
+engine.
 
 Counterpart of ``repro.api.backends`` (``jnp``, ``pallas-vmem``,
-``pallas-hbm``, ``counting``, ``windowed``, ``cuckoo``). For the bit
-filters the device decides first: ``torch`` serves CPU devices only, and
-the CUDA engines serve CUDA devices only, so a CUDA tensor never reaches a
-plain version. The CUDA engines take the blocked variants with ``s <= 32`` words
-per block and the classical filter ``cbf`` up to 2^32 bits, so ``"auto"``
-never picks an engine that would raise. Among the CUDA engines the
-L2-resident one wins while the filter fits ``ops.L2_FILTER_BYTES``.
+``pallas-hbm``, ``counting``, ``windowed``, ``cuckoo``, ``quotient``). For
+the bit filters the device decides first: ``torch`` serves CPU devices
+only, and the CUDA engines serve CUDA devices only, so a CUDA tensor never
+reaches a plain version. The CUDA engines take the blocked variants with
+``s <= 32`` words per block and the classical filter ``cbf`` up to 2^32
+bits, so ``"auto"`` never picks an engine that would raise. Among the
+CUDA engines the L2-resident one wins while the filter fits
+``ops.L2_FILTER_BYTES``.
 
 The ``counting`` and ``windowed`` engines claim their workloads alone, on
 both devices: ``countingbf`` specs belong to ``counting`` and a context
 with ``generations`` set belongs to ``windowed``, so the bit engines
 decline both (``_plain_bits``). Each runs its plain versions on the CPU and
 its CUDA kernels on the card (the regime by L2 fit), so there too a CUDA
-tensor never reaches a plain version. The ``cuckoo`` engine likewise
-claims ``variant="cuckoo"`` alone.
+tensor never reaches a plain version. The ``cuckoo`` and ``quotient``
+engines likewise claim ``variant="cuckoo"`` and ``variant="quotient"``
+alone.
 
 Banks (``ctx.bank`` set). ``torch`` runs the plain ``bank_*_rows`` on the
 CPU; ``cuda-l2`` and ``cuda-dram`` the bank kernels, one launch for the
@@ -25,7 +28,8 @@ whole bank, the engine chosen by the whole bank's bytes
 launch over the flat bank). A ``cbf`` bank has no bank kernel and a
 windowed bank keeps one head per member: both take the registry's generic
 path, one scalar op per member (on the card, the scalar CUDA kernels), and
-so does a cuckoo bank, each member with its whole batch and valid mask.
+so do cuckoo and quotient banks, each member with its whole batch and
+valid mask; a quotient bank merges and resizes member by member.
 """
 from __future__ import annotations
 
@@ -33,11 +37,13 @@ import torch
 
 from repro_torch.core import fingerprint as F
 from repro_torch.core import hashing as H
+from repro_torch.core import quotient as Q
 from repro_torch.core import variants as V
 from repro_torch.core.variants import FilterSpec
 from repro_torch.api.registry import (Backend, SelectionContext,
                                       flat_members, register)
 from repro_torch.kernels import ops
+from repro_torch.kernels import quotientfilter as qf
 from repro_torch.kernels.ring import ring_dense
 from repro_torch.window import ring as R
 
@@ -474,6 +480,106 @@ class CuckooBackend(Backend):
             "fingerprint merge) when union is required")
 
 
+class QuotientBackend(CuckooBackend):
+    """Counting quotient filter (variant='quotient'): p-bit fingerprints
+    split into a q-bit home slot and an r-bit stored remainder, with three
+    metadata bits packing runs into clusters. The one engine with
+    ``remove`` and **lossless** ``merge`` and ``resize``: every stored
+    fingerprint is recoverable, so a union decodes both tables and rebuilds,
+    and a resize re-splits p = q + r at the new size. Capacity failures
+    accumulate in ``Filter.insert_failures`` as cuckoo's do (on the device).
+    On the card the CUDA kernels run contains and the updates (one
+    decode-and-rebuild a call), and merge and resize too (a decode, then
+    the add kernels on the decoded fingerprints); on the CPU the plain
+    versions; ``options.impl`` as for cuckoo. Banks take the generic path
+    with real valid masks; merge and resize go member by member."""
+
+    name = "quotient"
+    supports_remove = True
+    supports_merge = True
+    supports_resize = True
+    stateful_ops = True
+
+    def supports(self, spec: FilterSpec, ctx: SelectionContext) -> bool:
+        if not spec.is_quotient or ctx.generations is not None:
+            return False
+        if ctx.device.type == "cuda":
+            return ops.quotient_kernel_supported(spec)
+        return ctx.device.type == "cpu"
+
+    def bits_per_key(self, target_fpr: float = Backend.REF_FPR):
+        """lane / 0.9: the remainder meeting the target at load 0.9, snapped
+        up to the smallest u8/u16/u32 lane that holds it with 3 metadata
+        bits."""
+        if not 0.0 < target_fpr < 1.0:
+            raise ValueError(f"target_fpr must be in (0, 1): {target_fpr}")
+        r = Q.r_bits_for_fpr(target_fpr, 20)     # q barely moves it
+        for sb in V.QUOTIENT_SLOT_BITS:
+            if r <= sb - V.QF_META_BITS:
+                return sb / Q.QUOTIENT_MAX_LOAD
+        return None
+
+    def init(self, spec, options, device):
+        return Q.init(spec, device)
+
+    def _update(self, spec, words, keys, options, state, valid, op):
+        if self._kernels(words, options):
+            fn = ops.quotient_add if op == "add" else ops.quotient_remove
+        else:
+            fn = Q.quotient_add if op == "add" else Q.quotient_remove
+        new, flags = fn(spec, words, keys, valid=valid, tile=options.tile)
+        st = (self.init_state(spec, options, words.device) if state is None
+              else state)
+        if op == "add":
+            st = st + (~flags).sum()
+        return new, st
+
+    def contains(self, spec, words, keys, options):
+        if self._kernels(words, options):
+            return ops.quotient_contains(spec, words, keys,
+                                         tile=options.tile or None,
+                                         coop=options.coop)
+        return Q.quotient_contains(spec, words, keys)
+
+    def merge(self, spec, a, b, options):
+        """Lossless union: decode both multisets and rebuild, equal to the
+        table built from the concatenated key streams. The capacity is
+        checked first, on the host (an overflow would lose keys); a bank
+        merges member by member and every member must fit."""
+        fa = a.reshape(-1, a.shape[-1])
+        fb = b.reshape(-1, b.shape[-1])
+        worst = int((Q.occupied_slots(spec, fa)
+                     + Q.occupied_slots(spec, fb)).max())
+        cap = spec.n_slots - 1
+        if worst > cap:
+            raise ValueError(
+                f"quotient merge overflows: {worst} combined fingerprints "
+                f"> capacity {cap} of {spec}; resize() one side first")
+        fn = (qf.merge_vmem if self._kernels(a, options)
+              else Q.quotient_merge)
+        out = torch.stack([fn(spec, x, y) for x, y in zip(fa, fb)])
+        return out.reshape(a.shape)
+
+    def resize(self, spec, words, new_m_bits, options):
+        """(new_spec, new_words): re-split p = q + r at the new size and
+        re-home every stored fingerprint. A shrink is refused, on the host,
+        when a member stores more than the new capacity."""
+        new_spec = Q.spec_for_resize(spec, int(new_m_bits))
+        flat = words.reshape(-1, words.shape[-1])
+        if new_spec.n_slots < spec.n_slots:
+            worst = int(Q.occupied_slots(spec, flat).max())
+            cap = new_spec.n_slots - 1
+            if worst > cap:
+                raise ValueError(
+                    f"cannot shrink {spec} to m_bits={new_m_bits}: a "
+                    f"member stores {worst} fingerprints > new capacity "
+                    f"{cap}")
+        fn = (qf.resize_vmem if self._kernels(words, options)
+              else Q.quotient_resize)
+        out = torch.stack([fn(spec, w, new_spec) for w in flat])
+        return new_spec, out.reshape(words.shape[:-1] + (new_spec.n_words,))
+
+
 def register_all():
     register(TorchBackend())
     register(CudaL2Backend())
@@ -481,3 +587,4 @@ def register_all():
     register(CountingBackend())
     register(WindowedBackend())
     register(CuckooBackend())
+    register(QuotientBackend())

@@ -3,19 +3,21 @@
 Counterpart of ``repro.api.filter``. A ``Filter`` holds its spec, its words
 (the engine's int32 storage on the filter's device: ``(n_words,)`` bits,
 ``(storage_words,)`` counters for the counting engine, a ``(G, n_words)``
-ring for the windowed engine, or the slot table of the cuckoo engine), its
-engine name, its engine options and its engine state (the windowed
-engine's ring head, a Python ``int``; the cuckoo engine's cumulative count
-of failed inserts, a 0-d int64 tensor on the words' device; ``None``
-elsewhere). Every operation that looks like a mutation
+ring for the windowed engine, or the slot table of the cuckoo or quotient
+engine), its engine name, its engine options and its engine state (the
+windowed engine's ring head, a Python ``int``; a fingerprint engine's
+cumulative count of failed inserts, a 0-d int64 tensor on the words'
+device; ``None`` elsewhere). Every operation that looks like a mutation
 returns a new ``Filter`` and leaves the old one as it was: the engines
 clone the words before an update, as JAX's immutable arrays behave.
 
-``remove`` runs on the engines that support it (``counting``, ``cuckoo``),
-``decay`` on ``counting``, ``advance`` on the ``windowed`` engine, and each
-raises the JAX package's ``NotImplementedError`` elsewhere. A stateful
-engine (``cuckoo``) takes ``valid=`` on a scalar add or remove too, since
-its inserts are not idempotent, and a cuckoo filter cannot be merged.
+``remove`` runs on the engines that support it (``counting``, ``cuckoo``,
+``quotient``), ``decay`` on ``counting``, ``advance`` on the ``windowed``
+engine, ``resize`` on ``quotient``, and each raises the JAX package's
+error elsewhere. A stateful engine (``cuckoo``, ``quotient``) takes
+``valid=`` on a scalar add or remove too, since its inserts are not
+idempotent; a cuckoo filter cannot be merged, a quotient filter merges and
+resizes losslessly.
 
 **Banks.** A filter may carry leading bank dims: ``bank_shape`` is
 ``words.shape[:words.ndim - engine.words_ndim]``, so ``(B, n_words)``
@@ -25,8 +27,8 @@ take per-member batches (``bank_shape + (n, 2)`` keys, optional
 ``tenants (n,)`` member ids in ``[0, B)`` (optional ``valid (n,)``); an
 engine with a native bank path runs the whole bank in one launch. A
 windowed bank's state is one head per member, a tuple of ints in
-row-major member order (JAX: a bank-shaped head array); a cuckoo bank's is
-a ``bank_shape`` int64 tensor of failure counts.
+row-major member order (JAX: a bank-shaped head array); a cuckoo or
+quotient bank's is a ``bank_shape`` int64 tensor of failure counts.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import torch
 
 from repro_torch.core import fingerprint as F
 from repro_torch.core import hashing as H
+from repro_torch.core import quotient as Q
 from repro_torch.core import variants as V
 from repro_torch.core.partition import check_ids
 from repro_torch.core.variants import FilterSpec
@@ -59,7 +62,7 @@ class BackendOptions:
     coop: str = "auto"                 # "none" | "subtile" | "auto"
     mix: str = "auto"                  # "full" | "cheap" | "auto"
     generations: Optional[int] = None  # windowed engine: ring size G
-    impl: Optional[str] = None         # cuckoo engine: "jnp"|"pallas"|None
+    impl: Optional[str] = None         # fingerprint engines: jnp|pallas|None
 
     def ctx(self, device=None, bank: Optional[int] = None
             ) -> registry.SelectionContext:
@@ -472,6 +475,23 @@ class Filter:
 
     __or__ = merge
 
+    def resize(self, new_m_bits: int) -> "Filter":
+        """Lossless capacity change (``supports_resize`` engines: the
+        quotient filter): every stored fingerprint re-homes at the new size
+        with the p = q + r split moved, no keys needed; membership is kept
+        exactly. A bank resizes member by member (one new spec); a shrink
+        below a member's stored count raises. The failure count carries
+        over."""
+        if not self.engine.supports_resize:
+            raise ValueError(
+                f"engine {self.backend!r} does not support resize(); the "
+                f"nearest engine with lossless grow-in-place is 'quotient' "
+                f"(variant='quotient') — other variants must be rebuilt "
+                f"from their key stream")
+        new_spec, new_words = self.engine.resize(
+            self.spec, self.words, int(new_m_bits), self.options)
+        return self.replace(spec=new_spec, words=new_words)
+
     def bank_merge(self, other: "Filter") -> "Filter":
         """Member-wise union of two same-shape banks (member i with member
         i): bit banks OR, counting banks saturating-add their counters,
@@ -522,10 +542,11 @@ class Filter:
 
     @property
     def insert_failures(self) -> torch.Tensor:
-        """Fingerprint engines: the cumulative count of inserts whose kick
-        chain ran out (a 0-d int64 tensor on the words' device; bank-shaped
-        for a bank). Nonzero means keys were not stored: resize the filter
-        or shed load. No op resets it."""
+        """Fingerprint engines: the cumulative count of inserts that were
+        not stored (a cuckoo kick chain ran out, a quotient table was full;
+        a 0-d int64 tensor on the words' device, bank-shaped for a bank).
+        Nonzero means keys were not stored: resize the filter or shed load.
+        No op resets it."""
         if not self.engine.stateful_ops:
             raise NotImplementedError(
                 f"backend {self.backend!r} has no insert-failure state; "
@@ -540,8 +561,18 @@ class Filter:
             raise NotImplementedError(
                 f"load_factor() is a fingerprint-filter metric; "
                 f"{self.spec.variant!r} filters report fill_fraction()")
-        lf = F.cuckoo_load_factor(self.spec, self.words)
+        lf = self._load_factors()
         return float(lf) if not self.bank_shape else lf
+
+    def _load_factors(self) -> torch.Tensor:
+        if self.spec.is_quotient:
+            return Q.quotient_load_factor(self.spec, self.words)
+        return F.cuckoo_load_factor(self.spec, self.words)
+
+    def _occupied(self) -> torch.Tensor:
+        if self.spec.is_quotient:
+            return Q.occupied_slots(self.spec, self.words)
+        return F.occupied_slots(self.spec, self.words)
 
     def health(self) -> dict:
         """One JSON-able operational-health dict: engine, variant, bank
@@ -553,8 +584,7 @@ class Filter:
                "bank_shape": list(self.bank_shape), "nbytes": self.nbytes,
                "approx_count": self.approx_count()}
         if self.spec.is_fingerprint:
-            lf = F.cuckoo_load_factor(self.spec, self.words)
-            out["load_factor"] = float(lf.max())
+            out["load_factor"] = float(self._load_factors().max())
             out["insert_failures"] = int(self.state.sum())
         else:
             out["fill_fraction"] = self.fill_fraction()
@@ -569,7 +599,7 @@ class Filter:
         slots (exact, failed inserts excluded), else the Swamidass-Baldi
         estimate over the whole bank's bits."""
         if self.spec.is_fingerprint:
-            return float(F.occupied_slots(self.spec, self.words).sum())
+            return float(self._occupied().sum())
         fill = min(self.fill_fraction(), 1.0 - 1e-12)
         m_total = self.spec.m_bits * self.bank_size
         return max(0.0, -(m_total / self.spec.k) * math.log(1.0 - fill))
@@ -592,7 +622,7 @@ class Filter:
                  "spec": dataclasses.asdict(self.spec),
                  "backend": self.backend}
         if self.engine.stateful_ops and self.state is not None:
-            # the cuckoo table is canonical and its failure count real
+            # a fingerprint table is canonical and its failure count real
             # state: both round-trip exactly
             state["engine_state"] = self.state
         if self.bank_shape:
@@ -609,8 +639,8 @@ class Filter:
         JAX package's, whose engine names are registered as aliases).
         ``device=None`` is the card. A windowed state comes back windowed,
         with its ring size, unless ``backend=`` names another engine (which
-        then takes the dense union). A cuckoo state's ``engine_state`` (its
-        failure count) comes back when it is restored into the same
+        then takes the dense union). A fingerprint state's ``engine_state``
+        (its failure count) comes back when it is restored into the same
         engine."""
         spec = FilterSpec(**{k: (v if isinstance(v, str) else int(v))
                              for k, v in state["spec"].items()})

@@ -22,7 +22,14 @@ windowed    the generation-ring sliding window (``generations`` = G:
 cuckoo      the cuckoo fingerprint filter (variant='cuckoo': ``remove``,
             an insert-failure count as engine state); its plain versions
             on the CPU, its CUDA kernels on the card
+quotient    the counting quotient filter (variant='quotient': ``remove``,
+            lossless ``merge`` and ``resize``, the cuckoo engine's failure
+            count); its plain versions on the CPU, its CUDA kernels on the
+            card
 =========== ==============================================================
+
+:func:`cheapest_engine` ranks the engines whose capability flags cover a
+workload by ``bits_per_key``: the memory-aware half of ``"auto"``.
 
 The JAX engine names are registered as aliases (see ``repro_torch.api``),
 so a state dict written by the JAX package names a port engine.
@@ -46,7 +53,6 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch.core.partition import route_by_id
 from repro_torch.core.variants import FilterSpec
 
@@ -168,6 +174,15 @@ class Backend:
               options) -> torch.Tensor:
         """OR-union of two same-shape word tensors (default: elementwise)."""
         return a | b
+
+    def resize(self, spec: FilterSpec, words: torch.Tensor, new_m_bits: int,
+               options) -> Tuple[FilterSpec, torch.Tensor]:
+        """Lossless capacity change: ``(new_spec, new_words)`` with every
+        stored element re-homed (``supports_resize`` engines only)."""
+        raise NotImplementedError(
+            f"engine {self.name!r} does not support resize(); use "
+            f"variant='quotient' (engine 'quotient') for lossless "
+            f"grow-in-place")
 
     def remove(self, spec: FilterSpec, words: torch.Tensor,
                keys: torch.Tensor, options) -> torch.Tensor:
@@ -335,11 +350,40 @@ def describe() -> Tuple[Dict[str, object], ...]:
     return tuple(_REGISTRY[n].describe() for n in names())
 
 
+def cheapest_engine(needs_remove: bool = False, needs_decay: bool = False,
+                    needs_count: bool = False, needs_merge: bool = False,
+                    needs_resize: bool = False,
+                    target_fpr: float = Backend.REF_FPR) -> str:
+    """The name of the engine with the fewest :meth:`Backend.bits_per_key`
+    at ``target_fpr`` among those whose capability flags cover the needs.
+    ``needs_remove`` alone picks the cuckoo engine over the counting one
+    (4x a bit filter) unless counts or decay are needed too;
+    ``needs_merge`` or ``needs_resize`` with it picks the quotient engine,
+    the only one with deletion and lossless union and grow-in-place."""
+    best = None
+    for name in names():
+        eng = get(name)
+        if ((needs_remove and not eng.supports_remove)
+                or (needs_decay and not eng.supports_decay)
+                or (needs_count and not eng.supports_count)
+                or (needs_merge and not eng.supports_merge)
+                or (needs_resize and not eng.supports_resize)):
+            continue
+        bpk = eng.bits_per_key(target_fpr)
+        if bpk is not None and (best is None or bpk < best[0]):
+            best = (bpk, name)
+    if best is None:
+        raise ValueError(
+            f"no registered engine satisfies needs_remove={needs_remove}, "
+            f"needs_decay={needs_decay}, needs_count={needs_count}, "
+            f"needs_merge={needs_merge}, needs_resize={needs_resize} at "
+            f"fpr {target_fpr:g}")
+    return best[1]
+
+
 def select(spec: FilterSpec, backend: str = "auto",
            ctx: Optional[SelectionContext] = None) -> Backend:
     """Resolve a backend name (or ``"auto"``/alias) to an engine."""
-    if spec.is_quotient:
-        raise not_ported("the quotient filter", "queue 1 item 10")
     ctx = ctx or SelectionContext.current()
     if backend in _ALIASES:
         backend = _ALIASES[backend](spec, ctx)

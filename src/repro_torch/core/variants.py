@@ -17,8 +17,7 @@ Banks: a ``(B, n_words)`` stack of same-spec filters is one filter of
 ``B * n_blocks`` blocks in which key i's block id is offset by
 ``member[i] * n_blocks``; the ``bank_*`` helpers lift each bulk op to the
 whole bank that way (offsets in ``int64``). The cuckoo filter's helpers
-live in ``core.fingerprint``; the quotient filter is not ported yet
-(ROADMAP queue 1 item 10).
+live in ``core.fingerprint``, the quotient filter's in ``core.quotient``.
 """
 from __future__ import annotations
 
@@ -29,7 +28,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch.core import hashing as H
 
 WORD_BITS = 32
@@ -165,6 +163,16 @@ class FilterSpec:
             return self.m_bits // self.slot_bits
         return self.n_buckets * self.slots_per_bucket
 
+    @property
+    def q_bits(self) -> int:
+        """QUOTIENT: quotient bits, log2 of the slot count."""
+        return _log2i(self.n_slots)
+
+    @property
+    def fingerprint_bits(self) -> int:
+        """QUOTIENT: the fingerprint width p = q + r, kept by a resize."""
+        return self.q_bits + self.r_bits
+
     def bits_per_element(self, n: int) -> float:
         return self.m_bits / max(n, 1)
 
@@ -192,7 +200,8 @@ def _require_blocked(spec: FilterSpec) -> None:
         raise ValueError(f"{spec} holds fingerprint slots: use the "
                          f"core.fingerprint functions")
     if spec.is_quotient:
-        raise not_ported("the quotient filter", "queue 1 item 10")
+        raise ValueError(f"{spec} holds fingerprint slots: use the "
+                         f"core.quotient functions")
 
 
 def init(spec: FilterSpec, device=None) -> torch.Tensor:
@@ -875,7 +884,9 @@ def fpr_csbf(B: int, S: int, c: float, k: int, z: int) -> float:
 
 def fpr_theory(spec: FilterSpec, n: int) -> float:
     if spec.is_quotient:
-        raise not_ported("quotient FPR theory", "queue 1 item 10")
+        from repro_torch.core import quotient as Q      # import cycle
+        return Q.fpr_quotient(spec.q_bits, spec.r_bits,
+                              min(n / spec.n_slots, 1.0))
     if spec.is_fingerprint:
         from repro_torch.core import fingerprint as F   # import cycle
         return F.fpr_cuckoo(spec.slot_bits, spec.slots_per_bucket,
@@ -925,9 +936,11 @@ def space_optimal_n(spec: FilterSpec, target_fpr: float = None) -> int:
     """Load n for the spec (paper §5.1): without ``target_fpr`` the load at
     which k equals k* = c ln 2; with it, the largest n whose analytic FPR
     stays at or below the target (0 if even n = 1 exceeds it)."""
-    if spec.is_quotient:
-        raise not_ported("quotient sizing", "queue 1 item 10")
     if target_fpr is None:
+        if spec.is_quotient:
+            # linear probing stays practical to ~0.9 load, and one slot is
+            # the scan anchor
+            return max(min(int(spec.n_slots * 0.90), spec.n_slots - 1), 1)
         if spec.is_fingerprint:
             # cuckoo capacity is structural: the standard achievable load
             # of 4-slot buckets is ~0.95
@@ -936,7 +949,9 @@ def space_optimal_n(spec: FilterSpec, target_fpr: float = None) -> int:
         return max(int(spec.m_bits / c), 1)
     if fpr_theory(spec, 1) > target_fpr:
         return 0
-    lo, hi = 1, spec.m_bits
+    # a quotient filter stores at most n_slots - 1 fingerprints
+    lo = 1
+    hi = max(spec.n_slots - 1, 1) if spec.is_quotient else spec.m_bits
     while lo < hi:
         mid = (lo + hi + 1) // 2
         if fpr_theory(spec, mid) <= target_fpr:

@@ -35,7 +35,8 @@ from repro_torch.api.filter import as_keys, as_words
 # The JAX engine each port engine stands in for.
 JAX_ENGINE = {"torch": "jnp", "cuda-l2": "pallas-vmem",
               "cuda-dram": "pallas-hbm", "counting": "counting",
-              "windowed": "windowed", "cuckoo": "cuckoo"}
+              "windowed": "windowed", "cuckoo": "cuckoo",
+              "quotient": "quotient"}
 
 
 def from_jax_state(state: dict, device=None) -> Filter:
@@ -57,7 +58,7 @@ def _u32_state(state: torch.Tensor) -> np.ndarray:
 def to_jax_state(filt: Filter) -> dict:
     """A dict that ``repro.api.Filter.from_state`` reads: uint32 words,
     the spec fields, the JAX counterpart of the port's engine, a windowed
-    filter's ring size and a cuckoo filter's uint32 failure count."""
+    filter's ring size and a fingerprint filter's uint32 failure count."""
     state = filt.to_state()
     state["words"] = state["words"].cpu().numpy().view(np.uint32).copy()
     state["backend"] = JAX_ENGINE[filt.backend]
@@ -79,8 +80,8 @@ def from_jax_words(spec_fields: dict, words_u32, backend: str = "auto",
     counting spec) and two dims a windowed ``(G, n_words)`` ring, whose
     ``head`` is the insert generation (0 when ``None``): an int for a
     scalar ring, an array or sequence of ``bank_shape`` for a bank.
-    ``engine_state`` is a cuckoo filter's failure count (0 when ``None``),
-    of ``bank_shape`` for a bank."""
+    ``engine_state`` is a fingerprint (cuckoo or quotient) filter's failure
+    count (0 when ``None``), of ``bank_shape`` for a bank."""
     words = np.asarray(words_u32)
     if words.dtype != np.uint32:
         raise ValueError(f"JAX words must be uint32, got {words.dtype}")
@@ -131,10 +132,10 @@ def to_jax_words(filt: Filter):
     """The inverse of :func:`from_jax_words`: (spec fields, raw engine words
     as numpy uint32) for a scalar filter, (fields, ``(G, n_words)`` ring,
     head) for a windowed one, (fields, table, failure count as a 0-d
-    uint32 array) for a cuckoo one, and (fields, words, state, bank_shape)
-    for a bank, state being an int32 array of ``bank_shape`` for a windowed
-    bank (JAX's head array), a uint32 one of failure counts for a cuckoo
-    bank and ``None`` otherwise."""
+    uint32 array) for a cuckoo or quotient one, and (fields, words, state,
+    bank_shape) for a bank, state being an int32 array of ``bank_shape`` for
+    a windowed bank (JAX's head array), a uint32 one of failure counts for
+    a cuckoo or quotient bank and ``None`` otherwise."""
     fields = dataclasses.asdict(filt.spec)
     words = filt.words.cpu().numpy().view(np.uint32).copy()
     if filt.engine.stateful_ops:

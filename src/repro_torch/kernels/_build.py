@@ -24,7 +24,7 @@ import types
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bloom", "counting", "cbf", "ring", "cuckoo")
+SOURCES = ("bloom", "counting", "cbf", "ring", "cuckoo", "quotient")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -73,6 +73,16 @@ ENTRY_POINTS = {
                                  _i, _u32, _u32, _i, _vp]),
     # the dependent-load latency probe of chip_smoke.py's cuckoo bound
     "cuckoo_chase": ("cuckoo", [_vp, _ll, _vp, _vp]),
+    # geometry as (log2 n_slots, r_bits, slot_bits, fingerprint salt);
+    # scratch as (per-slot int32, per-key int32, scan sums, their count,
+    # scalars)
+    "quotient_contains": ("quotient", [_vp, _vp, _vp, _ll, _i, _i, _i, _u32,
+                                       _i, _vp, _vp, _ll, _vp, _vp]),
+    "quotient_update": ("quotient", [_vp, _vp, _vp, _vp, _vp, _vp, _ll, _i,
+                                     _i, _i, _u32, _i, _vp, _vp, _vp, _ll,
+                                     _vp, _vp]),
+    "quotient_decode": ("quotient", [_vp, _vp, _vp, _i, _i, _i, _vp, _vp,
+                                     _ll, _vp, _vp]),
 }
 
 _lock = threading.Lock()

@@ -52,7 +52,15 @@ Counterpart of ``repro.kernels.ops.bloom_contains`` / ``bloom_add``,
   table that fits VMEM and sends a larger one to jnp; here one kernel pair
   serves every size. The update's tile is ``_cuckoo_tile``, the JAX
   dispatch's, so the order of the inserts, and with it the table, is the
-  JAX package's; a small batch's tile also sizes the kernel's sort.
+  JAX package's; a small batch's tile also sizes the kernel's sort;
+* ``quotient_*`` dispatch the quotient filter's kernels. On the CPU the keys
+  are padded to the JAX dispatch's tile (``_quotient_tile``) as it pads
+  them: by repeating the last key for contains, with zero keys marked
+  invalid for updates (inserts and removes are not idempotent). The CUDA
+  kernels take any batch length. The JAX package runs its quotient kernels
+  only on a table that fits VMEM and sends a larger one to jnp; here one
+  kernel set serves every size, and the CUDA update rebuilds the table
+  once a call (the words and flags do not depend on the tile).
 """
 from __future__ import annotations
 
@@ -62,13 +70,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch.core import fingerprint as F
 from repro_torch.core import partition as P
+from repro_torch.core import quotient as Q
 from repro_torch.core.variants import BLOCKED, FilterSpec
 from repro_torch.kernels import cbf as cbf_k
 from repro_torch.kernels import countingbf as cnt_k
 from repro_torch.kernels import cuckoofilter as ckoo_k
+from repro_torch.kernels import quotientfilter as qf_k
 from repro_torch.kernels import ring as ring_k
 from repro_torch.kernels import sbf as sbf_k
 from repro_torch.kernels.sbf import (COOPS, DEFAULT_DMA_DEPTH, DEFAULT_TILE,
@@ -154,8 +163,8 @@ def _check_spec(spec: FilterSpec) -> None:
         raise ValueError("countingbf specs go through counting_add/"
                          "counting_remove/counting_contains")
     if spec.is_quotient:
-        raise not_ported(f"bloom_add/bloom_contains for {spec.variant}",
-                         "queue 1 item 10")
+        raise ValueError("quotient specs go through quotient_add/"
+                         "quotient_remove/quotient_contains")
     if spec.is_fingerprint:
         raise ValueError("cuckoo specs go through cuckoo_add/cuckoo_remove/"
                          "cuckoo_contains")
@@ -722,3 +731,75 @@ def cuckoo_remove(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
                   tile: Optional[int] = None, inplace: bool = False):
     """Ordered bulk delete, one slot a key: (table, found)."""
     return _cuckoo_update(spec, filt, keys, "remove", valid, tile, inplace)
+
+
+# ---------------------------------------------------------------------------
+# Quotient filter dispatch (valid-masked padding on the plain path)
+# ---------------------------------------------------------------------------
+
+def quotient_kernel_supported(spec: FilterSpec) -> bool:
+    """Quotient specs the CUDA quotient kernels serve."""
+    return qf_k.kernel_supported(spec)
+
+
+def _check_quotient(spec: FilterSpec) -> None:
+    if not spec.is_quotient:
+        raise ValueError(f"{spec} is not a quotient spec")
+
+
+def quotient_contains(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+                      tile: Optional[int] = DEFAULT_TILE,
+                      coop: str = "auto") -> torch.Tensor:
+    """(n,) bool run-scan membership, one launch for the batch; ``coop`` is
+    validated (both values run the one kernel)."""
+    _check_quotient(spec)
+    n = keys.shape[0]
+    if n == 0:
+        return torch.zeros((0,), dtype=torch.bool, device=keys.device)
+    c = _resolve(coop, COOPS, AUTO_COOP, "coop")
+    padded = (keys if keys.is_cuda
+              else _pad_keys(keys, _clamp_tile(n, tile or DEFAULT_TILE)))
+    return qf_k.contains_vmem(spec, filt, padded, coop=c)[:n]
+
+
+def _quotient_tile(n: int, tile: Optional[int]) -> int:
+    """The bulk update's tile, as the JAX dispatch takes it: a batch of at
+    most T keys is one tile (padded up to a power of two, at least 8), a
+    larger one tiles of T. The words and flags do not depend on it."""
+    T = tile or Q.QUOTIENT_ADD_TILE
+    if n <= T:
+        return max(8, 1 << int(np.ceil(np.log2(max(n, 1)))))
+    return T
+
+
+def _quotient_update(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+                     op: str, valid: Optional[torch.Tensor],
+                     tile: Optional[int], inplace: bool):
+    _check_quotient(spec)
+    out = filt if inplace else filt.clone()
+    n = keys.shape[0]
+    if n == 0:
+        return out, torch.zeros((0,), dtype=torch.bool, device=keys.device)
+    fn = qf_k.add_vmem if op == "add" else qf_k.remove_vmem
+    eff = _quotient_tile(n, tile)
+    if keys.is_cuda:
+        return fn(spec, out, keys, valid, tile=eff)
+    pk, pv = _pad_keys_valid(keys, eff, valid)
+    out, flags = fn(spec, out, pk, pv, tile=eff)
+    return out, flags[:n]
+
+
+def quotient_add(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None,
+                 tile: Optional[int] = None, inplace: bool = False):
+    """Bulk decode-and-rebuild insert: (table, ok); ``ok[i]`` False is the
+    table-full signal for key i (the API accumulates it in
+    ``Filter.insert_failures``)."""
+    return _quotient_update(spec, filt, keys, "add", valid, tile, inplace)
+
+
+def quotient_remove(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+                    valid: Optional[torch.Tensor] = None,
+                    tile: Optional[int] = None, inplace: bool = False):
+    """Bulk delete, one fingerprint copy a key: (table, found)."""
+    return _quotient_update(spec, filt, keys, "remove", valid, tile, inplace)

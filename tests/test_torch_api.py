@@ -148,11 +148,14 @@ def test_unported_operations_name_the_roadmap_item():
         with pytest.raises(ValueError, match="need a bank"):
             call()
     assert api.filter_for_n_items(100, bank=4, device="cpu").bank_shape == (4,)
-    # the cuckoo filter is ported; the quotient filter names its item
+    # the fingerprint filters are ported: each builds its engine, and the
+    # quotient engine's resize raises the capability error elsewhere
     assert api.filter_for_n_items(100, variant="cuckoo",
                                   device="cpu").backend == "cuckoo"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.filter_for_n_items(100, variant="quotient", device="cpu")
+    assert api.filter_for_n_items(100, variant="quotient",
+                                  device="cpu").backend == "quotient"
+    with pytest.raises(ValueError, match="'quotient'"):
+        f.resize(2 * M)
 
 
 def test_engine_selection_by_device():
@@ -187,7 +190,7 @@ def test_engine_selection_by_device():
             with pytest.raises(ValueError):
                 registry.select(counting, name, ctx)
     assert api.backends() == ("counting", "cuckoo", "cuda-dram", "cuda-l2",
-                              "torch", "windowed")
+                              "quotient", "torch", "windowed")
     assert {d["name"] for d in api.describe_backends()} == set(api.backends())
     assert api.get_backend("torch").name == "torch"
 
@@ -210,16 +213,16 @@ def test_as_keys_accepts_every_key_form():
 def test_from_state_rejects_state_of_unported_engines():
     f = api.make_filter("sbf", m_bits=M, k=8, device="cpu")
     state = interop.to_jax_state(f)
-    # engine state is ported (the cuckoo engine's failure count); a bit
+    # engine state is ported (a fingerprint engine's failure count); a bit
     # engine has none and ignores it, as the JAX package does, and a
-    # quotient state names its ROADMAP item
+    # quotient state comes back with its failure count
     assert api.Filter.from_state({**state, "engine_state": 0},
                                  device="cpu").state is None
     qspec = dict(state["spec"], variant="quotient", k=1, slot_bits=8,
                  r_bits=4, block_bits=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.Filter.from_state({**state, "spec": qspec, "backend": "quotient",
-                               "engine_state": 0}, device="cpu")
+    q = api.Filter.from_state({**state, "spec": qspec, "backend": "quotient",
+                               "engine_state": 3}, device="cpu")
+    assert q.backend == "quotient" and int(q.insert_failures) == 3
     # a bank state is ported: its words must carry the bank dims
     with pytest.raises(ValueError):
         api.Filter.from_state({**state, "bank_shape": [2]}, device="cpu")
@@ -254,7 +257,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.cbf, repro_torch.kernels.ring, "
             "repro_torch.kernels._build, repro_torch.interop, "
             "repro_torch.core.partition, repro_torch.core.fingerprint, "
-            "repro_torch.kernels.cuckoofilter, "
+            "repro_torch.kernels.cuckoofilter, repro_torch.core.quotient, "
+            "repro_torch.kernels.quotientfilter, "
             "repro_torch.window, repro_torch.window.ring; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); assert not bad, bad")
@@ -268,7 +272,9 @@ def test_port_imports_neither_jax_nor_repro():
     assert {"repro_torch/window/ring.py", "repro_torch/window/__init__.py",
             "repro_torch/kernels/cbf.py", "repro_torch/kernels/ring.py",
             "repro_torch/core/partition.py", "repro_torch/core/fingerprint.py",
-            "repro_torch/kernels/cuckoofilter.py"} <= names
+            "repro_torch/kernels/cuckoofilter.py",
+            "repro_torch/core/quotient.py",
+            "repro_torch/kernels/quotientfilter.py"} <= names
     sources.append(ROOT / "chip_smoke.py")
     assert len(sources) > 10
     for path in sources:

@@ -12,7 +12,12 @@ for B in 1/7/64, uniform and skewed member mixes, both regimes' depths and
 valid-masked, ragged batches. The last cases hold the partitioned kernels
 (both paths: segments staged in shared memory, and global atomics) and the
 cuckoo kernels (u8/u16 slots, 2 to 16 slots a bucket, multi-tile,
-masked, duplicate and over-full batches) against theirs.
+masked, duplicate and over-full batches) against theirs, and the quotient
+kernels (u8/u16/u32 lanes over several remainder widths, loads 0.5, 0.9
+and past capacity, duplicates, valid masks, removes of absent keys,
+clusters that wrap past the last slot, tiles 256 / 2048 / the whole batch,
+empty and full tables, a 2^25-slot table whose scans take many blocks,
+and the quotient ``Filter`` path with merge and resize) against theirs.
 """
 import numpy as np
 import pytest
@@ -24,9 +29,11 @@ from repro_torch.core import variants as V
 from repro_torch.kernels import cbf
 from repro_torch.kernels import countingbf as cnt
 from repro_torch.kernels import cuckoofilter as ckoo
+from repro_torch.kernels import quotientfilter as qf
 from repro_torch.kernels import ops, ring, sbf
 from repro_torch.core import fingerprint as F
 from repro_torch.core import partition as P
+from repro_torch.core import quotient as Q
 
 M = 1 << 16
 
@@ -802,3 +809,183 @@ def test_cuckoo_wrappers_refuse_bad_tensors(cuda):
                         slots_per_bucket=32)
     with pytest.raises(ValueError, match="serve"):
         ckoo.contains_vmem(wide, F.init(wide, cuda), keys)
+
+
+QSPECS = [V.FilterSpec("quotient", (1 << q) * sb, 1, slot_bits=sb, r_bits=r)
+          for sb, r, q in ((8, 5, 12), (8, 2, 11), (16, 9, 11),
+                           (16, 13, 10), (32, 20, 10), (32, 27, 4))]
+
+
+def _quotient_batch(spec, load, seed, device):
+    """Keys to fill ``load`` of the slots, some two and three times, and a
+    valid mask with about a quarter zeros."""
+    n = max(int(spec.n_slots * load), 1)
+    keys = _keys(n, seed, device)
+    keys = torch.cat([keys, keys[: n // 20], keys[:3]])
+    return keys, _valid_mask(keys.shape[0], seed, device)
+
+
+def _quotient_matches_plain(spec, table, keys, valid, gone, probes):
+    """Add, contains (both coop values) and remove against the plain
+    versions, words and flags bit for bit; returns the table after the
+    add."""
+    for tile in (256, 2048, None):
+        want, ok = qf.update_plain(spec, table, keys, valid, "add", tile)
+        got, got_ok = qf.add_vmem(spec, table.clone(), keys, valid, tile=tile)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(_u32(got), _u32(want))
+        np.testing.assert_array_equal(got_ok.cpu().numpy(), ok.cpu().numpy())
+    queries = torch.cat([keys, probes])
+    hit = qf.contains_plain(spec, want, queries).cpu().numpy()
+    for coop in ("none", "subtile"):
+        np.testing.assert_array_equal(
+            qf.contains_vmem(spec, want, queries, coop=coop).cpu().numpy(),
+            hit)
+    for mode in qf.CONTAINS_MODES:                   # every contains path
+        np.testing.assert_array_equal(
+            qf._launch_contains(spec, want, queries, mode).cpu().numpy(),
+            hit)
+    want_rm, found = qf.update_plain(spec, want, gone, None, "remove")
+    got_rm, got_found = qf.remove_vmem(spec, want.clone(), gone, None)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(_u32(got_rm), _u32(want_rm))
+    np.testing.assert_array_equal(got_found.cpu().numpy(),
+                                  found.cpu().numpy())
+    return want, ok
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", QSPECS, ids=str)
+@pytest.mark.parametrize("load", [0.5, 0.9, 1.3])
+def test_quotient_kernels_match_plain(cuda, spec, load):
+    keys, valid = _quotient_batch(spec, load, int(load * 10), cuda)
+    gone = torch.cat([keys[: keys.shape[0] // 2], keys[:30], keys[:30],
+                      _probes(50, 6, cuda)])
+    probes = _probes(4000, 5, cuda)
+    for vmask in (None, valid):
+        table, ok = _quotient_matches_plain(spec, Q.init(spec, cuda), keys,
+                                            vmask, gone, probes)
+        if load > 1 and vmask is None:
+            assert not bool(ok.all())                 # past capacity
+            assert int(Q.occupied_slots(spec, table)) == spec.n_slots - 1
+    # a second batch into the filled table (the old runs are decoded)
+    more = _keys(spec.n_slots // 4, 7, cuda)
+    _quotient_matches_plain(spec, table, more, None, more[::2].contiguous(),
+                            probes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", QSPECS[:3], ids=str)
+def test_quotient_wrapping_clusters_match_plain(cuda, spec):
+    cand = _keys(spec.n_slots * 16, 8, cuda)
+    q = Q.split_fp(spec, Q.quotient_hashes(spec, cand))[0]
+    keys = cand[q >= spec.n_slots * 7 // 8][: spec.n_slots // 4]
+    table, _ = _quotient_matches_plain(spec, Q.init(spec, cuda), keys, None,
+                                       keys[::3].contiguous(),
+                                       _probes(1000, 9, cuda))
+    lanes = Q.unpack_slots(spec, table)
+    assert int(lanes[0]) >> (spec.slot_bits - 3) & 1   # slot 0 is shifted
+
+
+@pytest.mark.gpu
+def test_quotient_empty_full_and_large_tables(cuda):
+    spec = QSPECS[1]
+    empty = Q.init(spec, cuda)
+    keys = _keys(spec.n_slots, 10, cuda)
+    got, ok = qf.add_vmem(spec, empty.clone(), keys, None)
+    assert ok.cpu().tolist() == [True] * (spec.n_slots - 1) + [False]
+    want, _ = qf.update_plain(spec, empty, keys, None, "add")
+    assert torch.equal(got, want)
+    gone, found = qf.remove_vmem(spec, got.clone(), keys[:-1], None)
+    assert bool(found.all()) and not bool(gone.any())
+    _, found = qf.remove_vmem(spec, empty.clone(), keys, None)
+    assert not bool(found.any())
+    # 2^25 slots: every scan takes more blocks than one pass of the block
+    # sums holds
+    big = V.FilterSpec("quotient", (1 << 25) * 8, 1, slot_bits=8, r_bits=5)
+    table = Q.init(big, cuda)
+    for seed, n in ((11, 1 << 24), (12, 1 << 23)):
+        keys = _keys(n, seed, cuda)
+        want, ok = qf.update_plain(big, table, keys, None, "add")
+        got, got_ok = qf.add_vmem(big, table.clone(), keys, None)
+        assert torch.equal(got, want) and torch.equal(got_ok, ok)
+        table = want
+    probes = torch.cat([keys, _probes(1 << 20, 13, cuda)])
+    assert torch.equal(qf.contains_vmem(big, table, probes),
+                       qf.contains_plain(big, table, probes))
+    gone = keys[::2].contiguous()
+    want, found = qf.update_plain(big, table, gone, None, "remove")
+    got, got_found = qf.remove_vmem(big, table.clone(), gone, None)
+    assert torch.equal(got, want) and torch.equal(got_found, found)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", QSPECS, ids=str)
+def test_quotient_merge_and_resize_kernels_match_plain(cuda, spec):
+    keys = _keys(int(spec.n_slots * 0.8), 15, cuda)
+    half = keys.shape[0] // 3
+    a, _ = qf.update_plain(spec, Q.init(spec, cuda), keys[:half], None, "add")
+    b, _ = qf.update_plain(spec, Q.init(spec, cuda), keys[half:], None, "add")
+    got = qf.merge_vmem(spec, a, b)
+    assert torch.equal(got, qf.merge_plain(spec, a, b))
+    assert torch.equal(got, qf.merge_vmem(spec, b, a))
+    assert torch.equal(qf.merge_vmem(spec, a, Q.init(spec, cuda)), a)
+    for factor in (2, 4, 0.5):
+        m = int(spec.m_bits * factor)
+        try:
+            new_spec = Q.spec_for_resize(spec, m)
+        except ValueError:
+            continue
+        if new_spec.n_slots - 1 < int(Q.occupied_slots(spec, got)):
+            continue
+        want = qf.resize_plain(spec, got, new_spec)
+        assert torch.equal(qf.resize_vmem(spec, got, new_spec), want)
+
+
+@pytest.mark.gpu
+def test_quotient_filter_path_launches_merge_and_resize(cuda):
+    import repro_torch.api as api
+    f = api.filter_for_n_items(20000, variant="quotient")
+    assert f.backend == "quotient" and f.device.type == "cuda"
+    keys = _keys(20000, 14, cuda)
+    qf.reset_launches()
+    g = f.add(keys)
+    assert int(g.insert_failures) == 0 and bool(g.contains(keys).all())
+    h = g.remove(keys[:5000])
+    assert bool(h.contains(keys[5000:]).all())
+    assert qf.LAUNCHES == {"contains_vmem": 2, "add_vmem": 1,
+                           "remove_vmem": 1, "merge_vmem": 0,
+                           "resize_vmem": 0}
+    want, _ = qf.update_plain(f.spec, Q.init(f.spec, cuda), keys, None, "add")
+    want, _ = qf.update_plain(f.spec, want, keys[:5000], None, "remove")
+    np.testing.assert_array_equal(_u32(h.words), _u32(want))
+    merged = f.add(keys[:9000]).merge(f.add(keys[9000:]))
+    assert torch.equal(merged.words, g.words)
+    assert qf.LAUNCHES["merge_vmem"] == 1
+    grown = g.resize(2 * f.spec.m_bits)
+    assert qf.LAUNCHES["resize_vmem"] == 1
+    assert grown.device.type == "cuda" and bool(grown.contains(keys).all())
+    rebuilt = api.make_filter("quotient", m_bits=grown.spec.m_bits,
+                              slot_bits=grown.spec.slot_bits,
+                              r_bits=grown.spec.r_bits).add(keys)
+    assert torch.equal(grown.words, rebuilt.words)
+    assert torch.equal(grown.resize(f.spec.m_bits).words, g.words)
+    with pytest.raises(ValueError, match="jnp"):
+        api.make_filter("quotient", m_bits=1 << 16, slot_bits=8, r_bits=5,
+                        impl="jnp").add(keys)
+
+
+@pytest.mark.gpu
+def test_quotient_wrappers_refuse_bad_tensors(cuda):
+    spec = QSPECS[0]
+    table = Q.init(spec, cuda)
+    keys = _keys(64, 0, cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        qf.contains_vmem(spec, table, keys.reshape(-1)[1:-1].reshape(-1, 2))
+    with pytest.raises(ValueError, match="valid"):
+        qf.add_vmem(spec, table, keys, _valid_mask(64, 0, cuda).cpu())
+    huge = V.FilterSpec("quotient", (1 << 30) * 8, 1, slot_bits=8, r_bits=1)
+    assert not qf.kernel_supported(huge)
+    with pytest.raises(ValueError, match="serve"):
+        qf.contains_vmem(huge, torch.zeros(huge.n_words, dtype=torch.int32,
+                                           device=cuda), keys)

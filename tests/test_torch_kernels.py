@@ -233,7 +233,7 @@ def test_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError, match="cuckoo_add"):
         ops.bloom_add(cuckoo, TV.init(cuckoo), keys)
     quotient = TV.FilterSpec("quotient", M, 1, slot_bits=8, r_bits=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="quotient_add"):
         ops.bloom_add(quotient, TV.init(quotient), keys)
 
 
@@ -265,8 +265,9 @@ def test_library_names_hash_every_source_file(monkeypatch, tmp_path):
     # parameters as it has argument types
     assert {"cbf_contains", "cbf_add", "ring_contains", "cuckoo_contains",
             "cuckoo_update", "bloom_add_partitioned",
-            "counting_update_partitioned"} <= set(_build.ENTRY_POINTS)
-    assert {"cbf", "ring", "cuckoo"} <= set(_build.SOURCES)
+            "counting_update_partitioned", "quotient_contains",
+            "quotient_update"} <= set(_build.ENTRY_POINTS)
+    assert {"cbf", "ring", "cuckoo", "quotient"} <= set(_build.SOURCES)
     for symbol, (source, argtypes) in _build.ENTRY_POINTS.items():
         assert source in _build.SOURCES
         text = (tmp_path / f"{source}.cu").read_text()

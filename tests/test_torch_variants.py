@@ -169,15 +169,21 @@ def test_filterspec_rejects_what_jax_rejects(bad):
 
 def test_unported_variants_raise_not_implemented():
     keys = as_keys(JH.random_u64x2(8, seed=0))
+    # every variant is ported: the bit references send the fingerprint
+    # filters to core.fingerprint and core.quotient, and the FPR theory of
+    # a quotient spec is the JAX package's
     quotient = TV.FilterSpec("quotient", M, 1, slot_bits=8, r_bits=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TV.contains(quotient, TV.init(quotient), keys)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TV.add(quotient, TV.init(quotient), keys)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TV.fpr_theory(quotient, 100)
-    # the cuckoo filter is ported: the bit references send it to
-    # core.fingerprint
+    for call in (TV.contains, TV.add):
+        with pytest.raises(ValueError, match="core.quotient"):
+            call(quotient, TV.init(quotient), keys)
+    jq = JV.FilterSpec("quotient", M, 1, slot_bits=8, r_bits=4)
+    for n in (100, quotient.n_slots):
+        assert TV.fpr_theory(quotient, n) == JV.fpr_theory(jq, n)
+    assert TV.space_optimal_n(quotient) == JV.space_optimal_n(jq)
+    assert (TV.space_optimal_n(quotient, 1e-2)
+            == JV.space_optimal_n(jq, 1e-2))
+    assert quotient.q_bits == jq.q_bits
+    assert quotient.fingerprint_bits == jq.fingerprint_bits
     cuckoo = TV.FilterSpec("cuckoo", M, 8)
     for call in (TV.contains, TV.add):
         with pytest.raises(ValueError, match="fingerprint"):
