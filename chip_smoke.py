@@ -9,7 +9,8 @@ the script exits non-zero without printing a result:
 1. device: the card's name and power limit (``nvidia-smi``), and the count;
 2. build: compile every source of ``src/repro_torch/kernels/csrc/``
    (``bloom.cu``, ``counting.cu``, ``cbf.cu``, ``ring.cu``, ``cuckoo.cu``,
-   ``quotient.cu``; one nvcc each, in parallel) and time it;
+   ``quotient.cu``, ``calibrate.cu``; one nvcc each, in parallel) and time
+   it;
 3. every blocked-filter kernel wrapper against its plain PyTorch version on
    the card, at m = 2^20 bits and 65537 keys, for six blocked specs and
    every value of the schedule axes; words and results must be equal bit
@@ -51,6 +52,11 @@ the script exits non-zero without printing a result:
    both coop values: words, ok/found flags and contains equal to the plain
    version's; and merge and resize (the plain decode and layout on the
    card) equal to the update kernels' builds;
+3g. the calibration kernels: the step kernel (``x + 1`` a (8, 128) block
+   a CTA) at g = 1, 16 and the measuring grid, the chain kernel at the
+   gops probe's grid (512 steps), one CTA of the probe's 16384 steps and a
+   ragged size, and the gather kernel at the resident-bandwidth probe's shape and
+   a ragged one, each equal to its plain version (checksums printed);
 4. the blocked main path, ``repro_torch.api.filter_for_n_items(...)`` then
    ``Filter.add`` / ``Filter.contains``, at an L2-resident size (2^23 keys,
    2^27 bits) and a DRAM-resident size (2^28 keys, 2^32 bits): no false
@@ -111,6 +117,22 @@ the script exits non-zero without printing a result:
    refused; every update's words and flags and every contains equal to the
    plain version's in full, no false negative, occupied slots equal to the
    successful inserts, each kernel launched on the main path;
+4g. the tuning main path: ``perfmodel.get_calibration(measure=True)`` on
+   fresh caches, ``core.tuning.tune_plan`` of the sbf and countingbf cells'
+   contains and add and ``api.tuned_options``, with every calibration
+   kernel launched and every constant of the calibration from its probe
+   (``measured``, and no constant equal to its default); each of the five
+   probes called again on its own (each must be finite and > 0) and
+   printed with the card's name and power limit; the structural and measure-mode plans of the cells; the DRAM
+   contains of rows 3, 5, 13, 16 and 19 at their cells' full size at every
+   depth and at the depth ``ops`` resolves; the L2 crossover sweep (sbf
+   and countingbf contains through the L2 schedule and the DRAM schedule
+   at every depth, at 8-64 MiB, single filters at the powers of two and
+   banks of 8 MiB members at every size; the crossover against the tuned
+   and against the best DRAM depth); measured Mops/s over ``perfmodel.ceiling_mops`` for rows
+   1-4 and 10-13; the step kernel's times and bound (row 24) and
+   ``measure_step_us``'s time. ``build/repro_torch/smoke_tuning.json``
+   keeps these numbers;
 5. times with CUDA events (warm-up, then 5 rounds of 20 calls; an update is
    timed on state restored before each call, outside the events) at the
    main path's size and, against the plain version, on 2^22 keys into an
@@ -133,6 +155,8 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -153,6 +177,12 @@ from repro_torch.kernels import _build, cbf, ops, ring, sbf  # noqa: E402
 from repro_torch.kernels import countingbf as cnt  # noqa: E402
 from repro_torch.kernels import cuckoofilter as ckoo  # noqa: E402
 from repro_torch.kernels import quotientfilter as qf  # noqa: E402
+from repro_torch.kernels import calibrate as kc  # noqa: E402
+from repro_torch.kernels.sbf import DEFAULT_TILE  # noqa: E402
+from repro_torch import perfmodel as PM  # noqa: E402
+from repro_torch.perfmodel import calibrate as PC  # noqa: E402
+from repro_torch.core import tuning  # noqa: E402
+from repro_torch.roofline import report_utils as RU  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 OPS_PER_S = 67e12              # non-tensor peak (fp32 rate, the guide's table)
@@ -2989,6 +3019,429 @@ def profile_quotient(card: str):
                  else "no device time recorded (not measured)"))
 
 
+# ---------------------------------------------------------------------------
+# The calibration kernels, the tuner and the performance model (phases 3g,
+# 4g)
+# ---------------------------------------------------------------------------
+
+CALIB_SOURCE = "src/repro_torch/kernels/csrc/calibrate.cu"
+CALIB_REPLACES = "src/repro/perfmodel/calibrate.py:177"
+L2_SWEEP_MIB = (8, 16, 24, 32, 40, 48, 64)
+SWEEP_REPS, SWEEP_ROUNDS = 10, 3
+MIB = 1 << 20
+
+
+def checksum(t: torch.Tensor) -> int:
+    """u32 sum of an int32 tensor's words."""
+    return int(H.u32(t).sum().item()) & H.M32
+
+
+def phase_calibrate_kernels(errs: dict):
+    """The step kernel at g = 1, 16 and the measuring grid (words with the
+    u32 wrap among them), and the chain and gather kernels at the probes'
+    shapes and at small ragged ones, each against its plain version."""
+    dev = torch.device("cuda")
+    grid = PC.step_grid(dev)
+    gen = torch.Generator(device="cuda").manual_seed(700)
+    for g in (1, 16, grid):
+        x = torch.randint(-(1 << 31), 1 << 31, (kc.BLOCK_ROWS * g,
+                                                kc.BLOCK_COLS),
+                          dtype=torch.int32, device="cuda", generator=gen)
+        x[0, :4] = torch.tensor([-1, 0x7FFFFFFF, 0, -2], dtype=torch.int32)
+        out = kc.step(x, torch.empty_like(x))
+        errs["step"] = max(errs["step"], max_err(out, kc.step_plain(x)))
+    sms = kc.sm_count(dev)
+    width = (PC.CARD_GOPS_WAVES * sms * kc.blocks_per_sm("chain", dev)
+             * kc.THREADS)
+    sums = []
+    for n, iters in ((width, 512), (kc.THREADS, PC.CARD_GOPS_ITERS),
+                     (1000, 16)):
+        out = kc.chain(torch.empty((n,), dtype=torch.int32, device="cuda"),
+                       iters)
+        errs["chain"] = max(errs["chain"], max_err(
+            out, kc.chain_plain(n, iters, "cuda")))
+        sums.append(f"chain {n} x {iters}: {checksum(out):#010x}")
+    threads = sms * kc.blocks_per_sm("gather", dev) * kc.THREADS
+    per = PC.CARD_RES_GATHERS // threads
+    for words, n, p in ((PC.CARD_RES_TABLE_BYTES // 4, threads, per),
+                        (1024, 1000, 3)):
+        table = kc.gather_table(words, "cuda")
+        out = kc.gather(table, torch.empty((n,), dtype=torch.int32,
+                                           device="cuda"), p)
+        errs["gather"] = max(errs["gather"], max_err(
+            out, kc.gather_plain(table, n, p)))
+        sums.append(f"gather {n} x {p} of {words} words: "
+                    f"{checksum(out):#010x}")
+    torch.cuda.synchronize()
+    print(f"kernels: calibrate: step at g = 1, 16, {grid} equal to x + 1; "
+          f"chain and gather equal to their plain versions, checksums "
+          + "; ".join(sums))
+
+
+def cell_spec(n: int, variant: str) -> V.FilterSpec:
+    """The spec ``filter_for_n_items(n, bits_per_key=16, variant=variant,
+    block_bits=256)`` sizes."""
+    m = 1 << max(int(math.ceil(math.log2(n * 16))), 10)
+    return V.FilterSpec(variant, m, V.snap_k(variant, m / n, 256), 256)
+
+
+def depth_sweep(label: str, card: str, resolved: int, run) -> dict:
+    """Time ``run(depth)`` at every depth of ``DMA_DEPTHS`` and at the
+    depth the tuner resolves; print both."""
+    t = {d: time_ms(lambda d=d: run(d), f"{label} depth={d}", SWEEP_REPS,
+                    SWEEP_ROUNDS) for d in sbf.DMA_DEPTHS}
+    best = min(t, key=t.get)
+    slow = t[resolved] / t[best] - 1.0
+    print(f"depth sweep {label} [{card}]: tuned depth {resolved} "
+          f"{t[resolved]:.4f} ms; " + ", ".join(
+              f"depth {d} {v:.4f} ms" for d, v in t.items())
+          + f"; best depth {best}, tuned {slow:+.1%} against it"
+          + (" (more than 5 % slower)" if slow > 0.05 else ""))
+    return {"tuned_depth": resolved, "tuned_ms": t[resolved],
+            "best_depth": best, "best_ms": t[best],
+            "ms": {str(d): v for d, v in t.items()}}
+
+
+def phase_depth_sweeps(card: str) -> dict:
+    """Rows 3, 5, 13, 16, 19 at the DRAM cells' full size: each contains
+    at every depth and at the depth ``ops`` resolves (``tune_plan``)."""
+    dev = torch.device("cuda")
+    out = {}
+
+    def resolved(spec, bank=1):
+        return ops._resolve_depth(spec, "contains", None, DEFAULT_TILE,
+                                  bank=bank, device=dev)
+
+    # row 3: sbf, 2^28 keys into 2^32 bits
+    spec = cell_spec(1 << 28, "sbf")
+    keys = gen_keys(1 << 28, 1)
+    words = sbf.add_hbm(spec, V.init(spec, "cuda"), keys)
+    out["row 3"] = depth_sweep("row 3 sbf contains_hbm", card,
+                               resolved(spec), lambda d: sbf.contains_hbm(
+                                   spec, words, keys, depth=d))
+    del words
+    # row 5: sbf bank, 1024 members of 2^18 keys, 2^28 routed keys
+    spec = cell_spec(1 << 18, "sbf")
+    member = gen_members(1 << 28, BANK_MEMBERS, 52)
+    bank = torch.zeros((BANK_MEMBERS, spec.n_words), dtype=torch.int32,
+                       device="cuda")
+    sbf._launch_bank_add(spec, bank, keys, member, None)
+    phi = min(spec.s, 4)
+    out["row 5"] = depth_sweep(
+        "row 5 sbf bank_contains_vmem (DRAM)", card,
+        resolved(spec, BANK_MEMBERS),
+        lambda d: sbf._launch_bank_contains(spec, bank, keys, member, phi,
+                                            sbf._depth_in_flight(spec, d)))
+    del bank, member, keys
+    torch.cuda.empty_cache()
+    # row 13: countingbf, 2^26 keys into 512 MiB of counters
+    spec = cell_spec(1 << 26, "countingbf")
+    keys = gen_keys(1 << 26, 1)
+    words = cnt.update_hbm(spec, V.init(spec, "cuda"), keys, None, "add")
+    out["row 13"] = depth_sweep(
+        "row 13 countingbf contains_hbm", card, resolved(spec),
+        lambda d: cnt.contains_hbm(spec, words, keys, depth=d))
+    del words
+    # row 16: countingbf bank, 1024 members of 2^16 keys
+    spec = cell_spec(1 << 16, "countingbf")
+    member = gen_members(1 << 26, BANK_MEMBERS, 52)
+    bank = torch.zeros((BANK_MEMBERS, spec.storage_words),
+                       dtype=torch.int32, device="cuda")
+    cnt.bank_update_vmem(spec, bank, keys, member, None, "add")
+    out["row 16"] = depth_sweep(
+        "row 16 countingbf bank_contains_vmem (DRAM)", card,
+        resolved(spec, BANK_MEMBERS),
+        lambda d: cnt._launch_bank_contains(
+            spec, bank, keys, member, cnt._depth_in_flight(spec, d)))
+    del bank, member
+    # row 19: a window of 2^26 keys over G = 4 generations of 2^30 bits
+    G = 4
+    spec = cell_spec(1 << 26, "sbf")
+    rings = torch.zeros((G, spec.n_words), dtype=torch.int32, device="cuda")
+    for g, chunk in enumerate(keys.split(keys.shape[0] // G)):
+        sbf.add_hbm(spec, rings[g], chunk)
+    out["row 19"] = depth_sweep(
+        "row 19 ring_contains_hbm", card, resolved(spec),
+        lambda d: ring.ring_contains_hbm(spec, rings, keys, depth=d))
+    del rings, keys
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_l2_sweep(card: str, depth_of) -> dict:
+    """The L2 crossover: the sbf and countingbf contains through the L2
+    schedule (``contains_vmem``, depth 1) and the DRAM schedule
+    (``contains_hbm``) at every depth of ``DMA_DEPTHS``, on filters of 8-64
+    MiB at 16 bits a key, querying the inserted keys. Power-of-two sizes
+    run one filter; every size also runs a bank of 8 MiB members (the sizes
+    in between have no single filter), through the bank kernel's two
+    schedules. Two crossovers: against the DRAM schedule at the depth the
+    tuner resolves (what the dispatch runs past ``L2_FILTER_BYTES``), and
+    against it at its best depth."""
+    t = {}
+    for variant in ("sbf", "countingbf"):
+        ratio = 4 if variant == "countingbf" else 1     # storage / bit bytes
+        member = cell_spec(8 * MIB * 8 // 16 // ratio, variant)
+        for mib in L2_SWEEP_MIB:
+            if mib & (mib - 1) == 0:
+                spec = cell_spec(mib * MIB * 8 // 16 // ratio, variant)
+                n = spec.m_bits // 16
+                keys = gen_keys(n, 60 + mib)
+                if variant == "sbf":
+                    words = sbf.add_vmem(spec, V.init(spec, "cuda"), keys,
+                                         sbf.default_layout(spec, "add"))
+                    l2 = functools.partial(
+                        sbf.contains_vmem, spec, words, keys,
+                        sbf.default_layout(spec, "contains"))
+                    dram = functools.partial(sbf.contains_hbm, spec, words,
+                                             keys)
+                else:
+                    words = cnt.update_vmem(spec, V.init(spec, "cuda"), keys,
+                                            None, "add")
+                    l2 = functools.partial(cnt.contains_vmem, spec, words,
+                                           keys)
+                    dram = functools.partial(cnt.contains_hbm, spec, words,
+                                             keys)
+                label = f"{variant} {mib} MiB filter"
+                t[label] = (
+                    time_ms(l2, f"{label} L2", SWEEP_REPS, SWEEP_ROUNDS),
+                    {d: time_ms(lambda d=d: dram(depth=d),
+                                f"{label} DRAM depth={d}", SWEEP_REPS,
+                                SWEEP_ROUNDS) for d in sbf.DMA_DEPTHS},
+                    depth_of(spec, 1), mib)
+                del words, keys
+            B = mib // 8
+            n = B * (member.m_bits // 16)
+            keys, ids = gen_keys(n, 70 + mib), gen_members(n, B, 71 + mib)
+            bank = torch.zeros((B, member.storage_words), dtype=torch.int32,
+                               device="cuda")
+            if variant == "sbf":
+                sbf._launch_bank_add(member, bank, keys, ids, None)
+                phi = min(sbf.default_layout(member, "contains").phi, 4)
+                l2 = functools.partial(sbf._launch_bank_contains, member,
+                                       bank, keys, ids, phi, 1)
+
+                def dram(d):
+                    return sbf._launch_bank_contains(
+                        member, bank, keys, ids, min(member.s, 4),
+                        sbf._depth_in_flight(member, d))
+            else:
+                cnt.bank_update_vmem(member, bank, keys, ids, None, "add")
+                l2 = functools.partial(cnt._launch_bank_contains, member,
+                                       bank, keys, ids, 1)
+
+                def dram(d):
+                    return cnt._launch_bank_contains(
+                        member, bank, keys, ids,
+                        cnt._depth_in_flight(member, d))
+            label = f"{variant} {mib} MiB bank of {B}"
+            t[label] = (
+                time_ms(l2, f"{label} L2", SWEEP_REPS, SWEEP_ROUNDS),
+                {d: time_ms(lambda d=d: dram(d), f"{label} DRAM depth={d}",
+                            SWEEP_REPS, SWEEP_ROUNDS)
+                 for d in sbf.DMA_DEPTHS},
+                depth_of(member, B), mib)
+            del bank, keys, ids
+        torch.cuda.empty_cache()
+    res = {}
+    for label, (l2, dram, tuned, mib) in t.items():
+        best = min(dram, key=dram.get)
+        res[label] = {"l2": l2, "dram": dram[tuned], "tuned_depth": tuned,
+                      "dram_best": dram[best], "best_depth": best,
+                      "dram_by_depth": {str(d): v for d, v in dram.items()},
+                      "mib": mib}
+        print(f"l2 sweep [{card}]: {label}: L2 schedule {l2:.4f} ms; DRAM "
+              f"schedule at the tuned depth {tuned} {dram[tuned]:.4f} ms "
+              f"({l2 / dram[tuned]:.3f} x), at its best depth {best} "
+              f"{dram[best]:.4f} ms ({l2 / dram[best]:.3f} x)")
+
+    def crossover(key):
+        ok = {mib: all(r["l2"] <= r[key] for r in res.values()
+                       if r["mib"] == mib) for mib in L2_SWEEP_MIB}
+        cross = 0
+        for mib in L2_SWEEP_MIB:
+            if not ok[mib]:
+                break
+            cross = mib
+        return cross, [m for m in L2_SWEEP_MIB if ok[m]]
+
+    cross, ok_tuned = crossover("dram")
+    cross_best, ok_best = crossover("dram_best")
+    print(f"l2 sweep [{card}]: against the DRAM schedule at the tuned depth "
+          f"the L2 schedule is no slower at {ok_tuned} MiB, crossover "
+          f"{cross} MiB; at its best depth no slower at {ok_best} MiB, "
+          f"crossover {cross_best} MiB (ops.L2_FILTER_BYTES is "
+          f"{ops.L2_FILTER_BYTES // MIB} MiB)")
+    torch.cuda.synchronize()
+    return {"crossover_mib": cross, "crossover_best_depth_mib": cross_best,
+            "ms": res}
+
+
+def clear_tuning(cache: Path) -> None:
+    """Forget every plan: the lru caches and the disk cache."""
+    tuning.tune_plan.cache_clear()
+    tuning.tune_layout.cache_clear()
+    PM.choose_coop.cache_clear()
+    cache.unlink(missing_ok=True)
+
+
+def phase_tuning_main(card: str, errs: dict, out: dict, records: dict,
+                      crecords: dict, cache: Path) -> dict:
+    """Phase 4g: the slice's main path, ``perfmodel.get_calibration(
+    measure=True)``, ``core.tuning.tune_plan`` of the cells and
+    ``api.tuned_options``, counted; each probe called on its own (finite
+    and > 0); the plans in both modes; the depth sweeps; the
+    speed-of-light fractions; the step kernel's times and bound."""
+    dev = torch.device("cuda")
+    cells = {"sbf L2": cell_spec(1 << 23, "sbf"),
+             "sbf DRAM": cell_spec(1 << 28, "sbf"),
+             "countingbf L2": cell_spec(1 << 22, "countingbf"),
+             "countingbf DRAM": cell_spec(1 << 26, "countingbf")}
+    clear_tuning(cache)
+    torch.cuda.synchronize()
+
+    kc.reset_launches()                    # the main path, counted
+    t0 = time.perf_counter()
+    calib = PM.get_calibration(measure=True, device=dev)
+    plans = {(cell, op): tuning.tune_plan(
+        spec, op, regime=ops._regime(spec, "auto"), device=dev)
+        for cell, spec in cells.items() for op in ("contains", "add")}
+    pinned = api.tuned_options(cells["sbf DRAM"], "contains", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kc.LAUNCHES)
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"calibrate {name} was not launched on the "
+                                 f"tuning main path")
+    if not calib.measured or calib.backend != PC.backend_key(dev):
+        raise AssertionError(f"calibration {calib}: a probe failed")
+    defaults = PC.default_calibration(device=dev)
+    for name in PC.PROBES:             # every constant from its probe
+        v = getattr(calib, name)
+        if not (math.isfinite(v) and v > 0) or v == getattr(defaults, name):
+            raise AssertionError(f"calibration {name} = {v!r} is not a "
+                                 f"measurement (default "
+                                 f"{getattr(defaults, name)!r})")
+    if pinned.depth != plans[("sbf DRAM", "contains")].depth:
+        raise AssertionError(f"tuned_options {pinned} against "
+                             f"{plans[('sbf DRAM', 'contains')]}")
+    print(f"tuning main path [{card}]: get_calibration(measure=True), "
+          f"{len(plans)} plans and tuned_options in {wall * 1e3:.1f} ms "
+          f"host clock; launches {launches}")
+
+    probes = {}
+    for name, probe in PC.PROBES.items():
+        t1 = time.perf_counter()
+        v = float(probe(device=dev))
+        if not (math.isfinite(v) and v > 0):
+            raise AssertionError(f"probe {name} returned {v}")
+        probes[name] = (v, (time.perf_counter() - t1) * 1e3)
+    grid = PC.step_grid(dev)
+    units = {"bw_hbm_gbs": "GB/s", "bw_res_gbs": "GB/s", "gops": "Gop/s",
+             "launch_us": "us", "step_us": "us"}
+    for name, (v, ms) in probes.items():
+        print(f"calibration [{card}]: {name} = {getattr(calib, name)!r} "
+              f"{units[name]} (main path), {v!r} (the probe again, "
+              f"{ms:.1f} ms host clock)")
+    print(f"calibration [{card}]: step grid {grid} CTAs = "
+          f"{PC.CARD_STEP_WAVES} waves x {kc.sm_count(dev)} SMs x "
+          f"{kc.blocks_per_sm('step', dev)} CTAs an SM; "
+          f"defaults {PC.default_calibration(device=dev)}")
+
+    for (cell, op), plan in plans.items():
+        measured = tuning.tune_plan(cells[cell], op,
+                                    regime=ops._regime(cells[cell], "auto"),
+                                    mode="measure", device=dev)
+        print(f"plan {cell} {op} [{card}]: structural {plan.to_dict()}; "
+              f"measure {measured.to_dict()}")
+
+    sweeps = phase_depth_sweeps(card)
+
+    def depth_of(spec, bank):
+        return ops._resolve_depth(spec, "contains", None, DEFAULT_TILE,
+                                  bank=bank, device=dev)
+
+    l2 = phase_l2_sweep(card, depth_of)
+
+    # measured Mops/s over the model's ceiling, rows 1-4 and 10-13
+    sol = {}
+    rows = [(1, records["contains_vmem"], "sbf L2", "contains"),
+            (2, records["add_vmem"], "sbf L2", "add"),
+            (3, records["contains_hbm"], "sbf DRAM", "contains"),
+            (4, records["add_hbm"], "sbf DRAM", "add"),
+            (10, crecords["update_vmem"], "countingbf L2", "add"),
+            (11, crecords["contains_vmem"], "countingbf L2", "contains"),
+            (12, crecords["update_hbm"], "countingbf DRAM", "add"),
+            (13, crecords["contains_hbm"], "countingbf DRAM", "contains")]
+    for row, rec, cell, op in rows:
+        spec, plan = cells[cell], plans[(cell, op)]
+        n = rec["main_n_keys"]
+        cfg = dict(probe=plan.probe, coop=plan.coop, mix=plan.mix,
+                   depth=plan.depth)
+        ceiling = PM.ceiling_mops(spec, op, ops._regime(spec, "auto"),
+                                  n_keys=n, calib=calib, **cfg)
+        mops = n / rec["main_ms"] / 1e3
+        sol[row] = mops / ceiling
+        extra = ""
+        if row in (3, 13):
+            tuned = sweeps[f"row {row}"]["tuned_ms"]
+            extra = (f"; at the tuned depth {n / tuned / 1e3:.1f} Mops/s, "
+                     f"{n / tuned / 1e3 / ceiling:.3f}")
+        print(f"speed of light row {row} {cell} {op} [{card}]: "
+              f"{RU.fmt_rate(mops * 1e6, 'ops/s')} measured at {n} keys, "
+              f"ceiling_mops {ceiling:.1f}, fraction {sol[row]:.3f}{extra}")
+
+    # row 24: the step kernel at the measuring grid, and measure_step_us
+    x = torch.zeros((kc.BLOCK_ROWS * grid, kc.BLOCK_COLS), dtype=torch.int32,
+                    device="cuda")
+    y = torch.empty_like(x)
+    one = torch.zeros((kc.BLOCK_ROWS, kc.BLOCK_COLS), dtype=torch.int32,
+                      device="cuda")
+    one_out = torch.empty_like(one)
+    t = {"step": time_ms(lambda: kc.step(x, y), "step"),
+         "step 1": time_ms(lambda: kc.step(one, one_out), "step 1"),
+         "plain": time_ms(lambda: kc.step_plain(x), "step plain"),
+         "library": time_ms(lambda: torch.add(x, 1, out=y), "step library")}
+    t0 = time.perf_counter()
+    step_us = PC.measure_step_us(device=dev)
+    t_probe = (time.perf_counter() - t0) * 1e3
+    nbytes = 2 * x.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = x.numel() / OPS_PER_S * 1e3
+    bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                      else "operations")
+    cta_ns = 2 * kc.BLOCK_ROWS * kc.BLOCK_COLS * 4 / HBM_BYTES_PER_S * 1e9
+    lo, hi = SPREAD["step"]
+    print(f"time row 24 step [{card}]: kernel {t['step']:.4f} ms (rounds "
+          f"{lo:.4f}-{hi:.4f}) at g = {grid} ({nbytes / MIB:.0f} MiB moved), "
+          f"bound {bound:.4f} ms ({by}), {bound / t['step']:.1%} of it; one "
+          f"CTA {t['step 1']:.4f} ms a call in a run of calls (launch- and "
+          f"host-bound; its bound {cta_ns:.2f} ns); plain {t['plain']:.4f} ms, torch.add "
+          f"{t['library']:.4f} ms; measure_step_us {t_probe:.2f} ms host "
+          f"clock, step_us {step_us * 1e3:.3f} ns against {cta_ns:.3f} ns "
+          f"of DRAM traffic a CTA")
+    out["step"] = {
+        "name": "calibrate_step", "route": "cuda", "source": CALIB_SOURCE,
+        "replaces": CALIB_REPLACES, "launches": launches["step"],
+        "max_abs_err": errs["step"], "ms": t["step"], "plain_ms": t["plain"],
+        "bound_ms": bound, "bound_by": by, "library_ms": t["library"],
+        "grid": grid, "one_cta_ms": t["step 1"], "step_us": step_us,
+        "measure_step_us_ms": t_probe, "chain_launches": launches["chain"],
+        "gather_launches": launches["gather"],
+        "chain_max_abs_err": errs["chain"],
+        "gather_max_abs_err": errs["gather"]}
+    del x, y
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return {"calibration": calib.to_dict(),
+            "probes": {k: v for k, (v, _) in probes.items()},
+            "plans": {f"{c} {o}": p.to_dict() for (c, o), p in plans.items()},
+            "depth_sweeps": sweeps, "l2_sweep": l2,
+            "speed_of_light": sol}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3002,6 +3455,14 @@ def main() -> int:
         laps.append(f"{name} {now - t_lap:.1f} s")
         t_lap = now
 
+    # the tuner's and the calibration's caches: fresh files in the build
+    # directory, so that no plan or constant comes from an earlier run
+    cache = ROOT / "build" / "repro_torch" / "smoke_cache"
+    cache.mkdir(parents=True, exist_ok=True)
+    os.environ["REPRO_TUNING_CACHE"] = str(cache / "tuning.json")
+    os.environ["REPRO_CALIB_CACHE"] = str(cache / "calibration.json")
+    for path in cache.iterdir():
+        path.unlink()
     card, kind, count = phase_device()
     phase_build()
     lap("device and build")
@@ -3085,6 +3546,15 @@ def main() -> int:
                         card)
     qrecords = quotient_records(qcells, qerrs, qlaunches)
     lap("phase 4f")
+    gerrs = {k: 0 for k in kc.LAUNCHES}
+    phase_calibrate_kernels(gerrs)
+    lap("phase 3g")
+    grecords = {}
+    tuned = phase_tuning_main(card, gerrs, grecords, records, crecords,
+                              Path(os.environ["REPRO_TUNING_CACHE"]))
+    (cache.parent / "smoke_tuning.json").write_text(json.dumps(
+        {"card": card, **tuned}, indent=1))
+    lap("phase 4g")
     print(f"smoke phases: {', '.join(laps)}")
     print(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} "
           f"s, the build included")
@@ -3105,7 +3575,8 @@ def main() -> int:
                          krecords["cuckoo_contains"],
                          krecords["cuckoo_update"],
                          qrecords["quotient_contains"],
-                         qrecords["quotient_update"]]}))
+                         qrecords["quotient_update"]]
+                      + [grecords["step"]]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

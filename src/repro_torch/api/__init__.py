@@ -58,6 +58,7 @@ from repro_torch.core.variants import FilterSpec
 from repro_torch.api import registry
 from repro_torch.api.filter import BackendOptions, Filter, as_keys, bank_state
 from repro_torch.api import backends as _backends
+from repro_torch.api.backends import tuned_options
 
 _backends.register_all()
 
@@ -265,4 +266,4 @@ def get_backend(name: str) -> registry.Backend:
 __all__ = ["Filter", "FilterSpec", "BackendOptions", "as_keys", "registry",
            "make_filter", "make_filter_bank", "route", "filter_for_n_items",
            "filter_for_workload", "union", "backends", "describe_backends",
-           "get_backend"]
+           "get_backend", "tuned_options"]

@@ -580,6 +580,27 @@ class QuotientBackend(CuckooBackend):
         return new_spec, out.reshape(words.shape[:-1] + (new_spec.n_words,))
 
 
+def tuned_options(spec: FilterSpec, op: str = "contains",
+                  regime: str = "auto", tile: int = None, device=None):
+    """Pin a ``BackendOptions`` to the autotuner's plan for (spec, op) on
+    ``device`` (default the card).
+
+    ``make_filter(probe="auto")`` already resolves per call; this helper
+    materializes the tuned (layout, probe, depth, coop, mix) eagerly, for a
+    caller that wants the plan recorded in the filter's options, inspected
+    or logged.
+    """
+    from repro_torch import resolve_device
+    from repro_torch.api.filter import BackendOptions
+    from repro_torch.core import tuning
+    from repro_torch.kernels.sbf import DEFAULT_TILE
+    tile = tile or DEFAULT_TILE
+    plan = tuning.tune_plan(spec, op, regime=ops._regime(spec, regime),
+                            tile=tile, device=resolve_device(device))
+    return BackendOptions(layout=plan.layout, tile=tile, probe=plan.probe,
+                          depth=plan.depth, coop=plan.coop, mix=plan.mix)
+
+
 def register_all():
     register(TorchBackend())
     register(CudaL2Backend())

@@ -53,7 +53,9 @@ from repro_torch.window.ring import ring_merge_dense
 class BackendOptions:
     """Kernel parameters carried by a filter. ``layout``/``tile``/``probe``/
     ``depth``/``coop``/``mix`` are validated and passed to
-    ``kernels.ops``; ``"auto"`` and ``None`` resolve to its fixed defaults."""
+    ``kernels.ops``, which resolves ``"auto"`` and ``None`` through the
+    autotuner (``core.tuning.tune_plan``) for the words' device;
+    ``api.tuned_options`` pins a plan eagerly."""
 
     layout: Optional[object] = None    # kernels.sbf.Layout
     tile: Optional[int] = None

@@ -24,7 +24,8 @@ import types
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bloom", "counting", "cbf", "ring", "cuckoo", "quotient")
+SOURCES = ("bloom", "counting", "cbf", "ring", "cuckoo", "quotient",
+           "calibrate")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -83,6 +84,11 @@ ENTRY_POINTS = {
                                      _vp, _vp]),
     "quotient_decode": ("quotient", [_vp, _vp, _vp, _i, _i, _i, _vp, _vp,
                                      _ll, _vp, _vp]),
+    # the performance model's calibration probes (kernels/calibrate.py)
+    "calibrate_step": ("calibrate", [_vp, _vp, _ll, _vp]),
+    "calibrate_chain": ("calibrate", [_vp, _ll, _i, _u32, _u32, _vp]),
+    "calibrate_gather": ("calibrate", [_vp, _u32, _vp, _ll, _i, _vp]),
+    "calibrate_blocks_per_sm": ("calibrate", [_i]),
 }
 
 _lock = threading.Lock()

@@ -20,10 +20,20 @@ Counterpart of ``repro.kernels.ops.bloom_contains`` / ``bloom_add``,
   The regime names stay ``"vmem"`` and ``"hbm"`` as in the JAX package.
   The regime never changes a result;
 * ``probe``/``coop``/``mix``/``depth``/``layout``/``tile`` are validated as
-  the JAX package does. ``"auto"`` resolves to the fixed defaults below
-  (the tuner, ``core/tuning.py``, is ROADMAP queue 1 item 11). Which of
-  them the CUDA kernels act on is set out in ``kernels/sbf.py`` and
-  ``kernels/countingbf.py``;
+  the JAX package does. ``"auto"`` (and ``depth=None``) resolve as the JAX
+  dispatch resolves them, for the device of the keys: the Bloom and
+  counting axes through ``core.tuning.tune_plan`` (lru and disk cached),
+  with the tile clamped to the batch first (``_clamp_tile``), and the
+  cuckoo and quotient ``coop`` through ``perfmodel.choose_coop``. Two
+  resolutions have no JAX counterpart, since the JAX package runs bank and
+  ring kernels on VMEM-resident state only: the depth of a bank contains
+  in DRAM is ``tune_plan(regime="hbm", bank=B)``'s, and that of a ring
+  contains in DRAM is the spec's ``tune_plan(regime="hbm")`` depth. The
+  bank forms resolve probe and mix with coop pinned to ``"none"``, since
+  the bank kernels have no cooperative form (the JAX dispatch leaves coop
+  ``"auto"`` there; on the CPU calibration the two plans agree). Which
+  axes the CUDA kernels act on is set out in ``kernels/sbf.py`` and
+  ``kernels/countingbf.py``; no axis changes a result;
 * keys on the CPU are padded to a tile multiple before the plain path, as
   in the JAX package: by repeating the last key (``_pad_keys``) for the
   OR-idempotent bit ops and for every contains, and with zero keys marked
@@ -80,18 +90,19 @@ from repro_torch.kernels import cuckoofilter as ckoo_k
 from repro_torch.kernels import quotientfilter as qf_k
 from repro_torch.kernels import ring as ring_k
 from repro_torch.kernels import sbf as sbf_k
-from repro_torch.kernels.sbf import (COOPS, DEFAULT_DMA_DEPTH, DEFAULT_TILE,
-                                     MIXES, PROBES, Layout, default_layout)
+from repro_torch.kernels.sbf import (COOPS, DEFAULT_TILE, MIXES, PROBES,
+                                     Layout, default_layout)
 
-# Filters of at most this many bytes run the L2-resident kernels. A guess
-# below the H100's 50 MB L2, leaving room for the keys and results that
-# stream through it; not yet measured.
-L2_FILTER_BYTES = 32 * 1024 * 1024
-
-# What "auto" resolves to until the tuner is ported.
-AUTO_PROBE = "loop"
-AUTO_COOP = "none"
-AUTO_MIX = "full"
+# Filters of at most this many bytes run the L2-resident kernels: the largest
+# size of chip_smoke.py's crossover sweep (phase 4g: sbf and countingbf
+# contains, 8-64 MiB, single filters and banks) at which the L2 schedule is
+# no slower than the DRAM schedule at the depth the tuner gives it (8), on
+# an NVIDIA H100 80GB HBM3 at 700.00 W: 0.59-0.90x at every swept size in
+# two runs, so the line lies at or above 64 MiB. It holds only while the
+# tuner picks depth 8: against the DRAM schedule at its best depth (1 or 2)
+# the L2 schedule took 0.97-1.06x at every size (at depth 1 the two are one
+# kernel instance), so there the line would decide nothing but the depth.
+L2_FILTER_BYTES = 64 * 1024 * 1024
 
 REGIMES = ("vmem", "hbm")
 
@@ -123,12 +134,55 @@ def _clamp_tile(n: int, tile: int) -> int:
     return min(tile, max(8, 1 << int(np.ceil(np.log2(n)))))
 
 
-def _resolve(value: str, choices, auto: str, axis: str) -> str:
-    if value == "auto":
-        return auto
-    if value not in choices:
+def _check_axis(value: str, choices, axis: str) -> None:
+    if value != "auto" and value not in choices:
         raise ValueError(f"{axis}={value!r} not in {choices} or 'auto'")
-    return value
+
+
+def _check_axes(probe: str, coop: str, mix: str) -> None:
+    """Validate the three schedule axes (each a value or ``"auto"``)."""
+    _check_axis(probe, PROBES, "probe")
+    _check_axis(coop, COOPS, "coop")
+    _check_axis(mix, MIXES, "mix")
+
+
+def _resolve_pcm(spec: FilterSpec, op: str, regime: str, tile: int,
+                 probe: str = "auto", coop: str = "auto", mix: str = "auto",
+                 bank: int = 1, device=None):
+    """Resolve the (probe, coop, mix) triple: pinned values pass through,
+    ``"auto"`` axes come from one ``tune_plan`` query keyed to the pinned
+    axes (so a pinned coop never reuses a plan tuned under another)."""
+    _check_axes(probe, coop, mix)
+    if "auto" not in (probe, coop, mix):
+        return probe, coop, mix
+    from repro_torch.core import tuning
+    plan = tuning.tune_plan(spec, op, regime=regime, tile=tile, bank=bank,
+                            coop=coop, mix=mix, device=device)
+    return (probe if probe != "auto" else plan.probe,
+            coop if coop != "auto" else plan.coop,
+            mix if mix != "auto" else plan.mix)
+
+
+def _resolve_depth(spec: FilterSpec, op: str, depth: Optional[int],
+                   tile: int, bank: int = 1, device=None) -> int:
+    """``None`` takes the tuner's DRAM-regime depth for ``device``."""
+    if depth is not None:
+        return depth
+    from repro_torch.core import tuning
+    return tuning.tune_plan(spec, op, regime="hbm", tile=tile, bank=bank,
+                            device=device).depth
+
+
+def _resolve_coop_fp(spec: FilterSpec, coop: str, tile: int,
+                     device=None) -> str:
+    """``"auto"`` cooperation for the cuckoo and quotient engines: the
+    lru-cached perfmodel helper (they have no layout grid, so they bypass
+    ``tune_plan``)."""
+    _check_axis(coop, COOPS, "coop")
+    if coop != "auto":
+        return coop
+    from repro_torch import perfmodel as PM
+    return PM.choose_coop(spec, "contains", "vmem", tile, device)[0]
 
 
 def _pad_keys(keys: torch.Tensor, tile: int) -> torch.Tensor:
@@ -182,20 +236,24 @@ def bloom_contains(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
         return torch.zeros((0,), dtype=torch.bool, device=keys.device)
     tile = _clamp_tile(n, tile)
     padded = keys if keys.is_cuda else _pad_keys(keys, tile)
-    c = _resolve(coop, COOPS, AUTO_COOP, "coop")
-    m = _resolve(mix, MIXES, AUTO_MIX, "mix")
+    dev = keys.device
     if spec.variant == "cbf":
+        _check_axes(probe, coop, mix)
         _regime(spec, regime)         # validated: one kernel serves both
         out = cbf_k.contains_vmem(spec, filt, padded)
     elif _regime(spec, regime) == "vmem":
+        p, c, m = _resolve_pcm(spec, "contains", "vmem", tile, probe, coop,
+                               mix, device=dev)
         out = sbf_k.contains_vmem(
             spec, filt, padded, layout or default_layout(spec, "contains"),
-            tile=tile, probe=_resolve(probe, PROBES, AUTO_PROBE, "probe"),
-            coop=c, mix=m)
+            tile=tile, probe=p, coop=c, mix=m)
     else:
+        _check_axis(probe, PROBES, "probe")
+        _, c, m = _resolve_pcm(spec, "contains", "hbm", tile, "gather",
+                               coop, mix, device=dev)
         out = sbf_k.contains_hbm(
             spec, filt, padded, coop=c, mix=m,
-            depth=DEFAULT_DMA_DEPTH if depth is None else depth)
+            depth=_resolve_depth(spec, "contains", depth, tile, device=dev))
     return out[:n]
 
 
@@ -213,16 +271,20 @@ def bloom_add(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
         return out
     tile = _clamp_tile(n, tile)
     padded = keys if keys.is_cuda else _pad_keys(keys, tile)
-    c = _resolve(coop, COOPS, AUTO_COOP, "coop")
-    m = _resolve(mix, MIXES, AUTO_MIX, "mix")
+    dev = keys.device
     if spec.variant == "cbf":
+        _check_axes(probe, coop, mix)
         _regime(spec, regime)         # validated: one kernel serves both
         return cbf_k.add_vmem(spec, out, padded)
     if _regime(spec, regime) == "vmem":
+        p, c, m = _resolve_pcm(spec, "add", "vmem", tile, probe, coop, mix,
+                               device=dev)
         return sbf_k.add_vmem(
             spec, out, padded, layout or default_layout(spec, "add"),
-            tile=tile, probe=_resolve(probe, PROBES, AUTO_PROBE, "probe"),
-            coop=c, mix=m)
+            tile=tile, probe=p, coop=c, mix=m)
+    _check_axis(probe, PROBES, "probe")
+    _, c, m = _resolve_pcm(spec, "add", "hbm", tile, "gather", coop, mix,
+                           device=dev)
     return sbf_k.add_hbm(spec, out, padded, coop=c, mix=m)
 
 
@@ -253,12 +315,16 @@ def _counting_update(spec: FilterSpec, filt: torch.Tensor,
     tile = _clamp_tile(n, tile)
     if not keys.is_cuda:
         keys, valid = _pad_keys_valid(keys, tile, valid)
-    c = _resolve(coop, COOPS, AUTO_COOP, "coop")
-    m = _resolve(mix, MIXES, AUTO_MIX, "mix")
+    dev = keys.device
     if _regime(spec, regime) == "vmem":
+        p, c, m = _resolve_pcm(spec, "add", "vmem", tile, probe, coop, mix,
+                               device=dev)
         return cnt_k.update_vmem(
-            spec, out, keys, valid, op, layout=layout, tile=tile,
-            probe=_resolve(probe, PROBES, AUTO_PROBE, "probe"), coop=c, mix=m)
+            spec, out, keys, valid, op, layout=layout, tile=tile, probe=p,
+            coop=c, mix=m)
+    _check_axis(probe, PROBES, "probe")
+    _, c, m = _resolve_pcm(spec, "add", "hbm", tile, "gather", coop, mix,
+                           device=dev)
     return cnt_k.update_hbm(spec, out, keys, valid, op, coop=c, mix=m)
 
 
@@ -297,16 +363,20 @@ def counting_contains(spec: FilterSpec, filt: torch.Tensor,
         return torch.zeros((0,), dtype=torch.bool, device=keys.device)
     tile = _clamp_tile(n, tile)
     padded = keys if keys.is_cuda else _pad_keys(keys, tile)
-    c = _resolve(coop, COOPS, AUTO_COOP, "coop")
-    m = _resolve(mix, MIXES, AUTO_MIX, "mix")
+    dev = keys.device
     if _regime(spec, regime) == "vmem":
+        p, c, m = _resolve_pcm(spec, "contains", "vmem", tile, probe, coop,
+                               mix, device=dev)
         out = cnt_k.contains_vmem(
-            spec, filt, padded, layout=layout, tile=tile,
-            probe=_resolve(probe, PROBES, AUTO_PROBE, "probe"), coop=c, mix=m)
+            spec, filt, padded, layout=layout, tile=tile, probe=p, coop=c,
+            mix=m)
     else:
+        _check_axis(probe, PROBES, "probe")
+        _, c, m = _resolve_pcm(spec, "contains", "hbm", tile, "gather",
+                               coop, mix, device=dev)
         out = cnt_k.contains_hbm(
             spec, filt, padded, coop=c, mix=m,
-            depth=DEFAULT_DMA_DEPTH if depth is None else depth)
+            depth=_resolve_depth(spec, "contains", depth, tile, device=dev))
     return out[:n]
 
 
@@ -326,7 +396,8 @@ def ring_contains(spec: FilterSpec, rings: torch.Tensor, keys: torch.Tensor,
                   ) -> torch.Tensor:
     """Fused membership across a (G, n_words) generation ring: one hash per
     key, G row loads ORed before a single mask test. The regime comes from
-    the whole ring's bytes, ``G * n_words * 4``."""
+    the whole ring's bytes, ``G * n_words * 4``; in DRAM the kernel runs at
+    the spec's tuned depth."""
     _check_spec(spec)
     n = keys.shape[0]
     if n == 0:
@@ -336,7 +407,10 @@ def ring_contains(spec: FilterSpec, rings: torch.Tensor, keys: torch.Tensor,
     if _regime(spec, regime, rings.shape[0]) == "vmem":
         out = ring_k.ring_contains_vmem(spec, rings, padded)
     else:
-        out = ring_k.ring_contains_hbm(spec, rings, padded)
+        out = ring_k.ring_contains_hbm(
+            spec, rings, padded,
+            depth=_resolve_depth(spec, "contains", None, tile,
+                                 device=keys.device))
     return out[:n]
 
 
@@ -407,14 +481,16 @@ def bloom_bank_contains(spec: FilterSpec, bank: torch.Tensor,
     member = member.to(torch.int32)
     if not keys.is_cuda:
         keys, member = _pad_flat(keys, member, tile)
-    if _bank_regime(spec, bank.shape[0], regime) == "vmem":
+    B, dev = bank.shape[0], keys.device
+    if _bank_regime(spec, B, regime) == "vmem":
         d = 1
     else:
-        d = DEFAULT_DMA_DEPTH if depth is None else depth
+        d = _resolve_depth(spec, "contains", depth, tile, bank=B, device=dev)
+    p, _, m = _resolve_pcm(spec, "contains", "vmem", tile, probe, "none",
+                           mix, bank=B, device=dev)
     out = sbf_k.bank_contains_vmem(
         spec, bank, keys, member, layout or default_layout(spec, "contains"),
-        tile=tile, probe=_resolve(probe, PROBES, AUTO_PROBE, "probe"),
-        mix=_resolve(mix, MIXES, AUTO_MIX, "mix"), depth=d)
+        tile=tile, probe=p, mix=m, depth=d)
     return out[:n]
 
 
@@ -434,10 +510,11 @@ def bloom_bank_add(spec: FilterSpec, bank: torch.Tensor, keys: torch.Tensor,
     member = member.to(torch.int32)
     if not keys.is_cuda:
         keys, member, valid = _pad_flat_valid(keys, member, valid, tile)
+    p, _, m = _resolve_pcm(spec, "add", "vmem", tile, probe, "none", mix,
+                           bank=bank.shape[0], device=keys.device)
     return sbf_k.bank_add_vmem(
         spec, out, keys, member, valid, layout or default_layout(spec, "add"),
-        tile=tile, probe=_resolve(probe, PROBES, AUTO_PROBE, "probe"),
-        mix=_resolve(mix, MIXES, AUTO_MIX, "mix"))
+        tile=tile, probe=p, mix=m)
 
 
 def counting_bank_update(spec: FilterSpec, bank: torch.Tensor,
@@ -459,10 +536,11 @@ def counting_bank_update(spec: FilterSpec, bank: torch.Tensor,
     member = member.to(torch.int32)
     if not keys.is_cuda:
         keys, member, valid = _pad_flat_valid(keys, member, valid, tile)
+    p, _, m = _resolve_pcm(spec, "add", "vmem", tile, probe, "none", mix,
+                           bank=bank.shape[0], device=keys.device)
     return cnt_k.bank_update_vmem(
         spec, out, keys, member, valid, op, layout=layout, tile=tile,
-        probe=_resolve(probe, PROBES, AUTO_PROBE, "probe"),
-        mix=_resolve(mix, MIXES, AUTO_MIX, "mix"))
+        probe=p, mix=m)
 
 
 def counting_bank_contains(spec: FilterSpec, bank: torch.Tensor,
@@ -478,10 +556,12 @@ def counting_bank_contains(spec: FilterSpec, bank: torch.Tensor,
     member = member.to(torch.int32)
     if not keys.is_cuda:
         keys, member = _pad_flat(keys, member, tile)
-    if _bank_regime(spec, bank.shape[0], regime) == "vmem":
+    B = bank.shape[0]
+    if _bank_regime(spec, B, regime) == "vmem":
         d = 1
     else:
-        d = DEFAULT_DMA_DEPTH if depth is None else depth
+        d = _resolve_depth(spec, "contains", depth, tile, bank=B,
+                           device=keys.device)
     out = cnt_k.bank_contains_vmem(spec, bank, keys, member, depth=d)
     return out[:n]
 
@@ -619,11 +699,13 @@ def _seen(key) -> None:
 
 def _resolved(spec: FilterSpec, regime: str, probe: str, coop: str,
               mix: str) -> dict:
-    """The dispatch of one configuration, its "auto" axes resolved."""
-    return {"regime": _regime(spec, regime),
-            "probe": _resolve(probe, PROBES, AUTO_PROBE, "probe"),
-            "coop": _resolve(coop, COOPS, AUTO_COOP, "coop"),
-            "mix": _resolve(mix, MIXES, AUTO_MIX, "mix")}
+    """The dispatch of one configuration: the regime resolved, the schedule
+    axes validated and passed on, so that ``"auto"`` resolves in the call
+    as it does without the cached layer (through the tuner, with the tile
+    clamped to the batch)."""
+    _check_axes(probe, coop, mix)
+    return {"regime": _regime(spec, regime), "probe": probe, "coop": coop,
+            "mix": mix}
 
 
 def bloom_add_jit(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
@@ -689,10 +771,12 @@ def cuckoo_contains(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
     """(n,) bool two-bucket membership, one launch for the batch. ``tile``
     is the JAX signature's; the kernel takes a thread a key."""
     _check_cuckoo(spec)
-    if keys.shape[0] == 0:
+    n = keys.shape[0]
+    if n == 0:
         return torch.zeros((0,), dtype=torch.bool, device=keys.device)
-    return ckoo_k.contains_vmem(spec, filt, keys,
-                                coop=_resolve(coop, COOPS, AUTO_COOP, "coop"))
+    c = _resolve_coop_fp(spec, coop, _clamp_tile(n, tile or DEFAULT_TILE),
+                         keys.device)
+    return ckoo_k.contains_vmem(spec, filt, keys, coop=c)
 
 
 def _cuckoo_tile(n: int, tile: Optional[int]) -> int:
@@ -756,9 +840,9 @@ def quotient_contains(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
     n = keys.shape[0]
     if n == 0:
         return torch.zeros((0,), dtype=torch.bool, device=keys.device)
-    c = _resolve(coop, COOPS, AUTO_COOP, "coop")
-    padded = (keys if keys.is_cuda
-              else _pad_keys(keys, _clamp_tile(n, tile or DEFAULT_TILE)))
+    tile = _clamp_tile(n, tile or DEFAULT_TILE)
+    c = _resolve_coop_fp(spec, coop, tile, keys.device)
+    padded = keys if keys.is_cuda else _pad_keys(keys, tile)
     return qf_k.contains_vmem(spec, filt, padded, coop=c)[:n]
 
 

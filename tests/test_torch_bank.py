@@ -557,7 +557,8 @@ def test_routed_ops_are_one_wrapper_call_and_no_cpu_launch(monkeypatch):
 def test_bank_engine_selection():
     cpu = torch.device("cpu")
     small = TV.FilterSpec("sbf", 1 << 17, 8)
-    for B, want_gpu in ((64, "cuda-l2"), (4096, "cuda-dram")):
+    big = 2 * ops.L2_FILTER_BYTES // (small.storage_words * 4)   # 2x the L2
+    for B, want_gpu in ((64, "cuda-l2"), (big, "cuda-dram")):
         gpu = registry.SelectionContext(device=torch.device("cuda"), bank=B)
         assert registry.select(small, "auto", gpu).name == want_gpu
         assert ops.bank_l2_resident(small, B) == (want_gpu == "cuda-l2")
@@ -565,7 +566,7 @@ def test_bank_engine_selection():
             device=cpu, bank=B)).name == "torch"
     assert not registry.get("cuda-l2").supports(
         small, registry.SelectionContext(device=torch.device("cuda"),
-                                         bank=4096))
+                                         bank=big))
     cspec = TV.FilterSpec("countingbf", 1 << 16, 8)
     gpu = registry.SelectionContext(device=torch.device("cuda"), bank=1024)
     assert registry.select(cspec, "auto", gpu).name == "counting"

@@ -18,6 +18,9 @@ and past capacity, duplicates, valid masks, removes of absent keys,
 clusters that wrap past the last slot, tiles 256 / 2048 / the whole batch,
 empty and full tables, a 2^25-slot table whose scans take many blocks,
 and the quotient ``Filter`` path with merge and resize) against theirs.
+The calibration kernels (step, chain, gather) are held against their
+plain versions, and a calibration measured on the card must have five
+finite, positive constants.
 """
 import numpy as np
 import pytest
@@ -31,6 +34,8 @@ from repro_torch.kernels import countingbf as cnt
 from repro_torch.kernels import cuckoofilter as ckoo
 from repro_torch.kernels import quotientfilter as qf
 from repro_torch.kernels import ops, ring, sbf
+from repro_torch.kernels import calibrate as kc
+from repro_torch.perfmodel import calibrate as PC
 from repro_torch.core import fingerprint as F
 from repro_torch.core import partition as P
 from repro_torch.core import quotient as Q
@@ -545,7 +550,8 @@ def test_bank_filter_paths_are_one_launch_per_routed_op(cuda):
     want = cnt.decay_plain(g.spec, cnt.bank_update_plain(
         g.spec, g.words, keys[:20000], member[:20000], None, "remove"))
     assert torch.equal(d.words, want)
-    big = api.make_filter_bank(B, "sbf", m_bits=1 << 23, k=8)
+    big = api.make_filter_bank(B, "sbf", m_bits=1 << 24, k=8)   # 2x the L2
+    assert not ops.bank_l2_resident(big.spec, B)
     assert big.backend == "cuda-dram"
     sbf.reset_launches()
     big.add(keys, tenants=member).contains(keys, tenants=member)
@@ -989,3 +995,71 @@ def test_quotient_wrappers_refuse_bad_tensors(cuda):
     with pytest.raises(ValueError, match="serve"):
         qf.contains_vmem(huge, torch.zeros(huge.n_words, dtype=torch.int32,
                                            device=cuda), keys)
+
+
+# ---------------------------------------------------------------------------
+# The calibration kernels and a measured calibration
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [1, 16, 1000])
+def test_calibrate_step_matches_plain(cuda, g):
+    gen = torch.Generator(device=cuda).manual_seed(g)
+    x = torch.randint(-(1 << 31), 1 << 31, (8 * g, 128), dtype=torch.int32,
+                      device=cuda, generator=gen)
+    x[0, :2] = torch.tensor([-1, 0x7FFFFFFF], dtype=torch.int32)
+    before = kc.LAUNCHES["step"]
+    out = kc.step(x, torch.empty_like(x))
+    assert kc.LAUNCHES["step"] == before + 1
+    np.testing.assert_array_equal(_u32(out), _u32(kc.step_plain(x)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,iters", [(1, 16), (257, 512), (70000, 64)])
+def test_calibrate_chain_matches_plain(cuda, n, iters):
+    out = kc.chain(torch.empty((n,), dtype=torch.int32, device=cuda), iters)
+    np.testing.assert_array_equal(_u32(out),
+                                  _u32(kc.chain_plain(n, iters, cuda)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("words,n,per", [(1, 1, 1), (1024, 1000, 3),
+                                         (1 << 20, 70000, 17)])
+def test_calibrate_gather_matches_plain(cuda, words, n, per):
+    table = kc.gather_table(words, cuda)
+    out = kc.gather(table, torch.empty((n,), dtype=torch.int32, device=cuda),
+                    per)
+    np.testing.assert_array_equal(_u32(out),
+                                  _u32(kc.gather_plain(table, n, per)))
+
+
+@pytest.mark.gpu
+def test_calibrate_wrappers_refuse_bad_args(cuda):
+    x = torch.zeros((8, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        kc.step(x, torch.empty((8, 128), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        kc.step(x[:, :64], torch.empty_like(x[:, :64]))
+    with pytest.raises(ValueError):
+        kc.chain(torch.empty((4,), dtype=torch.int32, device=cuda), 10)
+    with pytest.raises(ValueError):
+        kc.gather(torch.zeros((3,), dtype=torch.int32, device=cuda),
+                  torch.empty((4,), dtype=torch.int32, device=cuda), 1)
+    assert kc.blocks_per_sm("step", cuda) >= 1 and kc.sm_count(cuda) >= 1
+
+
+@pytest.mark.gpu
+def test_measured_calibration_on_the_card(cuda, tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_CALIB_CACHE", str(tmp_path / "calib.json"))
+    monkeypatch.setenv("REPRO_TUNING_CACHE", str(tmp_path / "tuning.json"))
+    for name, probe in PC.PROBES.items():
+        v = probe(device=cuda)
+        assert np.isfinite(v) and v > 0, (name, v)
+    calib = PC.get_calibration(measure=True, device=cuda)
+    assert calib.measured
+    assert calib.backend == "cuda:" + torch.cuda.get_device_name(cuda)
+    for name in PC.PROBES:
+        v = getattr(calib, name)
+        assert np.isfinite(v) and v > 0, (name, v)
+    assert PC.get_calibration(device=cuda) == calib        # from the cache
+    assert PC.get_calibration(device="cpu").backend == "cpu"

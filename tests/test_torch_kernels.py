@@ -189,7 +189,7 @@ def test_regime_follows_the_l2_budget():
     assert ops._regime(small, "auto") == "vmem"
     assert ops._regime(big, "auto") == "hbm"
     assert ops._regime(small, "hbm") == "hbm"
-    assert ops.L2_FILTER_BYTES == 32 << 20
+    assert ops.L2_FILTER_BYTES == 64 << 20
 
 
 def test_bloom_add_inplace_flag():

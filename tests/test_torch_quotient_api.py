@@ -279,7 +279,7 @@ def test_filter_for_workload_and_cheapest_engine_match_jax(needs):
 
 
 def test_exports_match_the_jax_api():
-    assert set(api.__all__) == set(japi.__all__) - {"tuned_options"}
+    assert api.__all__ == japi.__all__
     for name in api.__all__:
         assert hasattr(api, name), name
     spec = TQ.spec_for_n(1000)
