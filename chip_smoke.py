@@ -8,14 +8,17 @@ the script exits non-zero without printing a result:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the count;
 2. build: compile every source of ``src/repro_torch/kernels/csrc/``
-   (``bloom.cu``, ``counting.cu``, ``cbf.cu``, ``ring.cu``, ``cuckoo.cu``,
-   ``quotient.cu``, ``calibrate.cu``; one nvcc each, in parallel) and time
-   it;
+   (``bloom.cu``, ``bloom_contains.cu``, ``bloom_bank_contains.cu``,
+   ``counting.cu``, ``cbf.cu``, ``ring.cu``, ``cuckoo.cu``, ``quotient.cu``,
+   ``calibrate.cu``; one nvcc each, in parallel) and time it; print the
+   card's L2 fetch granularity;
 3. every blocked-filter kernel wrapper against its plain PyTorch version on
    the card, at m = 2^20 bits and 65537 keys, for six blocked specs and
-   every value of the schedule axes; words and results must be equal bit
-   for bit, and the FPR measured on 2^20 probes must lie within 0.5-2.0x
-   theory;
+   every value of the schedule axes: the add and the contains at every Θ
+   (lanes a key, 1 ... s), every load width and every depth, and at the
+   card's default (``sbf.card_layout``); ragged n 1/31/33/255/257; words
+   and results must be equal bit for bit, and the FPR measured on 2^20
+   probes must lie within 0.5-2.0x theory;
 3b. the same for the counting kernels: four countingbf specs (B = 64 ...
    512) at m = 2^20, 65537 keys inserted 1-3 times each plus one key 20
    times (it saturates), then removes of a subset and of keys never added,
@@ -26,11 +29,12 @@ the script exits non-zero without printing a result:
    2/3/4/8 through both wrappers and every depth, ragged n and n = 0;
    words and results equal bit for bit, FPR within 0.5-2.0x theory at
    m = 2^20;
-3d. the bank kernels (the bank forms of ``bloom.cu`` and ``counting.cu``)
-   against their plain versions: sbf/bbf/rbbf/csbf banks of B = 1, 7, 64
-   members of 2^17, 2^16, 2^14 bits, 65537 routed keys with ~25 % invalid
-   slots, uniform and skewed (half on member 0) member mixes, the
-   contains in both regimes through ``ops`` and at depth 1/2/4, ragged n; the countingbf bank
+3d. the bank kernels (the bank forms of the blocked kernels and of
+   ``counting.cu``) against their plain versions: sbf/bbf/rbbf/csbf banks
+   of B = 1, 7, 64 members of 2^17, 2^16, 2^14 bits, 65537 routed keys with
+   ~25 % invalid slots, uniform and skewed (half on member 0) member mixes,
+   the contains in both regimes through ``ops`` and at depth 1/2/4, both
+   forms at every Θ and depth, ragged n; the countingbf bank
    (add of keys 1-3 times, remove incl. keys never added, contains, decay
    of the whole bank); and the generic per-member path of a cbf bank and a
    windowed bank (G = 4, one advance) at B = 8 against per-member plain
@@ -62,8 +66,19 @@ the script exits non-zero without printing a result:
    2^27 bits) and a DRAM-resident size (2^28 keys, 2^32 bits): no false
    negatives, the main path's words, hits and results on 2^22 probes equal
    to the plain version's in full (the plain version runs in 2^22-key
-   chunks; the FPR's ratio to theory is printed), and every wrapper of the
-   regime launched during the main path;
+   chunks; the FPR's ratio to theory is printed), every wrapper of the
+   regime launched during the main path at the geometry ``sbf.card_layout``
+   gives (printed); then a Θ sweep of the add and the contains at full size
+   (in DRAM at every depth, in L2 at every load width), the resolved Θ
+   against Θ = 1 (one thread a key) in turns, which must not be slower
+   beyond the rounds' spread, and the uncoalesced atomic rate of the Θ = 1
+   add (the counting cells' atomics estimate uses it);
+4a. ``sbf.card_layout`` at the other blocks the default path serves (sbf
+   at s = 2, 4, 16 and 32 words, bbf B = 256 and 512, csbf B = 512, as
+   ``filter_for_n_items(n, bits_per_key=16)`` makes them) at 2^23 keys
+   (16 MiB) and 2^26 keys (128 MiB): the default add runs its geometry;
+   the add and the contains at every Θ in turns, printed; ``card_layout``'s
+   Θ must not be slower than Θ = 1 beyond the rounds' spread;
 4b. the counting main path, ``filter_for_n_items(n, variant="countingbf")``
    then ``add``, ``contains``, ``remove`` of half the keys, ``contains`` of
    the other half and ``decay(1)``, at an L2-resident size (2^22 keys, 2^26
@@ -137,8 +152,10 @@ the script exits non-zero without printing a result:
    timed on state restored before each call, outside the events) at the
    main path's size and, against the plain version, on 2^22 keys into an
    empty full-size filter (the DRAM cbf cell's full-size calls: 3 rounds of
-   5); printed with the card's name and power limit, and one JSON line with
-   a record per kernel.
+   5); printed with the card's name and power limit, beside the bound and,
+   for the blocked add and contains, the sector bound (keys, results and
+   one 32-byte sector a key read, and written again for add); and one JSON
+   line with a record per kernel.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs one CUDA card; the
 script exits non-zero where there is none, or where the repository's
@@ -186,15 +203,19 @@ from repro_torch.roofline import report_utils as RU  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 OPS_PER_S = 67e12              # non-tensor peak (fp32 rate, the guide's table)
-# 32-bit atomics per second that this script's blocked-filter add timings
-# give on an H100 80GB HBM3 at 700 W: atomicOr in the L2 cell, and on
-# lines fetched from DRAM
-CAS_PER_S = {"L2": 8.8e10, "DRAM": 5.5e10}
+SECTOR = 32                    # bytes of a DRAM / L2 sector
+# Uncoalesced 32-bit atomics a second, by cell: the blocked add at Θ = 1
+# (one thread a key, one atomicOr a nonzero word, each to its own sector),
+# measured by phase_main in this run; the counting estimate reads it
+CAS_PER_S = {}
 REPS = 20                      # calls per timing round
 ROUNDS = 5                     # timing rounds; the median is reported
 PLAIN_REPS, PLAIN_ROUNDS = 3, 3    # the plain versions take 10-100 ms a call
 SUBSET = 1 << 22               # keys of the kernel-vs-plain comparison
 SOURCE = "src/repro_torch/kernels/csrc/bloom.cu"
+# the add and contains templates (instantiated by bloom.cu,
+# bloom_contains.cu and bloom_bank_contains.cu)
+COOP_SOURCE = "src/repro_torch/kernels/csrc/bloom_blocked.cuh"
 COUNTING_SOURCE = "src/repro_torch/kernels/csrc/counting.cu"
 REPLACES = {"contains_vmem": "src/repro/kernels/sbf.py:311",
             "add_vmem": "src/repro/kernels/sbf.py:348",
@@ -304,6 +325,49 @@ def bound_ms(spec: V.FilterSpec, n: int, op: str, extra_bytes: int = 0):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def sector_bound_ms(n: int, op: str, extra_bytes: int = 0) -> float:
+    """The DRAM regime's practical speed of light: keys (8 B) and results
+    (1 B, contains), plus one 32-byte sector a key read (and written again
+    for add), plus ``extra_bytes`` (a bank's member ids and valid bytes),
+    at the DRAM rate. Random blocks cannot do better than a sector each,
+    whatever the filter's size."""
+    nbytes = extra_bytes + n * (8 + (1 + SECTOR if op == "contains"
+                                     else 2 * SECTOR))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def thetas(spec: V.FilterSpec) -> list:
+    """Every Θ the wrappers run for ``spec`` (1, 2, ..., up to s)."""
+    return [t for t in (1, 2, 4, 8, 16, 32) if t <= spec.s]
+
+
+def time_turns(fns: dict, label: str, reps: int = REPS,
+               rounds: int = ROUNDS) -> dict:
+    """Time the calls of ``fns`` in turns (each round runs them in order,
+    then reversed): the median of each one's rounds; min and max go to
+    ``SPREAD`` under ``label``."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    per = {k: [] for k in fns}
+    for r in range(rounds):
+        for key in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fns[key]()
+            end.record()
+            torch.cuda.synchronize()
+            per[key].append(start.elapsed_time(end) / reps)
+    out = {}
+    for key, ts in per.items():
+        ts.sort()
+        SPREAD[f"{label} {key}"] = (ts[0], ts[-1])
+        out[key] = ts[len(ts) // 2]
+    return out
+
+
 def phase_device():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -341,6 +405,10 @@ def phase_build():
                  f"{max(b[1] for b in bank)} registers" if bank else "")
         print(f"build: {name}: {len(spills)} kernel instances for {arch}, "
               f"{n_spill} with spills{extra}")
+    gran = _build.library().bloom_l2_fetch_granularity(
+        torch.cuda.current_device())
+    print(f"device: cudaLimitMaxL2FetchGranularity {gran} B (the library "
+          f"sets no limit)")
     torch.cuda.synchronize()
 
 
@@ -384,22 +452,44 @@ def phase_kernels(errs: dict):
             errs["contains_hbm"] = max(errs["contains_hbm"],
                                        max_err(got, want))
             runs += 2
+        # every Θ the wrappers take: the add, the L2 contains at every Φ
+        # and the contains at every depth, each against the plain version
+        for th in thetas(spec):
+            got = sbf.add_vmem(spec, V.init(spec, "cuda"), keys,
+                               sbf.Layout(th, 1))
+            errs["add_vmem"] = max(errs["add_vmem"],
+                                   max_err(got, want_words))
+            for phi in (1, 2, 4):
+                got = sbf.contains_vmem(spec, want_words, queries,
+                                        sbf.Layout(th, phi))
+                errs["contains_vmem"] = max(errs["contains_vmem"],
+                                            max_err(got, want))
+            for depth in sbf.DMA_DEPTHS[1:]:
+                geo = sbf.launch_geometry(spec, "contains",
+                                          sbf.Layout(th, 4), depth)
+                got = sbf._launch_contains("contains_hbm", spec, want_words,
+                                           queries, geo)
+                errs["contains_hbm"] = max(errs["contains_hbm"],
+                                           max_err(got, want))
+            runs += 7
         if i == 0:                                    # ragged tails
-            for m in (1, 255, 257):
+            for m in (1, 31, 33, 255, 257):
                 w = sbf.add_plain(spec, V.init(spec, "cuda"), keys[:m])
-                got = sbf.add_vmem(spec, V.init(spec, "cuda"), keys[:m],
-                                   sbf.default_layout(spec, "add"))
-                errs["add_vmem"] = max(errs["add_vmem"], max_err(got, w))
+                for layout in (sbf.default_layout(spec, "add"), None):
+                    got = sbf.add_vmem(spec, V.init(spec, "cuda"), keys[:m],
+                                       layout)
+                    errs["add_vmem"] = max(errs["add_vmem"], max_err(got, w))
                 got = sbf.add_hbm(spec, V.init(spec, "cuda"), keys[:m])
                 errs["add_hbm"] = max(errs["add_hbm"], max_err(got, w))
                 c = sbf.contains_plain(spec, w, queries[:m])
-                got = sbf.contains_vmem(spec, w, queries[:m], lay)
-                errs["contains_vmem"] = max(errs["contains_vmem"],
-                                            max_err(got, c))
+                for layout in (lay, None):
+                    got = sbf.contains_vmem(spec, w, queries[:m], layout)
+                    errs["contains_vmem"] = max(errs["contains_vmem"],
+                                                max_err(got, c))
                 got = sbf.contains_hbm(spec, w, queries[:m])
                 errs["contains_hbm"] = max(errs["contains_hbm"],
                                            max_err(got, c))
-                runs += 4
+                runs += 6
         fpr = float(sbf.contains_vmem(
             spec, want_words, gen_keys(1 << 20, 300 + i, probe=True), lay
         ).to(torch.float64).mean().item())
@@ -409,7 +499,8 @@ def phase_kernels(errs: dict):
                                  f"theory {theory}")
         torch.cuda.synchronize()
         print(f"kernels: {spec}: {runs} kernel runs equal to the plain "
-              f"version ({n} keys, {n} probes); FPR {fpr:.6f} = "
+              f"version ({n} keys, {n} probes; Θ in {thetas(spec)}); FPR "
+              f"{fpr:.6f} = "
               f"{fpr / theory:.3f} x theory on 2^20 probes")
 
 
@@ -464,20 +555,33 @@ def phase_main(regime: str, n: int, errs: dict, records: dict, launches: dict,
           f"{fpr:.6f}, {fpr / theory:.3f} x theory {theory:.6f}, "
           f"launches {counted}")
 
+    # the geometry the main path ran: card_layout's, at the tuned depth
+    depth = 1 if regime == "L2" else ops._resolve_depth(
+        spec, "contains", None, DEFAULT_TILE, device=torch.device("cuda"))
+    ran = {op: sbf.LAST_GEOMETRY[name] for op, name in
+           (("add", add_name), ("contains", contains_name))}
+    for op, d in (("add", 1), ("contains", depth)):
+        want = sbf.launch_geometry(spec, op, sbf.card_layout(spec, op), d)
+        if ran[op] != want:
+            raise AssertionError(f"main {regime} {op}: ran {ran[op]}, not "
+                                 f"card_layout's {want}")
+    print(f"main {regime}: the main path ran " + "; ".join(
+        f"{op} Θ={geo.theta} ({geo.words} words a lane, {geo.vec}-word "
+        f"loads, depth {geo.depth}, {geo.grid(n)} CTAs for {n} keys)"
+        for op, geo in ran.items()))
+
     # the timing columns' subset: 2^22 keys into an empty full-size filter
     sub = keys[:SUBSET]
-    lay_add = sbf.default_layout(spec, "add")
-    lay_con = sbf.default_layout(spec, "contains")
 
     def run_add(words, k):
         if regime == "L2":
-            return sbf.add_vmem(spec, words, k, lay_add)
+            return sbf.add_vmem(spec, words, k)
         return sbf.add_hbm(spec, words, k)
 
     def run_contains(words, q):
         if regime == "L2":
-            return sbf.contains_vmem(spec, words, q, lay_con)
-        return sbf.contains_hbm(spec, words, q)
+            return sbf.contains_vmem(spec, words, q)
+        return sbf.contains_hbm(spec, words, q, depth=depth)
 
     want_words = sbf.add_plain(spec, V.init(spec, "cuda"), sub)
     queries = torch.cat([sub[: SUBSET // 2], probes[: SUBSET // 2]])
@@ -498,39 +602,161 @@ def phase_main(regime: str, n: int, errs: dict, records: dict, launches: dict,
             ("contains plain", lambda: sbf.contains_plain(spec, want_words,
                                                           queries))):
         t[label] = time_ms(fn, f"{regime} {label}")
+
+    # the Θ sweep at full size (every Θ; in DRAM every depth of the
+    # contains, in L2 every load width), and the resolved Θ against Θ = 1,
+    # the one-thread-a-key design, timed in turns
+    def add_at(theta):
+        geo = sbf.launch_geometry(spec, "add", sbf.Layout(theta, 1))
+        return lambda: sbf._launch_add(add_name, spec, words, keys, geo)
+
+    def contains_at(theta, d, phi=sbf.MAX_VEC):
+        geo = sbf.launch_geometry(spec, "contains", sbf.Layout(theta, phi), d)
+        return lambda: sbf._launch_contains(contains_name, spec, g.words,
+                                            keys, geo)
+
+    sweep = {}
+    for th in thetas(spec):
+        sweep[f"add theta={th}"] = time_ms(add_at(th),
+                                           f"{regime} add theta={th}")
+        for d in (1,) if regime == "L2" else sbf.DMA_DEPTHS:
+            for phi in (1, 2, 4) if regime == "L2" else (4,):
+                geo = sbf.launch_geometry(spec, "contains",
+                                          sbf.Layout(th, phi), d)
+                key = (f"contains theta={th} depth={geo.depth} "
+                       f"vec={geo.vec}")
+                if key not in sweep:
+                    sweep[key] = time_ms(contains_at(th, d, phi),
+                                         f"{regime} {key}")
+    print(f"time {regime} Θ sweep [{card}], {n} keys: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in sweep.items()))
+    turns = {
+        "add": time_turns({"resolved": add_at(ran["add"].theta),
+                           "theta=1": add_at(1)}, f"{regime} add turns"),
+        "contains": time_turns({"resolved": contains_at(
+            ran["contains"].theta, depth), "theta=1": contains_at(1, depth)},
+            f"{regime} contains turns")}
+    for op, tt in turns.items():
+        lo, _ = SPREAD[f"{regime} {op} turns resolved"]
+        _, hi1 = SPREAD[f"{regime} {op} turns theta=1"]
+        if lo > hi1:
+            raise AssertionError(
+                f"{regime} {op}: the resolved Θ={ran[op].theta} "
+                f"({tt['resolved']:.4f} ms) is slower than Θ = 1 "
+                f"({tt['theta=1']:.4f} ms) beyond the rounds' spread")
+    # the uncoalesced atomic rate: Θ = 1, one atomicOr a nonzero mask word
+    # (sbf: salt i lands in word i % s, so min(k, s) words a key)
+    CAS_PER_S[regime] = n * min(spec.k, spec.s) / (
+        turns["add"]["theta=1"] * 1e-3)
+    print(f"time {regime} uncoalesced atomics [{card}]: "
+          f"{CAS_PER_S[regime]:.4g} 32-bit atomicOr a second (Θ = 1 add, "
+          f"{n} keys x {min(spec.k, spec.s)} words)")
     for name, op in ((add_name, "add"), (contains_name, "contains")):
         t_full, t_sub, t_plain = t[op], t[f"{op} sub"], t[f"{op} plain"]
         b_full, by_full = bound_ms(spec, n, op)
         b_sub, by_sub = bound_ms(spec, SUBSET, op)
+        s_full, s_sub = sector_bound_ms(n, op), sector_bound_ms(SUBSET, op)
+        t1, tr = turns[op]["theta=1"], turns[op]["resolved"]
         lo, hi = SPREAD[f"{regime} {op}"]
-        print(f"time {regime} {op} [{card}]: kernel {t_full:.4f} ms "
-              f"(rounds {lo:.4f}-{hi:.4f}; {n / t_full / 1e3:.1f} Mops/s) "
-              f"at {n} keys, bound {b_full:.4f} ms ({by_full}), "
-              f"{b_full / t_full:.1%} of it; Filter.{op} "
+        lo1, hi1 = SPREAD[f"{regime} {op} turns theta=1"]
+        geo = ran[op]
+        print(f"time {regime} {op} [{card}]: kernel {t_full:.4f} ms at "
+              f"Θ={geo.theta}, depth {geo.depth} (rounds {lo:.4f}-{hi:.4f}; "
+              f"{n / t_full / 1e3:.1f} Mops/s) at {n} keys; in turns "
+              f"{tr:.4f} ms against Θ = 1 {t1:.4f} ms (rounds {lo1:.4f}-"
+              f"{hi1:.4f}), {t1 / tr:.2f}x; bound {b_full:.4f} ms "
+              f"({by_full}), {b_full / t_full:.1%} of it; sector bound "
+              f"{s_full:.4f} ms, {s_full / t_full:.1%} of it; Filter.{op} "
               f"{t[f'Filter.{op}']:.4f} ms; at {SUBSET} keys kernel "
-              f"{t_sub:.4f} ms, plain {t_plain:.4f} ms, bound {b_sub:.4f} ms")
+              f"{t_sub:.4f} ms, plain {t_plain:.4f} ms, bound {b_sub:.4f} ms, "
+              f"sector bound {s_sub:.4f} ms")
         records[name] = {
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": COOP_SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": t_sub, "plain_ms": t_plain,
             "bound_ms": b_sub, "bound_by": by_sub, "library_ms": None,
             "n_keys": SUBSET, "m_bits": spec.m_bits, "main_n_keys": n,
             "main_ms": t_full, "main_bound_ms": b_full,
-            "api_ms": t[f"Filter.{op}"]}
-    # the schedule axis each contains wrapper acts on, at full size
-    if regime == "L2":
-        sweep = {f"phi={p}": time_ms(lambda p=p: sbf.contains_vmem(
-            spec, g.words, keys, sbf.Layout(1, p)), f"L2 phi={p}")
-            for p in (1, 2, 4, 8)}
-    else:
-        sweep = {f"depth={d}": time_ms(lambda d=d: sbf.contains_hbm(
-            spec, g.words, keys, depth=d), f"DRAM depth={d}")
-            for d in sbf.DMA_DEPTHS}
-    print(f"time {regime} {contains_name} sweep [{card}]: " + ", ".join(
-        f"{k} {v:.4f} ms" for k, v in sweep.items()))
+            "api_ms": t[f"Filter.{op}"], "theta": geo.theta,
+            "vec": geo.vec, "depth": geo.depth, "turns_ms": tr,
+            "theta1_ms": t1, "sector_bound_ms": s_sub,
+            "main_sector_bound_ms": s_full,
+            "sweep_ms": {k: v for k, v in sweep.items()
+                         if k.startswith(op)}}
     del g, f, keys, words, sub_words, want_words
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
+
+
+# The other blocks the default path serves (variant, block bits): s = 2, 4,
+# 16 and 32 words, and the bbf and csbf masks; the main path is sbf B = 256
+RULE_CELLS = [("sbf", 64), ("sbf", 128), ("sbf", 512), ("sbf", 1024),
+              ("bbf", 256), ("bbf", 512), ("csbf", 512)]
+
+
+def phase_card_rule(card: str) -> None:
+    """Phase 4a: ``sbf.card_layout`` at the other blocks the default path
+    serves (``RULE_CELLS``, as ``filter_for_n_items(n, bits_per_key=16,
+    variant=, block_bits=)`` makes them), at an L2 size (2^23 keys, 16 MiB)
+    and a DRAM size (2^26 keys, 128 MiB): the default path's add runs
+    ``card_layout``'s geometry; then the add and the contains (of the added
+    keys, at the depth ``ops`` resolves) at every Θ, timed in turns. Every
+    cell is printed; then the phase fails where ``card_layout``'s Θ was
+    slower than Θ = 1 beyond the rounds' spread."""
+    dev = torch.device("cuda")
+    slower = []
+    for variant, block_bits in RULE_CELLS:
+        for regime, n in (("L2", 1 << 23), ("DRAM", 1 << 26)):
+            f = api.filter_for_n_items(n, bits_per_key=16, variant=variant,
+                                       block_bits=block_bits, device="cuda")
+            spec = f.spec
+            keys = gen_keys(n, 7)
+            g = f.add(keys)
+            add_name, con_name = (("add_vmem", "contains_vmem")
+                                  if regime == "L2"
+                                  else ("add_hbm", "contains_hbm"))
+            depth = 1 if regime == "L2" else ops._resolve_depth(
+                spec, "contains", None, DEFAULT_TILE, device=dev)
+            rule = {op: sbf.card_layout(spec, op) for op in ("add",
+                                                             "contains")}
+            if sbf.LAST_GEOMETRY[add_name] != sbf.launch_geometry(
+                    spec, "add", rule["add"]):
+                raise AssertionError(f"rule {spec} {regime}: the default "
+                                     f"add ran {sbf.LAST_GEOMETRY[add_name]}")
+            words = g.words.clone()
+            fns = {"add": {}, "contains": {}}
+            for th in thetas(spec):
+                ga = sbf.launch_geometry(spec, "add", sbf.Layout(th, 1))
+                fns["add"][th] = functools.partial(
+                    sbf._launch_add, add_name, spec, words, keys, ga)
+                gc = sbf.launch_geometry(spec, "contains",
+                                         sbf.Layout(th, sbf.MAX_VEC), depth)
+                fns["contains"][th] = functools.partial(
+                    sbf._launch_contains, con_name, spec, g.words, keys, gc)
+            reps, rounds = (REPS, ROUNDS) if regime == "L2" else (3, ROUNDS)
+            for op, calls in fns.items():
+                label = f"rule {spec} {regime} {op}"
+                t = time_turns({f"theta={th}": fn for th, fn in calls.items()},
+                               label, reps, rounds)
+                th = min(rule[op].theta, spec.s)
+                lo, _ = SPREAD[f"{label} theta={th}"]
+                _, hi1 = SPREAD[f"{label} theta=1"]
+                print(f"time rule [{card}] {spec} {regime} {op}, {n} keys, "
+                      f"depth {depth if op == 'contains' else 1}: " +
+                      ", ".join(f"Θ={k.split('=')[1]} {v:.4f} ms"
+                                for k, v in t.items()) +
+                      f"; card_layout Θ={th} {t[f'theta={th}']:.4f} ms "
+                      f"against Θ = 1 {t['theta=1']:.4f} ms, "
+                      f"{t['theta=1'] / t[f'theta={th}']:.2f}x")
+                if lo > hi1:
+                    slower.append(f"{label}: Θ={th} {t[f'theta={th}']:.4f} "
+                                  f"ms, Θ = 1 {t['theta=1']:.4f} ms")
+            del f, g, keys, words, fns
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    if slower:
+        raise AssertionError("card_layout slower than Θ = 1 beyond the "
+                             "rounds' spread: " + "; ".join(slower))
 
 
 # ---------------------------------------------------------------------------
@@ -1270,8 +1496,7 @@ def phase_windowed_main(regime: str, window: int, errs: dict, records: dict,
     union = dense[None].contiguous()
     if regime == "L2":
         sweep = {}
-        blocked = functools.partial(sbf.contains_vmem, spec, dense, live,
-                                    sbf.default_layout(spec, "contains"))
+        blocked = functools.partial(sbf.contains_vmem, spec, dense, live)
     else:
         sweep = {f"depth={d}": time_ms(
             lambda d=d: ring.ring_contains_hbm(spec, w.words, live, depth=d),
@@ -1340,15 +1565,19 @@ def bank_contains_in_chunks(contains, words, keys, member):
                       for i in range(0, keys.shape[0], SUBSET)])
 
 
+def bank_geometry(spec, op: str, regime: str = "L2",
+                  depth: int = sbf.DEFAULT_DMA_DEPTH):
+    """The geometry ``ops.bloom_bank_*`` runs by default: card_layout's,
+    the contains at ``depth`` in DRAM."""
+    d = 1 if op == "add" or regime == "L2" else depth
+    return sbf.launch_geometry(spec, op, sbf.card_layout(spec, op), d)
+
+
 def bank_contains_launch(spec, bank, keys, member, regime: str):
     """The bank contains kernel alone (no member range check), with the
     schedule ``ops.bloom_bank_contains`` gives the regime."""
-    if regime == "L2":
-        phi = min(sbf.default_layout(spec, "contains").phi, 4)
-        return sbf._launch_bank_contains(spec, bank, keys, member, phi, 1)
-    return sbf._launch_bank_contains(
-        spec, bank, keys, member, min(spec.s, 4),
-        sbf._depth_in_flight(spec, sbf.DEFAULT_DMA_DEPTH))
+    return sbf._launch_bank_contains(spec, bank, keys, member,
+                                     bank_geometry(spec, "contains", regime))
 
 
 def counting_bank_contains_launch(spec, bank, keys, member, regime: str):
@@ -1401,6 +1630,18 @@ def phase_bank_kernels(errs: dict, cerrs: dict):
                     errs["bank_contains_vmem"] = max(
                         errs["bank_contains_vmem"], max_err(got, hits))
                 runs += 7
+                for th in thetas(spec):                # every Θ
+                    got = sbf.bank_add_vmem(spec, empty.clone(), keys,
+                                            member, valid, sbf.Layout(th, 1))
+                    errs["bank_add_vmem"] = max(errs["bank_add_vmem"],
+                                                max_err(got, want))
+                    for depth in sbf.DMA_DEPTHS:
+                        got = sbf.bank_contains_vmem(
+                            spec, want, queries, qm, sbf.Layout(th, 4),
+                            depth=depth)
+                        errs["bank_contains_vmem"] = max(
+                            errs["bank_contains_vmem"], max_err(got, hits))
+                    runs += 5
                 if i == 0 and skewed:                  # ragged tails
                     for r in (1, 255, 257):
                         w = sbf.bank_add_plain(spec, empty, keys[:r],
@@ -1419,7 +1660,8 @@ def phase_bank_kernels(errs: dict, cerrs: dict):
             torch.cuda.synchronize()
             print(f"kernels: bank of {B} x {spec}: {runs} bank kernel runs "
                   f"equal to the plain version ({n} routed keys, ~25 % "
-                  f"invalid, uniform and skewed members, depth 1/2/4)")
+                  f"invalid, uniform and skewed members, depth 1/2/4/8, Θ "
+                  f"in {thetas(spec)})")
         # the counting bank: add (keys 1-3 times, one saturating), remove
         # of a subset and of keys never added, contains, decay of the bank
         cspec = V.FilterSpec("countingbf", m, 8, block_bits=256)
@@ -1706,13 +1948,14 @@ def phase_bank_main(kind: str, regime: str, n_per: int, n: int, errs: dict,
         def run_contains(words, k, m):
             return bank_contains_launch(spec, words, k, m, regime)
         sub_scratch = sub_words.clone()
+        geo_add = bank_geometry(spec, "add")
         t = {"add": time_ms(lambda: sbf._launch_bank_add(
-                spec, scratch, keys, member, valid), f"{label} add"),
+                spec, scratch, keys, member, valid, geo_add), f"{label} add"),
              "wrapper add": time_ms(lambda: sbf.bank_add_vmem(
-                spec, scratch, keys, member, valid,
-                sbf.default_layout(spec, "add")), f"{label} wrapper add"),
+                spec, scratch, keys, member, valid), f"{label} wrapper add"),
              "add sub": time_ms(lambda: sbf._launch_bank_add(
-                spec, sub_scratch, sub, msub, vsub), f"{label} add sub"),
+                spec, sub_scratch, sub, msub, vsub, geo_add),
+                f"{label} add sub"),
              "add plain": time_ms(
                 lambda: sbf.bank_add_plain(spec, sub_words, sub, msub, vsub),
                 f"{label} add plain", PLAIN_REPS, PLAIN_ROUNDS)}
@@ -1725,7 +1968,6 @@ def phase_bank_main(kind: str, regime: str, n_per: int, n: int, errs: dict,
                 depth=1 if regime == "L2" else sbf.DEFAULT_DMA_DEPTH)
                 if counting else sbf.bank_contains_vmem(
                     spec, g.words, keys, member,
-                    sbf.default_layout(spec, "contains"),
                     depth=1 if regime == "L2" else sbf.DEFAULT_DMA_DEPTH)),
             f"{label} wrapper contains"),
         "Filter.add": time_ms(lambda: f.add(keys, tenants=member,
@@ -1774,6 +2016,25 @@ def phase_bank_main(kind: str, regime: str, n_per: int, n: int, errs: dict,
                                bound_ms(whole, SUBSET, "contains",
                                         extra_bytes=4 * SUBSET))}
         ops_list = ("add", "contains")
+        # the resolved Θ against Θ = 1 in turns, at the timed schedules,
+        # and the sector bound with the member ids (and valid bytes)
+        def bank_at(op, theta):
+            if op == "add":
+                geo = sbf.launch_geometry(spec, "add", sbf.Layout(theta, 1))
+                return lambda: sbf._launch_bank_add(spec, scratch, keys,
+                                                    member, valid, geo)
+            geo = sbf.launch_geometry(
+                spec, "contains", sbf.Layout(theta, sbf.MAX_VEC),
+                1 if regime == "L2" else sbf.DEFAULT_DMA_DEPTH)
+            return lambda: sbf._launch_bank_contains(spec, g.words, keys,
+                                                     member, geo)
+        resolved = {op: bank_geometry(spec, op, regime).theta
+                    for op in ops_list}
+        turns = {op: time_turns({"resolved": bank_at(op, resolved[op]),
+                                 "theta=1": bank_at(op, 1)},
+                                f"{label} {op} turns") for op in ops_list}
+        sectors = {"add": sector_bound_ms(n, "add", 5 * n),
+                   "contains": sector_bound_ms(n, "contains", 4 * n)}
     for op in ops_list:
         (b_full, by_full), (b_sub, by_sub) = bounds[op]
         nk = half if op == "remove" else n
@@ -1781,10 +2042,18 @@ def phase_bank_main(kind: str, regime: str, n_per: int, n: int, errs: dict,
         wrap = (f"; wrapper (with the member range check) "
                 f"{t['wrapper ' + op]:.4f} ms" if f"wrapper {op}" in t
                 else "")
+        coop = ""
+        if not counting:
+            lo1, hi1 = SPREAD[f"{label} {op} turns theta=1"]
+            tr, t1 = turns[op]["resolved"], turns[op]["theta=1"]
+            coop = (f"; Θ={resolved[op]} in turns {tr:.4f} ms against Θ = 1 "
+                    f"{t1:.4f} ms (rounds {lo1:.4f}-{hi1:.4f}), "
+                    f"{t1 / tr:.2f}x; sector bound {sectors[op]:.4f} ms, "
+                    f"{sectors[op] / t[op]:.1%} of it")
         print(f"time {label} {op} [{card}]: kernel {t[op]:.4f} ms (rounds "
               f"{lo:.4f}-{hi:.4f}; {nk / t[op] / 1e3:.1f} Mops/s) at {nk} "
               f"keys, bound {b_full:.4f} ms ({by_full}), "
-              f"{b_full / t[op]:.1%} of it{wrap}; Filter.{op} "
+              f"{b_full / t[op]:.1%} of it{coop}{wrap}; Filter.{op} "
               f"{t[f'Filter.{op}']:.4f} ms; at {SUBSET if op != 'remove' else sub_half} "
               f"keys kernel {t[f'{op} sub']:.4f} ms, plain "
               f"{t[f'{op} plain']:.4f} ms, bound {b_sub:.4f} ms ({by_sub})")
@@ -1802,12 +2071,16 @@ def phase_bank_main(kind: str, regime: str, n_per: int, n: int, errs: dict,
                 "wrapper_ms": t[f"wrapper {op}"],
                 "api_ms": t[f"Filter.{op}"], "m_bits": spec.m_bits,
                 "members": B}
+        if not counting:
+            cell.update(theta=resolved[op], turns_ms=turns[op]["resolved"],
+                        theta1_ms=turns[op]["theta=1"],
+                        main_sector_bound_ms=sectors[op])
         name = ops_name[op]
         if regime == "L2":
             records[name] = {
                 "name": f"{'counting_' if counting else ''}{name}",
                 "route": "cuda",
-                "source": COUNTING_SOURCE if counting else SOURCE,
+                "source": COUNTING_SOURCE if counting else COOP_SOURCE,
                 "replaces": (COUNTING_BANK_REPLACES if counting
                              else BANK_REPLACES)[name],
                 "launches": 0, "max_abs_err": 0, "library_ms": None,
@@ -2158,9 +2431,8 @@ def phase_partitioned_main(kind: str, regime: str, n: int, errs: dict,
             f"{label} atomic", *((REPS, ROUNDS) if regime == "L2" else (5, 3)))
     else:
         t_atomic = time_ms(
-            lambda: (sbf.add_vmem(spec, scratch, first,
-                                  sbf.default_layout(spec, "add"))
-                     if regime == "L2" else sbf.add_hbm(spec, scratch, first)),
+            lambda: (sbf.add_vmem(spec, scratch, first) if regime == "L2"
+                     else sbf.add_hbm(spec, scratch, first)),
             f"{label} atomic", *((REPS, ROUNDS) if regime == "L2" else (5, 3)))
     # kernel vs plain and bound on 2^22 keys at the fitting n_segments
     part =ops._partition_device(spec, sub, n_fit, None)
@@ -3125,13 +3397,14 @@ def phase_depth_sweeps(card: str) -> dict:
     member = gen_members(1 << 28, BANK_MEMBERS, 52)
     bank = torch.zeros((BANK_MEMBERS, spec.n_words), dtype=torch.int32,
                        device="cuda")
-    sbf._launch_bank_add(spec, bank, keys, member, None)
-    phi = min(spec.s, 4)
+    sbf._launch_bank_add(spec, bank, keys, member, None,
+                         bank_geometry(spec, "add"))
     out["row 5"] = depth_sweep(
         "row 5 sbf bank_contains_vmem (DRAM)", card,
         resolved(spec, BANK_MEMBERS),
-        lambda d: sbf._launch_bank_contains(spec, bank, keys, member, phi,
-                                            sbf._depth_in_flight(spec, d)))
+        lambda d: sbf._launch_bank_contains(
+            spec, bank, keys, member,
+            bank_geometry(spec, "contains", "DRAM", d)))
     del bank, member, keys
     torch.cuda.empty_cache()
     # row 13: countingbf, 2^26 keys into 512 MiB of counters
@@ -3189,11 +3462,9 @@ def phase_l2_sweep(card: str, depth_of) -> dict:
                 n = spec.m_bits // 16
                 keys = gen_keys(n, 60 + mib)
                 if variant == "sbf":
-                    words = sbf.add_vmem(spec, V.init(spec, "cuda"), keys,
-                                         sbf.default_layout(spec, "add"))
-                    l2 = functools.partial(
-                        sbf.contains_vmem, spec, words, keys,
-                        sbf.default_layout(spec, "contains"))
+                    words = sbf.add_vmem(spec, V.init(spec, "cuda"), keys)
+                    l2 = functools.partial(sbf.contains_vmem, spec, words,
+                                           keys)
                     dram = functools.partial(sbf.contains_hbm, spec, words,
                                              keys)
                 else:
@@ -3217,15 +3488,16 @@ def phase_l2_sweep(card: str, depth_of) -> dict:
             bank = torch.zeros((B, member.storage_words), dtype=torch.int32,
                                device="cuda")
             if variant == "sbf":
-                sbf._launch_bank_add(member, bank, keys, ids, None)
-                phi = min(sbf.default_layout(member, "contains").phi, 4)
-                l2 = functools.partial(sbf._launch_bank_contains, member,
-                                       bank, keys, ids, phi, 1)
+                sbf._launch_bank_add(member, bank, keys, ids, None,
+                                     bank_geometry(member, "add"))
+                l2 = functools.partial(
+                    sbf._launch_bank_contains, member, bank, keys, ids,
+                    bank_geometry(member, "contains", "L2"))
 
                 def dram(d):
                     return sbf._launch_bank_contains(
-                        member, bank, keys, ids, min(member.s, 4),
-                        sbf._depth_in_flight(member, d))
+                        member, bank, keys, ids,
+                        bank_geometry(member, "contains", "DRAM", d))
             else:
                 cnt.bank_update_vmem(member, bank, keys, ids, None, "add")
                 l2 = functools.partial(cnt._launch_bank_contains, member,
@@ -3324,7 +3596,9 @@ def phase_tuning_main(card: str, errs: dict, out: dict, records: dict,
             raise AssertionError(f"calibration {name} = {v!r} is not a "
                                  f"measurement (default "
                                  f"{getattr(defaults, name)!r})")
-    if pinned.depth != plans[("sbf DRAM", "contains")].depth:
+    if (pinned.depth != plans[("sbf DRAM", "contains")].depth
+            or pinned.layout != sbf.card_layout(cells["sbf DRAM"],
+                                                "contains")):
         raise AssertionError(f"tuned_options {pinned} against "
                              f"{plans[('sbf DRAM', 'contains')]}")
     print(f"tuning main path [{card}]: get_calibration(measure=True), "
@@ -3483,6 +3757,7 @@ def main() -> int:
     records, launches = {}, {}
     phase_main("L2", 1 << 23, errs, records, launches, card)
     phase_main("DRAM", 1 << 28, errs, records, launches, card)
+    phase_card_rule(card)
     crecords, claunches = {}, {}
     phase_counting_main("L2", 1 << 22, cerrs, crecords, claunches, card)
     phase_counting_main("DRAM", 1 << 26, cerrs, crecords, claunches, card)

@@ -588,16 +588,23 @@ def tuned_options(spec: FilterSpec, op: str = "contains",
     ``make_filter(probe="auto")`` already resolves per call; this helper
     materializes the tuned (layout, probe, depth, coop, mix) eagerly, for a
     caller that wants the plan recorded in the filter's options, inspected
-    or logged.
+    or logged. On a CUDA device a blocked filter's layout is the card's own
+    (``sbf.card_layout(spec, op)``, the lanes a key): the tuner's layout
+    grid scores the JAX package's schedule, which on the card would run
+    another Θ. The CPU keeps the tuner's layout, as in the JAX package.
     """
     from repro_torch import resolve_device
     from repro_torch.api.filter import BackendOptions
     from repro_torch.core import tuning
-    from repro_torch.kernels.sbf import DEFAULT_TILE
-    tile = tile or DEFAULT_TILE
+    from repro_torch.kernels import sbf
+    tile = tile or sbf.DEFAULT_TILE
+    device = resolve_device(device)
     plan = tuning.tune_plan(spec, op, regime=ops._regime(spec, regime),
-                            tile=tile, device=resolve_device(device))
-    return BackendOptions(layout=plan.layout, tile=tile, probe=plan.probe,
+                            tile=tile, device=device)
+    layout = plan.layout
+    if device.type == "cuda" and spec.variant in sbf.BLOCKED_VARIANTS:
+        layout = sbf.card_layout(spec, op)
+    return BackendOptions(layout=layout, tile=tile, probe=plan.probe,
                           depth=plan.depth, coop=plan.coop, mix=plan.mix)
 
 

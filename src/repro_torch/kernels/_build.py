@@ -24,8 +24,8 @@ import types
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bloom", "counting", "cbf", "ring", "cuckoo", "quotient",
-           "calibrate")
+SOURCES = ("bloom", "bloom_contains", "bloom_bank_contains", "counting",
+           "cbf", "ring", "cuckoo", "quotient", "calibrate")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -36,20 +36,23 @@ _vp, _ll, _ull, _u32, _i = (ctypes.c_void_p, ctypes.c_longlong,
 # extern "C" entry point -> (source, argument types); each returns an int
 # error code (0: launched; see ``sbf._raise_on``)
 ENTRY_POINTS = {
-    "bloom_contains": ("bloom", [_vp, _vp, _vp, _vp, _ll, _u32, _i, _i, _i,
-                                 _i, _i, _i, _i, _vp]),
-    "bloom_add": ("bloom", [_vp, _vp, _vp, _ll, _u32, _i, _i, _i, _i, _i,
-                            _vp]),
+    # blocked filters: (s, theta, vec, depth, grid) of sbf.launch_geometry
+    "bloom_contains": ("bloom_contains", [_vp, _vp, _vp, _vp, _ll, _u32, _i,
+                                          _i, _i, _i, _u32, _i, _i, _i, _i,
+                                          _vp]),
+    "bloom_add": ("bloom", [_vp, _vp, _vp, _ll, _u32, _i, _i, _u32, _i, _i,
+                            _i, _i, _vp]),
     "counting_update": ("counting", [_vp, _vp, _vp, _vp, _ll, _u32, _i, _i,
                                      _i, _vp]),
     "counting_contains": ("counting", [_vp, _vp, _vp, _vp, _ll, _u32, _i, _i,
                                        _i, _i, _vp]),
     "counting_decay": ("counting", [_vp, _ll, _vp]),
     # bank forms: + member ids and the words of one member (c_ulonglong)
-    "bloom_bank_contains": ("bloom", [_vp, _vp, _vp, _vp, _vp, _ll, _ull,
-                                      _u32, _i, _i, _i, _i, _i, _i, _i, _vp]),
+    "bloom_bank_contains": ("bloom_bank_contains",
+                            [_vp, _vp, _vp, _vp, _vp, _ll, _ull, _u32, _i, _i,
+                             _i, _i, _u32, _i, _i, _i, _i, _vp]),
     "bloom_bank_add": ("bloom", [_vp, _vp, _vp, _vp, _vp, _ll, _ull, _u32,
-                                 _i, _i, _i, _i, _i, _vp]),
+                                 _i, _i, _u32, _i, _i, _i, _i, _vp]),
     "counting_bank_update": ("counting", [_vp, _vp, _vp, _vp, _vp, _ll, _ull,
                                           _u32, _i, _i, _i, _vp]),
     "counting_bank_contains": ("counting", [_vp, _vp, _vp, _vp, _vp, _ll,
@@ -65,6 +68,8 @@ ENTRY_POINTS = {
     "bloom_add_partitioned": ("bloom", [_vp, _vp, _vp, _vp, _ll, _ll, _u32,
                                         _u32, _i, _i, _i, _i, _i, _i, _vp]),
     "bloom_partition_smem": ("bloom", [_i]),
+    # a card's L2 fetch granularity in bytes (read only)
+    "bloom_l2_fetch_granularity": ("bloom", [_i]),
     "counting_update_partitioned": ("counting", [_vp, _vp, _vp, _vp, _ll,
                                                  _ll, _u32, _u32, _i, _i, _i,
                                                  _i, _vp]),

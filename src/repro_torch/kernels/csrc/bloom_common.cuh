@@ -101,6 +101,58 @@ __device__ __forceinline__ void build_mask(uint32_t (&m)[S], uint32_t h,
   }
 }
 
+// Words [first, first + W) of one key's s-word mask: build_mask's words as
+// one lane of a group that splits the block builds its own share. sbf
+// takes only the salts that land in its words (salt i lands in word
+// i % S); bbf and csbf place bits by hash, so a lane computes each salt's
+// word and builds the bits of the words it owns.
+template <int S, int W>
+__device__ __forceinline__ void build_mask_part(uint32_t (&m)[W], uint32_t h,
+                                                int first,
+                                                const uint32_t* salt,
+                                                const uint32_t* wsalt,
+                                                const uint32_t* gsalt,
+                                                int variant, int k, int z,
+                                                int log2g) {
+#pragma unroll
+  for (int t = 0; t < W; ++t) m[t] = 0u;
+  if (variant == kSbf) {
+    // salt i lands in word i % S: round r gives word first + t salt r +
+    // first + t (build_mask's loop, shifted by the lane's first word)
+    for (int r = first; r < k; r += S) {
+#pragma unroll
+      for (int t = 0; t < W; ++t)
+        if (r + t < k) m[t] |= bit_of(h, salt[r + t]);
+    }
+  } else if (variant == kBbf) {
+    constexpr int log2s = log2_of(S);
+    for (int i = 0; i < k; ++i) {
+      uint32_t w = 0u;
+      if constexpr (log2s > 0) w = (h * wsalt[i]) >> (32 - log2s);
+      w -= uint32_t(first);
+      if (w < uint32_t(W)) {
+        const uint32_t bit = bit_of(h, salt[i]);
+#pragma unroll
+        for (int t = 0; t < W; ++t) m[t] |= (w == uint32_t(t)) ? bit : 0u;
+      }
+    }
+  } else {  // csbf: word j*g + mulshift(h, GROUP_SALTS[j], log2 g) per group
+    const int kz = k / z;
+    const int g = S / z;
+    for (int jg = 0; jg < z; ++jg) {
+      uint32_t w = uint32_t(jg * g);
+      if (log2g > 0) w += (h * gsalt[jg]) >> (32 - log2g);
+      w -= uint32_t(first);
+      if (w < uint32_t(W)) {
+        uint32_t gm = 0u;
+        for (int t = 0; t < kz; ++t) gm |= bit_of(h, salt[jg * kz + t]);
+#pragma unroll
+        for (int t = 0; t < W; ++t) m[t] |= (w == uint32_t(t)) ? gm : 0u;
+      }
+    }
+  }
+}
+
 // Dynamic shared memory a partitioned-update CTA may take for its segment:
 // the card's opt-in limit less the statically staged salts.
 inline int partition_smem_bytes(int device) {

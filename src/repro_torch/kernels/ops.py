@@ -31,7 +31,10 @@ Counterpart of ``repro.kernels.ops.bloom_contains`` / ``bloom_add``,
   contains in DRAM is the spec's ``tune_plan(regime="hbm")`` depth. The
   bank forms resolve probe and mix with coop pinned to ``"none"``, since
   the bank kernels have no cooperative form (the JAX dispatch leaves coop
-  ``"auto"`` there; on the CPU calibration the two plans agree). Which
+  ``"auto"`` there; on the CPU calibration the two plans agree). The
+  caller's ``layout`` reaches the blocked wrappers as it was given, None
+  included: there the card runs ``sbf.card_layout``, where the JAX dispatch
+  fills in ``default_layout`` (the plain path still validates it). Which
   axes the CUDA kernels act on is set out in ``kernels/sbf.py`` and
   ``kernels/countingbf.py``; no axis changes a result;
 * keys on the CPU are padded to a tile multiple before the plain path, as
@@ -91,7 +94,7 @@ from repro_torch.kernels import quotientfilter as qf_k
 from repro_torch.kernels import ring as ring_k
 from repro_torch.kernels import sbf as sbf_k
 from repro_torch.kernels.sbf import (COOPS, DEFAULT_TILE, MIXES, PROBES,
-                                     Layout, default_layout)
+                                     Layout)
 
 # Filters of at most this many bytes run the L2-resident kernels: the largest
 # size of chip_smoke.py's crossover sweep (phase 4g: sbf and countingbf
@@ -102,6 +105,9 @@ from repro_torch.kernels.sbf import (COOPS, DEFAULT_TILE, MIXES, PROBES,
 # tuner picks depth 8: against the DRAM schedule at its best depth (1 or 2)
 # the L2 schedule took 0.97-1.06x at every size (at depth 1 the two are one
 # kernel instance), so there the line would decide nothing but the depth.
+# Since the blocked contains runs Θ = 2 in both schedules, the sbf
+# schedules differ only in depth: 0.91-1.00x at 8-64 MiB, a tie at 64 MiB;
+# the counting contains keeps 0.73-0.84x.
 L2_FILTER_BYTES = 64 * 1024 * 1024
 
 REGIMES = ("vmem", "hbm")
@@ -244,9 +250,8 @@ def bloom_contains(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
     elif _regime(spec, regime) == "vmem":
         p, c, m = _resolve_pcm(spec, "contains", "vmem", tile, probe, coop,
                                mix, device=dev)
-        out = sbf_k.contains_vmem(
-            spec, filt, padded, layout or default_layout(spec, "contains"),
-            tile=tile, probe=p, coop=c, mix=m)
+        out = sbf_k.contains_vmem(spec, filt, padded, layout, tile=tile,
+                                  probe=p, coop=c, mix=m)
     else:
         _check_axis(probe, PROBES, "probe")
         _, c, m = _resolve_pcm(spec, "contains", "hbm", tile, "gather",
@@ -279,9 +284,8 @@ def bloom_add(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
     if _regime(spec, regime) == "vmem":
         p, c, m = _resolve_pcm(spec, "add", "vmem", tile, probe, coop, mix,
                                device=dev)
-        return sbf_k.add_vmem(
-            spec, out, padded, layout or default_layout(spec, "add"),
-            tile=tile, probe=p, coop=c, mix=m)
+        return sbf_k.add_vmem(spec, out, padded, layout, tile=tile, probe=p,
+                              coop=c, mix=m)
     _check_axis(probe, PROBES, "probe")
     _, c, m = _resolve_pcm(spec, "add", "hbm", tile, "gather", coop, mix,
                            device=dev)
@@ -488,9 +492,8 @@ def bloom_bank_contains(spec: FilterSpec, bank: torch.Tensor,
         d = _resolve_depth(spec, "contains", depth, tile, bank=B, device=dev)
     p, _, m = _resolve_pcm(spec, "contains", "vmem", tile, probe, "none",
                            mix, bank=B, device=dev)
-    out = sbf_k.bank_contains_vmem(
-        spec, bank, keys, member, layout or default_layout(spec, "contains"),
-        tile=tile, probe=p, mix=m, depth=d)
+    out = sbf_k.bank_contains_vmem(spec, bank, keys, member, layout,
+                                   tile=tile, probe=p, mix=m, depth=d)
     return out[:n]
 
 
@@ -512,9 +515,8 @@ def bloom_bank_add(spec: FilterSpec, bank: torch.Tensor, keys: torch.Tensor,
         keys, member, valid = _pad_flat_valid(keys, member, valid, tile)
     p, _, m = _resolve_pcm(spec, "add", "vmem", tile, probe, "none", mix,
                            bank=bank.shape[0], device=keys.device)
-    return sbf_k.bank_add_vmem(
-        spec, out, keys, member, valid, layout or default_layout(spec, "add"),
-        tile=tile, probe=p, mix=m)
+    return sbf_k.bank_add_vmem(spec, out, keys, member, valid, layout,
+                               tile=tile, probe=p, mix=m)
 
 
 def counting_bank_update(spec: FilterSpec, bank: torch.Tensor,

@@ -9,14 +9,13 @@ wrapper            replaces (repro/kernels/      CUDA kernel (csrc/bloom.cu)
                    sbf.py)
 ================== ============================= ===========================
 contains_vmem      contains_vmem (L2 regime)     bloom_contains_kernel,
-                                                 DEPTH=1, PHI=min(phi, 4)
+                                                 DEPTH=1
 contains_hbm       contains_hbm (DRAM regime)    bloom_contains_kernel,
-                                                 DEPTH=depth, PHI=min(s, 4)
+                                                 DEPTH=depth
 add_vmem           add_vmem                      bloom_add_kernel
 add_hbm            add_hbm                       bloom_add_kernel
 bank_contains_vmem bank_contains_vmem            bloom_contains_kernel, bank
-                                                 form; DEPTH=depth (1: PHI=
-                                                 min(phi, 4), else min(s, 4))
+                                                 form; DEPTH=depth
 bank_add_vmem      bank_add_vmem                 bloom_add_kernel, bank form
 add_partitioned    add_partitioned               bloom_add_partitioned_kernel
 ================== ============================= ===========================
@@ -33,20 +32,34 @@ The bank wrappers take a ``(B, n_words)`` bank, flat keys and ``member``
 ``(n,)`` int32 ids in ``[0, B)`` (checked: a ``ValueError`` otherwise, so
 no launch writes outside the bank). The JAX package runs them only on a
 bank that fits VMEM; here one kernel serves a bank in L2 (``depth=1``) and
-one in DRAM (``depth`` keys a thread), as ``ops.bloom_bank_*`` picks.
+one in DRAM (``depth`` keys a group), as ``ops.bloom_bank_*`` picks.
 
-Schedule axes. The kernels act on ``layout.phi`` (the vector width of the
-block loads, capped at 4 words = 128 bits, the widest load) in
-``contains_vmem`` and on ``depth`` (keys per thread, all their loads in
-flight together) in ``contains_hbm``. At most 64 block words stay in flight
-per thread, so ``depth`` is capped at ``64 // s`` for s >= 16. Every other
-axis is accepted and validated as the JAX package does it, and runs the same
-kernel: ``layout.theta`` and ``tile`` (a CUDA thread owns its keys; tiles
-exist for the plain path's padding, so the DRAM wrappers take none),
-``probe="gather"`` and ``coop="subtile"`` (the per-thread walk already is
-the gather, and a thread stops at its first failing chunk), and
-``mix="cheap"`` (the kernels always share the lane products of the two
-hash streams, which gives the same hashes). No axis changes a result.
+Schedule axes. Three act on the card, as the paper's (Θ, Φ) layout and
+the DMA depth (:func:`launch_geometry` resolves them, with the grid):
+
+* ``layout.theta`` is Θ, the lanes of a warp that own one key together
+  (1, 2, 4, ..., 32, clamped to s): each lane owns s/Θ contiguous words of
+  the key's block, hashes one key of the warp's 32 and shares it by
+  shuffle, and a group decides a key by a ballot. Θ = 1 is one thread a
+  key. Θ = s makes an add one L2 sector request a key instead of s;
+* ``layout.phi`` is Φ, the words a lane moves with one load, capped at 4
+  (128 bits, the widest load) and at the lane's s/Θ words. A schedule
+  deeper than 1 loads the widest vector;
+* ``depth`` is the keys a group keeps in flight, all their loads issued
+  before any test (``contains_hbm``, ``bank_contains_vmem``), capped so that
+  a lane holds at most ``MAX_WORDS_IN_FLIGHT`` = 64 words.
+
+A layout the caller passes acts as given (``contains_vmem``, ``add_vmem``
+and the bank wrappers). Where the caller passes none, and always in the
+DRAM wrappers, which take no layout (as in JAX), :func:`card_layout`
+decides. ``default_layout`` stays the JAX package's and is what the plain
+path validates. Every other axis is accepted and validated as the JAX
+package does it, and runs the same kernel: ``tile`` (tiles exist for the
+plain path's padding, so the DRAM wrappers take none), ``probe="gather"``
+and ``coop="subtile"`` (the lanes' walk already is the gather, and a group
+is the sub-tile), and ``mix="cheap"`` (the kernels always share the lane
+products of the two hash streams, which gives the same hashes). No axis
+changes a result.
 
 Wrappers take ``int32`` tensors: keys ``(n, 2)`` holding ``[hi, lo]`` and
 filter words ``(n_words,)``. For CPU tensors a wrapper runs its plain
@@ -57,6 +70,7 @@ return it. ``LAUNCHES`` counts kernel launches per wrapper.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -72,13 +86,18 @@ COOPS = ("none", "subtile")
 MIXES = ("full", "cheap")
 DMA_DEPTHS = (1, 2, 4, 8)
 DEFAULT_DMA_DEPTH = 2
-MAX_WORDS_IN_FLIGHT = 64        # block words a contains thread holds
+MAX_WORDS_IN_FLIGHT = 64        # block words a contains lane holds
 BLOCKED_VARIANTS = ("sbf", "bbf", "rbbf", "csbf")
+WARP = 32                       # lanes a warp; Θ divides it
+THREADS = 256                   # CUDA threads a CTA (csrc kThreads)
+MAX_VEC = 4                     # words a load: 128 bits
 
 # Kernel launches per wrapper (a launch adds one; the plain path adds none).
 LAUNCHES = {"contains_vmem": 0, "add_vmem": 0, "contains_hbm": 0,
             "add_hbm": 0, "bank_contains_vmem": 0, "bank_add_vmem": 0,
             "add_partitioned": 0}
+# The geometry of each wrapper's last launch (what a run resolved)
+LAST_GEOMETRY: dict = {}
 
 _VARIANT_CODE = {"sbf": 0, "bbf": 1, "rbbf": 1, "csbf": 2}
 _salts_on: dict = {}
@@ -99,7 +118,8 @@ class Layout:
     """(Θ, Φ) vectorization layout of the paper (§4.1).
 
     theta: keys processed per inner step; phi: contiguous words per load.
-    On Hopper only phi acts (capped at 4 words by the 128-bit load)."""
+    On the card Θ is the lanes that own one key and Φ the words a lane
+    loads at a time (:func:`launch_geometry`)."""
     theta: int = 1
     phi: int = 8
 
@@ -127,6 +147,101 @@ def default_layout(spec: FilterSpec, op: str) -> Layout:
         return Layout(theta, max(1, min(8, s // theta)))
     theta = min(s, 8)
     return Layout(theta, max(1, s // theta))
+
+
+def card_layout(spec: FilterSpec, op: str) -> Layout:
+    """The (Θ, Φ) the card runs where the caller passes no layout, in
+    both regimes; ``chip_smoke.py``'s Θ sweeps (phases 4 and 4a) set it and
+    check it against Θ = 1 at every block the default path serves
+    (PERF.md, rows 1-4).
+
+    sbf and rbbf: the add at Θ = s, one word a lane, so a key's atomics
+    leave the warp as one sector request (the paper's Θ̂ = s); the contains
+    at Θ = s/4 lanes with one 128-bit load each (Θ = 1 below s = 4), so a
+    warp instruction reads whole sectors. bbf: each lane places all k bits
+    by hash to find its own, so more lanes cost integer work: the add at Θ
+    = min(s, 8), the contains at Θ = 1. csbf: Θ = 1 for both (a key's bits
+    lie in z words, one a group, so more lanes add work and remove no
+    request)."""
+    if op not in ("contains", "add"):
+        raise ValueError(f"op={op!r} not in ('contains', 'add')")
+    if spec.variant == "csbf" or (spec.variant == "bbf" and op == "contains"):
+        return Layout(1, MAX_VEC)
+    if op == "add":
+        return Layout(min(spec.s, 8 if spec.variant == "bbf" else WARP), 1)
+    return Layout(max(1, spec.s // MAX_VEC), MAX_VEC)
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """How a blocked-filter kernel runs on the card (``csrc/bloom.cu``).
+
+    A group of ``theta`` adjacent lanes owns one key; lane ``j`` of it owns
+    the ``words`` = s/Θ block words ``[j * words, (j + 1) * words)`` and
+    loads them ``vec`` words at a time. A group keeps ``depth`` keys in
+    flight, so a lane hashes ``keys_per_lane`` keys of each warp tile; a
+    CTA of ``THREADS`` threads takes ``keys_per_cta`` keys and ``grid(n)``
+    CTAs take ``n``."""
+    s: int
+    theta: int
+    vec: int
+    depth: int
+
+    @property
+    def words(self) -> int:
+        return self.s // self.theta
+
+    @property
+    def words_in_flight(self) -> int:
+        return self.depth * self.words
+
+    @property
+    def keys_per_lane(self) -> int:
+        return max(1, self.depth // self.theta)
+
+    @property
+    def keys_per_cta(self) -> int:
+        return THREADS * self.keys_per_lane
+
+    def grid(self, n: int) -> int:
+        """CTAs for ``n`` keys."""
+        return -(-n // self.keys_per_cta)
+
+    def group(self, lane: int) -> range:
+        """The lanes of ``lane``'s group."""
+        first = lane - lane % self.theta
+        return range(first, first + self.theta)
+
+    def loads(self, lane: int) -> list:
+        """First block word of each of ``lane``'s loads (``vec`` words)."""
+        first = (lane % self.theta) * self.words
+        return [first + c * self.vec for c in range(self.words // self.vec)]
+
+
+def launch_geometry(spec: FilterSpec, op: str, layout: Layout,
+                    depth: int = 1) -> Geometry:
+    """Resolve a layout and depth for the card: Θ clamped to s, Φ capped at
+    4 words and at a lane's s/Θ words (a deeper schedule loads the widest
+    vector), the depth capped at ``MAX_WORDS_IN_FLIGHT`` words a lane.
+    Raises ``ValueError`` for a Θ or Φ that is not a power of two, a depth
+    not in ``DMA_DEPTHS`` (an add takes 1) or an s the kernels do not
+    serve."""
+    if op not in ("contains", "add"):
+        raise ValueError(f"op={op!r} not in ('contains', 'add')")
+    s = spec.s
+    if not (_is_pow2(s) and s <= WARP):
+        raise ValueError(f"the kernels serve s in 1..{WARP} words, not {s}")
+    if not (_is_pow2(layout.theta) and _is_pow2(layout.phi)):
+        raise ValueError(f"theta={layout.theta}, phi={layout.phi} must be "
+                         f"powers of two")
+    if depth not in (DMA_DEPTHS if op == "contains" else (1,)):
+        raise ValueError(f"depth={depth} for {op}")
+    theta = min(layout.theta, s)
+    words = s // theta
+    depth = min(depth, max(1, MAX_WORDS_IN_FLIGHT // words))
+    vec = min(words, MAX_VEC) if depth > 1 else min(layout.phi, words,
+                                                    MAX_VEC)
+    return Geometry(s, theta, vec, depth)
 
 
 def _check_axes(probe: str = "loop", coop: str = "none", mix: str = "full"):
@@ -233,7 +348,24 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def _launch_contains(name: str, spec, filt, keys, phi: int, depth: int
+def _layout_on_card(spec: FilterSpec, op: str, layout: Optional[Layout],
+                    tile: int) -> Layout:
+    """Validate the caller's layout, or where it passes none the JAX
+    default (what the plain path is checked against), and return the
+    layout the card runs: the caller's, else :func:`card_layout`."""
+    if layout is None:
+        default_layout(spec, op).validate(spec, tile)
+        return card_layout(spec, op)
+    return layout.validate(spec, tile)
+
+
+def _counted(name: str, geo: Geometry, err: int) -> None:
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    LAST_GEOMETRY[name] = geo
+
+
+def _launch_contains(name: str, spec, filt, keys, geo: Geometry
                      ) -> torch.Tensor:
     from repro_torch.kernels._build import library
     block_mask, s, variant, k, z, log2g = _geometry(spec, filt, keys)
@@ -246,14 +378,14 @@ def _launch_contains(name: str, spec, filt, keys, phi: int, depth: int
         stream = torch.cuda.current_stream(keys.device).cuda_stream
         err = lib.bloom_contains(keys.data_ptr(), filt.data_ptr(),
                                  out.data_ptr(), _salts(keys.device).data_ptr(),
-                                 n, block_mask, s, phi, depth, variant, k, z,
+                                 n, block_mask, s, geo.theta, geo.vec,
+                                 geo.depth, geo.grid(n), variant, k, z,
                                  log2g, stream)
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
+    _counted(name, geo, err)
     return out
 
 
-def _launch_add(name: str, spec, filt, keys) -> torch.Tensor:
+def _launch_add(name: str, spec, filt, keys, geo: Geometry) -> torch.Tensor:
     from repro_torch.kernels._build import library
     block_mask, s, variant, k, z, log2g = _geometry(spec, filt, keys)
     n = keys.shape[0]
@@ -264,9 +396,9 @@ def _launch_add(name: str, spec, filt, keys) -> torch.Tensor:
         stream = torch.cuda.current_stream(keys.device).cuda_stream
         err = lib.bloom_add(keys.data_ptr(), filt.data_ptr(),
                             _salts(keys.device).data_ptr(), n, block_mask, s,
-                            variant, k, z, log2g, stream)
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
+                            geo.theta, geo.grid(n), variant, k, z, log2g,
+                            stream)
+    _counted(name, geo, err)
     return filt
 
 
@@ -327,10 +459,6 @@ def segment_fits(seg_words: int, device) -> bool:
     return seg_words * 4 <= partition_smem_bytes(device)
 
 
-def _depth_in_flight(spec: FilterSpec, depth: int) -> int:
-    return min(depth, max(1, MAX_WORDS_IN_FLIGHT // spec.s))
-
-
 def check_bank(spec: FilterSpec, bank: torch.Tensor, keys: torch.Tensor,
                member: torch.Tensor, valid=None, width: int = None) -> bool:
     """Validate a bank call's tensors (shared by the counting wrappers,
@@ -364,7 +492,7 @@ def check_bank(spec: FilterSpec, bank: torch.Tensor, keys: torch.Tensor,
     return on_cuda
 
 
-def _launch_bank_contains(spec, bank, keys, member, phi: int, depth: int
+def _launch_bank_contains(spec, bank, keys, member, geo: Geometry
                           ) -> torch.Tensor:
     from repro_torch.kernels._build import library
     block_mask, s, variant, k, z, log2g = _geometry(spec, bank[0], keys)
@@ -378,13 +506,14 @@ def _launch_bank_contains(spec, bank, keys, member, phi: int, depth: int
         err = lib.bloom_bank_contains(
             keys.data_ptr(), member.data_ptr(), bank.data_ptr(),
             out.data_ptr(), _salts(keys.device).data_ptr(), n, spec.n_words,
-            block_mask, s, phi, depth, variant, k, z, log2g, stream)
-    _raise_on(err, "bank_contains_vmem")
-    LAUNCHES["bank_contains_vmem"] += 1
+            block_mask, s, geo.theta, geo.vec, geo.depth, geo.grid(n),
+            variant, k, z, log2g, stream)
+    _counted("bank_contains_vmem", geo, err)
     return out
 
 
-def _launch_bank_add(spec, bank, keys, member, valid) -> torch.Tensor:
+def _launch_bank_add(spec, bank, keys, member, valid, geo: Geometry
+                     ) -> torch.Tensor:
     from repro_torch.kernels._build import library
     block_mask, s, variant, k, z, log2g = _geometry(spec, bank[0], keys)
     n = keys.shape[0]
@@ -399,61 +528,66 @@ def _launch_bank_add(spec, bank, keys, member, valid) -> torch.Tensor:
             keys.data_ptr(), member.data_ptr(),
             None if valid is None else valid.data_ptr(), bank.data_ptr(),
             _salts(keys.device).data_ptr(), n, spec.n_words, block_mask, s,
-            variant, k, z, log2g, stream)
-    _raise_on(err, "bank_add_vmem")
-    LAUNCHES["bank_add_vmem"] += 1
+            geo.theta, geo.grid(n), variant, k, z, log2g, stream)
+    _counted("bank_add_vmem", geo, err)
     return bank
 
 
 # ---------------------------------------------------------------------------
-# The four wrappers
+# The wrappers
 # ---------------------------------------------------------------------------
 
 def contains_vmem(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
-                  layout: Layout, tile: int = DEFAULT_TILE,
+                  layout: Optional[Layout] = None, tile: int = DEFAULT_TILE,
                   probe: str = "loop", coop: str = "none",
                   mix: str = "full") -> torch.Tensor:
-    """Bulk membership, L2-resident regime. (n,) bool."""
+    """Bulk membership, L2-resident regime. (n,) bool. ``layout=None``
+    runs :func:`card_layout` on the card."""
     _check_axes(probe, coop, mix)
-    layout = layout.validate(spec, tile)
+    layout = _layout_on_card(spec, "contains", layout, tile)
     if not _on_cuda(filt, keys):
         return contains_plain(spec, filt, keys)
     return _launch_contains("contains_vmem", spec, filt, keys,
-                            phi=min(layout.phi, 4), depth=1)
+                            launch_geometry(spec, "contains", layout))
 
 
 def add_vmem(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
-             layout: Layout, tile: int = DEFAULT_TILE, probe: str = "loop",
-             coop: str = "none", mix: str = "full") -> torch.Tensor:
-    """Bulk insert, L2-resident regime; updates ``filt`` in place."""
+             layout: Optional[Layout] = None, tile: int = DEFAULT_TILE,
+             probe: str = "loop", coop: str = "none", mix: str = "full"
+             ) -> torch.Tensor:
+    """Bulk insert, L2-resident regime; updates ``filt`` in place.
+    ``layout=None`` runs :func:`card_layout` on the card."""
     _check_axes(probe, coop, mix)
-    layout.validate(spec, tile)
+    layout = _layout_on_card(spec, "add", layout, tile)
     if not _on_cuda(filt, keys):
         return filt.copy_(add_plain(spec, filt, keys))
-    return _launch_add("add_vmem", spec, filt, keys)
+    return _launch_add("add_vmem", spec, filt, keys,
+                       launch_geometry(spec, "add", layout))
 
 
 def contains_hbm(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
                  depth: int = DEFAULT_DMA_DEPTH, coop: str = "none",
                  mix: str = "full") -> torch.Tensor:
-    """Bulk membership, DRAM-resident regime. (n,) bool."""
+    """Bulk membership, DRAM-resident regime, at :func:`card_layout`.
+    (n,) bool."""
     _check_axes(coop=coop, mix=mix)
     if depth not in DMA_DEPTHS:
         raise ValueError(f"depth={depth} not in {DMA_DEPTHS}")
     if not _on_cuda(filt, keys):
         return contains_plain(spec, filt, keys)
-    return _launch_contains("contains_hbm", spec, filt, keys,
-                            phi=min(spec.s, 4),
-                            depth=_depth_in_flight(spec, depth))
+    return _launch_contains("contains_hbm", spec, filt, keys, launch_geometry(
+        spec, "contains", card_layout(spec, "contains"), depth))
 
 
 def add_hbm(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
             coop: str = "none", mix: str = "full") -> torch.Tensor:
-    """Bulk insert, DRAM-resident regime; updates ``filt`` in place."""
+    """Bulk insert, DRAM-resident regime, at :func:`card_layout`; updates
+    ``filt`` in place."""
     _check_axes(coop=coop, mix=mix)
     if not _on_cuda(filt, keys):
         return filt.copy_(add_plain(spec, filt, keys))
-    return _launch_add("add_hbm", spec, filt, keys)
+    return _launch_add("add_hbm", spec, filt, keys, launch_geometry(
+        spec, "add", card_layout(spec, "add")))
 
 
 def add_partitioned(spec: FilterSpec, filt: torch.Tensor,
@@ -491,35 +625,34 @@ def add_partitioned(spec: FilterSpec, filt: torch.Tensor,
 
 def bank_contains_vmem(spec: FilterSpec, bank: torch.Tensor,
                        keys: torch.Tensor, member: torch.Tensor,
-                       layout: Layout, tile: int = DEFAULT_TILE,
-                       probe: str = "gather", mix: str = "full",
-                       depth: int = 1) -> torch.Tensor:
+                       layout: Optional[Layout] = None,
+                       tile: int = DEFAULT_TILE, probe: str = "gather",
+                       mix: str = "full", depth: int = 1) -> torch.Tensor:
     """Flat routed membership against a (B, n_words) bank, one launch.
-    ``depth=1`` is the L2 regime (``layout.phi`` acts); a larger ``depth``
-    (a value of ``DMA_DEPTHS``) the DRAM regime. (n,) bool."""
+    ``depth=1`` is the L2 regime; a larger ``depth`` (a value of
+    ``DMA_DEPTHS``) the DRAM regime. ``layout=None`` runs
+    :func:`card_layout` on the card. (n,) bool."""
     _check_axes(probe=probe, mix=mix)
-    layout = layout.validate(spec, tile)
     if depth not in DMA_DEPTHS:
         raise ValueError(f"depth={depth} not in {DMA_DEPTHS}")
+    layout = _layout_on_card(spec, "contains", layout, tile)
     if not check_bank(spec, bank, keys, member):
         return bank_contains_plain(spec, bank, keys, member)
-    if depth == 1:
-        return _launch_bank_contains(spec, bank, keys, member,
-                                     phi=min(layout.phi, 4), depth=1)
-    return _launch_bank_contains(spec, bank, keys, member,
-                                 phi=min(spec.s, 4),
-                                 depth=_depth_in_flight(spec, depth))
+    return _launch_bank_contains(spec, bank, keys, member, launch_geometry(
+        spec, "contains", layout, depth))
 
 
 def bank_add_vmem(spec: FilterSpec, bank: torch.Tensor, keys: torch.Tensor,
-                  member: torch.Tensor, valid, layout: Layout,
-                  tile: int = DEFAULT_TILE, probe: str = "gather",
-                  mix: str = "full") -> torch.Tensor:
+                  member: torch.Tensor, valid,
+                  layout: Optional[Layout] = None, tile: int = DEFAULT_TILE,
+                  probe: str = "gather", mix: str = "full") -> torch.Tensor:
     """Flat routed insert into a (B, n_words) bank, one launch, both
     regimes; slots with ``valid`` 0 are skipped (``None``: every key
-    valid). Updates ``bank`` in place."""
+    valid). ``layout=None`` runs :func:`card_layout` on the card. Updates
+    ``bank`` in place."""
     _check_axes(probe=probe, mix=mix)
-    layout.validate(spec, tile)
+    layout = _layout_on_card(spec, "add", layout, tile)
     if not check_bank(spec, bank, keys, member, valid):
         return bank.copy_(bank_add_plain(spec, bank, keys, member, valid))
-    return _launch_bank_add(spec, bank, keys, member, valid)
+    return _launch_bank_add(spec, bank, keys, member, valid,
+                            launch_geometry(spec, "add", layout))

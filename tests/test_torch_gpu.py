@@ -9,8 +9,15 @@ machine that has only PyTorch:
 Comparisons are exact (tolerance 0): words as u32 bits, results as bool.
 The bank cases hold the four bank kernels against their plain versions
 for B in 1/7/64, uniform and skewed member mixes, both regimes' depths and
-valid-masked, ragged batches. The last cases hold the partitioned kernels
-(both paths: segments staged in shared memory, and global atomics) and the
+valid-masked, ragged batches. The warp-cooperative cases hold the blocked
+add and contains at every Θ (lanes a key) each spec takes, every load width
+and every depth, both bank forms at B = 1/7/64, ragged batches (below a
+warp, around one, not a multiple of a CTA's keys), the default path
+(``sbf.card_layout``) and a filter pinned by ``api.tuned_options``, which
+must run ``card_layout``'s geometry, against the plain versions. The last
+cases hold the
+partitioned kernels (both paths: segments staged in shared memory, and
+global atomics) and the
 cuckoo kernels (u8/u16 slots, 2 to 16 slots a bucket, multi-tile,
 masked, duplicate and over-full batches) against theirs, and the quotient
 kernels (u8/u16/u32 lanes over several remainder widths, loads 0.5, 0.9
@@ -483,6 +490,126 @@ def test_bank_kernels_match_plain(cuda, spec, B, skewed):
             got = sbf.bank_contains_vmem(spec, want, q, qm, lay, depth=depth)
             np.testing.assert_array_equal(got.cpu().numpy(),
                                           hits.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# The warp-cooperative geometry: every Θ, depth and load width (csrc/bloom.cu)
+# ---------------------------------------------------------------------------
+
+def _thetas(spec):
+    return [t for t in (1, 2, 4, 8, 16, 32) if t <= spec.s]
+
+
+SPEC_THETAS = [(spec, t) for spec in SPECS for t in _thetas(spec)]
+# ragged sizes: below a warp, around one, and not a multiple of a CTA's
+# keys at any depth (256 to 2048)
+RAGGED = (1, 5, 31, 33, 2053, 65537)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec,theta", SPEC_THETAS,
+                         ids=[f"{s}-theta{t}" for s, t in SPEC_THETAS])
+def test_coop_add_matches_plain_at_every_theta(cuda, spec, theta):
+    for n in RAGGED:
+        keys = _keys(n, n + theta, cuda)
+        want = _u32(sbf.add_plain(spec, V.init(spec, cuda), keys))
+        got = sbf.add_vmem(spec, V.init(spec, cuda), keys,
+                           sbf.Layout(theta, 1))
+        np.testing.assert_array_equal(_u32(got), want)
+        geo = sbf.launch_geometry(spec, "add", sbf.Layout(theta, 1))
+        got = sbf._launch_add("add_hbm", spec, V.init(spec, cuda), keys, geo)
+        np.testing.assert_array_equal(_u32(got), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec,theta", SPEC_THETAS,
+                         ids=[f"{s}-theta{t}" for s, t in SPEC_THETAS])
+def test_coop_contains_matches_plain_at_every_theta(cuda, spec, theta):
+    filt = _filled(spec, 8192, cuda)
+    for n in RAGGED:
+        q = torch.cat([_keys(n - n // 2, 0, cuda), _probes(n // 2, n, cuda)])
+        want = sbf.contains_plain(spec, filt, q).cpu().numpy()
+        for phi in (1, 2, 4):
+            got = sbf.contains_vmem(spec, filt, q, sbf.Layout(theta, phi))
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+        for depth in sbf.DMA_DEPTHS:
+            geo = sbf.launch_geometry(spec, "contains",
+                                      sbf.Layout(theta, 4), depth)
+            got = sbf._launch_contains("contains_hbm", spec, filt, q, geo)
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+            assert sbf.LAST_GEOMETRY["contains_hbm"].theta == theta
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", BANK_SPECS, ids=str)
+@pytest.mark.parametrize("B", [1, 7, 64])
+def test_coop_bank_kernels_match_plain_at_every_theta(cuda, spec, B):
+    for n in (1, 33, 2053):
+        keys, member, valid = _routed(B, n, n + 7 * B, cuda)
+        empty = torch.zeros((B, spec.n_words), dtype=torch.int32, device=cuda)
+        want = sbf.bank_add_plain(spec, empty, keys, member, valid)
+        q = torch.cat([keys, _probes(n, n, cuda)])
+        qm = torch.cat([member, member.flip(0)])
+        hits = sbf.bank_contains_plain(spec, want, q, qm).cpu().numpy()
+        for theta in _thetas(spec):
+            got = sbf.bank_add_vmem(spec, empty.clone(), keys, member, valid,
+                                    sbf.Layout(theta, 1))
+            np.testing.assert_array_equal(_u32(got), _u32(want))
+            for depth in sbf.DMA_DEPTHS:
+                got = sbf.bank_contains_vmem(spec, want, q, qm,
+                                             sbf.Layout(theta, 4),
+                                             depth=depth)
+                np.testing.assert_array_equal(got.cpu().numpy(), hits)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", SPECS, ids=str)
+def test_default_path_runs_card_layout(cuda, spec):
+    """ops without a layout runs card_layout in both regimes (the DRAM
+    contains at the tuned depth), with the plain version's results."""
+    keys = _keys(5000, 11, cuda)
+    want = _u32(sbf.add_plain(spec, V.init(spec, cuda), keys))
+    q = torch.cat([keys, _probes(5000, 12, cuda)])
+    for regime, add_name, con_name in (("vmem", "add_vmem", "contains_vmem"),
+                                       ("hbm", "add_hbm", "contains_hbm")):
+        words = ops.bloom_add(spec, V.init(spec, cuda), keys, regime=regime)
+        np.testing.assert_array_equal(_u32(words), want)
+        got = ops.bloom_contains(spec, words, q, regime=regime)
+        want_hits = sbf.contains_plain(spec, words, q)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      want_hits.cpu().numpy())
+        for op, name in (("add", add_name), ("contains", con_name)):
+            geo = sbf.LAST_GEOMETRY[name]
+            lay = sbf.card_layout(spec, op)
+            assert geo.theta == min(lay.theta, spec.s)
+            assert geo == sbf.launch_geometry(spec, op, lay, geo.depth)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [SPECS[0], SPECS[1], SPECS[5], SPECS[6]],
+                         ids=str)
+def test_tuned_options_run_card_layout(cuda, spec, tmp_path, monkeypatch):
+    """A filter made with ``api.tuned_options(spec, op)`` on the card runs
+    ``card_layout(spec, op)``'s geometry for that op, with the plain
+    version's words and results."""
+    from repro_torch import api
+    monkeypatch.setenv("REPRO_CALIB_CACHE", str(tmp_path / "calib.json"))
+    monkeypatch.setenv("REPRO_TUNING_CACHE", str(tmp_path / "tuning.json"))
+    keys = _keys(5000, 13, cuda)
+    want = _u32(sbf.add_plain(spec, V.init(spec, cuda), keys))
+    for op, name in (("add", "add_vmem"), ("contains", "contains_vmem")):
+        opts = api.tuned_options(spec, op, "vmem", device=cuda)
+        assert opts.layout == sbf.card_layout(spec, op)
+        f = api.make_filter(
+            spec.variant, m_bits=spec.m_bits, k=spec.k,
+            block_bits=spec.block_bits, z=spec.z, backend="cuda-l2",
+            layout=opts.layout, tile=opts.tile, probe=opts.probe,
+            depth=opts.depth, coop=opts.coop, mix=opts.mix, device=cuda)
+        g = f.add(keys)
+        np.testing.assert_array_equal(_u32(g.words), want)
+        assert bool(g.contains(keys).all())
+        assert sbf.LAST_GEOMETRY[name] == sbf.launch_geometry(
+            spec, op, opts.layout)
 
 
 @pytest.mark.gpu
