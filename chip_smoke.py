@@ -44,10 +44,14 @@ the script exits non-zero without printing a result:
    at m = 2^20 (and sbf at 2^22) through ``ops`` at n_segments 1/8/64 with
    the capacity escalated, pinned so that it overflows (the residual pass)
    and the host partition, on the path ``ops`` picks and with global
-   atomics forced; and the cuckoo kernels for u8 x 4, u8 x 8, u16 x 2 and
-   u16 x 4 slots, 2^12 buckets, batches at 0.9 and 1.2 of the slots (kick
-   failures) with duplicates, valid masks and 256-key tiles: words, flags
-   and contains equal to the plain version's;
+   atomics forced; and the cuckoo kernels for every instance (u8 x 4/8/16,
+   u16 x 2/4/8/16) with 16384 slots, batches at 0.9 and 1.2 of the slots
+   (kick failures) with duplicates, valid masks and 256-key tiles, the
+   update at windows 1, 2, 32 and the default; adversarial batches (512
+   copies of one key, keys of one bucket pair, tiles 1/8/2048/8192, a step
+   cap of 1) at the same windows: words, flags and contains equal to the
+   plain version's; and the update kernel's counters equal to the CPU
+   model's (``cuckoofilter.update_windowed``) round for round;
 3f. the quotient kernels for u8, u16 and u32 lanes over six (r, q)
    geometries: batches at 0.5, 0.9 and 1.3 of the slots (past capacity)
    with duplicates, with and without a valid mask, a second batch into the
@@ -119,9 +123,20 @@ the script exits non-zero without printing a result:
    half, contains the rest; occupied slots equal to the inserts that
    succeeded, false negatives and unfound removes at most the failed
    inserts, every contains equal to the plain version's in full, and the
-   update's words and flags equal to the plain version's on 2^18 keys into
-   the empty full-size table and from the load-0.9 table (2^16 inserts,
-   2^18 removes); the updates timed one call each;
+   update's words and flags (at the default window and at window 1) equal
+   to the plain version's on 2^18 keys into the empty full-size table and
+   from the load-0.9 table (2^16 inserts, 2^18 removes); the updates timed
+   one call each, with the apply kernel's counters (rounds, keys a round,
+   rounds ended on a conflict or a capped key, keys finished alone, the
+   rounds' longest chains); and the DRAM cuckoo cell,
+   ``filter_for_n_items(2^27, bits_per_key=16, variant="cuckoo")`` (u16 x
+   4, 2^26 buckets, 512 MiB): add 2^27 keys (load 0.5), add to load 0.9
+   where 32 x the L2 cell's add from 0.5 to 0.9 fits in 60 s, contains of
+   all and of 2^22 probes, remove half, contains the rest, with the L2
+   cell's invariants, every contains equal to the plain version's (2^22-key
+   chunks) and the update at the default window equal to the kernel at
+   window 1 (the serial order) on 2^18 keys, fresh and into the load-0.5
+   table;
 4f. the quotient cells, ``filter_for_n_items(n, variant="quotient")`` at n
    = 2^22 (q23 + r5, u8, an 8 MiB table in L2) and 2^25 (q26 + r5, 64 MiB,
    the largest table the 31-bit fingerprint allows; batches of 2^24 keys):
@@ -2114,7 +2129,9 @@ PHASE3E_SPECS = [V.FilterSpec("sbf", 1 << 20, 16, block_bits=256),
                  V.FilterSpec("csbf", 1 << 20, 8, block_bits=512, z=2),
                  V.FilterSpec("countingbf", 1 << 20, 8, block_bits=256),
                  V.FilterSpec("sbf", 1 << 22, 16, block_bits=256)]
-PHASE3E_CUCKOO = ((8, 4), (8, 8), (16, 2), (16, 4))   # (slot bits, slots)
+# windows of the cuckoo update the checks run: serial, two keys, a warp,
+# the default
+CUCKOO_WINDOWS = (1, 2, 32, ckoo.WINDOW)
 DRAM_BATCH = 1 << 24           # keys a partitioned call takes in DRAM cells
 CUCKOO_SUB = 1 << 18           # keys of the cuckoo kernel-vs-plain checks
 
@@ -2224,15 +2241,50 @@ def phase_partitioned_kernels(errs: dict):
               f"paths {sorted(paths)} and global forced)")
 
 
+def cuckoo_spec(slot_bits: int, spb: int, n_buckets: int) -> V.FilterSpec:
+    return V.FilterSpec("cuckoo", n_buckets * spb * slot_bits, 2,
+                        slot_bits=slot_bits, slots_per_bucket=spb)
+
+
+def cuckoo_windows(spec, table, keys, vmask, op, tile, want, flags, errs,
+                   windows=CUCKOO_WINDOWS, step_cap=None) -> int:
+    """The update at each window (and ``step_cap``) on a copy of
+    ``table``, held against the plain version's words and flags; returns
+    the number of kernel runs."""
+    fn = ckoo.add_vmem if op == "add" else ckoo.remove_vmem
+    for w in windows:
+        got, got_flags = fn(spec, table.clone(), keys, vmask, tile, window=w,
+                            step_cap=step_cap)
+        errs["cuckoo_update"] = max(errs["cuckoo_update"], max_err(got, want),
+                                    max_err(got_flags, flags))
+    return len(windows)
+
+
+def pair_keys(spec, n: int, seed: int) -> torch.Tensor:
+    """n keys whose primary and alternate buckets are one pair {x, y}."""
+    keys = gen_keys(1 << 22, seed)
+    b1, fp, _ = F.cuckoo_hashes(spec, keys)
+    alt = F.alt_bucket(spec, b1, fp)
+    i = int(torch.nonzero(b1 != alt)[0])
+    x, y = int(b1[i]), int(alt[i])
+    out = keys[((b1 == x) & (alt == y)) | ((b1 == y) & (alt == x))][:n]
+    if out.shape[0] != n:
+        raise AssertionError(f"only {out.shape[0]} keys in one bucket pair")
+    return out.contiguous()
+
+
 def phase_cuckoo_kernels(errs: dict):
-    """Phase 3e, cuckoo: u8/u16 slots, 2-8 slots a bucket, 2^12 buckets;
-    batches at 0.9 and 1.2 of the slots (kick failures), 5 % duplicates,
-    in 256-key tiles, and with a valid mask in the default tile; the words,
-    ok/found flags and contains (both coop values) against the plain
-    version."""
-    for i, (sb, spb) in enumerate(PHASE3E_CUCKOO):
-        spec = V.FilterSpec("cuckoo", (1 << 12) * spb * sb, 2, slot_bits=sb,
-                            slots_per_bucket=spb)
+    """Phase 3e, cuckoo: every instance (u8 x 4/8/16, u16 x 2/4/8/16) with
+    16384 slots; batches at 0.9 and 1.2 of the slots (kick failures), 5 %
+    duplicates, in 256-key tiles, and with a valid mask in the default
+    tile; the update at windows 1, 2, 32 and the default, its words and
+    ok/found flags against the plain version, the contains (both coop
+    values) too. Then the adversarial batches (u16 x 4): 512 copies of one
+    key, keys that share one bucket pair, tiles of 1, 8, 2048 and 8192
+    over a multi-tile batch, a step cap of 1, and the kernel's counters
+    against the CPU model's (``ckoo.update_windowed``)."""
+    for i, (sb, spb) in enumerate(ckoo.INSTANCES):
+        spec = cuckoo_spec(sb, spb, (1 << 14) // spb)
         runs, fails = 0, 0
         for load in (0.9, 1.2):
             n = int(spec.n_slots * load)
@@ -2242,10 +2294,13 @@ def phase_cuckoo_kernels(errs: dict):
             probes = gen_keys(4096, 720 + i, probe=True)
             for vmask, tile in ((None, 256), (valid, None)):
                 t = tile or F.CUCKOO_ADD_TILE
-                want, ok = ckoo.update_plain(spec, F.init(spec, "cuda"),
-                                             keys, vmask, "add", t)
-                got, got_ok = ops.cuckoo_add(spec, F.init(spec, "cuda"),
-                                             keys, valid=vmask, tile=tile)
+                empty = F.init(spec, "cuda")
+                want, ok = ckoo.update_plain(spec, empty, keys, vmask, "add",
+                                             t)
+                runs += cuckoo_windows(spec, empty, keys, vmask, "add", t,
+                                       want, ok, errs)
+                got, got_ok = ops.cuckoo_add(spec, empty, keys, valid=vmask,
+                                             tile=tile)
                 errs["cuckoo_update"] = max(errs["cuckoo_update"],
                                             max_err(got, want),
                                             max_err(got_ok, ok))
@@ -2266,18 +2321,61 @@ def phase_cuckoo_kernels(errs: dict):
                 gone = torch.cat([keys[: keys.shape[0] // 2], probes[:64]])
                 want_rm, found = ckoo.update_plain(spec, want, gone, None,
                                                    "remove", t)
-                got_rm, got_found = ops.cuckoo_remove(spec, got, gone,
-                                                      tile=tile)
-                errs["cuckoo_update"] = max(errs["cuckoo_update"],
-                                            max_err(got_rm, want_rm),
-                                            max_err(got_found, found))
-                runs += 5
+                runs += cuckoo_windows(spec, got, gone, None, "remove", t,
+                                       want_rm, found, errs)
+                runs += 3
         torch.cuda.synchronize()
         print(f"cuckoo: {spec}: {runs} kernel runs equal to the plain "
               f"version (loads 0.9 and 1.2 of {spec.n_slots} slots, 5 % "
               f"duplicates; 256-key tiles, and a valid mask with the "
-              f"2048-key tile; {fails} kick failures, matched flag for "
-              f"flag)")
+              f"2048-key tile; windows {CUCKOO_WINDOWS}; {fails} kick "
+              f"failures, matched flag for flag)")
+    spec = cuckoo_spec(16, 4, 1 << 12)
+    runs = 0
+    keys = gen_keys(4096, 730)
+    copies = torch.cat([keys[:2048], keys[7:8].expand(512, 2),
+                        keys[2048:]]).contiguous()
+    pair = cuckoo_spec(16, 4, 1 << 6)
+    cases = [("512 copies of one key", spec, copies, None, 2048, None),
+             ("keys of one bucket pair", pair, pair_keys(pair, 64, 731),
+              None, 64, None)]
+    multi = gen_keys(int(spec.n_slots * 0.9), 732)
+    mask = valid_mask(multi.shape[0], 733)
+    cases += [(f"tile {t}", spec, multi, mask, t, None)
+              for t in (1, 8, 2048, 8192)]
+    cases += [("step cap 1", spec, multi, None, 2048, 1)]
+    for label, sp, k, vmask, t, cap in cases:
+        empty = F.init(sp, "cuda")
+        want, ok = ckoo.update_plain(sp, empty, k, vmask, "add", t)
+        runs += cuckoo_windows(sp, empty, k, vmask, "add", t, want, ok, errs,
+                               step_cap=cap)
+        gone = k[: k.shape[0] // 2]
+        want_rm, found = ckoo.update_plain(sp, want, gone, None, "remove", t)
+        runs += cuckoo_windows(sp, want, gone, None, "remove", t, want_rm,
+                               found, errs, step_cap=cap)
+    torch.cuda.synchronize()
+    print(f"cuckoo: adversarial batches ({', '.join(c[0] for c in cases)}):"
+          f" {runs} kernel runs at windows {CUCKOO_WINDOWS} equal to the "
+          f"plain version")
+    # the counters against the model's, round for round
+    small = cuckoo_spec(16, 4, 1 << 10)
+    k = gen_keys(int(small.n_slots * 0.95), 734)
+    for w, cap, t in ((1, None, 256), (32, None, 256),
+                      (ckoo.WINDOW, None, 256), (ckoo.WINDOW, 1, 2048)):
+        got, _ = ckoo.add_vmem(small, F.init(small, "cuda"), k, None, t,
+                               window=w, step_cap=cap)
+        counted = ckoo.LAST_UPDATE_STATS["add_vmem"].read()
+        m_words, _, model = ckoo.update_windowed(
+            small, F.init(small, "cpu"), k.cpu(), None, "add", t, w,
+            cap or ckoo.STEP_CAP)
+        errs["cuckoo_update"] = max(errs["cuckoo_update"],
+                                    max_err(got.cpu(), m_words))
+        if counted != model:
+            raise AssertionError(f"cuckoo counters at window {w}: kernel "
+                                 f"{counted}, model {model}")
+    print(f"cuckoo: the kernel's counters equal the CPU model's at windows "
+          f"1, 32 and {ckoo.WINDOW} (step cap {ckoo.STEP_CAP} and 1), "
+          f"{k.shape[0]} keys into {small.n_slots} slots")
 
 
 def partitioned_bound_ms(spec, n: int, slots: int, sectors=0, updates=0):
@@ -2521,8 +2619,10 @@ def cuckoo_update_bound_ms(spec, n: int, reads: int, writes: int):
     """Least time of an update: 8 B of key and 1 B of flag a key, one
     32-byte sector a dependent bucket read and a write (at most the table,
     read and written once); 40 operations a key for the hashes and 10 a
-    bucket access. The chain is one thread's, so its latency (the reads
-    times ``dependent_load_ns``) is reported beside the bound."""
+    bucket access. Beside it the script reports two floors of schedules,
+    not bounds of the work: the one-thread order's (the reads times
+    ``dependent_load_ns``) and the windowed kernel's (its rounds' longest
+    chains, ``chain_reads``, times ``dependent_load_ns``)."""
     table = spec.n_words * 4
     nbytes = 9 * n + min(32 * reads, table) + min(32 * writes, table)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2530,12 +2630,15 @@ def cuckoo_update_bound_ms(spec, n: int, reads: int, writes: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def dependent_load_ns(nbytes: int, stride: int, steps: int = 1 << 17
-                      ) -> float:
+def dependent_load_ns(nbytes: int, stride: int, steps: int = 1 << 17,
+                      dram: bool = False) -> float:
     """ns a load of one thread's chain of dependent loads through a random
-    cycle over ``nbytes`` on the card (a link every ``stride`` bytes), read
-    once beforehand so that it sits in L2: the round trip each of the cuckoo
-    update's bucket reads waits for. Median of 3 calls, by CUDA events."""
+    cycle over ``nbytes`` on the card (a link every ``stride`` bytes): the
+    round trip each of the cuckoo update's chained bucket reads waits for.
+    The buffer is read once beforehand, so it stays in L2 where it fits;
+    with ``dram`` a 128 MiB write empties L2 before each call (the chain's
+    2^17 links would otherwise stay there from the call before). Median of
+    3 calls, by CUDA events."""
     step = stride // 4
     nodes = (nbytes // 4) // step
     gen = torch.Generator(device="cuda")
@@ -2552,7 +2655,12 @@ def dependent_load_ns(nbytes: int, stride: int, steps: int = 1 << 17
         if lib.cuckoo_chase(chain.data_ptr(), steps, out.data_ptr(), stream):
             raise RuntimeError("cuckoo_chase did not launch")
 
-    ms = time_ms(chase, "dependent load", 1, 3, warmup=1)
+    if dram:
+        junk = torch.empty(32 << 20, dtype=torch.int32, device="cuda")
+        ms = time_restored_ms(chase, junk.zero_, "dependent load DRAM", 1, 3,
+                              warmup=1)
+    else:
+        ms = time_ms(chase, "dependent load", 1, 3, warmup=1)
     return ms * 1e6 / steps
 
 
@@ -2570,15 +2678,41 @@ def cuckoo_contains_bound_ms(spec, table, keys):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def cuckoo_cell_bounds(spec, n_keys: dict, missing: int) -> dict:
+    """Bounds of a cell's full-size updates, whose own bucket accesses the
+    plain loop cannot count at that size: at least one sector read a key,
+    and written for every add and every remove that found its key."""
+    return {k: cuckoo_update_bound_ms(
+        spec, n, n, n - missing if k == "remove" else n)
+        for k, n in n_keys.items()}
+
+
+def counters_line(label: str, stats, load_ns: float) -> dict:
+    """The apply kernel's counters of one update, read, printed and kept,
+    with the windowed floor: the rounds' longest chains times
+    ``load_ns``."""
+    c = stats.read()
+    c["window_floor_ms"] = c["chain_reads"] * load_ns * 1e-6
+    print(f"  counters {label}: {c['rounds']} rounds, keys a round mean "
+          f"{c['mean_committed']:.1f} min {c['min_committed']} max "
+          f"{c['max_committed']}; rounds ended on a conflict "
+          f"{c['conflict_rounds']}, on a capped key {c['capped_rounds']}; "
+          f"keys finished alone {c['alone_keys']}; longest chains "
+          f"{c['chain_reads']} reads ({c['window_floor_ms']:.3f} ms at "
+          f"{load_ns:.1f} ns), all reads {c['reads']}")
+    return c
+
+
 def phase_cuckoo_main(errs: dict, records: dict, launches: dict, card: str):
     """Phase 4e, cuckoo: ``filter_for_n_items(2^22, bits_per_key=16,
     variant="cuckoo")`` (u16 slots, 2^21 buckets of 4, 16 MiB); add 2^22
     keys (load 0.5), add 3,355,443 more (load 0.9), contains of all keys and
     of 2^22 probes, remove of half, contains of the rest. Invariants in
     full; every contains against the plain version in full; the update
-    words and flags against the plain version on 2^18 keys into the full
-    table (fresh; from the load-0.9 table a remove, and an add of 2^16
-    keys, whose kick chains make the plain loop slow)."""
+    words and flags against the plain version and the kernel at window 1
+    on 2^18 keys into the full table (fresh; from the load-0.9 table a
+    remove, and an add of 2^16 keys, whose kick chains make the plain loop
+    slow); the apply kernel's counters of the three full-size updates."""
     n1, n2 = 1 << 22, 3355443
     f = api.filter_for_n_items(n1, bits_per_key=16, variant="cuckoo",
                                device="cuda")
@@ -2599,14 +2733,17 @@ def phase_cuckoo_main(errs: dict, records: dict, launches: dict, card: str):
     t0 = time.perf_counter()
     ev[0].record()
     g1 = f.add(keys1)
+    s_add = ckoo.LAST_UPDATE_STATS["add_vmem"]
     ev[1].record()
     g2 = g1.add(keys2)
+    s_more = ckoo.LAST_UPDATE_STATS["add_vmem"]
     ev[2].record()
     hits = g2.contains(allkeys)
     ev[3].record()
     false_pos = g2.contains(probes)
     ev[4].record()
     g3 = g2.remove(allkeys[:half])
+    s_remove = ckoo.LAST_UPDATE_STATS["remove_vmem"]
     ev[5].record()
     kept = g3.contains(allkeys[half:])
     ev[6].record()
@@ -2647,7 +2784,8 @@ def phase_cuckoo_main(errs: dict, records: dict, launches: dict, card: str):
     load = occ2 / spec.n_slots
     fpr = float(false_pos.to(torch.float64).mean().item())
     theory = F.fpr_cuckoo(spec.slot_bits, spec.slots_per_bucket, load)
-    # the update against the plain version on 2^18 keys into the full table
+    # the update against the plain version and the kernel at window 1 on
+    # 2^18 keys into the full table
     sub1 = keys1[:CUCKOO_SUB]
     sub2 = gen_keys(CUCKOO_SUB // 4, 94)        # an insert at 0.9 kicks a lot
     checks = []
@@ -2660,11 +2798,8 @@ def phase_cuckoo_main(errs: dict, records: dict, launches: dict, card: str):
         (want, flags), reads, writes = plain_bucket_accesses(
             lambda: ckoo.update_plain(spec, start, k, None, op))
         t_p = time.perf_counter() - t_p
-        fn = ckoo.add_vmem if op == "add" else ckoo.remove_vmem
-        got, got_flags = fn(spec, start.clone(), k, None)
-        errs["cuckoo_update"] = max(errs["cuckoo_update"],
-                                    max_err(got, want),
-                                    max_err(got_flags, flags))
+        cuckoo_windows(spec, start, k, None, op, F.CUCKOO_ADD_TILE, want,
+                       flags, errs, windows=(ckoo.WINDOW, 1))
         if op == "remove" and int((~flags).sum()) > fails2:
             raise AssertionError("cuckoo cell: removes not found beyond the "
                                  "failed inserts")
@@ -2678,15 +2813,26 @@ def phase_cuckoo_main(errs: dict, records: dict, launches: dict, card: str):
           f"{fails2}; occupied slots = sum ok; {neg} false negatives, "
           f"{missing} removes not found, {neg_kept} false negatives after "
           f"the remove (each at most the failures); every contains equal to "
-          f"the plain version's in "
-          f"full; the update's words and flags equal to the plain version's "
-          f"into the full table: " + ", ".join(
+          f"the plain version's in full; the update's words and flags at "
+          f"window {ckoo.WINDOW} and 1 equal to the plain version's into the "
+          f"full table: " + ", ".join(
               f"{c[0]} of {c[1].shape[0]} keys ({c[6]} failed)"
               for c in checks)
           + f"; FPR {fpr:.6f} at load {load:.4f}, {fpr / theory:.3f} x "
-          f"fpr_cuckoo {theory:.6f}; launches {counted}")
+          f"fpr_cuckoo {theory:.6f}; launches {counted} (an update call "
+          f"launches the order and the apply kernel)")
     print(f"time cuckoo main path [{card}] (Filter calls, CUDA events, one "
           f"run): " + ", ".join(f"{s} {v:.4f} ms" for s, v in step_ms.items()))
+    load_ns = dependent_load_ns(spec.n_words * 4,
+                                spec.n_words * 4 // spec.n_buckets)
+    print(f"time dependent load [{card}]: {load_ns:.1f} ns a load, one "
+          f"thread's chain through {spec.n_words * 4 >> 20} MiB in L2")
+    print(f"cuckoo main path counters [{card}] (window {ckoo.WINDOW}, step "
+          f"cap {ckoo.STEP_CAP}):")
+    main_counters = {"add": counters_line(f"add {n1}", s_add, load_ns),
+                     "add more": counters_line(f"add {n2}", s_more, load_ns),
+                     "remove": counters_line(f"remove {half}", s_remove,
+                                             load_ns)}
     # times: the kernels alone (the full-size updates one call each, on
     # restored state, beside the main path's own run), the plain version
     # and the bounds on 2^18 keys
@@ -2716,39 +2862,58 @@ def phase_cuckoo_main(errs: dict, records: dict, launches: dict, card: str):
                                        probes[: SUBSET // 2]])),
             "cuckoo contains plain", PLAIN_REPS, PLAIN_ROUNDS)}
     # the checks' updates again, the kernel alone on the same keys and
-    # table, beside their counted accesses' bound and the latency of those
-    # reads taken one after another, as the order makes them
-    load_ns = dependent_load_ns(spec.n_words * 4,
-                                spec.n_words * 4 // spec.n_buckets)
+    # table (and at window 1), beside their counted accesses' bound, the
+    # one-thread floor (those reads one after another) and the windowed
+    # floor (the rounds' longest chains)
     upd = {}
     for label, k, start, op, reads, writes, failed, t_p in checks:
         fn = ckoo.add_vmem if op == "add" else ckoo.remove_vmem
         ms = time_restored_ms(lambda fn=fn, k=k: fn(spec, scratch, k, None),
                               lambda start=start: scratch.copy_(start),
                               f"cuckoo {label}", 1, 3, warmup=1)
+        counters = ckoo.LAST_UPDATE_STATS[fn.__name__].read()
+        ms_1 = time_restored_ms(
+            lambda fn=fn, k=k: fn(spec, scratch, k, None, window=1),
+            lambda start=start: scratch.copy_(start), f"cuckoo {label} w1",
+            1, 1, warmup=0)
         b = cuckoo_update_bound_ms(spec, k.shape[0], reads, writes)
-        upd[label] = {"n_keys": k.shape[0], "ms": ms, "plain_ms": t_p * 1e3,
-                      "reads": reads, "writes": writes, "failed": failed,
+        upd[label] = {"n_keys": k.shape[0], "ms": ms, "window1_ms": ms_1,
+                      "plain_ms": t_p * 1e3, "reads": reads,
+                      "writes": writes, "failed": failed,
                       "bound_ms": b[0], "bound_by": b[1],
-                      "latency_ms": reads * load_ns * 1e-6}
+                      "one_thread_floor_ms": reads * load_ns * 1e-6,
+                      "window_floor_ms": counters["chain_reads"] * load_ns
+                      * 1e-6, "counters": counters}
     b_con = cuckoo_contains_bound_ms(spec, g2.words, torch.cat(
         [keys1[: SUBSET // 2], probes[: SUBSET // 2]]))
     b_con_full = cuckoo_contains_bound_ms(spec, g2.words, allkeys)
-    print(f"time dependent load [{card}]: {load_ns:.1f} ns a load, one "
-          f"thread's chain through {spec.n_words * 4 >> 20} MiB in L2")
     for label, u in upd.items():
+        c = u["counters"]
         print(f"time cuckoo {label} [{card}]: {u['n_keys']} keys "
               f"({u['failed']} failed): kernel {u['ms']:.4f} ms (median of "
-              f"3 calls), plain {u['plain_ms']:.1f} ms host clock, "
-              f"{u['reads']} bucket reads and {u['writes']} writes, bound "
-              f"{u['bound_ms']:.4f} ms ({u['bound_by']}, "
-              f"{u['bound_ms'] / u['ms']:.4%} of the kernel), reads x "
-              f"{load_ns:.1f} ns {u['latency_ms']:.4f} ms "
-              f"({u['latency_ms'] / u['ms']:.1%} of the kernel)")
+              f"3 calls; window 1: {u['window1_ms']:.4f} ms), plain "
+              f"{u['plain_ms']:.1f} ms host clock, {u['reads']} bucket "
+              f"reads and {u['writes']} writes, bound {u['bound_ms']:.4f} ms "
+              f"({u['bound_by']}, {u['bound_ms'] / u['ms']:.4%} of the "
+              f"kernel); one-thread floor (reads x {load_ns:.1f} ns) "
+              f"{u['one_thread_floor_ms']:.4f} ms; windowed floor "
+              f"({c['rounds']} rounds, {c['chain_reads']} reads on their "
+              f"longest chains) {u['window_floor_ms']:.4f} ms "
+              f"({u['window_floor_ms'] / u['ms']:.1%} of the kernel); "
+              f"{c['mean_committed']:.1f} keys a round, "
+              f"{c['alone_keys']} finished alone")
+    full_floor = {k: v["window_floor_ms"] for k, v in main_counters.items()}
+    full_bound = cuckoo_cell_bounds(spec, {"add": n1, "add more": n2,
+                                           "remove": half}, missing)
     print(f"time cuckoo update [{card}]: kernel add {t['add']:.4f} ms at "
           f"{n1} keys ({n1 / t['add'] / 1e3:.2f} Mops/s), add more "
-          f"{t['add more']:.4f} ms at {n2}, remove {t['remove']:.4f} ms at "
-          f"{half} (one call each; their accesses not counted)")
+          f"{t['add more']:.4f} ms at {n2} ({n2 / t['add more'] / 1e3:.2f} "
+          f"Mops/s), remove {t['remove']:.4f} ms at {half} "
+          f"({half / t['remove'] / 1e3:.2f} Mops/s) (one call each); "
+          f"windowed floors " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                          full_floor.items())
+          + "; bounds at one sector a key (a lower bound) " + ", ".join(
+              f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in full_bound.items()))
     print(f"time cuckoo contains [{card}]: kernel {t['contains']:.4f} ms at "
           f"{allkeys.shape[0]} keys ({allkeys.shape[0] / t['contains'] / 1e3:.1f}"
           f" Mops/s), bound {b_con_full[0]:.4f} ms, Filter.contains "
@@ -2769,17 +2934,185 @@ def phase_cuckoo_main(errs: dict, records: dict, launches: dict, card: str):
     records["cuckoo_update"] = {
         "name": "cuckoo_update", "route": "cuda", "source": CUCKOO_SOURCE,
         "replaces": CUCKOO_REPLACES["cuckoo_update"],
+        "design": "cuckoo_order_kernel + cuckoo_apply_kernel (windowed: "
+                  "speculate, validate, commit in order)",
+        "kernels_a_call": 2,
         "launches": launches["cuckoo_update"],
         "max_abs_err": errs["cuckoo_update"], "ms": at09["ms"],
         "plain_ms": at09["plain_ms"], "bound_ms": at09["bound_ms"],
         "bound_by": at09["bound_by"], "library_ms": None,
         "n_keys": at09["n_keys"], "m_bits": spec.m_bits,
-        "latency_ms": at09["latency_ms"], "load_ns": load_ns,
+        "window": ckoo.WINDOW, "step_cap": ckoo.STEP_CAP,
+        "one_thread_floor_ms": at09["one_thread_floor_ms"],
+        "window_floor_ms": at09["window_floor_ms"], "load_ns": load_ns,
         "checks": upd, "main_add_ms": t["add"],
         "main_add_more_ms": t["add more"], "main_remove_ms": t["remove"],
-        "api_step_ms": step_ms, "insert_failures": fails2,
-        "fpr": fpr, "fpr_theory": theory}
+        "main_counters": main_counters, "main_bound_ms": {
+            k: v[0] for k, v in full_bound.items()}, "api_step_ms": step_ms,
+        "insert_failures": fails2, "fpr": fpr, "fpr_theory": theory}
     del g1, g2, g3, scratch, allkeys, keys1, keys2
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+CUCKOO_DRAM_N = 1 << 27        # keys of the DRAM cuckoo cell (load 0.5)
+TOP_UP_S = 60.0                # smoke time the DRAM top-up to 0.9 may take
+
+
+def phase_cuckoo_dram(errs: dict, records: dict, card: str,
+                      l2_more_ms: float):
+    """Phase 4e, the DRAM cuckoo cell: ``filter_for_n_items(2^27,
+    bits_per_key=16, variant="cuckoo")`` (u16 x 4, 2^26 buckets, 512 MiB,
+    2^27 words); add 2^27 keys (load 0.5), then, where 32 x the L2 cell's
+    measured add from load 0.5 to 0.9 fits in ``TOP_UP_S``, add keys to
+    load 0.9; contains of every key and of 2^22 probes, remove half,
+    contains of the rest. The invariants of the L2 cell; every contains
+    against the plain version in 2^22-key chunks; the update at the default
+    window against the kernel at window 1 (the serial order; the plain
+    update cannot hold a Python list of 2^28 slots) on 2^18 keys, into the
+    empty table and into the load-0.5 table; counters of every update."""
+    n = CUCKOO_DRAM_N
+    f = api.filter_for_n_items(n, bits_per_key=16, variant="cuckoo",
+                               device="cuda")
+    spec = f.spec
+    if (f.backend != "cuckoo" or spec.slot_bits != 16
+            or spec.slots_per_bucket != 4 or spec.n_buckets != 1 << 26
+            or f.nbytes != 512 << 20 or spec.n_words != 1 << 27
+            or not ckoo.kernel_supported(spec)):
+        raise AssertionError(f"cuckoo DRAM cell: {f}")
+    estimate_s = 32 * l2_more_ms / 1e3
+    top_up = estimate_s <= TOP_UP_S
+    n_more = int(spec.n_slots * 0.9) - n if top_up else 0
+    keys = gen_keys(n, 191)
+    if top_up:
+        keys = torch.cat([keys, gen_keys(n_more, 192)])
+    probes = gen_keys(SUBSET, 193, probe=True)
+    total = keys.shape[0]
+    half = total // 2
+    torch.cuda.synchronize()
+    steps = ["add"] + (["add more"] if top_up else []) + [
+        "contains", "contains probes", "remove", "contains rest"]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(steps) + 1)]
+    snaps = {}
+    ckoo.reset_launches()                  # this main path, counted
+    t0 = time.perf_counter()
+    ev[0].record()
+    g = f.add(keys[:n])
+    snaps["add"] = ckoo.LAST_UPDATE_STATS["add_vmem"]
+    g1 = g
+    i = 1
+    if top_up:
+        ev[i].record()
+        g = g.add(keys[n:])
+        snaps["add more"] = ckoo.LAST_UPDATE_STATS["add_vmem"]
+        i += 1
+    ev[i].record()
+    hits = g.contains(keys)
+    ev[i + 1].record()
+    false_pos = g.contains(probes)
+    ev[i + 2].record()
+    g3 = g.remove(keys[:half])
+    snaps["remove"] = ckoo.LAST_UPDATE_STATS["remove_vmem"]
+    ev[i + 3].record()
+    kept = g3.contains(keys[half:])
+    ev[i + 4].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = {s: ev[j].elapsed_time(ev[j + 1]) for j, s in enumerate(steps)}
+    counted = dict(ckoo.LAUNCHES)
+    want_launches = {"contains_vmem": 3, "add_vmem": 1 + top_up,
+                     "remove_vmem": 1}
+    if counted != want_launches:
+        raise AssertionError(f"cuckoo DRAM cell: launches {counted}")
+    fails1, fails = int(g1.insert_failures), int(g.insert_failures)
+    occ1 = int(F.occupied_slots(spec, g1.words))
+    occ2 = int(F.occupied_slots(spec, g.words))
+    occ3 = int(F.occupied_slots(spec, g3.words))
+    if occ1 != n - fails1 or occ2 != total - fails:
+        raise AssertionError(f"cuckoo DRAM cell: occupied {occ1}/{occ2} != "
+                             f"sum ok {n - fails1}/{total - fails}")
+    missing = half - (occ2 - occ3)
+    neg, neg_kept = int((~hits).sum()), int((~kept).sum())
+    if max(missing, neg, neg_kept) > fails:
+        raise AssertionError(f"cuckoo DRAM cell: {neg} false negatives, "
+                             f"{missing} removes not found, {neg_kept} after "
+                             f"the remove, for {fails} failed inserts")
+    plain_contains = functools.partial(ckoo.contains_plain, spec)
+    e = errs["cuckoo_contains"]
+    e = max(e, max_err(hits, contains_in_chunks(plain_contains, g.words,
+                                                keys)))
+    e = max(e, max_err(false_pos, plain_contains(g.words, probes)))
+    e = max(e, max_err(kept, contains_in_chunks(plain_contains, g3.words,
+                                                keys[half:])))
+    errs["cuckoo_contains"] = e
+    load = occ2 / spec.n_slots
+    fpr = float(false_pos.to(torch.float64).mean().item())
+    theory = F.fpr_cuckoo(spec.slot_bits, spec.slots_per_bucket, load)
+    # the default window against window 1, the serial order, on 2^18 keys
+    sub = gen_keys(CUCKOO_SUB, 194)
+    w1 = {}
+    for label, start in (("fresh add", F.init(spec, "cuda")),
+                         ("add at load 0.5", g1.words)):
+        ev_w = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev_w[0].record()
+        got, ok = ckoo.add_vmem(spec, start.clone(), sub, None)
+        ev_w[1].record()
+        counters = ckoo.LAST_UPDATE_STATS["add_vmem"].read()
+        ev_w[2].record()
+        want, want_ok = ckoo.add_vmem(spec, start.clone(), sub, None,
+                                      window=1)
+        ev_w[3].record()
+        errs["cuckoo_update"] = max(errs["cuckoo_update"],
+                                    max_err(got, want), max_err(ok, want_ok))
+        w1[label] = {"ms": ev_w[0].elapsed_time(ev_w[1]),
+                     "window1_ms": ev_w[2].elapsed_time(ev_w[3]),
+                     "counters": counters}
+        del got, want
+    load_ns = dependent_load_ns(1 << 30, SECTOR, dram=True)
+    print(f"main cuckoo DRAM [{card}]: {spec} on {g.backend}, "
+          f"{f.nbytes / 2**20:.0f} MiB, {spec.n_words} words: add {n} "
+          f"(load {occ1 / spec.n_slots:.4f})"
+          + (f", add {n_more} (load {load:.4f})" if top_up else
+             f"; no top-up to load 0.9: 32 x the L2 cell's add from 0.5 to "
+             f"0.9 ({l2_more_ms:.1f} ms) is {estimate_s:.1f} s, past "
+             f"{TOP_UP_S:.0f} s") +
+          f"; contains {total} + {SUBSET} probes, remove {half}, contains "
+          f"{total - half} in {wall:.1f} s host clock; insert failures "
+          f"{fails1} / {fails}; occupied slots = sum ok; {neg} false "
+          f"negatives, {missing} removes not found, {neg_kept} false "
+          f"negatives after the remove; every contains equal to the plain "
+          f"version's (2^22-key chunks); the update at window "
+          f"{ckoo.WINDOW} equal to window 1 on {CUCKOO_SUB} keys, fresh "
+          f"and into the load-0.5 table; FPR {fpr:.6f} at load {load:.4f} "
+          f"({fpr / theory:.3f} x fpr_cuckoo); launches {counted}")
+    print(f"time cuckoo DRAM main path [{card}] (Filter calls, CUDA events, "
+          f"one run): " + ", ".join(f"{s} {v:.4f} ms"
+                                    for s, v in step_ms.items()))
+    print(f"time dependent load [{card}]: {load_ns:.1f} ns a load, one "
+          f"thread's chain through 1024 MiB (DRAM)")
+    print(f"cuckoo DRAM counters [{card}]:")
+    counters = {k: counters_line(k, v, load_ns) for k, v in snaps.items()}
+    sizes = {"add": n, "add more": n_more, "remove": half}
+    bounds = cuckoo_cell_bounds(spec, {k: sizes[k] for k in snaps}, missing)
+    print(f"time cuckoo DRAM update [{card}]: " + ", ".join(
+        f"{k} {step_ms[k]:.4f} ms at {sizes[k]} keys "
+        f"({sizes[k] / step_ms[k] / 1e3:.2f} Mops/s), bound at one sector a "
+        f"key {bounds[k][0]:.4f} ms ({bounds[k][1]}, "
+        f"{bounds[k][0] / step_ms[k]:.3%})" for k in snaps))
+    for label, r in w1.items():
+        print(f"time cuckoo DRAM {label} [{card}]: {CUCKOO_SUB} keys, "
+              f"window {ckoo.WINDOW} {r['ms']:.4f} ms, window 1 "
+              f"{r['window1_ms']:.4f} ms ({r['window1_ms'] / r['ms']:.1f}x), "
+              f"{r['counters']['rounds']} rounds, "
+              f"{r['counters']['mean_committed']:.1f} keys a round")
+    records["cuckoo_update"]["dram"] = {
+        "n_keys": n, "n_more": n_more, "top_up": top_up,
+        "top_up_estimate_s": estimate_s, "m_bits": spec.m_bits,
+        "step_ms": step_ms, "counters": counters, "window1": w1,
+        "bound_ms": {k: v[0] for k, v in bounds.items()},
+        "insert_failures": fails, "load": load, "fpr": fpr,
+        "fpr_theory": theory, "load_ns": load_ns, "launches": counted}
+    del f, g, g1, g3, keys, hits, kept
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
@@ -3811,6 +4144,11 @@ def main() -> int:
     krecords, klaunches = {}, {}
     phase_cuckoo_main(kerrs, krecords, klaunches, card)
     lap("phase 4e cuckoo")
+    phase_cuckoo_dram(kerrs, krecords, card,
+                      krecords["cuckoo_update"]["main_add_more_ms"])
+    krecords["cuckoo_update"]["max_abs_err"] = kerrs["cuckoo_update"]
+    krecords["cuckoo_contains"]["max_abs_err"] = kerrs["cuckoo_contains"]
+    lap("phase 4e cuckoo DRAM")
     qerrs = {"quotient_contains": 0, "quotient_update": 0}
     phase_quotient_kernels(qerrs)
     lap("phase 3f")

@@ -75,9 +75,10 @@ ENTRY_POINTS = {
                                                  _i, _vp]),
     "cuckoo_contains": ("cuckoo", [_vp, _vp, _vp, _ll, _u32, _i, _i, _i,
                                    _u32, _u32, _vp]),
-    "cuckoo_update": ("cuckoo", [_vp, _vp, _vp, _vp, _ll, _i, _u32, _i, _i,
-                                 _i, _u32, _u32, _i, _vp]),
-    # the dependent-load latency probe of chip_smoke.py's cuckoo bound
+    # + the order scratch and the counters; (tile, window, step cap)
+    "cuckoo_update": ("cuckoo", [_vp, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i,
+                                 _i, _u32, _i, _i, _i, _u32, _u32, _i, _vp]),
+    # the dependent-load latency probe behind the cuckoo update's floor
     "cuckoo_chase": ("cuckoo", [_vp, _ll, _vp, _vp]),
     # geometry as (log2 n_slots, r_bits, slot_bits, fingerprint salt);
     # scratch as (per-slot int32, per-key int32, scan sums, their count,

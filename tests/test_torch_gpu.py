@@ -19,7 +19,9 @@ cases hold the
 partitioned kernels (both paths: segments staged in shared memory, and
 global atomics) and the
 cuckoo kernels (u8/u16 slots, 2 to 16 slots a bucket, multi-tile,
-masked, duplicate and over-full batches) against theirs, and the quotient
+masked, duplicate and over-full batches; the update at windows 1, 2, 32
+and the default, adversarial batches, and its counters against the CPU
+model of its schedule) against theirs, and the quotient
 kernels (u8/u16/u32 lanes over several remainder widths, loads 0.5, 0.9
 and past capacity, duplicates, valid masks, removes of absent keys,
 clusters that wrap past the last slot, tiles 256 / 2048 / the whole batch,
@@ -927,6 +929,99 @@ def test_cuckoo_filter_path_and_launches(cuda):
         api.make_filter("cuckoo", m_bits=1 << 16, k=2, impl="jnp").add(keys)
 
 
+def _cuckoo_windows(spec, table, keys, vmask, op, tile, step_cap=None):
+    """The update at windows 1, 2, 32 and the default against the plain
+    version's words and flags."""
+    want, flags = ckoo.update_plain(spec, table, keys, vmask, op, tile)
+    fn = ckoo.add_vmem if op == "add" else ckoo.remove_vmem
+    for w in (1, 2, 32, ckoo.WINDOW):
+        got, got_flags = fn(spec, table.clone(), keys, vmask, tile,
+                            window=w, step_cap=step_cap)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(_u32(got), _u32(want))
+        np.testing.assert_array_equal(got_flags.cpu().numpy(),
+                                      flags.cpu().numpy())
+    return want, flags
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", KSPECS, ids=str)
+def test_cuckoo_windows_match_plain(cuda, spec):
+    """Every window, fresh to load 0.9 (masked), on past capacity, then a
+    remove of half."""
+    keys, valid = _cuckoo_batch(spec, 1.3, 13, cuda)
+    cut = int(keys.shape[0] * 0.7)
+    want, _ = _cuckoo_windows(spec, F.init(spec, cuda), keys[:cut],
+                              valid[:cut], "add", 256)
+    want, _ = _cuckoo_windows(spec, want, keys[cut:], None, "add", 2048)
+    _cuckoo_windows(spec, want, keys[: keys.shape[0] // 2], None, "remove",
+                    256)
+
+
+def _pair_keys(spec, n, device):
+    keys = _keys(1 << 20, 17, device)
+    b1, fp, _ = F.cuckoo_hashes(spec, keys)
+    alt = F.alt_bucket(spec, b1, fp)
+    i = int(torch.nonzero(b1 != alt)[0])
+    x, y = int(b1[i]), int(alt[i])
+    out = keys[((b1 == x) & (alt == y)) | ((b1 == y) & (alt == x))][:n]
+    assert out.shape[0] == n
+    return out.contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["copies", "pair", "tile1", "tile8",
+                                  "tile2048", "tile8192", "cap1"])
+def test_cuckoo_adversarial_batches_match_plain(cuda, case):
+    spec = KSPECS[1]                                  # u16 x 4, 4096 buckets
+    keys = _keys(int(spec.n_slots * 0.9), 19, cuda)
+    tile, cap = 2048, None
+    if case == "copies":                              # 512 copies of one key
+        keys = torch.cat([keys[:3000], keys[9:10].expand(512, 2),
+                          keys[3000:6000]]).contiguous()
+    elif case == "pair":                              # one bucket pair
+        spec = V.FilterSpec("cuckoo", 64 * 4 * 16, 2, slot_bits=16,
+                            slots_per_bucket=4)
+        keys = _pair_keys(spec, 64, cuda)
+    elif case.startswith("tile"):
+        tile = int(case[4:])
+    else:
+        cap = 1
+    vmask = _valid_mask(keys.shape[0], 23, cuda) if tile in (8, 8192) \
+        else None
+    want, _ = _cuckoo_windows(spec, F.init(spec, cuda), keys, vmask, "add",
+                              tile, cap)
+    _cuckoo_windows(spec, want, keys[::2].contiguous(), None, "remove", tile,
+                    cap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window, step_cap, tile", [
+    (1, ckoo.STEP_CAP, 256), (2, 1, 256), (32, ckoo.STEP_CAP, 2048),
+    (ckoo.WINDOW, ckoo.STEP_CAP, 256), (ckoo.WINDOW, 1, 2048)])
+def test_cuckoo_counters_match_the_model(cuda, window, step_cap, tile):
+    """The apply kernel's counters equal the CPU model's, round for round,
+    for an add to load 0.95 and a remove."""
+    spec = V.FilterSpec("cuckoo", 1024 * 4 * 16, 2, slot_bits=16,
+                        slots_per_bucket=4)
+    keys = _keys(int(spec.n_slots * 0.95), 29, cuda)
+    table = F.init(spec, cuda)
+    for op, k in (("add", keys), ("remove", keys[::3].contiguous())):
+        want, flags, model = ckoo.update_windowed(
+            spec, table.cpu(), k.cpu(), None, op, tile, window, step_cap)
+        fn = ckoo.add_vmem if op == "add" else ckoo.remove_vmem
+        table, got_flags = fn(spec, table, k, None, tile, window=window,
+                              step_cap=step_cap)
+        stats = ckoo.LAST_UPDATE_STATS[fn.__name__]
+        assert (stats.n, stats.tile, stats.window, stats.step_cap) == (
+            k.shape[0], tile, window, step_cap)
+        assert stats.counters.device.type == "cuda"
+        assert stats.read() == model
+        np.testing.assert_array_equal(_u32(table), _u32(want))
+        np.testing.assert_array_equal(got_flags.cpu().numpy(),
+                                      flags.numpy())
+
+
 @pytest.mark.gpu
 def test_cuckoo_wrappers_refuse_bad_tensors(cuda):
     spec = KSPECS[0]
@@ -936,6 +1031,10 @@ def test_cuckoo_wrappers_refuse_bad_tensors(cuda):
         ckoo.contains_vmem(spec, table, keys.reshape(-1)[1:-1].reshape(-1, 2))
     with pytest.raises(ValueError, match="tile"):
         ckoo.add_vmem(spec, table, keys, None, tile=ckoo.MAX_TILE + 1)
+    with pytest.raises(ValueError, match="window"):
+        ckoo.add_vmem(spec, table, keys, None, window=ckoo.WINDOW + 1)
+    with pytest.raises(ValueError, match="step_cap"):
+        ckoo.remove_vmem(spec, table, keys, None, step_cap=0)
     with pytest.raises(ValueError, match="valid"):
         ckoo.add_vmem(spec, table, keys, _valid_mask(64, 0, cuda).cpu())
     wide = V.FilterSpec("cuckoo", 1 << 16, 2, slot_bits=8,

@@ -1,26 +1,37 @@
 #!/usr/bin/env python3
-"""Time this tree's blocked add and contains against another checkout's, in
-turns, on one NVIDIA card.
+"""Time this tree's blocked add and contains, and its cuckoo update, against
+another checkout's, in turns, on one NVIDIA card.
 
     git archive <commit> | (mkdir -p build/other && tar -x -C build/other)
-    python3 tools/bloom_ab.py build/other
+    python3 tools/bloom_ab.py build/other [--only bloom|cuckoo]
 
-The other checkout's ``src/repro_torch/kernels/csrc/bloom.cu`` must have the
-one-thread-a-key C interface, ``bloom_contains(keys, words, out, salts, n,
-block_mask, s, phi, depth, variant, k, z, log2g, stream)`` and
-``bloom_add(keys, words, salts, n, block_mask, s, variant, k, z, log2g,
-stream)``. The script builds that file with this tree's nvcc flags, then, in
-the main path's two sbf cells (B = 256, k = 8: 2^23 keys into 16 MiB and
-2^28 keys into 512 MiB, as ``filter_for_n_items(n, bits_per_key=16)`` makes
-them), checks that the other kernels, this tree's Θ = 1 and
-``sbf.card_layout``'s Θ give the same words and results, and times, in
-turns (CUDA events; median and the rounds' range):
+Blocked filters: the other checkout's ``src/repro_torch/kernels/csrc/
+bloom.cu`` must have the one-thread-a-key C interface, ``bloom_contains(
+keys, words, out, salts, n, block_mask, s, phi, depth, variant, k, z, log2g,
+stream)`` and ``bloom_add(keys, words, salts, n, block_mask, s, variant, k,
+z, log2g, stream)``. The script builds that file with this tree's nvcc
+flags, then, in the main path's two sbf cells (B = 256, k = 8: 2^23 keys
+into 16 MiB and 2^28 keys into 512 MiB, as ``filter_for_n_items(n,
+bits_per_key=16)`` makes them), checks that the other kernels, this tree's
+Θ = 1 and ``sbf.card_layout``'s Θ give the same words and results, and
+times, in turns (CUDA events; median and the rounds' range):
 
 * the add of the keys into the filter;
 * the contains of the added keys (L2: depth 1; DRAM: depths 1, 2 and 8);
 * the contains of as many probes, most of them negatives, where the early
   exit of a key at its first missing load acts (L2: depth 1; DRAM: the
   depth ``ops`` resolves).
+
+Cuckoo: the other checkout's ``cuckoo.cu`` must have the ordered one-CTA
+update's C interface, ``cuckoo_update(keys, valid, table, flags, n, tile,
+bucket_mask, lg_buckets, slot_bits, spb, fp_salt, alt_salt, op, stream)``.
+In the cuckoo cell of ``chip_smoke.py`` (``filter_for_n_items(2^22,
+bits_per_key=16, variant="cuckoo")``, u16 x 4, 16 MiB, the smoke's keys)
+the script checks that both updates give the same words and flags, then
+times them in turns, one call each on a restored table: the add of 2^22
+keys into the empty table, the add of 3,355,443 more (load 0.5 to 0.9),
+the remove of half of them and the add of 2^16 keys at load 0.9; and
+prints this tree's counters of each.
 
 It prints the card's name and power limit first.
 """
@@ -36,24 +47,35 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch import api  # noqa: E402
+from repro_torch.core import fingerprint as F  # noqa: E402
 from repro_torch.core import hashing as H  # noqa: E402
 from repro_torch.kernels import _build, ops, sbf  # noqa: E402
+from repro_torch.kernels import cuckoofilter as ckoo  # noqa: E402
 from repro_torch.kernels.sbf import DEFAULT_TILE  # noqa: E402
 
 
-def build_other(checkout: Path) -> ctypes.CDLL:
-    src = checkout / "src/repro_torch/kernels/csrc/bloom.cu"
-    out = ROOT / "build" / "bloom_ab_other.so"
+VP, LL, U32, I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32,
+                  ctypes.c_int)
+
+
+def build_other(checkout: Path, name: str = "bloom") -> ctypes.CDLL:
+    """The other checkout's ``csrc/<name>.cu``, built with this tree's
+    flags."""
+    src = checkout / f"src/repro_torch/kernels/csrc/{name}.cu"
+    out = ROOT / "build" / f"{name}_ab_other.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
                     str(src)], check=True, capture_output=True)
     print(f"build: {src} in {time.perf_counter() - t0:.1f} s")
     lib = ctypes.CDLL(str(out))
-    vp, ll, u32, i = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32,
-                      ctypes.c_int)
-    lib.bloom_contains.argtypes = [vp, vp, vp, vp, ll, u32] + [i] * 7 + [vp]
-    lib.bloom_add.argtypes = [vp, vp, vp, ll, u32] + [i] * 5 + [vp]
+    if name == "bloom":
+        lib.bloom_contains.argtypes = [VP, VP, VP, VP, LL, U32] + [I] * 7 + [
+            VP]
+        lib.bloom_add.argtypes = [VP, VP, VP, LL, U32] + [I] * 5 + [VP]
+    else:
+        lib.cuckoo_update.argtypes = [VP, VP, VP, VP, LL, I, U32, I, I, I,
+                                      U32, U32, I, VP]
     return lib
 
 
@@ -86,21 +108,96 @@ def turns(fns: dict, reps: int, rounds: int = 6) -> dict:
             for k, v in per.items()}
 
 
+def turns_restored(fns: dict, restore, rounds: int = 4) -> dict:
+    """Like :func:`turns` for calls that change their state, one call
+    each: ``restore()`` runs before every call, outside its events."""
+    per = {k: [] for k in fns}
+    for r in range(rounds):
+        for key in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            restore()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[key]()
+            end.record()
+            torch.cuda.synchronize()
+            per[key].append(start.elapsed_time(end))
+    return {k: (sorted(v)[len(v) // 2], min(v), max(v))
+            for k, v in per.items()}
+
+
 def show(label: str, res: dict) -> None:
     print(label + ": " + ", ".join(
         f"{k} {m:.4f} ms [{lo:.4f}-{hi:.4f}]" for k, (m, lo, hi) in
         res.items()), flush=True)
 
 
-def main(checkout: Path) -> int:
+def cuckoo_main(checkout: Path) -> None:
+    other = build_other(checkout, "cuckoo")
+    stream = torch.cuda.current_stream().cuda_stream
+    f = api.filter_for_n_items(1 << 22, bits_per_key=16, variant="cuckoo",
+                               device="cuda")
+    spec = f.spec
+    keys1, keys2 = gen_keys(1 << 22, 91), gen_keys(3355443, 92)
+    allkeys = torch.cat([keys1, keys2])
+    sub = gen_keys(1 << 16, 94)
+
+    def other_update(table, keys, op):
+        flags = torch.empty(keys.shape[0], dtype=torch.bool, device="cuda")
+        err = other.cuckoo_update(keys.data_ptr(), None, table.data_ptr(),
+                                  flags.data_ptr(), keys.shape[0],
+                                  F.CUCKOO_ADD_TILE, *ckoo._geometry(spec),
+                                  ckoo._OP_CODE[op], stream)
+        assert err == 0, err
+        return table, flags
+
+    def this_update(table, keys, op):
+        fn = ckoo.add_vmem if op == "add" else ckoo.remove_vmem
+        return fn(spec, table, keys, None)
+
+    empty = F.init(spec, "cuda")
+    half_load = this_update(empty.clone(), keys1, "add")[0]
+    full_load = this_update(half_load.clone(), keys2, "add")[0]
+    scratch = empty.clone()
+    for label, start, keys, op in (
+            ("fresh add", empty, keys1, "add"),
+            ("add 0.5 -> 0.9", half_load, keys2, "add"),
+            ("remove", full_load, allkeys[: allkeys.shape[0] // 2],
+             "remove"),
+            ("add 2^16 at 0.9", full_load, sub, "add")):
+        a, fa = other_update(start.clone(), keys, op)
+        b, fb = this_update(start.clone(), keys, op)
+        if not (torch.equal(a, b) and torch.equal(fa, fb)):
+            raise AssertionError(f"cuckoo {label}: words or flags differ")
+        res = turns_restored({
+            "other": lambda k=keys, o=op: other_update(scratch, k, o),
+            "this": lambda k=keys, o=op: this_update(scratch, k, o)},
+            lambda s=start: scratch.copy_(s))
+        name = "add_vmem" if op == "add" else "remove_vmem"
+        show(f"cuckoo {label} ({keys.shape[0]} keys; words and flags equal)",
+             res)
+        counters = ckoo.LAST_UPDATE_STATS[name].read()
+        print(f"  this tree's counters: {counters}; other / this "
+              f"{res['other'][0] / res['this'][0]:.2f}x", flush=True)
+
+
+def main(checkout: Path, only: str = "") -> int:
     if not torch.cuda.is_available():
         print("bloom_ab: no CUDA device", file=sys.stderr)
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    other = build_other(checkout)
     _build.library()
+    if only != "bloom":
+        cuckoo_main(checkout)
+    if only != "cuckoo":
+        bloom_main(checkout)
+    return 0
+
+
+def bloom_main(checkout: Path) -> None:
+    other = build_other(checkout)
     stream = torch.cuda.current_stream().cuda_stream
     salts = sbf._salts(torch.device("cuda")).data_ptr()
 
@@ -183,11 +280,16 @@ def main(checkout: Path) -> int:
             reps))
         del f, keys, probes, out, words, acc
         torch.cuda.empty_cache()
-    return 0
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2:
+    args = sys.argv[1:]
+    only = ""
+    if len(args) == 3 and args[1] == "--only" and args[2] in ("bloom",
+                                                              "cuckoo"):
+        only = args[2]
+        args = args[:1]
+    if len(args) != 1:
         print(__doc__, file=sys.stderr)
         sys.exit(2)
-    sys.exit(main(Path(sys.argv[1])))
+    sys.exit(main(Path(args[0]), only))
