@@ -25,8 +25,10 @@ the script exits non-zero without printing a result:
    and two decays; every schedule value, ragged sizes and a valid mask;
 3c. the classical-filter kernels at m = 2^20 for k in 1/7/11/32 (65537
    keys, n = 0/1/255/257) and at m = 2^32 (2^20 keys; positions use all 32
-   bits), and the generation-ring kernel for sbf/bbf/rbbf/csbf with G in
-   2/3/4/8 through both wrappers and every depth, ragged n and n = 0;
+   bits), the add on each path forced (one-pass, binned; also over several
+   internal batches, in smaller bins, on a filter smaller than a bin, with
+   keys in one bin and one key repeated), and the generation-ring kernel
+   for sbf/bbf/rbbf/csbf with G in 2/3/4/8 through both wrappers and every depth, ragged n and n = 0;
    words and results equal bit for bit, FPR within 0.5-2.0x theory at
    m = 2^20;
 3d. the bank kernels (the bank forms of the blocked kernels and of
@@ -93,7 +95,13 @@ the script exits non-zero without printing a result:
 4c. the classical main path, ``filter_for_n_items(n, variant="cbf")`` (k =
    11) then ``add`` of all keys and ``contains`` of them and of 2^22
    probes, at 2^23 keys (2^27 bits, 16 MiB, engine ``cuda-l2``) and 2^28
-   keys (2^32 bits, 512 MiB, ``cuda-dram``); and the windowed main path,
+   keys (2^32 bits, 512 MiB, ``cuda-dram``), the add on the path
+   ``cbf.choose_path`` picks (its plan, ``cbf.LAST_ADD_PLAN``, printed);
+   both add paths (one-pass, binned) timed in turns at each cell's size,
+   with an add's peak extra device memory; and the path rule's sweep (k =
+   11, filters of 2^23-2^32 bits, 2^14-2^28 keys, both paths in turns),
+   which fails where the rule's path is the slower one beyond the rounds'
+   spread; and the windowed main path,
    ``filter_for_n_items(W, block_bits=256, generations=4)``: five batches
    of W/4 keys with ``advance()`` after each of the first four, then
    ``contains`` of batches 1-4 (no false negatives), of the retired batch
@@ -178,8 +186,9 @@ script exits non-zero where there is none, or where the repository's
 
     python3 chip_smoke.py --profile
 
-instead prints the device time by kernel (``torch.profiler``) of one
-quotient update and contains at the DRAM-side cell's shapes, and no
+instead prints the device time by kernel (``torch.profiler``) of the
+binned cbf add in the two cbf cells (the scatter's time among them) and of
+one quotient update and contains at the DRAM-side cell's shapes, and no
 result.
 """
 from __future__ import annotations
@@ -1152,6 +1161,11 @@ PHASE3C_RING_SPECS = [
     V.FilterSpec("csbf", 1 << 20, 8, block_bits=512, z=2),
 ]
 DRAM_CBF_REPS, DRAM_CBF_ROUNDS = 5, 3   # the DRAM cbf cell's calls take ~0.1 s
+CBF_KERNELS = {"contains_vmem": ["cbf_contains_kernel"],
+               "add_vmem": ["cbf_add_kernel (one-pass)",
+                            "cbf_bin_count_kernel", "cbf_bin_column_kernel",
+                            "cbf_bin_scan_kernel", "cbf_bin_scatter_kernel",
+                            "cbf_bin_apply_kernel"]}
 
 
 def phase_cbf_kernels(errs: dict):
@@ -1197,11 +1211,61 @@ def phase_cbf_kernels(errs: dict):
     errs["contains_vmem"] = max(errs["contains_vmem"], max_err(
         cbf.contains_vmem(spec, want_words, queries),
         cbf.contains_plain(spec, want_words, queries)))
+    for path in cbf.PATHS:                   # both add paths, forced
+        got = cbf.add_vmem(spec, V.init(spec, "cuda"), keys, path=path)
+        errs["add_vmem"] = max(errs["add_vmem"], max_err(got, want_words))
+    got = cbf.add_vmem(spec, V.init(spec, "cuda"), keys, path="binned",
+                       cap=11 * 300000)           # 4 internal batches
+    errs["add_vmem"] = max(errs["add_vmem"], max_err(got, want_words))
+    if not bool(got[spec.n_words // 2:].any()):
+        raise AssertionError("the binned add left the top half unset")
     del got, want_words
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    print(f"kernels: {spec}: add of 2^20 keys and contains of 2^21 equal "
-          f"to the plain version (positions use all 32 bits)")
+    print(f"kernels: {spec}: add of 2^20 keys (the rule's path, one-pass, "
+          f"binned, binned in 4 internal batches) and contains of 2^21 "
+          f"equal to the plain version (positions use all 32 bits)")
+    phase_cbf_paths(errs)
+
+
+def phase_cbf_paths(errs: dict):
+    """Both add paths forced against the plain version: k in 1/7/11/32 at
+    m = 2^20 (two bins), a filter smaller than a bin (m = 2^5), several
+    internal batches, bins smaller than the default, keys whose positions
+    all fall in one bin, one key repeated, words that already hold keys."""
+    runs = 0
+    for i, k in enumerate((1, 7, 11, 32)):
+        for log2m in (5, 20):
+            spec = V.FilterSpec("cbf", 1 << log2m, k)
+            keys = gen_keys(65537, 1310 + i)
+            base = cbf.add_plain(spec, V.init(spec, "cuda"),
+                                 gen_keys(4096, 1320 + i))
+            want = cbf.add_plain(spec, base, keys)
+            for path, kw in (("one-pass", {}), ("binned", {}),
+                             ("binned", {"cap": k * 9000}),
+                             ("binned", {"bin_bits": 5 if log2m == 5
+                                         else 9})):
+                got = cbf.add_vmem(spec, base.clone(), keys, path=path, **kw)
+                errs["add_vmem"] = max(errs["add_vmem"], max_err(got, want))
+                if cbf.LAST_ADD_PLAN["path"] != path:
+                    raise AssertionError(f"{spec}: ran {cbf.LAST_ADD_PLAN}")
+                runs += 1
+    spec = V.FilterSpec("cbf", 1 << 20, 3)
+    cand = gen_keys(1 << 21, 1330)
+    h1, h2 = H.hash_keys(cand)
+    one_bin = cand[(V.cbf_positions(spec, h1, h2) < 1 << 19).all(dim=1)]
+    for keys in (one_bin.contiguous(), cand[:1].expand(1 << 18, 2)
+                 .contiguous()):
+        want = cbf.add_plain(spec, V.init(spec, "cuda"), keys)
+        for path in cbf.PATHS:
+            got = cbf.add_vmem(spec, V.init(spec, "cuda"), keys, path=path)
+            errs["add_vmem"] = max(errs["add_vmem"], max_err(got, want))
+            runs += 1
+    torch.cuda.synchronize()
+    print(f"kernels: cbf add paths: {runs} forced runs (one-pass, binned; "
+          f"m = 2^5 / 2^20, k = 1/7/11/32, 8 internal batches, small bins, "
+          f"{one_bin.shape[0]} keys in one bin, one key 2^18 times) equal "
+          f"to the plain version")
 
 
 def phase_ring_kernels(errs: dict):
@@ -1270,6 +1334,66 @@ def cbf_bound_ms(spec: V.FilterSpec, n: int, op: str, probes: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def cbf_binned_floor_ms(spec: V.FilterSpec, n: int, plan: dict) -> float:
+    """The binned add's own floor: each batch reads its keys twice (count,
+    scatter), writes and reads 4 B a position, and reads and writes every
+    touched bin once (all of them at these sizes), at the DRAM rate."""
+    filt = min(spec.m_bits // 8, 2 ** plan["bin_bits"] // 8 * n * spec.k)
+    nbytes = 16 * n + 8 * n * spec.k + 2 * filt * plan["batches"]
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+CBF_RULE_LOG2M = (23, 25, 27, 28, 29, 30, 31, 32)
+CBF_RULE_LOG2N = tuple(range(14, 29, 2))
+
+
+def phase_cbf_rule(card: str):
+    """The add's path rule against both paths timed in turns: k = 11,
+    filters of 2^23 ... 2^32 bits, 2^14 ... 2^28 keys. Fails where the
+    rule's path is slower than the other beyond the rounds' spread (and by
+    more than 5 % and 5 us)."""
+    smem = sbf.partition_smem_bytes(torch.device("cuda"))
+    keys = gen_keys(1 << max(CBF_RULE_LOG2N), 31)
+    rows, wrong = [], []
+    for log2m in CBF_RULE_LOG2M:
+        spec = V.FilterSpec("cbf", 1 << log2m, 11)
+        words = V.init(spec, "cuda")
+        for log2n in CBF_RULE_LOG2N:
+            sub = keys[: 1 << log2n]
+            fns = {p: (lambda p=p: cbf.add_vmem(spec, words, sub, path=p))
+                   for p in cbf.PATHS}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            fns["one-pass"]()
+            start.record()
+            fns["one-pass"]()
+            end.record()
+            torch.cuda.synchronize()
+            reps = max(1, min(REPS, int(20 / max(start.elapsed_time(end),
+                                                 1e-3))))
+            label = f"cbf rule 2^{log2m} 2^{log2n}"
+            t = time_turns(fns, label, reps, 3)
+            chosen = cbf.choose_path(1 << log2n, 1 << log2m, 11, smem)
+            other = "binned" if chosen == "one-pass" else "one-pass"
+            hi_other = SPREAD[f"{label} {other}"][1]
+            if (t[chosen] > hi_other and t[chosen] > 1.05 * t[other]
+                    and t[chosen] - t[other] > 0.005):
+                wrong.append((log2m, log2n, t[chosen], t[other]))
+            rows.append(f"2^{log2m}/2^{log2n} {t['one-pass']:.4f}/"
+                        f"{t['binned']:.4f}{'*' if chosen == 'binned' else ''}")
+        del words
+    del keys
+    torch.cuda.empty_cache()
+    print(f"cbf add rule sweep [{card}] (m / n: one-pass / binned ms, "
+          f"median of 3 rounds in turns; * the rule picks binned): "
+          + ", ".join(rows))
+    if wrong:
+        raise AssertionError(f"cbf add rule picks the slower path at "
+                             f"(log2 m, log2 n, chosen ms, other ms) {wrong}")
+    print(f"cbf add rule: at each of {len(rows)} sizes the rule's path is "
+          f"the faster one within the rounds' spread")
+
+
 def ring_bound_ms(spec: V.FilterSpec, generations: int, n: int):
     """Least time of a ring contains: 8 B per key and 1 per result, and the
     key's block row in each generation, at least one 32-byte sector (for
@@ -1300,11 +1424,16 @@ def phase_cbf_main(regime: str, n: int, errs: dict, records: dict,
     cbf.reset_launches()                   # the main path, counted
     t0 = time.perf_counter()
     g = f.add(keys)
+    plan = dict(cbf.LAST_ADD_PLAN)
     hits = g.contains(keys)
     false_pos = g.contains(probes)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counted = dict(cbf.LAUNCHES)
+    smem = sbf.partition_smem_bytes(keys.device)
+    if plan["path"] != cbf.choose_path(n, spec.m_bits, spec.k, smem):
+        raise AssertionError(f"cbf {regime}: the add ran {plan}, not the "
+                             f"rule's path")
     for name in ("add_vmem", "contains_vmem"):
         if counted[name] == 0:
             raise AssertionError(f"cbf {name} was not launched on the main "
@@ -1329,7 +1458,7 @@ def phase_cbf_main(regime: str, n: int, errs: dict, records: dict,
           f"{wall * 1e3:.1f} ms host clock, no false negatives, words, hits "
           f"and probe results equal to the plain version's in full, FPR "
           f"{fpr:.6f}, {fpr / theory:.3f} x theory {theory:.6f}, launches "
-          f"{counted}")
+          f"{counted}; the add's plan (cbf.LAST_ADD_PLAN) {plan}")
 
     sub = keys[:SUBSET]
     sub_words = cbf.add_plain(spec, V.init(spec, "cuda"), sub)
@@ -1356,6 +1485,41 @@ def phase_cbf_main(regime: str, n: int, errs: dict, records: dict,
                                                           queries),
              PLAIN_REPS, PLAIN_ROUNDS)):
         t[label] = time_ms(fn, f"cbf {regime} {label}", r, rd)
+    # both add paths in turns at the cell's size, and an add's peak extra
+    # device memory (the binned path's workspace; none for one-pass)
+    paths = time_turns({p: (lambda p=p: cbf.add_vmem(spec, words, keys,
+                                                      path=p))
+                        for p in cbf.PATHS}, f"cbf {regime} add path",
+                       reps, rounds)
+    peak = {}
+    for p in cbf.PATHS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        cbf.add_vmem(spec, words, keys, path=p)
+        torch.cuda.synchronize()
+        peak[p] = (torch.cuda.max_memory_allocated() - before,
+                   cbf.LAST_ADD_PLAN["workspace_bytes"])
+        if peak[p][0] > peak[p][1] + 512:     # the allocator's rounding
+            raise AssertionError(f"cbf {regime} {p} add: peak extra memory "
+                                 f"{peak[p][0]} B above its workspace "
+                                 f"{peak[p][1]} B")
+    cap_bytes = 4 * cbf.POSITION_CAP
+    floor_ms = cbf_binned_floor_ms(spec, n, plan if plan["path"] == "binned"
+                                   else cbf.add_plan(n, spec.m_bits, spec.k,
+                                                     "binned"))
+    spread = {p: SPREAD[f"cbf {regime} add path {p}"] for p in cbf.PATHS}
+    print(f"time cbf {regime} add paths [{card}] ({n} keys, in turns): "
+          + ", ".join(f"{p} {paths[p]:.4f} ms (rounds {spread[p][0]:.4f}-"
+                      f"{spread[p][1]:.4f})" for p in cbf.PATHS)
+          + f"; one-pass / binned {paths['one-pass'] / paths['binned']:.2f}x"
+          f"; the rule ran {plan['path']}; binned floor (keys read twice, "
+          f"8 B a position, each touched bin read and written once a batch) "
+          f"{floor_ms:.4f} ms; peak extra memory of an add: "
+          + ", ".join(f"{p} {b} B (workspace {w} B)"
+                      for p, (b, w) in peak.items())
+          + f"; the workspace: the cap's {cap_bytes} B of positions, "
+          f"the counts and at most 7 slots of padding a chunk a bin")
     probes_full = cbf_probes_needed(spec, g.words, keys)
     probes_sub = cbf_probes_needed(spec, sub_words, queries)
     for name, op in (("add_vmem", "add"), ("contains_vmem", "contains")):
@@ -1375,12 +1539,17 @@ def phase_cbf_main(regime: str, n: int, errs: dict, records: dict,
                 "bound_ms": b_sub, "bound_by": by_sub, "m_bits": spec.m_bits,
                 "main_n_keys": n, "main_ms": t[op], "main_bound_ms": b_full,
                 "api_ms": t[f"Filter.{op}"]}
+        if op == "add":
+            cell.update(path=plan["path"], plan=plan,
+                        one_pass_ms=paths["one-pass"],
+                        binned_ms=paths["binned"], binned_floor_ms=floor_ms,
+                        peak_extra_bytes=peak[plan["path"]][0])
         if regime == "L2":
             records[name] = {
                 "name": f"cbf_{name}", "route": "cuda", "source": CBF_SOURCE,
                 "replaces": CBF_REPLACES[name], "launches": 0,
                 "max_abs_err": 0, "library_ms": None, "n_keys": SUBSET,
-                **cell}
+                "cuda_kernels": CBF_KERNELS[name], **cell}
         else:
             records[name].update({f"dram_{k}": v for k, v in cell.items()})
     del f, g, keys, words, scratch, sub_words
@@ -3584,6 +3753,33 @@ def quotient_records(cells: dict, errs: dict, launches: dict) -> dict:
     return out
 
 
+def profile_cbf(card: str):
+    """``--profile``: device time by kernel (``torch.profiler``) of the
+    binned cbf add in the two cbf cells (2^23 keys into 2^27 bits, 2^28 into
+    2^32, k = 11), the scatter's time among them."""
+    for n, log2m in ((1 << 23, 27), (1 << 28, 32)):
+        spec = V.FilterSpec("cbf", 1 << log2m, 11)
+        words, keys = V.init(spec, "cuda"), gen_keys(n, 21)
+        cbf.add_vmem(spec, words, keys, path="binned")
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            cbf.add_vmem(spec, words, keys, path="binned")
+            torch.cuda.synchronize()
+        rows = sorted(((getattr(e, "device_time_total", 0), e.count, e.key)
+                       for e in prof.key_averages()), reverse=True)
+        rows = [r for r in rows if r[0] > 0]
+        print(f"profile cbf binned add [{card}] ({spec}, {n} keys, "
+              f"{cbf.LAST_ADD_PLAN['batches']} batches): "
+              + (", ".join(f"{k.split('::')[-1][:40]} x{c} "
+                           f"{us / 1e3:.4f} ms" for us, c, k in rows)
+                 + f"; device total {sum(r[0] for r in rows) / 1e3:.4f} ms"
+                 if rows else "no device time recorded (not measured)"))
+        del words, keys
+        torch.cuda.empty_cache()
+
+
 def profile_quotient(card: str):
     """``--profile``: device time by kernel (``torch.profiler``) of one
     update and one contains of the DRAM-side quotient cell's shapes: a
@@ -4074,6 +4270,7 @@ def main() -> int:
     phase_build()
     lap("device and build")
     if sys.argv[1:] == ["--profile"]:
+        profile_cbf(card)
         profile_quotient(card)
         return 0
     errs = {k: 0 for k in sbf.LAUNCHES}
@@ -4097,6 +4294,7 @@ def main() -> int:
     brecords, blaunches = {}, {}
     phase_cbf_main("L2", 1 << 23, berrs, brecords, blaunches, card)
     phase_cbf_main("DRAM", 1 << 28, berrs, brecords, blaunches, card)
+    phase_cbf_rule(card)
     for kernel, rec in brecords.items():
         rec.update(launches=blaunches[kernel], max_abs_err=berrs[kernel])
     wrecords, wlaunches = {}, {}

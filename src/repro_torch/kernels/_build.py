@@ -61,6 +61,11 @@ ENTRY_POINTS = {
     # sizes as log2 m: m_bits = 2^32 does not fit a c_uint32
     "cbf_contains": ("cbf", [_vp, _vp, _vp, _vp, _ll, _i, _i, _vp]),
     "cbf_add": ("cbf", [_vp, _vp, _vp, _ll, _i, _i, _vp]),
+    # + the u32 workspace; (bin_bits, keys a batch, chunks); the chunks of
+    # the card as (log2m, k, bin_bits)
+    "cbf_add_binned": ("cbf", [_vp, _vp, _vp, _vp, _ll, _i, _i, _i, _ll, _i,
+                               _vp]),
+    "cbf_binned_chunks": ("cbf", [_i, _i, _i]),
     "ring_contains": ("ring", [_vp, _vp, _vp, _vp, _ll, _ll, _i, _u32, _i,
                                _i, _i, _i, _i, _i, _vp]),
     # partitioned updates: (n_segments, capacity) slots, the segment's words,

@@ -3,7 +3,8 @@
 //
 // Replaces the two Pallas entry points of repro/kernels/cbf.py:
 //   cbf_contains_kernel <- contains_vmem (_contains_kernel)
-//   cbf_add_kernel      <- add_vmem (_add_kernel)
+//   cbf_add_kernel, or the binned add's five cbf_bin_*_kernel
+//                       <- add_vmem (_add_kernel)
 //
 // Design. The classical filter has no block locality: key i's bit t lies at
 // pos = ((h1 + t * h2) * SALTS[t]) >> (32 - log2 m) (variants.py
@@ -12,8 +13,8 @@
 // pos >> 5. The JAX package runs it only with the filter pinned in VMEM (a
 // DRAM cbf on the TPU needs k DMAs a key) and sends larger classical filters
 // to its jnp engine. On Hopper a probe is one load wherever the word lives,
-// so this one kernel pair serves a filter in L2 and one in DRAM; the regime
-// never changes a result.
+// so these kernels serve a filter in L2 and one in DRAM; neither the regime
+// nor the add's path (kernels/cbf.py choose_path) changes a result.
 //
 // * cbf_contains_kernel: one thread per key hashes it once (both xxh32
 //   streams share the lane products) and walks its k positions in groups of
@@ -31,12 +32,53 @@
 //   any order. Bound: L2 atomic throughput, k atomics a key, on lines
 //   fetched from DRAM in the DRAM regime.
 //
+//   This is the one-pass add. In DRAM it runs at the card's random
+//   read-modify-write rate (~14 G atomics a second: 2^28 keys x 11 in
+//   207.7 ms on the H100), and the filter's bytes are never its bound.
+// * The binned add (cbf_add_binned): OR is order-free and idempotent, so a
+//   batch's positions may be grouped by region of the filter in any order
+//   and each region ORed in shared memory, then written back once. A bin is
+//   2^b contiguous bits (b = bin_bits, 5..20; 64 KiB at b = 19), the whole
+//   filter where m <= 2^b; a position's bin is pos >> b (the unmasked u32
+//   position, so all 32 bits count at m = 2^32). A batch's keys are cut
+//   into `chunks` equal ranges, one CTA a chunk (one an SM). Per internal
+//   batch, five kernels on the caller's stream:
+//   1. cbf_bin_count_kernel: chunk c hashes its keys once and counts their
+//      k positions by bin in shared memory, then stores its row counts[c];
+//   2. cbf_bin_column_kernel: thread j turns bin j's column into the
+//      offsets of the chunks' runs inside the bin, each run padded to a
+//      whole 32-byte sector;
+//   3. cbf_bin_scan_kernel: one CTA scans the <= 8192 bin lengths, giving
+//      each bin its slice of the u32 positions workspace;
+//   4. cbf_bin_scatter_kernel: chunk c hashes its keys again and writes
+//      each position's offset inside its bin into its run; a bin's open
+//      sector is staged in shared memory and written whole (comment at
+//      the kernel); a run's last sector is padded with kFiller;
+//   5. cbf_bin_apply_kernel: one CTA per bin loads the bin's words into
+//      shared memory (16-byte loads where the words allow), applies its
+//      slice with shared-memory atomicOr (skipping kFiller) and stores the
+//      words back; a bin with no positions is neither read nor written.
+//   Bins are disjoint, so no two CTAs touch one word. Why exact runs and
+//   staged sectors (H100, m = 2^32, 2^28 keys): reserving a tile's run in a
+//   bin with a global atomic on the bin's cursor gave runs of ~11
+//   positions written over a whole tile, and the scatter took 184 of 195
+//   ms; with exact runs, writing each position straight to its slot still
+//   left 132 x 8192 sectors filling slowly and took 188 ms; staging each
+//   bin's open sector in shared memory takes 23 ms. L2 evicts sectors half
+//   written, so a sector has to leave the SM whole (or within one round).
+//   Bound: per batch the keys read by the count and by each scatter pass
+//   (one a 4096 bins), the positions written and read once (4 B each, plus
+//   the runs' padding), the touched bins read and written once; a batch
+//   holds at most 2^31 positions, so counts, offsets and slots fit u32.
+//
 // The bit salts (SALTS, the first row of the 3 x 96 salt table) are staged
 // in shared memory once per CTA. Word offsets are pos >> 5 < 2^27.
 //
 // C interface for ctypes: each entry point returns cudaGetLastError() after
-// its launch, 0 for n == 0 (nothing launched), or -1 for a geometry that has
-// no kernel (log2 m outside [5, 32], k outside [1, 96]).
+// its launches, 0 for n == 0 (nothing launched), or -1 for a geometry that
+// has no kernel (log2 m outside [5, 32], k outside [1, 96]; for the binned
+// add also bin_bits outside [5, 20], more than 8192 bins, a batch of more
+// than 2^31 positions, or shared memory the card cannot give).
 
 #include "bloom_common.cuh"
 
@@ -99,6 +141,329 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The binned add
+// ---------------------------------------------------------------------------
+
+constexpr int kBinThreads = 1024;
+constexpr int kColumnThreads = 256;
+constexpr int kLog2MaxBins = 13;
+constexpr int kMaxBins = 1 << kLog2MaxBins;        // 32 KiB of histogram
+constexpr int kScanPer = kMaxBins / kBinThreads;   // totals a scan thread
+constexpr int kMinBinBits = 5;                     // one word
+constexpr int kMaxBinBits = 20;                    // 128 KiB of shared memory
+constexpr int kMaxGroupBins = 4096;                // 40 B a bin in the scatter
+constexpr int kRoundProbes = 4;                    // positions a thread a round
+constexpr long long kMaxBatchPositions = 1LL << 31;
+constexpr uint32_t kFiller = 0xffffffffu;  // pads a run; never an offset
+
+__device__ __forceinline__ void stage_bit_salts(uint32_t* salt,
+                                                const uint32_t* salts,
+                                                int k) {
+  for (int i = threadIdx.x; i < k; i += blockDim.x) salt[i] = salts[i];
+}
+
+// Keys [first, last) of chunk `c` of `chunks`: the count and the scatter
+// kernels run one CTA a chunk, with the same bounds.
+__device__ __forceinline__ void chunk_of(int64_t n, int c, int chunks,
+                                         int64_t& first, int64_t& last) {
+  first = int64_t(c) * n / chunks;
+  last = int64_t(c + 1) * n / chunks;
+}
+
+// counts[c][j]: positions of chunk c's keys in bin j.
+__global__ void __launch_bounds__(kBinThreads)
+    cbf_bin_count_kernel(const uint2* __restrict__ keys,
+                         uint32_t* __restrict__ counts,
+                         const uint32_t* __restrict__ salts, int64_t n,
+                         int shift, int k, int bin_bits, int n_bins) {
+  extern __shared__ uint32_t hist[];
+  __shared__ uint32_t salt[kMaxSalts];
+  stage_bit_salts(salt, salts, k);
+  for (int j = threadIdx.x; j < n_bins; j += blockDim.x) hist[j] = 0u;
+  __syncthreads();
+  int64_t first, last;
+  chunk_of(n, blockIdx.x, gridDim.x, first, last);
+  for (int64_t i = first + threadIdx.x; i < last; i += blockDim.x) {
+    uint32_t h1, h2;
+    hash_key(keys[i], h1, h2);
+    for (int t = 0; t < k; ++t)
+      atomicAdd(&hist[cbf_position(h1, h2, t, salt[t], shift) >> bin_bits],
+                1u);
+  }
+  __syncthreads();
+  uint32_t* row = counts + size_t(blockIdx.x) * n_bins;
+  for (int j = threadIdx.x; j < n_bins; j += blockDim.x) row[j] = hist[j];
+}
+
+// Thread j walks bin j's column: counts[c][j] becomes the offset of chunk
+// c's run inside the bin, each run padded to a whole 32-byte sector (a
+// multiple of 8 slots); totals[j] is the bin's padded length.
+__global__ void __launch_bounds__(kColumnThreads)
+    cbf_bin_column_kernel(uint32_t* __restrict__ counts,
+                          uint32_t* __restrict__ totals, int n_bins,
+                          int chunks) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n_bins) return;
+  uint32_t run = 0u;
+#pragma unroll 8
+  for (int c = 0; c < chunks; ++c) {
+    uint32_t* cell = counts + size_t(c) * n_bins + j;
+    const uint32_t v = *cell;
+    *cell = run;
+    run += (v + 7u) & ~7u;
+  }
+  totals[j] = run;
+}
+
+// One CTA: the exclusive scan of the <= 8192 bin lengths (warp shuffles,
+// then the 32 warp sums). In: ends[j] = the length of bin j. Out: starts[j]
+// and ends[j], the bin's slice of the positions workspace.
+__global__ void __launch_bounds__(kBinThreads)
+    cbf_bin_scan_kernel(uint32_t* __restrict__ starts,
+                        uint32_t* __restrict__ ends, int n_bins) {
+  __shared__ uint32_t warp_sums[kBinThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int first = threadIdx.x * kScanPer;
+  uint32_t v[kScanPer];
+  uint32_t sum = 0u;
+#pragma unroll
+  for (int j = 0; j < kScanPer; ++j) {
+    v[j] = first + j < n_bins ? ends[first + j] : 0u;
+    sum += v[j];
+  }
+  uint32_t incl = sum;                       // inclusive scan over the warp
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {                           // scan the 32 warp sums
+    uint32_t w = warp_sums[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    warp_sums[lane] = w;
+  }
+  __syncthreads();
+  uint32_t run = incl - sum + (warp > 0 ? warp_sums[warp - 1] : 0u);
+#pragma unroll
+  for (int j = 0; j < kScanPer; ++j) {
+    if (first + j < n_bins) {
+      starts[first + j] = run;
+      ends[first + j] = run + v[j];
+    }
+    run += v[j];
+  }
+}
+
+// One CTA a chunk writes its keys' positions (their offsets inside the bin)
+// into its runs, bins taken `group_bins` at a time (a pass over the chunk
+// each). Each bin's run starts on a sector, and slot s of a bin is written
+// once: the bin's counter in shared memory hands out s. The sector the
+// counter is in (`open`) is staged in shared memory and written out whole,
+// as two 16-byte stores, by the thread that fills it. A round is up to
+// kRoundProbes positions a thread:
+//   A: take a slot; stage it in the open sector, keep it (the next sector),
+//      or, further on, write it to the workspace (a sector filled within
+//      one round is written in one burst, which L2 merges);
+//   B: the thread that took a sector's last slot writes the sector; the
+//      next sector opens, or the first untouched one if the round went past
+//      it;
+//   C: the kept slots go to the open sector, else to the workspace.
+// At the end the last open sector is padded with kFiller to the run's end.
+// Dynamic shared memory: 32 B of sector, a counter and a sector index a bin.
+__global__ void __launch_bounds__(kBinThreads, 1)
+    cbf_bin_scatter_kernel(const uint2* __restrict__ keys,
+                           const uint32_t* __restrict__ offsets,
+                           const uint32_t* __restrict__ starts,
+                           uint32_t* __restrict__ positions,
+                           const uint32_t* __restrict__ salts, int64_t n,
+                           int shift, int k, int bin_bits, int n_bins,
+                           int group_bins, uint32_t offset_mask) {
+  extern __shared__ uint4 sector4[];
+  uint32_t* sector = reinterpret_cast<uint32_t*>(sector4);
+  uint32_t* slot = sector + 8 * group_bins;
+  uint32_t* open = slot + group_bins;
+  __shared__ uint32_t salt[kMaxSalts];
+  stage_bit_salts(salt, salts, k);
+  int64_t first, last;
+  chunk_of(n, blockIdx.x, gridDim.x, first, last);
+  const int rounds = int((last - first + blockDim.x - 1) / blockDim.x);
+  const uint32_t* row = offsets + size_t(blockIdx.x) * n_bins;
+  for (int g0 = 0; g0 < n_bins; g0 += group_bins) {
+    for (int j = threadIdx.x; j < group_bins; j += blockDim.x) {
+      const uint32_t base = starts[g0 + j] + row[g0 + j];
+      slot[j] = base;
+      open[j] = base >> 3;
+    }
+    __syncthreads();
+    int64_t i = first + threadIdx.x;
+    uint2 key = i < last ? keys[i] : make_uint2(0u, 0u);
+    for (int r = 0; r < rounds; ++r, i += blockDim.x) {
+      const bool live = i < last;
+      uint32_t h1 = 0u, h2 = 0u;
+      if (live) hash_key(key, h1, h2);
+      if (i + blockDim.x < last) key = keys[i + blockDim.x];  // next round's
+      for (int t0 = 0; t0 < k; t0 += kRoundProbes) {
+        uint32_t lb[kRoundProbes], s[kRoundProbes], off[kRoundProbes];
+        int state[kRoundProbes];             // 0 done, 1 staged, 2 kept
+#pragma unroll
+        for (int u = 0; u < kRoundProbes; ++u) {          // A
+          state[u] = 0;
+          lb[u] = s[u] = off[u] = 0u;
+          const int t = t0 + u;
+          if (!live || t >= k) continue;
+          const uint32_t pos = cbf_position(h1, h2, t, salt[t], shift);
+          lb[u] = (pos >> bin_bits) - uint32_t(g0);
+          if (lb[u] >= uint32_t(group_bins)) continue;
+          off[u] = pos & offset_mask;
+          s[u] = atomicAdd(&slot[lb[u]], 1u);
+          const uint32_t sec = s[u] >> 3, op = open[lb[u]];
+          if (sec == op) {
+            sector[8 * lb[u] + (s[u] & 7u)] = off[u];
+            state[u] = 1;
+          } else if (sec == op + 1u) {
+            state[u] = 2;
+          } else {
+            positions[s[u]] = off[u];
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int u = 0; u < kRoundProbes; ++u) {          // B
+          if (state[u] != 1 || (s[u] & 7u) != 7u) continue;
+          uint4* dst = reinterpret_cast<uint4*>(positions + (s[u] & ~7u));
+          dst[0] = sector4[2 * lb[u]];
+          dst[1] = sector4[2 * lb[u] + 1];
+          const uint32_t taken = slot[lb[u]], next = (s[u] >> 3) + 1u;
+          open[lb[u]] = taken >= 8u * (next + 1u) ? (taken + 7u) >> 3 : next;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int u = 0; u < kRoundProbes; ++u) {          // C
+          if (state[u] != 2) continue;
+          if ((s[u] >> 3) == open[lb[u]])
+            sector[8 * lb[u] + (s[u] & 7u)] = off[u];
+          else
+            positions[s[u]] = off[u];
+        }
+      }
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < group_bins; j += blockDim.x) {
+      const uint32_t taken = slot[j];
+      if ((taken & 7u) == 0u) continue;      // the run ends on a sector
+      if ((taken >> 3) == open[j]) {
+        for (uint32_t q = taken & 7u; q < 8u; ++q) sector[8 * j + q] = kFiller;
+        uint4* dst = reinterpret_cast<uint4*>(positions + (taken & ~7u));
+        dst[0] = sector4[2 * j];
+        dst[1] = sector4[2 * j + 1];
+      } else {
+        for (uint32_t q = taken; q < ((taken + 7u) & ~7u); ++q)
+          positions[q] = kFiller;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// One CTA per bin of 2^log2_bin_words words; [starts[j], ends[j]) is the
+// bin's slice (offsets inside the bin, and kFiller). vec: words 16-byte
+// aligned and >= 4 words a bin.
+__global__ void __launch_bounds__(kBinThreads)
+    cbf_bin_apply_kernel(uint32_t* __restrict__ words,
+                         const uint32_t* __restrict__ positions,
+                         const uint32_t* __restrict__ starts,
+                         const uint32_t* __restrict__ ends,
+                         int log2_bin_words, int vec) {
+  extern __shared__ uint4 bin4[];
+  uint32_t* bin = reinterpret_cast<uint32_t*>(bin4);
+  const uint32_t begin = starts[blockIdx.x], end = ends[blockIdx.x];
+  if (begin == end) return;                  // untouched: not read or written
+  const uint32_t n_words = 1u << log2_bin_words;
+  uint32_t* w = words + (size_t(blockIdx.x) << log2_bin_words);
+  if (vec) {
+    const uint4* src = reinterpret_cast<const uint4*>(w);
+    for (uint32_t i = threadIdx.x; i < n_words / 4; i += blockDim.x)
+      bin4[i] = src[i];
+  } else {
+    for (uint32_t i = threadIdx.x; i < n_words; i += blockDim.x) bin[i] = w[i];
+  }
+  __syncthreads();
+  for (uint32_t i = begin + threadIdx.x; i < end; i += blockDim.x) {
+    const uint32_t p = positions[i];
+    if (p != kFiller) atomicOr(&bin[p >> 5], 1u << (p & 31u));
+  }
+  __syncthreads();
+  if (vec) {
+    uint4* dst = reinterpret_cast<uint4*>(w);
+    for (uint32_t i = threadIdx.x; i < n_words / 4; i += blockDim.x)
+      dst[i] = bin4[i];
+  } else {
+    for (uint32_t i = threadIdx.x; i < n_words; i += blockDim.x) w[i] = bin[i];
+  }
+}
+
+struct BinGeometry {
+  int n_bins, log2_bin_words, group_bins;
+  size_t count_smem, scatter_smem, apply_smem;
+};
+
+// The binned kernels' geometry, or false where they have none.
+bool bin_geometry(int log2m, int k, int bin_bits, BinGeometry& g) {
+  if (log2m < 5 || log2m > 32 || k < 1 || k > kMaxSalts ||
+      bin_bits < kMinBinBits || bin_bits > kMaxBinBits ||
+      log2m - bin_bits > kLog2MaxBins)
+    return false;
+  g.n_bins = 1 << (log2m > bin_bits ? log2m - bin_bits : 0);
+  g.log2_bin_words = (log2m < bin_bits ? log2m : bin_bits) - 5;
+  g.group_bins = g.n_bins < kMaxGroupBins ? g.n_bins : kMaxGroupBins;
+  g.count_smem = size_t(g.n_bins) * sizeof(uint32_t);
+  g.scatter_smem = size_t(g.group_bins) * 10 * sizeof(uint32_t);
+  g.apply_smem = sizeof(uint32_t) << g.log2_bin_words;
+  return true;
+}
+
+// Raise the kernels' dynamic shared memory limits; CTAs of the scatter
+// that fill the card (the chunks of a batch) in *chunks.
+cudaError_t prepare_binned(const BinGeometry& g, int* chunks) {
+  int dev = 0, optin = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const size_t salts_smem = kMaxSalts * sizeof(uint32_t);
+  if (g.scatter_smem + salts_smem > size_t(optin) ||
+      g.count_smem + salts_smem > size_t(optin) ||
+      g.apply_smem > size_t(optin))
+    return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(cbf_bin_count_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(g.count_smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(cbf_bin_scatter_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(g.scatter_smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(cbf_bin_apply_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(g.apply_smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, cbf_bin_scatter_kernel, kBinThreads, g.scatter_smem);
+  if (err != cudaSuccess) return err;
+  *chunks = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  return cudaSuccess;
+}
+
 bool bad_geometry(int log2m, int k) {
   return log2m < 5 || log2m > 32 || k < 1 || k > kMaxSalts;
 }
@@ -134,6 +499,68 @@ int cbf_add(const void* keys, void* words, const void* salts, long long n,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint2*>(keys), static_cast<uint32_t*>(words),
       static_cast<const uint32_t*>(salts), n, 32 - log2m, k);
+  return int(cudaGetLastError());
+}
+
+// Chunks (scatter CTAs) of a binned add on the current device, which size
+// its workspace; -1 for a geometry without kernels or an error.
+int cbf_binned_chunks(int log2m, int k, int bin_bits) {
+  BinGeometry g;
+  int chunks = 0;
+  if (!bin_geometry(log2m, k, bin_bits, g) ||
+      prepare_binned(g, &chunks) != cudaSuccess)
+    return -1;
+  return chunks;
+}
+
+// The binned add (five kernels an internal batch). work: u32 workspace,
+// 8-word aligned: counts (chunks x n_bins), starts, ends (n_bins each),
+// padded to 8 words, then the positions (batch * k + 7 * chunks * n_bins,
+// each bin's runs padded to sectors); batch: keys an internal batch,
+// batch * k <= 2^31; chunks: cbf_binned_chunks(). Updates words in place.
+int cbf_add_binned(const void* keys, void* words, const void* salts,
+                   void* work, long long n, int log2m, int k, int bin_bits,
+                   long long batch, int chunks, void* stream) {
+  BinGeometry g;
+  if (!bin_geometry(log2m, k, bin_bits, g) || batch < 1 ||
+      batch * k > kMaxBatchPositions || chunks < 1 ||
+      7LL * chunks * g.n_bins > kMaxBatchPositions)
+    return -1;
+  if (n == 0) return 0;
+  int card_chunks = 0;
+  const cudaError_t err0 = prepare_binned(g, &card_chunks);
+  if (err0 == cudaErrorInvalidValue) return -1;
+  if (err0 != cudaSuccess) return int(err0);
+  const auto s = static_cast<cudaStream_t>(stream);
+  uint32_t* counts = static_cast<uint32_t*>(work);
+  uint32_t* starts = counts + size_t(chunks) * g.n_bins;
+  uint32_t* ends = starts + g.n_bins;
+  const size_t head = (size_t(chunks) + 2) * size_t(g.n_bins);
+  uint32_t* positions = counts + ((head + 7) & ~size_t(7));
+  const uint2* k2 = static_cast<const uint2*>(keys);
+  uint32_t* w = static_cast<uint32_t*>(words);
+  const uint32_t* sl = static_cast<const uint32_t*>(salts);
+  const int vec = (reinterpret_cast<uintptr_t>(words) % 16 == 0 &&
+                   g.log2_bin_words >= 2);
+  const int shift = 32 - log2m;
+  const uint32_t offset_mask = (32u << g.log2_bin_words) - 1u;
+  const unsigned column_grid =
+      unsigned((g.n_bins + kColumnThreads - 1) / kColumnThreads);
+  for (long long first = 0; first < n; first += batch) {
+    const long long nb = n - first < batch ? n - first : batch;
+    cbf_bin_count_kernel<<<chunks, kBinThreads, g.count_smem, s>>>(
+        k2 + first, counts, sl, nb, shift, k, bin_bits, g.n_bins);
+    cbf_bin_column_kernel<<<column_grid, kColumnThreads, 0, s>>>(
+        counts, ends, g.n_bins, chunks);
+    cbf_bin_scan_kernel<<<1, kBinThreads, 0, s>>>(starts, ends, g.n_bins);
+    cbf_bin_scatter_kernel<<<chunks, kBinThreads, g.scatter_smem, s>>>(
+        k2 + first, counts, starts, positions, sl, nb, shift, k, bin_bits,
+        g.n_bins, g.group_bins, offset_mask);
+    cbf_bin_apply_kernel<<<g.n_bins, kBinThreads, g.apply_smem, s>>>(
+        w, positions, starts, ends, g.log2_bin_words, vec);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+  }
   return int(cudaGetLastError());
 }
 

@@ -27,8 +27,11 @@ and past capacity, duplicates, valid masks, removes of absent keys,
 clusters that wrap past the last slot, tiles 256 / 2048 / the whole batch,
 empty and full tables, a 2^25-slot table whose scans take many blocks,
 and the quotient ``Filter`` path with merge and resize) against theirs.
-The calibration kernels (step, chain, gather) are held against their
-plain versions, and a calibration measured on the card must have five
+The classical filter's add is held against its plain version on both
+paths (one-pass and binned) at m = 2^16 ... 2^32 for k = 1 ... 32, over
+several internal batches, in small bins, with keys in one bin and one key
+repeated. The calibration kernels (step, chain, gather) are held against
+their plain versions, and a calibration measured on the card must have five
 finite, positive constants.
 """
 import numpy as np
@@ -363,6 +366,102 @@ def test_cbf_kernels_keep_all_32_bits_at_m_2_32(cuda):
                        cbf.contains_plain(spec, words, q))
     del words, want
     torch.cuda.empty_cache()
+
+
+CBF_PATH_SIZES = [1 << 16, 1 << 20, 1 << 30, 1 << 32]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", cbf.PATHS)
+@pytest.mark.parametrize("m", CBF_PATH_SIZES,
+                         ids=["m2^16", "m2^20", "m2^30", "m2^32"])
+@pytest.mark.parametrize("k", [1, 7, 11, 32])
+def test_cbf_add_paths_match_plain(cuda, path, m, k):
+    """Each add path forced, words equal to the plain version's in full;
+    at m = 2^32 the top half of the filter (positions with bit 31) is
+    written."""
+    spec = V.FilterSpec("cbf", m, k)
+    n = 65537 if m < 1 << 30 else 1 << 20
+    keys = _keys(n, 31 + k, cuda)
+    want = cbf.add_plain(spec, V.init(spec, cuda), keys)
+    words = cbf.add_vmem(spec, V.init(spec, cuda), keys, path=path)
+    torch.cuda.synchronize()
+    assert torch.equal(words, want)
+    assert cbf.LAST_ADD_PLAN["path"] == path
+    assert cbf.LAST_ADD_PLAN["positions"] == n * k
+    if m == 1 << 32:
+        assert bool(words[spec.n_words // 2:].any())
+    del words, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1 << 5, 1 << 16, 1 << 20, 1 << 32],
+                         ids=["m2^5", "m2^16", "m2^20", "m2^32"])
+def test_cbf_binned_add_batches_and_bins(cuda, m):
+    """The binned add over several internal batches (a lowered cap), in bins
+    smaller than the default, on a filter smaller than a bin (m = 2^5),
+    and into words that already hold keys."""
+    spec = V.FilterSpec("cbf", m, 11)
+    keys = _keys(100003, 41, cuda)
+    base = cbf.add_plain(spec, V.init(spec, cuda), _keys(5000, 42, cuda))
+    want = cbf.add_plain(spec, base, keys)
+    log2m = m.bit_length() - 1
+    for bin_bits, cap in ((None, 11 * 9999), (max(5, log2m - 13), 11 * 70001),
+                          (20, 11)):
+        if cap == 11 and m > 1 << 20:
+            continue                        # one key a batch: 10^5 batches
+        words = cbf.add_vmem(spec, base.clone(), keys[: 2000 if cap == 11
+                                                     else None],
+                             path="binned", bin_bits=bin_bits, cap=cap)
+        torch.cuda.synchronize()
+        expect = (want if cap != 11
+                  else cbf.add_plain(spec, base, keys[:2000]))
+        assert torch.equal(words, expect), (bin_bits, cap)
+        plan = cbf.LAST_ADD_PLAN
+        assert plan["batches"] == -(-(2000 if cap == 11 else 100003)
+                                    // (cap // 11))
+        assert plan["chunks"] >= 1
+        assert plan["n_bins"] == 1 << max(0, log2m - plan["bin_bits"])
+
+
+@pytest.mark.gpu
+def test_cbf_binned_add_one_bin_and_repeated_keys(cuda):
+    """Keys whose positions all fall in one bin of a two-bin filter, and a
+    batch of one key repeated: every chunk's run lands in one or k bins."""
+    spec = V.FilterSpec("cbf", 1 << 20, 3)
+    cand = _keys(1 << 21, 43, cuda)
+    h1, h2 = H.hash_keys(cand)
+    pos = V.cbf_positions(spec, h1, h2)
+    one_bin = cand[(pos < 1 << 19).all(dim=1)].contiguous()
+    assert one_bin.shape[0] > 100000
+    repeated = cand[:1].expand(300000, 2).contiguous()
+    for keys in (one_bin, repeated):
+        for path in cbf.PATHS:
+            words = cbf.add_vmem(spec, V.init(spec, cuda), keys, path=path)
+            torch.cuda.synchronize()
+            assert torch.equal(words, cbf.add_plain(spec, V.init(spec, cuda),
+                                                    keys))
+            if keys is one_bin:                  # the second bin untouched
+                assert not bool(words[spec.n_words // 2:].any())
+    assert cbf.LAST_ADD_PLAN["n_bins"] == 2
+
+
+@pytest.mark.gpu
+def test_cbf_add_takes_the_rule_path(cuda):
+    """With no path given, the wrapper runs choose_path's path with the
+    card's shared memory; small adds into a bank-sized member stay
+    one-pass."""
+    smem = sbf.partition_smem_bytes(cuda)
+    for m, n in ((1 << 16, 3000), (1 << 30, 1 << 16), (1 << 30, 1 << 22)):
+        spec = V.FilterSpec("cbf", m, 11)
+        keys = _keys(n, 44, cuda)
+        words = cbf.add_vmem(spec, V.init(spec, cuda), keys)
+        torch.cuda.synchronize()
+        assert cbf.LAST_ADD_PLAN["path"] == cbf.choose_path(n, m, 11, smem)
+        assert torch.equal(words, cbf.add_plain(spec, V.init(spec, cuda),
+                                                keys))
+    assert cbf.choose_path(3000, 1 << 16, 11, smem) == "one-pass"
 
 
 def _ring(spec, G, device):

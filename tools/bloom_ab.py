@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time this tree's blocked add and contains, and its cuckoo update, against
-another checkout's, in turns, on one NVIDIA card.
+"""Time this tree's blocked add and contains, its cuckoo update and its
+classical (cbf) add against another checkout's, in turns, on one NVIDIA
+card.
 
     git archive <commit> | (mkdir -p build/other && tar -x -C build/other)
-    python3 tools/bloom_ab.py build/other [--only bloom|cuckoo]
+    python3 tools/bloom_ab.py build/other [--only bloom|cuckoo|cbf]
 
 Blocked filters: the other checkout's ``src/repro_torch/kernels/csrc/
 bloom.cu`` must have the one-thread-a-key C interface, ``bloom_contains(
@@ -33,6 +34,15 @@ keys into the empty table, the add of 3,355,443 more (load 0.5 to 0.9),
 the remove of half of them and the add of 2^16 keys at load 0.9; and
 prints this tree's counters of each.
 
+Classical filter: the other checkout's ``cbf.cu`` must have the one-pass
+add's C interface, ``cbf_add(keys, words, salts, n, log2m, k, stream)``.
+In the two cbf cells of ``chip_smoke.py`` (``filter_for_n_items(n,
+bits_per_key=16, variant="cbf")``, k = 11: 2^23 keys into 2^27 bits and
+2^28 keys into 2^32 bits, the smoke's keys) the script checks that the
+other add, this tree's add on the path its rule picks and on the other path
+give the same words, then times the three adds of the keys into the filter
+in turns.
+
 It prints the card's name and power limit first.
 """
 import ctypes
@@ -49,7 +59,8 @@ import torch  # noqa: E402
 from repro_torch import api  # noqa: E402
 from repro_torch.core import fingerprint as F  # noqa: E402
 from repro_torch.core import hashing as H  # noqa: E402
-from repro_torch.kernels import _build, ops, sbf  # noqa: E402
+from repro_torch.core import variants as V  # noqa: E402
+from repro_torch.kernels import _build, cbf, ops, sbf  # noqa: E402
 from repro_torch.kernels import cuckoofilter as ckoo  # noqa: E402
 from repro_torch.kernels.sbf import DEFAULT_TILE  # noqa: E402
 
@@ -73,6 +84,8 @@ def build_other(checkout: Path, name: str = "bloom") -> ctypes.CDLL:
         lib.bloom_contains.argtypes = [VP, VP, VP, VP, LL, U32] + [I] * 7 + [
             VP]
         lib.bloom_add.argtypes = [VP, VP, VP, LL, U32] + [I] * 5 + [VP]
+    elif name == "cbf":
+        lib.cbf_add.argtypes = [VP, VP, VP, LL, I, I, VP]
     else:
         lib.cuckoo_update.argtypes = [VP, VP, VP, VP, LL, I, U32, I, I, I,
                                       U32, U32, I, VP]
@@ -181,6 +194,48 @@ def cuckoo_main(checkout: Path) -> None:
               f"{res['other'][0] / res['this'][0]:.2f}x", flush=True)
 
 
+def cbf_main(checkout: Path) -> None:
+    other = build_other(checkout, "cbf")
+    stream = torch.cuda.current_stream().cuda_stream
+    salts = sbf._salts(torch.device("cuda")).data_ptr()
+    smem = sbf.partition_smem_bytes(torch.device("cuda"))
+    for regime, n in (("L2", 1 << 23), ("DRAM", 1 << 28)):
+        f = api.filter_for_n_items(n, bits_per_key=16, variant="cbf",
+                                   device="cuda")
+        spec = f.spec
+        keys = gen_keys(n, 21)
+        rule = cbf.choose_path(n, spec.m_bits, spec.k, smem)
+        alt = "binned" if rule == "one-pass" else "one-pass"
+
+        def other_add(words):
+            err = other.cbf_add(keys.data_ptr(), words.data_ptr(), salts, n,
+                                V._log2i(spec.m_bits), spec.k, stream)
+            assert err == 0, err
+            return words
+
+        want = other_add(f.words.clone())
+        for path in (None, alt):
+            got = cbf.add_vmem(spec, f.words.clone(), keys, path=path)
+            if not torch.equal(got, want):
+                raise AssertionError(f"cbf {regime} add ({path or rule}) "
+                                     f"differs from the other checkout's")
+            if path is None:
+                plan = dict(cbf.LAST_ADD_PLAN)
+            del got
+        acc = want
+        res = turns({
+            "other": lambda: other_add(acc),
+            f"this ({rule})": lambda: cbf.add_vmem(spec, acc, keys),
+            f"this {alt}": lambda: cbf.add_vmem(spec, acc, keys, path=alt)},
+            20 if regime == "L2" else 3)
+        show(f"cbf {regime} add ({spec}, {n} keys; words equal; the rule's "
+             f"plan {plan})", res)
+        print(f"  other / this {res['other'][0] / res[f'this ({rule})'][0]:.2f}"
+              f"x", flush=True)
+        del f, keys, want, acc
+        torch.cuda.empty_cache()
+
+
 def main(checkout: Path, only: str = "") -> int:
     if not torch.cuda.is_available():
         print("bloom_ab: no CUDA device", file=sys.stderr)
@@ -189,10 +244,10 @@ def main(checkout: Path, only: str = "") -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     _build.library()
-    if only != "bloom":
-        cuckoo_main(checkout)
-    if only != "cuckoo":
-        bloom_main(checkout)
+    for name, run in (("cuckoo", cuckoo_main), ("bloom", bloom_main),
+                      ("cbf", cbf_main)):
+        if only in ("", name):
+            run(checkout)
     return 0
 
 
@@ -286,7 +341,8 @@ if __name__ == "__main__":
     args = sys.argv[1:]
     only = ""
     if len(args) == 3 and args[1] == "--only" and args[2] in ("bloom",
-                                                              "cuckoo"):
+                                                              "cuckoo",
+                                                              "cbf"):
         only = args[2]
         args = args[:1]
     if len(args) != 1:
