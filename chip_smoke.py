@@ -3294,6 +3294,19 @@ QUOTIENT_SOURCE = "src/repro_torch/kernels/csrc/quotient.cu"
 QUOTIENT_REPLACES = {
     "quotient_contains": "src/repro/kernels/quotientfilter.py:51",
     "quotient_update": "src/repro/kernels/quotientfilter.py:90"}
+QUOTIENT_KERNELS = {
+    "quotient_contains": ["quotient_contains_kernel", "slots_kernel",
+                          "scan_reduce_kernel", "scan_aggs_kernel",
+                          "scan_apply_kernel", "old_runs_kernel",
+                          "lookup_kernel", "choose_kernel"],
+    "quotient_update": ["qf_tile_stats", "qf_scan_tables", "qf_decode",
+                        "qf_bin_count", "qf_bin_offsets", "qf_bin_scatter",
+                        "qf_bin_sort", "qf_merge_tiles", "qf_merge",
+                        "qf_positions", "qf_write"]}
+# lowered knobs of phase 3f: 32-slot tiles (clusters span many), merge
+# tiles of 7, 8 bins of at most 5 keys in shared memory (the rest sort in
+# device memory)
+QUOTIENT_LOW = dict(tile_slots=32, merge_tile=7, bin_bits=3, bin_cap=5)
 # (slot_bits, r_bits, q_bits) of phase 3f
 PHASE3F_QUOTIENT = ((8, 5, 12), (8, 2, 11), (16, 9, 11), (16, 13, 10),
                     (32, 20, 10), (32, 27, 4))
@@ -3395,6 +3408,7 @@ def phase_quotient_kernels(errs: dict):
               f"batch, removes of absent keys{wrapped}; tiles 256/2048/"
               f"whole; both coop values; {refused} inserts refused past "
               f"capacity, matched flag for flag)")
+    quotient_knob_checks(errs)
     # merge and resize on the card against their plain versions and the
     # tables the update kernels build
     for geom in ((8, 5, 14), (16, 9, 12), (32, 20, 11)):
@@ -3420,6 +3434,106 @@ def phase_quotient_kernels(errs: dict):
               f"plain merge and to the kernels' build of the whole stream, "
               f"resize to {grown_spec} equal to the plain resize and the "
               f"kernels' build there, and back")
+
+
+def longest_cluster(spec, table) -> int:
+    """Slots of the table's longest cluster (a run of slots in use, wrapping
+    past the last slot)."""
+    in_use = Q._fields(spec, Q.unpack_slots(spec, table))[3]
+    if bool(in_use.all()):
+        return spec.n_slots
+    start = int(torch.argmax((~in_use).to(torch.int8)))
+    rolled = torch.roll(in_use, -start).to(torch.int64)
+    idx = torch.arange(spec.n_slots, device=table.device)
+    last_empty = torch.cummax(torch.where(rolled == 0, idx, -1), 0).values
+    return int((idx - last_empty).max())
+
+
+def quotient_knob_checks(errs: dict):
+    """Phase 3f, the update's schedule: at lowered knobs (32-slot tiles,
+    merge tiles of 7, 8 bins sorted in shared memory up to 5 keys) every
+    geometry's add, remove, merge and resize against the plain versions,
+    with clusters longer than a tile; a key 40,000 times (a bin past the
+    default cap: the device-memory sort, one run of 40,000 slots) added and
+    removed; more passes than one (``KEY_BATCH`` lowered)."""
+    longest = 0
+    for i, geom in enumerate(PHASE3F_QUOTIENT):
+        spec = quotient_spec(*geom)
+        keys = gen_keys(int(spec.n_slots * 0.9), 860 + i)
+        keys = torch.cat([keys, keys[: keys.shape[0] // 20]])
+        vmask = valid_mask(keys.shape[0], 861 + i)
+        e = errs["quotient_update"]
+        for knobs in (QUOTIENT_LOW, dict(tile_slots=256, merge_tile=1000,
+                                         bin_bits=0)):
+            want, ok = qf.update_plain(spec, Q.init(spec, "cuda"), keys,
+                                       vmask, "add")
+            got, got_ok = qf.add_vmem(spec, Q.init(spec, "cuda"), keys,
+                                      vmask, **knobs)
+            e = max(e, max_err(got, want), max_err(got_ok, ok))
+            gone = torch.cat([keys[::2], keys[:50],
+                              gen_keys(40, 862 + i, probe=True)])
+            want_rm, found = qf.update_plain(spec, want, gone, None,
+                                             "remove")
+            got_rm, got_found = qf.remove_vmem(spec, want.clone(), gone,
+                                               None, **knobs)
+            e = max(e, max_err(got_rm, want_rm), max_err(got_found, found))
+            tk = {k: v for k, v in knobs.items()
+                  if k in ("tile_slots", "merge_tile")}
+            fit = keys[: spec.n_slots - 1]     # the union fits
+            half = fit.shape[0] // 3
+            a = qf.update_plain(spec, Q.init(spec, "cuda"), fit[:half],
+                                None, "add")[0]
+            b = qf.update_plain(spec, Q.init(spec, "cuda"), fit[half:],
+                                None, "add")[0]
+            max_err(qf.merge_vmem(spec, a, b, **tk),
+                    qf.merge_plain(spec, a, b))
+            if spec.r_bits > 1:
+                grown = Q.spec_for_resize(spec, 2 * spec.m_bits)
+                up = qf.resize_vmem(spec, want, grown, **tk)
+                max_err(up, qf.resize_plain(spec, want, grown))
+                max_err(qf.resize_vmem(grown, up, spec, **tk), want)
+        errs["quotient_update"] = e
+        longest = max(longest, longest_cluster(spec, want))
+    if longest <= QUOTIENT_LOW["tile_slots"]:
+        raise AssertionError(f"quotient: no cluster longer than a tile "
+                             f"({longest} slots)")
+    # one key past the default bin cap: the device-memory sort
+    spec = quotient_spec(16, 9, 16)
+    one = gen_keys(1, 870).repeat(40000, 1)
+    keys = torch.cat([one, gen_keys(3000, 871)])
+    keys = keys[torch.randperm(keys.shape[0], device="cuda",
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(872))]
+    want, ok = qf.update_plain(spec, Q.init(spec, "cuda"), keys, None, "add")
+    got, got_ok = qf.add_vmem(spec, Q.init(spec, "cuda"), keys, None)
+    e = max(errs["quotient_update"], max_err(got, want), max_err(got_ok, ok))
+    if longest_cluster(spec, got) < 40000:
+        raise AssertionError("quotient: the repeated key is not one run")
+    gone = one[:30000].contiguous()
+    want_rm, found = qf.update_plain(spec, want, gone, None, "remove")
+    got_rm, got_found = qf.remove_vmem(spec, want.clone(), gone, None)
+    e = max(e, max_err(got_rm, want_rm), max_err(got_found, found))
+    # several passes of the pipeline in one call
+    saved = qf.KEY_BATCH
+    qf.KEY_BATCH = 1000
+    try:
+        spec = quotient_spec(8, 5, 12)
+        keys = gen_keys(3500, 873)
+        want, ok = qf.update_plain(spec, Q.init(spec, "cuda"), keys, None,
+                                   "add")
+        got, got_ok = qf.add_vmem(spec, Q.init(spec, "cuda"), keys, None)
+        e = max(e, max_err(got, want), max_err(got_ok, ok))
+        passes = qf.LAST_PLAN["passes"]
+    finally:
+        qf.KEY_BATCH = saved
+    errs["quotient_update"] = e
+    torch.cuda.synchronize()
+    print(f"quotient: the update's schedule at lowered knobs ({QUOTIENT_LOW}"
+          f"; and 256-slot tiles, one bin) on every geometry equal to the "
+          f"plain versions (add, remove, merge, resize up and back; longest "
+          f"cluster {longest} slots); a key 40,000 times (one bin past the "
+          f"cap of {qf.BIN_CAP}, sorted in device memory) added and 30,000 "
+          f"removed; an add in {passes} passes")
 
 
 def quotient_walk_sectors(spec, table, keys) -> int:
@@ -3473,6 +3587,23 @@ def quotient_update_bound_ms(spec, n: int):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (40 * n + 8 * spec.n_slots) / OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def quotient_update_floor_ms(spec, n: int = 0, nb: int = 0, m0: int = 0,
+                             m1: int = 0, tables: int = 1, out_spec=None,
+                             key_bytes: int = 4) -> float:
+    """The sorted-stream design's floor: the DRAM bytes its stages must
+    move, at 3.35 TB/s. n keys read twice (count, scatter) and a flag
+    written; nb admitted sort keys (an add's 4-byte fingerprint, a
+    remove's 8-byte (fp, index)) written, sorted (read, written) and read
+    by the merge; the m0 old fingerprints written by the decode and read by
+    the merge; the m1 new ones written by the merge and read by the
+    positions and the write; their positions written and read; each decoded
+    table read twice (counts, decode) and the new table written once."""
+    out_words = (out_spec or spec).n_words
+    nbytes = (17 * n + 4 * key_bytes * nb + 8 * m0 + 12 * m1 + 8 * m1
+              + 8 * tables * spec.n_words + 4 * out_words)
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def batches(keys: torch.Tensor, batch: int) -> list:
@@ -3689,6 +3820,50 @@ def phase_quotient_main(label: str, n: int, batch: int, errs: dict,
          "add 2^22": quotient_update_bound_ms(spec, SUBSET),
          "contains": quotient_contains_bound_ms(spec, g2.words, keys),
          "contains sub": quotient_contains_bound_ms(spec, g2.words, sub)}
+    # the design's floor of each update (its streams' DRAM bytes)
+    m_last = int(Q.occupied_slots(spec, last_in))
+    n_g, n_f, n_l = gone.shape[0], first.shape[0], last.shape[0]
+    floor = {"add first": quotient_update_floor_ms(spec, n_f, n_f, 0, n_f),
+             "add last": quotient_update_floor_ms(spec, n_l, n_l, m_last,
+                                                  m_last + n_l),
+             "remove": quotient_update_floor_ms(spec, n_g, n_g, n_all,
+                                                n_all - n_g, key_bytes=8),
+             "add 2^22": quotient_update_floor_ms(spec, SUBSET, SUBSET, 0,
+                                                  SUBSET),
+             "merge": quotient_update_floor_ms(spec, 0, 0, n_all, n_all,
+                                               tables=2),
+             "resize": quotient_update_floor_ms(spec, 0, 0, n_all, n_all,
+                                                out_spec=grown.spec)}
+    # peak extra device memory of the first batch's add and of a remove:
+    # the plan's workspace and the flags, nothing else (the bytes the call
+    # requested; the allocator's blocks round them up, reported beside)
+    peak = {}
+    for what, call, restore, n_k in (
+            ("add first", lambda: qf.add_vmem(spec, scratch, first, None),
+             scratch.zero_, n_f),
+            ("remove", lambda: qf.remove_vmem(spec, scratch, gone, None),
+             lambda: scratch.copy_(g2.words), n_g)):
+        restore()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_stats()
+        flags = call()[1]
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_stats()
+        used = (after["requested_bytes.all.peak"]
+                - before["requested_bytes.all.current"])
+        blocks = (after["allocated_bytes.all.peak"]
+                  - before["allocated_bytes.all.current"])
+        plan = dict(qf.LAST_PLAN)
+        allowed = plan["workspace_bytes"] + n_k        # + the flags
+        del flags
+        if used > allowed + 512:
+            raise AssertionError(f"quotient {label} {what}: peak extra "
+                                 f"memory {used} B above the plan's "
+                                 f"{allowed} B")
+        peak[what] = {"peak_extra_bytes": used, "block_bytes": blocks,
+                      "workspace_bytes": plan["workspace_bytes"],
+                      "flags_bytes": n_k, "plan": plan}
     print(f"time quotient {label} update [{card}]: kernel add first batch "
           f"{t['add first']:.4f} ms ({first.shape[0]} keys into the empty "
           f"table), add last batch {t['add last']:.4f} ms ({last.shape[0]} "
@@ -3714,6 +3889,17 @@ def phase_quotient_main(label: str, n: int, batch: int, errs: dict,
           f"{t['merge']:.4f} ms (plain {t['merge plain']:.4f} ms), resize to "
           f"{grown.spec} {t['resize']:.4f} ms (plain {t['resize plain']:.4f} "
           f"ms)")
+    print(f"time quotient {label} design floor [{card}] (the streams' DRAM "
+          f"bytes at 3.35 TB/s): " + ", ".join(
+              f"{k} {v:.4f} ms ({v / t[k]:.1%} of the kernel's "
+              f"{t[k]:.4f})" for k, v in floor.items()))
+    print(f"memory quotient {label} [{card}]: " + "; ".join(
+        f"{k}: peak extra {v['peak_extra_bytes']} B requested "
+        f"({v['block_bytes']} B in the allocator's blocks), the plan's "
+        f"workspace {v['workspace_bytes']} B + {v['flags_bytes']} B of flags "
+        f"({v['plan']['n_bins']} bins of {v['plan']['bin_bits']} bits, "
+        f"{v['plan']['table_tiles']} table tiles, {v['plan']['merge_tiles']} "
+        f"merge tiles)" for k, v in peak.items()))
     print(f"time quotient {label} contains [{card}]: kernel "
           f"{t['contains']:.4f} ms at {n_all} keys, load 0.9 "
           f"({n_all / t['contains'] / 1e3:.1f} Mops/s), bound "
@@ -3723,7 +3909,8 @@ def phase_quotient_main(label: str, n: int, batch: int, errs: dict,
           f"{t['contains plain']:.4f} ms, bound {b['contains sub'][0]:.4f} "
           f"ms ({b['contains sub'][1]})")
     cells[label] = {"m_bits": spec.m_bits, "n_keys": n_all, "batch": batch,
-                    "ms": t, "bound_ms": {k: v[0] for k, v in b.items()},
+                    "ms": t, "floor_ms": floor, "memory": peak,
+                    "bound_ms": {k: v[0] for k, v in b.items()},
                     "bound_by": {k: v[1] for k, v in b.items()},
                     "step_ms": step_ms, "fpr": fpr, "fpr_theory": theory,
                     "contains_paths_ms": {f"load {lq} {n_q} {m}": ms
@@ -3749,6 +3936,9 @@ def quotient_records(cells: dict, errs: dict, launches: dict) -> dict:
                                     else "add 2^22 plain")],
             "bound_ms": dram["bound_ms"][ms],
             "bound_by": dram["bound_by"][ms], "library_ms": None,
+            "floor_ms": (dram["floor_ms"]["add 2^22"]
+                         if name == "quotient_update" else None),
+            "cuda_kernels": QUOTIENT_KERNELS[name],
             "n_keys": SUBSET, "m_bits": dram["m_bits"], "cells": cells}
     return out
 
@@ -3782,42 +3972,54 @@ def profile_cbf(card: str):
 
 def profile_quotient(card: str):
     """``--profile``: device time by kernel (``torch.profiler``) of one
-    update and one contains of the DRAM-side quotient cell's shapes: a
-    2^24-key add and remove on a 2^26-slot table at load 0.5, and a table
-    pass and a cluster walk of 2^22 keys."""
-    spec = Q.spec_for_n(1 << 25)
-    keys = gen_keys(1 << 25, 850)
-    table = Q.init(spec, "cuda")
-    for chunk in batches(keys, 1 << 24):
-        ops.quotient_add(spec, table, chunk, inplace=True)
-    batch, probes = gen_keys(1 << 24, 851), keys[:SUBSET]
-    calls = {"add 2^24": lambda: qf.add_vmem(spec, table.clone(), batch,
-                                             None),
-             "remove 2^24": lambda: qf.remove_vmem(spec, table.clone(),
-                                                   keys[: 1 << 24], None),
-             "contains pass 2^22": lambda: qf._launch_contains(
-                 spec, table, probes, "pass"),
-             "contains walk 2^22": lambda: qf._launch_contains(
-                 spec, table, probes, "walk"),
-             "contains auto 2^22": lambda: qf._launch_contains(
-                 spec, table, probes, "auto")}
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    for label, call in calls.items():
-        call()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
+    update and one contains in each quotient cell's shapes (L2: q23, a
+    2^22-key batch; DRAM-side: q26, a 2^24-key batch): an add and a remove
+    on the table at load 0.5, a table pass and a cluster walk of 2^22 keys,
+    the merge of that table with one of a batch and its resize up: the
+    update's eleven kernels by name."""
+    for cell, n, batch_n in (("L2", 1 << 22, 1 << 22),
+                             ("DRAM", 1 << 25, 1 << 24)):
+        spec = Q.spec_for_n(n)
+        keys = gen_keys(spec.n_slots // 2, 850)
+        table = Q.init(spec, "cuda")
+        for chunk in batches(keys, batch_n):
+            ops.quotient_add(spec, table, chunk, inplace=True)
+        batch, probes = gen_keys(batch_n, 851), keys[:SUBSET]
+        half = ops.quotient_add(spec, Q.init(spec, "cuda"),
+                                keys[:batch_n])[0]
+        calls = {"add": lambda: qf.add_vmem(spec, table.clone(), batch,
+                                            None),
+                 "remove": lambda: qf.remove_vmem(spec, table.clone(),
+                                                  keys[:batch_n], None),
+                 "contains pass 2^22": lambda: qf._launch_contains(
+                     spec, table, probes, "pass"),
+                 "contains walk 2^22": lambda: qf._launch_contains(
+                     spec, table, probes, "walk"),
+                 "merge": lambda: qf.merge_vmem(spec, table, half),
+                 "resize up": lambda: qf.resize_vmem(
+                     spec, table, Q.spec_for_resize(spec, 2 * spec.m_bits))}
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        for label, call in calls.items():
             call()
             torch.cuda.synchronize()
-        rows = sorted(((getattr(e, "device_time_total", 0), e.count, e.key)
-                       for e in prof.key_averages()), reverse=True)
-        rows = [r for r in rows if r[0] > 0]
-        total = sum(r[0] for r in rows)
-        print(f"profile quotient {label} [{card}] ({spec}, load 0.5): "
-              + (", ".join(f"{k[:60]} x{c} {us / 1e3:.4f} ms"
-                           for us, c, k in rows[:14])
-                 + f"; device total {total / 1e3:.4f} ms" if rows
-                 else "no device time recorded (not measured)"))
+            with torch.profiler.profile(activities=acts) as prof:
+                call()
+                torch.cuda.synchronize()
+            rows = sorted(((getattr(e, "device_time_total", 0), e.count,
+                            e.key) for e in prof.key_averages()),
+                          reverse=True)
+            rows = [r for r in rows if r[0] > 0]
+            total = sum(r[0] for r in rows)
+            print(f"profile quotient {cell} {label} [{card}] ({spec}, load "
+                  f"0.5, {batch_n} keys): "
+                  + (", ".join(f"{k[:40]} x{c} {us / 1e3:.4f} ms"
+                               for us, c, k in rows[:16])
+                     + f"; device total {total / 1e3:.4f} ms" if rows
+                     else "no device time recorded (not measured)"),
+                  flush=True)
+        del keys, table, batch, probes, half
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------

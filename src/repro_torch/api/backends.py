@@ -489,9 +489,9 @@ class QuotientBackend(CuckooBackend):
     and a resize re-splits p = q + r at the new size. Capacity failures
     accumulate in ``Filter.insert_failures`` as cuckoo's do (on the device).
     On the card the CUDA kernels run contains and the updates (one
-    decode-and-rebuild a call), and merge and resize too (a decode, then
-    the add kernels on the decoded fingerprints); on the CPU the plain
-    versions; ``options.impl`` as for cuckoo. Banks take the generic path
+    sorted-stream rebuild a call), and merge and resize too (the update's
+    decode, merge, position and write stages on the decoded streams); on
+    the CPU the plain versions; ``options.impl`` as for cuckoo. Banks take the generic path
     with real valid masks; merge and resize go member by member."""
 
     name = "quotient"

@@ -86,15 +86,20 @@ ENTRY_POINTS = {
     # the dependent-load latency probe behind the cuckoo update's floor
     "cuckoo_chase": ("cuckoo", [_vp, _ll, _vp, _vp]),
     # geometry as (log2 n_slots, r_bits, slot_bits, fingerprint salt);
-    # scratch as (per-slot int32, per-key int32, scan sums, their count,
+    # the contains' scratch as (per-slot int32, scan sums, their count,
     # scalars)
     "quotient_contains": ("quotient", [_vp, _vp, _vp, _ll, _i, _i, _i, _u32,
                                        _i, _vp, _vp, _ll, _vp, _vp]),
-    "quotient_update": ("quotient", [_vp, _vp, _vp, _vp, _vp, _vp, _ll, _i,
-                                     _i, _i, _u32, _i, _vp, _vp, _vp, _ll,
-                                     _vp, _vp]),
-    "quotient_decode": ("quotient", [_vp, _vp, _vp, _i, _i, _i, _vp, _vp,
-                                     _ll, _vp, _vp]),
+    # the sorted-stream update: (..., op, workspace, its bytes, tile_slots,
+    # merge_tile, bin_bits, bin_cap, key_chunks, stream); merge and resize
+    # likewise
+    "quotient_update": ("quotient", [_vp, _vp, _vp, _vp, _ll, _i, _i, _i,
+                                     _u32, _i, _vp, _ll, _i, _i, _i, _i, _i,
+                                     _vp]),
+    "quotient_merge": ("quotient", [_vp, _vp, _vp, _i, _i, _i, _vp, _ll, _i,
+                                    _i, _vp]),
+    "quotient_resize": ("quotient", [_vp, _vp, _i, _i, _i, _i, _i, _vp, _ll,
+                                     _i, _i, _vp]),
     # the performance model's calibration probes (kernels/calibrate.py)
     "calibrate_step": ("calibrate", [_vp, _vp, _ll, _vp]),
     "calibrate_chain": ("calibrate", [_vp, _ll, _i, _u32, _u32, _vp]),

@@ -1231,8 +1231,7 @@ def test_quotient_empty_full_and_large_tables(cuda):
     assert bool(found.all()) and not bool(gone.any())
     _, found = qf.remove_vmem(spec, empty.clone(), keys, None)
     assert not bool(found.any())
-    # 2^25 slots: every scan takes more blocks than one pass of the block
-    # sums holds
+    # 2^25 slots: 8192 table tiles, 2048-4096 bins, thousands of merge tiles
     big = V.FilterSpec("quotient", (1 << 25) * 8, 1, slot_bits=8, r_bits=5)
     table = Q.init(big, cuda)
     for seed, n in ((11, 1 << 24), (12, 1 << 23)):
@@ -1248,6 +1247,100 @@ def test_quotient_empty_full_and_large_tables(cuda):
     want, found = qf.update_plain(big, table, gone, None, "remove")
     got, got_found = qf.remove_vmem(big, table.clone(), gone, None)
     assert torch.equal(got, want) and torch.equal(got_found, found)
+
+
+def _longest_cluster(spec, table) -> int:
+    in_use = Q._fields(spec, Q.unpack_slots(spec, table))[3].cpu().numpy()
+    run = best = 0
+    for u in np.concatenate([in_use, in_use]):        # clusters may wrap
+        run = run + 1 if u else 0
+        best = max(best, run)
+    return min(best, spec.n_slots)
+
+
+QKNOBS = [dict(tile_slots=32, merge_tile=7, bin_bits=3, bin_cap=5,
+               key_chunks=3),
+          dict(tile_slots=64, merge_tile=1, bin_bits=0, bin_cap=1,
+               key_chunks=1),
+          dict(tile_slots=4096, merge_tile=4096, bin_bits=9)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knobs", QKNOBS, ids=["t32", "t64-m1", "b9"])
+@pytest.mark.parametrize("spec", QSPECS, ids=str)
+def test_quotient_stream_knobs_match_plain(cuda, spec, knobs):
+    """The update's schedule at lowered tiles and bins (clusters longer
+    than a tile, bins sorted in device memory past a cap of 5 or 1 keys):
+    add, remove, merge and resize equal to the plain versions."""
+    keys, valid = _quotient_batch(spec, 0.9, 21, cuda)
+    for vmask in (None, valid):
+        want, ok = qf.update_plain(spec, Q.init(spec, cuda), keys, vmask,
+                                   "add")
+        got, got_ok = qf.add_vmem(spec, Q.init(spec, cuda), keys, vmask,
+                                  **knobs)
+        assert torch.equal(got, want) and torch.equal(got_ok, ok)
+    if knobs["tile_slots"] == 32 and spec.n_slots >= 1 << 10:
+        assert _longest_cluster(spec, want) > knobs["tile_slots"]
+    gone = torch.cat([keys[::2], keys[:40], _probes(30, 22, cuda)])
+    gmask = _valid_mask(gone.shape[0], 26, cuda)
+    want_rm, found = qf.update_plain(spec, want, gone, gmask, "remove")
+    got_rm, got_found = qf.remove_vmem(spec, want.clone(), gone, gmask,
+                                       **knobs)
+    assert torch.equal(got_rm, want_rm) and torch.equal(got_found, found)
+    tk = {k: v for k, v in knobs.items() if k in ("tile_slots", "merge_tile")}
+    fit = keys[: spec.n_slots - 1]           # the union fits the capacity
+    half = fit.shape[0] // 3
+    a, _ = qf.update_plain(spec, Q.init(spec, cuda), fit[:half], None, "add")
+    b, _ = qf.update_plain(spec, Q.init(spec, cuda), fit[half:], None, "add")
+    assert torch.equal(qf.merge_vmem(spec, a, b, **tk),
+                       qf.merge_plain(spec, a, b))
+    if spec.r_bits > 1:
+        grown = Q.spec_for_resize(spec, 2 * spec.m_bits)
+        up = qf.resize_vmem(spec, want, grown, **tk)
+        assert torch.equal(up, qf.resize_plain(spec, want, grown))
+        assert torch.equal(qf.resize_vmem(grown, up, spec, **tk), want)
+
+
+@pytest.mark.gpu
+def test_quotient_key_past_the_bin_cap_and_passes(cuda, monkeypatch):
+    """A key 20,000 times (its bin past the shared-memory cap: the sort in
+    device memory; one run of 20,000 slots), added, 15,000 and 25,000 of
+    it removed; an add in
+    several passes of the pipeline; the workspace the plan names."""
+    spec = V.FilterSpec("quotient", (1 << 15) * 16, 1, slot_bits=16,
+                        r_bits=9)
+    one = _keys(1, 23, cuda).repeat(20000, 1)
+    keys = torch.cat([one, _keys(2000, 24, cuda)])
+    keys = keys[torch.from_numpy(np.random.RandomState(25).permutation(
+        keys.shape[0])).to(cuda)]
+    want, ok = qf.update_plain(spec, Q.init(spec, cuda), keys, None, "add")
+    got, got_ok = qf.add_vmem(spec, Q.init(spec, cuda), keys, None)
+    assert torch.equal(got, want) and torch.equal(got_ok, ok)
+    assert _longest_cluster(spec, got) >= 20000
+    more = _keys(1, 23, cuda).repeat(25000, 1)     # more than are stored
+    for gone in (one[:15000].contiguous(), more):
+        want_rm, found = qf.update_plain(spec, want, gone, None, "remove")
+        got_rm, got_found = qf.remove_vmem(spec, want.clone(), gone, None)
+        assert torch.equal(got_rm, want_rm) and torch.equal(got_found, found)
+    monkeypatch.setattr(qf, "KEY_BATCH", 700)
+    got, got_ok = qf.add_vmem(spec, Q.init(spec, cuda), keys[:2500], None)
+    want, ok = qf.update_plain(spec, Q.init(spec, cuda), keys[:2500], None,
+                               "add")
+    assert torch.equal(got, want) and torch.equal(got_ok, ok)
+    assert qf.LAST_PLAN["passes"] == 4
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()           # fresh blocks: counted as requested
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    table = Q.init(spec, cuda)
+    flags = qf.add_vmem(spec, table, keys, None)[1]
+    torch.cuda.synchronize()
+    used = torch.cuda.max_memory_allocated() - before
+    plan = qf.update_plan(spec, keys.shape[0], "add")
+    assert qf.LAST_PLAN == plan
+    assert used <= table.numel() * 4 + plan["workspace_bytes"] + \
+        flags.numel() + 1024
 
 
 @pytest.mark.gpu

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time this tree's blocked add and contains, its cuckoo update and its
-classical (cbf) add against another checkout's, in turns, on one NVIDIA
-card.
+"""Time this tree's blocked add and contains, its cuckoo update, its
+classical (cbf) add and its quotient update against another checkout's, in
+turns, on one NVIDIA card.
 
     git archive <commit> | (mkdir -p build/other && tar -x -C build/other)
-    python3 tools/bloom_ab.py build/other [--only bloom|cuckoo|cbf]
+    python3 tools/bloom_ab.py build/other [--only bloom|cuckoo|cbf|quotient]
 
 Blocked filters: the other checkout's ``src/repro_torch/kernels/csrc/
 bloom.cu`` must have the one-thread-a-key C interface, ``bloom_contains(
@@ -43,6 +43,23 @@ other add, this tree's add on the path its rule picks and on the other path
 give the same words, then times the three adds of the keys into the filter
 in turns.
 
+Quotient filter: the other checkout's ``quotient.cu`` must have the
+rebuild-once update's C interface, ``quotient_update(keys, fps_in, valid,
+table, new_table, flags, n, lg_slots, r_bits, slot_bits, fp_salt, op,
+ws_slots, ws_keys, aggs, n_aggs, scal, stream)`` and ``quotient_decode(
+table, fps, valid, lg_slots, r_bits, slot_bits, ws_slots, aggs, n_aggs,
+scal, stream)`` (merge and resize: a decode, then the add of the decoded
+fingerprints). In the two quotient cells of ``chip_smoke.py``
+(``filter_for_n_items(n, variant="quotient")``: q23 + r5 in u8 lanes, 8
+MiB, batches of 2^22; q26 + r5, 64 MiB, batches of 2^24; keys to load
+0.9) the script checks that both trees give the same words and flags, then
+times in turns, one call each on a restored table: the first batch's add
+into the empty table, the last batch's add (to load 0.9), the remove of a
+batch at load 0.9, the add of 2^22 keys into the empty table, the merge of
+two tables of half the keys each and the resize one step up; and the
+contains of every key at load 0.9 (the cluster walk, the table pass and
+the card's choice; 20 calls a round).
+
 It prints the card's name and power limit first.
 """
 import ctypes
@@ -59,9 +76,11 @@ import torch  # noqa: E402
 from repro_torch import api  # noqa: E402
 from repro_torch.core import fingerprint as F  # noqa: E402
 from repro_torch.core import hashing as H  # noqa: E402
+from repro_torch.core import quotient as Q  # noqa: E402
 from repro_torch.core import variants as V  # noqa: E402
 from repro_torch.kernels import _build, cbf, ops, sbf  # noqa: E402
 from repro_torch.kernels import cuckoofilter as ckoo  # noqa: E402
+from repro_torch.kernels import quotientfilter as qf  # noqa: E402
 from repro_torch.kernels.sbf import DEFAULT_TILE  # noqa: E402
 
 
@@ -86,6 +105,13 @@ def build_other(checkout: Path, name: str = "bloom") -> ctypes.CDLL:
         lib.bloom_add.argtypes = [VP, VP, VP, LL, U32] + [I] * 5 + [VP]
     elif name == "cbf":
         lib.cbf_add.argtypes = [VP, VP, VP, LL, I, I, VP]
+    elif name == "quotient":
+        lib.quotient_update.argtypes = [VP, VP, VP, VP, VP, VP, LL, I, I, I,
+                                        U32, I, VP, VP, VP, LL, VP, VP]
+        lib.quotient_decode.argtypes = [VP, VP, VP, I, I, I, VP, VP, LL, VP,
+                                        VP]
+        lib.quotient_contains.argtypes = [VP, VP, VP, LL, I, I, I, U32, I,
+                                          VP, VP, LL, VP, VP]
     else:
         lib.cuckoo_update.argtypes = [VP, VP, VP, VP, LL, I, U32, I, I, I,
                                       U32, U32, I, VP]
@@ -236,6 +262,142 @@ def cbf_main(checkout: Path) -> None:
         torch.cuda.empty_cache()
 
 
+class OtherQuotient:
+    """The other checkout's quotient update, merge, resize and contains,
+    called as its wrappers called them (scratch allocated each call)."""
+
+    def __init__(self, lib, stream):
+        self.lib, self.stream = lib, stream
+
+    def _scratch(self, spec, arrays, n):
+        n_aggs = max(-(-max(spec.n_slots, n) // 4096), 1)
+        return (torch.empty(arrays * spec.n_slots, dtype=torch.int32,
+                            device="cuda"),
+                torch.empty(n_aggs, dtype=torch.int64, device="cuda"),
+                n_aggs, torch.empty(8, dtype=torch.int64, device="cuda"))
+
+    def update(self, spec, table, keys, op, fps=None, valid=None):
+        n = (keys if fps is None else fps).shape[0]
+        flags = torch.empty(n, dtype=torch.bool, device="cuda")
+        ws, aggs, n_aggs, scal = self._scratch(spec, 5, n)
+        ws_keys = torch.empty(2 * n, dtype=torch.int32, device="cuda")
+        new = torch.empty_like(table)
+        err = self.lib.quotient_update(
+            None if keys is None else keys.data_ptr(),
+            None if fps is None else fps.data_ptr(),
+            None if valid is None else valid.data_ptr(), table.data_ptr(),
+            new.data_ptr(), flags.data_ptr(), n, spec.q_bits, spec.r_bits,
+            spec.slot_bits, Q.FP_SALT, qf._OP_CODE[op], ws.data_ptr(),
+            ws_keys.data_ptr(), aggs.data_ptr(), n_aggs, scal.data_ptr(),
+            self.stream)
+        assert err == 0, err
+        return table, flags
+
+    def decode(self, spec, table):
+        fps = torch.empty(spec.n_slots, dtype=torch.int32, device="cuda")
+        valid = torch.empty(spec.n_slots, dtype=torch.uint8, device="cuda")
+        ws, aggs, n_aggs, scal = self._scratch(spec, 3, 0)
+        err = self.lib.quotient_decode(
+            table.data_ptr(), fps.data_ptr(), valid.data_ptr(), spec.q_bits,
+            spec.r_bits, spec.slot_bits, ws.data_ptr(), aggs.data_ptr(),
+            n_aggs, scal.data_ptr(), self.stream)
+        assert err == 0, err
+        return fps, valid
+
+    def merge(self, spec, a, b):
+        fps, valid = self.decode(spec, b)
+        out = a.clone()
+        self.update(spec, out, None, "add", fps, valid)
+        return out
+
+    def resize(self, spec, table, new_spec):
+        fps, valid = self.decode(spec, table)
+        out = Q.init(new_spec, "cuda")
+        self.update(new_spec, out, None, "add", fps, valid)
+        return out
+
+    def contains(self, spec, table, keys, mode):
+        out = torch.empty(keys.shape[0], dtype=torch.bool, device="cuda")
+        ws, aggs, n_aggs, scal = self._scratch(spec, 3, 0)
+        err = self.lib.quotient_contains(
+            keys.data_ptr(), table.data_ptr(), out.data_ptr(),
+            keys.shape[0], spec.q_bits, spec.r_bits, spec.slot_bits,
+            Q.FP_SALT, qf.CONTAINS_MODES.index(mode), ws.data_ptr(),
+            aggs.data_ptr(), n_aggs, scal.data_ptr(), self.stream)
+        assert err == 0, err
+        return out
+
+
+def quotient_main(checkout: Path) -> None:
+    other = OtherQuotient(build_other(checkout, "quotient"),
+                          torch.cuda.current_stream().cuda_stream)
+    for label, n, batch in (("L2", 1 << 22, 1 << 22),
+                            ("DRAM", 1 << 25, 1 << 24)):
+        f = api.filter_for_n_items(n, variant="quotient", device="cuda")
+        spec = f.spec
+        n1, n_all = spec.n_slots // 2, int(spec.n_slots * 0.9)
+        keys = gen_keys(n_all, 820 + spec.q_bits)
+        chunks = list(keys[:n1].split(batch)) + list(keys[n1:].split(batch))
+        empty = Q.init(spec, "cuda")
+        table = empty.clone()
+        for chunk in chunks[:-1]:
+            qf.add_vmem(spec, table, chunk, None)
+        before_last = table.clone()
+        full = qf.add_vmem(spec, table, chunks[-1], None)[0]
+        half = n_all // 2
+        a = qf.add_vmem(spec, empty.clone(), keys[:half], None)[0]
+        b = qf.add_vmem(spec, empty.clone(), keys[half:], None)[0]
+        grown = Q.spec_for_resize(spec, 2 * spec.m_bits)
+        gone = keys[:half].split(batch)[0]
+        scratch = empty.clone()
+        for what, start, ks, op in (
+                ("add first", empty, chunks[0], "add"),
+                ("add last", before_last, chunks[-1], "add"),
+                ("remove", full, gone, "remove"),
+                ("add 2^22", empty, keys[: 1 << 22], "add")):
+            x, fx = other.update(spec, start.clone(), ks, op)
+            fn = qf.add_vmem if op == "add" else qf.remove_vmem
+            y, fy = fn(spec, start.clone(), ks, None)
+            if not (torch.equal(x, y) and torch.equal(fx, fy)):
+                raise AssertionError(f"quotient {label} {what}: words or "
+                                     f"flags differ")
+            del x, fx, y, fy
+            res = turns_restored({
+                "other": lambda k=ks, o=op: other.update(spec, scratch, k, o),
+                "this": lambda k=ks, f=fn: f(spec, scratch, k, None)},
+                lambda s=start: scratch.copy_(s), rounds=6)
+            show(f"quotient {label} {what} ({spec}, {ks.shape[0]} keys; "
+                 f"words and flags equal)", res)
+            print(f"  other / this {res['other'][0] / res['this'][0]:.2f}x",
+                  flush=True)
+        if not (torch.equal(other.merge(spec, a, b), qf.merge_vmem(spec, a, b))
+                and torch.equal(other.resize(spec, full, grown),
+                                qf.resize_vmem(spec, full, grown))):
+            raise AssertionError(f"quotient {label}: merge or resize differ")
+        for what, fns in (
+                ("merge", {"other": lambda: other.merge(spec, a, b),
+                           "this": lambda: qf.merge_vmem(spec, a, b)}),
+                ("resize up", {
+                    "other": lambda: other.resize(spec, full, grown),
+                    "this": lambda: qf.resize_vmem(spec, full, grown)})):
+            res = turns(fns, 3)
+            show(f"quotient {label} {what} ({spec}; words equal)", res)
+            print(f"  other / this {res['other'][0] / res['this'][0]:.2f}x",
+                  flush=True)
+        for mode in qf.CONTAINS_MODES:
+            if not torch.equal(other.contains(spec, full, keys, mode),
+                               qf._launch_contains(spec, full, keys, mode)):
+                raise AssertionError(f"quotient {label} contains {mode}")
+            res = turns({
+                "other": lambda m=mode: other.contains(spec, full, keys, m),
+                "this": lambda m=mode: qf._launch_contains(spec, full, keys,
+                                                           m)}, 20)
+            show(f"quotient {label} contains {mode} ({n_all} keys at load "
+                 f"0.9; results equal)", res)
+        del f, keys, chunks, empty, table, before_last, full, a, b, scratch
+        torch.cuda.empty_cache()
+
+
 def main(checkout: Path, only: str = "") -> int:
     if not torch.cuda.is_available():
         print("bloom_ab: no CUDA device", file=sys.stderr)
@@ -245,7 +407,7 @@ def main(checkout: Path, only: str = "") -> int:
                          text=True, check=True).stdout.strip())
     _build.library()
     for name, run in (("cuckoo", cuckoo_main), ("bloom", bloom_main),
-                      ("cbf", cbf_main)):
+                      ("cbf", cbf_main), ("quotient", quotient_main)):
         if only in ("", name):
             run(checkout)
     return 0
@@ -340,9 +502,8 @@ def bloom_main(checkout: Path) -> None:
 if __name__ == "__main__":
     args = sys.argv[1:]
     only = ""
-    if len(args) == 3 and args[1] == "--only" and args[2] in ("bloom",
-                                                              "cuckoo",
-                                                              "cbf"):
+    if len(args) == 3 and args[1] == "--only" and args[2] in (
+            "bloom", "cuckoo", "cbf", "quotient"):
         only = args[2]
         args = args[:1]
     if len(args) != 1:
