@@ -101,7 +101,11 @@ the script exits non-zero without printing a result:
    with an add's peak extra device memory; and the path rule's sweep (k =
    11, filters of 2^23-2^32 bits, 2^14-2^28 keys, both paths in turns),
    which fails where the rule's path is the slower one beyond the rounds'
-   spread; and the windowed main path,
+   spread; the same for the contains (``cbf.choose_contains_path``,
+   ``cbf.LAST_CONTAINS_PLAN``), whose sweep times batches of which none,
+   half or all keys are members and fails where the rule picks binned and
+   binned is slower at one share, or one-pass and binned is faster at all
+   three; and the windowed main path,
    ``filter_for_n_items(W, block_bits=256, generations=4)``: five batches
    of W/4 keys with ``advance()`` after each of the first four, then
    ``contains`` of batches 1-4 (no false negatives), of the retired batch
@@ -925,6 +929,36 @@ def time_restored_ms(fn, restore, label: str, reps: int = REPS,
     return per_round[len(per_round) // 2]
 
 
+def time_restored_turns(fns: dict, restore, label: str, reps: int = REPS,
+                        rounds: int = ROUNDS) -> dict:
+    """:func:`time_turns` for calls that change their state: ``restore()``
+    runs before every call, outside the CUDA events that time it."""
+    for fn in fns.values():
+        restore()
+        fn()
+    torch.cuda.synchronize()
+    per = {key: [] for key in fns}
+    for r in range(rounds):
+        for key in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            events = []
+            for _ in range(reps):
+                restore()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fns[key]()
+                end.record()
+                events.append((start, end))
+            torch.cuda.synchronize()
+            per[key].append(sum(a.elapsed_time(b) for a, b in events) / reps)
+    out = {}
+    for key, ts in per.items():
+        ts.sort()
+        SPREAD[f"{label} {key}"] = (ts[0], ts[-1])
+        out[key] = ts[len(ts) // 2]
+    return out
+
+
 def counter_updates(spec: V.FilterSpec, keys: torch.Tensor) -> int:
     """Counter words the keys' masks touch, summed over keys: the atomicCAS
     loops an update runs (at least one CAS each)."""
@@ -1161,10 +1195,16 @@ PHASE3C_RING_SPECS = [
     V.FilterSpec("csbf", 1 << 20, 8, block_bits=512, z=2),
 ]
 DRAM_CBF_REPS, DRAM_CBF_ROUNDS = 5, 3   # the DRAM cbf cell's calls take ~0.1 s
-CBF_KERNELS = {"contains_vmem": ["cbf_contains_kernel"],
+CBF_KERNELS = {"contains_vmem": ["cbf_contains_kernel (one-pass)",
+                                  "cbf_bin_count_kernel",
+                                  "cbf_bin_column_kernel",
+                                  "cbf_bin_scan_kernel",
+                                  "cbf_bin_scatter_kernel<uint64_t>",
+                                  "cbf_bin_test_kernel"],
                "add_vmem": ["cbf_add_kernel (one-pass)",
                             "cbf_bin_count_kernel", "cbf_bin_column_kernel",
-                            "cbf_bin_scan_kernel", "cbf_bin_scatter_kernel",
+                            "cbf_bin_scan_kernel",
+                            "cbf_bin_scatter_kernel<uint32_t>",
                             "cbf_bin_apply_kernel"]}
 
 
@@ -1266,6 +1306,59 @@ def phase_cbf_paths(errs: dict):
           f"m = 2^5 / 2^20, k = 1/7/11/32, 8 internal batches, small bins, "
           f"{one_bin.shape[0]} keys in one bin, one key 2^18 times) equal "
           f"to the plain version")
+    phase_cbf_contains_paths(errs, one_bin)
+
+
+def phase_cbf_contains_paths(errs: dict, one_bin: torch.Tensor):
+    """Both contains paths forced against the plain version: m = 2^16,
+    2^20, 2^30, 2^32 x k = 1/7/11/32 (members, keys never added and one
+    key 300 times), each binned also over several internal batches (a
+    lowered cap) and in bins of 2^(log2 m - 13) bits (8192 bins; 2^5 bits
+    at m = 2^16); a filter
+    smaller than a bin (m = 2^5), keys whose probes all fall in one bin,
+    and n = 0 / 1 / 2."""
+    runs = 0
+    for i, k in enumerate((1, 7, 11, 32)):
+        for log2m in (16, 20, 30, 32):
+            spec = V.FilterSpec("cbf", 1 << log2m, k)
+            n = 65537 if log2m < 30 else 1 << 20
+            keys = gen_keys(n, 1340 + i)
+            words = cbf.add_plain(spec, V.init(spec, "cuda"), keys)
+            q = torch.cat([keys, gen_keys(n, 1350 + i, probe=True),
+                           keys[:1].expand(300, 2)]).contiguous()
+            want = cbf.contains_plain(spec, words, q)
+            for path, kw in (("one-pass", {}), ("binned", {}),
+                             ("binned", {"cap": k * 99999}),
+                             ("binned", {"bin_bits": max(5, log2m - 13)})):
+                got = cbf.contains_vmem(spec, words, q, path=path, **kw)
+                errs["contains_vmem"] = max(errs["contains_vmem"],
+                                            max_err(got, want))
+                if cbf.LAST_CONTAINS_PLAN["path"] != path:
+                    raise AssertionError(f"{spec}: ran "
+                                         f"{cbf.LAST_CONTAINS_PLAN}")
+                runs += 1
+            del words, keys, q
+    spec = V.FilterSpec("cbf", 1 << 20, 3)
+    words = cbf.add_plain(spec, V.init(spec, "cuda"), one_bin[::2])
+    tiny = V.FilterSpec("cbf", 1 << 5, 7)
+    tiny_words = cbf.add_plain(tiny, V.init(tiny, "cuda"), one_bin[:3])
+    for sp, w, q in ((spec, words, one_bin), (tiny, tiny_words, one_bin),
+                     (tiny, tiny_words, one_bin[:0]),
+                     (tiny, tiny_words, one_bin[:1]),
+                     (tiny, tiny_words, one_bin[:2])):
+        want = cbf.contains_plain(sp, w, q)
+        for path in cbf.PATHS:
+            got = cbf.contains_vmem(sp, w, q, path=path)
+            errs["contains_vmem"] = max(errs["contains_vmem"],
+                                        max_err(got, want))
+            runs += 1
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"kernels: cbf contains paths: {runs} forced runs (one-pass, "
+          f"binned; m = 2^16 / 2^20 / 2^30 / 2^32 x k = 1/7/11/32, several "
+          f"internal batches, 8192 bins, m = 2^5, {one_bin.shape[0]} keys "
+          f"in one bin, n = 0/1/2, one key 300 times) equal to the plain "
+          f"version")
 
 
 def phase_ring_kernels(errs: dict):
@@ -1343,6 +1436,18 @@ def cbf_binned_floor_ms(spec: V.FilterSpec, n: int, plan: dict) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def cbf_binned_contains_floor_ms(spec: V.FilterSpec, n: int,
+                                 plan: dict) -> float:
+    """The binned contains' own floor: each batch reads its keys twice
+    (count, scatter), writes and reads 8 B a probe (its offset and its
+    key), and reads every touched bin once (all of them at these sizes);
+    the results are written once, at the DRAM rate. There is no early
+    exit: every probe is binned."""
+    filt = min(spec.m_bits // 8, 2 ** plan["bin_bits"] // 8 * n * spec.k)
+    nbytes = 16 * n + 16 * n * spec.k + filt * plan["batches"] + n
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 CBF_RULE_LOG2M = (23, 25, 27, 28, 29, 30, 31, 32)
 CBF_RULE_LOG2N = tuple(range(14, 29, 2))
 
@@ -1392,6 +1497,92 @@ def phase_cbf_rule(card: str):
                              f"(log2 m, log2 n, chosen ms, other ms) {wrong}")
     print(f"cbf add rule: at each of {len(rows)} sizes the rule's path is "
           f"the faster one within the rounds' spread")
+    phase_cbf_contains_rule(card, smem)
+
+
+CBF_MEMBER_SHARES = (0.0, 0.5, 1.0)
+
+
+def cbf_mixed(keys: torch.Tensor, probes: torch.Tensor, added: int, n: int,
+              share: float) -> torch.Tensor:
+    """n keys: the first ``share`` of them taken from the ``added`` keys of
+    the filter (repeated where there are fewer), the rest keys never
+    added."""
+    members = int(n * share)
+    pool = keys[:added]
+    return torch.cat([pool.repeat(-(-members // added), 1)[:members],
+                      probes[: n - members]])
+
+
+def phase_cbf_contains_rule(card: str, smem: int):
+    """The contains' path rule against both paths timed in turns: k = 11,
+    filters of 2^23 ... 2^32 bits filled with m / 16 keys (their design
+    load), batches of 2^14 ... 2^28 keys of which a share of 0, 1/2 or 1
+    are members (the main path sends shares 1 and 0: the cell's keys and
+    the probes). The rule cannot see the share and picks binned only where
+    it is no slower at any share. Fails where it picks binned and binned is
+    slower at some share, or picks one-pass and binned is faster at every
+    share; slower: beyond the rounds' spread and by more than 5 % and 5
+    us."""
+    keys = gen_keys(1 << max(CBF_RULE_LOG2N), 31)
+    probes = gen_keys(1 << max(CBF_RULE_LOG2N), 33, probe=True)
+    rows, wrong = [], []
+    for log2m in CBF_RULE_LOG2M:
+        spec = V.FilterSpec("cbf", 1 << log2m, 11)
+        words = cbf.add_vmem(spec, V.init(spec, "cuda"),
+                             keys[: 1 << (log2m - 4)])
+        for log2n in CBF_RULE_LOG2N:
+            n = 1 << log2n
+            qs = {s: cbf_mixed(keys, probes, 1 << (log2m - 4), n, s)
+                  for s in CBF_MEMBER_SHARES}
+            fns = {(p, s): (lambda p=p, s=s: cbf.contains_vmem(
+                spec, words, qs[s], path=p))
+                for s in CBF_MEMBER_SHARES for p in cbf.PATHS}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            fns["one-pass", 1.0]()
+            start.record()
+            fns["one-pass", 1.0]()
+            end.record()
+            torch.cuda.synchronize()
+            reps = max(1, min(REPS, int(20 / max(start.elapsed_time(end),
+                                                 1e-3))))
+            label = f"cbf contains rule 2^{log2m} 2^{log2n}"
+            t = time_turns({f"{p} s={s}": fn for (p, s), fn in fns.items()},
+                           label, reps, 3)
+            chosen = cbf.choose_contains_path(n, 1 << log2m, 11, smem)
+
+            def slower(p, s):
+                q = "binned" if p == "one-pass" else "one-pass"
+                mine, theirs = t[f"{p} s={s}"], t[f"{q} s={s}"]
+                return (mine > SPREAD[f"{label} {q} s={s}"][1]
+                        and mine > 1.05 * theirs and mine - theirs > 0.005)
+
+            lost = [s for s in CBF_MEMBER_SHARES if slower(chosen, s)]
+            if (lost if chosen == "binned"
+                    else len(lost) == len(CBF_MEMBER_SHARES)):
+                wrong.append((log2m, log2n, chosen, lost))
+            rows.append(f"2^{log2m}/2^{log2n} " + " ".join(
+                f"{t[f'one-pass s={s}']:.4f}/{t[f'binned s={s}']:.4f}"
+                for s in CBF_MEMBER_SHARES)
+                + ("*" if chosen == "binned" else ""))
+            del qs
+        del words
+    del keys, probes
+    torch.cuda.empty_cache()
+    print(f"cbf contains rule sweep [{card}] (m / n: one-pass / binned ms at "
+          f"member shares {' '.join(map(str, CBF_MEMBER_SHARES))}, median of "
+          f"3 rounds in turns, a filter at its design load; * the rule picks "
+          f"binned): " + ", ".join(rows))
+    if wrong:
+        raise AssertionError(f"cbf contains rule: binned slower at some "
+                             f"share, or one-pass slower at every share, at "
+                             f"(log2 m, log2 n, chosen, shares where the "
+                             f"chosen path is slower) {wrong}")
+    print(f"cbf contains rule: at each of {len(rows)} sizes binned where it "
+          f"is no slower at any of the member shares "
+          f"{' '.join(map(str, CBF_MEMBER_SHARES))}, one-pass where it is "
+          f"faster at one of them, within the rounds' spread")
 
 
 def ring_bound_ms(spec: V.FilterSpec, generations: int, n: int):
@@ -1426,7 +1617,9 @@ def phase_cbf_main(regime: str, n: int, errs: dict, records: dict,
     g = f.add(keys)
     plan = dict(cbf.LAST_ADD_PLAN)
     hits = g.contains(keys)
+    cplan = dict(cbf.LAST_CONTAINS_PLAN)
     false_pos = g.contains(probes)
+    pplan = dict(cbf.LAST_CONTAINS_PLAN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counted = dict(cbf.LAUNCHES)
@@ -1434,6 +1627,11 @@ def phase_cbf_main(regime: str, n: int, errs: dict, records: dict,
     if plan["path"] != cbf.choose_path(n, spec.m_bits, spec.k, smem):
         raise AssertionError(f"cbf {regime}: the add ran {plan}, not the "
                              f"rule's path")
+    for m, p in ((n, cplan), (SUBSET, pplan)):
+        if p["path"] != cbf.choose_contains_path(m, spec.m_bits, spec.k,
+                                                 smem):
+            raise AssertionError(f"cbf {regime}: a contains of {m} keys "
+                                 f"ran {p}, not the rule's path")
     for name in ("add_vmem", "contains_vmem"):
         if counted[name] == 0:
             raise AssertionError(f"cbf {name} was not launched on the main "
@@ -1458,7 +1656,9 @@ def phase_cbf_main(regime: str, n: int, errs: dict, records: dict,
           f"{wall * 1e3:.1f} ms host clock, no false negatives, words, hits "
           f"and probe results equal to the plain version's in full, FPR "
           f"{fpr:.6f}, {fpr / theory:.3f} x theory {theory:.6f}, launches "
-          f"{counted}; the add's plan (cbf.LAST_ADD_PLAN) {plan}")
+          f"{counted}; the add's plan (cbf.LAST_ADD_PLAN) {plan}; the "
+          f"contains' plans (cbf.LAST_CONTAINS_PLAN): keys (member share "
+          f"1) {cplan}, probes (member share 0) {pplan}")
 
     sub = keys[:SUBSET]
     sub_words = cbf.add_plain(spec, V.init(spec, "cuda"), sub)
@@ -1504,6 +1704,28 @@ def phase_cbf_main(regime: str, n: int, errs: dict, records: dict,
             raise AssertionError(f"cbf {regime} {p} add: peak extra memory "
                                  f"{peak[p][0]} B above its workspace "
                                  f"{peak[p][1]} B")
+    # both contains paths in turns on the cell's keys, and a contains' peak
+    # extra device memory: its workspace, beside the (n,) result
+    cpaths = time_turns({p: (lambda p=p: cbf.contains_vmem(
+        spec, g.words, keys, path=p)) for p in cbf.PATHS},
+        f"cbf {regime} contains path", reps, rounds)
+    cpeak = {}
+    out_bytes = -(-n // 512) * 512
+    for p in cbf.PATHS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        got = cbf.contains_vmem(spec, g.words, keys, path=p)
+        torch.cuda.synchronize()
+        cpeak[p] = (torch.cuda.max_memory_allocated() - before - out_bytes,
+                    cbf.LAST_CONTAINS_PLAN["workspace_bytes"])
+        errs["contains_vmem"] = max(errs["contains_vmem"], max_err(got,
+                                                                   hits))
+        del got
+        if cpeak[p][0] > cpeak[p][1] + 512:
+            raise AssertionError(f"cbf {regime} {p} contains: peak extra "
+                                 f"memory {cpeak[p][0]} B beside the result "
+                                 f"above its workspace {cpeak[p][1]} B")
     cap_bytes = 4 * cbf.POSITION_CAP
     floor_ms = cbf_binned_floor_ms(spec, n, plan if plan["path"] == "binned"
                                    else cbf.add_plan(n, spec.m_bits, spec.k,
@@ -1520,6 +1742,21 @@ def phase_cbf_main(regime: str, n: int, errs: dict, records: dict,
                       for p, (b, w) in peak.items())
           + f"; the workspace: the cap's {cap_bytes} B of positions, "
           f"the counts and at most 7 slots of padding a chunk a bin")
+    cfloor_ms = cbf_binned_contains_floor_ms(
+        spec, n, cplan if cplan["path"] == "binned"
+        else cbf.contains_plan(n, spec.m_bits, spec.k, "binned"))
+    cspread = {p: SPREAD[f"cbf {regime} contains path {p}"]
+               for p in cbf.PATHS}
+    print(f"time cbf {regime} contains paths [{card}] ({n} keys, in turns): "
+          + ", ".join(f"{p} {cpaths[p]:.4f} ms (rounds {cspread[p][0]:.4f}-"
+                      f"{cspread[p][1]:.4f})" for p in cbf.PATHS)
+          + f"; one-pass / binned "
+          f"{cpaths['one-pass'] / cpaths['binned']:.2f}x; the rule ran "
+          f"{cplan['path']}; binned floor (keys read twice, 8 B a probe "
+          f"written and read, each touched bin read once a batch, results "
+          f"once) {cfloor_ms:.4f} ms; peak extra memory of a contains beside "
+          f"its {n} B result: " + ", ".join(
+              f"{p} {b} B (workspace {w} B)" for p, (b, w) in cpeak.items()))
     probes_full = cbf_probes_needed(spec, g.words, keys)
     probes_sub = cbf_probes_needed(spec, sub_words, queries)
     for name, op in (("add_vmem", "add"), ("contains_vmem", "contains")):
@@ -1544,6 +1781,12 @@ def phase_cbf_main(regime: str, n: int, errs: dict, records: dict,
                         one_pass_ms=paths["one-pass"],
                         binned_ms=paths["binned"], binned_floor_ms=floor_ms,
                         peak_extra_bytes=peak[plan["path"]][0])
+        else:
+            cell.update(path=cplan["path"], plan=cplan,
+                        probes_plan=pplan, one_pass_ms=cpaths["one-pass"],
+                        binned_ms=cpaths["binned"],
+                        binned_floor_ms=cfloor_ms,
+                        peak_extra_bytes=cpeak[cplan["path"]][0])
         if regime == "L2":
             records[name] = {
                 "name": f"cbf_{name}", "route": "cuda", "source": CBF_SOURCE,
@@ -2336,13 +2579,60 @@ def fitting_segments(spec: V.FilterSpec) -> int:
     return n_seg
 
 
+def counting_paths(spec, batch, gone, n_seg: int, want, want_rm,
+                   errs: dict) -> int:
+    """``countingbf.update_partitioned`` on each path forced (the grouped
+    one where its histogram holds a segment's rows), add of ``batch`` and
+    remove of ``gone``, and an add of 40 keys on one row twice over (80
+    increments of its counters, each key's nibbles past 15), against the
+    plain version; the runs made."""
+    cand = gen_keys(1 << 18, 640 + n_seg)
+    blk = H.block_index(H.hash_keys(cand)[1], spec.n_blocks)
+    one_row = cand[blk == blk[0]][:40]
+    one_row = torch.cat([one_row, one_row]).contiguous()
+    cap = 4 * batch.shape[0] // n_seg + 64
+    part = P.partition_jit(spec, batch, n_seg, cap)
+    rpart = P.partition_jit(spec, gone, n_seg, cap)
+    opart = P.partition_jit(spec, one_row, n_seg, 128)
+    if int(part.overflow) + int(rpart.overflow) + int(opart.overflow):
+        raise AssertionError("partitioned: a pinned capacity overflowed")
+    want_one = cnt.update_plain(spec, V.init(spec, "cuda"), one_row, None,
+                                "add")
+    runs = 0
+    for path in cnt.PARTITIONED_PATHS:
+        if path == "grouped" and not 1 <= cnt.grouped_rows(
+                spec.storage_words, n_seg, spec.counter_row_words
+        ) <= cnt.GROUPED_MAX_ROWS:
+            continue
+        got = cnt.update_partitioned(spec, V.init(spec, "cuda"),
+                                     part.keys_by_seg, part.valid, n_seg,
+                                     "add", path=path)
+        errs["update_partitioned"] = max(errs["update_partitioned"],
+                                         max_err(got, want))
+        got = cnt.update_partitioned(spec, got, rpart.keys_by_seg,
+                                     rpart.valid, n_seg, "remove", path=path)
+        errs["update_partitioned"] = max(errs["update_partitioned"],
+                                         max_err(got, want_rm))
+        got = cnt.update_partitioned(spec, V.init(spec, "cuda"),
+                                     opart.keys_by_seg, opart.valid, n_seg,
+                                     "add", path=path)
+        errs["update_partitioned"] = max(errs["update_partitioned"],
+                                         max_err(got, want_one))
+        if cnt.LAST_PARTITIONED_PLAN["path"] != path:
+            raise AssertionError(f"partitioned: ran "
+                                 f"{cnt.LAST_PARTITIONED_PLAN}, not {path}")
+        runs += 3
+    return runs
+
+
 def phase_partitioned_kernels(errs: dict):
     """Phase 3e, partitioned: every spec at n_segments 1/8/64, the default
     capacity (escalated for a batch that falls in one segment), pinned to
     half the mean (the residual pass) and the host partition, each on the
-    path ``ops`` picks (shared memory where a segment fits) and with global
-    atomics forced; the words against the plain version and the atomic
-    kernels of rows 2 and 10."""
+    path ``ops`` picks (bits: shared memory where a segment fits; counters:
+    ``countingbf.choose_partitioned_path``) and with global atomics forced;
+    for counters also each path forced (:func:`counting_paths`); the words
+    against the plain version and the atomic kernels of rows 2 and 10."""
     n = 65537
     budget = sbf.partition_smem_bytes("cuda")
     for i, spec in enumerate(PHASE3E_SPECS):
@@ -2363,8 +2653,9 @@ def phase_partitioned_kernels(errs: dict):
             max_err(ops.bloom_add(spec, init(), keys), want)
         runs, paths = 0, set()
         for n_seg in (1, 8, 64):
-            fits = spec.storage_words * 4 // n_seg <= budget
-            paths.add("shared" if fits else "global")
+            if not counting:
+                paths.add("shared" if spec.n_words * 4 // n_seg <= budget
+                          else "global")
             mean = batch.shape[0] // n_seg
             for kw in ({}, {"capacity": max(8, mean // 2)},
                        {"partition": "host"}):
@@ -2394,6 +2685,11 @@ def phase_partitioned_kernels(errs: dict):
                     spec, init(), part.keys_by_seg, part.valid, "add")
                 got = cnt.update_partitioned(spec, init(), part.keys_by_seg,
                                              part.valid, n_seg, "add")
+                runs += counting_paths(spec, batch, gone, n_seg, want,
+                                       want_rm, errs)
+                paths.add(cnt.choose_partitioned_path(
+                    n_seg, spec.storage_words, spec.counter_row_words,
+                    budget))
             else:
                 plain = sbf.add_partitioned_plain(spec, init(),
                                                   part.keys_by_seg,
@@ -2407,7 +2703,9 @@ def phase_partitioned_kernels(errs: dict):
               f"version and the atomic kernel ({batch.shape[0]} keys; "
               f"n_segments 1/8/64; the default capacity, escalated for a "
               f"batch in one segment, pinned with overflow, host partition; "
-              f"paths {sorted(paths)} and global forced)")
+              f"paths {sorted(paths)} and global forced"
+              + ("; the counting update on each path forced, a row of 80 "
+                 "increments" if counting else "") + ")")
 
 
 def cuckoo_spec(slot_bits: int, spb: int, n_buckets: int) -> V.FilterSpec:
@@ -2559,6 +2857,46 @@ def partitioned_bound_ms(spec, n: int, slots: int, sectors=0, updates=0):
     return bound_ms(spec, n, "add", extra_bytes=extra)
 
 
+def counting_path_turns(spec, first: torch.Tensor, n_seg: int, label: str,
+                        reps: int, rounds: int) -> dict:
+    """Both paths of ``countingbf.update_partitioned`` (the grouped one
+    where it fits) on one batch at ``n_seg``, in turns on zeroed counters:
+    {path: ms}, the rule's path under "rule"."""
+    part = ops._partition_device(spec, first, n_seg, None)
+    scratch = V.init(spec, "cuda")
+    smem = sbf.partition_smem_bytes("cuda")
+    paths = [p for p in cnt.PARTITIONED_PATHS if p == "global"
+             or cnt.grouped_fits(spec.storage_words, n_seg,
+                                 spec.counter_row_words, smem)]
+    t = time_restored_turns(
+        {p: (lambda p=p: cnt.update_partitioned(
+            spec, scratch, part.keys_by_seg, part.valid, n_seg, "add",
+            path=p)) for p in paths}, scratch.zero_, f"{label} {n_seg}",
+        reps, rounds)
+    t["rule"] = cnt.choose_partitioned_path(n_seg, spec.storage_words,
+                                            spec.counter_row_words, smem)
+    return t
+
+
+def partitioned_grouped_floor_ms(spec, part, chunk: int) -> float:
+    """The grouped path's own floor for one partitioned batch: the valid
+    bytes and the valid keys read once, and each touched row read and
+    written once a chunk that touches it, at the DRAM rate."""
+    n_seg, cap = part.valid.shape
+    rows = cnt.grouped_rows(spec.storage_words, n_seg,
+                            spec.counter_row_words)
+    live = part.valid.reshape(-1) != 0
+    slot = torch.arange(n_seg * cap, device=live.device)[live]
+    h2 = H.hash_keys(part.keys_by_seg.reshape(-1, 2)[live])[1]
+    row = H.block_index(h2, spec.n_blocks) % rows
+    visit = ((slot // cap) * (-(-cap // chunk)) + (slot % cap) // chunk
+             ) * rows + row
+    visits = int(torch.unique(visit).numel())
+    nbytes = (n_seg * cap + 8 * int(live.sum())
+              + 2 * 4 * spec.counter_row_words * visits)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def phase_partitioned_main(kind: str, regime: str, n: int, errs: dict,
                            records: dict, launches: dict, card: str):
     """Phase 4e, partitioned: ``ops.bloom_add_partitioned`` (sbf) or
@@ -2567,7 +2905,11 @@ def phase_partitioned_main(kind: str, regime: str, n: int, errs: dict,
     n_segments = 8 and at the smallest count whose segment fits shared
     memory; DRAM cells in batches of 2^24 keys. Words against the plain
     version in full; the partition step, the partitioned kernel and the
-    atomic kernel timed on one batch."""
+    atomic kernel timed on one batch. Counters: each call's plan
+    (``countingbf.LAST_PARTITIONED_PLAN``) and peak extra memory, both
+    paths in turns at n_segments 8, 16, ... up to 16 x the fitting count
+    (the rule's path must not be the slower beyond the rounds' spread), and
+    the grouped path's floor."""
     counting = kind == "countingbf"
     name = "update_partitioned" if counting else "add_partitioned"
     mod = cnt if counting else sbf
@@ -2591,8 +2933,12 @@ def phase_partitioned_main(kind: str, regime: str, n: int, errs: dict,
         want = update_in_chunks(functools.partial(sbf.add_plain, spec),
                                 V.init(spec, "cuda"), keys)
     sub = keys[:SUBSET]
+    first = keys[:batch]
+    reps, rounds = (REPS, ROUNDS) if regime == "L2" else (5, 3)
+    n_fit = fitting_segments(spec)
+    smem = sbf.partition_smem_bytes("cuda")
     cell = {}
-    for n_seg in (8, fitting_segments(spec)):
+    for n_seg in (8, n_fit):
         words = V.init(spec, "cuda")
         torch.cuda.synchronize()
         mod.reset_launches()               # the main path, counted
@@ -2600,6 +2946,7 @@ def phase_partitioned_main(kind: str, regime: str, n: int, errs: dict,
         for chunk in keys.split(batch):
             partitioned_update(spec, words, chunk, n_seg)
         if counting:
+            plan = dict(cnt.LAST_PARTITIONED_PLAN)
             for chunk in keys[:half].split(batch):
                 partitioned_update(spec, words, chunk, n_seg, op="remove")
         torch.cuda.synchronize()
@@ -2611,98 +2958,136 @@ def phase_partitioned_main(kind: str, regime: str, n: int, errs: dict,
         errs[name] = max(errs[name],
                          max_err(words, want_rm if counting else want))
         # one batch, the partition step and the kernel apart
-        first = keys[:batch]
         part = ops._partition_device(spec, first, n_seg, None)
-        fits = spec.storage_words * 4 // n_seg <= sbf.partition_smem_bytes(
-            "cuda")
         scratch = V.init(spec, "cuda")
-        reps, rounds = (REPS, ROUNDS) if regime == "L2" else (5, 3)
         t_part = time_ms(lambda: ops._partition_device(spec, first, n_seg,
                                                        None),
                          f"{label} {n_seg} partition", reps, rounds)
         if counting:
+            path = cnt.choose_partitioned_path(
+                n_seg, spec.storage_words, spec.counter_row_words, smem)
+            if plan["path"] != path:
+                raise AssertionError(f"{label}: ran {plan}, not the rule's "
+                                     f"{path}")
             t_kernel = time_restored_ms(
                 lambda: cnt.update_partitioned(spec, scratch,
                                                part.keys_by_seg, part.valid,
                                                n_seg, "add"),
                 scratch.zero_, f"{label} {n_seg} kernel", reps, rounds)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            cnt.update_partitioned(spec, scratch, part.keys_by_seg,
+                                   part.valid, n_seg, "remove")
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            if peak > 0:
+                raise AssertionError(f"{label}: the update allocated "
+                                     f"{peak} B; its plan has no workspace")
+            how = f"{path}, plan {plan}, peak extra memory {peak} B"
         else:
             t_kernel = time_ms(lambda: sbf.add_partitioned(
                 spec, scratch, part.keys_by_seg, part.valid, n_seg),
                 f"{label} {n_seg} kernel", reps, rounds)
+            path = ("shared memory" if spec.n_words * 4 // n_seg <= smem
+                    else "global atomics")
+            how = path
         slots = part.valid.numel()
         lo, hi = SPREAD[f"{label} {n_seg} kernel"]
         print(f"main {label}: {spec}, {n} keys in batches of {batch}, "
-              f"n_segments {n_seg} ({'shared memory' if fits else 'global atomics'}, "
-              f"capacity {part.valid.shape[1]}): "
+              f"n_segments {n_seg} ({how}, capacity "
+              f"{part.valid.shape[1]}): "
               f"{'add and remove of half' if counting else 'add'} in "
               f"{wall * 1e3:.1f} ms host clock, words equal to the plain "
               f"version's in full, {counted} launches [{card}]; one batch: "
               f"partition {t_part:.4f} ms, kernel {t_kernel:.4f} ms (rounds "
               f"{lo:.4f}-{hi:.4f}), {batch / t_kernel / 1e3:.1f} Mops/s")
         cell[n_seg] = {"partition_ms": t_part, "kernel_ms": t_kernel,
-                       "slots": slots, "shared": fits,
+                       "slots": slots, "path": path,
                        "capacity": part.valid.shape[1]}
         del words, part, scratch
-    # the schedule axis: smaller segments put more CTAs on an SM
-    first = keys[:batch]
-    reps, rounds = (REPS, ROUNDS) if regime == "L2" else (5, 3)
-    sweep = {}
-    for n_seg in (fitting_segments(spec) * f for f in (2, 4, 8, 16)):
-        part = ops._partition_device(spec, first, n_seg, None)
-        scratch = V.init(spec, "cuda")
-        if counting:
-            sweep[n_seg] = time_restored_ms(
-                lambda: cnt.update_partitioned(spec, scratch,
-                                               part.keys_by_seg, part.valid,
-                                               n_seg, "add"),
-                scratch.zero_, f"{label} sweep {n_seg}", reps, rounds)
-        else:
+    if counting:
+        # both paths in turns from n_segments 8 up: the rule's sweep
+        sweep, wrong, rows = {}, [], []
+        n_seg = 8
+        while n_seg <= 16 * n_fit:
+            t = counting_path_turns(spec, first, n_seg, f"{label} paths",
+                                    reps, rounds)
+            sweep[n_seg] = t
+            rule = t["rule"]
+            for other in cnt.PARTITIONED_PATHS:
+                if other == rule or other not in t:
+                    continue
+                hi_other = SPREAD[f"{label} paths {n_seg} {other}"][1]
+                if (t[rule] > hi_other and t[rule] > 1.05 * t[other]
+                        and t[rule] - t[other] > 0.005):
+                    wrong.append((n_seg, rule, t[rule], other, t[other]))
+            rows.append(f"{n_seg}: global {t['global']:.4f}"
+                        + (f" / grouped {t['grouped']:.4f}"
+                           if "grouped" in t else "") + f" (rule {rule})")
+            n_seg *= 2
+        print(f"time {label} paths in turns [{card}] (one batch of {batch} "
+              f"keys, add into zeroed counters; n_segments: ms): "
+              + ", ".join(rows))
+        if wrong:
+            raise AssertionError(f"{label}: the rule picks the slower path "
+                                 f"at (n_segments, rule, ms, other, ms) "
+                                 f"{wrong}")
+        t_global = sweep[n_fit]["global"]
+        fpart = ops._partition_device(spec, first, n_fit, None)
+        floor_ms = partitioned_grouped_floor_ms(spec, fpart,
+                                                cnt.GROUPED_CHUNK)
+        del fpart
+        print(f"{label}: at each of {len(sweep)} counts the rule's path is "
+              f"the faster one within the rounds' spread; the grouped "
+              f"path's floor at n_segments {n_fit} (valid bytes and keys "
+              f"once, each touched row read and written once a chunk) "
+              f"{floor_ms:.4f} ms a batch")
+        want_first = update_in_chunks(
+            lambda w, k: cnt.update_plain(spec, w, k, None, "add"),
+            V.init(spec, "cuda"), first)
+    else:
+        # the schedule axis: smaller segments put more CTAs on an SM
+        sweep = {}
+        for n_seg in (n_fit * f for f in (2, 4, 8, 16)):
+            part = ops._partition_device(spec, first, n_seg, None)
+            scratch = V.init(spec, "cuda")
             sweep[n_seg] = time_ms(lambda: sbf.add_partitioned(
                 spec, scratch, part.keys_by_seg, part.valid, n_seg),
                 f"{label} sweep {n_seg}", reps, rounds)
-    print(f"time {label} n_segments sweep [{card}]: one batch: " + ", ".join(
-        f"n_segments {k} {v:.4f} ms" for k, v in sweep.items()))
-    # the global-atomic path at the fitting count, which the segment size
-    # does not select there: the other side of the path choice
-    n_fit = fitting_segments(spec)
-    part = ops._partition_device(spec, first, n_fit, None)
-    scratch = V.init(spec, "cuda")
-    with global_atomics():
-        if counting:
-            t_global = time_restored_ms(
-                lambda: cnt.update_partitioned(spec, scratch,
-                                               part.keys_by_seg, part.valid,
-                                               n_fit, "add"),
-                scratch.zero_, f"{label} global {n_fit}", reps, rounds)
-            want_first = update_in_chunks(
-                lambda w, k: cnt.update_plain(spec, w, k, None, "add"),
-                V.init(spec, "cuda"), first)
-        else:
+        print(f"time {label} n_segments sweep [{card}]: one batch: "
+              + ", ".join(f"n_segments {k} {v:.4f} ms"
+                          for k, v in sweep.items()))
+        # the global-atomic path at the fitting count, which the segment
+        # size does not select there: the other side of the path choice
+        part = ops._partition_device(spec, first, n_fit, None)
+        scratch = V.init(spec, "cuda")
+        with global_atomics():
             t_global = time_ms(lambda: sbf.add_partitioned(
                 spec, scratch, part.keys_by_seg, part.valid, n_fit),
                 f"{label} global {n_fit}", reps, rounds)
             want_first = update_in_chunks(functools.partial(sbf.add_plain,
                                                             spec),
                                           V.init(spec, "cuda"), first)
-    errs[name] = max(errs[name], max_err(scratch, want_first))
-    print(f"time {label} path choice [{card}]: one batch at n_segments "
-          f"{n_fit}: shared memory {cell[n_fit]['kernel_ms']:.4f} ms, global "
-          f"atomics {t_global:.4f} ms (words equal to the plain version's)")
+        errs[name] = max(errs[name], max_err(scratch, want_first))
+        print(f"time {label} path choice [{card}]: one batch at n_segments "
+              f"{n_fit}: shared memory {cell[n_fit]['kernel_ms']:.4f} ms, "
+              f"global atomics {t_global:.4f} ms (words equal to the plain "
+              f"version's)")
     # beside them: the atomic kernel of rows 2/4 or 10/12 on the same batch
     scratch = V.init(spec, "cuda")
     if counting:
         t_atomic = time_restored_ms(
             lambda: (cnt.update_vmem if regime == "L2" else cnt.update_hbm)(
                 spec, scratch, first, None, "add"), scratch.zero_,
-            f"{label} atomic", *((REPS, ROUNDS) if regime == "L2" else (5, 3)))
+            f"{label} atomic", reps, rounds)
     else:
         t_atomic = time_ms(
             lambda: (sbf.add_vmem(spec, scratch, first) if regime == "L2"
                      else sbf.add_hbm(spec, scratch, first)),
-            f"{label} atomic", *((REPS, ROUNDS) if regime == "L2" else (5, 3)))
+            f"{label} atomic", reps, rounds)
     # kernel vs plain and bound on 2^22 keys at the fitting n_segments
-    part =ops._partition_device(spec, sub, n_fit, None)
+    part = ops._partition_device(spec, sub, n_fit, None)
     scratch = V.init(spec, "cuda")
     if counting:
         t_sub = time_restored_ms(lambda: cnt.update_partitioned(
@@ -2743,6 +3128,9 @@ def phase_partitioned_main(kind: str, regime: str, n: int, errs: dict,
         "source": COUNTING_SOURCE if counting else SOURCE,
         "replaces": PART_REPLACES[name], "launches": 0, "max_abs_err": 0,
         "library_ms": None, "n_keys": SUBSET})
+    if counting:
+        rec["cuda_kernels"] = ["counting_partitioned_grouped_kernel",
+                               "counting_partitioned_global_kernel"]
     prefix = "" if regime == "L2" else "dram_"
     if regime == "L2":
         rec.update({"ms": t_sub, "plain_ms": t_plain, "bound_ms": b_sub[0],
@@ -2754,6 +3142,8 @@ def phase_partitioned_main(kind: str, regime: str, n: int, errs: dict,
                 f"{prefix}global_ms": t_global,
                 f"{prefix}cells": {str(s): c for s, c in cell.items()},
                 f"{prefix}sweep_ms": {str(s): v for s, v in sweep.items()}})
+    if counting:
+        rec[f"{prefix}grouped_floor_ms"] = floor_ms
     del keys, want, want_first, scratch, part
     if counting:
         del want_rm
@@ -3945,8 +4335,9 @@ def quotient_records(cells: dict, errs: dict, launches: dict) -> dict:
 
 def profile_cbf(card: str):
     """``--profile``: device time by kernel (``torch.profiler``) of the
-    binned cbf add in the two cbf cells (2^23 keys into 2^27 bits, 2^28 into
-    2^32, k = 11), the scatter's time among them."""
+    binned cbf add and the binned contains in the two cbf cells (2^23 keys
+    into 2^27 bits, 2^28 into 2^32, k = 11), the scatter's time among
+    them."""
     for n, log2m in ((1 << 23, 27), (1 << 28, 32)):
         spec = V.FilterSpec("cbf", 1 << log2m, 11)
         words, keys = V.init(spec, "cuda"), gen_keys(n, 21)
@@ -3962,6 +4353,18 @@ def profile_cbf(card: str):
         rows = [r for r in rows if r[0] > 0]
         print(f"profile cbf binned add [{card}] ({spec}, {n} keys, "
               f"{cbf.LAST_ADD_PLAN['batches']} batches): "
+              + (", ".join(f"{k.split('::')[-1][:40]} x{c} "
+                           f"{us / 1e3:.4f} ms" for us, c, k in rows)
+                 + f"; device total {sum(r[0] for r in rows) / 1e3:.4f} ms"
+                 if rows else "no device time recorded (not measured)"))
+        with torch.profiler.profile(activities=acts) as prof:
+            cbf.contains_vmem(spec, words, keys, path="binned")
+            torch.cuda.synchronize()
+        rows = sorted(((getattr(e, "device_time_total", 0), e.count, e.key)
+                       for e in prof.key_averages()), reverse=True)
+        rows = [r for r in rows if r[0] > 0]
+        print(f"profile cbf binned contains [{card}] ({spec}, {n} keys, "
+              f"{cbf.LAST_CONTAINS_PLAN['batches']} batches): "
               + (", ".join(f"{k.split('::')[-1][:40]} x{c} "
                            f"{us / 1e3:.4f} ms" for us, c, k in rows)
                  + f"; device total {sum(r[0] for r in rows) / 1e3:.4f} ms"

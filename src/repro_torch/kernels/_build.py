@@ -62,14 +62,17 @@ ENTRY_POINTS = {
     "cbf_contains": ("cbf", [_vp, _vp, _vp, _vp, _ll, _i, _i, _vp]),
     "cbf_add": ("cbf", [_vp, _vp, _vp, _ll, _i, _i, _vp]),
     # + the u32 workspace; (bin_bits, keys a batch, chunks); the chunks of
-    # the card as (log2m, k, bin_bits)
+    # the card as (log2m, k, bin_bits, 1 for the contains' scatter)
     "cbf_add_binned": ("cbf", [_vp, _vp, _vp, _vp, _ll, _i, _i, _i, _ll, _i,
                                _vp]),
-    "cbf_binned_chunks": ("cbf", [_i, _i, _i]),
+    "cbf_contains_binned": ("cbf", [_vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _i,
+                                    _ll, _i, _vp]),
+    "cbf_binned_chunks": ("cbf", [_i, _i, _i, _i]),
     "ring_contains": ("ring", [_vp, _vp, _vp, _vp, _ll, _ll, _i, _u32, _i,
                                _i, _i, _i, _i, _i, _vp]),
     # partitioned updates: (n_segments, capacity) slots, the segment's words,
-    # a shared-memory flag; bloom_partition_smem(device) is the budget of both
+    # a path flag (bloom: shared memory; counting: the grouped kernel);
+    # bloom_partition_smem(device) is the budget of both
     "bloom_add_partitioned": ("bloom", [_vp, _vp, _vp, _vp, _ll, _ll, _u32,
                                         _u32, _i, _i, _i, _i, _i, _i, _vp]),
     "bloom_partition_smem": ("bloom", [_i]),

@@ -8,12 +8,21 @@ so each row of the kernel table maps one to one:
 wrapper         replaces (repro/kernels/cbf.py)  CUDA kernels (csrc/cbf.cu)
 =============== ================================ ===========================
 contains_vmem   contains_vmem                    cbf_contains_kernel
+                                                 (one-pass), or the binned
+                                                 contains:
+                                                 cbf_bin_count_kernel,
+                                                 cbf_bin_column_kernel,
+                                                 cbf_bin_scan_kernel,
+                                                 cbf_bin_scatter_kernel
+                                                 <uint64_t>,
+                                                 cbf_bin_test_kernel
 add_vmem        add_vmem                         cbf_add_kernel (one-pass),
                                                  or the binned add:
                                                  cbf_bin_count_kernel,
                                                  cbf_bin_column_kernel,
                                                  cbf_bin_scan_kernel,
-                                                 cbf_bin_scatter_kernel,
+                                                 cbf_bin_scatter_kernel
+                                                 <uint32_t>,
                                                  cbf_bin_apply_kernel
 =============== ================================ ===========================
 
@@ -38,6 +47,16 @@ thresholds come from a sweep of both paths in turns on the H100
 last card add's plan (:func:`add_plan`). :func:`add_binned_model` is the
 binned path's stages in plain PyTorch, for tests.
 
+The contains has the same two paths. The binned one groups a batch's
+probes by bin with the add's first three kernels, records each probe's
+key beside its offset (a u64 slot), and tests each touched bin's probes
+against the bin held in shared memory, storing ``False`` for a miss;
+:func:`choose_contains_path` picks it, ``LAST_CONTAINS_PLAN`` keeps the
+plan (:func:`contains_plan`) and :func:`contains_binned_model` is its CPU
+model. A binned call's workspace is bounded by the card's free memory:
+:func:`cap_for_memory` lowers the positions a batch holds until the plan
+fits, which only adds internal batches.
+
 Wrappers take ``int32`` tensors: keys ``(n, 2)`` holding ``[hi, lo]`` and
 filter words ``(n_words,)``. For CPU tensors a wrapper runs its plain
 version (:func:`contains_plain`, :func:`add_plain`); for CUDA tensors it
@@ -47,6 +66,7 @@ a call, whatever the path).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -72,6 +92,14 @@ LOG2_MAX_BINS = 13                      # 8192 bins: 32 KiB of histogram
 # filter passes and costs device memory. Counts, offsets and slots are u32:
 # the kernels refuse a batch of more than 2^31 positions.
 POSITION_CAP = 1 << 29
+# Probes an internal batch of the binned contains holds: 2^27 (~12.2M keys a
+# batch at k = 11, a 1 GiB workspace). A miss stores False to its key's
+# result byte at random, so a batch's results (one byte a key) should stay
+# in L2: for 2^28 keys that are not members of a 2^32-bit filter the test
+# kernel took 26.0 ms with 12.2 MB of results a batch and 59.7 ms with
+# 48.8 MB (2^29 probes), the whole contains 63.9 against 97.8 ms; for
+# members 49.9 against 47.0 (H100 80GB HBM3, tools/cbf_sweep.py; PERF.md).
+CONTAINS_POSITION_CAP = 1 << 27
 FILLER = 0xFFFFFFFF                     # pads a run to a whole sector
 SECTOR_SLOTS = 8                        # u32 slots of a 32-byte sector
 # The path rule: the fewest positions (n * k) at which the binned add is
@@ -82,9 +110,26 @@ SECTOR_SLOTS = 8                        # u32 slots of a 32-byte sector
 # 2^27 bits and fewer sit in L2, where one-pass won at every size.
 BINNED_MIN_POSITIONS = {28: 1 << 24, 29: 1 << 21, 30: 1 << 21, 31: 1 << 22,
                         32: 1 << 23}
+# The contains' path rule, as BINNED_MIN_POSITIONS: the fewest probes (n *
+# k) from which the binned contains is no slower whatever share of the keys
+# are members, by log2 m. The rule cannot see that share, and it moves the
+# crossover: a key that is not a member ends early on one-pass (~8 probes,
+# not 11) and stores misses on binned. A sweep of both paths in turns on an
+# H100 80GB HBM3 at 700 W (tools/cbf_sweep.py: k = 11, keys 2^14 ... 2^28
+# of which none, half or all are members of a filter filled to 16 bits a
+# key; PERF.md): at 2^32 bits binned first won at 2^21 keys for half and
+# all members and at 2^23 for none (2^22: 0.96x), so the threshold lies
+# between 2^22 and 2^23 keys; at 2^30 and 2^31 bits it lost 1-7 % at every
+# size for none (and won 1.2-1.75x for half or all), and at 2^29 bits and
+# fewer it lost, so those filters stay one-pass.
+CONTAINS_BINNED_MIN_POSITIONS = {32: 1 << 26}
+# Device memory a binned call leaves free beside its workspace where the
+# workspace at the cap did not fit
+WORKSPACE_MARGIN = 1 << 28
 
-# The plan of the last add_vmem call on the card (add_plan's keys)
+# The plans of the last add_vmem and contains_vmem calls on the card
 LAST_ADD_PLAN: dict = {}
+LAST_CONTAINS_PLAN: dict = {}
 
 
 def reset_launches() -> None:
@@ -143,6 +188,13 @@ def binned_fits(m_bits: int, bin_bits: int) -> bool:
             and V._log2i(m_bits) - bin_bits <= LOG2_MAX_BINS)
 
 
+def _rule(table: dict, n: int, m_bits: int, k: int, smem_bytes: int) -> str:
+    least = table.get(V._log2i(m_bits))
+    if least is None or not binned_fits(m_bits, bin_bits_for(smem_bytes)):
+        return "one-pass"
+    return "binned" if n * k >= least else "one-pass"
+
+
 def choose_path(n: int, m_bits: int, k: int, smem_bytes: int) -> str:
     """The add's path on the card, a pure function of the batch (n keys), the
     filter (m bits, k probes a key) and the card's shared memory a CTA.
@@ -153,14 +205,48 @@ def choose_path(n: int, m_bits: int, k: int, smem_bytes: int) -> str:
     and writing every touched bin once costs less than the atomics it
     replaces) and the card's shared memory holds a bin. The path never
     changes a result."""
-    least = BINNED_MIN_POSITIONS.get(V._log2i(m_bits))
-    if least is None or not binned_fits(m_bits, bin_bits_for(smem_bytes)):
-        return "one-pass"
-    return "binned" if n * k >= least else "one-pass"
+    return _rule(BINNED_MIN_POSITIONS, n, m_bits, k, smem_bytes)
 
 
-def _round8(x: int) -> int:
-    return -(-x // SECTOR_SLOTS) * SECTOR_SLOTS
+def choose_contains_path(n: int, m_bits: int, k: int, smem_bytes: int
+                         ) -> str:
+    """The contains' path on the card, a pure function as
+    :func:`choose_path`: binned where the filter's size has a threshold in
+    ``CONTAINS_BINNED_MIN_POSITIONS`` (filters past L2), the batch has at
+    least that many probes and the card's shared memory holds a bin. The L2
+    cell and small batches stay one-pass. The path never changes a
+    result."""
+    return _rule(CONTAINS_BINNED_MIN_POSITIONS, n, m_bits, k, smem_bytes)
+
+
+def _round(x: int, to: int = SECTOR_SLOTS) -> int:
+    return -(-x // to) * to
+
+
+def _plan(what: str, n: int, m_bits: int, k: int, path: str, bin_bits: int,
+          cap: int, chunks: int, slot_bytes: int) -> dict:
+    if path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS}, not {path!r}")
+    if path == "one-pass":
+        return {"path": path, "bin_bits": None, "n_bins": 0,
+                "batches": int(n > 0), "positions": n * k, "batch_keys": n,
+                "chunks": 0, "workspace_bytes": 0}
+    if not binned_fits(m_bits, bin_bits):
+        raise ValueError(f"no binned {what} for m = {m_bits} bits in bins "
+                         f"of 2^{bin_bits} bits")
+    batch = cap // k
+    if batch < 1 or batch * k > 1 << 31:
+        raise ValueError(f"a batch must hold 1 .. 2^31 / k keys, not "
+                         f"cap {cap} // k {k}")
+    _, n_bins = bin_geometry(m_bits, bin_bits)
+    batch_keys = min(n, batch)
+    sector = 32 // slot_bytes                      # slots a sector
+    slots = batch_keys * k + (sector - 1) * chunks * n_bins
+    return {"path": path, "bin_bits": bin_bits, "n_bins": n_bins,
+            "batches": -(-n // batch), "positions": n * k,
+            "batch_keys": batch_keys, "chunks": chunks,
+            "workspace_bytes": (4 * _round((chunks + 2) * n_bins)
+                                + slot_bytes * _round(slots, sector))}
 
 
 def add_plan(n: int, m_bits: int, k: int, path: str,
@@ -173,27 +259,80 @@ def add_plan(n: int, m_bits: int, k: int, path: str,
     the call allocates: per-chunk counts, each bin's start and end, and a
     batch's positions with each chunk's run in a bin padded to a sector;
     u32 each)."""
-    if path not in PATHS:
-        raise ValueError(f"path must be one of {PATHS}, not {path!r}")
-    if path == "one-pass":
-        return {"path": path, "bin_bits": None, "n_bins": 0,
-                "batches": int(n > 0), "positions": n * k, "batch_keys": n,
-                "chunks": 0, "workspace_bytes": 0}
-    if not binned_fits(m_bits, bin_bits):
-        raise ValueError(f"no binned add for m = {m_bits} bits in bins of "
-                         f"2^{bin_bits} bits")
-    batch = cap // k
-    if batch < 1 or batch * k > 1 << 31:
-        raise ValueError(f"a batch must hold 1 .. 2^31 / k keys, not "
-                         f"cap {cap} // k {k}")
-    _, n_bins = bin_geometry(m_bits, bin_bits)
-    batch_keys = min(n, batch)
-    slots = batch_keys * k + (SECTOR_SLOTS - 1) * chunks * n_bins
-    return {"path": path, "bin_bits": bin_bits, "n_bins": n_bins,
-            "batches": -(-n // batch), "positions": n * k,
-            "batch_keys": batch_keys, "chunks": chunks,
-            "workspace_bytes": 4 * (_round8((chunks + 2) * n_bins)
-                                    + _round8(slots))}
+    return _plan("add", n, m_bits, k, path, bin_bits, cap, chunks, 4)
+
+
+def contains_plan(n: int, m_bits: int, k: int, path: str,
+                  bin_bits: int = BIN_BITS, cap: int = CONTAINS_POSITION_CAP,
+                  chunks: int = 1) -> dict:
+    """What a contains of n keys runs, with :func:`add_plan`'s keys; the
+    binned workspace's slots are u64, each probe's key index beside its
+    offset, 4 a sector, so each chunk's run in a bin pads to 4 slots. The
+    (n,) result is not workspace."""
+    return _plan("contains", n, m_bits, k, path, bin_bits, cap, chunks, 8)
+
+
+def cap_for_memory(planner, n: int, m_bits: int, k: int, bin_bits: int,
+                   cap: int, chunks: int, free_bytes: int) -> int:
+    """The largest cap, ``cap`` halved as often as needed, whose binned
+    plan (``planner``: :func:`add_plan` or :func:`contains_plan`) has a
+    workspace that fits ``free_bytes`` less ``WORKSPACE_MARGIN``. A smaller
+    cap only adds internal batches, so the words and results stay the
+    same. Raises ``MemoryError`` where a batch of one key does not fit."""
+    room = free_bytes - WORKSPACE_MARGIN
+    while cap >= k:
+        if planner(n, m_bits, k, "binned", bin_bits, cap,
+                   chunks)["workspace_bytes"] <= room:
+            return cap
+        cap //= 2
+    raise MemoryError(f"no binned workspace for {n} keys fits {free_bytes} B "
+                      f"of free device memory")
+
+
+def free_device_bytes(device: torch.device) -> int:
+    """Device memory a call can allocate: the card's free memory and what
+    PyTorch's caching allocator holds unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def _binned_slots(spec: FilterSpec, keys: torch.Tensor, bin_bits: int,
+                  chunks: int, sector: int = SECTOR_SLOTS) -> tuple:
+    """One internal batch's slots as the kernels lay them out, for the CPU
+    models: each key's k positions counted by (bin, chunk) (stage 1), each
+    bin's slice the chunks' runs in chunk order, each padded to a whole
+    sector of ``sector`` slots (2, 3), and each position's offset inside its
+    bin (and, for the contains, its key's index) written into
+    its chunk's run in key order, ``FILLER`` into the padding (4; the
+    kernels' order inside a run differs, and neither OR nor a test cares).
+    Returns (bin, offset, key index) of the slots that are not padding."""
+    log2_bin, n_bins = bin_geometry(spec.m_bits, bin_bits)
+    h1, h2 = H.hash_keys(keys)
+    nb = h1.shape[0]
+    pos = V.cbf_positions(spec, h1, h2)                       # (nb, k)
+    bounds = torch.tensor([c * nb // chunks for c in range(chunks + 1)])
+    chunk = torch.searchsorted(bounds, torch.arange(nb), right=True) - 1
+    cell = ((pos >> bin_bits) * chunks + chunk[:, None]).reshape(-1)
+    counts = torch.bincount(cell, minlength=n_bins * chunks)
+    runs = (counts + sector - 1) // sector * sector
+    run_at = torch.cumsum(runs, 0) - runs                # bin-major, chunks
+    lengths = runs.reshape(n_bins, chunks).sum(1)
+    starts = torch.cumsum(lengths, 0) - lengths
+    order = torch.argsort(cell, stable=True)             # key order in a run
+    rank = torch.arange(cell.numel()) - (torch.cumsum(counts, 0)
+                                         - counts)[cell[order]]
+    slot = run_at[cell[order]] + rank
+    work = torch.full((int(lengths.sum()),), FILLER, dtype=torch.int64)
+    work[slot] = pos.reshape(-1)[order] & ((1 << log2_bin) - 1)
+    key = torch.zeros_like(work)
+    key[slot] = order // spec.k
+    live = work != FILLER
+    if int(live.sum()) != cell.numel() or not torch.equal(
+            run_at.reshape(n_bins, chunks)[:, 0], starts):
+        raise AssertionError("the runs do not tile the bins' slices")
+    owner = torch.repeat_interleave(torch.arange(n_bins), lengths)
+    return owner[live], work[live], key[live]
 
 
 def add_binned_model(spec: FilterSpec, filt: torch.Tensor,
@@ -201,12 +340,9 @@ def add_binned_model(spec: FilterSpec, filt: torch.Tensor,
                      cap: int = POSITION_CAP, chunks: int = 132) -> tuple:
     """The binned add's stages in plain PyTorch, for tests: (new words,
     plan). Per internal batch of ``cap // k`` keys, cut into ``chunks``
-    equal ranges: count each chunk's positions by bin (stage 1), lay out
-    each bin's slice as the chunks' runs in chunk order, each padded to a
-    whole sector (2, 3), write each position's offset inside its bin into
-    its chunk's run in key order and ``FILLER`` into the padding (4; the
-    kernel's order inside a run differs, and OR does not care), and OR each
-    touched bin's offsets into its words (5). ``filt`` is not modified."""
+    equal ranges, the slots of :func:`_binned_slots` (stages 1-4), then each
+    touched bin's offsets ORed into its words (5). ``filt`` is not
+    modified."""
     if spec.variant != "cbf":
         raise ValueError(f"the binned add serves classical filters, not "
                          f"{spec}")
@@ -216,29 +352,9 @@ def add_binned_model(spec: FilterSpec, filt: torch.Tensor,
     bins_view = H.u32(filt).reshape(n_bins, -1).clone()      # (bins, words)
     batch = cap // spec.k
     for first in range(0, n, batch):
-        h1, h2 = H.hash_keys(keys[first:first + batch])
-        nb = h1.shape[0]
-        pos = V.cbf_positions(spec, h1, h2)                   # (nb, k)
-        bounds = torch.tensor([c * nb // chunks for c in range(chunks + 1)])
-        chunk = torch.searchsorted(bounds, torch.arange(nb), right=True) - 1
-        cell = ((pos >> bin_bits) * chunks + chunk[:, None]).reshape(-1)
-        counts = torch.bincount(cell, minlength=n_bins * chunks)
-        runs = (counts + SECTOR_SLOTS - 1) // SECTOR_SLOTS * SECTOR_SLOTS
-        run_at = torch.cumsum(runs, 0) - runs            # bin-major, chunks
-        lengths = runs.reshape(n_bins, chunks).sum(1)
-        starts = torch.cumsum(lengths, 0) - lengths
-        order = torch.argsort(cell, stable=True)         # key order in a run
-        rank = torch.arange(cell.numel()) - (torch.cumsum(counts, 0)
-                                             - counts)[cell[order]]
-        work = torch.full((int(lengths.sum()),), FILLER, dtype=torch.int64)
-        work[run_at[cell[order]] + rank] = (pos.reshape(-1)[order]
-                                            & ((1 << log2_bin) - 1))
-        live = work != FILLER
-        if int(live.sum()) != cell.numel() or not torch.equal(
-                run_at.reshape(n_bins, chunks)[:, 0], starts):
-            raise AssertionError("the runs do not tile the bins' slices")
-        owner = torch.repeat_interleave(torch.arange(n_bins), lengths)[live]
-        local = torch.unique(owner << log2_bin | work[live])    # by bin
+        owner, offset, _ = _binned_slots(spec, keys[first:first + batch],
+                                         bin_bits, chunks)
+        local = torch.unique(owner << log2_bin | offset)         # by bin
         cells, inv = torch.unique_consecutive(local >> 5, return_inverse=True)
         acc = torch.zeros_like(cells).index_add_(      # distinct bits: OR
             0, inv, torch.ones_like(local) << (local & 31))
@@ -247,13 +363,51 @@ def add_binned_model(spec: FilterSpec, filt: torch.Tensor,
     return H.to_i32(bins_view.reshape(-1)), plan
 
 
+def contains_binned_model(spec: FilterSpec, filt: torch.Tensor,
+                          keys: torch.Tensor,
+                          bin_bits: int = BIN_BITS,
+                          cap: int = CONTAINS_POSITION_CAP,
+                          chunks: int = 132) -> tuple:
+    """The binned contains' stages in plain PyTorch, for tests: ((n,) bool,
+    plan). Per internal batch, the slots of :func:`_binned_slots` with each
+    probe's key index, runs padded to 4 u64 slots (stages 1-4), then each
+    slot's bit tested in its bin
+    and ``False`` stored for its key on a miss, from a result that starts
+    all ``True`` (5). Every probe is tested: there is no early exit."""
+    if spec.variant != "cbf":
+        raise ValueError(f"the binned contains serves classical filters, "
+                         f"not {spec}")
+    n = keys.shape[0]
+    plan = contains_plan(n, spec.m_bits, spec.k, "binned", bin_bits, cap,
+                         chunks)
+    log2_bin, _ = bin_geometry(spec.m_bits, bin_bits)
+    words = H.u32(filt)
+    out = torch.ones((n,), dtype=torch.bool)
+    batch = cap // spec.k
+    for first in range(0, n, batch):
+        owner, offset, key = _binned_slots(spec, keys[first:first + batch],
+                                           bin_bits, chunks, sector=4)
+        bit = (owner << log2_bin) | offset
+        miss = ((words[bit >> 5] >> (bit & 31)) & 1) == 0
+        out[first + key[miss]] = False
+    return out, plan
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def contains_vmem(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor
-                  ) -> torch.Tensor:
-    """Bulk membership, k single-bit probes a key. (n,) bool."""
+def contains_vmem(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
+                  *, path: Optional[str] = None,
+                  bin_bits: Optional[int] = None,
+                  cap: int = CONTAINS_POSITION_CAP) -> torch.Tensor:
+    """Bulk membership, k single-bit probes a key. (n,) bool.
+
+    On the card the path is :func:`choose_contains_path`'s. ``path``,
+    ``bin_bits`` and ``cap`` are private (tests and the smoke; ``ops``
+    never passes them), as for :func:`add_vmem`."""
+    if path is not None and path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS}, not {path!r}")
     if not _on_cuda(filt, keys):
         return contains_plain(spec, filt, keys)
     from repro_torch.kernels._build import library
@@ -262,28 +416,82 @@ def contains_vmem(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor
     out = torch.empty((n,), dtype=torch.bool, device=keys.device)
     if n == 0:
         return out
+    plan, cap, work = _card_plan(contains_plan, choose_contains_path, spec,
+                                 n, keys.device, path, bin_bits, cap)
     lib = library()
+    salts = _salts(keys.device).data_ptr()
     with torch.cuda.device(keys.device):
-        err = lib.cbf_contains(keys.data_ptr(), filt.data_ptr(),
-                               out.data_ptr(), _salts(keys.device).data_ptr(),
-                               n, log2m, spec.k, _stream(keys.device))
+        if plan["path"] == "one-pass":
+            err = lib.cbf_contains(keys.data_ptr(), filt.data_ptr(),
+                                   out.data_ptr(), salts, n, log2m, spec.k,
+                                   _stream(keys.device))
+        else:
+            err = lib.cbf_contains_binned(
+                keys.data_ptr(), filt.data_ptr(), out.data_ptr(), salts,
+                work.data_ptr(), n, log2m, spec.k, plan["bin_bits"],
+                cap // spec.k, plan["chunks"], _stream(keys.device))
     _raise_on(err, "contains_vmem")
     LAUNCHES["contains_vmem"] += 1
+    LAST_CONTAINS_PLAN.clear()
+    LAST_CONTAINS_PLAN.update(plan)
     return out
 
 
-def binned_chunks(spec: FilterSpec, bin_bits: int,
-                  device: torch.device) -> int:
+def binned_chunks(spec: FilterSpec, bin_bits: int, device: torch.device,
+                  keys: bool = False) -> int:
     """The binned kernels' chunks on a CUDA ``device`` (the scatter's CTAs
-    that fill the card)."""
+    that fill the card); ``keys`` for the contains' scatter."""
+    device = torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return _chunks_on(index, V._log2i(spec.m_bits), spec.k, bin_bits, keys)
+
+
+@functools.lru_cache(maxsize=None)
+def _chunks_on(index: int, log2m: int, k: int, bin_bits: int,
+               keys: bool) -> int:
     from repro_torch.kernels._build import library
-    with torch.cuda.device(device):
-        chunks = library().cbf_binned_chunks(V._log2i(spec.m_bits), spec.k,
-                                             bin_bits)
+    with torch.cuda.device(index):
+        chunks = library().cbf_binned_chunks(log2m, k, bin_bits, int(keys))
     if chunks < 1:
-        raise ValueError(f"add_vmem: no binned kernels for {spec} in bins "
-                         f"of 2^{bin_bits} bits on {device}")
+        raise ValueError(f"no binned kernels for 2^{log2m} bits, k = {k} in "
+                         f"bins of 2^{bin_bits} bits on cuda:{index}")
     return chunks
+
+
+def _workspace(nbytes: int, device: torch.device) -> torch.Tensor:
+    """A binned call's u32 workspace (a test substitutes a fake). Freed
+    when the call returns: the caching allocator orders its reuse after
+    the call's kernels on the same stream."""
+    return torch.empty(nbytes // 4, dtype=torch.int32, device=device)
+
+
+def _card_plan(planner, rule, spec: FilterSpec, n: int,
+               device: torch.device, path: Optional[str],
+               bin_bits: Optional[int], cap: int) -> tuple:
+    """(plan, cap, workspace) of a call on the card: the rule's path unless
+    one is given; for the binned path the bins that fit the card's shared
+    memory and the workspace, allocated. Free memory is asked for (a
+    `cudaMemGetInfo` call and the allocator's statistics, ~0.5 ms that
+    stall the stream on the H100) only where the allocation fails: then the
+    cap drops to :func:`cap_for_memory`'s from half the cap that failed,
+    until the workspace allocates; ``MemoryError`` where none does."""
+    smem = partition_smem_bytes(device)
+    if bin_bits is None:
+        bin_bits = bin_bits_for(smem)
+    if path is None:
+        path = rule(n, spec.m_bits, spec.k, smem)
+    if path == "one-pass":
+        return planner(n, spec.m_bits, spec.k, path), cap, None
+    chunks = binned_chunks(spec, bin_bits, device,
+                           keys=planner is contains_plan)
+    while True:
+        plan = planner(n, spec.m_bits, spec.k, path, bin_bits, cap, chunks)
+        try:
+            return plan, cap, _workspace(plan["workspace_bytes"], device)
+        except torch.cuda.OutOfMemoryError:
+            cap = cap_for_memory(planner, n, spec.m_bits, spec.k, bin_bits,
+                                 cap // 2, chunks, free_device_bytes(device))
 
 
 def add_vmem(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor, *,
@@ -294,7 +502,9 @@ def add_vmem(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor, *,
     On the card the path is :func:`choose_path`'s. ``path``, ``bin_bits``
     and ``cap`` are private (tests and the smoke; ``ops`` never passes
     them): a forced path, the bin size and the positions an internal batch
-    holds."""
+    holds (lowered where its workspace does not fit the free memory)."""
+    if path is not None and path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS}, not {path!r}")
     if not _on_cuda(filt, keys):
         return filt.copy_(add_plain(spec, filt, keys))
     from repro_torch.kernels._build import library
@@ -302,29 +512,19 @@ def add_vmem(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor, *,
     n = keys.shape[0]
     if n == 0:
         return filt
-    smem = partition_smem_bytes(keys.device)
-    if bin_bits is None:
-        bin_bits = bin_bits_for(smem)
-    if path is None:
-        path = choose_path(n, spec.m_bits, spec.k, smem)
-    chunks = (binned_chunks(spec, bin_bits, keys.device)
-              if path == "binned" else 0)
-    plan = add_plan(n, spec.m_bits, spec.k, path, bin_bits, cap, chunks)
+    plan, cap, work = _card_plan(add_plan, choose_path, spec, n,
+                                 keys.device, path, bin_bits, cap)
     lib = library()
     salts = _salts(keys.device).data_ptr()
     with torch.cuda.device(keys.device):
-        if path == "one-pass":
+        if plan["path"] == "one-pass":
             err = lib.cbf_add(keys.data_ptr(), filt.data_ptr(), salts, n,
                               log2m, spec.k, _stream(keys.device))
         else:
-            # freed when the call returns: the caching allocator orders its
-            # reuse after these kernels on the same stream
-            work = torch.empty(plan["workspace_bytes"] // 4,
-                               dtype=torch.int32, device=keys.device)
             err = lib.cbf_add_binned(keys.data_ptr(), filt.data_ptr(), salts,
                                      work.data_ptr(), n, log2m, spec.k,
-                                     bin_bits, cap // spec.k, chunks,
-                                     _stream(keys.device))
+                                     plan["bin_bits"], cap // spec.k,
+                                     plan["chunks"], _stream(keys.device))
     _raise_on(err, "add_vmem")
     LAUNCHES["add_vmem"] += 1
     LAST_ADD_PLAN.clear()

@@ -20,16 +20,26 @@ vmem                                              bank form
 bank_contains_ bank_contains_vmem                 counting_contains_kernel,
 vmem                                              bank form, PHI=4,
                                                   DEPTH=depth
-update_        update_partitioned                 counting_update_
-partitioned                                       partitioned_kernel
+update_        update_partitioned                 counting_partitioned_
+partitioned                                       grouped_kernel or
+                                                  counting_partitioned_
+                                                  global_kernel
 ============== ================================== ===========================
 
 ``update_partitioned`` takes keys already bucketed by the counter segment
 that owns their block, ``(n_segments, capacity, 2)`` with a valid mask, and
 updates each valid slot's counters at ``start mod seg_cwords`` of its
-segment; as ``sbf.add_partitioned``, a segment that fits shared memory is
-staged there by one CTA (no global atomics), a larger one takes the
-global CAS loops.
+segment. Two paths on the card give the same counters: ``"grouped"`` (one
+CTA a segment counting-sorts chunks of its slots by row in shared memory
+and updates each touched row once with the closed forms, no atomics on
+counters) and ``"global"`` (a lane a counter word of a key's row, CAS
+loops on global words). :func:`choose_partitioned_path`, a pure function
+of the segment geometry and the card's shared memory, picks one; its
+threshold comes from a sweep of both paths in turns on the H100
+(``chip_smoke.py`` phase 4e; PERF.md). ``LAST_PARTITIONED_PLAN`` keeps the
+last card call's plan (:func:`partitioned_plan`), and
+:func:`update_partitioned_model` is the grouped path's schedule in plain
+PyTorch, for tests.
 
 The bank wrappers take a ``(B, storage_words)`` counter bank, flat keys
 and ``member`` ``(n,)`` int32 ids in ``[0, B)`` (checked: a ``ValueError``
@@ -64,13 +74,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import hashing as H
 from repro_torch.core import variants as V
 from repro_torch.core.variants import FilterSpec
+from repro_torch.kernels import sbf
 from repro_torch.kernels.sbf import (DEFAULT_DMA_DEPTH, DEFAULT_TILE,
                                      DMA_DEPTHS, MAX_WORDS_IN_FLIGHT, Layout,
                                      _check_axes, _on_cuda, _raise_on, _salts,
-                                     check_bank, check_partitioned,
-                                     segment_fits)
+                                     check_bank, check_partitioned)
 
 OPS = ("add", "remove")
 _OP_CODE = {"add": 0, "remove": 1}
@@ -79,6 +90,26 @@ _OP_CODE = {"add": 0, "remove": 1}
 LAUNCHES = {"update_vmem": 0, "contains_vmem": 0, "update_hbm": 0,
             "contains_hbm": 0, "decay": 0, "bank_update_vmem": 0,
             "bank_contains_vmem": 0, "update_partitioned": 0}
+
+
+PARTITIONED_PATHS = ("global", "grouped")
+_PATH_CODE = {"global": 0, "grouped": 1}
+GROUPED_CHUNK = 4096            # slots a chunk of the grouped kernel
+GROUPED_MAX_ROWS = 8192         # rows a segment: a 32 KiB histogram
+GROUPED_STATIC_SMEM = 128       # the grouped kernel's scan sums
+COUNT_CAP = 15                  # a per-nibble saturating count
+# The path rule: the fewest segments and the most rows a segment at which
+# the grouped kernel is the faster. One CTA a segment: with fewer segments
+# too few CTAs fill the card; with more rows a segment each chunk zeroes,
+# scans and walks a larger histogram. Fitted to a sweep of both paths in
+# turns on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 4e, the
+# countingbf cells: global won at 64 segments of 4096 rows and at 512 of
+# 8192, grouped at 128 of 2048 and at 1024 of 4096; PERF.md).
+GROUPED_MIN_SEGMENTS = 128
+GROUPED_RULE_ROWS = 4096
+
+# The plan of the last update_partitioned call on the card
+LAST_PARTITIONED_PLAN: dict = {}
 
 
 def reset_launches() -> None:
@@ -156,6 +187,125 @@ def update_partitioned_plain(spec: FilterSpec, filt: torch.Tensor,
     counters (``filt`` is not modified)."""
     _check_op(op)
     return V.partitioned_counting_update(spec, filt, keys_by_seg, valid, op)
+
+
+def grouped_rows(storage_words: int, n_segments: int, row_words: int
+                 ) -> int:
+    """Counter rows a segment holds, or 0 where a segment is not a whole
+    number of rows."""
+    if n_segments < 1 or storage_words % n_segments:
+        return 0
+    seg = storage_words // n_segments
+    return seg // row_words if seg % row_words == 0 else 0
+
+
+def grouped_smem_bytes(rows: int) -> int:
+    """Shared memory a grouped CTA takes beyond the salts: the row
+    histogram, the chunk's sorted patterns and the scan's sums."""
+    return 4 * (rows + GROUPED_CHUNK) + GROUPED_STATIC_SMEM
+
+
+def grouped_fits(storage_words: int, n_segments: int, row_words: int,
+                 smem_bytes: int) -> bool:
+    """Whether the grouped kernel takes these segments on a card with
+    ``smem_bytes`` of shared memory a CTA (the salts' excluded)."""
+    rows = grouped_rows(storage_words, n_segments, row_words)
+    return (1 <= rows <= GROUPED_MAX_ROWS
+            and grouped_smem_bytes(rows) <= smem_bytes)
+
+
+def choose_partitioned_path(n_segments: int, storage_words: int,
+                            row_words: int, smem_bytes: int) -> str:
+    """The partitioned counting update's path on the card, a pure function
+    of the segments (``n_segments`` of ``storage_words`` counter words, rows
+    of ``row_words``) and the card's shared memory a CTA.
+
+    Grouped where each segment's rows fit the grouped kernel's histogram
+    and its CTA's shared memory, there are at least
+    ``GROUPED_MIN_SEGMENTS`` segments (one CTA each) and a segment holds at
+    most ``GROUPED_RULE_ROWS`` rows; else global. The path never changes a
+    result."""
+    if (n_segments >= GROUPED_MIN_SEGMENTS
+            and grouped_rows(storage_words, n_segments,
+                             row_words) <= GROUPED_RULE_ROWS
+            and grouped_fits(storage_words, n_segments, row_words,
+                             smem_bytes)):
+        return "grouped"
+    return "global"
+
+
+def partitioned_plan(spec: FilterSpec, n_segments: int, capacity: int,
+                     path: str) -> dict:
+    """What a partitioned update runs: ``path``, ``n_segments``,
+    ``capacity`` (slots a segment), ``rows`` (counter rows a segment),
+    ``chunks`` (grouped: chunks a segment) and ``ctas``."""
+    if path not in PARTITIONED_PATHS:
+        raise ValueError(f"path must be one of {PARTITIONED_PATHS}, not "
+                         f"{path!r}")
+    rows = grouped_rows(spec.storage_words, n_segments,
+                        spec.counter_row_words)
+    if path == "grouped" and not 1 <= rows <= GROUPED_MAX_ROWS:
+        raise ValueError(f"no grouped update of {spec} in {n_segments} "
+                         f"segments ({rows} rows each; at most "
+                         f"{GROUPED_MAX_ROWS})")
+    chunks = -(-capacity // GROUPED_CHUNK) if path == "grouped" else 0
+    ctas = (n_segments if path == "grouped"
+            else -(-n_segments * capacity // 512))
+    return {"path": path, "n_segments": n_segments, "capacity": capacity,
+            "rows": rows, "chunks": chunks, "ctas": ctas}
+
+
+def _nibbles(words: torch.Tensor) -> torch.Tensor:
+    """(..., w) u32 words -> (..., w, 8) nibbles."""
+    shifts = torch.arange(8, device=words.device) * V.COUNTER_BITS
+    return (words[..., None] >> shifts) & V.COUNTER_MAX
+
+
+def update_partitioned_model(spec: FilterSpec, filt: torch.Tensor,
+                             keys_by_seg: torch.Tensor, valid: torch.Tensor,
+                             op: str, chunk: int = GROUPED_CHUNK
+                             ) -> torch.Tensor:
+    """The grouped kernel's schedule in plain PyTorch, for tests: new
+    (storage_words,) int32 counters (``filt`` is not modified). Each
+    segment's slots are walked in chunks of ``chunk``; a chunk's valid keys
+    are grouped by their row in the segment, each touched row's per-nibble
+    increments are summed (capped at 15, the kernel's saturating nibble
+    counts: min(c, 15) gives both forms the same nibble) and applied once
+    with the closed form, min(old + c, 15) for add, old == 15 ? 15 :
+    max(old - c, 0) for remove. A small ``chunk`` makes rows span chunks,
+    which the kernel runs in order."""
+    _check_op(op)
+    n_seg, cap = keys_by_seg.shape[0], keys_by_seg.shape[1]
+    rw = spec.counter_row_words
+    rows = grouped_rows(spec.storage_words, n_seg, rw)
+    if rows < 1:
+        raise ValueError(f"{spec}: {n_seg} segments are not whole rows")
+    out = H.u32(filt).clone().reshape(n_seg, rows, rw)
+    n_chunks = -(-cap // chunk)
+    live_slots = torch.zeros((n_seg, n_chunks * chunk), dtype=torch.bool,
+                             device=valid.device)
+    live_slots[:, :cap] = valid != 0
+    for seg, c in live_slots.reshape(n_seg, n_chunks, chunk).any(
+            dim=2).nonzero().tolist():          # chunks with a valid slot
+        c0 = c * chunk
+        live = live_slots[seg, c0:c0 + chunk][: cap - c0]
+        keys = keys_by_seg[seg, c0:c0 + chunk][live]
+        h1, h2 = H.hash_keys(keys)
+        row = (H.block_index(h2, spec.n_blocks) % rows).to(torch.int64)
+        inc = _nibbles(V.expand_mask_words(V.block_patterns(spec, h1)))
+        touched, inv = torch.unique(row, return_inverse=True)
+        count = torch.zeros((touched.numel(), rw, 8), dtype=torch.int64,
+                            device=inc.device).index_add_(0, inv, inc)
+        count = count.clamp(max=COUNT_CAP)
+        old = _nibbles(out[seg, touched])
+        if op == "add":
+            new = torch.clamp(old + count, max=V.COUNTER_MAX)
+        else:
+            new = torch.where(old == V.COUNTER_MAX, old,
+                              torch.clamp(old - count, min=0))
+        shifts = torch.arange(8, device=new.device) * V.COUNTER_BITS
+        out[seg, touched] = (new << shifts).sum(dim=-1)
+    return H.to_i32(out.reshape(-1))
 
 
 def bank_contains_plain(spec: FilterSpec, bank: torch.Tensor,
@@ -390,14 +540,19 @@ def decay(spec: FilterSpec, filt: torch.Tensor, tile_words: int = 4096
 
 def update_partitioned(spec: FilterSpec, filt: torch.Tensor,
                        keys_by_seg: torch.Tensor, valid: torch.Tensor,
-                       n_segments: int, op: str, mix: str = "full"
-                       ) -> torch.Tensor:
+                       n_segments: int, op: str, mix: str = "full", *,
+                       path: Optional[str] = None) -> torch.Tensor:
     """Increment (``op="add"``) or guarded decrement (``"remove"``) of the
     valid slots of ``keys_by_seg`` (n_segments, capacity, 2), each in the
-    counter segment that owns it, one launch (segments in shared memory
-    where they fit). Updates ``filt`` in place."""
+    counter segment that owns it, one launch. Updates ``filt`` in place.
+
+    On the card the path is :func:`choose_partitioned_path`'s; ``path`` is
+    private (tests and the smoke; ``ops`` never passes it)."""
     _check_axes(mix=mix)
     _check_op(op)
+    if path is not None and path not in PARTITIONED_PATHS:
+        raise ValueError(f"path must be one of {PARTITIONED_PATHS}, not "
+                         f"{path!r}")
     if not spec.is_counting:
         raise ValueError(f"{spec} is not a countingbf spec")
     if not check_partitioned(filt, keys_by_seg, valid, n_segments,
@@ -406,18 +561,25 @@ def update_partitioned(spec: FilterSpec, filt: torch.Tensor,
                                                    valid, op))
     from repro_torch.kernels._build import library
     _check_counters(spec, filt)
-    seg_cwords = spec.storage_words // n_segments
-    sh = segment_fits(seg_cwords, filt.device)
+    if path is None:
+        path = choose_partitioned_path(
+            n_segments, spec.storage_words, spec.counter_row_words,
+            sbf.partition_smem_bytes(filt.device))
+    plan = partitioned_plan(spec, n_segments, keys_by_seg.shape[1], path)
+    _check_keys(keys_by_seg)
     valid = valid.contiguous().view(torch.uint8)
     lib = library()
     with torch.cuda.device(filt.device):
         err = lib.counting_update_partitioned(
             keys_by_seg.data_ptr(), valid.data_ptr(), filt.data_ptr(),
             _salts(filt.device).data_ptr(), n_segments,
-            keys_by_seg.shape[1], seg_cwords, spec.n_blocks - 1, spec.s,
-            spec.k, _OP_CODE[op], int(sh), _stream(filt.device))
+            keys_by_seg.shape[1], spec.storage_words // n_segments,
+            spec.n_blocks - 1, spec.s, spec.k, _OP_CODE[op],
+            _PATH_CODE[path], _stream(filt.device))
     _raise_on(err, "update_partitioned")
     LAUNCHES["update_partitioned"] += 1
+    LAST_PARTITIONED_PLAN.clear()
+    LAST_PARTITIONED_PLAN.update(plan)
     return filt
 
 

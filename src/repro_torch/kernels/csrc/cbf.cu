@@ -2,7 +2,8 @@
 // for the cbf variant, k single-bit probes anywhere in m bits.
 //
 // Replaces the two Pallas entry points of repro/kernels/cbf.py:
-//   cbf_contains_kernel <- contains_vmem (_contains_kernel)
+//   cbf_contains_kernel, or the binned contains' five kernels
+//                       <- contains_vmem (_contains_kernel)
 //   cbf_add_kernel, or the binned add's five cbf_bin_*_kernel
 //                       <- add_vmem (_add_kernel)
 //
@@ -71,14 +72,42 @@
 //   the runs' padding), the touched bins read and written once; a batch
 //   holds at most 2^31 positions, so counts, offsets and slots fit u32.
 //
+// * The binned contains (cbf_contains_binned): one thread a key is held at
+//   DRAM's random-sector rate (2^28 keys x 11 probes in 89.67 ms on the
+//   H100, ~33 G sectors a second), which no schedule of one thread a key
+//   moves. A contains probes the add's positions, so it runs the add's
+//   count and scan kernels as they are and its column kernel with runs
+//   padded to 4 slots, then
+//   4. cbf_bin_scatter_kernel<uint64_t>: the add's scatter with u64 slots,
+//      (the key's index in the internal batch << 32) | the offset, 8 B a
+//      slot, 4 a 32-byte sector, so a bin's staging stays the add's 40 B
+//      and a pass takes as many bins as the add's (two u32 arrays staged
+//      side by side need 72 B a bin and twice the passes: 50.3 ms at 2^20
+//      bins, 60.0 at 2^19, on the H100). A second rehash pass cannot find
+//      a probe's slot again, since the order inside a run comes from
+//      shared-memory atomics;
+//   5. cbf_bin_test_kernel: one CTA per bin loads the bin's words into
+//      shared memory and never writes them back; a probe that misses
+//      stores false to its key's result (out is set to true first; equal
+//      stores need no atomics). A bin with no probes is not read.
+//   Bins are the add's (2^19 bits): in bins of 2^20 bits (one pass, one
+//   test CTA an SM) the contains of the DRAM cell took 51.6 ms against
+//   47.0 on the H100. The scatter is bound by its random 32-byte sector
+//   writes (~20 G a second), not by its passes. The one-pass kernel's early
+//   exit (~8 probes for a key that is not in the filter, not 11) is lost:
+//   every probe is binned. Bound: per batch the keys read by the count and
+//   each scatter pass, 8 B a slot written and read once, the touched bins
+//   read once, the results written once.
+//
 // The bit salts (SALTS, the first row of the 3 x 96 salt table) are staged
 // in shared memory once per CTA. Word offsets are pos >> 5 < 2^27.
 //
 // C interface for ctypes: each entry point returns cudaGetLastError() after
 // its launches, 0 for n == 0 (nothing launched), or -1 for a geometry that
 // has no kernel (log2 m outside [5, 32], k outside [1, 96]; for the binned
-// add also bin_bits outside [5, 20], more than 8192 bins, a batch of more
-// than 2^31 positions, or shared memory the card cannot give).
+// add and contains also bin_bits outside [5, 20], more than 8192 bins, a
+// batch of more than 2^31 positions, or shared memory the card cannot
+// give).
 
 #include "bloom_common.cuh"
 
@@ -198,11 +227,12 @@ __global__ void __launch_bounds__(kBinThreads)
 
 // Thread j walks bin j's column: counts[c][j] becomes the offset of chunk
 // c's run inside the bin, each run padded to a whole 32-byte sector (a
-// multiple of 8 slots); totals[j] is the bin's padded length.
+// multiple of `sector` slots: 8 u32 or 4 u64); totals[j] is the bin's
+// padded length.
 __global__ void __launch_bounds__(kColumnThreads)
     cbf_bin_column_kernel(uint32_t* __restrict__ counts,
                           uint32_t* __restrict__ totals, int n_bins,
-                          int chunks) {
+                          int chunks, uint32_t sector) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n_bins) return;
   uint32_t run = 0u;
@@ -211,7 +241,7 @@ __global__ void __launch_bounds__(kColumnThreads)
     uint32_t* cell = counts + size_t(c) * n_bins + j;
     const uint32_t v = *cell;
     *cell = run;
-    run += (v + 7u) & ~7u;
+    run += (v + sector - 1u) & ~(sector - 1u);
   }
   totals[j] = run;
 }
@@ -261,6 +291,22 @@ __global__ void __launch_bounds__(kBinThreads)
   }
 }
 
+// A slot of the positions workspace: the add's u32 offset inside its bin,
+// or the contains' u64 (key index in the batch << 32 | offset). A 32-byte
+// sector holds kSlots of them; a filler slot is all ones.
+template <typename T>
+struct Slot {
+  static constexpr uint32_t kSlots = 32 / sizeof(T);
+  static constexpr uint32_t kShift = kSlots == 8 ? 3 : 2;
+  static constexpr T kFill = T(~T(0));
+  __device__ __forceinline__ static T make(uint32_t off, int64_t key) {
+    if constexpr (sizeof(T) == 4)
+      return off;
+    else
+      return (uint64_t(uint32_t(key)) << 32) | off;
+  }
+};
+
 // One CTA a chunk writes its keys' positions (their offsets inside the bin)
 // into its runs, bins taken `group_bins` at a time (a pass over the chunk
 // each). Each bin's run starts on a sector, and slot s of a bin is written
@@ -275,19 +321,25 @@ __global__ void __launch_bounds__(kBinThreads)
 //      next sector opens, or the first untouched one if the round went past
 //      it;
 //   C: the kept slots go to the open sector, else to the workspace.
-// At the end the last open sector is padded with kFiller to the run's end.
+// At the end the last open sector is padded with filler to the run's end.
 // Dynamic shared memory: 32 B of sector, a counter and a sector index a bin.
+// T = uint64_t (the binned contains): a slot also holds its key's index in
+// the batch, 4 slots a sector, so a bin's staging is the add's 40 B.
+template <typename T>
 __global__ void __launch_bounds__(kBinThreads, 1)
     cbf_bin_scatter_kernel(const uint2* __restrict__ keys,
                            const uint32_t* __restrict__ offsets,
                            const uint32_t* __restrict__ starts,
-                           uint32_t* __restrict__ positions,
+                           T* __restrict__ positions,
                            const uint32_t* __restrict__ salts, int64_t n,
                            int shift, int k, int bin_bits, int n_bins,
                            int group_bins, uint32_t offset_mask) {
+  using S = Slot<T>;
+  constexpr uint32_t kLast = S::kSlots - 1u;
   extern __shared__ uint4 sector4[];
-  uint32_t* sector = reinterpret_cast<uint32_t*>(sector4);
-  uint32_t* slot = sector + 8 * group_bins;
+  T* sector = reinterpret_cast<T*>(sector4);
+  uint32_t* slot = reinterpret_cast<uint32_t*>(sector + S::kSlots *
+                                               group_bins);
   uint32_t* open = slot + group_bins;
   __shared__ uint32_t salt[kMaxSalts];
   stage_bit_salts(salt, salts, k);
@@ -299,7 +351,7 @@ __global__ void __launch_bounds__(kBinThreads, 1)
     for (int j = threadIdx.x; j < group_bins; j += blockDim.x) {
       const uint32_t base = starts[g0 + j] + row[g0 + j];
       slot[j] = base;
-      open[j] = base >> 3;
+      open[j] = base >> S::kShift;
     }
     __syncthreads();
     int64_t i = first + threadIdx.x;
@@ -323,49 +375,52 @@ __global__ void __launch_bounds__(kBinThreads, 1)
           if (lb[u] >= uint32_t(group_bins)) continue;
           off[u] = pos & offset_mask;
           s[u] = atomicAdd(&slot[lb[u]], 1u);
-          const uint32_t sec = s[u] >> 3, op = open[lb[u]];
+          const uint32_t sec = s[u] >> S::kShift, op = open[lb[u]];
           if (sec == op) {
-            sector[8 * lb[u] + (s[u] & 7u)] = off[u];
+            sector[S::kSlots * lb[u] + (s[u] & kLast)] = S::make(off[u], i);
             state[u] = 1;
           } else if (sec == op + 1u) {
             state[u] = 2;
           } else {
-            positions[s[u]] = off[u];
+            positions[s[u]] = S::make(off[u], i);
           }
         }
         __syncthreads();
 #pragma unroll
         for (int u = 0; u < kRoundProbes; ++u) {          // B
-          if (state[u] != 1 || (s[u] & 7u) != 7u) continue;
-          uint4* dst = reinterpret_cast<uint4*>(positions + (s[u] & ~7u));
+          if (state[u] != 1 || (s[u] & kLast) != kLast) continue;
+          uint4* dst = reinterpret_cast<uint4*>(positions + (s[u] & ~kLast));
           dst[0] = sector4[2 * lb[u]];
           dst[1] = sector4[2 * lb[u] + 1];
-          const uint32_t taken = slot[lb[u]], next = (s[u] >> 3) + 1u;
-          open[lb[u]] = taken >= 8u * (next + 1u) ? (taken + 7u) >> 3 : next;
+          const uint32_t taken = slot[lb[u]], next = (s[u] >> S::kShift) + 1u;
+          open[lb[u]] = taken >= S::kSlots * (next + 1u)
+                            ? (taken + kLast) >> S::kShift
+                            : next;
         }
         __syncthreads();
 #pragma unroll
         for (int u = 0; u < kRoundProbes; ++u) {          // C
           if (state[u] != 2) continue;
-          if ((s[u] >> 3) == open[lb[u]])
-            sector[8 * lb[u] + (s[u] & 7u)] = off[u];
+          if ((s[u] >> S::kShift) == open[lb[u]])
+            sector[S::kSlots * lb[u] + (s[u] & kLast)] = S::make(off[u], i);
           else
-            positions[s[u]] = off[u];
+            positions[s[u]] = S::make(off[u], i);
         }
       }
     }
     __syncthreads();
     for (int j = threadIdx.x; j < group_bins; j += blockDim.x) {
       const uint32_t taken = slot[j];
-      if ((taken & 7u) == 0u) continue;      // the run ends on a sector
-      if ((taken >> 3) == open[j]) {
-        for (uint32_t q = taken & 7u; q < 8u; ++q) sector[8 * j + q] = kFiller;
-        uint4* dst = reinterpret_cast<uint4*>(positions + (taken & ~7u));
+      if ((taken & kLast) == 0u) continue;   // the run ends on a sector
+      if ((taken >> S::kShift) == open[j]) {
+        for (uint32_t q = taken & kLast; q <= kLast; ++q)
+          sector[S::kSlots * j + q] = S::kFill;
+        uint4* dst = reinterpret_cast<uint4*>(positions + (taken & ~kLast));
         dst[0] = sector4[2 * j];
         dst[1] = sector4[2 * j + 1];
       } else {
-        for (uint32_t q = taken; q < ((taken + 7u) & ~7u); ++q)
-          positions[q] = kFiller;
+        for (uint32_t q = taken; q < ((taken + kLast) & ~kLast); ++q)
+          positions[q] = S::kFill;
       }
     }
     __syncthreads();
@@ -409,13 +464,49 @@ __global__ void __launch_bounds__(kBinThreads)
   }
 }
 
+// The binned contains' test: one CTA per bin loads the bin's words into
+// shared memory (16-byte loads where the words allow) and never writes them
+// back; each slot of its slice that is not filler tests its bit and, on a
+// miss, stores false to its key's result (out starts all true; stores of
+// the same value need no atomics). A bin with no probes is not read.
+__global__ void __launch_bounds__(kBinThreads)
+    cbf_bin_test_kernel(const uint32_t* __restrict__ words,
+                        const uint64_t* __restrict__ slots,
+                        const uint32_t* __restrict__ starts,
+                        const uint32_t* __restrict__ ends,
+                        bool* __restrict__ out, int log2_bin_words, int vec) {
+  extern __shared__ uint4 bin4[];
+  uint32_t* bin = reinterpret_cast<uint32_t*>(bin4);
+  const uint32_t begin = starts[blockIdx.x], end = ends[blockIdx.x];
+  if (begin == end) return;                  // no probes: not read
+  const uint32_t n_words = 1u << log2_bin_words;
+  const uint32_t* w = words + (size_t(blockIdx.x) << log2_bin_words);
+  if (vec) {
+    const uint4* src = reinterpret_cast<const uint4*>(w);
+    for (uint32_t i = threadIdx.x; i < n_words / 4; i += blockDim.x)
+      bin4[i] = src[i];
+  } else {
+    for (uint32_t i = threadIdx.x; i < n_words; i += blockDim.x) bin[i] = w[i];
+  }
+  __syncthreads();
+  for (uint32_t i = begin + threadIdx.x; i < end; i += blockDim.x) {
+    const uint64_t v = slots[i];
+    const uint32_t p = uint32_t(v);
+    if (p != kFiller && ((bin[p >> 5] >> (p & 31u)) & 1u) == 0u)
+      out[uint32_t(v >> 32)] = false;
+  }
+}
+
 struct BinGeometry {
   int n_bins, log2_bin_words, group_bins;
   size_t count_smem, scatter_smem, apply_smem;
+  bool keys;                                 // the contains' u64 slots
 };
 
-// The binned kernels' geometry, or false where they have none.
-bool bin_geometry(int log2m, int k, int bin_bits, BinGeometry& g) {
+// The binned kernels' geometry, or false where they have none. keys: the
+// contains' kernels (u64 slots).
+bool bin_geometry(int log2m, int k, int bin_bits, bool keys,
+                  BinGeometry& g) {
   if (log2m < 5 || log2m > 32 || k < 1 || k > kMaxSalts ||
       bin_bits < kMinBinBits || bin_bits > kMaxBinBits ||
       log2m - bin_bits > kLog2MaxBins)
@@ -426,6 +517,7 @@ bool bin_geometry(int log2m, int k, int bin_bits, BinGeometry& g) {
   g.count_smem = size_t(g.n_bins) * sizeof(uint32_t);
   g.scatter_smem = size_t(g.group_bins) * 10 * sizeof(uint32_t);
   g.apply_smem = sizeof(uint32_t) << g.log2_bin_words;
+  g.keys = keys;
   return true;
 }
 
@@ -445,23 +537,47 @@ cudaError_t prepare_binned(const BinGeometry& g, int* chunks) {
       g.count_smem + salts_smem > size_t(optin) ||
       g.apply_smem > size_t(optin))
     return cudaErrorInvalidValue;
+  const void* scatter =
+      g.keys ? reinterpret_cast<const void*>(cbf_bin_scatter_kernel<uint64_t>)
+             : reinterpret_cast<const void*>(cbf_bin_scatter_kernel<uint32_t>);
+  const void* last =
+      g.keys ? reinterpret_cast<const void*>(cbf_bin_test_kernel)
+             : reinterpret_cast<const void*>(cbf_bin_apply_kernel);
   err = cudaFuncSetAttribute(cbf_bin_count_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(g.count_smem));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(cbf_bin_scatter_kernel,
+    err = cudaFuncSetAttribute(scatter,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                int(g.scatter_smem));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(cbf_bin_apply_kernel,
+    err = cudaFuncSetAttribute(last,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                int(g.apply_smem));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, cbf_bin_scatter_kernel, kBinThreads, g.scatter_smem);
+        &per_sm, scatter, kBinThreads, g.scatter_smem);
   if (err != cudaSuccess) return err;
   *chunks = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
   return cudaSuccess;
+}
+
+// The arguments of a binned call: its geometry in g, or false where the
+// kernels take none.
+bool binned_args(int log2m, int k, int bin_bits, bool keys, long long batch,
+                 int chunks, BinGeometry& g) {
+  return bin_geometry(log2m, k, bin_bits, keys, g) && batch >= 1 &&
+         batch * k <= kMaxBatchPositions && chunks >= 1 &&
+         7LL * chunks * g.n_bins <= kMaxBatchPositions;
+}
+
+// prepare_binned for a call: 0, -1 for shared memory the card cannot
+// give, or a CUDA error.
+int prepare_call(const BinGeometry& g) {
+  int card_chunks = 0;
+  const cudaError_t err = prepare_binned(g, &card_chunks);
+  if (err == cudaErrorInvalidValue) return -1;
+  return int(err);
 }
 
 bool bad_geometry(int log2m, int k) {
@@ -502,12 +618,13 @@ int cbf_add(const void* keys, void* words, const void* salts, long long n,
   return int(cudaGetLastError());
 }
 
-// Chunks (scatter CTAs) of a binned add on the current device, which size
-// its workspace; -1 for a geometry without kernels or an error.
-int cbf_binned_chunks(int log2m, int k, int bin_bits) {
+// Chunks (scatter CTAs) of a binned add (keys 0) or contains (keys 1) on
+// the current device, which size its workspace; -1 for a geometry without
+// kernels or an error.
+int cbf_binned_chunks(int log2m, int k, int bin_bits, int keys) {
   BinGeometry g;
   int chunks = 0;
-  if (!bin_geometry(log2m, k, bin_bits, g) ||
+  if (!bin_geometry(log2m, k, bin_bits, keys != 0, g) ||
       prepare_binned(g, &chunks) != cudaSuccess)
     return -1;
   return chunks;
@@ -522,15 +639,10 @@ int cbf_add_binned(const void* keys, void* words, const void* salts,
                    void* work, long long n, int log2m, int k, int bin_bits,
                    long long batch, int chunks, void* stream) {
   BinGeometry g;
-  if (!bin_geometry(log2m, k, bin_bits, g) || batch < 1 ||
-      batch * k > kMaxBatchPositions || chunks < 1 ||
-      7LL * chunks * g.n_bins > kMaxBatchPositions)
-    return -1;
+  if (!binned_args(log2m, k, bin_bits, false, batch, chunks, g)) return -1;
   if (n == 0) return 0;
-  int card_chunks = 0;
-  const cudaError_t err0 = prepare_binned(g, &card_chunks);
-  if (err0 == cudaErrorInvalidValue) return -1;
-  if (err0 != cudaSuccess) return int(err0);
+  const int bad = prepare_call(g);
+  if (bad) return bad;
   const auto s = static_cast<cudaStream_t>(stream);
   uint32_t* counts = static_cast<uint32_t*>(work);
   uint32_t* starts = counts + size_t(chunks) * g.n_bins;
@@ -551,14 +663,68 @@ int cbf_add_binned(const void* keys, void* words, const void* salts,
     cbf_bin_count_kernel<<<chunks, kBinThreads, g.count_smem, s>>>(
         k2 + first, counts, sl, nb, shift, k, bin_bits, g.n_bins);
     cbf_bin_column_kernel<<<column_grid, kColumnThreads, 0, s>>>(
-        counts, ends, g.n_bins, chunks);
+        counts, ends, g.n_bins, chunks, Slot<uint32_t>::kSlots);
     cbf_bin_scan_kernel<<<1, kBinThreads, 0, s>>>(starts, ends, g.n_bins);
-    cbf_bin_scatter_kernel<<<chunks, kBinThreads, g.scatter_smem, s>>>(
-        k2 + first, counts, starts, positions, sl, nb, shift, k, bin_bits,
-        g.n_bins, g.group_bins, offset_mask);
+    cbf_bin_scatter_kernel<uint32_t>
+        <<<chunks, kBinThreads, g.scatter_smem, s>>>(
+            k2 + first, counts, starts, positions, sl, nb, shift, k,
+            bin_bits, g.n_bins, g.group_bins, offset_mask);
     cbf_bin_apply_kernel<<<g.n_bins, kBinThreads, g.apply_smem, s>>>(
         w, positions, starts, ends, g.log2_bin_words, vec);
     const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+  }
+  return int(cudaGetLastError());
+}
+
+// The binned contains (five kernels an internal batch: the add's count,
+// column and scan, the scatter of u64 slots, the test). work: the counts,
+// starts and ends as for cbf_add_binned, padded to 8 words, then the u64
+// slots (min(n, batch) * k + 3 * chunks * n_bins, each run padded to 4
+// slots, a sector); out: (n,) bool, set to true here first. The filter is
+// not written.
+int cbf_contains_binned(const void* keys, const void* words, void* out,
+                        const void* salts, void* work, long long n,
+                        int log2m, int k, int bin_bits, long long batch,
+                        int chunks, void* stream) {
+  BinGeometry g;
+  if (!binned_args(log2m, k, bin_bits, true, batch, chunks, g)) return -1;
+  if (n == 0) return 0;
+  const int bad = prepare_call(g);
+  if (bad) return bad;
+  const auto s = static_cast<cudaStream_t>(stream);
+  uint32_t* counts = static_cast<uint32_t*>(work);
+  uint32_t* starts = counts + size_t(chunks) * g.n_bins;
+  uint32_t* ends = starts + g.n_bins;
+  const size_t head = (size_t(chunks) + 2) * size_t(g.n_bins);
+  uint64_t* slots =
+      reinterpret_cast<uint64_t*>(counts + ((head + 7) & ~size_t(7)));
+  const uint2* k2 = static_cast<const uint2*>(keys);
+  const uint32_t* w = static_cast<const uint32_t*>(words);
+  bool* res = static_cast<bool*>(out);
+  const uint32_t* sl = static_cast<const uint32_t*>(salts);
+  const int vec = (reinterpret_cast<uintptr_t>(words) % 16 == 0 &&
+                   g.log2_bin_words >= 2);
+  const int shift = 32 - log2m;
+  const uint32_t offset_mask = (32u << g.log2_bin_words) - 1u;
+  const unsigned column_grid =
+      unsigned((g.n_bins + kColumnThreads - 1) / kColumnThreads);
+  cudaError_t err = cudaMemsetAsync(out, 1, size_t(n), s);
+  if (err != cudaSuccess) return int(err);
+  for (long long first = 0; first < n; first += batch) {
+    const long long nb = n - first < batch ? n - first : batch;
+    cbf_bin_count_kernel<<<chunks, kBinThreads, g.count_smem, s>>>(
+        k2 + first, counts, sl, nb, shift, k, bin_bits, g.n_bins);
+    cbf_bin_column_kernel<<<column_grid, kColumnThreads, 0, s>>>(
+        counts, ends, g.n_bins, chunks, Slot<uint64_t>::kSlots);
+    cbf_bin_scan_kernel<<<1, kBinThreads, 0, s>>>(starts, ends, g.n_bins);
+    cbf_bin_scatter_kernel<uint64_t>
+        <<<chunks, kBinThreads, g.scatter_smem, s>>>(
+            k2 + first, counts, starts, slots, sl, nb, shift, k, bin_bits,
+            g.n_bins, g.group_bins, offset_mask);
+    cbf_bin_test_kernel<<<g.n_bins, kBinThreads, g.apply_smem, s>>>(
+        w, slots, starts, ends, res + first, g.log2_bin_words, vec);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return int(err);
   }
   return int(cudaGetLastError());

@@ -27,13 +27,18 @@ and past capacity, duplicates, valid masks, removes of absent keys,
 clusters that wrap past the last slot, tiles 256 / 2048 / the whole batch,
 empty and full tables, a 2^25-slot table whose scans take many blocks,
 and the quotient ``Filter`` path with merge and resize) against theirs.
-The classical filter's add is held against its plain version on both
-paths (one-pass and binned) at m = 2^16 ... 2^32 for k = 1 ... 32, over
-several internal batches, in small bins, with keys in one bin and one key
-repeated. The calibration kernels (step, chain, gather) are held against
-their plain versions, and a calibration measured on the card must have five
-finite, positive constants.
+The classical filter's add and contains are held against their plain
+versions on both paths (one-pass and binned) at m = 2^16 ... 2^32 for k =
+1 ... 32, over several internal batches, in small bins, with keys in one
+bin and one key repeated. The partitioned counting update is held against
+its plain version on each path forced (grouped, global) at n_segments 1
+... 256, with a row of 80 increments and invalid slots. The calibration
+kernels (step, chain, gather) are held against their plain versions, and a
+calibration measured on the card must have five finite, positive
+constants.
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -462,6 +467,156 @@ def test_cbf_add_takes_the_rule_path(cuda):
         assert torch.equal(words, cbf.add_plain(spec, V.init(spec, cuda),
                                                 keys))
     assert cbf.choose_path(3000, 1 << 16, 11, smem) == "one-pass"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", cbf.PATHS)
+@pytest.mark.parametrize("m", CBF_PATH_SIZES,
+                         ids=["m2^16", "m2^20", "m2^30", "m2^32"])
+@pytest.mark.parametrize("k", [1, 7, 11, 32])
+def test_cbf_contains_paths_match_plain(cuda, path, m, k):
+    """Each contains path forced, results equal to the plain version's on
+    members, keys never added and one member repeated."""
+    spec = V.FilterSpec("cbf", m, k)
+    n = 65537 if m < 1 << 30 else 1 << 20
+    keys = _keys(n, 51 + k, cuda)
+    words = cbf.add_plain(spec, V.init(spec, cuda), keys)
+    q = torch.cat([keys, _probes(n, 52 + k, cuda),
+                   keys[:1].expand(300, 2)]).contiguous()
+    got = cbf.contains_vmem(spec, words, q, path=path)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cbf.contains_plain(spec, words, q))
+    assert bool(got[:n].all())
+    assert cbf.LAST_CONTAINS_PLAN["path"] == path
+    assert cbf.LAST_CONTAINS_PLAN["positions"] == q.shape[0] * k
+    del words
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1 << 5, 1 << 16, 1 << 20, 1 << 32],
+                         ids=["m2^5", "m2^16", "m2^20", "m2^32"])
+def test_cbf_binned_contains_batches_and_bins(cuda, m):
+    """The binned contains over several internal batches (a lowered cap),
+    in bins smaller than the default, on a filter smaller than a bin, and
+    n of 0, 1 and 2."""
+    spec = V.FilterSpec("cbf", m, 11)
+    keys = _keys(50003, 61, cuda)
+    words = cbf.add_plain(spec, V.init(spec, cuda), keys[:20000])
+    want = cbf.contains_plain(spec, words, keys)
+    log2m = m.bit_length() - 1
+    small = max(5, log2m - 13)                     # 8192 bins at most
+    for bin_bits, cap, n in ((None, 11 * 9999, 50003),
+                             (small, 11 * 7001, 50003), (small, 11 * 3, 300)):
+        got = cbf.contains_vmem(spec, words, keys[:n], path="binned",
+                                bin_bits=bin_bits, cap=cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want[:n]), (bin_bits, cap)
+        plan = cbf.LAST_CONTAINS_PLAN
+        assert plan["batches"] == -(-n // (cap // 11))
+        assert plan["n_bins"] == 1 << max(0, log2m - plan["bin_bits"])
+    for n in (0, 1, 2):
+        got = cbf.contains_vmem(spec, words, keys[:n], path="binned")
+        assert torch.equal(got, want[:n])
+    del words
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_cbf_contains_takes_the_rule_path(cuda):
+    """With no path given, the wrapper runs choose_contains_path's path;
+    small calls and filters in L2 stay one-pass."""
+    smem = sbf.partition_smem_bytes(cuda)
+    for m, n in ((1 << 16, 3000), (1 << 27, 1 << 20), (1 << 30, 1 << 16),
+                 (1 << 30, 1 << 22), (1 << 32, 1 << 22), (1 << 32, 1 << 23)):
+        spec = V.FilterSpec("cbf", m, 11)
+        keys = _keys(n, 62, cuda)
+        words = cbf.add_plain(spec, V.init(spec, cuda), keys[: n // 2])
+        got = cbf.contains_vmem(spec, words, keys)
+        torch.cuda.synchronize()
+        assert cbf.LAST_CONTAINS_PLAN["path"] == cbf.choose_contains_path(
+            n, m, 11, smem)
+        assert torch.equal(got, cbf.contains_plain(spec, words, keys))
+    assert cbf.choose_contains_path(1 << 23, 1 << 32, 11, smem) == "binned"
+    assert cbf.choose_contains_path(1 << 22, 1 << 32, 11, smem) == "one-pass"
+    assert cbf.choose_contains_path(3000, 1 << 16, 11, smem) == "one-pass"
+
+
+def _plug_free_blocks(index: int) -> list:
+    """Tensors that take the free blocks of the caching allocator's segments
+    that still hold live tensors (``empty_cache`` releases only whole free
+    segments), largest first, so that each takes its own block. A later
+    allocation then needs a new segment, which the per-process memory
+    fraction bounds; a free block inside a segment would serve it
+    unbounded."""
+    torch.cuda.empty_cache()
+    sizes = sorted((block["size"] for seg in torch.cuda.memory_snapshot()
+                    if seg["device"] == index for block in seg["blocks"]
+                    if block["state"] == "inactive"), reverse=True)
+    return [torch.empty(size, dtype=torch.uint8, device=f"cuda:{index}")
+            for size in sizes]
+
+
+@pytest.mark.gpu
+def test_cbf_binned_workspace_is_bounded_by_free_memory(cuda, monkeypatch):
+    """Where the process may not allocate a binned call's workspace at the
+    default cap, the add and the contains lower their caps (more internal
+    batches; the same words and results); with no room for any workspace
+    (a fake allocation that fails past 1 MiB) a binned call raises
+    MemoryError, forced or the rule's."""
+    spec = V.FilterSpec("cbf", 1 << 30, 11)
+    keys = _keys(1 << 22, 71, cuda)
+    words = cbf.add_plain(spec, V.init(spec, cuda), keys)
+    want = cbf.contains_plain(spec, words, keys)
+    target = V.init(spec, cuda)
+    full = {planner: planner(keys.shape[0], spec.m_bits, 11, "binned",
+                             chunks=cbf.binned_chunks(
+                                 spec, cbf.BIN_BITS, cuda,
+                                 keys=planner is cbf.contains_plan))
+            for planner in (cbf.add_plan, cbf.contains_plan)}
+    gc.collect()                            # no garbage frees room later
+    torch.cuda.synchronize()
+    index = torch.cuda.current_device()
+    plugs = _plug_free_blocks(index)
+    total = torch.cuda.get_device_properties(index).total_memory
+    # the room: a 20 MiB segment (the result's) and a third of a workspace
+    room = (torch.cuda.memory_reserved(index) + (20 << 20)
+            + min(plan["workspace_bytes"] for plan in full.values()) // 3)
+    try:
+        torch.cuda.set_per_process_memory_fraction(room / total, index)
+        got = cbf.contains_vmem(spec, words, keys, path="binned")
+        contains_plan = dict(cbf.LAST_CONTAINS_PLAN)
+        cbf.add_vmem(spec, target, keys, path="binned")
+        add_plan = dict(cbf.LAST_ADD_PLAN)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, index)
+    del plugs
+    assert torch.equal(got, want)
+    assert torch.equal(target, words)
+    assert contains_plan["batches"] > full[cbf.contains_plan]["batches"]
+    assert add_plan["batches"] > full[cbf.add_plan]["batches"]
+    torch.cuda.synchronize()
+
+    def tight(nbytes, device):
+        if nbytes > 1 << 20:
+            raise torch.cuda.OutOfMemoryError("past the test's 1 MiB")
+        return torch.empty(nbytes // 4, dtype=torch.int32, device=device)
+
+    monkeypatch.setattr(cbf, "_workspace", tight)
+    monkeypatch.setattr(cbf, "free_device_bytes", lambda device: 1 << 20)
+    del words, target
+    big = V.FilterSpec("cbf", 1 << 32, 11)
+    words = V.init(big, cuda)
+    many = _keys(1 << 24, 72, cuda)          # the rules pick binned
+    smem = sbf.partition_smem_bytes(cuda)
+    assert cbf.choose_contains_path(many.shape[0], big.m_bits, 11,
+                                    smem) == "binned"
+    assert cbf.choose_path(many.shape[0], big.m_bits, 11, smem) == "binned"
+    for path in ("binned", None):           # forced, and the rule's
+        with pytest.raises(MemoryError):
+            cbf.contains_vmem(big, words, many, path=path)
+        with pytest.raises(MemoryError):
+            cbf.add_vmem(big, words, many, path=path)
 
 
 def _ring(spec, G, device):
@@ -918,6 +1073,72 @@ def test_partitioned_counting_kernel_matches_plain(cuda, spec, n_segments,
                 capacity=cap)
             torch.cuda.synchronize()
             np.testing.assert_array_equal(_u32(got), _u32(want_rm))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", CSPECS, ids=str)
+@pytest.mark.parametrize("n_segments", [1, 8, 64, 256])
+@pytest.mark.parametrize("path", cnt.PARTITIONED_PATHS)
+def test_partitioned_counting_paths_match_plain(cuda, spec, n_segments,
+                                                path):
+    """Each path of the partitioned counting update forced, against the
+    plain version: an add of a multiset (a key 21 times), a remove of half
+    of it and of absent keys, an add of 40 keys on one row twice over, and
+    a quarter of the slots invalid."""
+    big = V.FilterSpec("countingbf", 1 << 20, spec.k,
+                       block_bits=spec.block_bits)
+    rows = cnt.grouped_rows(big.storage_words, n_segments,
+                            big.counter_row_words)
+    if path == "grouped" and rows > cnt.GROUPED_MAX_ROWS:
+        pytest.skip("the grouped histogram holds at most 8192 rows")
+    batch = _multiset(20000, n_segments + 7, cuda)
+    cand = _keys(1 << 16, 9, cuda)
+    blk = H.block_index(H.hash_keys(cand)[1], big.n_blocks)
+    row = cand[blk == blk[0]][:40]
+    for keys in (batch, torch.cat([row, row]).contiguous()):
+        cap = 4 * keys.shape[0] // n_segments + 64
+        part = P.partition_jit(big, keys, n_segments, cap)
+        valid = part.valid * _valid_mask(part.valid.numel(), 3,
+                                         cuda).reshape(part.valid.shape)
+        gone = P.partition_jit(big, torch.cat([keys[: keys.shape[0] // 2],
+                                               _probes(100, 4, cuda)]),
+                               n_segments, cap)
+        for v in (part.valid, valid):
+            want = cnt.update_partitioned_plain(big, V.init(big, cuda),
+                                                part.keys_by_seg, v, "add")
+            got = cnt.update_partitioned(big, V.init(big, cuda),
+                                         part.keys_by_seg, v, n_segments,
+                                         "add", path=path)
+            assert cnt.LAST_PARTITIONED_PLAN["path"] == path
+            np.testing.assert_array_equal(_u32(got), _u32(want))
+            want = cnt.update_partitioned_plain(big, want, gone.keys_by_seg,
+                                                gone.valid, "remove")
+            got = cnt.update_partitioned(big, got, gone.keys_by_seg,
+                                         gone.valid, n_segments, "remove",
+                                         path=path)
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(_u32(got), _u32(want))
+
+
+@pytest.mark.gpu
+def test_partitioned_counting_takes_the_rule_path(cuda):
+    """With no path given, the wrapper runs choose_partitioned_path's path
+    with the card's shared memory: grouped from GROUPED_MIN_SEGMENTS up
+    where the rows fit, global at JAX's default n_segments = 8."""
+    spec = V.FilterSpec("countingbf", 1 << 22, 8, block_bits=256)
+    keys = _keys(50000, 5, cuda)
+    smem = sbf.partition_smem_bytes(cuda)
+    for n_seg, path in ((8, "global"), (cnt.GROUPED_MIN_SEGMENTS, "grouped"),
+                        (1024, "grouped")):
+        assert cnt.choose_partitioned_path(n_seg, spec.storage_words,
+                                           spec.counter_row_words,
+                                           smem) == path
+        got = ops.counting_update_partitioned(spec, V.init(spec, cuda), keys,
+                                              "add", n_segments=n_seg)
+        torch.cuda.synchronize()
+        assert cnt.LAST_PARTITIONED_PLAN["path"] == path
+        assert torch.equal(got, cnt.update_plain(spec, V.init(spec, cuda),
+                                                 keys, None, "add"))
 
 
 @pytest.mark.gpu

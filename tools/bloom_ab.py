@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time this tree's blocked add and contains, its cuckoo update, its
-classical (cbf) add and its quotient update against another checkout's, in
-turns, on one NVIDIA card.
+classical (cbf) add and contains, its quotient update and its partitioned
+counting update against another checkout's, in turns, on one NVIDIA card.
 
     git archive <commit> | (mkdir -p build/other && tar -x -C build/other)
-    python3 tools/bloom_ab.py build/other [--only bloom|cuckoo|cbf|quotient]
+    python3 tools/bloom_ab.py build/other \
+        [--only bloom|cuckoo|cbf|quotient|partitioned]
 
 Blocked filters: the other checkout's ``src/repro_torch/kernels/csrc/
 bloom.cu`` must have the one-thread-a-key C interface, ``bloom_contains(
@@ -35,13 +36,26 @@ the remove of half of them and the add of 2^16 keys at load 0.9; and
 prints this tree's counters of each.
 
 Classical filter: the other checkout's ``cbf.cu`` must have the one-pass
-add's C interface, ``cbf_add(keys, words, salts, n, log2m, k, stream)``.
-In the two cbf cells of ``chip_smoke.py`` (``filter_for_n_items(n,
-bits_per_key=16, variant="cbf")``, k = 11: 2^23 keys into 2^27 bits and
-2^28 keys into 2^32 bits, the smoke's keys) the script checks that the
-other add, this tree's add on the path its rule picks and on the other path
-give the same words, then times the three adds of the keys into the filter
-in turns.
+add's and contains' C interfaces, ``cbf_add(keys, words, salts, n, log2m,
+k, stream)`` and ``cbf_contains(keys, words, out, salts, n, log2m, k,
+stream)``. In the two cbf cells of ``chip_smoke.py``
+(``filter_for_n_items(n, bits_per_key=16, variant="cbf")``, k = 11: 2^23
+keys into 2^27 bits and 2^28 keys into 2^32 bits, the smoke's keys) the
+script checks that the other add, this tree's add on the path its rule
+picks and on the other path give the same words, then times the three adds
+of the keys into the filter in turns; then the same for the contains of
+the keys and of 2^22 probes (results equal).
+
+Partitioned counting update: the other checkout's ``counting.cu`` must have
+``counting_update_partitioned(keys, valid, counters, salts, n_segments,
+capacity, seg_cwords, block_mask, s, k, op, path, stream)``, where the
+other's path flag is what its wrapper passed (1 where a segment fits
+shared memory). In the two countingbf cells of ``chip_smoke.py`` (2^22 keys
+into 32 MiB; 2^26 keys into 512 MiB, a 2^24-key batch) and at n_segments 8,
+the fitting count (the smallest whose segment fits shared memory) and 2, 4,
+8 and 16 times it, the script checks that both trees' updates give the
+same counters (add of the batch, remove of it), then times the add and the
+remove in turns, one call each on restored counters.
 
 Quotient filter: the other checkout's ``quotient.cu`` must have the
 rebuild-once update's C interface, ``quotient_update(keys, fps_in, valid,
@@ -79,6 +93,7 @@ from repro_torch.core import hashing as H  # noqa: E402
 from repro_torch.core import quotient as Q  # noqa: E402
 from repro_torch.core import variants as V  # noqa: E402
 from repro_torch.kernels import _build, cbf, ops, sbf  # noqa: E402
+from repro_torch.kernels import countingbf as cnt  # noqa: E402
 from repro_torch.kernels import cuckoofilter as ckoo  # noqa: E402
 from repro_torch.kernels import quotientfilter as qf  # noqa: E402
 from repro_torch.kernels.sbf import DEFAULT_TILE  # noqa: E402
@@ -105,6 +120,10 @@ def build_other(checkout: Path, name: str = "bloom") -> ctypes.CDLL:
         lib.bloom_add.argtypes = [VP, VP, VP, LL, U32] + [I] * 5 + [VP]
     elif name == "cbf":
         lib.cbf_add.argtypes = [VP, VP, VP, LL, I, I, VP]
+        lib.cbf_contains.argtypes = [VP, VP, VP, VP, LL, I, I, VP]
+    elif name == "counting":
+        lib.counting_update_partitioned.argtypes = [VP, VP, VP, VP, LL, LL,
+                                                    U32, U32, I, I, I, I, VP]
     elif name == "quotient":
         lib.quotient_update.argtypes = [VP, VP, VP, VP, VP, VP, LL, I, I, I,
                                         U32, I, VP, VP, VP, LL, VP, VP]
@@ -258,7 +277,104 @@ def cbf_main(checkout: Path) -> None:
              f"plan {plan})", res)
         print(f"  other / this {res['other'][0] / res[f'this ({rule})'][0]:.2f}"
               f"x", flush=True)
-        del f, keys, want, acc
+        words = want
+        probes = gen_keys(1 << 22, 22, probe=True)
+        for label, q in (("keys", keys), ("2^22 probes", probes)):
+            rule = cbf.choose_contains_path(q.shape[0], spec.m_bits, spec.k,
+                                            smem)
+            alt = "binned" if rule == "one-pass" else "one-pass"
+
+            def other_contains(q=q):
+                out = torch.empty(q.shape[0], dtype=torch.bool,
+                                  device="cuda")
+                err = other.cbf_contains(q.data_ptr(), words.data_ptr(),
+                                         out.data_ptr(), salts, q.shape[0],
+                                         V._log2i(spec.m_bits), spec.k,
+                                         stream)
+                assert err == 0, err
+                return out
+
+            want_hits = other_contains()
+            for path in (None, alt):
+                if not torch.equal(cbf.contains_vmem(spec, words, q,
+                                                     path=path), want_hits):
+                    raise AssertionError(f"cbf {regime} contains "
+                                         f"({path or rule}) differs")
+                if path is None:
+                    plan = dict(cbf.LAST_CONTAINS_PLAN)
+            res = turns({
+                "other": other_contains,
+                f"this ({rule})": lambda q=q: cbf.contains_vmem(spec, words,
+                                                                q),
+                f"this {alt}": lambda q=q, a=alt: cbf.contains_vmem(
+                    spec, words, q, path=a)},
+                20 if regime == "L2" or q is probes else 3)
+            show(f"cbf {regime} contains of {q.shape[0]} {label} ({spec}; "
+                 f"results equal; the rule's plan {plan})", res)
+            print(f"  other / this "
+                  f"{res['other'][0] / res[f'this ({rule})'][0]:.2f}x",
+                  flush=True)
+        del f, keys, want, acc, words, probes
+        torch.cuda.empty_cache()
+
+
+def partitioned_main(checkout: Path) -> None:
+    other = build_other(checkout, "counting")
+    stream = torch.cuda.current_stream().cuda_stream
+    salts = sbf._salts(torch.device("cuda")).data_ptr()
+    smem = sbf.partition_smem_bytes(torch.device("cuda"))
+    for regime, n, batch in (("L2", 1 << 22, 1 << 22),
+                             ("DRAM", 1 << 26, 1 << 24)):
+        f = api.filter_for_n_items(n, bits_per_key=16, variant="countingbf",
+                                   block_bits=256, device="cuda")
+        spec = f.spec
+        first = gen_keys(n, 81)[:batch]
+        fit = 1
+        while spec.storage_words * 4 // fit > smem:
+            fit *= 2
+        for n_seg in (8, fit, 2 * fit, 4 * fit, 8 * fit, 16 * fit):
+            part = ops._partition_device(spec, first, n_seg, None)
+            seg_cwords = spec.storage_words // n_seg
+            shared = int(seg_cwords * 4 <= smem)
+
+            def other_update(words, op, part=part, n_seg=n_seg,
+                             seg_cwords=seg_cwords, shared=shared):
+                err = other.counting_update_partitioned(
+                    part.keys_by_seg.data_ptr(), part.valid.data_ptr(),
+                    words.data_ptr(), salts, n_seg, part.keys_by_seg.shape[1],
+                    seg_cwords, spec.n_blocks - 1, spec.s, spec.k,
+                    cnt._OP_CODE[op], shared, stream)
+                assert err == 0, err
+                return words
+
+            def this_update(words, op, part=part, n_seg=n_seg):
+                return cnt.update_partitioned(spec, words, part.keys_by_seg,
+                                              part.valid, n_seg, op)
+
+            added = this_update(V.init(spec, "cuda"), "add")
+            plan = dict(cnt.LAST_PARTITIONED_PLAN)
+            removed = this_update(added.clone(), "remove")
+            if not (torch.equal(other_update(V.init(spec, "cuda"), "add"),
+                                added)
+                    and torch.equal(other_update(added.clone(), "remove"),
+                                    removed)):
+                raise AssertionError(f"partitioned {regime} n_segments "
+                                     f"{n_seg}: counters differ")
+            scratch = added.clone()
+            for op, start in (("add", V.init(spec, "cuda")),
+                              ("remove", added)):
+                res = turns_restored({
+                    "other": lambda op=op: other_update(scratch, op),
+                    "this": lambda op=op: this_update(scratch, op)},
+                    lambda s=start: scratch.copy_(s), rounds=10)
+                show(f"partitioned countingbf {regime} {op} of {batch} keys, "
+                     f"n_segments {n_seg} (other "
+                     f"{'shared' if shared else 'global'}, this "
+                     f"{plan['path']}; counters equal)", res)
+                print(f"  other / this "
+                      f"{res['other'][0] / res['this'][0]:.2f}x", flush=True)
+            del part, added, removed, scratch
+        del f, first
         torch.cuda.empty_cache()
 
 
@@ -407,7 +523,8 @@ def main(checkout: Path, only: str = "") -> int:
                          text=True, check=True).stdout.strip())
     _build.library()
     for name, run in (("cuckoo", cuckoo_main), ("bloom", bloom_main),
-                      ("cbf", cbf_main), ("quotient", quotient_main)):
+                      ("cbf", cbf_main), ("quotient", quotient_main),
+                      ("partitioned", partitioned_main)):
         if only in ("", name):
             run(checkout)
     return 0
@@ -503,7 +620,7 @@ if __name__ == "__main__":
     args = sys.argv[1:]
     only = ""
     if len(args) == 3 and args[1] == "--only" and args[2] in (
-            "bloom", "cuckoo", "cbf", "quotient"):
+            "bloom", "cuckoo", "cbf", "quotient", "partitioned"):
         only = args[2]
         args = args[:1]
     if len(args) != 1:
