@@ -9,8 +9,9 @@ the script exits non-zero without printing a result:
 1. device: the card's name and power limit (``nvidia-smi``), and the count;
 2. build: compile every source of ``src/repro_torch/kernels/csrc/``
    (``bloom.cu``, ``bloom_contains.cu``, ``bloom_bank_contains.cu``,
-   ``counting.cu``, ``cbf.cu``, ``ring.cu``, ``cuckoo.cu``, ``quotient.cu``,
-   ``calibrate.cu``; one nvcc each, in parallel) and time it; print the
+   ``counting.cu``, ``counting_contains.cu``, ``cbf.cu``, ``ring.cu``,
+   ``cuckoo.cu``, ``quotient.cu``, ``calibrate.cu``; one nvcc each, in
+   parallel) and time it; print the
    card's L2 fetch granularity;
 3. every blocked-filter kernel wrapper against its plain PyTorch version on
    the card, at m = 2^20 bits and 65537 keys, for six blocked specs and
@@ -23,6 +24,11 @@ the script exits non-zero without printing a result:
    512) at m = 2^20, 65537 keys inserted 1-3 times each plus one key 20
    times (it saturates), then removes of a subset and of keys never added,
    and two decays; every schedule value, ragged sizes and a valid mask;
+   each update path forced (one-pass; binned at the default bins, over
+   several internal batches, in the smallest bins, in the largest bins,
+   whose runs split into parts that share rows; and one bin of a 2^17-bit
+   filter, whose parts sum their counts in shared memory), valid-masked; the
+   contains at every Θ (s/8 ... s), load width and depth;
 3c. the classical-filter kernels at m = 2^20 for k in 1/7/11/32 (65537
    keys, n = 0/1/255/257) and at m = 2^32 (2^20 keys; positions use all 32
    bits), the add on each path forced (one-pass, binned; also over several
@@ -37,8 +43,9 @@ the script exits non-zero without printing a result:
    ~25 % invalid slots, uniform and skewed (half on member 0) member mixes,
    the contains in both regimes through ``ops`` and at depth 1/2/4, both
    forms at every Θ and depth, ragged n; the countingbf bank
-   (add of keys 1-3 times, remove incl. keys never added, contains, decay
-   of the whole bank); and the generic per-member path of a cbf bank and a
+   (add of keys 1-3 times on each update path, remove incl. keys never
+   added, contains at every Θ and depth, decay of the whole bank); and the
+   generic per-member path of a cbf bank and a
    windowed bank (G = 4, one advance) at B = 8 against per-member plain
    filters;
 3e. the partitioned kernels (``sbf.add_partitioned``,
@@ -90,8 +97,18 @@ the script exits non-zero without printing a result:
    the other half and ``decay(1)``, at an L2-resident size (2^22 keys, 2^26
    bits, 32 MiB of counters) and a DRAM-resident size (2^26 keys, 2^30
    bits, 512 MiB): no false negatives, every step's words and results
-   equal to the plain version's in full (in 2^22-key chunks), and every
-   counting wrapper of the regime launched;
+   equal to the plain version's in full (in 2^22-key chunks, and the other
+   update path's too), every counting wrapper of the regime launched, each
+   update on the path ``countingbf.choose_update_path`` picks (its plans,
+   ``countingbf.LAST_UPDATE_PLAN``, and the contains' geometry printed);
+   both update paths timed in turns at each cell's size (add and remove;
+   the add also in bins of other sizes), an add's peak extra device
+   memory on each path, the contains at every Θ, load width and depth in
+   turns; and the update rule's sweep (B = 256, 2^20-2^29 counter bytes x
+   2^16-2^26 keys, both paths in turns; a size where the rule's path is
+   the slower is timed again over more rounds), which prints every size
+   where the rule's path is the slower and fails where it is slower
+   beyond the rounds' spread by more than 10 %;
 4c. the classical main path, ``filter_for_n_items(n, variant="cbf")`` (k =
    11) then ``add`` of all keys and ``contains`` of them and of 2^22
    probes, at 2^23 keys (2^27 bits, 16 MiB, engine ``cuda-l2``) and 2^28
@@ -118,7 +135,9 @@ the script exits non-zero without printing a result:
    them and of 2^22 probes: sbf at 2^13 keys a member (16 MiB bank,
    ``cuda-l2``, 2^23 keys) and 2^18 (512 MiB, ``cuda-dram``, 2^28 keys);
    countingbf at 2^12 (32 MiB, 2^22 keys) and 2^16 (512 MiB, 2^26 keys),
-   which also removes half, queries the rest and decays once. Words and
+   which also removes half, queries the rest and decays once, and times
+   both update paths in turns and the contains at every Θ and depth. Words
+   and
    results equal to the plain version's in full (2^22-key chunks), no
    false negatives, exactly one kernel launch per routed call; then the
    generic cbf and windowed banks' routed ops timed at B = 64;
@@ -808,6 +827,39 @@ def valid_mask(n: int, seed: int) -> torch.Tensor:
     return (torch.rand(n, device="cuda", generator=g) > 0.25).to(torch.uint8)
 
 
+def counting_path_cases(spec: V.FilterSpec) -> list:
+    """The update's paths forced: one-pass; binned at the default bins,
+    over several internal batches, in the smallest and in the largest bins
+    one filter's rows take (the largest: one bin a filter, whose run
+    splits into parts that update its rows by CAS)."""
+    least = cnt.binned_bin_row_bits(spec.n_blocks, 1 << 40)
+    most = min(cnt.MAX_BIN_ROW_BITS, (spec.n_blocks - 1).bit_length())
+    return [{"path": "one-pass"}, {"path": "binned"},
+            {"path": "binned", "cap": 1000},
+            {"path": "binned", "bin_row_bits": least, "cap": 4097},
+            {"path": "binned", "bin_row_bits": most}]
+
+
+def counting_thetas(spec: V.FilterSpec) -> list:
+    """The contains' lanes a key the card runs: s/8 ... s."""
+    return [t for t in (1, 2, 4, 8, 16, 32)
+            if max(1, spec.s // 8) <= t <= spec.s]
+
+
+def counting_geometries(spec: V.FilterSpec) -> list:
+    """Every (Θ, depth) the contains runs, 16-byte loads; depth 1 also at
+    every narrower load width."""
+    geos = []
+    for t in counting_thetas(spec):
+        for d in sbf.DMA_DEPTHS:
+            geo = cnt.contains_geometry(spec, sbf.Layout(t, sbf.MAX_VEC), d)
+            if geo.depth == d:
+                geos.append(geo)
+        geos += [cnt.contains_geometry(spec, sbf.Layout(t, v))
+                 for v in (1, 2)]
+    return geos
+
+
 def phase_counting_kernels(errs: dict):
     n = 65537
     for i, spec in enumerate(PHASE3B_SPECS):
@@ -849,10 +901,41 @@ def phase_counting_kernels(errs: dict):
                        valid.to(torch.bool), "add")
             errs[name] = max(errs[name], max_err(w, want_valid))
             runs += 2
+        # every update path forced, valid-masked, then a remove
+        want_valid_rm = cnt.update_plain(spec, want_valid, gone, None,
+                                         "remove")
+        for name in ("update_vmem", "update_hbm"):
+            for kw in counting_path_cases(spec):
+                w = cnt._launch_update(name, spec, V.init(spec, "cuda"),
+                                       batch, valid, "add", **kw)
+                errs[name] = max(errs[name], max_err(w, want_valid))
+                cnt._launch_update(name, spec, w, gone, None, "remove", **kw)
+                errs[name] = max(errs[name], max_err(w, want_valid_rm))
+                runs += 2
+        # one bin of a small filter's rows (2^17 bits) takes the batch: its
+        # parts run at once, each summing its chunks' counts in shared
+        # memory and applying them by CAS
+        small = V.FilterSpec("countingbf", 1 << 17, spec.k,
+                             block_bits=spec.block_bits)
+        one_bin = min(cnt.MAX_BIN_ROW_BITS, (small.n_blocks - 1).bit_length())
+        want_small = cnt.update_plain(small, V.init(small, "cuda"), batch,
+                                      valid, "add")
+        want_small_rm = cnt.update_plain(small, want_small, gone, None,
+                                         "remove")
+        for name in ("update_vmem", "update_hbm"):
+            w = cnt._launch_update(name, small, V.init(small, "cuda"), batch,
+                                   valid, "add", path="binned",
+                                   bin_row_bits=one_bin)
+            errs[name] = max(errs[name], max_err(w, want_small))
+            cnt._launch_update(name, small, w, gone, None, "remove",
+                               path="binned", bin_row_bits=one_bin)
+            errs[name] = max(errs[name], max_err(w, want_small_rm))
+            runs += 2
         for words in (want_add, want_rm):
             want = cnt.contains_plain(spec, words, queries)
             phis = [p for p in (1, 2, 4, 8, 16, 32, 64, 128) if p <= cs]
-            for kw in ([{"layout": sbf.Layout(1, p)} for p in phis]
+            for kw in ([{"layout": sbf.Layout(t, p)} for p in phis
+                        for t in counting_thetas(spec)]
                        + [{"probe": "gather"}, {"coop": "subtile"},
                           {"mix": "cheap"}]):
                 got = cnt.contains_vmem(spec, words, queries, **kw)
@@ -862,6 +945,12 @@ def phase_counting_kernels(errs: dict):
             for kw in ([{"depth": d} for d in sbf.DMA_DEPTHS]
                        + [{"coop": "subtile"}, {"mix": "cheap"}]):
                 got = cnt.contains_hbm(spec, words, queries, **kw)
+                errs["contains_hbm"] = max(errs["contains_hbm"],
+                                           max_err(got, want))
+                runs += 1
+            for geo in counting_geometries(spec):          # every Θ, depth
+                got = cnt._launch_contains("contains_hbm", spec, words,
+                                           queries, geo)
                 errs["contains_hbm"] = max(errs["contains_hbm"],
                                            max_err(got, want))
                 runs += 1
@@ -997,6 +1086,75 @@ def counting_bound_ms(spec: V.FilterSpec, n: int, op: str, sectors: int,
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+COUNTING_KERNELS = {
+    "update": ["counting_update_kernel<S, OP, BANK> (one-pass)",
+               "counting_bin_count_kernel", "bin_column_kernel",
+               "bin_scan_kernel", "counting_bin_scatter_kernel",
+               "counting_bin_apply_kernel<S, OP>",
+               "counting_bin_parts_kernel (over-full bins)",
+               "counting_bin_split_kernel<S, OP> (over-full bins)"],
+    "contains": ["counting_contains_kernel<S, THETA, V, DEPTH, BANK>"],
+    "decay": ["counting_decay_kernel"]}
+COUNTING_CONTAINS_SOURCE = "src/repro_torch/kernels/csrc/counting_contains.cu"
+
+
+def counting_binned_floor_ms(spec: V.FilterSpec, n: int, rows: int,
+                             extra_bytes: int = 0) -> float:
+    """The binned update's design floor: the keys read twice (count and
+    scatter), an 8-byte slot a key written and read once, each touched
+    counter row read and written once, plus ``extra_bytes`` (member ids and
+    valid bytes, read twice)."""
+    nbytes = 16 * n + 16 * n + 2 * rows * 4 * spec.counter_row_words
+    return (nbytes + 2 * extra_bytes) / HBM_BYTES_PER_S * 1e3
+
+
+def touched_rows(spec: V.FilterSpec, words: torch.Tensor) -> int:
+    """Counter rows holding a nonzero word."""
+    return int((words.view(-1, spec.counter_row_words) != 0).any(
+        dim=1).sum().item())
+
+
+def update_path_turns(label: str, run, restore, reps: int, rounds: int,
+                      bin_bits: tuple = ()) -> dict:
+    """The update's paths in turns on restored state, and the binned path
+    in bins of 2^b rows for each b of ``bin_bits``: ``run(**kw)`` is one
+    call."""
+    fns = {p: (lambda p=p: run(path=p)) for p in cnt.UPDATE_PATHS}
+    for b in bin_bits:
+        fns[f"binned 2^{b} rows"] = (lambda b=b: run(path="binned",
+                                                     bin_row_bits=b))
+    return time_restored_turns(fns, restore, label, reps, rounds)
+
+
+def update_peak_bytes(run, restore) -> dict:
+    """Peak extra device memory of one call on each path, against its
+    plan's workspace (the binned add's slots; none for one-pass)."""
+    peak = {}
+    for p in cnt.UPDATE_PATHS:
+        restore()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        plan = run(path=p)
+        torch.cuda.synchronize()
+        peak[p] = (torch.cuda.max_memory_allocated() - before,
+                   plan["workspace_bytes"])
+        if peak[p][0] > peak[p][1] + 512:      # the allocator's rounding
+            raise AssertionError(f"{p} update: peak extra memory {peak[p][0]} "
+                                 f"B above its workspace {peak[p][1]} B")
+    return peak
+
+
+def contains_sweep(label: str, run, spec, reps: int, bank: bool = False
+                   ) -> dict:
+    """The contains at every (Θ, depth) and, at depth 1, load width (a
+    bank: 16-byte loads only), in turns; ``run(geo)`` is one call."""
+    fns = {f"Θ{g.theta} d{g.depth} v{g.vec}": (lambda g=g: run(g))
+           for g in counting_geometries(spec)
+           if not bank or g.vec == sbf.MAX_VEC}
+    return time_turns(fns, label, reps, 3)
+
+
 def phase_counting_main(regime: str, n: int, errs: dict, records: dict,
                         launches: dict, card: str):
     upd, con = (("update_vmem", "contains_vmem") if regime == "L2"
@@ -1011,13 +1169,17 @@ def phase_counting_main(regime: str, n: int, errs: dict, records: dict,
     keys = gen_keys(n, 11)
     probes = gen_keys(SUBSET, 12, probe=True)
     half = n // 2
+    smem = sbf.partition_smem_bytes(keys.device)
     torch.cuda.synchronize()
 
     cnt.reset_launches()                   # the main path, counted
     t0 = time.perf_counter()
     g = f.add(keys)
+    aplan = dict(cnt.LAST_UPDATE_PLAN[upd])
     hits = g.contains(keys)
+    geo = cnt.LAST_GEOMETRY[con]
     h = g.remove(keys[:half])
+    rplan = dict(cnt.LAST_UPDATE_PLAN[upd])
     kept = h.contains(keys[half:])
     d = h.decay(1)
     torch.cuda.synchronize()
@@ -1028,6 +1190,11 @@ def phase_counting_main(regime: str, n: int, errs: dict, records: dict,
             raise AssertionError(f"{name} was not launched on the counting "
                                  f"main path")
         launches[name] = launches.get(name, 0) + counted[name]
+    for m, plan in ((n, aplan), (half, rplan)):
+        if plan["path"] != cnt.choose_update_path(
+                m, spec.storage_words, spec.counter_row_words, smem):
+            raise AssertionError(f"counting {regime}: an update of {m} keys "
+                                 f"ran {plan}, not the rule's path")
     if not (bool(hits.all()) and bool(kept.all())):
         raise AssertionError(f"counting {regime}: false negatives")
     false_pos = g.contains(probes)
@@ -1049,16 +1216,25 @@ def phase_counting_main(regime: str, n: int, errs: dict, records: dict,
         kept, contains_in_chunks(plain_contains, want_rm, keys[half:])))
     errs["decay"] = max(errs["decay"], max_err(
         d.words, cnt.decay_plain(spec, want_rm)))
-    del want_add, want_rm
+    # the other update path on the cell's keys, against the plain version
+    other = "one-pass" if aplan["path"] == "binned" else "binned"
+    w = cnt._launch_update(upd, spec, V.init(spec, "cuda"), keys, None,
+                           "add", path=other)
+    errs[upd] = max(errs[upd], max_err(w, want_add))
+    cnt._launch_update(upd, spec, w, keys[:half], None, "remove", path=other)
+    errs[upd] = max(errs[upd], max_err(w, want_rm))
+    del want_add, want_rm, w
     fpr = float(false_pos.to(torch.float64).mean().item())
     theory = g.fpr_theory(n)
     print(f"main counting {regime}: {spec} on {g.backend}, {n} keys, "
           f"{g.nbytes / 2**20:.0f} MiB of counters: add, contains, remove "
           f"of {half}, contains of the rest, decay(1) in {wall * 1e3:.1f} ms "
           f"host clock, no false negatives; every step's words, hits and "
-          f"probe results equal to the plain version's in full; FPR "
-          f"{fpr:.6f}, {fpr / theory:.3f} x theory {theory:.6f}, launches "
-          f"{counted}")
+          f"probe results equal to the plain version's in full (and the "
+          f"{other} update's); FPR {fpr:.6f}, {fpr / theory:.3f} x theory "
+          f"{theory:.6f}, launches {counted}; the add's plan "
+          f"(cnt.LAST_UPDATE_PLAN) {aplan}; the remove's {rplan}; the "
+          f"contains' geometry {geo}")
 
     # the timing columns' subset: 2^22 keys into an empty full-size filter
     sub = keys[:SUBSET]
@@ -1111,6 +1287,53 @@ def phase_counting_main(regime: str, n: int, errs: dict, records: dict,
                                f"{regime} decay plain", PLAIN_REPS,
                                PLAIN_ROUNDS),
     }
+    # both update paths in turns at the cell's size (the add also in bins
+    # of half, twice and four times the rule's rows, where they fit), an
+    # add's peak extra memory on each path, and the contains at every Θ
+    # and depth
+    reps = REPS if regime == "L2" else 5
+    rb = aplan["bin_row_bits"]
+    other_bins = () if rb is None else tuple(
+        b for b in (rb - 1, rb + 1, rb + 2)
+        if cnt.binned_fits(aplan["total_rows"], b, smem))
+    paths = {op: update_path_turns(
+        f"counting {regime} {op} paths",
+        lambda op=op, nk=nk, **kw: cnt._launch_update(
+            upd, spec, scratch, keys[:nk], None, op, **kw),
+        restore, reps, ROUNDS, bins)
+        for op, nk, restore, bins in (
+            ("add", n, scratch.zero_, other_bins),
+            ("remove", half, lambda: scratch.copy_(g.words), ()))}
+    peak = update_peak_bytes(
+        lambda **kw: (cnt._launch_update(upd, spec, scratch, keys, None,
+                                         "add", **kw),
+                      cnt.LAST_UPDATE_PLAN[upd])[1], scratch.zero_)
+    sweep = contains_sweep(
+        f"counting {regime} contains sweep",
+        lambda geo: cnt._launch_contains(con, spec, g.words, keys, geo),
+        spec, REPS if regime == "L2" else 5)
+    best = min(sweep, key=sweep.get)
+    ran = f"Θ{geo.theta} d{geo.depth} v{geo.vec}"
+    for op in ("add", "remove"):
+        lo_hi = {p: SPREAD[f"counting {regime} {op} paths {p}"]
+                 for p in paths[op]}
+        print(f"time counting {regime} {op} paths [{card}] "
+              f"({n if op == 'add' else half} keys, in turns, restored "
+              f"state): " + ", ".join(
+                  f"{p} {v:.4f} ms (rounds {lo_hi[p][0]:.4f}-"
+                  f"{lo_hi[p][1]:.4f})" for p, v in paths[op].items())
+              + f"; one-pass / binned "
+              f"{paths[op]['one-pass'] / paths[op]['binned']:.2f}x; the "
+              f"rule ran {(aplan if op == 'add' else rplan)['path']} (bins "
+              f"of 2^{(aplan if op == 'add' else rplan)['bin_row_bits']} "
+              f"rows where binned)")
+    print(f"counting {regime} add peak extra memory [{card}]: " + ", ".join(
+        f"{p} {b} B (workspace {w} B)" for p, (b, w) in peak.items()))
+    print(f"time counting {regime} contains sweep [{card}] ({n} member "
+          f"keys, in turns): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in sweep.items())
+          + f" ms; the main path ran {ran} ({sweep.get(ran, float('nan')):.4f}"
+          f" ms), the best {best} ({sweep[best]:.4f} ms)")
     # the bound's data-dependent terms: sectors and counter words touched
     full = {"add": (n, touched_sectors(g.words), counter_updates(spec, keys)),
             "remove": (half, touched_sectors(run_upd(
@@ -1123,6 +1346,10 @@ def phase_counting_main(regime: str, n: int, errs: dict, records: dict,
                 spec, V.init(spec, "cuda"), sub[:sub_half], None, "add")),
                 counter_updates(spec, sub[:sub_half]))}
     part["contains"] = part["add"]
+    floors = {"add": counting_binned_floor_ms(spec, n,
+                                              touched_rows(spec, g.words)),
+              "remove": counting_binned_floor_ms(spec, half, touched_rows(
+                  spec, g.words))}
     for op in ("add", "contains", "remove"):
         nk, sectors, updates = full[op]
         b_full, by_full = counting_bound_ms(spec, nk, op, sectors, updates)
@@ -1130,14 +1357,14 @@ def phase_counting_main(regime: str, n: int, errs: dict, records: dict,
         b_sub, by_sub = counting_bound_ms(spec, nk_s, op, sectors_s,
                                           updates_s)
         lo, hi = SPREAD[f"{regime} {op}"]
-        cas = ("" if op == "contains" else
-               f"; atomics estimate {updates / CAS_PER_S[regime] * 1e3:.4f} "
-               f"ms ({updates} CAS at {CAS_PER_S[regime]:.2g}/s)")
+        floor = ("" if op == "contains" else
+                 f"; binned floor {floors[op]:.4f} ms, "
+                 f"{floors[op] / t[op]:.1%} of it")
         print(f"time counting {regime} {op} [{card}]: kernel "
               f"{t[op]:.4f} ms (rounds {lo:.4f}-{hi:.4f}; "
               f"{nk / t[op] / 1e3:.1f} Mops/s) at {nk} keys, bound "
               f"{b_full:.4f} ms ({by_full}; {sectors} sectors), "
-              f"{b_full / t[op]:.1%} of it{cas}; Filter.{op} "
+              f"{b_full / t[op]:.1%} of it{floor}; Filter.{op} "
               f"{t[f'Filter.{op}']:.4f} ms; at {nk_s} keys kernel "
               f"{t[f'{op} sub']:.4f} ms, plain {t[f'{op} plain']:.4f} ms, "
               f"bound {b_sub:.4f} ms ({by_sub})")
@@ -1147,17 +1374,32 @@ def phase_counting_main(regime: str, n: int, errs: dict, records: dict,
                                  remove_plain_ms=t["remove plain"],
                                  remove_bound_ms=b_sub,
                                  main_remove_ms=t["remove"],
-                                 api_remove_ms=t["Filter.remove"])
+                                 api_remove_ms=t["Filter.remove"],
+                                 remove_path=rplan["path"],
+                                 remove_paths_ms=paths["remove"],
+                                 remove_binned_floor_ms=floors["remove"])
             continue
         records[name] = {
             "name": f"counting_{name}", "route": "cuda",
-            "source": COUNTING_SOURCE, "replaces": COUNTING_REPLACES[name],
+            "source": (COUNTING_SOURCE if op == "add"
+                       else COUNTING_CONTAINS_SOURCE),
+            "replaces": COUNTING_REPLACES[name],
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": t[f"{op} sub"], "plain_ms": t[f"{op} plain"],
             "bound_ms": b_sub, "bound_by": by_sub, "library_ms": None,
             "n_keys": nk_s, "m_bits": spec.m_bits, "main_n_keys": nk,
             "main_ms": t[op], "main_bound_ms": b_full,
-            "api_ms": t[f"Filter.{op}"]}
+            "api_ms": t[f"Filter.{op}"],
+            "cuda_kernels": COUNTING_KERNELS["update" if op == "add"
+                                             else "contains"]}
+        if op == "add":
+            records[name].update(path=aplan["path"], plan=aplan,
+                                 paths_ms=paths["add"],
+                                 binned_floor_ms=floors["add"],
+                                 peak_extra_bytes=peak[aplan["path"]][0])
+        else:
+            records[name].update(geometry=ran, sweep_ms=sweep,
+                                 best=best)
     b_dec, by_dec = counting_bound_ms(spec, 0, "decay", 0, 0)
     lo, hi = SPREAD[f"{regime} decay"]
     print(f"time counting {regime} decay [{card}]: kernel {t['decay']:.4f} ms "
@@ -1172,10 +1414,88 @@ def phase_counting_main(regime: str, n: int, errs: dict, records: dict,
             "launches": launches["decay"], "max_abs_err": errs["decay"],
             "ms": t["decay"], "plain_ms": t["decay plain"],
             "bound_ms": b_dec, "bound_by": by_dec, "library_ms": None,
-            "m_bits": spec.m_bits, "api_ms": t["Filter.decay"]}
+            "m_bits": spec.m_bits, "api_ms": t["Filter.decay"],
+            "cuda_kernels": COUNTING_KERNELS["decay"]}
     del f, g, h, d, keys, scratch, sub_add
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
+
+
+COUNTING_RULE_LOG2B = range(20, 30)     # counter bytes of the rule's sweep
+COUNTING_RULE_LOG2N = range(16, 27)     # keys of the rule's sweep
+COUNTING_RULE_RETIME_ROUNDS = 9         # where the rule's path was slower
+
+
+def phase_counting_rule(card: str):
+    """The update's path rule against both paths timed in turns: B = 256,
+    k = 8, 2^20 ... 2^29 counter bytes x 2^16 ... 2^26 keys added into
+    empty counters. Prints every size where the rule's path is the slower;
+    fails where it is slower than the other beyond the rounds' spread by
+    more than 10 % and 0.01 ms. A size where the rule's path was the
+    slower in the sweep's 3 rounds is timed again over
+    ``COUNTING_RULE_RETIME_ROUNDS`` rounds, and judged by those."""
+    smem = sbf.partition_smem_bytes(torch.device("cuda"))
+    keys = gen_keys(1 << max(COUNTING_RULE_LOG2N), 31)
+    rows, slower, wrong, retimed = [], [], [], []
+    for log2b in COUNTING_RULE_LOG2B:
+        spec = V.FilterSpec("countingbf", 1 << (log2b + 1), 8,
+                            block_bits=256)
+        words = V.init(spec, "cuda")
+        for log2n in COUNTING_RULE_LOG2N:
+            sub = keys[: 1 << log2n]
+            fns = {p: (lambda p=p: cnt._launch_update(
+                "update_hbm", spec, words, sub, None, "add", path=p))
+                for p in cnt.UPDATE_PATHS}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            fns["one-pass"]()
+            start.record()
+            fns["one-pass"]()
+            end.record()
+            torch.cuda.synchronize()
+            reps = max(1, min(REPS, int(10 / max(start.elapsed_time(end),
+                                                 1e-3))))
+            label = f"counting rule 2^{log2b} 2^{log2n}"
+            t = time_restored_turns(fns, words.zero_, label, reps, 3)
+            chosen = cnt.choose_update_path(1 << log2n, spec.storage_words,
+                                            spec.counter_row_words, smem)
+            other = "binned" if chosen == "one-pass" else "one-pass"
+            first = ""
+            if t[chosen] > t[other]:
+                first = (f" (3 rounds: {t[chosen]:.4f} against "
+                         f"{t[other]:.4f})")
+                t = time_restored_turns(fns, words.zero_, label, reps,
+                                        COUNTING_RULE_RETIME_ROUNDS)
+                retimed.append(f"2^{log2b} B/2^{log2n} keys {chosen} "
+                               f"{t[chosen]:.4f} against {t[other]:.4f} ms"
+                               f"{first}")
+            if t[chosen] > t[other]:
+                slower.append(f"2^{log2b} B/2^{log2n} keys {chosen} "
+                              f"{t[chosen]:.4f} against {t[other]:.4f} ms "
+                              f"(+{t[chosen] / t[other] - 1:.1%}, "
+                              f"{COUNTING_RULE_RETIME_ROUNDS} rounds){first}")
+            if (t[chosen] > SPREAD[f"{label} {other}"][1]
+                    and t[chosen] > 1.10 * t[other]
+                    and t[chosen] - t[other] > 0.01):
+                wrong.append((log2b, log2n, t[chosen], t[other]))
+            rows.append(f"2^{log2b}/2^{log2n} {t['one-pass']:.4f}/"
+                        f"{t['binned']:.4f}{'*' if chosen == 'binned' else ''}")
+        del words
+    del keys
+    torch.cuda.empty_cache()
+    print(f"counting update rule sweep [{card}] (counter bytes / keys: "
+          f"one-pass / binned ms, median of 3 rounds in turns on restored "
+          f"counters; * the rule picks binned): " + ", ".join(rows))
+    print(f"counting update rule: timed again over "
+          f"{COUNTING_RULE_RETIME_ROUNDS} rounds: "
+          + ("; ".join(retimed) if retimed else "none"))
+    print(f"counting update rule: the rule's path is the slower at "
+          f"{len(slower)} of {len(rows)} sizes: "
+          + ("; ".join(slower) if slower else "none"))
+    if wrong:
+        raise AssertionError(f"counting update rule picks the slower path "
+                             f"by more than 10 % at (log2 bytes, log2 n, "
+                             f"chosen ms, other ms) {wrong}")
 
 
 # ---------------------------------------------------------------------------
@@ -1197,13 +1517,13 @@ PHASE3C_RING_SPECS = [
 DRAM_CBF_REPS, DRAM_CBF_ROUNDS = 5, 3   # the DRAM cbf cell's calls take ~0.1 s
 CBF_KERNELS = {"contains_vmem": ["cbf_contains_kernel (one-pass)",
                                   "cbf_bin_count_kernel",
-                                  "cbf_bin_column_kernel",
-                                  "cbf_bin_scan_kernel",
+                                  "bin_column_kernel",
+                                  "bin_scan_kernel",
                                   "cbf_bin_scatter_kernel<uint64_t>",
                                   "cbf_bin_test_kernel"],
                "add_vmem": ["cbf_add_kernel (one-pass)",
-                            "cbf_bin_count_kernel", "cbf_bin_column_kernel",
-                            "cbf_bin_scan_kernel",
+                            "cbf_bin_count_kernel", "bin_column_kernel",
+                            "bin_scan_kernel",
                             "cbf_bin_scatter_kernel<uint32_t>",
                             "cbf_bin_apply_kernel"]}
 
@@ -2007,10 +2327,18 @@ def bank_contains_launch(spec, bank, keys, member, regime: str):
                                      bank_geometry(spec, "contains", regime))
 
 
+def counting_bank_contains_at(spec, bank, keys, member, depth: int):
+    """The counting bank contains kernel alone (no member range check) at
+    ``card_layout`` and ``depth``."""
+    return cnt._launch_contains(
+        "bank_contains_vmem", spec, bank, keys,
+        cnt.contains_geometry(spec, cnt.card_layout(spec), depth), member)
+
+
 def counting_bank_contains_launch(spec, bank, keys, member, regime: str):
-    depth = (1 if regime == "L2"
-             else cnt._depth_in_flight(spec, sbf.DEFAULT_DMA_DEPTH))
-    return cnt._launch_bank_contains(spec, bank, keys, member, depth)
+    return counting_bank_contains_at(
+        spec, bank, keys, member,
+        1 if regime == "L2" else sbf.DEFAULT_DMA_DEPTH)
 
 
 def phase_bank_kernels(errs: dict, cerrs: dict):
@@ -2116,6 +2444,17 @@ def phase_bank_kernels(errs: dict, cerrs: dict):
             got = ops.counting_bank_update(cspec, want, gone, gm, "remove")
             cerrs["bank_update_vmem"] = max(cerrs["bank_update_vmem"],
                                             max_err(got, want_rm))
+            for kw in counting_path_cases(cspec):   # each path forced
+                got = cnt._launch_update("bank_update_vmem", cspec,
+                                         empty.clone(), batch, valid, "add",
+                                         member, **kw)
+                cerrs["bank_update_vmem"] = max(cerrs["bank_update_vmem"],
+                                                max_err(got, want))
+                cnt._launch_update("bank_update_vmem", cspec, got, gone,
+                                   None, "remove", gm, **kw)
+                cerrs["bank_update_vmem"] = max(cerrs["bank_update_vmem"],
+                                                max_err(got, want_rm))
+                runs += 2
             queries = torch.cat([batch, gen_keys(n, seed, probe=True)])
             qm = torch.cat([member, gen_members(n, B, seed + 2, skewed)])
             for words in (want, want_rm):
@@ -2125,6 +2464,14 @@ def phase_bank_kernels(errs: dict, cerrs: dict):
                                                  depth=depth)
                     cerrs["bank_contains_vmem"] = max(
                         cerrs["bank_contains_vmem"], max_err(got, hits))
+                for geo in counting_geometries(cspec):
+                    if geo.vec != sbf.MAX_VEC:
+                        continue
+                    got = cnt._launch_contains("bank_contains_vmem", cspec,
+                                               words, queries, geo, qm)
+                    cerrs["bank_contains_vmem"] = max(
+                        cerrs["bank_contains_vmem"], max_err(got, hits))
+                    runs += 1
             hits = cnt.bank_contains_plain(cspec, want, batch, member)
             if not bool(hits[valid.bool()].all()):
                 raise AssertionError(f"counting bank B={B}: false negatives")
@@ -2136,7 +2483,8 @@ def phase_bank_kernels(errs: dict, cerrs: dict):
         print(f"kernels: bank of {B} x {cspec}: {runs} counting bank kernel "
               f"runs equal to the plain version ({batch.shape[0]} routed "
               f"inserts, removes incl. keys never added, uniform and skewed "
-              f"members, depth 1/2/4, bank decay)")
+              f"members, each update path, the contains at every Θ and "
+              f"depth, bank decay)")
 
 
 def phase_generic_banks(card: str, B: int = 8, time_it: bool = False):
@@ -2327,8 +2675,9 @@ def phase_bank_main(kind: str, regime: str, n_per: int, n: int, errs: dict,
                                           sub, msub, vsub, "add")
         queries, qm = sub, msub
 
-        def run_update(words, k, m, v, op):
-            return cnt._launch_bank_update(spec, words, k, m, v, op)
+        def run_update(words, k, m, v, op, **kw):
+            return cnt._launch_update("bank_update_vmem", spec, words, k, v,
+                                      op, m, **kw)
 
         def run_contains(words, k, m):
             return counting_bank_contains_launch(spec, words, k, m, regime)
@@ -2462,6 +2811,39 @@ def phase_bank_main(kind: str, regime: str, n_per: int, n: int, errs: dict,
                                 f"{label} {op} turns") for op in ops_list}
         sectors = {"add": sector_bound_ms(n, "add", 5 * n),
                    "contains": sector_bound_ms(n, "contains", 4 * n)}
+    if counting:
+        # both update paths (and the one-pass schedules) in turns at the
+        # cell's size, an add's peak extra memory, and the contains at
+        # every Θ and depth
+        paths = {op: update_path_turns(
+            f"{label} {op} paths",
+            lambda op=op, nk=nk, **kw: run_update(
+                scratch, keys[:nk], member[:nk], None, op, **kw),
+            restore, 5, 3)
+            for op, nk, restore in (
+                ("add", n, scratch.zero_),
+                ("remove", half, lambda: scratch.copy_(g.words)))}
+        peak = update_peak_bytes(
+            lambda **kw: (run_update(scratch, keys, member, None, "add", **kw),
+                          cnt.LAST_UPDATE_PLAN["bank_update_vmem"])[1],
+            scratch.zero_)
+        sweep = contains_sweep(
+            f"{label} contains sweep",
+            lambda geo: cnt._launch_contains("bank_contains_vmem", spec,
+                                             g.words, keys, geo, member),
+            spec, 5, bank=True)
+        best = min(sweep, key=sweep.get)
+        for op in ("add", "remove"):
+            print(f"time {label} {op} paths [{card}] ("
+                  f"{n if op == 'add' else half} routed keys, in turns): "
+                  + ", ".join(f"{p} {v:.4f} ms" for p, v in paths[op].items())
+                  + f"; one-pass / binned "
+                  f"{paths[op]['one-pass'] / paths[op]['binned']:.2f}x")
+        print(f"{label} add peak extra memory [{card}]: " + ", ".join(
+            f"{p} {b} B (workspace {w} B)" for p, (b, w) in peak.items()))
+        print(f"time {label} contains sweep [{card}] (in turns): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sweep.items())
+              + f" ms; the best {best}")
     for op in ops_list:
         (b_full, by_full), (b_sub, by_sub) = bounds[op]
         nk = half if op == "remove" else n
@@ -2502,16 +2884,31 @@ def phase_bank_main(kind: str, regime: str, n_per: int, n: int, errs: dict,
             cell.update(theta=resolved[op], turns_ms=turns[op]["resolved"],
                         theta1_ms=turns[op]["theta=1"],
                         main_sector_bound_ms=sectors[op])
+        elif op == "add":
+            cell.update(paths_ms=paths["add"],
+                        remove_paths_ms=paths["remove"],
+                        path=cnt.choose_update_path(
+                            n, B * spec.storage_words,
+                            spec.counter_row_words,
+                            sbf.partition_smem_bytes(keys.device)),
+                        peak_extra_bytes=peak)
+        else:
+            cell.update(sweep_ms=sweep, best=best)
         name = ops_name[op]
         if regime == "L2":
             records[name] = {
                 "name": f"{'counting_' if counting else ''}{name}",
                 "route": "cuda",
-                "source": COUNTING_SOURCE if counting else COOP_SOURCE,
+                "source": ((COUNTING_SOURCE if op == "add"
+                            else COUNTING_CONTAINS_SOURCE) if counting
+                           else COOP_SOURCE),
                 "replaces": (COUNTING_BANK_REPLACES if counting
                              else BANK_REPLACES)[name],
                 "launches": 0, "max_abs_err": 0, "library_ms": None,
                 "n_keys": SUBSET, **cell}
+            if counting:
+                records[name]["cuda_kernels"] = COUNTING_KERNELS[
+                    "update" if op == "add" else "contains"]
         else:
             records[name].update({f"dram_{k}": v for k, v in cell.items()})
     if counting:
@@ -4558,8 +4955,7 @@ def phase_depth_sweeps(card: str) -> dict:
     out["row 16"] = depth_sweep(
         "row 16 countingbf bank_contains_vmem (DRAM)", card,
         resolved(spec, BANK_MEMBERS),
-        lambda d: cnt._launch_bank_contains(
-            spec, bank, keys, member, cnt._depth_in_flight(spec, d)))
+        lambda d: counting_bank_contains_at(spec, bank, keys, member, d))
     del bank, member
     # row 19: a window of 2^26 keys over G = 4 generations of 2^30 bits
     G = 4
@@ -4634,13 +5030,12 @@ def phase_l2_sweep(card: str, depth_of) -> dict:
                         bank_geometry(member, "contains", "DRAM", d))
             else:
                 cnt.bank_update_vmem(member, bank, keys, ids, None, "add")
-                l2 = functools.partial(cnt._launch_bank_contains, member,
+                l2 = functools.partial(counting_bank_contains_at, member,
                                        bank, keys, ids, 1)
 
                 def dram(d):
-                    return cnt._launch_bank_contains(
-                        member, bank, keys, ids,
-                        cnt._depth_in_flight(member, d))
+                    return counting_bank_contains_at(member, bank, keys, ids,
+                                                     d)
             label = f"{variant} {mib} MiB bank of {B}"
             t[label] = (
                 time_ms(l2, f"{label} L2", SWEEP_REPS, SWEEP_ROUNDS),
@@ -4896,6 +5291,7 @@ def main() -> int:
     crecords, claunches = {}, {}
     phase_counting_main("L2", 1 << 22, cerrs, crecords, claunches, card)
     phase_counting_main("DRAM", 1 << 26, cerrs, crecords, claunches, card)
+    phase_counting_rule(card)
     brecords, blaunches = {}, {}
     phase_cbf_main("L2", 1 << 23, berrs, brecords, blaunches, card)
     phase_cbf_main("DRAM", 1 << 28, berrs, brecords, blaunches, card)

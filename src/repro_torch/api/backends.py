@@ -589,14 +589,16 @@ def tuned_options(spec: FilterSpec, op: str = "contains",
     materializes the tuned (layout, probe, depth, coop, mix) eagerly, for a
     caller that wants the plan recorded in the filter's options, inspected
     or logged. On a CUDA device a blocked filter's layout is the card's own
-    (``sbf.card_layout(spec, op)``, the lanes a key): the tuner's layout
-    grid scores the JAX package's schedule, which on the card would run
-    another Θ. The CPU keeps the tuner's layout, as in the JAX package.
+    (``sbf.card_layout(spec, op)``, the lanes a key), and so is a counting
+    filter's contains layout (``countingbf.card_layout(spec)``): the
+    tuner's layout grid scores the JAX package's schedule, which on the
+    card would run another Θ. The CPU keeps the tuner's layout, as in the
+    JAX package.
     """
     from repro_torch import resolve_device
     from repro_torch.api.filter import BackendOptions
     from repro_torch.core import tuning
-    from repro_torch.kernels import sbf
+    from repro_torch.kernels import countingbf, sbf
     tile = tile or sbf.DEFAULT_TILE
     device = resolve_device(device)
     plan = tuning.tune_plan(spec, op, regime=ops._regime(spec, regime),
@@ -604,6 +606,8 @@ def tuned_options(spec: FilterSpec, op: str = "contains",
     layout = plan.layout
     if device.type == "cuda" and spec.variant in sbf.BLOCKED_VARIANTS:
         layout = sbf.card_layout(spec, op)
+    elif device.type == "cuda" and spec.is_counting and op == "contains":
+        layout = countingbf.card_layout(spec)
     return BackendOptions(layout=layout, tile=tile, probe=plan.probe,
                           depth=plan.depth, coop=plan.coop, mix=plan.mix)
 

@@ -25,7 +25,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bloom", "bloom_contains", "bloom_bank_contains", "counting",
-           "cbf", "ring", "cuckoo", "quotient", "calibrate")
+           "counting_contains", "cbf", "ring", "cuckoo", "quotient",
+           "calibrate")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -42,10 +43,21 @@ ENTRY_POINTS = {
                                           _vp]),
     "bloom_add": ("bloom", [_vp, _vp, _vp, _ll, _u32, _i, _i, _u32, _i, _i,
                             _i, _i, _vp]),
-    "counting_update": ("counting", [_vp, _vp, _vp, _vp, _ll, _u32, _i, _i,
-                                     _i, _vp]),
-    "counting_contains": ("counting", [_vp, _vp, _vp, _vp, _ll, _u32, _i, _i,
-                                       _i, _i, _vp]),
+    # counting filters: member ids (null for one filter) and the words of
+    # one member (c_ulonglong); the contains' (theta, vec, depth) of
+    # countingbf.contains_geometry
+    "counting_update": ("counting", [_vp, _vp, _vp, _vp, _vp, _ll, _ull, _u32,
+                                     _i, _i, _i, _vp]),
+    # + the workspace; (total rows, block mask, s, k, op, bin row bits,
+    # keys a batch, chunks); the chunks of the card as (s, total rows, bin
+    # row bits)
+    "counting_update_binned": ("counting", [_vp, _vp, _vp, _vp, _vp, _vp,
+                                            _ll, _u32, _u32, _i, _i, _i, _i,
+                                            _ll, _i, _vp]),
+    "counting_binned_chunks": ("counting", [_i, _u32, _i]),
+    "counting_contains": ("counting_contains", [_vp, _vp, _vp, _vp, _vp, _ll,
+                                                _ull, _u32, _i, _i, _i, _i,
+                                                _i, _vp]),
     "counting_decay": ("counting", [_vp, _ll, _vp]),
     # bank forms: + member ids and the words of one member (c_ulonglong)
     "bloom_bank_contains": ("bloom_bank_contains",
@@ -53,11 +65,6 @@ ENTRY_POINTS = {
                              _i, _i, _u32, _i, _i, _i, _i, _vp]),
     "bloom_bank_add": ("bloom", [_vp, _vp, _vp, _vp, _vp, _ll, _ull, _u32,
                                  _i, _i, _u32, _i, _i, _i, _i, _vp]),
-    "counting_bank_update": ("counting", [_vp, _vp, _vp, _vp, _vp, _ll, _ull,
-                                          _u32, _i, _i, _i, _vp]),
-    "counting_bank_contains": ("counting", [_vp, _vp, _vp, _vp, _vp, _ll,
-                                            _ull, _u32, _i, _i, _i, _i,
-                                            _vp]),
     # sizes as log2 m: m_bits = 2^32 does not fit a c_uint32
     "cbf_contains": ("cbf", [_vp, _vp, _vp, _vp, _ll, _i, _i, _vp]),
     "cbf_add": ("cbf", [_vp, _vp, _vp, _ll, _i, _i, _vp]),

@@ -11,16 +11,16 @@ contains_vmem   contains_vmem                    cbf_contains_kernel
                                                  (one-pass), or the binned
                                                  contains:
                                                  cbf_bin_count_kernel,
-                                                 cbf_bin_column_kernel,
-                                                 cbf_bin_scan_kernel,
+                                                 bin_column_kernel,
+                                                 bin_scan_kernel,
                                                  cbf_bin_scatter_kernel
                                                  <uint64_t>,
                                                  cbf_bin_test_kernel
 add_vmem        add_vmem                         cbf_add_kernel (one-pass),
                                                  or the binned add:
                                                  cbf_bin_count_kernel,
-                                                 cbf_bin_column_kernel,
-                                                 cbf_bin_scan_kernel,
+                                                 bin_column_kernel,
+                                                 bin_scan_kernel,
                                                  cbf_bin_scatter_kernel
                                                  <uint32_t>,
                                                  cbf_bin_apply_kernel

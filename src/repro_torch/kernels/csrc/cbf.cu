@@ -46,10 +46,10 @@
 //   batch, five kernels on the caller's stream:
 //   1. cbf_bin_count_kernel: chunk c hashes its keys once and counts their
 //      k positions by bin in shared memory, then stores its row counts[c];
-//   2. cbf_bin_column_kernel: thread j turns bin j's column into the
+//   2. bin_column_kernel: thread j turns bin j's column into the
 //      offsets of the chunks' runs inside the bin, each run padded to a
 //      whole 32-byte sector;
-//   3. cbf_bin_scan_kernel: one CTA scans the <= 8192 bin lengths, giving
+//   3. bin_scan_kernel: one CTA scans the <= 8192 bin lengths, giving
 //      each bin its slice of the u32 positions workspace;
 //   4. cbf_bin_scatter_kernel: chunk c hashes its keys again and writes
 //      each position's offset inside its bin into its run; a bin's open
@@ -109,7 +109,7 @@
 // batch of more than 2^31 positions, or shared memory the card cannot
 // give).
 
-#include "bloom_common.cuh"
+#include "bin_common.cuh"
 
 namespace {
 
@@ -174,11 +174,6 @@ __global__ void __launch_bounds__(kThreads)
 // The binned add
 // ---------------------------------------------------------------------------
 
-constexpr int kBinThreads = 1024;
-constexpr int kColumnThreads = 256;
-constexpr int kLog2MaxBins = 13;
-constexpr int kMaxBins = 1 << kLog2MaxBins;        // 32 KiB of histogram
-constexpr int kScanPer = kMaxBins / kBinThreads;   // totals a scan thread
 constexpr int kMinBinBits = 5;                     // one word
 constexpr int kMaxBinBits = 20;                    // 128 KiB of shared memory
 constexpr int kMaxGroupBins = 4096;                // 40 B a bin in the scatter
@@ -190,14 +185,6 @@ __device__ __forceinline__ void stage_bit_salts(uint32_t* salt,
                                                 const uint32_t* salts,
                                                 int k) {
   for (int i = threadIdx.x; i < k; i += blockDim.x) salt[i] = salts[i];
-}
-
-// Keys [first, last) of chunk `c` of `chunks`: the count and the scatter
-// kernels run one CTA a chunk, with the same bounds.
-__device__ __forceinline__ void chunk_of(int64_t n, int c, int chunks,
-                                         int64_t& first, int64_t& last) {
-  first = int64_t(c) * n / chunks;
-  last = int64_t(c + 1) * n / chunks;
 }
 
 // counts[c][j]: positions of chunk c's keys in bin j.
@@ -223,72 +210,6 @@ __global__ void __launch_bounds__(kBinThreads)
   __syncthreads();
   uint32_t* row = counts + size_t(blockIdx.x) * n_bins;
   for (int j = threadIdx.x; j < n_bins; j += blockDim.x) row[j] = hist[j];
-}
-
-// Thread j walks bin j's column: counts[c][j] becomes the offset of chunk
-// c's run inside the bin, each run padded to a whole 32-byte sector (a
-// multiple of `sector` slots: 8 u32 or 4 u64); totals[j] is the bin's
-// padded length.
-__global__ void __launch_bounds__(kColumnThreads)
-    cbf_bin_column_kernel(uint32_t* __restrict__ counts,
-                          uint32_t* __restrict__ totals, int n_bins,
-                          int chunks, uint32_t sector) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_bins) return;
-  uint32_t run = 0u;
-#pragma unroll 8
-  for (int c = 0; c < chunks; ++c) {
-    uint32_t* cell = counts + size_t(c) * n_bins + j;
-    const uint32_t v = *cell;
-    *cell = run;
-    run += (v + sector - 1u) & ~(sector - 1u);
-  }
-  totals[j] = run;
-}
-
-// One CTA: the exclusive scan of the <= 8192 bin lengths (warp shuffles,
-// then the 32 warp sums). In: ends[j] = the length of bin j. Out: starts[j]
-// and ends[j], the bin's slice of the positions workspace.
-__global__ void __launch_bounds__(kBinThreads)
-    cbf_bin_scan_kernel(uint32_t* __restrict__ starts,
-                        uint32_t* __restrict__ ends, int n_bins) {
-  __shared__ uint32_t warp_sums[kBinThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int first = threadIdx.x * kScanPer;
-  uint32_t v[kScanPer];
-  uint32_t sum = 0u;
-#pragma unroll
-  for (int j = 0; j < kScanPer; ++j) {
-    v[j] = first + j < n_bins ? ends[first + j] : 0u;
-    sum += v[j];
-  }
-  uint32_t incl = sum;                       // inclusive scan over the warp
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t y = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += y;
-  }
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {                           // scan the 32 warp sums
-    uint32_t w = warp_sums[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    warp_sums[lane] = w;
-  }
-  __syncthreads();
-  uint32_t run = incl - sum + (warp > 0 ? warp_sums[warp - 1] : 0u);
-#pragma unroll
-  for (int j = 0; j < kScanPer; ++j) {
-    if (first + j < n_bins) {
-      starts[first + j] = run;
-      ends[first + j] = run + v[j];
-    }
-    run += v[j];
-  }
 }
 
 // A slot of the positions workspace: the add's u32 offset inside its bin,
@@ -662,9 +583,9 @@ int cbf_add_binned(const void* keys, void* words, const void* salts,
     const long long nb = n - first < batch ? n - first : batch;
     cbf_bin_count_kernel<<<chunks, kBinThreads, g.count_smem, s>>>(
         k2 + first, counts, sl, nb, shift, k, bin_bits, g.n_bins);
-    cbf_bin_column_kernel<<<column_grid, kColumnThreads, 0, s>>>(
+    bin_column_kernel<<<column_grid, kColumnThreads, 0, s>>>(
         counts, ends, g.n_bins, chunks, Slot<uint32_t>::kSlots);
-    cbf_bin_scan_kernel<<<1, kBinThreads, 0, s>>>(starts, ends, g.n_bins);
+    bin_scan_kernel<<<1, kBinThreads, 0, s>>>(starts, ends, g.n_bins);
     cbf_bin_scatter_kernel<uint32_t>
         <<<chunks, kBinThreads, g.scatter_smem, s>>>(
             k2 + first, counts, starts, positions, sl, nb, shift, k,
@@ -715,9 +636,9 @@ int cbf_contains_binned(const void* keys, const void* words, void* out,
     const long long nb = n - first < batch ? n - first : batch;
     cbf_bin_count_kernel<<<chunks, kBinThreads, g.count_smem, s>>>(
         k2 + first, counts, sl, nb, shift, k, bin_bits, g.n_bins);
-    cbf_bin_column_kernel<<<column_grid, kColumnThreads, 0, s>>>(
+    bin_column_kernel<<<column_grid, kColumnThreads, 0, s>>>(
         counts, ends, g.n_bins, chunks, Slot<uint64_t>::kSlots);
-    cbf_bin_scan_kernel<<<1, kBinThreads, 0, s>>>(starts, ends, g.n_bins);
+    bin_scan_kernel<<<1, kBinThreads, 0, s>>>(starts, ends, g.n_bins);
     cbf_bin_scatter_kernel<uint64_t>
         <<<chunks, kBinThreads, g.scatter_smem, s>>>(
             k2 + first, counts, starts, slots, sl, nb, shift, k, bin_bits,

@@ -1,73 +1,99 @@
 // Counting Bloom filter kernels for Hopper (sm_90a): bulk update of packed
-// 4-bit counters (saturating increment, guarded decrement), membership on
-// counter occupancy, and the decay pass, for the countingbf variant.
+// 4-bit counters (saturating increment, guarded decrement), the decay pass
+// and the partitioned update, for the countingbf variant. The contains (both
+// forms) is in counting_contains.cu; both include counting_common.cuh.
 //
-// Replaces eight Pallas entry points of repro/kernels/countingbf.py:
-//   counting_update_kernel   <- update_vmem (_update_vmem_kernel,
-//                               _update_vmem_gather_kernel,
-//                               _update_vmem_coop_kernel) and update_hbm
-//                               (_update_hbm_kernel)
-//   counting_contains_kernel <- contains_vmem (_contains_vmem_kernel,
-//                               _contains_vmem_gather_kernel,
-//                               _contains_vmem_coop_kernel) and
-//                               contains_hbm (_contains_hbm_kernel,
-//                               _contains_hbm_coop_kernel)
-//   counting_decay_kernel    <- decay (_decay_kernel)
-//   counting_update_kernel<S, true>   <- bank_update_vmem
-//                               (_bank_update_vmem_kernel,
-//                               _bank_update_vmem_gather_kernel)
-//   counting_contains_kernel<.., true> <- bank_contains_vmem
-//                               (_bank_contains_vmem_gather_kernel)
+// Replaces six Pallas entry points of repro/kernels/countingbf.py:
+//   counting_update_kernel (one pass) or the binned update's
+//   counting_bin_*_kernel        <- update_vmem (_update_vmem_kernel,
+//                                   _update_vmem_gather_kernel,
+//                                   _update_vmem_coop_kernel), update_hbm
+//                                   (_update_hbm_kernel) and
+//                                   bank_update_vmem (_bank_update_vmem_kernel,
+//                                   _bank_update_vmem_gather_kernel)
+//   counting_decay_kernel        <- decay (_decay_kernel)
 //   counting_partitioned_grouped_kernel<S, OP> and
 //   counting_partitioned_global_kernel<S, OP> <- update_partitioned
-//                               (_update_partitioned_kernel)
+//                                   (_update_partitioned_kernel)
 //
 // Layout. Logical bit i of the sbf-placed mask owns nibble i of the flat
 // counter array: logical word j of a block is counter words 4j..4j+3 (one
 // aligned 16-byte group), byte c of the mask word goes to counter word
-// 4j+c, bit b of that byte to nibble b.
+// 4j+c, bit b of that byte to nibble b. A key's row is its block's 4S words.
 //
 // Design. The TPU has no atomics, so its kernels sort each tile by counter
 // row and own every read-modify-write. Hopper has 32-bit atomics but none
 // of 4 bits, and atomicAdd would carry out of a nibble at 15 into its
-// neighbour. So:
-// * counting_update_kernel<S>: one thread per key. It hashes the key,
-//   builds its sbf mask and, for every nonzero mask byte, runs an atomicCAS
-//   loop on that counter word with sat_inc_word (add) or guard_dec_word
-//   (remove) applied to all the byte's nibbles at once. Both updates are
-//   order-free per nibble (add gives min(old + count, 15); remove gives
-//   old == 15 ? 15 : max(old - count, 0)), so any interleaving of the CAS
-//   loops gives the sequential reference's words bit for bit. A loop stops
-//   as soon as the update would not change the word: within one launch the
-//   counters only move one way, so a saturated (add) or 0/15 (remove)
-//   nibble seen once stays so. Bound: L2 atomic throughput (k CAS per key
-//   for one bit per logical word, as B = 256, k = 8 gives); in the DRAM
-//   regime each touched sector is also fetched from DRAM. A sorted,
-//   coalesced update (the TPU's schedule) is later perf work.
-// * counting_contains_kernel<S, PHI, DEPTH>: a thread owns DEPTH keys
-//   (strided by blockDim so key loads coalesce). It hashes them and builds
-//   their masks, then walks the logical words: for each one it loads, for
-//   every key still alive, the PHI-word chunks (at most 128 bits) whose
-//   mask bytes are nonzero, and tests (nib_nonzero(w) & inc) == inc. A key
-//   dies at its first failing word and loads nothing more; the walk ends
-//   when all DEPTH keys are dead. The DEPTH keys' loads in flight take the
-//   place of contains_hbm's DMA ring. Bound: DRAM bytes in the DRAM regime
-//   (the touched 32-byte sectors of a 16 s-byte counter row, 128 B a key
-//   for B = 256), L2 bandwidth in the L2 regime.
+// neighbour. Every update below rests on one fact: within one launch every
+// counter moves one way, and the two updates have closed forms that are
+// order-free per nibble, min(old + c, 15) for add and old == 15 ? 15 :
+// max(old - c, 0) for remove (c, the nibble's increments, capped at 15),
+// and two chunks' closed forms compose to the closed form of their sum. So
+// any schedule that applies the right per-nibble counts gives the
+// sequential reference's words bit for bit.
+//
+// * The one-pass update, counting_update_kernel<S, OP, BANK> (small
+//   batches, hot rows): a warp takes 32 keys, each lane hashes one (invalid
+//   slots and lanes past n are dead), and the warp walks them with
+//   min(4S, 32) lanes a key, a lane a counter word of the row, sharing each
+//   key's hash and row by shuffle. A lane builds only its word's nibble
+//   increments (nibble_inc) and, where they are nonzero, loads the word (the
+//   key's loads one coalesced row request) and runs the sat_inc_word /
+//   guard_dec_word CAS loop from the loaded value; a group issues the loads
+//   of two keys' rows before it runs their CAS loops. A loop stops as soon
+//   as the update would not change the word: a saturated (add) or 0 / 15
+//   (remove) nibble seen once stays so. Measured on the H100 (PERF.md):
+//   one key's row in flight, and a lane a logical word (one 16-byte
+//   load, up to 4 CAS loops), were 9-40 % slower. Bound: the L2's atomic
+//   throughput on the touched words; in DRAM each touched sector is also
+//   fetched. It replaces one thread a key with a __ldcg and a CAS loop per
+//   nonzero mask byte (8 uncoalesced 16-byte groups of one row a key: 27.59
+//   ms for 2^26 keys into 512 MiB).
+// * The binned update, no atomics on counters but in over-full bins (large
+//   batches into DRAM-resident counters and banks): a bin is 2^b
+//   consecutive global rows (a bank's global row is member * n_blocks +
+//   block); a key's slot is 8 bytes, (its row within the bin << 32) | its
+//   pattern hash. Per internal batch of at most `batch` keys, five to seven
+//   kernels on the caller's stream:
+//   1. counting_bin_count_kernel: one CTA a chunk of the batch's keys
+//      counts its valid keys by bin in shared memory;
+//   2. bin_column_kernel: each bin's per-chunk runs, padded to a 32-byte
+//      sector (4 slots);
+//   3. bin_scan_kernel: one CTA scans the <= 8192 bin lengths (both shared
+//      with cbf.cu through bin_common.cuh);
+//   4. counting_bin_scatter_kernel: each chunk writes its keys' slots into
+//      their runs, each bin's open sector staged in shared memory and
+//      written whole (as in cbf.cu: a sector has to leave the SM whole),
+//      4096 bins a pass over the chunk; padding is all ones;
+//   5. counting_bin_apply_kernel<S, OP>: one CTA a bin of at most
+//      kSplitSlots slots (4 chunks; every bin of uniform keys: a bin's rows
+//      are chosen so that its keys are about half a chunk at the batch's
+//      load, kernels/countingbf.py binned_bin_row_bits) takes its slots in
+//      chunks of kApplyChunk, counting-sorts each chunk by row in shared
+//      memory and updates each touched row once with the closed forms
+//      (update_sorted_rows, the grouped partitioned kernel's row update).
+//      Bins are disjoint, so its rows are stored plainly, read and written
+//      once a chunk. Staging a bin's rows in shared memory across its
+//      chunks was 6-23 % slower (PERF.md);
+//   6. counting_bin_parts_kernel (where a bin can pass kSplitSlots and a
+//      bin's rows' counts fit shared memory beside a chunk): one CTA cuts
+//      each larger bin's run into parts of kPartSlots and scans them;
+//   7. counting_bin_split_kernel<S, OP> (likewise): the parts of those
+//      over-full bins (skewed keys: a bank's hot member, a key repeated
+//      many times) run on the card's CTAs at once. A part sums its chunks'
+//      counts per row in shared memory (the row update's add form on
+//      zeroed words), then applies each touched counter word's closed form
+//      once by CAS: a CAS a word a part, not one a key; the forms compose,
+//      so the parts' order is free. Where the counts do not fit, an
+//      over-full bin stays one CTA's. Parts that applied each chunk by CAS
+//      were up to 8x slower than one CTA a bin on bins just past a part,
+//      so only bins past 4 chunks are split, and a part sums first
+//      (PERF.md).
+//   Bound: the keys read twice, the slots written and read once, each
+//   touched row read and written once a chunk.
 // * counting_decay_kernel: a grid-stride pass of w - nib_nonzero(w) with
 //   128-bit loads and stores. Bound: DRAM bytes (every counter read and
-//   written once).
-//
-// * Banks (BANK = true): a (B, 4 n_words) counter bank is one counter
-//   array of B * n_blocks rows; key i's counter row starts at
-//   member[i] * member_words + (h_blk & block_mask) * 4S (64-bit offsets,
-//   member_words = 4 n_words), so B members take one launch in either
-//   regime (the JAX package has only the VMEM bank kernels). The update is
-//   valid-masked (write padding is the zero key on member 0, a real key)
-//   and its atomicCAS loop is unchanged: order-free per nibble, so exact
-//   under skewed member mixes too. The bank contains uses PHI = 4 and
-//   DEPTH keys a thread, as contains_hbm does. The whole bank decays with
-//   one counting_decay_kernel launch over its flat words.
+//   written once). A whole bank decays with one launch over its flat words.
 //
 // * The partitioned update: the keys arrive bucketed by counter segment,
 //   (n_segments, capacity) slots with a valid mask, segment i owning
@@ -90,51 +116,32 @@
 //     sums over the row's keys the 0/1 increments of its 32 nibbles (in
 //     the nibbles themselves for up to 15 keys, folded into a per-nibble
 //     saturating count: min(c, 15) gives both closed forms the same
-//     nibble), applies the closed forms once, min(old + c, 15) for add and
-//     old == 15 ? 15 : max(old - c, 0) for remove, with plain integer
-//     operations on the even and odd nibbles as bytes, and stores the row
-//     once. Chunks of
-//     one segment run in order in one CTA, and two chunks' closed forms
-//     compose to the closed form of their sum, so a row that spans chunks
+//     nibble), applies the closed forms once with plain integer operations
+//     on the even and odd nibbles as bytes, and stores the row once. Chunks
+//     of one segment run in order in one CTA, so a row that spans chunks
 //     is exact.
 //     Shared memory is the key buffer and the row histogram, 4 (rows +
 //     kGroupChunk) bytes (at most 48 KiB), not the segment: two CTAs fit
 //     an SM. Bound: the keys and valid bytes read once, each touched row
-//     read and written once a chunk. It replaces a design that staged the
-//     whole segment in shared memory (128 KiB at the fitting count: one
-//     CTA an SM, copy in, CAS loops and copy out in series) and ran one CAS
-//     loop a nonzero mask byte and key on the staged words.
+//     read and written once a chunk.
 //   - counting_partitioned_global_kernel<S, OP> (path 0): where a
 //     segment's rows do not fit the histogram (few, large segments: JAX's
 //     default n_segments = 8) or too few segments fill the card. A warp
 //     takes 32 slots; each lane hashes one, and the warp walks them with
 //     min(4S, 32) lanes a key, a lane a counter word (32 / L keys at
-//     once), sharing each key's hash by shuffle, as the blocked add does;
-//     a lane whose mask byte is nonzero runs the sat_inc_word /
-//     guard_dec_word CAS loop on its word. A key's loads and CAS loops are
-//     one coalesced row request, not 4S dependent ones. Bound: L2 atomic
-//     throughput on the touched words.
+//     once), sharing each key's hash by shuffle; a lane whose mask byte is
+//     nonzero runs the CAS loop on its word. Bound: L2 atomic throughput
+//     on the touched words.
 //
 // C interface for ctypes: each entry point returns cudaGetLastError() after
-// its launch (or -1 for a shape that has no instantiation). The wrappers
-// check every member id against [0, B) before a bank launch.
+// its launches (0 for n == 0: nothing launched), or -1 for a shape that has
+// no instantiation. The wrappers check every member id against [0, B)
+// before a bank launch.
 
-#include "bloom_common.cuh"
+#include "bin_common.cuh"
+#include "counting_common.cuh"
 
 namespace {
-
-constexpr uint32_t kNibLsb = 0x11111111u;
-constexpr int kMaxInFlight = 64;  // mask words a contains thread holds
-
-enum Op : int { kAdd = 0, kRemove = 1 };
-
-__device__ __forceinline__ uint32_t nib_nonzero(uint32_t w) {
-  return (w | (w >> 1) | (w >> 2) | (w >> 3)) & kNibLsb;
-}
-
-__device__ __forceinline__ uint32_t nib_saturated(uint32_t w) {
-  return w & (w >> 1) & (w >> 2) & (w >> 3) & kNibLsb;
-}
 
 __device__ __forceinline__ uint32_t sat_inc_word(uint32_t w, uint32_t inc) {
   return w + (inc & ~nib_saturated(w));
@@ -144,100 +151,9 @@ __device__ __forceinline__ uint32_t guard_dec_word(uint32_t w, uint32_t dec) {
   return w - (dec & nib_nonzero(w) & ~nib_saturated(w));
 }
 
-// Bit b of a byte to bit 4b: one byte of variants.py expand_mask_words.
-__device__ __forceinline__ uint32_t spread_byte(uint32_t x) {
-  x = (x | (x << 12)) & 0x000F000Fu;
-  x = (x | (x << 6)) & 0x03030303u;
-  return (x | (x << 3)) & kNibLsb;
-}
-
-// Launch arguments, carried through the host-side dispatch; the kernels
-// take them as separate parameters so that the read-only pointers keep
-// their __restrict__ (and the loads their read-only path).
-struct UpdateArgs {
-  const uint2* keys;
-  const int32_t* member;
-  const uint8_t* valid;
-  uint32_t* counters;
-  const uint32_t* salts;
-  int64_t n;
-  uint64_t member_words;
-  uint32_t block_mask;
-  int k, op;
-};
-
-struct ContainsArgs {
-  const uint2* keys;
-  const int32_t* member;
-  const uint32_t* counters;
-  bool* out;
-  const uint32_t* salts;
-  int64_t n;
-  uint64_t member_words;
-  uint32_t block_mask;
-  int k;
-};
-
-// First counter word of key i's row (4S words a block); a bank adds the
-// member's offset for a live key.
-template <int S, bool BANK>
-__device__ __forceinline__ uint64_t counter_row(const int32_t* member,
-                                                uint64_t member_words,
-                                                int64_t i, bool live,
-                                                uint32_t h_blk,
-                                                uint32_t block_mask) {
-  uint64_t start = uint64_t(h_blk & block_mask) * uint64_t(4 * S);
-  if constexpr (BANK) {
-    if (live) start += uint64_t(uint32_t(member[i])) * member_words;
-  }
-  return start;
-}
-
-template <int S, bool BANK>
-__global__ void __launch_bounds__(kThreads)
-    counting_update_kernel(const uint2* __restrict__ keys,
-                           const int32_t* __restrict__ member,
-                           const uint8_t* __restrict__ valid,
-                           uint32_t* counters,
-                           const uint32_t* __restrict__ salts, int64_t n,
-                           uint64_t member_words, uint32_t block_mask, int k,
-                           int op) {
-  __shared__ uint32_t smem[3 * kMaxSalts];
-  stage_salts(smem, salts);
-  const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n || (valid != nullptr && valid[i] == 0)) return;
-  uint32_t h_pat, h_blk;
-  hash_key(keys[i], h_pat, h_blk);
-  uint32_t m[S];
-  build_mask<S>(m, h_pat, smem, smem + kMaxSalts, smem + 2 * kMaxSalts, kSbf,
-                k, 1, 0);
-  uint32_t* row = counters + counter_row<S, BANK>(member, member_words, i,
-                                                  true, h_blk, block_mask);
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
-#pragma unroll 1
-    for (int c = 0; c < 4; ++c) {
-      const uint32_t byte = (m[j] >> (8 * c)) & 0xFFu;
-      if (byte == 0u) continue;
-      const uint32_t inc = spread_byte(byte);
-      uint32_t* p = row + 4 * j + c;
-      uint32_t cur = __ldcg(p);
-      while (true) {
-        const uint32_t next =
-            op == kAdd ? sat_inc_word(cur, inc) : guard_dec_word(cur, inc);
-        if (next == cur) break;
-        const uint32_t seen = atomicCAS(p, cur, next);
-        if (seen == cur) break;
-        cur = seen;
-      }
-    }
-  }
-}
-
 // The nibble increments one key makes in counter word `word` of its row:
-// byte word & 3 of logical word word >> 2 of its sbf-placed mask
-// (build_mask, kSbf: salts j, j + S, ... land in word j), bit b of the
-// byte as nibble b = 1 (spread_byte of the byte).
+// byte word & 3 of logical word word >> 2 of its sbf-placed mask, bit b of
+// the byte as nibble b = 1.
 template <int S>
 __device__ __forceinline__ uint32_t nibble_inc(uint32_t h, int word,
                                                const uint32_t* salt, int k) {
@@ -276,11 +192,10 @@ __device__ __forceinline__ uint32_t apply_counts(uint32_t w, uint32_t c) {
   return ((e & kLow) | ((o & kLow) << 4)) | (nib_saturated(w) * 0xFu);
 }
 
-// The CAS loop of one counter word: the same order-free update as
-// counting_update_kernel's.
+// The order-free CAS loop of one counter word from a value read before it.
 template <int OP>
-__device__ __forceinline__ void cas_word(uint32_t* p, uint32_t inc) {
-  uint32_t cur = __ldcg(p);
+__device__ __forceinline__ void cas_from(uint32_t* p, uint32_t cur,
+                                         uint32_t inc) {
   while (true) {
     const uint32_t next =
         OP == kAdd ? sat_inc_word(cur, inc) : guard_dec_word(cur, inc);
@@ -291,8 +206,33 @@ __device__ __forceinline__ void cas_word(uint32_t* p, uint32_t inc) {
   }
 }
 
-// The global kernel's lanes: a lane a counter word of the row (L lanes a
-// row, W words a lane, G rows a warp at once).
+template <int OP>
+__device__ __forceinline__ void cas_word(uint32_t* p, uint32_t inc) {
+  cas_from<OP>(p, __ldcg(p), inc);
+}
+
+// The closed form of counts c (capped at 15) applied to one counter word by
+// a CAS loop from a value read before it: rows that several CTAs update.
+// Closed forms compose, so the CTAs' order is free.
+template <int OP>
+__device__ __forceinline__ void cas_counts(uint32_t* p, uint32_t cur,
+                                           uint32_t c) {
+  while (c != 0u) {
+    const uint32_t next = apply_counts<OP>(cur, c);
+    if (next == cur) break;
+    const uint32_t seen = atomicCAS(p, cur, next);
+    if (seen == cur) break;
+    cur = seen;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The one-pass update
+// ---------------------------------------------------------------------------
+
+// The lanes of the one-pass update and the global partitioned kernel: a
+// lane a counter word of the row (L lanes a row, W words a lane, G rows a
+// warp at once).
 template <int S>
 struct RowLanes {
   static constexpr int L = 4 * S < 32 ? 4 * S : 32;
@@ -300,7 +240,69 @@ struct RowLanes {
   static constexpr int G = 32 / L;
 };
 
-// The grouped kernel's lanes: a lane a logical word of the row, its 4
+constexpr int kOnePassInFlight = 2;     // groups of G keys loaded at once
+
+template <int S, int OP, bool BANK>
+__global__ void __launch_bounds__(kThreads)
+    counting_update_kernel(const uint2* __restrict__ keys,
+                           const int32_t* __restrict__ member,
+                           const uint8_t* __restrict__ valid,
+                           uint32_t* counters,
+                           const uint32_t* __restrict__ salts, int64_t n,
+                           uint64_t member_words, uint32_t block_mask, int k) {
+  using R = RowLanes<S>;
+  constexpr int U = kOnePassInFlight;
+  __shared__ uint32_t salt[kMaxSalts];
+  for (int t = threadIdx.x; t < kMaxSalts; t += blockDim.x) salt[t] = salts[t];
+  __syncthreads();
+  const int lane = threadIdx.x & 31, gl = lane % R::L, grp = lane / R::L;
+  const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  const bool live = i < n && (valid == nullptr || valid[i] != 0);
+  uint32_t h_pat = 0u;
+  uint64_t start = 0u;
+  if (live) {
+    uint32_t h_blk;
+    hash_key(keys[i], h_pat, h_blk);
+    start = counter_row<S, BANK>(h_blk & block_mask,
+                                 BANK ? uint32_t(member[i]) : 0u,
+                                 member_words);
+  }
+  const uint32_t live_mask = __ballot_sync(kFullWarp, live);
+  if (live_mask == 0u) return;                  // the whole warp
+  for (int t0 = 0; t0 < 32; t0 += R::G * U) {
+    uint32_t inc[U][R::W], cur[U][R::W];
+    uint32_t* row[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {               // increments and loads
+      const int src = t0 + u * R::G + grp;
+      const uint32_t h = __shfl_sync(kFullWarp, h_pat, src);
+      const uint64_t r = __shfl_sync(kFullWarp, start, src);
+      const bool on = ((live_mask >> src) & 1u) != 0u;
+      row[u] = counters + r;
+#pragma unroll
+      for (int t = 0; t < R::W; ++t) {
+        const int word = gl + R::L * t;
+        inc[u][t] = on ? nibble_inc<S>(h, word, salt, k) : 0u;
+        if (inc[u][t] != 0u) cur[u][t] = __ldcg(row[u] + word);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {               // the CAS loops
+#pragma unroll
+      for (int t = 0; t < R::W; ++t) {
+        if (inc[u][t] != 0u)
+          cas_from<OP>(row[u] + gl + R::L * t, cur[u][t], inc[u][t]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The row update shared by the grouped partitioned kernel and the binned
+// apply
+// ---------------------------------------------------------------------------
+
+// The grouped kernels' lanes: a lane a logical word of the row, its 4
 // counter words one 16-byte load (S lanes a row, G rows a warp at once),
 // and U rows a group loads before it updates them.
 template <int S>
@@ -308,22 +310,6 @@ struct GroupLanes {
   static constexpr int G = 32 / S;
   static constexpr int U = 2;
 };
-
-// The nibble increments one key makes in the 4 counter words of logical
-// word j of its row (inc[c]: byte c of the sbf-placed mask word j, spread).
-template <int S>
-__device__ __forceinline__ void word_incs(uint32_t h, int j,
-                                          const uint32_t* salt, int k,
-                                          uint32_t (&inc)[4]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) inc[c] = 0u;
-  for (int r = j; r < k; r += S) {
-    const uint32_t b = (h * salt[r]) >> 27;
-    const uint32_t bit = 1u << (4u * (b & 7u)), c = b >> 3;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) inc[q] |= c == uint32_t(q) ? bit : 0u;
-  }
-}
 
 constexpr int kPartThreads = 512;
 constexpr int kGroupThreads = 512;
@@ -371,9 +357,398 @@ __device__ __forceinline__ void block_exclusive_scan(uint32_t* a, int n,
   __syncthreads();
 }
 
+// A chunk counting-sorted by row: hist[r] is the end of row r's run of
+// patterns in spat, hist[r - 1] its start. Each touched row of `own` (4S
+// words a row, in global or shared memory) is updated once with the closed
+// forms by a group of S lanes of a kGroupThreads CTA, a lane a logical
+// word; a group takes U neighbouring rows at a time and loads all their
+// words before it updates them (U row requests in flight, not one).
+template <int S, int OP>
+__device__ __forceinline__ void update_sorted_rows(uint32_t* own,
+                                                   const uint32_t* hist,
+                                                   const uint32_t* spat,
+                                                   uint32_t rows,
+                                                   const uint32_t* salt,
+                                                   int k) {
+  using R = GroupLanes<S>;
+  constexpr int kGroups = kGroupThreads / 32 * R::G;
+  const int lane = threadIdx.x & 31, gl = lane % S;
+  const int group = int(threadIdx.x >> 5) * R::G + lane / S;
+  for (uint32_t r0 = uint32_t(group) * R::U; r0 < rows;
+       r0 += uint32_t(kGroups * R::U)) {
+    uint32_t begin[R::U], end[R::U];
+    uint4 old[R::U];
+#pragma unroll
+    for (int u = 0; u < R::U; ++u) {
+      const uint32_t r = r0 + u;
+      begin[u] = end[u] = 0u;
+      if (r < rows) {
+        begin[u] = r > 0u ? hist[r - 1] : 0u;
+        end[u] = hist[r];
+      }
+      if (begin[u] != end[u])                 // untouched: not read
+        old[u] = *reinterpret_cast<const uint4*>(
+            own + r * uint32_t(4 * S) + 4 * gl);
+    }
+#pragma unroll
+    for (int u = 0; u < R::U; ++u) {
+      if (begin[u] == end[u]) continue;
+      // the row's counts: sums of up to 15 keys in the nibbles, folded
+      // in with a per-nibble saturating add
+      uint32_t sum[4] = {0u, 0u, 0u, 0u}, cnt[4] = {0u, 0u, 0u, 0u};
+      int pending = 0;
+      for (uint32_t p = begin[u]; p < end[u]; ++p) {
+        uint32_t inc[4];
+        word_incs<S>(spat[p], gl, salt, k, inc);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sum[c] += inc[c];
+        if (++pending == 15 || p + 1u == end[u]) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            cnt[c] = sat_add_nibbles(cnt[c], sum[c]);
+            sum[c] = 0u;
+          }
+          pending = 0;
+        }
+      }
+      *reinterpret_cast<uint4*>(own + (r0 + u) * uint32_t(4 * S) + 4 * gl) =
+          make_uint4(apply_counts<OP>(old[u].x, cnt[0]),
+                     apply_counts<OP>(old[u].y, cnt[1]),
+                     apply_counts<OP>(old[u].z, cnt[2]),
+                     apply_counts<OP>(old[u].w, cnt[3]));
+    }
+  }
+}
+
+// A chunk's (row, pattern) pairs, kNoRow for none, counting-sorted by row
+// into spat; hist (rows words) ends as update_sorted_rows reads it. Ends on
+// a barrier.
+template <int PER>
+__device__ __forceinline__ void sort_chunk(const uint32_t (&row)[PER],
+                                           const uint32_t (&pat)[PER],
+                                           uint32_t* hist, uint32_t* spat,
+                                           uint32_t rows, uint32_t* sums) {
+  for (uint32_t r = threadIdx.x; r < rows; r += blockDim.x) hist[r] = 0u;
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < PER; ++t)
+    if (row[t] != kNoRow) atomicAdd(&hist[row[t]], 1u);
+  __syncthreads();
+  block_exclusive_scan(hist, int(rows), sums);
+#pragma unroll
+  for (int t = 0; t < PER; ++t)
+    if (row[t] != kNoRow) spat[atomicAdd(&hist[row[t]], 1u)] = pat[t];
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// The binned update
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxBinRowBits = 13;                 // the apply's histogram
+constexpr int kMaxGroupBins = 4096;                // 40 B a bin a pass
+constexpr int kRoundKeys = 4;                      // keys a thread a round
+constexpr uint32_t kSectorSlots = 4;               // u64 slots a sector
+constexpr uint64_t kFillSlot = ~0ull;              // pads a run
+constexpr int kApplyPer = 16;                      // slots an apply thread
+constexpr int kApplyChunk = kGroupThreads * kApplyPer;
+// A bin of more than kSplitSlots slots is cut into parts of kPartSlots
+// where its rows' counts fit shared memory (counting_bin_split_kernel)
+constexpr uint32_t kSplitSlots = 4u * kApplyChunk;
+constexpr uint32_t kPartSlots = 2u * kApplyChunk;
+constexpr long long kMaxBatch = 1LL << 30;
+
+// Key i's pattern hash and global row (a bank's member * n_blocks +
+// block), or false for an invalid slot.
+__device__ __forceinline__ bool key_row(const uint2* keys,
+                                        const int32_t* member,
+                                        const uint8_t* valid, int64_t i,
+                                        uint32_t block_mask, uint32_t& pat,
+                                        uint32_t& grow) {
+  if (valid != nullptr && valid[i] == 0) return false;
+  uint32_t h_blk;
+  hash_key(keys[i], pat, h_blk);
+  grow = h_blk & block_mask;
+  if (member != nullptr) grow += uint32_t(member[i]) * (block_mask + 1u);
+  return true;
+}
+
+// counts[c][j]: chunk c's valid keys in bin j.
+__global__ void __launch_bounds__(kBinThreads)
+    counting_bin_count_kernel(const uint2* __restrict__ keys,
+                              const int32_t* __restrict__ member,
+                              const uint8_t* __restrict__ valid,
+                              uint32_t* __restrict__ counts, int64_t n,
+                              uint32_t block_mask, int bin_row_bits,
+                              int n_bins) {
+  extern __shared__ uint32_t hist[];
+  for (int j = threadIdx.x; j < n_bins; j += blockDim.x) hist[j] = 0u;
+  __syncthreads();
+  int64_t first, last;
+  chunk_of(n, blockIdx.x, gridDim.x, first, last);
+  for (int64_t i = first + threadIdx.x; i < last; i += blockDim.x) {
+    uint32_t pat, grow;
+    if (key_row(keys, member, valid, i, block_mask, pat, grow))
+      atomicAdd(&hist[grow >> bin_row_bits], 1u);
+  }
+  __syncthreads();
+  uint32_t* row = counts + size_t(blockIdx.x) * n_bins;
+  for (int j = threadIdx.x; j < n_bins; j += blockDim.x) row[j] = hist[j];
+}
+
+// One CTA a chunk writes its valid keys' slots, (row in bin << 32) |
+// pattern, into its runs, bins taken `group_bins` at a time (a pass over
+// the chunk each). Slot s of a bin is written once: the bin's counter in
+// shared memory hands out s. The sector the counter is in (`open`) is
+// staged in shared memory and written out whole, as two 16-byte stores, by
+// the thread that fills it. A round is kRoundKeys keys a thread:
+//   A: take a slot; stage it in the open sector, keep it (the next sector),
+//      or, further on, write it to the workspace (a sector filled within
+//      one round is written in one burst, which L2 merges);
+//   B: the thread that took a sector's last slot writes the sector; the
+//      next sector opens, or the first untouched one if the round went past
+//      it;
+//   C: the kept slots go to the open sector, else to the workspace.
+// At the end the last open sector is padded with kFillSlot to the run's
+// end (cbf_bin_scatter_kernel's schedule, one slot a key).
+__global__ void __launch_bounds__(kBinThreads, 1)
+    counting_bin_scatter_kernel(const uint2* __restrict__ keys,
+                                const int32_t* __restrict__ member,
+                                const uint8_t* __restrict__ valid,
+                                const uint32_t* __restrict__ offsets,
+                                const uint32_t* __restrict__ starts,
+                                uint64_t* __restrict__ slots, int64_t n,
+                                uint32_t block_mask, int bin_row_bits,
+                                int n_bins, int group_bins) {
+  constexpr uint32_t kLast = kSectorSlots - 1u;
+  extern __shared__ uint4 sector4[];
+  uint64_t* sector = reinterpret_cast<uint64_t*>(sector4);
+  uint32_t* taken = reinterpret_cast<uint32_t*>(sector + kSectorSlots *
+                                                group_bins);
+  uint32_t* open = taken + group_bins;
+  int64_t first, last;
+  chunk_of(n, blockIdx.x, gridDim.x, first, last);
+  const int64_t per_round = int64_t(blockDim.x) * kRoundKeys;
+  const int rounds = int((last - first + per_round - 1) / per_round);
+  const uint32_t* row = offsets + size_t(blockIdx.x) * n_bins;
+  const uint32_t row_mask = (1u << bin_row_bits) - 1u;
+  for (int g0 = 0; g0 < n_bins; g0 += group_bins) {
+    for (int j = threadIdx.x; j < group_bins; j += blockDim.x) {
+      const uint32_t base = starts[g0 + j] + row[g0 + j];
+      taken[j] = base;
+      open[j] = base >> 2;
+    }
+    __syncthreads();
+    for (int r = 0; r < rounds; ++r) {
+      uint32_t lb[kRoundKeys], s[kRoundKeys];
+      uint64_t v[kRoundKeys];
+      int state[kRoundKeys];                   // 0 done, 1 staged, 2 kept
+#pragma unroll
+      for (int u = 0; u < kRoundKeys; ++u) {             // A
+        state[u] = 0;
+        lb[u] = s[u] = 0u;
+        v[u] = 0u;
+        const int64_t i =
+            first + (int64_t(r) * kRoundKeys + u) * blockDim.x + threadIdx.x;
+        uint32_t pat, grow;
+        if (i >= last || !key_row(keys, member, valid, i, block_mask, pat,
+                                  grow))
+          continue;
+        lb[u] = (grow >> bin_row_bits) - uint32_t(g0);
+        if (lb[u] >= uint32_t(group_bins)) continue;
+        v[u] = (uint64_t(grow & row_mask) << 32) | pat;
+        s[u] = atomicAdd(&taken[lb[u]], 1u);
+        const uint32_t sec = s[u] >> 2, op = open[lb[u]];
+        if (sec == op) {
+          sector[kSectorSlots * lb[u] + (s[u] & kLast)] = v[u];
+          state[u] = 1;
+        } else if (sec == op + 1u) {
+          state[u] = 2;
+        } else {
+          slots[s[u]] = v[u];
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < kRoundKeys; ++u) {             // B
+        if (state[u] != 1 || (s[u] & kLast) != kLast) continue;
+        uint4* dst = reinterpret_cast<uint4*>(slots + (s[u] & ~kLast));
+        dst[0] = sector4[2 * lb[u]];
+        dst[1] = sector4[2 * lb[u] + 1];
+        const uint32_t t = taken[lb[u]], next = (s[u] >> 2) + 1u;
+        open[lb[u]] = t >= kSectorSlots * (next + 1u) ? (t + kLast) >> 2
+                                                      : next;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < kRoundKeys; ++u) {             // C
+        if (state[u] != 2) continue;
+        if ((s[u] >> 2) == open[lb[u]])
+          sector[kSectorSlots * lb[u] + (s[u] & kLast)] = v[u];
+        else
+          slots[s[u]] = v[u];
+      }
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < group_bins; j += blockDim.x) {
+      const uint32_t t = taken[j];
+      if ((t & kLast) == 0u) continue;         // the run ends on a sector
+      if ((t >> 2) == open[j]) {
+        for (uint32_t q = t & kLast; q <= kLast; ++q)
+          sector[kSectorSlots * j + q] = kFillSlot;
+        uint4* dst = reinterpret_cast<uint4*>(slots + (t & ~kLast));
+        dst[0] = sector4[2 * j];
+        dst[1] = sector4[2 * j + 1];
+      } else {
+        for (uint32_t q = t; q < ((t + kLast) & ~kLast); ++q)
+          slots[q] = kFillSlot;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// One CTA: part_first[j], bin j's first part (the exclusive scan of the
+// bins' parts: none for a bin of at most kSplitSlots slots, which
+// counting_bin_apply_kernel takes whole, else ceil(length / kPartSlots));
+// part_first[n_bins], the parts of the batch.
+__global__ void __launch_bounds__(kGroupThreads)
+    counting_bin_parts_kernel(const uint32_t* __restrict__ starts,
+                              const uint32_t* __restrict__ ends,
+                              uint32_t* __restrict__ part_first, int n_bins) {
+  __shared__ uint32_t sums[32];
+  for (int j = threadIdx.x; j <= n_bins; j += blockDim.x) {
+    const uint32_t len = j < n_bins ? ends[j] - starts[j] : 0u;
+    part_first[j] = len > kSplitSlots ? (len + kPartSlots - 1u) / kPartSlots
+                                      : 0u;
+  }
+  __syncthreads();
+  block_exclusive_scan(part_first, n_bins + 1, sums);
+}
+
+// A bin's rows: its first global row, and its rows (2^bin_row_bits, fewer
+// for the last bin).
+struct BinRows {
+  uint32_t first, rows;
+};
+
+__device__ __forceinline__ BinRows bin_rows(int bin, uint32_t total_rows,
+                                            int bin_row_bits) {
+  const uint32_t first = uint32_t(bin) << bin_row_bits;
+  const uint32_t cap_rows = 1u << bin_row_bits;
+  return {first, total_rows - first < cap_rows ? total_rows - first
+                                               : cap_rows};
+}
+
+// Slots [c0, end) of a bin's slice, at most a chunk, as (row, pattern)
+// pairs; kNoRow past the end and for padding.
+__device__ __forceinline__ void load_chunk(const uint64_t* slots, uint32_t c0,
+                                           uint32_t end,
+                                           uint32_t (&row)[kApplyPer],
+                                           uint32_t (&pat)[kApplyPer]) {
+#pragma unroll
+  for (int t = 0; t < kApplyPer; ++t) {
+    const uint32_t p = c0 + uint32_t(t * kGroupThreads) + threadIdx.x;
+    const uint64_t v = p < end ? slots[p] : kFillSlot;
+    row[t] = v == kFillSlot ? kNoRow : uint32_t(v >> 32);
+    pat[t] = uint32_t(v);
+  }
+}
+
+// One CTA a bin of at most split_slots slots (kSplitSlots where the split
+// kernel takes the larger bins, else every bin): its slice [starts[b],
+// ends[b]) in chunks of kApplyChunk slots, each counting-sorted by row and
+// applied with update_sorted_rows, plain stores (no other CTA touches the
+// bin's rows). An empty bin is left alone.
+template <int S, int OP>
+__global__ void __launch_bounds__(kGroupThreads, 1)
+    counting_bin_apply_kernel(uint32_t* __restrict__ counters,
+                              const uint64_t* __restrict__ slots,
+                              const uint32_t* __restrict__ starts,
+                              const uint32_t* __restrict__ ends,
+                              const uint32_t* __restrict__ salts,
+                              uint32_t total_rows, int bin_row_bits, int k,
+                              uint32_t split_slots) {
+  const uint32_t begin = starts[blockIdx.x], end = ends[blockIdx.x];
+  if (begin == end || end - begin > split_slots) return;
+  __shared__ uint32_t salt[kMaxSalts];
+  __shared__ uint32_t sums[32];
+  extern __shared__ uint32_t dyn[];
+  const BinRows br = bin_rows(blockIdx.x, total_rows, bin_row_bits);
+  uint32_t* own = counters + uint64_t(br.first) * uint32_t(4 * S);
+  uint32_t* hist = dyn;                     // rows: counts, then run ends
+  uint32_t* spat = dyn + (1u << bin_row_bits);   // the chunk's h_pat
+  for (int i = threadIdx.x; i < kMaxSalts; i += blockDim.x) salt[i] = salts[i];
+  __syncthreads();
+  for (uint32_t c0 = begin; c0 < end; c0 += kApplyChunk) {
+    uint32_t row[kApplyPer], pat[kApplyPer];
+    load_chunk(slots, c0, end, row, pat);
+    sort_chunk<kApplyPer>(row, pat, hist, spat, br.rows, sums);
+    update_sorted_rows<S, OP>(own, hist, spat, br.rows, salt, k);
+    __syncthreads();                          // hist and spat are reused
+  }
+}
+
+// The parts of the bins past kSplitSlots slots (skewed keys: a bank's hot
+// member), a CTA a part in turn (grid-stride: the grid is at most the
+// card's CTAs, which end at once where no bin is split). Part p of bin j is
+// slots [starts[j] + p * kPartSlots, ...) of its slice. A part sums its
+// chunks' counts per row in shared memory (update_sorted_rows's add form
+// on zeroed words: saturating per-nibble counts), then applies each touched
+// counter word's closed form once by CAS: the parts of a bin run at once.
+template <int S, int OP>
+__global__ void __launch_bounds__(kGroupThreads, 1)
+    counting_bin_split_kernel(uint32_t* __restrict__ counters,
+                              const uint64_t* __restrict__ slots,
+                              const uint32_t* __restrict__ starts,
+                              const uint32_t* __restrict__ ends,
+                              const uint32_t* __restrict__ part_first,
+                              const uint32_t* __restrict__ salts,
+                              uint32_t total_rows, int n_bins,
+                              int bin_row_bits, int k) {
+  const uint32_t parts = part_first[n_bins];
+  if (blockIdx.x >= parts) return;
+  __shared__ uint32_t salt[kMaxSalts];
+  __shared__ uint32_t sums[32];
+  extern __shared__ uint4 acc4[];
+  const uint32_t cap_rows = 1u << bin_row_bits;
+  uint32_t* acc = reinterpret_cast<uint32_t*>(acc4);   // cap_rows x 4S
+  uint32_t* hist = acc + cap_rows * uint32_t(4 * S);
+  uint32_t* spat = hist + cap_rows;
+  for (int i = threadIdx.x; i < kMaxSalts; i += blockDim.x) salt[i] = salts[i];
+  for (uint32_t part = blockIdx.x; part < parts; part += gridDim.x) {
+    int bin = 0;                            // the last bin starting <= part
+    for (int step = kMaxBins / 2; step > 0; step >>= 1)
+      if (bin + step < n_bins && part_first[bin + step] <= part) bin += step;
+    const uint32_t begin =
+        starts[bin] + (part - part_first[bin]) * kPartSlots;
+    const uint32_t end =
+        ends[bin] - begin < kPartSlots ? ends[bin] : begin + kPartSlots;
+    const BinRows br = bin_rows(bin, total_rows, bin_row_bits);
+    uint32_t* own = counters + uint64_t(br.first) * uint32_t(4 * S);
+    const uint32_t words = br.rows * uint32_t(4 * S);
+    for (uint32_t w = threadIdx.x; w < words; w += blockDim.x) acc[w] = 0u;
+    __syncthreads();
+    for (uint32_t c0 = begin; c0 < end; c0 += kApplyChunk) {
+      uint32_t row[kApplyPer], pat[kApplyPer];
+      load_chunk(slots, c0, end, row, pat);
+      sort_chunk<kApplyPer>(row, pat, hist, spat, br.rows, sums);
+      update_sorted_rows<S, kAdd>(acc, hist, spat, br.rows, salt, k);
+      __syncthreads();                        // hist and spat are reused
+    }
+    for (uint32_t w = threadIdx.x; w < words; w += blockDim.x)
+      if (acc[w] != 0u) cas_counts<OP>(own + w, __ldcg(own + w), acc[w]);
+    __syncthreads();                          // acc is reused
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The grouped and global partitioned kernels
+// ---------------------------------------------------------------------------
+
 // One CTA a segment of `rows` counter rows (4S words each): chunks of
 // kGroupChunk slots, each counting-sorted by row in shared memory, then a
-// group of L lanes a touched row (comment at the top).
+// group of S lanes a touched row (comment at the top).
 template <int S, int OP>
 __global__ void __launch_bounds__(kGroupThreads, 2)
     counting_partitioned_grouped_kernel(const uint2* __restrict__ keys,
@@ -383,16 +758,12 @@ __global__ void __launch_bounds__(kGroupThreads, 2)
                                         int64_t capacity, uint32_t seg_cwords,
                                         uint32_t block_mask, int k,
                                         uint32_t rows) {
-  using R = GroupLanes<S>;
-  constexpr int kGroups = kGroupThreads / 32 * R::G;
   __shared__ uint32_t salt[3 * kMaxSalts];
   __shared__ uint32_t sums[32];
   extern __shared__ uint32_t dyn[];
   uint32_t* hist = dyn;               // rows: counts, then run ends
   uint32_t* spat = dyn + rows;        // the chunk's h_pat, sorted by row
   stage_salts(salt, salts);
-  const int lane = threadIdx.x & 31, gl = lane % S;
-  const int group = int(threadIdx.x >> 5) * R::G + lane / S;
   const uint2* seg_keys = keys + uint64_t(blockIdx.x) * capacity;
   const uint8_t* seg_valid = valid + uint64_t(blockIdx.x) * capacity;
   uint32_t* own = counters + uint64_t(blockIdx.x) * seg_cwords;
@@ -418,65 +789,8 @@ __global__ void __launch_bounds__(kGroupThreads, 2)
       }
     }
     if (!__syncthreads_or(any)) continue;       // a chunk of padding
-    for (uint32_t r = threadIdx.x; r < rows; r += kGroupThreads) hist[r] = 0u;
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < kGroupPer; ++t)
-      if (row[t] != kNoRow) atomicAdd(&hist[row[t]], 1u);
-    __syncthreads();
-    block_exclusive_scan(hist, int(rows), sums);
-#pragma unroll
-    for (int t = 0; t < kGroupPer; ++t)
-      if (row[t] != kNoRow) spat[atomicAdd(&hist[row[t]], 1u)] = pat[t];
-    __syncthreads();
-    // hist[r] is now the end of row r's run, hist[r - 1] its start. A group
-    // takes U neighbouring rows at a time and loads all their words before
-    // it updates them (U row requests in flight, not one).
-    for (uint32_t r0 = uint32_t(group) * R::U; r0 < rows;
-         r0 += uint32_t(kGroups * R::U)) {
-      uint32_t begin[R::U], end[R::U];
-      uint4 old[R::U];
-#pragma unroll
-      for (int u = 0; u < R::U; ++u) {
-        const uint32_t r = r0 + u;
-        begin[u] = end[u] = 0u;
-        if (r < rows) {
-          begin[u] = r > 0u ? hist[r - 1] : 0u;
-          end[u] = hist[r];
-        }
-        if (begin[u] != end[u])                 // untouched: not read
-          old[u] = *reinterpret_cast<const uint4*>(
-              own + r * uint32_t(4 * S) + 4 * gl);
-      }
-#pragma unroll
-      for (int u = 0; u < R::U; ++u) {
-        if (begin[u] == end[u]) continue;
-        // the row's counts: sums of up to 15 keys in the nibbles, folded
-        // in with a per-nibble saturating add
-        uint32_t sum[4] = {0u, 0u, 0u, 0u}, cnt[4] = {0u, 0u, 0u, 0u};
-        int pending = 0;
-        for (uint32_t p = begin[u]; p < end[u]; ++p) {
-          uint32_t inc[4];
-          word_incs<S>(spat[p], gl, salt, k, inc);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) sum[c] += inc[c];
-          if (++pending == 15 || p + 1u == end[u]) {
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              cnt[c] = sat_add_nibbles(cnt[c], sum[c]);
-              sum[c] = 0u;
-            }
-            pending = 0;
-          }
-        }
-        *reinterpret_cast<uint4*>(own + (r0 + u) * uint32_t(4 * S) +
-                                  4 * gl) =
-            make_uint4(apply_counts<OP>(old[u].x, cnt[0]),
-                       apply_counts<OP>(old[u].y, cnt[1]),
-                       apply_counts<OP>(old[u].z, cnt[2]),
-                       apply_counts<OP>(old[u].w, cnt[3]));
-      }
-    }
+    sort_chunk<kGroupPer>(row, pat, hist, spat, rows, sums);
+    update_sorted_rows<S, OP>(own, hist, spat, rows, salt, k);
     __syncthreads();                            // hist and spat are reused
   }
 }
@@ -522,74 +836,6 @@ __global__ void __launch_bounds__(kPartThreads)
   }
 }
 
-template <int S, int PHI, int DEPTH, bool BANK>
-__global__ void __launch_bounds__(kThreads)
-    counting_contains_kernel(const uint2* __restrict__ keys,
-                             const int32_t* __restrict__ member,
-                             const uint32_t* __restrict__ counters,
-                             bool* __restrict__ out,
-                             const uint32_t* __restrict__ salts, int64_t n,
-                             uint64_t member_words, uint32_t block_mask,
-                             int k) {
-  static_assert(PHI == 1 || PHI == 2 || PHI == 4, "PHI must divide 4");
-  __shared__ uint32_t smem[3 * kMaxSalts];
-  stage_salts(smem, salts);
-
-  const int64_t base =
-      int64_t(blockIdx.x) * (kThreads * DEPTH) + threadIdx.x;
-  uint32_t m[DEPTH][S];
-  const uint32_t* row[DEPTH];
-  bool alive[DEPTH];
-#pragma unroll
-  for (int d = 0; d < DEPTH; ++d) {
-    const int64_t i = base + int64_t(d) * kThreads;
-    alive[d] = i < n;
-    uint32_t h_pat = 0u, h_blk = 0u;
-    if (alive[d]) hash_key(keys[i], h_pat, h_blk);
-    build_mask<S>(m[d], h_pat, smem, smem + kMaxSalts, smem + 2 * kMaxSalts,
-                  kSbf, k, 1, 0);
-    row[d] = counters + counter_row<S, BANK>(member, member_words, i,
-                                             alive[d], h_blk, block_mask);
-  }
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
-#pragma unroll
-    for (int c = 0; c < 4 / PHI; ++c) {
-      uint32_t w[DEPTH][PHI];
-#pragma unroll
-      for (int d = 0; d < DEPTH; ++d) {
-        uint32_t chunk = m[d][j];
-        if constexpr (PHI < 4)
-          chunk = (chunk >> (8 * c * PHI)) & ((1u << (8 * PHI)) - 1u);
-        if (alive[d] && chunk != 0u) {
-          Vec<PHI>::load(row[d] + 4 * j + c * PHI, w[d]);
-        } else {
-#pragma unroll
-          for (int p = 0; p < PHI; ++p) w[d][p] = 0u;
-        }
-      }
-#pragma unroll
-      for (int d = 0; d < DEPTH; ++d) {
-#pragma unroll
-        for (int p = 0; p < PHI; ++p) {
-          const uint32_t inc =
-              spread_byte((m[d][j] >> (8 * (c * PHI + p))) & 0xFFu);
-          if ((nib_nonzero(w[d][p]) & inc) != inc) alive[d] = false;
-        }
-      }
-    }
-    bool any = false;
-#pragma unroll
-    for (int d = 0; d < DEPTH; ++d) any |= alive[d];
-    if (!any) break;
-  }
-#pragma unroll
-  for (int d = 0; d < DEPTH; ++d) {
-    const int64_t i = base + int64_t(d) * kThreads;
-    if (i < n) out[i] = alive[d];
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
     counting_decay_kernel(uint32_t* counters, int64_t n_words) {
   const int64_t n4 = n_words / 4;
@@ -608,33 +854,163 @@ __global__ void __launch_bounds__(kThreads)
     counters[i] -= nib_nonzero(counters[i]);
 }
 
-template <int S, bool BANK>
+// ---------------------------------------------------------------------------
+// Host-side dispatch
+// ---------------------------------------------------------------------------
+
+struct UpdateArgs {
+  const uint2* keys;
+  const int32_t* member;
+  const uint8_t* valid;
+  uint32_t* counters;
+  const uint32_t* salts;
+  int64_t n;
+  uint64_t member_words;
+  uint32_t block_mask;
+  int k;
+};
+
+template <int S, int OP, bool BANK>
 int launch_update(const UpdateArgs& a, cudaStream_t stream) {
   const unsigned grid = unsigned((a.n + kThreads - 1) / kThreads);
-  counting_update_kernel<S, BANK><<<grid, kThreads, 0, stream>>>(
+  counting_update_kernel<S, OP, BANK><<<grid, kThreads, 0, stream>>>(
       a.keys, a.member, a.valid, a.counters, a.salts, a.n, a.member_words,
-      a.block_mask, a.k, a.op);
+      a.block_mask, a.k);
   return int(cudaGetLastError());
 }
 
-template <bool BANK>
-int update_entry(int s, const UpdateArgs& a, cudaStream_t st) {
-  if (a.op != kAdd && a.op != kRemove) return -1;
+template <int OP, bool BANK>
+int update_op(int s, const UpdateArgs& a, cudaStream_t st) {
   switch (s) {
     case 1:
-      return launch_update<1, BANK>(a, st);
+      return launch_update<1, OP, BANK>(a, st);
     case 2:
-      return launch_update<2, BANK>(a, st);
+      return launch_update<2, OP, BANK>(a, st);
     case 4:
-      return launch_update<4, BANK>(a, st);
+      return launch_update<4, OP, BANK>(a, st);
     case 8:
-      return launch_update<8, BANK>(a, st);
+      return launch_update<8, OP, BANK>(a, st);
     case 16:
-      return launch_update<16, BANK>(a, st);
+      return launch_update<16, OP, BANK>(a, st);
     case 32:
-      return launch_update<32, BANK>(a, st);
+      return launch_update<32, OP, BANK>(a, st);
   }
   return -1;
+}
+
+struct BinGeometry {
+  int n_bins, group_bins;
+  size_t count_smem, scatter_smem, apply_smem, split_smem;
+  bool split;                     // over-full bins go to the split kernel
+  int split_ctas;                 // set by prepare_binned
+};
+
+constexpr size_t kSaltsSmem = (kMaxSalts + 32) * sizeof(uint32_t);
+
+// The binned kernels' geometry for total_rows rows of 4s words in bins of
+// 2^bin_row_bits rows on a card with `optin` bytes of shared memory a CTA,
+// or false where they have none. Over-full bins are split where a bin's
+// rows' counts fit shared memory beside a chunk.
+bool bin_geometry(int s, uint32_t total_rows, int bin_row_bits, int optin,
+                  BinGeometry& g) {
+  if (total_rows == 0u || bin_row_bits < 0 ||
+      bin_row_bits > kMaxBinRowBits)
+    return false;
+  const uint64_t bins =
+      (uint64_t(total_rows) + (1ull << bin_row_bits) - 1) >> bin_row_bits;
+  if (bins > uint64_t(kMaxBins)) return false;
+  const size_t rows = size_t(1) << bin_row_bits;
+  g.n_bins = int(bins);
+  g.group_bins = g.n_bins < kMaxGroupBins ? g.n_bins : kMaxGroupBins;
+  g.count_smem = size_t(g.n_bins) * sizeof(uint32_t);
+  g.scatter_smem = size_t(g.group_bins) *
+                   (kSectorSlots * sizeof(uint64_t) + 2 * sizeof(uint32_t));
+  g.apply_smem = (rows + kApplyChunk) * sizeof(uint32_t);
+  const size_t acc = rows * 16 * size_t(s);
+  g.split = g.apply_smem + acc + kSaltsSmem <= size_t(optin);
+  g.split_smem = g.apply_smem + acc;
+  g.split_ctas = 0;
+  return true;
+}
+
+template <int OP>
+const void* apply_for(int s, bool split) {
+#define COUNTING_APPLY(S)                                                    \
+  return split ? reinterpret_cast<const void*>(                              \
+                     counting_bin_split_kernel<S, OP>)                        \
+               : reinterpret_cast<const void*>(counting_bin_apply_kernel<S, OP>)
+  switch (s) {
+    case 1:
+      COUNTING_APPLY(1);
+    case 2:
+      COUNTING_APPLY(2);
+    case 4:
+      COUNTING_APPLY(4);
+    case 8:
+      COUNTING_APPLY(8);
+    case 16:
+      COUNTING_APPLY(16);
+    case 32:
+      COUNTING_APPLY(32);
+  }
+#undef COUNTING_APPLY
+  return nullptr;
+}
+
+const void* apply_of(int s, int op, bool split) {
+  if (op == kAdd) return apply_for<kAdd>(s, split);
+  if (op == kRemove) return apply_for<kRemove>(s, split);
+  return nullptr;
+}
+
+// The card's opt-in shared memory a CTA, and its SMs.
+int card_limits(int* optin, int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return int(err);
+}
+
+// Raise the binned kernels' shared memory limits; the scatter's CTAs that
+// fill the card (the chunks of a batch) in *chunks, the split kernel's in
+// g->split_ctas. -1 for a geometry the card's shared memory cannot take.
+int prepare_binned(BinGeometry* g, const void* apply, const void* split,
+                   int optin, int sms, int* chunks) {
+  if (apply == nullptr || split == nullptr ||
+      g->scatter_smem > size_t(optin) || g->count_smem > size_t(optin) ||
+      g->apply_smem + kSaltsSmem > size_t(optin))
+    return -1;
+  int per_sm = 0, split_per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      counting_bin_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(g->count_smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(counting_bin_scatter_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(g->scatter_smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(apply,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(g->apply_smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, counting_bin_scatter_kernel, kBinThreads, g->scatter_smem);
+  if (err == cudaSuccess && g->split)
+    err = cudaFuncSetAttribute(split,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(g->split_smem));
+  if (err == cudaSuccess && g->split)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &split_per_sm, split, kGroupThreads, g->split_smem);
+  if (err != cudaSuccess) return int(err);
+  sms = sms > 0 ? sms : 1;
+  *chunks = sms * (per_sm > 0 ? per_sm : 1);
+  g->split_ctas = sms * (split_per_sm > 0 ? split_per_sm : 1);
+  return 0;
 }
 
 struct PartitionedArgs {
@@ -703,139 +1079,132 @@ int partitioned_op(int s, const PartitionedArgs& a, cudaStream_t st) {
   return -1;
 }
 
-template <int S, int PHI, int DEPTH, bool BANK>
-int launch_contains(const ContainsArgs& a, cudaStream_t stream) {
-  const int64_t per_cta = int64_t(kThreads) * DEPTH;
-  const unsigned grid = unsigned((a.n + per_cta - 1) / per_cta);
-  counting_contains_kernel<S, PHI, DEPTH, BANK>
-      <<<grid, kThreads, 0, stream>>>(a.keys, a.member, a.counters, a.out,
-                                      a.salts, a.n, a.member_words,
-                                      a.block_mask, a.k);
-  return int(cudaGetLastError());
-}
-
-template <int S, int PHI, bool BANK>
-int dispatch_depth(int depth, const ContainsArgs& a, cudaStream_t st) {
-  // contains_vmem runs DEPTH = 1 at any PHI; contains_hbm and the bank
-  // contains run PHI = 4 at any DEPTH, with at most kMaxInFlight mask words
-  // per thread
-  constexpr bool kDeep = PHI == 4;
-  if (depth > 1 && !kDeep) return -1;
-  switch (depth) {
-    case 1:
-      return launch_contains<S, PHI, 1, BANK>(a, st);
-    case 2:
-      if constexpr (kDeep && 2 * S <= kMaxInFlight)
-        return launch_contains<S, PHI, 2, BANK>(a, st);
-      break;
-    case 4:
-      if constexpr (kDeep && 4 * S <= kMaxInFlight)
-        return launch_contains<S, PHI, 4, BANK>(a, st);
-      break;
-    case 8:
-      if constexpr (kDeep && 8 * S <= kMaxInFlight)
-        return launch_contains<S, PHI, 8, BANK>(a, st);
-      break;
-  }
-  return -1;
-}
-
-template <int S, bool BANK>
-int dispatch_phi(int phi, int depth, const ContainsArgs& a, cudaStream_t st) {
-  switch (phi) {
-    case 1:
-      if constexpr (!BANK) return dispatch_depth<S, 1, BANK>(depth, a, st);
-      break;
-    case 2:
-      if constexpr (!BANK) return dispatch_depth<S, 2, BANK>(depth, a, st);
-      break;
-    case 4:
-      return dispatch_depth<S, 4, BANK>(depth, a, st);
-  }
-  return -1;
-}
-
-template <bool BANK>
-int contains_entry(int s, int phi, int depth, const ContainsArgs& a,
-                   cudaStream_t st) {
-  switch (s) {
-    case 1:
-      return dispatch_phi<1, BANK>(phi, depth, a, st);
-    case 2:
-      return dispatch_phi<2, BANK>(phi, depth, a, st);
-    case 4:
-      return dispatch_phi<4, BANK>(phi, depth, a, st);
-    case 8:
-      return dispatch_phi<8, BANK>(phi, depth, a, st);
-    case 16:
-      return dispatch_phi<16, BANK>(phi, depth, a, st);
-    case 32:
-      return dispatch_phi<32, BANK>(phi, depth, a, st);
-  }
-  return -1;
-}
-
 }  // namespace
 
 extern "C" {
 
-// keys: (n, 2) int32 [hi, lo], 8-byte aligned; valid: (n,) uint8 or null
-// (every key valid); counters: (storage_words,) int32, 16-byte aligned;
-// salts: (3, 96) int32; op: 0 add, 1 remove.
-int counting_update(const void* keys, const void* valid, void* counters,
-                    const void* salts, long long n, unsigned block_mask,
+// The one-pass update. keys: (n, 2) int32 [hi, lo], 8-byte aligned;
+// member: (n,) int32 in [0, B), or null for one filter (member_words then
+// unread); valid: (n,) uint8 or null (every key valid); counters: one
+// filter's (storage_words,) or the (B, member_words) bank, int32, 16-byte
+// aligned; salts: (3, 96) int32; op: 0 add, 1 remove.
+int counting_update(const void* keys, const void* member, const void* valid,
+                    void* counters, const void* salts, long long n,
+                    unsigned long long member_words, unsigned block_mask,
                     int s, int k, int op, void* stream) {
-  const UpdateArgs a{static_cast<const uint2*>(keys), nullptr,
-                     static_cast<const uint8_t*>(valid),
-                     static_cast<uint32_t*>(counters),
-                     static_cast<const uint32_t*>(salts), n, 0u, block_mask,
-                     k, op};
-  return update_entry<false>(s, a, static_cast<cudaStream_t>(stream));
-}
-
-// out: (n,) bool; phi in {1, 2, 4}; depth in {1, 2, 4, 8}.
-int counting_contains(const void* keys, const void* counters, void* out,
-                      const void* salts, long long n, unsigned block_mask,
-                      int s, int phi, int depth, int k, void* stream) {
-  const ContainsArgs a{static_cast<const uint2*>(keys), nullptr,
-                       static_cast<const uint32_t*>(counters),
-                       static_cast<bool*>(out),
-                       static_cast<const uint32_t*>(salts), n, 0u, block_mask,
-                       k};
-  return contains_entry<false>(s, phi, depth, a,
-                               static_cast<cudaStream_t>(stream));
-}
-
-// Bank forms. member: (n,) int32 in [0, B); counters: the
-// (B, member_words) bank, 16-byte aligned, member_words = 4 n_words.
-int counting_bank_update(const void* keys, const void* member,
-                         const void* valid, void* counters, const void* salts,
-                         long long n, unsigned long long member_words,
-                         unsigned block_mask, int s, int k, int op,
-                         void* stream) {
+  if (n == 0) return 0;
   const UpdateArgs a{static_cast<const uint2*>(keys),
                      static_cast<const int32_t*>(member),
                      static_cast<const uint8_t*>(valid),
                      static_cast<uint32_t*>(counters),
                      static_cast<const uint32_t*>(salts), n, member_words,
-                     block_mask, k, op};
-  return update_entry<true>(s, a, static_cast<cudaStream_t>(stream));
+                     block_mask, k};
+  const auto st = static_cast<cudaStream_t>(stream);
+  const bool bank = member != nullptr;
+  if (op == kAdd)
+    return bank ? update_op<kAdd, true>(s, a, st)
+                : update_op<kAdd, false>(s, a, st);
+  if (op == kRemove)
+    return bank ? update_op<kRemove, true>(s, a, st)
+                : update_op<kRemove, false>(s, a, st);
+  return -1;
 }
 
-// phi must be 4; depth in {1, 2, 4, 8}.
-int counting_bank_contains(const void* keys, const void* member,
-                           const void* counters, void* out, const void* salts,
-                           long long n, unsigned long long member_words,
-                           unsigned block_mask, int s, int phi, int depth,
-                           int k, void* stream) {
-  const ContainsArgs a{static_cast<const uint2*>(keys),
-                       static_cast<const int32_t*>(member),
-                       static_cast<const uint32_t*>(counters),
-                       static_cast<bool*>(out),
-                       static_cast<const uint32_t*>(salts), n, member_words,
-                       block_mask, k};
-  return contains_entry<true>(s, phi, depth, a,
-                              static_cast<cudaStream_t>(stream));
+// Chunks (scatter CTAs) of a binned update on the current device, which
+// size its workspace; -1 for a geometry without kernels, or an error.
+int counting_binned_chunks(int s, unsigned total_rows, int bin_row_bits) {
+  BinGeometry g;
+  int optin = 0, sms = 0, chunks = 0;
+  if (card_limits(&optin, &sms) != 0 ||
+      !bin_geometry(s, total_rows, bin_row_bits, optin, g) ||
+      prepare_binned(&g, apply_of(s, kAdd, false), apply_of(s, kAdd, true),
+                     optin, sms, &chunks) != 0)
+    return -1;
+  return chunks;
+}
+
+// The binned update (seven kernels an internal batch). member, valid: as
+// counting_update; total_rows: the counter rows (B * n_blocks for a
+// bank), below 2^32; work: u32 workspace, 8-word aligned: counts (chunks x
+// n_bins), starts, ends (n_bins each), the bins' first parts (n_bins + 1),
+// padded to 8 words, then the u64 slots (min(n, batch) + 3 * chunks *
+// n_bins); batch: keys an internal batch (<= 2^30); chunks:
+// counting_binned_chunks(). Updates counters in place.
+int counting_update_binned(const void* keys, const void* member,
+                           const void* valid, void* counters,
+                           const void* salts, void* work, long long n,
+                           unsigned total_rows, unsigned block_mask, int s,
+                           int k, int op, int bin_row_bits, long long batch,
+                           int chunks, void* stream) {
+  BinGeometry g;
+  int optin = 0, sms = 0;
+  const int bad_card = card_limits(&optin, &sms);
+  if (bad_card) return bad_card;
+  if (!bin_geometry(s, total_rows, bin_row_bits, optin, g) || batch < 1 ||
+      batch > kMaxBatch || chunks < 1 || (op != kAdd && op != kRemove))
+    return -1;
+  if (n == 0) return 0;
+  const void* apply = apply_of(s, op, false);
+  const void* split = apply_of(s, op, true);
+  int card_chunks = 0;
+  const int bad = prepare_binned(&g, apply, split, optin, sms, &card_chunks);
+  if (bad) return bad;
+  const auto st = static_cast<cudaStream_t>(stream);
+  uint32_t* counts = static_cast<uint32_t*>(work);
+  uint32_t* starts = counts + size_t(chunks) * g.n_bins;
+  uint32_t* ends = starts + g.n_bins;
+  uint32_t* part_first = ends + g.n_bins;
+  const size_t head = (size_t(chunks) + 3) * size_t(g.n_bins) + 1;
+  uint64_t* slots =
+      reinterpret_cast<uint64_t*>(counts + ((head + 7) & ~size_t(7)));
+  const uint2* k2 = static_cast<const uint2*>(keys);
+  const int32_t* mem = static_cast<const int32_t*>(member);
+  const uint8_t* val = static_cast<const uint8_t*>(valid);
+  uint32_t* c = static_cast<uint32_t*>(counters);
+  const uint32_t* sl = static_cast<const uint32_t*>(salts);
+  int n_bins = g.n_bins;
+  uint32_t split_slots = g.split ? kSplitSlots : ~0u;
+  const unsigned column_grid =
+      unsigned((g.n_bins + kColumnThreads - 1) / kColumnThreads);
+  for (long long first = 0; first < n; first += batch) {
+    const long long nb = n - first < batch ? n - first : batch;
+    const int32_t* m = mem != nullptr ? mem + first : nullptr;
+    const uint8_t* v = val != nullptr ? val + first : nullptr;
+    // a bin can pass kSplitSlots where the batch's slots do; its parts are
+    // at most one a kPartSlots slots
+    const long long slots_in = nb + 3LL * chunks * g.n_bins;
+    const bool split_bins = g.split && slots_in > kSplitSlots;
+    counting_bin_count_kernel<<<chunks, kBinThreads, g.count_smem, st>>>(
+        k2 + first, m, v, counts, nb, block_mask, bin_row_bits, g.n_bins);
+    bin_column_kernel<<<column_grid, kColumnThreads, 0, st>>>(
+        counts, ends, g.n_bins, chunks, kSectorSlots);
+    bin_scan_kernel<<<1, kBinThreads, 0, st>>>(starts, ends, g.n_bins);
+    counting_bin_scatter_kernel<<<chunks, kBinThreads, g.scatter_smem, st>>>(
+        k2 + first, m, v, counts, starts, slots, nb, block_mask,
+        bin_row_bits, g.n_bins, g.group_bins);
+    void* apply_args[] = {&c,          &slots,      &starts,       &ends,
+                          &sl,         &total_rows, &bin_row_bits, &k,
+                          &split_slots};
+    cudaError_t err =
+        cudaLaunchKernel(apply, dim3(unsigned(g.n_bins)), dim3(kGroupThreads),
+                         apply_args, g.apply_smem, st);
+    if (err == cudaSuccess && split_bins) {
+      counting_bin_parts_kernel<<<1, kGroupThreads, 0, st>>>(
+          starts, ends, part_first, g.n_bins);
+      void* split_args[] = {&c,          &slots,  &starts,     &ends,
+                            &part_first, &sl,     &total_rows, &n_bins,
+                            &bin_row_bits, &k};
+      const long long most_parts = slots_in / kPartSlots;
+      const long long grid =
+          most_parts < g.split_ctas ? most_parts : g.split_ctas;
+      err = cudaLaunchKernel(split, dim3(unsigned(grid)),
+                             dim3(kGroupThreads), split_args, g.split_smem,
+                             st);
+    }
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+  }
+  return int(cudaGetLastError());
 }
 
 // Partitioned update. keys: (n_segments, capacity, 2) int32, 8-byte

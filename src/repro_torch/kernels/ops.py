@@ -32,8 +32,9 @@ Counterpart of ``repro.kernels.ops.bloom_contains`` / ``bloom_add``,
   bank forms resolve probe and mix with coop pinned to ``"none"``, since
   the bank kernels have no cooperative form (the JAX dispatch leaves coop
   ``"auto"`` there; on the CPU calibration the two plans agree). The
-  caller's ``layout`` reaches the blocked wrappers as it was given, None
-  included: there the card runs ``sbf.card_layout``, where the JAX dispatch
+  caller's ``layout`` reaches the blocked and counting wrappers as it was
+  given, None included: there the card runs ``sbf.card_layout`` (the
+  counting contains ``countingbf.card_layout``), where the JAX dispatch
   fills in ``default_layout`` (the plain path still validates it). Which
   axes the CUDA kernels act on is set out in ``kernels/sbf.py`` and
   ``kernels/countingbf.py``; no axis changes a result;

@@ -311,6 +311,155 @@ def test_counting_launch_counters_and_filter_path(cuda):
     assert cnt.LAUNCHES["update_hbm"] == 2 and cnt.LAUNCHES["contains_hbm"] == 1
 
 
+_UPDATE_PATHS = {
+    "one-pass": {"path": "one-pass"},
+    "binned": {"path": "binned"},
+    "binned-batches": {"path": "binned", "cap": 1000},
+    "binned-small-bins": {"path": "binned", "bin_row_bits": "least",
+                          "cap": 4097},
+    "binned-parts": {"path": "binned", "bin_row_bits": "most"},
+    "rule": {},
+}
+
+
+def _update(name, spec, words, keys, valid, op, member=None, **kw):
+    """One update call; ``bin_row_bits="least"`` is the smallest bins the
+    kernels take for these counters (at most 8192 bins), ``"most"`` the
+    largest (one bin where the rows allow: its run splits into parts that
+    update shared rows by CAS)."""
+    rows = words.numel() // spec.counter_row_words
+    if kw.get("bin_row_bits") == "least":
+        kw = dict(kw, bin_row_bits=cnt.binned_bin_row_bits(rows, 1 << 40))
+    elif kw.get("bin_row_bits") == "most":
+        kw = dict(kw, bin_row_bits=min(cnt.MAX_BIN_ROW_BITS,
+                                       (rows - 1).bit_length()))
+    return cnt._launch_update(name, spec, words, keys, valid, op, member,
+                              **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", CSPECS, ids=str)
+@pytest.mark.parametrize("case", list(_UPDATE_PATHS))
+def test_counting_update_paths_match_plain(cuda, spec, case):
+    """Each update path forced (one-pass; binned at the default bins, over
+    several internal batches, in the smallest bins, in the largest bins,
+    whose runs split into parts) and the rule's path, against the plain version bit for bit: a multiset
+    with a key 21 times (saturation), valid-masked, then removes of present
+    and absent keys."""
+    kw = _UPDATE_PATHS[case]
+    for n in (1, 257, 65537):
+        batch = _multiset(n, n + 3, cuda)
+        valid = _valid_mask(batch.shape[0], n, cuda)
+        gone = torch.cat([batch[: batch.shape[0] // 2], _probes(100, n, cuda)])
+        for vmask in (None, valid):
+            want = cnt.update_plain(spec, V.init(spec, cuda), batch, vmask,
+                                    "add")
+            want_rm = cnt.update_plain(spec, want, gone, None, "remove")
+            words = _update("update_hbm", spec, V.init(spec, cuda), batch,
+                            vmask, "add", **kw)
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(_u32(words), _u32(want))
+            plan = cnt.LAST_UPDATE_PLAN["update_hbm"]
+            assert plan["path"] == kw.get("path", cnt.choose_update_path(
+                batch.shape[0], spec.storage_words, spec.counter_row_words,
+                sbf.partition_smem_bytes(cuda)))
+            _update("update_hbm", spec, words, gone, None, "remove", **kw)
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(_u32(words), _u32(want_rm))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m_bits", [1 << 17, 1 << 20],
+                         ids=["summed", "by-chunk"])
+@pytest.mark.parametrize("block_bits, k", [(64, 2), (256, 8), (512, 16)])
+def test_counting_split_bins_match_plain(cuda, block_bits, k, m_bits):
+    """One bin of a filter's rows takes a batch of ~131K keys: the bin is
+    cut into parts that run at once and apply their counts by CAS, summed
+    over a part's chunks in shared memory (2^17 bits: the rows fit there)
+    or a chunk at a time (2^20 bits: they do not). Valid-masked add with a
+    key 21 times, then removes, bit for bit."""
+    spec = V.FilterSpec("countingbf", m_bits, k, block_bits=block_bits)
+    batch = _multiset(65537, 7, cuda)
+    valid = _valid_mask(batch.shape[0], 8, cuda)
+    gone = torch.cat([batch[:40000], _probes(100, 9, cuda)])
+    for vmask in (None, valid):
+        want = cnt.update_plain(spec, V.init(spec, cuda), batch, vmask, "add")
+        words = _update("update_hbm", spec, V.init(spec, cuda), batch, vmask,
+                        "add", path="binned", bin_row_bits="most")
+        plan = cnt.LAST_UPDATE_PLAN["update_hbm"]
+        assert plan["n_bins"] <= 2 and plan["split_parts"] > 0
+        np.testing.assert_array_equal(_u32(words), _u32(want))
+        _update("update_hbm", spec, words, gone, None, "remove",
+                path="binned", bin_row_bits="most")
+        np.testing.assert_array_equal(
+            _u32(words),
+            _u32(cnt.update_plain(spec, want, gone, None, "remove")))
+
+
+@pytest.mark.gpu
+def test_counting_binned_update_on_the_rule_path_and_memory(cuda,
+                                                            monkeypatch):
+    """A batch the rule sends binned (2^22 keys into 128 MiB of counters)
+    through ``ops``; and a workspace that does not allocate lowers the cap
+    (more internal batches, the same counters)."""
+    spec = V.FilterSpec("countingbf", 1 << 28, 8, block_bits=256)
+    keys = _keys(1 << 22, 9, cuda)
+    smem = sbf.partition_smem_bytes(cuda)
+    assert cnt.choose_update_path(keys.shape[0], spec.storage_words, 32,
+                                  smem) == "binned"
+    want = cnt.update_plain(spec, V.init(spec, cuda), keys, None, "add")
+    got = ops.counting_add(spec, V.init(spec, cuda), keys)
+    assert cnt.LAST_UPDATE_PLAN["update_hbm"]["path"] == "binned"
+    np.testing.assert_array_equal(_u32(got), _u32(want))
+    real, calls = cnt._workspace, []
+
+    def tight(nbytes, device):
+        calls.append(nbytes)
+        if len(calls) == 1:
+            raise torch.cuda.OutOfMemoryError("a test's refusal")
+        return real(nbytes, device)
+    monkeypatch.setattr(cnt, "_workspace", tight)
+    plan = cnt.update_plan(spec, keys.shape[0], "binned",
+                           chunks=cnt.binned_chunks(spec.s, spec.n_blocks, 11,
+                                                    cuda))
+    monkeypatch.setattr(cnt, "free_device_bytes", lambda device: (
+        cnt.WORKSPACE_MARGIN + plan["workspace_bytes"] // 3))
+    got = cnt.update_hbm(spec, V.init(spec, cuda), keys, None, "add",
+                         path="binned", bin_row_bits=11)
+    assert cnt.LAST_UPDATE_PLAN["update_hbm"]["batches"] >= 4
+    assert len(calls) == 2 and calls[1] < calls[0]
+    np.testing.assert_array_equal(_u32(got), _u32(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", CSPECS + [V.FilterSpec(
+    "countingbf", 1 << 18, 32, block_bits=1024)], ids=str)
+def test_counting_contains_every_theta_and_depth(cuda, spec):
+    """The contains at every Θ (lanes a key, s/16 ... s), every load width
+    at depth 1 and every depth, on members and probes, ragged sizes; and
+    the wrappers at the card's layout."""
+    words = cnt.update_plain(spec, V.init(spec, cuda),
+                             _multiset(4096, 7, cuda), None, "add")
+    keys = torch.cat([_keys(5000, 7, cuda), _probes(5001, 8, cuda)])
+    want = cnt.contains_plain(spec, words, keys).cpu().numpy()
+    thetas = [t for t in (1, 2, 4, 8, 16, 32) if t <= spec.s]
+    for theta in thetas:
+        for phi in (1, 2, 4):
+            got = cnt.contains_vmem(spec, words, keys, sbf.Layout(theta, phi))
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+        for depth in sbf.DMA_DEPTHS:
+            geo = cnt.contains_geometry(spec, sbf.Layout(theta, 4), depth)
+            for m in (1, 31, 33, 257, keys.shape[0]):
+                got = cnt._launch_contains("contains_hbm", spec, words,
+                                           keys[:m], geo)
+                np.testing.assert_array_equal(got.cpu().numpy(), want[:m])
+    for depth in sbf.DMA_DEPTHS:
+        got = cnt.contains_hbm(spec, words, keys, depth=depth)
+        assert cnt.LAST_GEOMETRY["contains_hbm"] == cnt.contains_geometry(
+            spec, cnt.card_layout(spec), depth)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
 @pytest.mark.gpu
 def test_counting_wrappers_refuse_bad_tensors(cuda):
     spec = CSPECS[0]
@@ -901,6 +1050,47 @@ def test_counting_bank_kernels_match_plain(cuda, spec, B, skewed):
         decayed = cnt.decay(spec, want_rm.clone())
         np.testing.assert_array_equal(
             _u32(decayed), _u32(cnt.decay_plain(spec, want_rm)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", CSPECS, ids=str)
+@pytest.mark.parametrize("B", [1, 7, 64])
+@pytest.mark.parametrize("skewed", [False, True], ids=["uniform", "skewed"])
+@pytest.mark.parametrize("case", ["one-pass", "binned", "binned-small-bins",
+                                  "binned-parts"])
+def test_counting_bank_update_paths_and_contains_match_plain(
+        cuda, spec, B, skewed, case):
+    """The bank update on each path forced (bins cross member boundaries),
+    valid-masked, with counts of 2, then a remove; and the bank contains at
+    every Θ and depth."""
+    kw = _UPDATE_PATHS[case]
+    keys, member, valid = _routed(B, 65537, B + 1, cuda, skewed)
+    keys = torch.cat([keys, keys[:20000]])
+    member = torch.cat([member, member[:20000]])
+    valid = torch.cat([valid, valid[:20000]])
+    empty = torch.zeros((B, spec.storage_words), dtype=torch.int32,
+                        device=cuda)
+    want = cnt.bank_update_plain(spec, empty, keys, member, valid, "add")
+    got = _update("bank_update_vmem", spec, empty.clone(), keys, valid,
+                  "add", member, **kw)
+    np.testing.assert_array_equal(_u32(got), _u32(want))
+    assert cnt.LAST_UPDATE_PLAN["bank_update_vmem"]["members"] == B
+    want_rm = cnt.bank_update_plain(spec, want, keys[:30000],
+                                    member[:30000], None, "remove")
+    _update("bank_update_vmem", spec, got, keys[:30000], None, "remove",
+            member[:30000], **kw)
+    np.testing.assert_array_equal(_u32(got), _u32(want_rm))
+    if case != "one-pass":
+        return
+    q = torch.cat([keys[:5000], _probes(5000, B, cuda)])
+    qm = torch.cat([member[:5000], member[-5000:]])
+    hits = cnt.bank_contains_plain(spec, want_rm, q, qm).cpu().numpy()
+    for theta in (1, 2, 4, 8, 16, 32):
+        for depth in sbf.DMA_DEPTHS:
+            geo = cnt.contains_geometry(spec, sbf.Layout(theta, 4), depth)
+            out = cnt._launch_contains("bank_contains_vmem", spec, want_rm,
+                                       q, geo, qm)
+            np.testing.assert_array_equal(out.cpu().numpy(), hits)
 
 
 @pytest.mark.gpu

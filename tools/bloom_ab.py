@@ -5,7 +5,7 @@ counting update against another checkout's, in turns, on one NVIDIA card.
 
     git archive <commit> | (mkdir -p build/other && tar -x -C build/other)
     python3 tools/bloom_ab.py build/other \
-        [--only bloom|cuckoo|cbf|quotient|partitioned]
+        [--only bloom|cuckoo|cbf|quotient|partitioned|counting]
 
 Blocked filters: the other checkout's ``src/repro_torch/kernels/csrc/
 bloom.cu`` must have the one-thread-a-key C interface, ``bloom_contains(
@@ -56,6 +56,25 @@ the fitting count (the smallest whose segment fits shared memory) and 2, 4,
 8 and 16 times it, the script checks that both trees' updates give the
 same counters (add of the batch, remove of it), then times the add and the
 remove in turns, one call each on restored counters.
+
+Counting update and contains: the other checkout's ``counting.cu`` must
+have the one-thread-a-key C interfaces, ``counting_update(keys, valid,
+counters, salts, n, block_mask, s, k, op, stream)``, ``counting_contains(
+keys, counters, out, salts, n, block_mask, s, phi, depth, k, stream)`` and
+their bank forms (``counting_bank_update`` / ``counting_bank_contains``, +
+member ids and the member's words). In the two countingbf cells of
+``chip_smoke.py`` (2^22 keys into 32 MiB, 2^26 keys into 512 MiB) and its
+two bank cells (1024 members, 2^22 and 2^26 routed keys; member ids
+uniform, and again skewed: half of the keys on member 0) the script checks
+that both trees' add, remove of half and contains give the same counters
+and results (this tree's on both update paths), then times in turns the
+add and the remove on the other tree, on this tree's rule's path and on
+both of its paths forced (6 rounds of 10 calls in L2, 3 in DRAM, queued
+back to back on counters restored before each call, outside its events)
+and the contains at depths 1 and 8 (the other's depth capped at 64 / s,
+as its wrapper did; this tree's wrappers at ``countingbf.card_layout``),
+and prints this tree's path and geometry. Both trees' bank calls skip the
+wrapper's member range check.
 
 Quotient filter: the other checkout's ``quotient.cu`` must have the
 rebuild-once update's C interface, ``quotient_update(keys, fps_in, valid,
@@ -180,6 +199,33 @@ def turns_restored(fns: dict, restore, rounds: int = 4) -> dict:
             end.record()
             torch.cuda.synchronize()
             per[key].append(start.elapsed_time(end))
+    return {k: (sorted(v)[len(v) // 2], min(v), max(v))
+            for k, v in per.items()}
+
+
+def turns_queued(fns: dict, restore, reps: int, rounds: int = 6) -> dict:
+    """Like :func:`turns_restored`, with ``reps`` calls a round queued
+    back to back (each after its ``restore()``, outside its events), as a
+    caller's loop issues them: a call's host work overlaps the card's work
+    on the one before, as in ``chip_smoke.py``'s timings."""
+    for fn in fns.values():
+        restore()
+        fn()
+    torch.cuda.synchronize()
+    per = {k: [] for k in fns}
+    for r in range(rounds):
+        for key in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            events = []
+            for _ in range(reps):
+                restore()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fns[key]()
+                end.record()
+                events.append((start, end))
+            torch.cuda.synchronize()
+            per[key].append(sum(a.elapsed_time(b) for a, b in events) / reps)
     return {k: (sorted(v)[len(v) // 2], min(v), max(v))
             for k, v in per.items()}
 
@@ -378,6 +424,147 @@ def partitioned_main(checkout: Path) -> None:
         torch.cuda.empty_cache()
 
 
+def counting_main(checkout: Path) -> None:
+    """The counting update and contains of the other checkout (one thread a
+    key: ``counting_update``, ``counting_contains`` and their bank forms)
+    against this tree's wrappers, in both countingbf cells and both bank
+    cells."""
+    other = build_other(checkout, "counting")
+    other.counting_update.argtypes = [VP, VP, VP, VP, LL, U32, I, I, I, VP]
+    other.counting_contains.argtypes = [VP, VP, VP, VP, LL, U32, I, I, I, I,
+                                        VP]
+    other.counting_bank_update.argtypes = [VP, VP, VP, VP, VP, LL,
+                                           ctypes.c_ulonglong, U32, I, I, I,
+                                           VP]
+    other.counting_bank_contains.argtypes = [VP, VP, VP, VP, VP, LL,
+                                             ctypes.c_ulonglong, U32, I, I,
+                                             I, I, VP]
+    stream = torch.cuda.current_stream().cuda_stream
+    salts = sbf._salts(torch.device("cuda")).data_ptr()
+    for label, n_per, n, bank in (("L2", 1 << 22, 1 << 22, 0),
+                                  ("DRAM", 1 << 26, 1 << 26, 0),
+                                  ("bank L2", 1 << 12, 1 << 22, 1024),
+                                  ("bank L2 skewed", 1 << 12, 1 << 22, 1024),
+                                  ("bank DRAM", 1 << 16, 1 << 26, 1024),
+                                  ("bank DRAM skewed", 1 << 16, 1 << 26,
+                                   1024)):
+        f = api.filter_for_n_items(n_per, bits_per_key=16,
+                                   variant="countingbf", block_bits=256,
+                                   device="cuda", bank=bank or None)
+        spec = f.spec
+        keys = gen_keys(n, 11)
+        member = None
+        if bank:                            # chip_smoke.gen_members' ids
+            gen = torch.Generator(device="cuda").manual_seed(52)
+            member = torch.randint(0, bank, (n,), dtype=torch.int32,
+                                   device="cuda", generator=gen)
+            if "skewed" in label:
+                member[torch.rand(n, device="cuda", generator=gen) < 0.5] = 0
+        half = n // 2
+        l2 = "L2" in label
+        # the other wrappers' schedules: L2 phi 4 at depth 1, DRAM phi 4 at
+        # min(depth, 64 // s)
+
+        def other_update(words, op, nk):
+            if bank:
+                err = other.counting_bank_update(
+                    keys.data_ptr(), member.data_ptr(), None,
+                    words.data_ptr(), salts, nk, spec.storage_words,
+                    spec.n_blocks - 1, spec.s, spec.k, cnt._OP_CODE[op],
+                    stream)
+            else:
+                err = other.counting_update(
+                    keys.data_ptr(), None, words.data_ptr(), salts, nk,
+                    spec.n_blocks - 1, spec.s, spec.k, cnt._OP_CODE[op],
+                    stream)
+            assert err == 0, err
+            return words
+
+        # this tree's bank calls without the wrapper's member range check
+        # (a host sync), as the other's are called
+        def this_update(words, op, nk, path=None):
+            if bank:
+                return cnt._launch_update("bank_update_vmem", spec, words,
+                                          keys[:nk], None, op, member[:nk],
+                                          path=path)
+            fn = cnt.update_vmem if l2 else cnt.update_hbm
+            return fn(spec, words, keys[:nk], None, op, path=path)
+
+        def other_contains(words, depth):
+            out = torch.empty(n, dtype=torch.bool, device="cuda")
+            d = min(depth, max(1, 64 // spec.s))
+            if bank:
+                err = other.counting_bank_contains(
+                    keys.data_ptr(), member.data_ptr(), words.data_ptr(),
+                    out.data_ptr(), salts, n, spec.storage_words,
+                    spec.n_blocks - 1, spec.s, 4, d, spec.k, stream)
+            else:
+                err = other.counting_contains(
+                    keys.data_ptr(), words.data_ptr(), out.data_ptr(), salts,
+                    n, spec.n_blocks - 1, spec.s, 4, d, spec.k, stream)
+            assert err == 0, err
+            return out
+
+        def this_contains(words, depth):
+            if bank:
+                return cnt._launch_contains(
+                    "bank_contains_vmem", spec, words, keys,
+                    cnt.contains_geometry(spec, cnt.card_layout(spec), depth),
+                    member)
+            if l2 and depth == 1:
+                return cnt.contains_vmem(spec, words, keys)
+            return cnt.contains_hbm(spec, words, keys, depth=depth)
+
+        empty = torch.zeros_like(f.words)
+        added = this_update(empty.clone(), "add", n)
+        plan = dict(cnt.LAST_UPDATE_PLAN["bank_update_vmem" if bank else
+                                         ("update_vmem" if l2
+                                          else "update_hbm")])
+        removed = this_update(added.clone(), "remove", half)
+        if not (torch.equal(other_update(empty.clone(), "add", n), added)
+                and torch.equal(other_update(added.clone(), "remove", half),
+                                removed)):
+            raise AssertionError(f"counting {label}: counters differ")
+        for path in cnt.UPDATE_PATHS:
+            got = this_update(empty.clone(), "add", n, path)
+            if not (torch.equal(got, added) and torch.equal(
+                    this_update(got, "remove", half, path), removed)):
+                raise AssertionError(f"counting {label}: this tree's {path} "
+                                     f"counters differ")
+        del got
+        scratch = added.clone()
+        for op, start, nk in (("add", empty, n), ("remove", added, half)):
+            fns = {"other": lambda op=op, nk=nk: other_update(scratch, op,
+                                                              nk),
+                   "this": lambda op=op, nk=nk: this_update(scratch, op, nk)}
+            for path in cnt.UPDATE_PATHS:
+                fns[f"this {path}"] = (lambda op=op, nk=nk, path=path:
+                                       this_update(scratch, op, nk, path))
+            res = turns_queued(fns, lambda s=start: scratch.copy_(s),
+                               reps=10 if l2 else 3)
+            show(f"counting {label} {op} of {nk} keys (this: {plan['path']};"
+                 f" counters equal)", res)
+            print(f"  other / this {res['other'][0] / res['this'][0]:.2f}x",
+                  flush=True)
+        for depth in (1, 8):
+            if not torch.equal(other_contains(added, depth),
+                               this_contains(added, depth)):
+                raise AssertionError(f"counting {label} contains: results "
+                                     f"differ")
+            res = turns({"other": lambda d=depth: other_contains(added, d),
+                         "this": lambda d=depth: this_contains(added, d)},
+                        reps=20 if l2 else 5)
+            geo = cnt.LAST_GEOMETRY["bank_contains_vmem" if bank else
+                                    ("contains_vmem" if l2 and depth == 1
+                                     else "contains_hbm")]
+            show(f"counting {label} contains of {n} keys at depth {depth} "
+                 f"(this: {geo}; results equal)", res)
+            print(f"  other / this {res['other'][0] / res['this'][0]:.2f}x",
+                  flush=True)
+        del f, keys, member, empty, added, removed, scratch
+        torch.cuda.empty_cache()
+
+
 class OtherQuotient:
     """The other checkout's quotient update, merge, resize and contains,
     called as its wrappers called them (scratch allocated each call)."""
@@ -524,7 +711,8 @@ def main(checkout: Path, only: str = "") -> int:
     _build.library()
     for name, run in (("cuckoo", cuckoo_main), ("bloom", bloom_main),
                       ("cbf", cbf_main), ("quotient", quotient_main),
-                      ("partitioned", partitioned_main)):
+                      ("partitioned", partitioned_main),
+                      ("counting", counting_main)):
         if only in ("", name):
             run(checkout)
     return 0
@@ -620,7 +808,8 @@ if __name__ == "__main__":
     args = sys.argv[1:]
     only = ""
     if len(args) == 3 and args[1] == "--only" and args[2] in (
-            "bloom", "cuckoo", "cbf", "quotient", "partitioned"):
+            "bloom", "cuckoo", "cbf", "quotient", "partitioned",
+            "counting"):
         only = args[2]
         args = args[:1]
     if len(args) != 1:
