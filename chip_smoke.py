@@ -33,10 +33,13 @@ the script exits non-zero without printing a result:
    keys, n = 0/1/255/257) and at m = 2^32 (2^20 keys; positions use all 32
    bits), the add on each path forced (one-pass, binned; also over several
    internal batches, in smaller bins, on a filter smaller than a bin, with
-   keys in one bin and one key repeated), and the generation-ring kernel
-   for sbf/bbf/rbbf/csbf with G in 2/3/4/8 through both wrappers and every depth, ragged n and n = 0;
-   words and results equal bit for bit, FPR within 0.5-2.0x theory at
-   m = 2^20;
+   keys in one bin and one key repeated), and the generation-ring
+   contains for s = 1 ... 32 words (sbf/bbf/rbbf/csbf) at G = 1 ... 9
+   through both wrappers on both paths forced (one-pass at every Θ and
+   accepted depth; binned at the default bins, over
+   several internal batches, in bins of 1 and 8 rows), n = 0/1/255/257 and
+   65537 probes + the live keys; words and results equal bit for bit, FPR
+   within 0.5-2.0x theory at m = 2^20;
 3d. the bank kernels (the bank forms of the blocked kernels and of
    ``counting.cu``) against their plain versions: sbf/bbf/rbbf/csbf banks
    of B = 1, 7, 64 members of 2^17, 2^16, 2^14 bits, 65537 routed keys with
@@ -53,7 +56,8 @@ the script exits non-zero without printing a result:
    at m = 2^20 (and sbf at 2^22) through ``ops`` at n_segments 1/8/64 with
    the capacity escalated, pinned so that it overflows (the residual pass)
    and the host partition, on the path ``ops`` picks and with global
-   atomics forced; and the cuckoo kernels for every instance (u8 x 4/8/16,
+   atomics forced; the partitioned add also on each path forced (global;
+   shared, one CTA a segment), with a key placed in a foreign segment; and the cuckoo kernels for every instance (u8 x 4/8/16,
    u16 x 2/4/8/16) with 16384 slots, batches at 0.9 and 1.2 of the slots
    (kick failures) with duplicates, valid masks and 256-key tiles, the
    update at windows 1, 2, 32 and the default; adversarial batches (512
@@ -129,7 +133,14 @@ the script exits non-zero without printing a result:
    0 and of W fresh probes, at W = 2^22 (2^26 bits a generation, a 32 MiB
    ring) and W = 2^26 (2^30 bits, a 512 MiB ring). The ring and head after
    every step and every result equal the plain path's in full (in 2^22-key
-   chunks); engines and launches checked in each cell;
+   chunks); engines and launches checked in each cell, each contains on
+   the path ``ring.choose_contains_path`` picks (its plans printed); both
+   paths and Θ = 1 in turns on the three contains (the rule's path must
+   not be the slower beyond the rounds' spread), binned batch sizes in
+   turns, the floors and the binned call's peak extra memory; then the ring rule's sweep (rings of
+   32 / 128 / 512 MiB, G = 2/4/8, 2^16 ... 2^26 keys with member shares
+   0, 1/2, 1, both paths in turns), which fails where the rule's path is
+   the slower at some share beyond the rounds' spread;
 4d. the bank cells: ``filter_for_n_items(n, bits_per_key=16, bank=1024)``
    then routed ``add`` of uniformly routed keys, routed ``contains`` of
    them and of 2^22 probes: sbf at 2^13 keys a member (16 MiB bank,
@@ -146,8 +157,13 @@ the script exits non-zero without printing a result:
    ``ops.counting_update_partitioned`` add and remove of half of the
    countingbf cells' keys (2^22 into 32 MiB; 2^26 into 512 MiB in 2^24-key
    batches), at n_segments 8 and the smallest count whose segment fits
-   shared memory, the words equal to the plain version's in full, the
-   partition step, the kernel and the atomic kernel timed on one batch;
+   shared memory (and, in the sbf L2 cell, the smallest count whose
+   segments the rule sends to the shared path), the words equal to the
+   plain version's in full, the
+   partition step, the kernel and the atomic kernel timed on one batch,
+   each call's plan (``sbf`` / ``countingbf.LAST_PARTITIONED_PLAN``, the
+   rule's); both paths of each in turns at n_segments 8, 16, ... up to 16
+   x the fitting count, which fail where the rule's path is the slower beyond the rounds' spread;
    and the cuckoo cell, ``filter_for_n_items(2^22, bits_per_key=16,
    variant="cuckoo")`` (u16 x 4, 2^21 buckets, 16 MiB): add 2^22 keys, add
    3,355,443 more (load 0.9), contains of all and of 2^22 probes, remove
@@ -185,7 +201,7 @@ the script exits non-zero without printing a result:
    (``measured``, and no constant equal to its default); each of the five
    probes called again on its own (each must be finite and > 0) and
    printed with the card's name and power limit; the structural and measure-mode plans of the cells; the DRAM
-   contains of rows 3, 5, 13, 16 and 19 at their cells' full size at every
+   contains of rows 3, 5, 13 and 16 at their cells' full size at every
    depth and at the depth ``ops`` resolves; the L2 crossover sweep (sbf
    and countingbf contains through the L2 schedule and the DRAM schedule
    at every depth, at 8-64 MiB, single filters at the powers of two and
@@ -210,9 +226,10 @@ script exits non-zero where there is none, or where the repository's
     python3 chip_smoke.py --profile
 
 instead prints the device time by kernel (``torch.profiler``) of the
-binned cbf add in the two cbf cells (the scatter's time among them) and of
-one quotient update and contains at the DRAM-side cell's shapes, and no
-result.
+binned cbf add in the two cbf cells (the scatter's time among them), of
+one quotient update and contains at the DRAM-side cell's shapes, of the
+DRAM windowed cell's binned contains and of a DRAM partitioned sbf add
+batch, and no result.
 """
 from __future__ import annotations
 
@@ -1508,11 +1525,17 @@ CBF_REPLACES = {"contains_vmem": "src/repro/kernels/cbf.py:64",
                 "add_vmem": "src/repro/kernels/cbf.py:80"}
 RING_REPLACES = {"ring_contains_vmem": "src/repro/kernels/ring.py:99",
                  "ring_contains_hbm": "src/repro/kernels/ring.py:120"}
-PHASE3C_RING_SPECS = [
+RING_KERNELS = ["ring_contains_kernel (one-pass)", "ring_bin_count_kernel",
+                "bin_column_kernel", "bin_scan_kernel",
+                "ring_bin_scatter_kernel", "ring_bin_test_kernel"]
+PHASE3C_RING_SPECS = [                  # s = 8, 8, 1, 16, 2, 4, 32 words
     V.FilterSpec("sbf", 1 << 20, 16, block_bits=256),
     V.FilterSpec("bbf", 1 << 20, 8, block_bits=256),
     V.FilterSpec("rbbf", 1 << 20, 4),
     V.FilterSpec("csbf", 1 << 20, 8, block_bits=512, z=2),
+    V.FilterSpec("sbf", 1 << 20, 4, block_bits=64),
+    V.FilterSpec("sbf", 1 << 20, 8, block_bits=128),
+    V.FilterSpec("sbf", 1 << 20, 32, block_bits=1024),
 ]
 DRAM_CBF_REPS, DRAM_CBF_ROUNDS = 5, 3   # the DRAM cbf cell's calls take ~0.1 s
 CBF_KERNELS = {"contains_vmem": ["cbf_contains_kernel (one-pass)",
@@ -1681,9 +1704,44 @@ def phase_cbf_contains_paths(errs: dict, one_bin: torch.Tensor):
           f"version")
 
 
+def ring_paths(spec: V.FilterSpec, rings: torch.Tensor, q: torch.Tensor,
+               want: torch.Tensor, errs: dict) -> int:
+    """Both ring wrappers on both paths forced against the plain results:
+    one-pass at every Θ (and at every depth ``contains_hbm`` accepts);
+    binned at the default bins, over several internal batches and in bins
+    of one row and of 8 rows; the runs made."""
+    runs = 0
+    thetas_ = [t for t in (1, 2, 4, 8, 16, 32) if t <= spec.s]
+    calls = [("ring_contains_vmem", {}), ("ring_contains_vmem",
+                                          {"path": "binned"})]
+    calls += [("ring_contains_hbm", {"depth": d, "path": "one-pass"})
+              for d in sbf.DMA_DEPTHS]
+    calls += [("ring_contains_vmem", {"path": "one-pass", "theta": t})
+              for t in thetas_]
+    calls += [("ring_contains_hbm", {"path": "binned", "bin_row_bits": b,
+                                     "cap": c})
+              for b, c in ((None, 1000), (0, 1 << 16), (3, 4097))
+              if b is None or ring.binned_fits(spec.n_words, spec.s, b)]
+    for name, kw in calls:
+        got = getattr(ring, name)(spec, rings, q, **kw)
+        errs[name] = max(errs[name], max_err(got, want))
+        if q.shape[0] and kw.get("path") and (
+                ring.LAST_CONTAINS_PLAN["path"] != kw["path"]):
+            raise AssertionError(f"ring {name} {kw}: ran "
+                                 f"{ring.LAST_CONTAINS_PLAN}")
+        runs += 1
+    return runs
+
+
 def phase_ring_kernels(errs: dict):
+    """Phase 3c, ring: each spec (s = 1 ... 32 words) at G = 1 ... 9,
+    65536 / G keys a generation, the last generation's keys and 65537
+    probes; every path of :func:`ring_paths` at n = 65537 + the live keys,
+    0, 1, 255 and 257 against ``ring_contains_ref``; the FPR at G = 2, 4
+    and 8."""
     for i, spec in enumerate(PHASE3C_RING_SPECS):
-        for G in (2, 3, 4, 8):
+        total = 0
+        for G in range(1, 10):
             per_gen = 65536 // G
             rings = torch.stack([
                 sbf.add_plain(spec, V.init(spec, "cuda"),
@@ -1694,17 +1752,10 @@ def phase_ring_kernels(errs: dict):
             want = ring.ring_contains_ref(spec, rings, queries)
             if not bool(want[:per_gen].all()):
                 raise AssertionError(f"{spec} G={G}: false negatives")
-            runs = 0
             for m in (queries.shape[0], 0, 1, 255, 257):
-                got = ring.ring_contains_vmem(spec, rings, queries[:m])
-                errs["ring_contains_vmem"] = max(
-                    errs["ring_contains_vmem"], max_err(got, want[:m]))
-                for depth in sbf.DMA_DEPTHS:
-                    got = ring.ring_contains_hbm(spec, rings, queries[:m],
-                                                 depth=depth)
-                    errs["ring_contains_hbm"] = max(
-                        errs["ring_contains_hbm"], max_err(got, want[:m]))
-                runs += 1 + len(sbf.DMA_DEPTHS)
+                total += ring_paths(spec, rings, queries[:m], want[:m], errs)
+            if G not in (2, 4, 8):
+                continue
             # the union of G generations holds all 65536 keys
             fpr = float(ring.ring_contains_vmem(
                 spec, rings, gen_keys(1 << 20, 1600 + i, probe=True)
@@ -1713,10 +1764,13 @@ def phase_ring_kernels(errs: dict):
             if not 0.5 * theory <= fpr <= 2.0 * theory:
                 raise AssertionError(f"{spec} G={G}: FPR {fpr} outside "
                                      f"0.5-2.0 x theory {theory}")
-            torch.cuda.synchronize()
-            print(f"kernels: ring of {G} x {spec}: {runs} ring kernel runs "
-                  f"equal to the plain version; FPR {fpr:.6f} = "
-                  f"{fpr / theory:.3f} x theory on 2^20 probes")
+        torch.cuda.synchronize()
+        print(f"kernels: rings of G = 1 ... 9 x {spec}: {total} ring kernel "
+              f"runs equal to the plain version (one-pass at every Θ; "
+              f"binned at the default bins, in "
+              f"several internal batches and in bins of 1 and 8 rows; n = "
+              f"0/1/255/257/65537 + the live keys); FPR within 0.5-2.0 x "
+              f"theory at G = 2/4/8 on 2^20 probes")
 
 
 def cbf_probes_needed(spec: V.FilterSpec, words: torch.Tensor,
@@ -1917,6 +1971,104 @@ def ring_bound_ms(spec: V.FilterSpec, generations: int, n: int):
     t_ops = n * (ops_per_key(spec, "contains") + generations * spec.s
                  ) / OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ring_floors_ms(spec: V.FilterSpec, generations: int, n: int,
+                   plan: dict) -> tuple:
+    """(sector floor, binned floor) of a ring contains of n keys at the DRAM
+    rate. Sector: 8 B a key, 1 a result and one 32-byte sector a
+    generation (G random row reads, what one pass must move). Binned (with
+    ``plan``'s batches): the keys read twice, a 16-byte slot written and
+    read, the ring read once a batch, the results written once."""
+    sector = n * (9 + SECTOR * generations)
+    binned = (n * (16 + 2 * ring.SLOT_BYTES + 1)
+              + max(1, plan["batches"]) * 4 * generations * spec.n_words)
+    return (sector / HBM_BYTES_PER_S * 1e3, binned / HBM_BYTES_PER_S * 1e3)
+
+
+RING_RULE_BYTES = (1 << 25, 1 << 27, 1 << 29)    # 32 MiB (L2) ... 512 MiB
+RING_RULE_GENS = (2, 4, 8)
+RING_RULE_LOG2N = (16, 18, 20, 22, 24, 26)
+RING_MEMBER_SHARES = (0.0, 0.5, 1.0)
+
+
+def phase_ring_rule(card: str):
+    """The ring contains' path rule against both paths timed in turns:
+    rings of 32 MiB (L2), 128 MiB and 512 MiB of G = 2, 4 and 8 sbf
+    generations (B = 256, k = 8) each filled to 16 bits a key, batches of
+    2^16 ... 2^26 keys of which a share of 0, 1/2 or 1 are members, drawn
+    from every generation alike (one-pass: the early stop, which members
+    make cheaper; binned reads every bin a batch touches). The rule cannot
+    see the share: fails where it picks binned and binned is slower at some
+    share, or picks one-pass and binned is faster at every share; slower:
+    beyond the rounds' spread and by more than 5 % and 5 us."""
+    smem = sbf.partition_smem_bytes(torch.device("cuda"))
+    probes = gen_keys(1 << max(RING_RULE_LOG2N), 35, probe=True)
+    rows, wrong = [], []
+    for nbytes in RING_RULE_BYTES:
+        for G in RING_RULE_GENS:
+            spec = V.FilterSpec("sbf", 8 * nbytes // G, 8, block_bits=256)
+            per_gen = spec.m_bits // 16
+            rings = torch.zeros((G, spec.n_words), dtype=torch.int32,
+                                device="cuda")
+            for g in range(G):
+                for part in range(0, per_gen, SUBSET):
+                    sbf.add_hbm(spec, rings[g], gen_keys(
+                        min(SUBSET, per_gen - part), 3000 + 97 * g + part))
+            members = torch.cat([gen_keys(min(per_gen, SUBSET) // G,
+                                          3000 + 97 * g) for g in range(G)])
+            l2 = ops.fits_l2(spec, G)
+            for log2n in RING_RULE_LOG2N:
+                n = 1 << log2n
+                chosen = ring.choose_contains_path(n, spec.n_words, G,
+                                                   spec.s, smem, l2)
+                t, slower = {}, {}
+                other = "binned" if chosen == "one-pass" else "one-pass"
+                for share in RING_MEMBER_SHARES:
+                    q = cbf_mixed(members, probes, members.shape[0], n,
+                                  share)
+                    fns = {p: (lambda p=p, q=q: ring.ring_contains_hbm(
+                        spec, rings, q, path=p)) for p in ring.PATHS}
+                    label = f"ring rule {nbytes} {G} 2^{log2n} {share}"
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    fns["one-pass"]()
+                    start.record()
+                    fns["one-pass"]()
+                    end.record()
+                    torch.cuda.synchronize()
+                    reps = max(1, min(REPS, int(
+                        10 / max(start.elapsed_time(end), 1e-3))))
+                    t[share] = time_turns(fns, label, reps, 3)
+                    hi_other = SPREAD[f"{label} {other}"][1]
+                    tc, to = t[share][chosen], t[share][other]
+                    slower[share] = (tc > hi_other and tc > 1.05 * to
+                                     and tc - to > 0.005)
+                # binned only where it is no slower at any share; one-pass
+                # unless binned is faster at all of them
+                if (any(slower.values()) if chosen == "binned"
+                        else all(slower.values())):
+                    wrong.append((nbytes >> 20, G, log2n, chosen,
+                                  [s_ for s_, v in slower.items() if v]))
+                rows.append(f"{nbytes >> 20}M/G{G}/2^{log2n} " + " ".join(
+                    f"{t[x]['one-pass']:.4f}/{t[x]['binned']:.4f}"
+                    for x in RING_MEMBER_SHARES)
+                    + ("*" if chosen == "binned" else ""))
+            del rings, members
+            torch.cuda.empty_cache()
+    del probes
+    print(f"ring contains rule sweep [{card}] (ring MiB / G / keys: "
+          f"one-pass / binned ms at member shares "
+          f"{' '.join(map(str, RING_MEMBER_SHARES))}, median of 3 rounds in "
+          f"turns; * the rule picks binned): " + ", ".join(rows))
+    if wrong:
+        raise AssertionError(f"ring contains rule picks the slower path at "
+                             f"(MiB, G, log2 n, chosen, the shares where it "
+                             f"is slower) {wrong}")
+    print(f"ring contains rule: at each of {len(rows)} sizes binned where it "
+          f"is no slower at any of the member shares "
+          f"{' '.join(map(str, RING_MEMBER_SHARES))}, one-pass where binned "
+          f"is not faster at all three, within the rounds' spread")
 
 
 def phase_cbf_main(regime: str, n: int, errs: dict, records: dict,
@@ -2152,12 +2304,24 @@ def phase_windowed_main(regime: str, window: int, errs: dict, records: dict,
             w = w.advance()
             states.append((w.words, w.head))
     live = torch.cat(batches[1:])
+    plans = {}
     hits = w.contains(live)
+    plans["live"] = dict(ring.LAST_CONTAINS_PLAN)
     retired = w.contains(batches[0])
+    plans["retired"] = dict(ring.LAST_CONTAINS_PLAN)
     false_pos = w.contains(fresh)
+    plans["fresh"] = dict(ring.LAST_CONTAINS_PLAN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counted = {**sbf.LAUNCHES, **ring.LAUNCHES}
+    smem = sbf.partition_smem_bytes(live.device)
+    for label, q in (("live", live), ("retired", batches[0]),
+                     ("fresh", fresh)):
+        rule = ring.choose_contains_path(q.shape[0], spec.n_words, G, spec.s,
+                                         smem, ops.fits_l2(spec, G))
+        if plans[label]["path"] != rule:
+            raise AssertionError(f"windowed {regime}: the {label} contains "
+                                 f"ran {plans[label]}, not the rule's {rule}")
     for name in (add_name, con_name):
         if counted[name] == 0:
             raise AssertionError(f"{name} was not launched on the windowed "
@@ -2202,7 +2366,9 @@ def phase_windowed_main(regime: str, window: int, errs: dict, records: dict,
           f"retired batch still hit; ring and head after every step and "
           f"every result equal to the plain path's in full; FPR {fpr:.6f}, "
           f"{fpr / theory:.3f} x theory {theory:.6f}; launches "
-          f"{add_name} {counted[add_name]}, {con_name} {counted[con_name]}")
+          f"{add_name} {counted[add_name]}, {con_name} {counted[con_name]}; "
+          f"contains plans (ring.LAST_CONTAINS_PLAN, the rule's): "
+          + "; ".join(f"{k} {v}" for k, v in plans.items()))
 
     # times: the main path at full size, and kernel vs plain on 2^22 keys
     n_sub = min(SUBSET, window)
@@ -2237,25 +2403,81 @@ def phase_windowed_main(regime: str, window: int, errs: dict, records: dict,
           f"{t['Filter.add']:.4f} ms ({add_name} on the head generation, "
           f"after a clone of the ring); Filter.advance "
           f"{t['Filter.advance']:.4f} ms")
-    # where a ring contains' time goes: each depth, and against the union
-    # as a ring of one generation and as a blocked filter (one row a key)
+    # both paths in turns on the cell's three contains, and Θ = 1
+    card_theta = ring.contains_geometry(spec).theta
+    reps, rounds = (REPS, ROUNDS) if regime == "L2" else (5, 3)
+    turns = {}
+    for label, q in (("live", live), ("retired", batches[0]),
+                     ("fresh", fresh)):
+        fns = {"one-pass": lambda q=q: ring.ring_contains_hbm(
+                   spec, w.words, q, path="one-pass"),
+               "binned": lambda q=q: ring.ring_contains_hbm(
+                   spec, w.words, q, path="binned"),
+               "theta=1": lambda q=q: ring.ring_contains_hbm(
+                   spec, w.words, q, path="one-pass", theta=1)}
+        turns[label] = time_turns(fns, f"windowed {regime} {label} paths",
+                                  reps, rounds)
+        turns[label]["rule"] = plans[label]["path"]
+    wrong = [(label, t["rule"], t[t["rule"]], other, t[other])
+             for label, t in turns.items() for other in ring.PATHS
+             if other != t["rule"] and t[t["rule"]] > SPREAD[
+                 f"windowed {regime} {label} paths {other}"][1]
+             and t[t["rule"]] > 1.05 * t[other]
+             and t[t["rule"]] - t[other] > 0.005]
+    print(f"time windowed {regime} contains paths in turns [{card}] (ms; "
+          f"one-pass at Θ = {card_theta}): " + "; ".join(
+              f"{label} ({q.shape[0]} keys, rule {t['rule']}): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in t.items() if k != "rule")
+              for (label, t), q in zip(turns.items(),
+                                       (live, batches[0], fresh))))
+    if wrong:
+        raise AssertionError(f"windowed {regime}: the rule's path is the "
+                             f"slower at (keys, rule, ms, other, ms) {wrong}")
+    sweep = {}
+    # where a ring contains' time goes: against the union as a ring of one
+    # generation and as a blocked filter (one row a key)
     dense = ring.ring_dense(w.words)
     union = dense[None].contiguous()
-    if regime == "L2":
-        sweep = {}
-        blocked = functools.partial(sbf.contains_vmem, spec, dense, live)
-    else:
-        sweep = {f"depth={d}": time_ms(
-            lambda d=d: ring.ring_contains_hbm(spec, w.words, live, depth=d),
-            f"windowed DRAM depth={d}", 5, 3) for d in (1, 2, 4)}
-        blocked = functools.partial(sbf.contains_hbm, spec, dense, live)
+    blocked = (functools.partial(sbf.contains_vmem, spec, dense, live)
+               if regime == "L2" else
+               functools.partial(sbf.contains_hbm, spec, dense, live))
     sweep["one-generation ring of the union"] = time_ms(
-        lambda: run_con(spec, union, live), f"windowed {regime} G=1", 5, 3)
+        lambda: ring.ring_contains_hbm(spec, union, live, path="one-pass"),
+        f"windowed {regime} G=1", 5, 3)
     sweep["blocked contains of the union"] = time_ms(
         blocked, f"windowed {regime} blocked", 5, 3)
-    print(f"time windowed {regime} {con_name} sweep [{card}] at "
+    print(f"time windowed {regime} one-pass against the union [{card}] at "
           f"{live.shape[0]} keys: " + ", ".join(
-              f"{k} {v:.4f} ms" for k, v in sweep.items()))
+              f"{k} {v:.4f} ms" for k, v in sweep.items()
+              if k.endswith("union")))
+    if regime == "DRAM":
+        caps = time_turns({f"cap=2^{c}": (
+            lambda c=c: ring.ring_contains_hbm(spec, w.words, live,
+                                               path="binned", cap=1 << c))
+            for c in (23, 24, 25, 26)}, "windowed DRAM caps", 5, 3)
+        print(f"time windowed DRAM binned contains of {live.shape[0]} live "
+              f"keys by keys a batch, in turns [{card}] (ms; the default "
+              f"2^{ring.CONTAINS_KEY_CAP.bit_length() - 1}): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in caps.items()))
+        sweep.update(caps)
+    # peak extra memory of a binned contains of the live keys, and floors
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ring.ring_contains_hbm(spec, w.words, live, path="binned")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    bplan = dict(ring.LAST_CONTAINS_PLAN)
+    floors = {label: ring_floors_ms(spec, G, q.shape[0], bplan)
+              for label, q in (("live", live), ("retired", batches[0]),
+                               ("fresh", fresh))}
+    print(f"windowed {regime} floors (ms; sector: keys, results and G "
+          f"32-byte sectors a key; binned: keys twice, 16-byte slots written "
+          f"and read, the ring once a batch, results): " + "; ".join(
+              f"{k} sector {a:.4f}, binned {b:.4f}"
+              for k, (a, b) in floors.items())
+          + f"; peak extra memory of the binned live contains {peak} B "
+          f"(plan {bplan})")
     records[con_name] = {
         "name": con_name, "route": "cuda", "source": RING_SOURCE,
         "replaces": RING_REPLACES[con_name], "launches": 0,
@@ -2265,7 +2487,10 @@ def phase_windowed_main(regime: str, window: int, errs: dict, records: dict,
         "generations": G, "m_bits": spec.m_bits,
         "main_n_keys": live.shape[0], "main_ms": t["contains"],
         "main_bound_ms": b_full, "api_ms": t["Filter.contains"],
-        "api_add_ms": t["Filter.add"], "api_advance_ms": t["Filter.advance"]}
+        "api_add_ms": t["Filter.add"], "api_advance_ms": t["Filter.advance"],
+        "plans": plans, "paths_ms": turns, "sweep_ms": sweep, "floors_ms": floors,
+        "binned_peak_extra_bytes": peak,
+        "cuda_kernels": RING_KERNELS}
     del f, w, plain, batches, live, fresh, dense, union
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -3022,6 +3247,37 @@ def counting_paths(spec, batch, gone, n_seg: int, want, want_rm,
     return runs
 
 
+def bits_paths(spec, keys_by_seg, valid, n_seg: int, errs: dict) -> int:
+    """``sbf.add_partitioned`` on each path forced (global; shared where a
+    segment fits shared memory in 16-byte vectors), on the given slots and
+    on a copy with a key placed in a foreign segment, against the plain
+    version; the runs made."""
+    smem = sbf.partition_smem_bytes("cuda")
+    seg_words = spec.n_words // n_seg
+    paths = ["global"] + (["shared"] if seg_words % 4 == 0
+                          and seg_words * 4 <= smem else [])
+    foreign = keys_by_seg.clone()
+    fvalid = valid.clone()
+    owner = n_seg // 2
+    free = (fvalid[owner] == 0).nonzero()
+    if free.numel():
+        foreign[owner, int(free[0])] = gen_keys(1, 700 + n_seg)[0]
+        fvalid[owner, int(free[0])] = 1
+    runs = 0
+    for kb, v in ((keys_by_seg, valid), (foreign, fvalid)):
+        plain = sbf.add_partitioned_plain(spec, V.init(spec, "cuda"), kb, v)
+        for path in paths:
+            got = sbf.add_partitioned(spec, V.init(spec, "cuda"), kb, v,
+                                      n_seg, path=path)
+            errs["add_partitioned"] = max(errs["add_partitioned"],
+                                          max_err(got, plain))
+            plan = sbf.LAST_PARTITIONED_PLAN
+            if plan["path"] != path:
+                raise AssertionError(f"partitioned: ran {plan}, not {path}")
+            runs += 1
+    return runs
+
+
 def phase_partitioned_kernels(errs: dict):
     """Phase 3e, partitioned: every spec at n_segments 1/8/64, the default
     capacity (escalated for a batch that falls in one segment), pinned to
@@ -3051,8 +3307,9 @@ def phase_partitioned_kernels(errs: dict):
         runs, paths = 0, set()
         for n_seg in (1, 8, 64):
             if not counting:
-                paths.add("shared" if spec.n_words * 4 // n_seg <= budget
-                          else "global")
+                paths.add(sbf.choose_partitioned_path(
+                    n_seg, spec.n_words // n_seg, 4 * n // n_seg, budget,
+                    ops.fits_l2(spec)))
             mean = batch.shape[0] // n_seg
             for kw in ({}, {"capacity": max(8, mean // 2)},
                        {"partition": "host"}):
@@ -3092,7 +3349,10 @@ def phase_partitioned_kernels(errs: dict):
                                                   part.keys_by_seg,
                                                   part.valid)
                 got = sbf.add_partitioned(spec, init(), part.keys_by_seg,
-                                          part.valid, n_seg)
+                                          part.valid, n_seg,
+                                          l2_resident=ops.fits_l2(spec))
+                runs += bits_paths(spec, part.keys_by_seg, part.valid,
+                                   n_seg, errs)
             errs[name] = max(errs[name], max_err(got, plain))
             runs += 1
         torch.cuda.synchronize()
@@ -3102,7 +3362,8 @@ def phase_partitioned_kernels(errs: dict):
               f"batch in one segment, pinned with overflow, host partition; "
               f"paths {sorted(paths)} and global forced"
               + ("; the counting update on each path forced, a row of 80 "
-                 "increments" if counting else "") + ")")
+                 "increments" if counting else "; the add on each path "
+                 "forced, with a key in a foreign segment") + ")")
 
 
 def cuckoo_spec(slot_bits: int, spb: int, n_buckets: int) -> V.FilterSpec:
@@ -3275,6 +3536,29 @@ def counting_path_turns(spec, first: torch.Tensor, n_seg: int, label: str,
     return t
 
 
+def bits_path_turns(spec, first: torch.Tensor, n_seg: int, label: str,
+                    reps: int, rounds: int) -> dict:
+    """Both paths of ``sbf.add_partitioned`` on one batch at ``n_seg``, in
+    turns (the OR of the same keys again does the same work): global, and
+    shared where a segment fits shared memory. {path: ms}, the rule's path
+    under "rule"."""
+    part = ops._partition_device(spec, first, n_seg, None)
+    scratch = V.init(spec, "cuda")
+    smem = sbf.partition_smem_bytes("cuda")
+    seg_words = spec.n_words // n_seg
+    paths = ["global"] + (["shared"] if seg_words % 4 == 0
+                          and seg_words * 4 <= smem else [])
+    t = time_turns({p: (lambda p=p: sbf.add_partitioned(
+        spec, scratch, part.keys_by_seg, part.valid, n_seg, path=p))
+        for p in paths}, f"{label} {n_seg}", reps, rounds)
+    t["rule"] = sbf.choose_partitioned_path(
+        n_seg, seg_words, part.valid.shape[1], smem, ops.fits_l2(spec))
+    if t["rule"] not in t:
+        raise AssertionError(f"{label} {n_seg}: the rule's {t['rule']} "
+                             f"was not timed")
+    return t
+
+
 def partitioned_grouped_floor_ms(spec, part, chunk: int) -> float:
     """The grouped path's own floor for one partitioned batch: the valid
     bytes and the valid keys read once, and each touched row read and
@@ -3334,16 +3618,20 @@ def phase_partitioned_main(kind: str, regime: str, n: int, errs: dict,
     reps, rounds = (REPS, ROUNDS) if regime == "L2" else (5, 3)
     n_fit = fitting_segments(spec)
     smem = sbf.partition_smem_bytes("cuda")
+    counts = [8, n_fit]
+    if not counting and regime == "L2":
+        # the shared path's side of the rule
+        counts.append(spec.n_words * 4 // sbf.SHARED_MAX_SEGMENT_BYTES)
     cell = {}
-    for n_seg in (8, n_fit):
+    for n_seg in counts:
         words = V.init(spec, "cuda")
         torch.cuda.synchronize()
         mod.reset_launches()               # the main path, counted
         t0 = time.perf_counter()
         for chunk in keys.split(batch):
             partitioned_update(spec, words, chunk, n_seg)
+        plan = dict(mod.LAST_PARTITIONED_PLAN)
         if counting:
-            plan = dict(cnt.LAST_PARTITIONED_PLAN)
             for chunk in keys[:half].split(batch):
                 partitioned_update(spec, words, chunk, n_seg, op="remove")
         torch.cuda.synchronize()
@@ -3383,12 +3671,21 @@ def phase_partitioned_main(kind: str, regime: str, n: int, errs: dict,
                                      f"{peak} B; its plan has no workspace")
             how = f"{path}, plan {plan}, peak extra memory {peak} B"
         else:
+            path = sbf.choose_partitioned_path(
+                n_seg, spec.n_words // n_seg, part.valid.shape[1], smem,
+                ops.fits_l2(spec))
+            if plan["path"] != path:
+                raise AssertionError(f"{label}: ran {plan}, not the rule's "
+                                     f"{path}")
             t_kernel = time_ms(lambda: sbf.add_partitioned(
-                spec, scratch, part.keys_by_seg, part.valid, n_seg),
+                spec, scratch, part.keys_by_seg, part.valid, n_seg,
+                l2_resident=ops.fits_l2(spec)),
                 f"{label} {n_seg} kernel", reps, rounds)
-            path = ("shared memory" if spec.n_words * 4 // n_seg <= smem
-                    else "global atomics")
-            how = path
+            if sbf.LAST_PARTITIONED_PLAN["path"] != path:
+                raise AssertionError(f"{label}: timed "
+                                     f"{sbf.LAST_PARTITIONED_PLAN}, not the "
+                                     f"rule's {path}")
+            how = f"{path}, plan {plan}"
         slots = part.valid.numel()
         lo, hi = SPREAD[f"{label} {n_seg} kernel"]
         print(f"main {label}: {spec}, {n} keys in batches of {batch}, "
@@ -3444,33 +3741,42 @@ def phase_partitioned_main(kind: str, regime: str, n: int, errs: dict,
             lambda w, k: cnt.update_plain(spec, w, k, None, "add"),
             V.init(spec, "cuda"), first)
     else:
-        # the schedule axis: smaller segments put more CTAs on an SM
-        sweep = {}
-        for n_seg in (n_fit * f for f in (2, 4, 8, 16)):
-            part = ops._partition_device(spec, first, n_seg, None)
-            scratch = V.init(spec, "cuda")
-            sweep[n_seg] = time_ms(lambda: sbf.add_partitioned(
-                spec, scratch, part.keys_by_seg, part.valid, n_seg),
-                f"{label} sweep {n_seg}", reps, rounds)
-        print(f"time {label} n_segments sweep [{card}]: one batch: "
-              + ", ".join(f"n_segments {k} {v:.4f} ms"
-                          for k, v in sweep.items()))
-        # the global-atomic path at the fitting count, which the segment
-        # size does not select there: the other side of the path choice
+        # both paths in turns from n_segments 8 up: the rule's sweep
+        sweep, wrong, rows = {}, [], []
+        n_seg = min(8, n_fit)
+        while n_seg <= 16 * n_fit:
+            t = bits_path_turns(spec, first, n_seg, f"{label} paths", reps,
+                                rounds)
+            sweep[n_seg] = t
+            rule = t["rule"]
+            for other in sbf.PARTITIONED_PATHS:
+                if other == rule or other not in t:
+                    continue
+                hi_other = SPREAD[f"{label} paths {n_seg} {other}"][1]
+                if (t[rule] > hi_other and t[rule] > 1.05 * t[other]
+                        and t[rule] - t[other] > 0.005):
+                    wrong.append((n_seg, rule, t[rule], other, t[other]))
+            rows.append(f"{n_seg}: " + " / ".join(
+                f"{p} {t[p]:.4f}" for p in sbf.PARTITIONED_PATHS if p in t)
+                + f" (rule {rule})")
+            n_seg *= 2
+        print(f"time {label} paths in turns [{card}] (one batch of {batch} "
+              f"keys; n_segments: ms): " + ", ".join(rows))
+        if wrong:
+            raise AssertionError(f"{label}: the rule picks the slower path "
+                                 f"at (n_segments, rule, ms, other, ms) "
+                                 f"{wrong}")
+        print(f"{label}: at each of {len(sweep)} counts the rule's path is "
+              f"the faster one within the rounds' spread")
+        t_global = sweep[n_fit]["global"]
         part = ops._partition_device(spec, first, n_fit, None)
         scratch = V.init(spec, "cuda")
-        with global_atomics():
-            t_global = time_ms(lambda: sbf.add_partitioned(
-                spec, scratch, part.keys_by_seg, part.valid, n_fit),
-                f"{label} global {n_fit}", reps, rounds)
-            want_first = update_in_chunks(functools.partial(sbf.add_plain,
-                                                            spec),
-                                          V.init(spec, "cuda"), first)
+        sbf.add_partitioned(spec, scratch, part.keys_by_seg, part.valid,
+                            n_fit, l2_resident=ops.fits_l2(spec))
+        want_first = update_in_chunks(functools.partial(sbf.add_plain,
+                                                        spec),
+                                      V.init(spec, "cuda"), first)
         errs[name] = max(errs[name], max_err(scratch, want_first))
-        print(f"time {label} path choice [{card}]: one batch at n_segments "
-              f"{n_fit}: shared memory {cell[n_fit]['kernel_ms']:.4f} ms, "
-              f"global atomics {t_global:.4f} ms (words equal to the plain "
-              f"version's)")
     # beside them: the atomic kernel of rows 2/4 or 10/12 on the same batch
     scratch = V.init(spec, "cuda")
     if counting:
@@ -3503,8 +3809,8 @@ def phase_partitioned_main(kind: str, regime: str, n: int, errs: dict,
             counter_updates(spec, first))
     else:
         t_sub = time_ms(lambda: sbf.add_partitioned(
-            spec, scratch, part.keys_by_seg, part.valid, n_fit),
-            f"{label} sub")
+            spec, scratch, part.keys_by_seg, part.valid, n_fit,
+            l2_resident=ops.fits_l2(spec)), f"{label} sub")
         t_plain = time_ms(lambda: sbf.add_partitioned_plain(
             spec, V.init(spec, "cuda"), part.keys_by_seg, part.valid),
             f"{label} plain", PLAIN_REPS, PLAIN_ROUNDS)
@@ -3525,9 +3831,11 @@ def phase_partitioned_main(kind: str, regime: str, n: int, errs: dict,
         "source": COUNTING_SOURCE if counting else SOURCE,
         "replaces": PART_REPLACES[name], "launches": 0, "max_abs_err": 0,
         "library_ms": None, "n_keys": SUBSET})
-    if counting:
-        rec["cuda_kernels"] = ["counting_partitioned_grouped_kernel",
-                               "counting_partitioned_global_kernel"]
+    rec["cuda_kernels"] = (["counting_partitioned_grouped_kernel",
+                            "counting_partitioned_global_kernel"]
+                           if counting else
+                           ["bloom_add_partitioned_global_kernel",
+                            "bloom_add_partitioned_shared_kernel"])
     prefix = "" if regime == "L2" else "dram_"
     if regime == "L2":
         rec.update({"ms": t_sub, "plain_ms": t_plain, "bound_ms": b_sub[0],
@@ -4770,6 +5078,55 @@ def profile_cbf(card: str):
         torch.cuda.empty_cache()
 
 
+def profile_rows(prof) -> str:
+    """A profile's kernels by device time, largest first, and the total."""
+    rows = sorted(((getattr(e, "device_time_total", 0), e.count, e.key)
+                   for e in prof.key_averages()), reverse=True)
+    rows = [r for r in rows if r[0] > 0]
+    if not rows:
+        return "no device time recorded (not measured)"
+    return (", ".join(f"{k.split('::')[-1][:40]} x{c} {us / 1e3:.4f} ms"
+                      for us, c, k in rows)
+            + f"; device total {sum(r[0] for r in rows) / 1e3:.4f} ms")
+
+
+def profile_ring(card: str):
+    """``--profile``: device time by kernel (``torch.profiler``) of the
+    DRAM windowed cell's binned contains (2^26 keys against 4 generations
+    of 2^30 bits) and of the DRAM partitioned sbf add at the fitting count
+    (a 2^24-key batch into 2^32 bits, n_segments 4096, global path)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    G = 4
+    spec = V.FilterSpec("sbf", 1 << 30, 8, block_bits=256)
+    keys = gen_keys(1 << 26, 31)
+    rings = torch.zeros((G, spec.n_words), dtype=torch.int32, device="cuda")
+    for g, chunk in enumerate(keys.split(keys.shape[0] // G)):
+        sbf.add_hbm(spec, rings[g], chunk)
+    ring.ring_contains_hbm(spec, rings, keys, path="binned")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        ring.ring_contains_hbm(spec, rings, keys, path="binned")
+        torch.cuda.synchronize()
+    print(f"profile ring binned contains [{card}] ({G} x {spec}, "
+          f"{keys.shape[0]} keys, {ring.LAST_CONTAINS_PLAN['batches']} "
+          f"batches): {profile_rows(prof)}")
+    del rings
+    spec = V.FilterSpec("sbf", 1 << 32, 8, block_bits=256)
+    words = V.init(spec, "cuda")
+    part = ops._partition_device(spec, keys[:DRAM_BATCH], 4096, None)
+    sbf.add_partitioned(spec, words, part.keys_by_seg, part.valid, 4096)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        sbf.add_partitioned(spec, words, part.keys_by_seg, part.valid, 4096)
+        torch.cuda.synchronize()
+    print(f"profile partitioned sbf add [{card}] ({spec}, {DRAM_BATCH} "
+          f"keys, n_segments 4096, {sbf.LAST_PARTITIONED_PLAN['path']}): "
+          f"{profile_rows(prof)}")
+    del words, keys, part
+    torch.cuda.empty_cache()
+
+
 def profile_quotient(card: str):
     """``--profile``: device time by kernel (``torch.profiler``) of one
     update and one contains in each quotient cell's shapes (L2: q23, a
@@ -4906,8 +5263,10 @@ def depth_sweep(label: str, card: str, resolved: int, run) -> dict:
 
 
 def phase_depth_sweeps(card: str) -> dict:
-    """Rows 3, 5, 13, 16, 19 at the DRAM cells' full size: each contains
-    at every depth and at the depth ``ops`` resolves (``tune_plan``)."""
+    """Rows 3, 5, 13 and 16 at the DRAM cells' full size: each contains at
+    every depth and at the depth ``ops`` resolves (``tune_plan``). Row 19
+    takes no depth (its one-pass kernel keeps one key a group in
+    flight)."""
     dev = torch.device("cuda")
     out = {}
 
@@ -4956,17 +5315,7 @@ def phase_depth_sweeps(card: str) -> dict:
         "row 16 countingbf bank_contains_vmem (DRAM)", card,
         resolved(spec, BANK_MEMBERS),
         lambda d: counting_bank_contains_at(spec, bank, keys, member, d))
-    del bank, member
-    # row 19: a window of 2^26 keys over G = 4 generations of 2^30 bits
-    G = 4
-    spec = cell_spec(1 << 26, "sbf")
-    rings = torch.zeros((G, spec.n_words), dtype=torch.int32, device="cuda")
-    for g, chunk in enumerate(keys.split(keys.shape[0] // G)):
-        sbf.add_hbm(spec, rings[g], chunk)
-    out["row 19"] = depth_sweep(
-        "row 19 ring_contains_hbm", card, resolved(spec),
-        lambda d: ring.ring_contains_hbm(spec, rings, keys, depth=d))
-    del rings, keys
+    del bank, member, keys
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return out
@@ -5272,6 +5621,7 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         profile_cbf(card)
         profile_quotient(card)
+        profile_ring(card)
         return 0
     errs = {k: 0 for k in sbf.LAUNCHES}
     cerrs = {k: 0 for k in cnt.LAUNCHES}
@@ -5301,6 +5651,7 @@ def main() -> int:
     wrecords, wlaunches = {}, {}
     phase_windowed_main("L2", 1 << 22, rerrs, wrecords, wlaunches, card)
     phase_windowed_main("DRAM", 1 << 26, rerrs, wrecords, wlaunches, card)
+    phase_ring_rule(card)
     for kernel, rec in wrecords.items():
         rec.update(launches=wlaunches[kernel], max_abs_err=rerrs[kernel])
     print(f"windowed main path launches of the blocked add kernels: "

@@ -75,13 +75,22 @@ ENTRY_POINTS = {
     "cbf_contains_binned": ("cbf", [_vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _i,
                                     _ll, _i, _vp]),
     "cbf_binned_chunks": ("cbf", [_i, _i, _i, _i]),
+    # the ring's one-pass contains: (s, theta, variant, k, z, log2g); the
+    # binned one: + the u32 workspace, (bin row bits, keys a batch,
+    # chunks); the chunks of the card as (s, log2 blocks, bin row bits)
     "ring_contains": ("ring", [_vp, _vp, _vp, _vp, _ll, _ll, _i, _u32, _i,
                                _i, _i, _i, _i, _i, _vp]),
+    "ring_contains_binned": ("ring", [_vp, _vp, _vp, _vp, _vp, _ll, _ll, _i,
+                                      _u32, _i, _i, _i, _i, _i, _i, _ll, _i,
+                                      _vp]),
+    "ring_binned_chunks": ("ring", [_i, _i, _i]),
     # partitioned updates: (n_segments, capacity) slots, the segment's words,
-    # a path flag (bloom: shared memory; counting: the grouped kernel);
-    # bloom_partition_smem(device) is the budget of both
+    # a path flag (bloom: shared memory, after (s, theta, variant, k, z,
+    # log2g); counting: the grouped kernel); bloom_partition_smem(device) is
+    # the budget of both
     "bloom_add_partitioned": ("bloom", [_vp, _vp, _vp, _vp, _ll, _ll, _u32,
-                                        _u32, _i, _i, _i, _i, _i, _i, _vp]),
+                                        _u32, _i, _i, _i, _i, _i, _i, _i,
+                                        _vp]),
     "bloom_partition_smem": ("bloom", [_i]),
     # a card's L2 fetch granularity in bytes (read only)
     "bloom_l2_fetch_granularity": ("bloom", [_i]),

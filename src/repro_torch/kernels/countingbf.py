@@ -166,8 +166,13 @@ WORKSPACE_MARGIN = 1 << 28
 # scatter; too many keys a row (256 and more in filters of 2-16 MiB) leave
 # a bin's apply summing hot rows serially. Fitted to a sweep of both paths
 # in turns on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 4b: B = 256,
-# 2^20-2^29 counter bytes x 2^16-2^26 keys; PERF.md).
-BINNED_KEYS = {20: (1 << 19, 1 << 21), 21: (1 << 20, 1 << 21),
+# 2^20-2^29 counter bytes x 2^16-2^26 keys; PERF.md). Near 2^19 keys a
+# binned call's time follows the host's speed (five launches against
+# one-pass's one), so there the table keeps the path that lost least in 12
+# runs of tools/counting_rule_turns.py: binned at 2^20-2^21 bytes, where
+# one-pass lost by more than 10 % in 13 of 24 runs and binned in none (at
+# 2^22 bytes each lost in 3 of 12: one-pass stays).
+BINNED_KEYS = {20: (1 << 19, 1 << 21), 21: (1 << 19, 1 << 21),
                22: (1 << 20, 1 << 22), 23: (1 << 20, 1 << 23),
                24: (1 << 20, 1 << 24), 25: (1 << 20, 1 << 26),
                26: (1 << 21, None), 27: (1 << 21, None),
@@ -713,6 +718,22 @@ def _workspace(nbytes: int, device: torch.device) -> torch.Tensor:
     return torch.empty(-(-nbytes // 4), dtype=torch.int32, device=device)
 
 
+@functools.lru_cache(maxsize=1024)
+def _binned_plan(spec: FilterSpec, n: int, members: int, index: int,
+                 bin_row_bits: Optional[int], cap: int, smem: int) -> dict:
+    """The plan of a binned call of ``n`` keys at ``cap`` keys a batch on
+    ``cuda:index``: the bins and the card's chunks. Kept by geometry, since
+    working it out costs a small batch's host time again."""
+    total_rows = members * spec.n_blocks
+    if bin_row_bits is None:
+        bin_row_bits = binned_bin_row_bits(total_rows, min(n, cap))
+    if not binned_fits(total_rows, bin_row_bits, smem):
+        raise ValueError(f"no binned update of {members} x {spec} in bins "
+                         f"of 2^{bin_row_bits} rows on this card")
+    chunks = _chunks_on(index, spec.s, total_rows, bin_row_bits)
+    return update_plan(spec, n, "binned", members, bin_row_bits, cap, chunks)
+
+
 def _binned_call(spec: FilterSpec, n: int, members: int,
                  device: torch.device, bin_row_bits: Optional[int],
                  cap: int, smem: int) -> tuple:
@@ -721,22 +742,20 @@ def _binned_call(spec: FilterSpec, n: int, members: int,
     the allocation fails: then the cap drops to
     :func:`update_cap_for_memory`'s from half the cap that failed, until the
     workspace allocates; ``MemoryError`` where none does."""
-    total_rows = members * spec.n_blocks
-    if bin_row_bits is None:
-        bin_row_bits = binned_bin_row_bits(total_rows, min(n, cap))
-    if not binned_fits(total_rows, bin_row_bits, smem):
-        raise ValueError(f"no binned update of {members} x {spec} in bins "
-                         f"of 2^{bin_row_bits} rows on this card")
-    chunks = binned_chunks(spec.s, total_rows, bin_row_bits, device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    plan = _binned_plan(spec, n, members, index, bin_row_bits, cap, smem)
     while True:
-        plan = update_plan(spec, n, "binned", members, bin_row_bits, cap,
-                           chunks)
         try:
-            return plan, cap, _workspace(plan["workspace_bytes"], device)
+            return (dict(plan), cap,
+                    _workspace(plan["workspace_bytes"], device))
         except torch.cuda.OutOfMemoryError:
-            cap = update_cap_for_memory(spec, n, members, bin_row_bits,
-                                        cap // 2, chunks,
+            cap = update_cap_for_memory(spec, n, members,
+                                        plan["bin_row_bits"], cap // 2,
+                                        plan["chunks"],
                                         free_device_bytes(device))
+            plan = _binned_plan(spec, n, members, index,
+                                plan["bin_row_bits"], cap, smem)
 
 
 def _launch_update(name: str, spec, filt, keys, valid, op: str,

@@ -14,7 +14,9 @@
 //                            _bank_contains_vmem_gather_kernel)
 //   bloom_add_kernel<.., true>       <- bank_add_vmem (_bank_add_vmem_kernel,
 //                            _bank_add_vmem_gather_kernel)
-//   bloom_add_partitioned_kernel<S>  <- add_partitioned
+//   bloom_add_partitioned_global_kernel<S, THETA> or
+//   bloom_add_partitioned_shared_kernel<S>
+//                                    <- add_partitioned
 //                            (_add_partitioned_kernel)
 //
 // Design. A TPU core must either pin the filter in VMEM or stream blocks
@@ -85,24 +87,45 @@
 // traffic is often skewed: many keys on one member's words only contend in
 // the atomics, and OR stays order-free, so the words stay exact.
 //
-// Partitioned add (bloom_add_partitioned_kernel<S>). The keys arrive
-// bucketed by the filter segment their block falls in: (n_segments,
-// capacity) slots with a valid mask, segment i owning words
-// [i * seg_words, (i + 1) * seg_words). Each TPU grid step owns one
-// segment, which makes its read-modify-writes exclusive. On Hopper the
-// same ownership keeps the atomics out of global memory: where a segment
-// fits a CTA's shared memory (seg_words * 4 bytes within the opt-in limit,
-// 227 KB on the H100), one CTA per segment stages the segment in shared
-// memory, ORs its keys' masks in with shared atomicOr at (block * S) mod
-// seg_words (as the TPU kernel does, so a key placed in a foreign segment
-// lands where it lands there) and writes the segment back: the filter is
-// read and written once, in 128-bit transfers. A larger segment runs one
-// thread per slot over all segments with global atomicOr at the same
-// word, which gives the same words (OR is order-free). Which of the two
-// runs is the caller's choice (shared = 1 or 0), a schedule and not a
-// result. Invalid slots are skipped. Bound: DRAM bytes (the filter twice,
-// the slots' keys and valid bytes) on the shared path; L2 atomics on the
-// global one.
+// Partitioned add. The keys arrive bucketed by the filter segment their
+// block falls in: (n_segments, capacity) slots with a valid mask, segment i
+// owning words [i * seg_words, (i + 1) * seg_words). A valid slot held by
+// segment i ORs its mask at i * seg_words + (block * S) mod seg_words, as
+// the TPU kernel does (a key bucketed into a foreign segment lands where it
+// lands there). OR is order-free and idempotent, so any schedule that ORs
+// each valid slot once at that word gives the TPU kernel's words. The
+// partition leaves ~3/4 of the slots invalid (capacity is 4x the mean), and
+// each TPU grid step owns one segment. Two schedules, picked by the wrapper
+// (sbf.choose_partitioned_path), neither changing a result:
+//
+// * bloom_add_partitioned_global_kernel<S, THETA> (global red.or): a CTA
+//   takes 256 consecutive slots, a warp 32, and reads their valid bytes
+//   first; a CTA with no valid slot leaves before it stages the salts (the
+//   partition's invalid tails fill whole CTAs), and so does a warp of 32
+//   invalid slots. Each valid lane hashes its key and queues (pattern hash, row word) in the warp's
+//   slice of shared memory at its rank among the valid lanes
+//   (__ballot_sync), then groups of THETA lanes take the queued keys in rounds, each lane
+//   building only its own W = S / THETA words of the mask
+//   (build_mask_part) and issuing atomicOr (RED) on each nonzero word it
+//   owns: a key leaves the warp as one sector request at THETA = S (the
+//   blocked add's schedule, bloom_add_kernel), not S. A kernel of its own
+//   rather than a partitioned form of bloom_add_kernel: the compaction of a
+//   mostly invalid warp and the per-slot segment base are this path's, and
+//   bloom_blocked.cuh (rows 1-6) stays as it is. Bound: L2 atomic requests,
+//   one a key at THETA = S (in DRAM each touched sector is also read and
+//   written back), plus the valid bytes.
+// * bloom_add_partitioned_shared_kernel<S> (shared memory, no global
+//   atomics): one CTA a segment. It starts its segment's copy into shared
+//   memory with 16-byte cp.async (no registers staged), then walks the
+//   segment's slots a thread each (a warp skips a round whose 32 slots are
+//   all invalid), applies each valid key with shared atomicOr, and writes
+//   the segment back in 128-bit stores where a key touched it. The wrapper's
+//   rule sends it only segments of at most 32 KiB in L2, where several CTAs
+//   share an SM and their copies overlap the others' atomics. R CTAs a
+//   segment (each owning seg_words / R words and hashing every key R times)
+//   lost to this and to the global path at every swept count (PERF.md, row
+//   7). Bound: the touched segments read and written once, the valid bytes
+//   and the valid keys' 8 B once.
 //
 // Salts (3 x 96 u32: bit salts, bbf word salts, csbf group salts) arrive as
 // a device pointer and are staged in shared memory once per CTA. The
@@ -119,55 +142,119 @@
 
 namespace {
 
-constexpr int kPartThreads = 512;
+constexpr int kPartThreads = 512;      // the shared path's CTA
+
+// Start a 16-byte copy from global to shared memory (cp.async, L2 only).
+__device__ __forceinline__ void copy_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// (x * S) mod seg_words: a mask where seg_words is a power of two (every
+// partition ops makes), else a division.
+__device__ __forceinline__ uint32_t seg_offset(uint32_t x, uint32_t seg_words) {
+  return (seg_words & (seg_words - 1u)) == 0u ? x & (seg_words - 1u)
+                                               : x % seg_words;
+}
+
+template <int S, int THETA>
+__global__ void __launch_bounds__(kThreads)
+    bloom_add_partitioned_global_kernel(const uint2* __restrict__ keys,
+                                        const uint8_t* __restrict__ valid,
+                                        uint32_t* words,
+                                        const uint32_t* __restrict__ salts,
+                                        uint32_t n_slots, uint32_t capacity,
+                                        uint32_t seg_words,
+                                        uint32_t block_mask, int variant,
+                                        int k, int z, int log2g) {
+  constexpr int W = S / THETA;                      // words a lane owns
+  constexpr int kGroups = 32 / THETA;
+  static_assert(32 % THETA == 0 && S % THETA == 0, "THETA divides 32 and S");
+  __shared__ uint32_t smem[3 * kMaxSalts];
+  __shared__ uint32_t queue[kWarps][2][32];         // pattern hash, row word
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t i = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = i < n_slots && valid[i] != 0;
+  if (!__syncthreads_or(live)) return;    // no valid slot: no salts staged
+  stage_salts(smem, salts);
+  const unsigned lanes = __ballot_sync(kFullWarp, live);
+  if (lanes == 0u) return;                          // 32 invalid slots
+  if (live) {
+    uint32_t h_pat, h_blk;
+    hash_key(keys[i], h_pat, h_blk);
+    const int rank = __popc(lanes & ((1u << lane) - 1u));
+    queue[warp][0][rank] = h_pat;
+    queue[warp][1][rank] =
+        (i / capacity) * seg_words +
+        seg_offset((h_blk & block_mask) * uint32_t(S), seg_words);
+  }
+  __syncwarp();
+  const int j = lane % THETA;
+  const int queued = __popc(lanes);
+  for (int q = lane / THETA; q < queued; q += kGroups) {
+    uint32_t m[W];
+    build_mask_part<S, W>(m, queue[warp][0][q], j * W, smem,
+                          smem + kMaxSalts, smem + 2 * kMaxSalts, variant, k,
+                          z, log2g);
+    uint32_t* dst = words + queue[warp][1][q] + j * W;
+#pragma unroll
+    for (int t = 0; t < W; ++t)
+      if (m[t]) atomicOr(dst + t, m[t]);
+  }
+}
 
 template <int S>
 __global__ void __launch_bounds__(kPartThreads)
-    bloom_add_partitioned_kernel(const uint2* __restrict__ keys,
-                                 const uint8_t* __restrict__ valid,
-                                 uint32_t* words,
-                                 const uint32_t* __restrict__ salts,
-                                 int64_t n_slots, int64_t capacity,
-                                 uint32_t seg_words, uint32_t block_mask,
-                                 int variant, int k, int z, int log2g,
-                                 int shared) {
+    bloom_add_partitioned_shared_kernel(const uint2* __restrict__ keys,
+                                        const uint8_t* __restrict__ valid,
+                                        uint32_t* words,
+                                        const uint32_t* __restrict__ salts,
+                                        uint32_t capacity, uint32_t seg_words,
+                                        uint32_t block_mask, int variant,
+                                        int k, int z, int log2g) {
   __shared__ uint32_t smem[3 * kMaxSalts];
   extern __shared__ uint4 seg_smem[];
-  stage_salts(smem, salts);
-  if (shared) {
-    uint32_t* seg = reinterpret_cast<uint32_t*>(seg_smem);
-    uint32_t* own = words + uint64_t(blockIdx.x) * seg_words;
-    copy_words(seg, own, seg_words);
-    __syncthreads();
-    const int64_t first = int64_t(blockIdx.x) * capacity;
-    for (int64_t i = threadIdx.x; i < capacity; i += blockDim.x) {
-      if (valid[first + i] == 0) continue;
-      uint32_t h_pat, h_blk;
-      hash_key(keys[first + i], h_pat, h_blk);
-      uint32_t m[S];
-      build_mask<S>(m, h_pat, smem, smem + kMaxSalts, smem + 2 * kMaxSalts,
-                    variant, k, z, log2g);
-      uint32_t* row = seg + ((h_blk & block_mask) * uint32_t(S)) % seg_words;
+  uint32_t* staged = reinterpret_cast<uint32_t*>(seg_smem);
+  const uint32_t seg = blockIdx.x;
+  uint32_t* own = words + size_t(seg) * seg_words;
+  // the segment's copy in flight first (seg_words % 4 == 0, words 16-byte
+  // aligned: the wrapper checks both); the salts load beside it
+  for (uint32_t w = threadIdx.x; w < seg_words / 4; w += blockDim.x)
+    copy_async16(seg_smem + w, reinterpret_cast<const uint4*>(own) + w);
+  for (int w = threadIdx.x; w < 3 * kMaxSalts; w += blockDim.x)
+    smem[w] = salts[w];
+  const uint2* seg_keys = keys + size_t(seg) * capacity;
+  const uint8_t* seg_valid = valid + size_t(seg) * capacity;
+  copy_async_wait_all();
+  __syncthreads();
+  bool touched = false;
+  const uint32_t rounds = (capacity + blockDim.x - 1) / blockDim.x;
+  for (uint32_t r = 0, i = threadIdx.x; r < rounds; ++r, i += blockDim.x) {
+    const bool live = i < capacity && seg_valid[i] != 0;
+    if (__ballot_sync(kFullWarp, live) == 0u || !live) continue;
+    uint32_t h_pat, h_blk;
+    hash_key(seg_keys[i], h_pat, h_blk);
+    const uint32_t off =
+        seg_offset((h_blk & block_mask) * uint32_t(S), seg_words);
+    uint32_t m[S];
+    build_mask<S>(m, h_pat, smem, smem + kMaxSalts, smem + 2 * kMaxSalts,
+                  variant, k, z, log2g);
 #pragma unroll
-      for (int j = 0; j < S; ++j)
-        if (m[j]) atomicOr(row + j, m[j]);
-    }
-    __syncthreads();
-    copy_words(own, seg, seg_words);
-    return;
+    for (int t = 0; t < S; ++t)
+      if (m[t]) atomicOr(staged + off + t, m[t]);
+    touched = true;
   }
-  const int64_t i = int64_t(blockIdx.x) * kPartThreads + threadIdx.x;
-  if (i >= n_slots || valid[i] == 0) return;
-  uint32_t h_pat, h_blk;
-  hash_key(keys[i], h_pat, h_blk);
-  uint32_t m[S];
-  build_mask<S>(m, h_pat, smem, smem + kMaxSalts, smem + 2 * kMaxSalts,
-                variant, k, z, log2g);
-  uint32_t* row = words + uint64_t(i / capacity) * seg_words +
-                  ((h_blk & block_mask) * uint32_t(S)) % seg_words;
-#pragma unroll
-  for (int j = 0; j < S; ++j)
-    if (m[j]) atomicOr(row + j, m[j]);
+  if (__syncthreads_or(touched)) {
+    uint4* dst = reinterpret_cast<uint4*>(own);
+    for (uint32_t w = threadIdx.x; w < seg_words / 4; w += blockDim.x)
+      dst[w] = seg_smem[w];
+  }
 }
 
 struct PartitionedArgs {
@@ -177,33 +264,63 @@ struct PartitionedArgs {
   const uint32_t* salts;
   int64_t n_segments, capacity;
   uint32_t seg_words, block_mask;
-  int variant, k, z, log2g, shared;
+  int variant, k, z, log2g, theta;
+  bool shared;
 };
 
-template <int S>
-int launch_partitioned(const PartitionedArgs& a, cudaStream_t stream) {
+template <int S, int THETA>
+int launch_partitioned_global(const PartitionedArgs& a, cudaStream_t st) {
   const int64_t n_slots = a.n_segments * a.capacity;
+  const unsigned grid = unsigned((n_slots + kThreads - 1) / kThreads);
+  bloom_add_partitioned_global_kernel<S, THETA><<<grid, kThreads, 0, st>>>(
+      a.keys, a.valid, a.words, a.salts, uint32_t(n_slots),
+      uint32_t(a.capacity), a.seg_words, a.block_mask, a.variant, a.k, a.z,
+      a.log2g);
+  return int(cudaGetLastError());
+}
+
+// shared: one CTA a segment, the segment a whole number of rows and of
+// 16-byte vectors within the card's budget; else the global path at THETA lanes a key.
+template <int S>
+int launch_partitioned(const PartitionedArgs& a, cudaStream_t st) {
+  if (a.n_segments * a.capacity >= (1LL << 32)) return -1;  // u32 slots
   if (a.shared) {
     const size_t bytes = size_t(a.seg_words) * sizeof(uint32_t);
     int dev = 0;
     cudaGetDevice(&dev);
-    if (a.seg_words % S || int64_t(bytes) > partition_smem_bytes(dev))
+    if (a.seg_words % S || a.seg_words % 4 ||
+        int64_t(bytes) > partition_smem_bytes(dev) ||
+        a.n_segments >= (1LL << 31))
       return -1;
-    cudaFuncSetAttribute(bloom_add_partitioned_kernel<S>,
+    cudaFuncSetAttribute(bloom_add_partitioned_shared_kernel<S>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          int(bytes));
-    bloom_add_partitioned_kernel<S>
-        <<<unsigned(a.n_segments), kPartThreads, bytes, stream>>>(
-            a.keys, a.valid, a.words, a.salts, n_slots, a.capacity,
-            a.seg_words, a.block_mask, a.variant, a.k, a.z, a.log2g, 1);
-  } else {
-    const unsigned grid =
-        unsigned((n_slots + kPartThreads - 1) / kPartThreads);
-    bloom_add_partitioned_kernel<S><<<grid, kPartThreads, 0, stream>>>(
-        a.keys, a.valid, a.words, a.salts, n_slots, a.capacity, a.seg_words,
-        a.block_mask, a.variant, a.k, a.z, a.log2g, 0);
+    bloom_add_partitioned_shared_kernel<S>
+        <<<unsigned(a.n_segments), kPartThreads, bytes, st>>>(
+            a.keys, a.valid, a.words, a.salts, uint32_t(a.capacity),
+            a.seg_words, a.block_mask, a.variant, a.k, a.z, a.log2g);
+    return int(cudaGetLastError());
   }
-  return int(cudaGetLastError());
+  switch (a.theta) {
+    case 1:
+      return launch_partitioned_global<S, 1>(a, st);
+    case 2:
+      if constexpr (S >= 2) return launch_partitioned_global<S, 2>(a, st);
+      break;
+    case 4:
+      if constexpr (S >= 4) return launch_partitioned_global<S, 4>(a, st);
+      break;
+    case 8:
+      if constexpr (S >= 8) return launch_partitioned_global<S, 8>(a, st);
+      break;
+    case 16:
+      if constexpr (S >= 16) return launch_partitioned_global<S, 16>(a, st);
+      break;
+    case 32:
+      if constexpr (S >= 32) return launch_partitioned_global<S, 32>(a, st);
+      break;
+  }
+  return -1;
 }
 
 int partitioned_entry(int s, const PartitionedArgs& a, cudaStream_t st) {
@@ -261,20 +378,21 @@ int bloom_bank_add(const void* keys, const void* member, const void* valid,
 
 // Partitioned add. keys: (n_segments, capacity, 2) int32, 8-byte aligned;
 // valid: (n_segments, capacity) uint8; words: (n_segments * seg_words,)
-// int32, 16-byte aligned; shared: 1 stages each segment in shared memory
-// (seg_words * 4 <= bloom_partition_smem()), 0 runs global atomics.
+// int32, 16-byte aligned; shared: nonzero for the shared path, one CTA a
+// segment (seg_words * 4 <= bloom_partition_smem()), 0 for the global path
+// at theta lanes a key.
 int bloom_add_partitioned(const void* keys, const void* valid, void* words,
                           const void* salts, long long n_segments,
                           long long capacity, unsigned seg_words,
-                          unsigned block_mask, int s, int variant, int k,
-                          int z, int log2g, int shared, void* stream) {
+                          unsigned block_mask, int s, int theta, int variant,
+                          int k, int z, int log2g, int shared, void* stream) {
   if (n_segments <= 0 || capacity <= 0) return 0;
   const PartitionedArgs a{static_cast<const uint2*>(keys),
                           static_cast<const uint8_t*>(valid),
                           static_cast<uint32_t*>(words),
                           static_cast<const uint32_t*>(salts), n_segments,
                           capacity, seg_words, block_mask, variant, k, z,
-                          log2g, shared};
+                          log2g, theta, shared != 0};
   return partitioned_entry(s, a, static_cast<cudaStream_t>(stream));
 }
 

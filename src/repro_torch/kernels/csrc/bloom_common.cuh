@@ -163,19 +163,6 @@ inline int partition_smem_bytes(int device) {
   return optin - int(3 * kMaxSalts * sizeof(uint32_t));
 }
 
-// Copy n words between global and shared memory with the CTA's threads,
-// 128 bits a thread where both sides allow it.
-__device__ __forceinline__ void copy_words(uint32_t* dst, const uint32_t* src,
-                                           uint32_t n) {
-  if (n % 4 == 0) {
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    for (uint32_t i = threadIdx.x; i < n / 4; i += blockDim.x) d[i] = s[i];
-  } else {
-    for (uint32_t i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-  }
-}
-
 __device__ __forceinline__ void stage_salts(uint32_t* smem,
                                             const uint32_t* salts) {
   for (int i = threadIdx.x; i < 3 * kMaxSalts; i += blockDim.x)

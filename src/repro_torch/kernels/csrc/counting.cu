@@ -138,6 +138,10 @@
 // no instantiation. The wrappers check every member id against [0, B)
 // before a bank launch.
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 #include "bin_common.cuh"
 #include "counting_common.cuh"
 
@@ -963,46 +967,69 @@ const void* apply_of(int s, int op, bool split) {
   return nullptr;
 }
 
-// The card's opt-in shared memory a CTA, and its SMs.
-int card_limits(int* optin, int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+// The card's opt-in shared memory a CTA, and its SMs, on the current
+// device (in *dev).
+int card_limits(int* dev, int* optin, int* sms) {
+  cudaError_t err = cudaGetDevice(dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(
-        optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, *dev);
   return int(err);
+}
+
+// prepare_binned's results by device, kernels and shared memory: raising
+// the limits and asking for the occupancy cost more host time than a small
+// batch's launches, so each geometry does them once on a device.
+using PreparedKey = std::tuple<int, const void*, const void*, size_t, size_t,
+                               size_t, bool, size_t>;
+std::mutex prepared_lock;
+std::map<PreparedKey, std::pair<int, int>> prepared;
+
+// Raise a kernel's dynamic shared memory limit to all that the card allows
+// beside its static shared memory. Every geometry sets the same limit, so
+// none lowers the limit that another's kept answer relies on.
+cudaError_t raise_smem_limit(const void* kernel, int optin) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - int(attr.sharedSizeBytes));
+  return err;
 }
 
 // Raise the binned kernels' shared memory limits; the scatter's CTAs that
 // fill the card (the chunks of a batch) in *chunks, the split kernel's in
 // g->split_ctas. -1 for a geometry the card's shared memory cannot take.
 int prepare_binned(BinGeometry* g, const void* apply, const void* split,
-                   int optin, int sms, int* chunks) {
+                   int dev, int optin, int sms, int* chunks) {
   if (apply == nullptr || split == nullptr ||
       g->scatter_smem > size_t(optin) || g->count_smem > size_t(optin) ||
       g->apply_smem + kSaltsSmem > size_t(optin))
     return -1;
+  const PreparedKey key{dev,           apply,           split,
+                        g->count_smem, g->scatter_smem, g->apply_smem,
+                        g->split,      g->split_smem};
+  std::lock_guard<std::mutex> hold(prepared_lock);
+  const auto found = prepared.find(key);
+  if (found != prepared.end()) {
+    *chunks = found->second.first;
+    g->split_ctas = found->second.second;
+    return 0;
+  }
+  const void* count = reinterpret_cast<const void*>(counting_bin_count_kernel);
+  const void* scatter =
+      reinterpret_cast<const void*>(counting_bin_scatter_kernel);
   int per_sm = 0, split_per_sm = 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      counting_bin_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(g->count_smem));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(counting_bin_scatter_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(g->scatter_smem));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(apply,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(g->apply_smem));
+  cudaError_t err = raise_smem_limit(count, optin);
+  if (err == cudaSuccess) err = raise_smem_limit(scatter, optin);
+  if (err == cudaSuccess) err = raise_smem_limit(apply, optin);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, counting_bin_scatter_kernel, kBinThreads, g->scatter_smem);
-  if (err == cudaSuccess && g->split)
-    err = cudaFuncSetAttribute(split,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(g->split_smem));
+        &per_sm, scatter, kBinThreads, g->scatter_smem);
+  if (err == cudaSuccess && g->split) err = raise_smem_limit(split, optin);
   if (err == cudaSuccess && g->split)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &split_per_sm, split, kGroupThreads, g->split_smem);
@@ -1010,6 +1037,7 @@ int prepare_binned(BinGeometry* g, const void* apply, const void* split,
   sms = sms > 0 ? sms : 1;
   *chunks = sms * (per_sm > 0 ? per_sm : 1);
   g->split_ctas = sms * (split_per_sm > 0 ? split_per_sm : 1);
+  prepared.emplace(key, std::make_pair(*chunks, g->split_ctas));
   return 0;
 }
 
@@ -1114,11 +1142,11 @@ int counting_update(const void* keys, const void* member, const void* valid,
 // size its workspace; -1 for a geometry without kernels, or an error.
 int counting_binned_chunks(int s, unsigned total_rows, int bin_row_bits) {
   BinGeometry g;
-  int optin = 0, sms = 0, chunks = 0;
-  if (card_limits(&optin, &sms) != 0 ||
+  int dev = 0, optin = 0, sms = 0, chunks = 0;
+  if (card_limits(&dev, &optin, &sms) != 0 ||
       !bin_geometry(s, total_rows, bin_row_bits, optin, g) ||
       prepare_binned(&g, apply_of(s, kAdd, false), apply_of(s, kAdd, true),
-                     optin, sms, &chunks) != 0)
+                     dev, optin, sms, &chunks) != 0)
     return -1;
   return chunks;
 }
@@ -1137,8 +1165,8 @@ int counting_update_binned(const void* keys, const void* member,
                            int k, int op, int bin_row_bits, long long batch,
                            int chunks, void* stream) {
   BinGeometry g;
-  int optin = 0, sms = 0;
-  const int bad_card = card_limits(&optin, &sms);
+  int dev = 0, optin = 0, sms = 0;
+  const int bad_card = card_limits(&dev, &optin, &sms);
   if (bad_card) return bad_card;
   if (!bin_geometry(s, total_rows, bin_row_bits, optin, g) || batch < 1 ||
       batch > kMaxBatch || chunks < 1 || (op != kAdd && op != kRemove))
@@ -1147,7 +1175,8 @@ int counting_update_binned(const void* keys, const void* member,
   const void* apply = apply_of(s, op, false);
   const void* split = apply_of(s, op, true);
   int card_chunks = 0;
-  const int bad = prepare_binned(&g, apply, split, optin, sms, &card_chunks);
+  const int bad = prepare_binned(&g, apply, split, dev, optin, sms,
+                                     &card_chunks);
   if (bad) return bad;
   const auto st = static_cast<cudaStream_t>(stream);
   uint32_t* counts = static_cast<uint32_t*>(work);

@@ -400,9 +400,10 @@ def ring_contains(spec: FilterSpec, rings: torch.Tensor, keys: torch.Tensor,
                   regime: str = "auto", tile: int = DEFAULT_TILE
                   ) -> torch.Tensor:
     """Fused membership across a (G, n_words) generation ring: one hash per
-    key, G row loads ORed before a single mask test. The regime comes from
-    the whole ring's bytes, ``G * n_words * 4``; in DRAM the kernel runs at
-    the spec's tuned depth."""
+    key, its G rows ORed before a single mask test. The regime comes from
+    the whole ring's bytes, ``G * n_words * 4``, and picks the wrapper, whose
+    rule (``ring.choose_contains_path``) picks the path; no schedule on the
+    card takes a DMA depth, so none is resolved."""
     _check_spec(spec)
     n = keys.shape[0]
     if n == 0:
@@ -412,10 +413,7 @@ def ring_contains(spec: FilterSpec, rings: torch.Tensor, keys: torch.Tensor,
     if _regime(spec, regime, rings.shape[0]) == "vmem":
         out = ring_k.ring_contains_vmem(spec, rings, padded)
     else:
-        out = ring_k.ring_contains_hbm(
-            spec, rings, padded,
-            depth=_resolve_depth(spec, "contains", None, tile,
-                                 device=keys.device))
+        out = ring_k.ring_contains_hbm(spec, rings, padded)
     return out[:n]
 
 
@@ -628,7 +626,8 @@ def bloom_add_partitioned(spec: FilterSpec, filt: torch.Tensor,
     by segment (``partition="jit"`` on their device, ``"host"`` exactly in
     numpy), then each CTA owns one segment. A pinned ``capacity`` that
     overflows sends the dropped keys through ``bloom_add``; no key is
-    lost."""
+    lost. The kernel's path comes from the filter's regime
+    (:func:`fits_l2`)."""
     _check_spec(spec)
     if spec.variant == "cbf":
         raise ValueError("the classical filter has no block locality to "
@@ -640,10 +639,11 @@ def bloom_add_partitioned(spec: FilterSpec, filt: torch.Tensor,
     if partition == "host":
         by_seg, valid, _ = P.partition_host(spec, keys, n_segments)
         return sbf_k.add_partitioned(spec, out, by_seg.to(out.device),
-                                     valid.to(out.device), n_segments)
+                                     valid.to(out.device), n_segments,
+                                     l2_resident=fits_l2(spec))
     part = _partition_device(spec, keys, n_segments, capacity)
     sbf_k.add_partitioned(spec, out, part.keys_by_seg, part.valid,
-                          n_segments)
+                          n_segments, l2_resident=fits_l2(spec))
     if int(part.overflow) == 0:
         return out
     return _residual_or(spec, out, keys, part.keep)

@@ -17,16 +17,25 @@ add_hbm            add_hbm                       bloom_add_kernel
 bank_contains_vmem bank_contains_vmem            bloom_contains_kernel, bank
                                                  form; DEPTH=depth
 bank_add_vmem      bank_add_vmem                 bloom_add_kernel, bank form
-add_partitioned    add_partitioned               bloom_add_partitioned_kernel
+add_partitioned    add_partitioned               bloom_add_partitioned_
+                                                 global_kernel or
+                                                 bloom_add_partitioned_
+                                                 shared_kernel
 ================== ============================= ===========================
 
 ``add_partitioned`` takes keys already bucketed by the segment that owns
 their block, ``(n_segments, capacity, 2)`` with a ``(n_segments,
 capacity)`` valid mask (``core.partition``), and ORs each valid slot into
-its segment at ``start mod seg_words``. Where a segment fits a CTA's shared
-memory (:func:`partition_smem_bytes`) the kernel stages each segment there,
-one CTA a segment, and uses no global atomics; a larger segment runs global
-atomics. The two paths give the same words.
+its segment at ``start mod seg_words``. It has two paths on the card, which
+give the same words: *global* (a warp compacts its valid slots and groups
+of Θ lanes OR each key's mask with global atomics, Θ from
+:func:`card_layout`) and *shared* (one CTA a segment, staging the
+segment's words in shared memory, where no global atomic runs).
+:func:`choose_partitioned_path`, a pure function fitted to a sweep on the
+H100, picks the path from the caller's regime; ``LAST_PARTITIONED_PLAN``
+keeps the last card call's plan (:func:`partitioned_plan`) and
+:func:`add_partitioned_model` is the shared path in plain PyTorch, for
+tests.
 
 The bank wrappers take a ``(B, n_words)`` bank, flat keys and ``member``
 ``(n,)`` int32 ids in ``[0, B)`` (checked: a ``ValueError`` otherwise, so
@@ -98,6 +107,16 @@ LAUNCHES = {"contains_vmem": 0, "add_vmem": 0, "contains_hbm": 0,
             "add_partitioned": 0}
 # The geometry of each wrapper's last launch (what a run resolved)
 LAST_GEOMETRY: dict = {}
+# The partitioned add's paths, and the plan of its last call on the card
+PARTITIONED_PATHS = ("shared", "global")
+LAST_PARTITIONED_PLAN: dict = {}
+# The partitioned add's rule, fitted to a sweep of both paths in turns on
+# an H100 80GB HBM3 at 700 W (chip_smoke.py phase 4e: the sbf cells' batch
+# at n_segments 8 ... 16 x the fitting count; PERF.md): the shared path won
+# only for a filter in L2 with segments of at most SHARED_MAX_SEGMENT_BYTES;
+# in DRAM the global path won at every count (its atomics merge in L2 once
+# a segment's keys arrive together).
+SHARED_MAX_SEGMENT_BYTES = 1 << 15
 
 _VARIANT_CODE = {"sbf": 0, "bbf": 1, "rbbf": 1, "csbf": 2}
 _salts_on: dict = {}
@@ -454,9 +473,77 @@ def check_partitioned(filt: torch.Tensor, keys_by_seg: torch.Tensor,
 
 
 def segment_fits(seg_words: int, device) -> bool:
-    """Whether a partitioned launch stages its segments of ``seg_words``
-    words in shared memory (else it runs global atomics)."""
+    """Whether a segment of ``seg_words`` words fits a CTA's shared memory:
+    the shared path's capacity limit."""
     return seg_words * 4 <= partition_smem_bytes(device)
+
+
+def choose_partitioned_path(n_segments: int, seg_words: int, capacity: int,
+                            smem_bytes: int, l2_resident: bool) -> str:
+    """The partitioned add's path on the card, a pure function of the
+    segments (``n_segments`` of ``seg_words`` words, ``capacity`` slots
+    each), the card's shared memory a CTA and whether the filter sits in L2.
+
+    Shared for a filter in L2 whose segments hold at most
+    ``SHARED_MAX_SEGMENT_BYTES`` (and fit ``smem_bytes`` in 16-byte
+    vectors): there many small CTAs an SM apply their keys with shared
+    atomics and copy L2 lines in and out. Global everywhere else: in DRAM
+    the global atomics of a segment's keys, which arrive together, merge in
+    L2 before the DRAM sees them, and no copy through an SM is needed. The
+    path never changes a result."""
+    if n_segments < 1 or seg_words < 1 or capacity < 0:
+        raise ValueError(f"no partitioned add of {n_segments} segments of "
+                         f"{seg_words} words, {capacity} slots each")
+    if (l2_resident and seg_words * 4 <= min(SHARED_MAX_SEGMENT_BYTES,
+                                              smem_bytes)
+            and seg_words % 4 == 0):
+        return "shared"
+    return "global"
+
+
+def partitioned_plan(spec: FilterSpec, n_segments: int, capacity: int,
+                     path: str) -> dict:
+    """What a partitioned add runs: ``path``, ``n_segments``, ``capacity``
+    (slots a segment), ``theta`` (global: lanes a key; 0 on the shared path)
+    and ``ctas``."""
+    if path not in PARTITIONED_PATHS:
+        raise ValueError(f"path must be one of {PARTITIONED_PATHS}, not "
+                         f"{path!r}")
+    if path == "global":
+        return {"path": path, "n_segments": n_segments,
+                "capacity": capacity,
+                "theta": card_layout(spec, "add").theta,
+                "ctas": -(-n_segments * capacity // THREADS)}
+    if (spec.n_words // n_segments) % max(spec.s, 4):
+        raise ValueError(f"the shared path stages segments of whole rows and "
+                         f"16-byte vectors, not {spec.n_words // n_segments} "
+                         f"words")
+    return {"path": path, "n_segments": n_segments, "capacity": capacity,
+            "theta": 0, "ctas": n_segments}
+
+
+def add_partitioned_model(spec: FilterSpec, filt: torch.Tensor,
+                          keys_by_seg: torch.Tensor, valid: torch.Tensor
+                          ) -> torch.Tensor:
+    """The shared path in plain PyTorch, for tests: new (n_words,) int32
+    words. The CTA of segment i ORs, into its copy of the segment's words,
+    each valid slot of segment i at its word offset (block * s) mod
+    seg_words, and writes the copy back where a key touched it. ``filt`` is
+    not modified."""
+    n_seg = keys_by_seg.shape[0]
+    seg_words = spec.n_words // n_seg
+    partitioned_plan(spec, n_seg, keys_by_seg.shape[1], "shared")
+    keys, live, seg, _ = V._slots(keys_by_seg, valid)
+    mine = live != 0
+    blk, masks = V._blocks_and_masks(spec, keys[mine])
+    rows = (seg[mine] * seg_words + (blk * spec.s) % seg_words) // spec.s
+    copy = H.u32(V.or_rows(spec, filt.clone(), rows, masks,
+                           n_rows=spec.n_words // spec.s)).reshape(n_seg, -1)
+    out = H.u32(filt).clone().reshape(n_seg, seg_words)
+    touched = torch.zeros(n_seg, dtype=torch.bool)
+    touched[seg[mine]] = True
+    out[touched] = copy[touched]
+    return H.to_i32(out.reshape(-1))
 
 
 def check_bank(spec: FilterSpec, bank: torch.Tensor, keys: torch.Tensor,
@@ -592,11 +679,20 @@ def add_hbm(spec: FilterSpec, filt: torch.Tensor, keys: torch.Tensor,
 
 def add_partitioned(spec: FilterSpec, filt: torch.Tensor,
                     keys_by_seg: torch.Tensor, valid: torch.Tensor,
-                    n_segments: int, mix: str = "full") -> torch.Tensor:
+                    n_segments: int, mix: str = "full", *,
+                    l2_resident: bool = False,
+                    path: Optional[str] = None) -> torch.Tensor:
     """OR the valid slots of ``keys_by_seg`` (n_segments, capacity, 2), each
-    into the segment that owns it, one launch (segments in shared memory
-    where they fit). Updates ``filt`` in place."""
+    into the segment that owns it, one launch. Updates ``filt`` in place.
+
+    On the card the path is :func:`choose_partitioned_path`'s for the
+    caller's regime (``l2_resident``: the filter sits in L2, as
+    ``ops.bloom_add_partitioned`` decides). ``path`` is private (tests and
+    the smoke; ``ops`` never passes it)."""
     _check_axes(mix=mix)
+    if path is not None and path not in PARTITIONED_PATHS:
+        raise ValueError(f"path must be one of {PARTITIONED_PATHS}, not "
+                         f"{path!r}")
     if spec.variant not in BLOCKED_VARIANTS:
         raise ValueError(f"add_partitioned serves the blocked variants, not "
                          f"{spec}")
@@ -608,18 +704,25 @@ def add_partitioned(spec: FilterSpec, filt: torch.Tensor,
     block_mask, s, variant, k, z, log2g = _geometry(spec, filt,
                                                     keys_by_seg[0])
     seg_words = spec.n_words // n_segments
-    sh = segment_fits(seg_words, filt.device)
+    capacity = keys_by_seg.shape[1]
+    if path is None:
+        path = choose_partitioned_path(n_segments, seg_words, capacity,
+                                       partition_smem_bytes(filt.device),
+                                       l2_resident)
+    plan = partitioned_plan(spec, n_segments, capacity, path)
     valid = valid.contiguous().view(torch.uint8)
     lib = library()
     with torch.cuda.device(filt.device):
         stream = torch.cuda.current_stream(filt.device).cuda_stream
         err = lib.bloom_add_partitioned(
             keys_by_seg.data_ptr(), valid.data_ptr(), filt.data_ptr(),
-            _salts(filt.device).data_ptr(), n_segments,
-            keys_by_seg.shape[1], seg_words, block_mask, s, variant, k, z,
-            log2g, int(sh), stream)
+            _salts(filt.device).data_ptr(), n_segments, capacity, seg_words,
+            block_mask, s, plan["theta"], variant, k, z, log2g,
+            int(path == "shared"), stream)
     _raise_on(err, "add_partitioned")
     LAUNCHES["add_partitioned"] += 1
+    LAST_PARTITIONED_PLAN.clear()
+    LAST_PARTITIONED_PLAN.update(plan)
     return filt
 
 

@@ -16,8 +16,9 @@ warp, around one, not a multiple of a CTA's keys), the default path
 (``sbf.card_layout``) and a filter pinned by ``api.tuned_options``, which
 must run ``card_layout``'s geometry, against the plain versions. The last
 cases hold the
-partitioned kernels (both paths: segments staged in shared memory, and
-global atomics) and the
+partitioned kernels (both paths forced: a segment a CTA staged in shared
+memory, and the warp-cooperative global atomics; a slot
+in a foreign segment; the rule's path) and the
 cuckoo kernels (u8/u16 slots, 2 to 16 slots a bucket, multi-tile,
 masked, duplicate and over-full batches; the update at windows 1, 2, 32
 and the default, adversarial batches, and its counters against the CPU
@@ -27,7 +28,11 @@ and past capacity, duplicates, valid masks, removes of absent keys,
 clusters that wrap past the last slot, tiles 256 / 2048 / the whole batch,
 empty and full tables, a 2^25-slot table whose scans take many blocks,
 and the quotient ``Filter`` path with merge and resize) against theirs.
-The classical filter's add and contains are held against their plain
+The ring contains is held against its plain version on both paths
+forced (one-pass at every Θ; binned over several internal batches and bin
+sizes) at G = 1 ... 9, and
+on the rule's path. The classical filter's add and contains are held
+against their plain
 versions on both paths (one-pass and binned) at m = 2^16 ... 2^32 for k =
 1 ... 32, over several internal batches, in small bins, with keys in one
 bin and one key repeated. The partitioned counting update is held against
@@ -776,8 +781,12 @@ def _ring(spec, G, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("spec", SPECS, ids=str)
-@pytest.mark.parametrize("G", [2, 3, 4, 8, 9])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 8, 9])
 def test_ring_kernel_matches_plain(cuda, spec, G):
+    """Both paths of the ring contains forced, against the plain version:
+    one-pass at every Θ (and every accepted depth); binned at the default
+    bins, over several internal batches, and in bins of one row and of a
+    few rows."""
     rings = _ring(spec, G, cuda)
     for n in (0, 1, 255, 257, 65537):
         q = torch.cat([_keys(3000, 20, cuda)[: n // 2],
@@ -786,10 +795,50 @@ def test_ring_kernel_matches_plain(cuda, spec, G):
         got = ring.ring_contains_vmem(spec, rings, q)
         np.testing.assert_array_equal(got.cpu().numpy(), want)
         for depth in sbf.DMA_DEPTHS:
-            got = ring.ring_contains_hbm(spec, rings, q, depth=depth)
+            got = ring.ring_contains_hbm(spec, rings, q, depth=depth,
+                                         path="one-pass")
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+        for theta in (t for t in (1, 2, 4, 8, 16, 32) if t <= spec.s):
+            got = ring.ring_contains_vmem(spec, rings, q, path="one-pass",
+                                          theta=theta)
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+        for bits, cap in ((None, ring.CONTAINS_KEY_CAP), (None, 1000),
+                          (0, 65536), (3, 4097)):
+            got = ring.ring_contains_hbm(spec, rings, q, path="binned",
+                                         bin_row_bits=bits, cap=cap)
+            assert ring.LAST_CONTAINS_PLAN.get("path", "binned") == "binned"
             np.testing.assert_array_equal(got.cpu().numpy(), want)
     live = _keys(3000, 20 + G - 1, cuda)
     assert ring.ring_contains_vmem(spec, rings, live).all()
+    assert ring.ring_contains_vmem(spec, rings, live, path="binned").all()
+
+
+@pytest.mark.gpu
+def test_ring_contains_takes_the_rule_path(cuda):
+    """With no path given, both wrappers run choose_contains_path's path
+    for their regime: one-pass in the L2 wrapper and for small batches,
+    binned for a large batch against a ring in the DRAM wrapper; the plan
+    records it."""
+    smem = sbf.partition_smem_bytes(cuda)
+    spec = V.FilterSpec("sbf", 1 << 27, 8, block_bits=256)    # 16 MiB
+    rings = torch.zeros((8, spec.n_words), dtype=torch.int32, device=cuda)
+    rings[3] = sbf.add_plain(spec, rings[3], _keys(1 << 16, 4, cuda))
+    for n in (1000, 1 << 22):
+        q = torch.cat([_keys(1 << 16, 4, cuda), _probes(n, 5, cuda)])
+        for fn, l2 in ((ring.ring_contains_vmem, True),
+                       (ring.ring_contains_hbm, False)):
+            path = ring.choose_contains_path(q.shape[0], spec.n_words, 8,
+                                             spec.s, smem, l2)
+            assert path == ("binned" if n > 1000 and not l2 else "one-pass")
+            got = fn(spec, rings, q)
+            torch.cuda.synchronize()
+            assert ring.LAST_CONTAINS_PLAN["path"] == path
+            assert torch.equal(got, ring.ring_contains_ref(spec, rings, q))
+            assert got[: 1 << 16].all()
+    small = rings[:2, : spec.n_words // 16].contiguous()
+    sspec = V.FilterSpec("sbf", spec.m_bits // 16, 8, block_bits=256)
+    assert ring.choose_contains_path(1 << 22, sspec.n_words, 2, 8,
+                                     smem, False) == "one-pass"
 
 
 @pytest.mark.gpu
@@ -1206,19 +1255,35 @@ def _global_atomics(monkeypatch):
 @pytest.mark.parametrize("n_segments", [1, 8, 64])
 def test_partitioned_add_kernel_matches_plain(cuda, spec, n_segments,
                                               monkeypatch):
+    """Both paths of the partitioned add forced (shared, global), with a
+    slot placed in a
+    foreign segment and a segment of invalid slots; then through ``ops``
+    on the rule's path and with global atomics forced."""
     keys = _keys(30001, n_segments, cuda)
     want = _u32(sbf.add_plain(spec, V.init(spec, cuda), keys))
-    assert sbf.segment_fits(spec.n_words // n_segments, cuda)
-    for path in ("shared", "global"):
+    seg_words = spec.n_words // n_segments
+    assert sbf.segment_fits(seg_words, cuda)
+    part = P.partition_jit(spec, keys, n_segments, 4 * 30001 // n_segments
+                           + 64)
+    foreign = part.keys_by_seg.clone()
+    fvalid = part.valid.clone()
+    owner = (n_segments - 1) // 2
+    slot = int((fvalid[owner] == 0).nonzero()[0])
+    foreign[owner, slot] = _keys(1, 99, cuda)[0]
+    fvalid[owner, slot] = 1
+    if n_segments > 1:
+        fvalid[n_segments - 1] = 0
+    for kb, v in ((part.keys_by_seg, part.valid), (foreign, fvalid)):
+        plain = sbf.add_partitioned_plain(spec, V.init(spec, cuda), kb, v)
+        for path in sbf.PARTITIONED_PATHS:
+            got = sbf.add_partitioned(spec, V.init(spec, cuda), kb, v,
+                                      n_segments, path=path)
+            torch.cuda.synchronize()
+            assert sbf.LAST_PARTITIONED_PLAN["path"] == path
+            np.testing.assert_array_equal(_u32(got), _u32(plain))
+    for path in ("rule", "global"):
         if path == "global":
             _global_atomics(monkeypatch)
-        part = P.partition_jit(spec, keys, n_segments, 64)
-        plain = sbf.add_partitioned_plain(spec, V.init(spec, cuda),
-                                          part.keys_by_seg, part.valid)
-        got = sbf.add_partitioned(spec, V.init(spec, cuda),
-                                  part.keys_by_seg, part.valid, n_segments)
-        torch.cuda.synchronize()
-        np.testing.assert_array_equal(_u32(got), _u32(plain))
         for cap in (None, 64):
             got = ops.bloom_add_partitioned(spec, V.init(spec, cuda), keys,
                                             n_segments=n_segments,
@@ -1234,6 +1299,38 @@ def test_partitioned_add_kernel_matches_plain(cuda, spec, n_segments,
                                         n_segments=n_segments)
         np.testing.assert_array_equal(
             _u32(got), _u32(sbf.add_plain(spec, V.init(spec, cuda), skew)))
+
+
+@pytest.mark.gpu
+def test_partitioned_add_takes_the_rule_path(cuda, monkeypatch):
+    """With no path given, add_partitioned runs choose_partitioned_path's
+    path for the regime ``ops`` passes: shared for a filter in L2 cut into
+    small segments, global for larger segments and past L2."""
+    spec = V.FilterSpec("sbf", 1 << 24, 8, block_bits=256)     # 2 MiB
+    keys = _keys(50000, 6, cuda)
+    want = sbf.add_plain(spec, V.init(spec, cuda), keys)
+    smem = sbf.partition_smem_bytes(cuda)
+    seen = set()
+    for l2 in (True, False):
+        if not l2:
+            monkeypatch.setattr(ops, "L2_FILTER_BYTES", 1 << 20)
+        for n_seg in (8, 16, 64, 128):
+            seg_words = spec.n_words // n_seg
+            path = sbf.choose_partitioned_path(n_seg, seg_words, 4096, smem,
+                                               l2)
+            assert path == ("shared" if l2 and seg_words * 4 <= (
+                sbf.SHARED_MAX_SEGMENT_BYTES) else "global")
+            seen.add(path)
+            got = ops.bloom_add_partitioned(spec, V.init(spec, cuda), keys,
+                                            n_segments=n_seg)
+            torch.cuda.synchronize()
+            plan = sbf.LAST_PARTITIONED_PLAN
+            assert plan["path"] == path
+            assert plan["ctas"] == (n_seg if path == "shared"
+                                    else -(-n_seg * plan["capacity"]
+                                           // sbf.THREADS))
+            assert torch.equal(got, want)
+    assert seen == set(sbf.PARTITIONED_PATHS)
 
 
 @pytest.mark.gpu

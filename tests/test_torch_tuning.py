@@ -305,7 +305,8 @@ def test_ops_auto_reaches_the_tuner(monkeypatch):
     rings = torch.stack([words, TV.init(ts)])
     assert torch.equal(ops.ring_contains(ts, rings, q, regime="hbm"),
                        ops.ring_contains(ts, rings, q, regime="vmem"))
-    assert [kw["regime"] for _, kw in spy.calls] == ["hbm"]
+    # no ring schedule on the card takes a DMA depth: none is resolved
+    assert spy.calls == []
     spy.calls.clear()
     ops.bloom_add_jit(ts, TV.init(ts), keys, donate=False)
     assert spy.calls and spy.calls[0][1]["tile"] == 16

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time this tree's blocked add and contains, its cuckoo update, its
-classical (cbf) add and contains, its quotient update and its partitioned
-counting update against another checkout's, in turns, on one NVIDIA card.
+classical (cbf) add and contains, its quotient update, its partitioned
+blocked add and counting update and its windowed ring contains against
+another checkout's, in turns, on one NVIDIA card.
 
     git archive <commit> | (mkdir -p build/other && tar -x -C build/other)
     python3 tools/bloom_ab.py build/other \
-        [--only bloom|cuckoo|cbf|quotient|partitioned|counting]
+        [--only bloom|cuckoo|cbf|quotient|partitioned|counting|ring]
 
 Blocked filters: the other checkout's ``src/repro_torch/kernels/csrc/
 bloom.cu`` must have the one-thread-a-key C interface, ``bloom_contains(
@@ -45,6 +46,20 @@ script checks that the other add, this tree's add on the path its rule
 picks and on the other path give the same words, then times the three adds
 of the keys into the filter in turns; then the same for the contains of
 the keys and of 2^22 probes (results equal).
+
+Partitioned blocked add: the other checkout's ``bloom.cu`` must have
+``bloom_add_partitioned(keys, valid, words, salts, n_segments, capacity,
+seg_words, block_mask, s, variant, k, z, log2g, shared, stream)`` (shared:
+1 where a segment fits shared memory, as its wrapper passed). In the two
+sbf cells of ``chip_smoke.py`` (B = 256, k = 8: 2^23 keys into 16 MiB;
+2^28 keys into 512 MiB, a 2^24-key batch) and at n_segments 8, the
+fitting count and 2, 4, 8 and 16 times it, the script checks that the
+other add, this tree's add on its rule's path and on the other path give
+the same words, then times in turns (10 rounds, one call each on restored
+words) the other kernel and this tree's kernel of the rule's plan, both
+called through ctypes, and this tree's wrapper on both paths, and prints
+this tree's plan. A single call's time includes what the host spends
+before the launch, so the wrapper's Python shows in L2-sized calls.
 
 Partitioned counting update: the other checkout's ``counting.cu`` must have
 ``counting_update_partitioned(keys, valid, counters, salts, n_segments,
@@ -93,6 +108,22 @@ two tables of half the keys each and the resize one step up; and the
 contains of every key at load 0.9 (the cluster walk, the table pass and
 the card's choice; 20 calls a round).
 
+Ring contains: the other checkout's ``ring.cu`` must have the
+one-thread-a-key C interface, ``ring_contains(keys, rings, out, salts, n,
+n_words, n_gen, block_mask, s, depth, variant, k, z, log2g, stream)``
+(depth at most 4). In the two windowed cells of ``chip_smoke.py``
+(``filter_for_n_items(W, bits_per_key=16, block_bits=256,
+generations=4)``, five batches of W/4 keys with an advance after each of
+the first four: W = 2^22, a 32 MiB ring, and W = 2^26, 512 MiB) the script
+checks that the other kernel and this tree's contains on its rule's path
+and on both paths forced give the same results for the live keys, the
+retired batch and W fresh probes, then times in turns: the other at depth
+1 and at the depth its wrapper ran for ``ops``' resolved depth (L2: depth
+1), both called through ctypes; this tree's wrapper on its rule's path,
+on the one-pass path and on the binned path; and this tree's one-pass
+kernel through ctypes, as the other's (6 rounds of 20 calls in L2, 3 in
+DRAM).
+
 It prints the card's name and power limit first.
 """
 import ctypes
@@ -111,7 +142,7 @@ from repro_torch.core import fingerprint as F  # noqa: E402
 from repro_torch.core import hashing as H  # noqa: E402
 from repro_torch.core import quotient as Q  # noqa: E402
 from repro_torch.core import variants as V  # noqa: E402
-from repro_torch.kernels import _build, cbf, ops, sbf  # noqa: E402
+from repro_torch.kernels import _build, cbf, ops, ring, sbf  # noqa: E402
 from repro_torch.kernels import countingbf as cnt  # noqa: E402
 from repro_torch.kernels import cuckoofilter as ckoo  # noqa: E402
 from repro_torch.kernels import quotientfilter as qf  # noqa: E402
@@ -134,9 +165,15 @@ def build_other(checkout: Path, name: str = "bloom") -> ctypes.CDLL:
     print(f"build: {src} in {time.perf_counter() - t0:.1f} s")
     lib = ctypes.CDLL(str(out))
     if name == "bloom":
-        lib.bloom_contains.argtypes = [VP, VP, VP, VP, LL, U32] + [I] * 7 + [
-            VP]
-        lib.bloom_add.argtypes = [VP, VP, VP, LL, U32] + [I] * 5 + [VP]
+        if hasattr(lib, "bloom_contains"):       # the one-thread interface
+            lib.bloom_contains.argtypes = [VP, VP, VP, VP, LL, U32] + [
+                I] * 7 + [VP]
+            lib.bloom_add.argtypes = [VP, VP, VP, LL, U32] + [I] * 5 + [VP]
+        lib.bloom_add_partitioned.argtypes = [VP, VP, VP, VP, LL, LL, U32,
+                                              U32] + [I] * 6 + [VP]
+    elif name == "ring":
+        lib.ring_contains.argtypes = [VP, VP, VP, VP, LL, LL, I, U32] + [
+            I] * 6 + [VP]
     elif name == "cbf":
         lib.cbf_add.argtypes = [VP, VP, VP, LL, I, I, VP]
         lib.cbf_contains.argtypes = [VP, VP, VP, VP, LL, I, I, VP]
@@ -364,7 +401,173 @@ def cbf_main(checkout: Path) -> None:
         torch.cuda.empty_cache()
 
 
+def partitioned_add_main(checkout: Path) -> None:
+    """The sbf partitioned add of the other checkout against this tree's,
+    on its rule's path and on the other path, in the two sbf cells."""
+    other = build_other(checkout, "bloom")
+    stream = torch.cuda.current_stream().cuda_stream
+    salts = sbf._salts(torch.device("cuda")).data_ptr()
+    smem = sbf.partition_smem_bytes(torch.device("cuda"))
+    for regime, n, batch in (("L2", 1 << 23, 1 << 23),
+                             ("DRAM", 1 << 28, 1 << 24)):
+        f = api.filter_for_n_items(n, bits_per_key=16, block_bits=256,
+                                   device="cuda")
+        spec = f.spec
+        first = gen_keys(n, 82)[:batch]
+        fit = 1
+        while spec.n_words * 4 // fit > smem:
+            fit *= 2
+        for n_seg in (8, fit, 2 * fit, 4 * fit, 8 * fit, 16 * fit):
+            part = ops._partition_device(spec, first, n_seg, None)
+            seg_words = spec.n_words // n_seg
+            shared = int(seg_words * 4 <= smem)
+
+            def other_add(words, part=part, n_seg=n_seg,
+                          seg_words=seg_words, shared=shared):
+                err = other.bloom_add_partitioned(
+                    part.keys_by_seg.data_ptr(), part.valid.data_ptr(),
+                    words.data_ptr(), salts, n_seg, part.keys_by_seg.shape[1],
+                    seg_words, spec.n_blocks - 1, spec.s, 0, spec.k, spec.z,
+                    0, shared, stream)
+                assert err == 0, err
+                return words
+
+            def this_add(words, path=None, part=part, n_seg=n_seg):
+                return sbf.add_partitioned(spec, words, part.keys_by_seg,
+                                           part.valid, n_seg,
+                                           l2_resident=regime == "L2",
+                                           path=path)
+
+            want = other_add(V.init(spec, "cuda"))
+            got = this_add(V.init(spec, "cuda"))
+            plan = dict(sbf.LAST_PARTITIONED_PLAN)
+            alt = "global" if plan["path"] == "shared" else "shared"
+            lib = _build.library()
+
+            def this_kernel(words, part=part, n_seg=n_seg,
+                            seg_words=seg_words, plan=plan):
+                err = lib.bloom_add_partitioned(
+                    part.keys_by_seg.data_ptr(), part.valid.data_ptr(),
+                    words.data_ptr(), salts, n_seg, part.keys_by_seg.shape[1],
+                    seg_words, spec.n_blocks - 1, spec.s, plan["theta"], 0,
+                    spec.k, spec.z, 0, int(plan["path"] == "shared"),
+                    stream)
+                assert err == 0, err
+                return words
+
+            if not torch.equal(this_kernel(V.init(spec, "cuda")), want):
+                raise AssertionError(f"partitioned sbf {regime} n_segments "
+                                     f"{n_seg}: this kernel's words differ")
+            fns = {"other": lambda: other_add(scratch),
+                   f"this ({plan['path']})": lambda: this_add(scratch),
+                   f"this {plan['path']} kernel": lambda: this_kernel(
+                       scratch)}
+            if alt == "global" or shared:
+                if not torch.equal(this_add(V.init(spec, "cuda"), alt),
+                                   want):
+                    raise AssertionError(f"partitioned sbf {regime} "
+                                         f"n_segments {n_seg} {alt} differs")
+                fns[f"this {alt}"] = lambda: this_add(scratch, alt)
+            if not torch.equal(got, want):
+                raise AssertionError(f"partitioned sbf {regime} n_segments "
+                                     f"{n_seg}: words differ")
+            scratch = V.init(spec, "cuda")
+            res = turns_restored(fns, scratch.zero_, rounds=10)
+            show(f"partitioned sbf {regime} add of {batch} keys, n_segments "
+                 f"{n_seg} (other {'shared' if shared else 'global'}; this "
+                 f"tree's plan {plan}; words equal)", res)
+            mine = res[f"this ({plan['path']})"][0]
+            kern = res[f"this {plan['path']} kernel"][0]
+            print(f"  other / this {res['other'][0] / mine:.2f}x; kernels "
+                  f"through ctypes, other / this "
+                  f"{res['other'][0] / kern:.2f}x", flush=True)
+            del part, want, got, scratch
+        del f, first
+        torch.cuda.empty_cache()
+
+
+def ring_main(checkout: Path) -> None:
+    """The windowed ring contains of the other checkout (one thread a key)
+    against this tree's wrappers, in the two windowed cells."""
+    other = build_other(checkout, "ring")
+    stream = torch.cuda.current_stream().cuda_stream
+    salts = sbf._salts(torch.device("cuda")).data_ptr()
+    smem = sbf.partition_smem_bytes(torch.device("cuda"))
+    for regime, window in (("L2", 1 << 22), ("DRAM", 1 << 26)):
+        G = 4
+        f = api.filter_for_n_items(window, bits_per_key=16, block_bits=256,
+                                   generations=G, device="cuda")
+        spec = f.spec
+        batches = [gen_keys(window // G, 31 + i) for i in range(G + 1)]
+        for i, b in enumerate(batches):
+            f = f.add(b)
+            if i < G:
+                f = f.advance()
+        rings = f.words
+        wrapper = (ring.ring_contains_vmem if regime == "L2"
+                   else ring.ring_contains_hbm)
+        depth = 1 if regime == "L2" else ops._resolve_depth(
+            spec, "contains", None, DEFAULT_TILE, device=rings.device)
+        kw = {} if regime == "L2" else {"depth": depth}
+        args = (spec.n_blocks - 1, spec.s)
+        for label, q in (("live keys", torch.cat(batches[1:])),
+                         ("retired keys", batches[0]),
+                         ("fresh probes", gen_keys(window, 40, probe=True))):
+            n = q.shape[0]
+            out = torch.empty(n, dtype=torch.bool, device="cuda")
+
+            def other_contains(d, q=q, out=out, n=n):
+                err = other.ring_contains(q.data_ptr(), rings.data_ptr(),
+                                          out.data_ptr(), salts, n,
+                                          spec.n_words, G, *args, min(d, 4),
+                                          0, spec.k, spec.z, 0, stream)
+                assert err == 0, err
+                return out
+
+            want = other_contains(depth).clone()
+            rule = ring.choose_contains_path(n, spec.n_words, G, spec.s,
+                                             smem, regime == "L2")
+            geo = ring.contains_geometry(spec)
+            lib = _build.library()
+
+            def this_kernel(q=q, out=out, n=n, geo=geo):
+                err = lib.ring_contains(q.data_ptr(), rings.data_ptr(),
+                                        out.data_ptr(), salts, n,
+                                        spec.n_words, G, *args, geo.theta,
+                                        0, spec.k, spec.z, 0, stream)
+                assert err == 0, err
+                return out
+
+            fns = {f"other d{min(depth, 4)}": lambda: other_contains(depth),
+                   "other d1": lambda: other_contains(1),
+                   f"this ({rule})": lambda q=q: wrapper(spec, rings, q,
+                                                         **kw),
+                   "this one-pass": lambda q=q: wrapper(
+                       spec, rings, q, path="one-pass", **kw),
+                   "this binned": lambda q=q: wrapper(spec, rings, q,
+                                                      path="binned", **kw),
+                   "this one-pass kernel": this_kernel}
+            for name, fn in fns.items():
+                if not torch.equal(fn(), want):
+                    raise AssertionError(f"ring {regime} {label}: {name} "
+                                         f"differs")
+            wrapper(spec, rings, q, **kw)
+            plan = dict(ring.LAST_CONTAINS_PLAN)
+            res = turns(fns, 20 if regime == "L2" else 3)
+            show(f"ring {regime} contains of {n} {label} ({G} x {spec}; "
+                 f"results equal; the rule's plan {plan})", res)
+            mine = res[f"this ({rule})"][0]
+            print(f"  other d{min(depth, 4)} / this "
+                  f"{res[f'other d{min(depth, 4)}'][0] / mine:.2f}x, "
+                  f"other d1 / this {res['other d1'][0] / mine:.2f}x",
+                  flush=True)
+            del out, want
+        del f, batches, rings
+        torch.cuda.empty_cache()
+
+
 def partitioned_main(checkout: Path) -> None:
+    partitioned_add_main(checkout)
     other = build_other(checkout, "counting")
     stream = torch.cuda.current_stream().cuda_stream
     salts = sbf._salts(torch.device("cuda")).data_ptr()
@@ -712,7 +915,7 @@ def main(checkout: Path, only: str = "") -> int:
     for name, run in (("cuckoo", cuckoo_main), ("bloom", bloom_main),
                       ("cbf", cbf_main), ("quotient", quotient_main),
                       ("partitioned", partitioned_main),
-                      ("counting", counting_main)):
+                      ("counting", counting_main), ("ring", ring_main)):
         if only in ("", name):
             run(checkout)
     return 0
@@ -809,7 +1012,7 @@ if __name__ == "__main__":
     only = ""
     if len(args) == 3 and args[1] == "--only" and args[2] in (
             "bloom", "cuckoo", "cbf", "quotient", "partitioned",
-            "counting"):
+            "counting", "ring"):
         only = args[2]
         args = args[:1]
     if len(args) != 1:
