@@ -70,7 +70,9 @@ the script exits non-zero without printing a result:
    with duplicates, with and without a valid mask, a second batch into the
    filled table, removes of half, of repeats and of absent keys, clusters
    that wrap past the last slot, tiles 256 / 2048 / the whole batch and
-   both coop values: words, ok/found flags and contains equal to the plain
+   both coop values: words, ok/found flags and contains (the walk and
+   binned, binned also at a quotient a bin, 8 and 32 quotients a bin with
+   4-word windows and small caps) equal to the plain
    version's; and merge and resize (the plain decode and layout on the
    card) equal to the update kernels' builds;
 3g. the calibration kernels: the step kernel (``x + 1`` a (8, 128) block
@@ -183,7 +185,8 @@ the script exits non-zero without printing a result:
    cell's invariants, every contains equal to the plain version's (2^22-key
    chunks) and the update at the default window equal to the kernel at
    window 1 (the serial order) on 2^18 keys, fresh and into the load-0.5
-   table;
+   table; its three contains timed alone, with bounds and the sector
+   floor at the card's random-sector rate, measured in the same run;
 4f. the quotient cells, ``filter_for_n_items(n, variant="quotient")`` at n
    = 2^22 (q23 + r5, u8, an 8 MiB table in L2) and 2^25 (q26 + r5, 64 MiB,
    the largest table the 31-bit fingerprint allows; batches of 2^24 keys):
@@ -193,7 +196,14 @@ the script exits non-zero without printing a result:
    to the plain layout and the original), and a shrink that would overflow
    refused; every update's words and flags and every contains equal to the
    plain version's in full, no false negative, occupied slots equal to the
-   successful inserts, each kernel launched on the main path;
+   successful inserts, each kernel launched on the main path; the
+   contains' paths in turns, its plan, floor and peak extra memory, and
+   the load sample's time; then ``phase_quotient_rule``: the walk, binned
+   and the rule's path in turns at q23 ... q27, loads 0.5 and 0.9, 2^16
+   ... 2^26 keys with none, half or all of them members, results equal
+   (binned also at smaller bins and half windows), the rule's path (at the
+   load it samples) held at each point to the faster path: no slower
+   beyond the rounds' spread by more than 5 % and 5 us;
 4g. the tuning main path: ``perfmodel.get_calibration(measure=True)`` on
    fresh caches, ``core.tuning.tune_plan`` of the sbf and countingbf cells'
    contains and add and ``api.tuned_options``, with every calibration
@@ -227,9 +237,16 @@ script exits non-zero where there is none, or where the repository's
 
 instead prints the device time by kernel (``torch.profiler``) of the
 binned cbf add in the two cbf cells (the scatter's time among them), of
-one quotient update and contains at the DRAM-side cell's shapes, of the
-DRAM windowed cell's binned contains and of a DRAM partitioned sbf add
-batch, and no result.
+the quotient update and contains paths in both quotient cells' shapes, of
+the cuckoo contains in both cuckoo cells' shapes, of the DRAM windowed
+cell's binned contains and of a DRAM partitioned sbf add batch, and no
+result.
+
+    python3 chip_smoke.py --contains
+
+runs the build, phases 3f, 4f and the quotient contains' rule sweep, then
+3e (cuckoo) and 4e (both cuckoo cells), and prints the two contains
+records, for work on those kernels.
 """
 from __future__ import annotations
 
@@ -405,17 +422,33 @@ def thetas(spec: V.FilterSpec) -> list:
     return [t for t in (1, 2, 4, 8, 16, 32) if t <= spec.s]
 
 
+def warm_calls(reps: int) -> int:
+    """Untimed calls before a timing round of ``reps`` calls."""
+    return reps // 4
+
+
 def time_turns(fns: dict, label: str, reps: int = REPS,
-               rounds: int = ROUNDS) -> dict:
+               rounds: int = ROUNDS, lead: str | None = None) -> dict:
     """Time the calls of ``fns`` in turns (each round runs them in order,
     then reversed): the median of each one's rounds; min and max go to
-    ``SPREAD`` under ``label``."""
+    ``SPREAD`` under ``label``. Each round of a call starts with
+    ``warm_calls(reps)`` untimed calls of it: a host-bound call timed just
+    after another call's long wait for the card runs slower for a while,
+    and the turns' order puts one call there in more rounds than another.
+    ``lead``, where given, starts every round and the others take turns
+    after it, so that each meets the card in the state it leaves (after a
+    binned quotient contains the walk runs up to 10 % faster or slower
+    until binned runs again)."""
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
     per = {k: [] for k in fns}
+    rest = [k for k in fns if k != lead]
     for r in range(rounds):
-        for key in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+        order = rest if r % 2 == 0 else rest[::-1]
+        for key in ([lead] if lead is not None else []) + order:
+            for _ in range(warm_calls(reps)):
+                fns[key]()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -1038,7 +1071,8 @@ def time_restored_ms(fn, restore, label: str, reps: int = REPS,
 def time_restored_turns(fns: dict, restore, label: str, reps: int = REPS,
                         rounds: int = ROUNDS) -> dict:
     """:func:`time_turns` for calls that change their state: ``restore()``
-    runs before every call, outside the CUDA events that time it."""
+    runs before every call, outside the CUDA events that time it (the
+    untimed calls that start a round too)."""
     for fn in fns.values():
         restore()
         fn()
@@ -1046,6 +1080,9 @@ def time_restored_turns(fns: dict, restore, label: str, reps: int = REPS,
     per = {key: [] for key in fns}
     for r in range(rounds):
         for key in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            for _ in range(warm_calls(reps)):
+                restore()
+                fns[key]()
             events = []
             for _ in range(reps):
                 restore()
@@ -3933,13 +3970,22 @@ def cuckoo_contains_bound_ms(spec, table, keys):
     32-byte sector for its primary bucket and one more where the primary
     bucket misses, at most the table once; 40 operations a key and 8 a
     bucket."""
-    b1, fp, _ = F.cuckoo_hashes(spec, keys)
-    second = int((~F._hit(spec, table, b1, fp)).sum())
+    second = primary_misses(spec, table, keys)
     n = keys.shape[0]
     nbytes = 9 * n + min(32 * (n + second), spec.n_words * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (40 * n + 8 * (n + second)) / OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def primary_misses(spec, table, keys) -> int:
+    """Keys whose primary bucket does not hold their fingerprint (in
+    SUBSET-key chunks)."""
+    out = 0
+    for chunk in keys.split(SUBSET):
+        b1, fp, _ = F.cuckoo_hashes(spec, chunk)
+        out += int((~F._hit(spec, table, b1, fp)).sum())
+    return out
 
 
 def cuckoo_cell_bounds(spec, n_keys: dict, missing: int) -> dict:
@@ -4288,6 +4334,7 @@ def phase_cuckoo_dram(errs: dict, records: dict, card: str,
                      "remove_vmem": 1}
     if counted != want_launches:
         raise AssertionError(f"cuckoo DRAM cell: launches {counted}")
+    records["cuckoo_contains"]["launches"] += counted["contains_vmem"]
     fails1, fails = int(g1.insert_failures), int(g.insert_failures)
     occ1 = int(F.occupied_slots(spec, g1.words))
     occ2 = int(F.occupied_slots(spec, g.words))
@@ -4369,6 +4416,34 @@ def phase_cuckoo_dram(errs: dict, records: dict, card: str,
               f"{r['window1_ms']:.4f} ms ({r['window1_ms'] / r['ms']:.1f}x), "
               f"{r['counters']['rounds']} rounds, "
               f"{r['counters']['mean_committed']:.1f} keys a round")
+    # the three contains of the cell as kernels alone (rounds of calls),
+    # their bounds, and the sector floor at the card's random-sector rate
+    con = {"contains": (g.words, keys), "contains probes": (g.words, probes),
+           "contains rest": (g3.words, keys[half:])}
+    tk, cbound = {}, {}
+    for label, (words, k) in con.items():
+        tk[label] = time_ms(lambda words=words, k=k: ckoo.contains_vmem(
+            spec, words, k), f"cuckoo DRAM {label}", 3, 3, warmup=1)
+        cbound[label] = cuckoo_contains_bound_ms(spec, words, k)
+    misses = primary_misses(spec, g.words, keys)
+    rate = random_sector_rate(spec.n_words)
+    s_floor = (total + misses) / rate * 1e3
+    print(f"time cuckoo DRAM contains [{card}] (kernels alone, median of 3 "
+          f"rounds of 3 calls): " + ", ".join(
+              f"{k} {tk[k]:.4f} ms at {con[k][1].shape[0]} keys "
+              f"({con[k][1].shape[0] / tk[k] / 1e3:.1f} Mops/s), bound "
+              f"{cbound[k][0]:.4f} ms ({cbound[k][1]}, "
+              f"{cbound[k][0] / tk[k]:.1%})" for k in tk)
+          + f"; {misses} primary misses ({misses / total:.1%}); random "
+          f"32-byte sectors of a {spec.n_words * 4 >> 20} MiB table "
+          f"{rate / 1e9:.2f} G/s (calibrate_gather, this run); sector floor "
+          f"of every key (a sector a key, one more a miss) {s_floor:.4f} ms "
+          f"({s_floor / tk['contains']:.1%})")
+    records["cuckoo_contains"]["dram"] = {
+        "n_keys": total, "ms": tk,
+        "bound_ms": {k: v[0] for k, v in cbound.items()},
+        "primary_misses": misses, "random_sectors_per_s": rate,
+        "sector_floor_ms": s_floor, "launches": counted["contains_vmem"]}
     records["cuckoo_update"]["dram"] = {
         "n_keys": n, "n_more": n_more, "top_up": top_up,
         "top_up_estimate_s": estimate_s, "m_bits": spec.m_bits,
@@ -4381,6 +4456,45 @@ def phase_cuckoo_dram(errs: dict, records: dict, card: str,
     torch.cuda.synchronize()
 
 
+# members whose fingerprint a timing table holds in the alternate bucket
+CUCKOO_ALT_SHARE = {0.5: 0.1, 0.9: 0.35}
+
+
+def cuckoo_table_at(spec, load: float, members: torch.Tensor,
+                    seed: int) -> torch.Tensor:
+    """A table at ``load`` for profiling, made without the update (whose
+    one-CTA apply takes seconds past L2): random non-zero fingerprints in
+    a share ``load`` of the slots, then each member's fingerprint in a
+    random lane of its primary bucket or, for ``CUCKOO_ALT_SHARE[load]``
+    of them, of its alternate one (a member overwritten by a later one is
+    then a probe). The contains' results do not depend on how a table was
+    made."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sb, spb = spec.slot_bits, spec.slots_per_bucket
+    slots = torch.randint(1, 1 << sb, (spec.n_slots,), device="cuda",
+                          generator=g)
+    slots *= torch.rand((spec.n_slots,), device="cuda", generator=g) < load
+    b1, fp, _ = F.cuckoo_hashes(spec, members)
+    alt = torch.rand((b1.numel(),), device="cuda",
+                     generator=g) < CUCKOO_ALT_SHARE[load]
+    b = torch.where(alt, F.alt_bucket(spec, b1, fp), b1)
+    lane = torch.randint(0, spb, (b1.numel(),), device="cuda", generator=g)
+    slots[b * spb + lane] = fp
+    return F.pack_slots(spec, slots.view(spec.n_buckets, spb)).view(-1)
+
+
+def random_sector_rate(n_words: int) -> float:
+    """Random 32-byte sectors a second the card reads from a table of
+    n_words words (``calibrate.gather``: 2^27 hashed 4-byte reads, each its
+    own sector; median of 3 rounds)."""
+    table = kc.gather_table(n_words, "cuda")
+    n, per = 1 << 22, 32
+    out = torch.empty((n,), dtype=torch.int32, device="cuda")
+    ms = time_ms(lambda: kc.gather(table, out, per), "random sectors", 3, 3)
+    del table, out
+    return n * per / ms * 1e3
+
+
 # ---------------------------------------------------------------------------
 # The quotient filter (phases 3f, 4f and their times)
 # ---------------------------------------------------------------------------
@@ -4390,10 +4504,11 @@ QUOTIENT_REPLACES = {
     "quotient_contains": "src/repro/kernels/quotientfilter.py:51",
     "quotient_update": "src/repro/kernels/quotientfilter.py:90"}
 QUOTIENT_KERNELS = {
-    "quotient_contains": ["quotient_contains_kernel", "slots_kernel",
-                          "scan_reduce_kernel", "scan_aggs_kernel",
-                          "scan_apply_kernel", "old_runs_kernel",
-                          "lookup_kernel", "choose_kernel"],
+    "quotient_contains": ["quotient_contains_kernel (walk)", "qf_tile_stats",
+                          "qf_scan_tables", "bin8_count_kernel",
+                          "bin_column_kernel", "bin_scan_kernel",
+                          "bin8_scatter_kernel", "qf_contains_bin",
+                          "qf_load_sample"],
     "quotient_update": ["qf_tile_stats", "qf_scan_tables", "qf_decode",
                         "qf_bin_count", "qf_bin_offsets", "qf_bin_scatter",
                         "qf_bin_sort", "qf_merge_tiles", "qf_merge",
@@ -4441,11 +4556,7 @@ def quotient_check(spec, table, keys, valid, gone, probes, errs) -> tuple:
             max_err(ops.quotient_contains(spec, want, queries, coop=coop),
                     hit))
         runs += 1
-    for mode in qf.CONTAINS_MODES:             # every path, whatever n
-        errs["quotient_contains"] = max(
-            errs["quotient_contains"],
-            max_err(qf._launch_contains(spec, want, queries, mode), hit))
-        runs += 1
+    runs += quotient_contains_paths(spec, want, queries, hit, errs)
     want_rm, found = qf.update_plain(spec, want, gone, None, "remove")
     got_rm, got_found = qf.remove_vmem(spec, want.clone(), gone, None)
     errs["quotient_update"] = max(errs["quotient_update"],
@@ -4454,14 +4565,47 @@ def quotient_check(spec, table, keys, valid, gone, probes, errs) -> tuple:
     return want, ok, runs + 1
 
 
+# lowered bins, windows and caps of the binned contains: a quotient a bin
+# (4096 bins of one slot's tile), 8-slot bins, 32-slot bins; windows of 4
+# words, so runs cross the window's end and are read through __ldg
+QUOTIENT_CONTAINS_LOW = (dict(bin_bits=0, window=4, cap=97),
+                         dict(bin_bits=3, window=4, cap=1000),
+                         dict(bin_bits=5))
+
+
+def quotient_contains_paths(spec, table, queries, want, errs,
+                            low=QUOTIENT_CONTAINS_LOW) -> int:
+    """Both contains paths (the walk, binned) at the card's bins and binned
+    at ``low`` bins, windows and caps, against ``want`` (the plain
+    result). Returns the runs."""
+    runs = 0
+    for path in qf.CONTAINS_PATHS:
+        errs["quotient_contains"] = max(
+            errs["quotient_contains"],
+            max_err(qf._launch_contains(spec, table, queries, path), want))
+        runs += 1
+    smem = sbf.partition_smem_bytes(torch.device("cuda"))
+    for kw in low:
+        ww = kw.get("window", qf.contains_window_words(spec, kw["bin_bits"]))
+        if not qf.binned_fits(spec, kw["bin_bits"], ww, smem):
+            continue
+        errs["quotient_contains"] = max(
+            errs["quotient_contains"],
+            max_err(qf._launch_contains(spec, table, queries, "binned", **kw),
+                    want))
+        runs += 1
+    return runs
+
+
 def phase_quotient_kernels(errs: dict):
     """Phase 3f: u8/u16/u32 lanes over several remainder widths; loads 0.5,
     0.9 and 1.3 (past capacity) with 5 % duplicates (some three times), with
     and without a valid mask, then a second batch into the filled table;
     removes of half the batch, of repeats and of absent keys; clusters that
     wrap past the last slot; tiles 256, 2048 and the whole batch; both coop
-    values and both contains paths (the cluster walk and the table pass):
-    words, flags and results against the plain versions. Then the merge
+    values and every contains path (the cluster walk, binned, the card's
+    choice; binned at lowered bins, windows and caps): words, flags and
+    results against the plain versions. Then the merge
     and resize wrappers against their plain versions and the update
     kernels' own build."""
     for i, geom in enumerate(PHASE3F_QUOTIENT):
@@ -4701,6 +4845,16 @@ def quotient_update_floor_ms(spec, n: int = 0, nb: int = 0, m0: int = 0,
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def quotient_contains_floor_ms(spec, n: int) -> float:
+    """The binned contains' floor: the DRAM bytes its stages must move at
+    3.35 TB/s: n keys read twice (count, scatter), an 8-byte slot a key
+    written and read, a result written, the table read once and its tiles'
+    (a tile a bin) five counts written."""
+    tiles = spec.n_slots >> qf.contains_bin_bits(spec.q_bits)
+    nbytes = 33 * n + 4 * spec.n_words + 20 * tiles
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def batches(keys: torch.Tensor, batch: int) -> list:
     return list(keys.split(batch))
 
@@ -4736,6 +4890,7 @@ def phase_quotient_main(label: str, n: int, batch: int, errs: dict,
     g2 = steps[-1]
     ev[1].record()
     hits = g2.contains(keys)
+    main_plan = dict(qf.LAST_CONTAINS_PLAN)
     ev[2].record()
     false_pos = g2.contains(probes)
     ev[3].record()
@@ -4771,6 +4926,15 @@ def phase_quotient_main(label: str, n: int, batch: int, errs: dict,
     if counted != expected:
         raise AssertionError(f"quotient {label} cell: launches {counted}, "
                              f"expected {expected}")
+    main_path, sampled = main_plan["path"], main_plan["load"]
+    true_load = int(Q.occupied_slots(spec, g2.words)) / spec.n_slots
+    if (main_path != qf.contains_mode(
+            spec, n_all, sampled, sbf.partition_smem_bytes(keys.device))
+            or abs(sampled - true_load) > 0.02):
+        raise AssertionError(f"quotient {label} cell: the contains of every "
+                             f"key ran {main_path} at a sampled load "
+                             f"{sampled} (the table's {true_load}), not the "
+                             f"rule's path")
     launches["quotient_contains"] = (launches.get("quotient_contains", 0)
                                      + counted["contains_vmem"])
     # merge and resize launch the update kernels on decoded fingerprints
@@ -4848,7 +5012,8 @@ def phase_quotient_main(label: str, n: int, batch: int, errs: dict,
           f"version's in full; merge equal to the whole stream's table and "
           f"the plain merge, resizes equal to the plain resize and back; FPR "
           f"{fpr:.6f} at load {load:.4f}, {fpr / theory:.3f} x fpr_quotient "
-          f"{theory:.6f}; launches {counted}")
+          f"{theory:.6f}; launches {counted}, the contains of every key "
+          f"{main_path}")
     print(f"time quotient {label} main path [{card}] (Filter calls, CUDA "
           f"events, one run): " + ", ".join(f"{s} {v:.4f} ms"
                                             for s, v in step_ms.items()))
@@ -4896,19 +5061,29 @@ def phase_quotient_main(label: str, n: int, batch: int, errs: dict,
          "resize plain": time_ms(lambda: qf.resize_plain(spec, g2.words,
                                                          grown.spec),
                                  f"quotient {label} resize plain", 1, 3)}
-    # the contains paths (and the card's choice) at load 0.9 on the full
-    # batch, 2^22 and 2^16 keys, and at load 0.45 after the remove
-    paths = {}
+    # the contains paths and the rule's at load 0.9 on the full batch, 2^22
+    # and 2^16 keys, and at load 0.45 after the remove; the rule's path
+    # and sampled load of each
+    paths, rules = {}, {}
     for load_q, words, qkeys in ((0.9, g2.words, (keys, sub,
                                                   sub[: 1 << 16])),
                                  (0.45, g3.words, (keys[half:], sub))):
         for qk in qkeys:
-            for mode in qf.CONTAINS_MODES:
-                paths[(load_q, qk.shape[0], mode)] = time_ms(
-                    lambda qk=qk, mode=mode, words=words:
-                    qf._launch_contains(spec, words, qk, mode),
+            for path in QUOTIENT_RULE_PATHS:
+                paths[(load_q, qk.shape[0], path)] = time_ms(
+                    lambda qk=qk, path=path, words=words:
+                    quotient_contains_on(spec, words, qk, path),
                     f"quotient {label} contains {load_q} {qk.shape[0]} "
-                    f"{mode}")
+                    f"{path}")
+            rules[(load_q, qk.shape[0])] = (qf.LAST_CONTAINS_PLAN["path"],
+                                            qf.LAST_CONTAINS_PLAN["load"])
+    # the load sample a contains asks for once a table state: the kernel,
+    # the copy back and the host's wait, on a table whose version moved
+
+    def fresh_load():
+        torch.autograd.graph.increment_version(g2.words)
+        return qf.table_load(spec, g2.words)
+    t_sample = time_ms(fresh_load, f"quotient {label} load sample")
     b = {"add first": quotient_update_bound_ms(spec, first.shape[0]),
          "add last": quotient_update_bound_ms(spec, last.shape[0]),
          "remove": quotient_update_bound_ms(spec, gone.shape[0]),
@@ -4971,15 +5146,43 @@ def phase_quotient_main(label: str, n: int, batch: int, errs: dict,
           f"Mops/s), plain {t['add 2^22 plain']:.4f} ms, bound "
           f"{b['add 2^22'][0]:.4f} ms ({b['add 2^22'][1]}); one launch a "
           f"call")
-    print(f"time quotient {label} contains paths [{card}] (walk / pass / "
-          f"the card's choice): " + "; ".join(
+    print(f"time quotient {label} contains paths [{card}] (walk / binned "
+          f"/ the rule's): " + "; ".join(
               f"load {lq} {n_q} keys " + " / ".join(
-                  f"{paths[(lq, n_q, m)]:.4f}" for m in qf.CONTAINS_MODES)
-              + " ms" for lq, n_q in dict.fromkeys(
-                  (lq, n_q) for lq, n_q, _ in paths))
-          + f"; the wrapper lets the card choose from "
-          f"{spec.n_slots // qf.PASS_SLOTS_PER_KEY} keys on, and walks "
-          f"below")
+                  f"{paths[(lq, n_q, p)]:.4f}" for p in QUOTIENT_RULE_PATHS)
+              + f" ms (rule: {rules[(lq, n_q)][0]} at a sampled load of "
+              f"{rules[(lq, n_q)][1]})" for lq, n_q in rules)
+          + f"; the rule walks below {qf.LOAD_MIN_KEYS} keys without a "
+          f"sample; the load sample (kernel, copy back, the host's wait) "
+          f"{t_sample:.4f} ms, once a table state")
+    # the binned contains of every key: its plan, peak extra memory and
+    # design floor
+    qf.contains_vmem(spec, g2.words, keys)
+    torch.cuda.synchronize()
+    cplan = dict(qf.LAST_CONTAINS_PLAN)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_stats()
+    res = qf.contains_vmem(spec, g2.words, keys)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()
+    c_peak = (after["requested_bytes.all.peak"]
+              - before["requested_bytes.all.current"] - res.numel())
+    del res
+    if c_peak > cplan["workspace_bytes"] + 512:
+        raise AssertionError(f"quotient {label} contains: peak extra memory "
+                             f"{c_peak} B above the plan's "
+                             f"{cplan['workspace_bytes']} B")
+    c_floor = quotient_contains_floor_ms(spec, n_all)
+    print(f"time quotient {label} contains plan [{card}]: {cplan['path']}, "
+          f"{cplan.get('n_bins')} bins of 2^{cplan.get('bin_bits')} "
+          f"quotients, window {cplan.get('window_words')} words, "
+          f"{cplan['batches']} batches of {cplan['batch_keys']} keys, "
+          f"{cplan['chunks']} chunks; peak extra memory {c_peak} B besides "
+          f"the result (the plan's workspace {cplan['workspace_bytes']} B); "
+          f"design floor (keys twice, 8-byte slots written and read, the "
+          f"table and its tiles once, results) {c_floor:.4f} ms, "
+          f"{c_floor / t['contains']:.1%} of the kernel's "
+          f"{t['contains']:.4f} ms")
     print(f"time quotient {label} merge and resize [{card}]: merge "
           f"{t['merge']:.4f} ms (plain {t['merge plain']:.4f} ms), resize to "
           f"{grown.spec} {t['resize']:.4f} ms (plain {t['resize plain']:.4f} "
@@ -5003,6 +5206,10 @@ def phase_quotient_main(label: str, n: int, batch: int, errs: dict,
           f"keys (half probes) kernel {t['contains sub']:.4f} ms, plain "
           f"{t['contains plain']:.4f} ms, bound {b['contains sub'][0]:.4f} "
           f"ms ({b['contains sub'][1]})")
+    floor["contains"] = c_floor
+    peak["contains"] = {"peak_extra_bytes": c_peak,
+                        "workspace_bytes": cplan["workspace_bytes"],
+                        "plan": cplan}
     cells[label] = {"m_bits": spec.m_bits, "n_keys": n_all, "batch": batch,
                     "ms": t, "floor_ms": floor, "memory": peak,
                     "bound_ms": {k: v[0] for k, v in b.items()},
@@ -5036,6 +5243,171 @@ def quotient_records(cells: dict, errs: dict, launches: dict) -> dict:
             "cuda_kernels": QUOTIENT_KERNELS[name],
             "n_keys": SUBSET, "m_bits": dram["m_bits"], "cells": cells}
     return out
+
+
+QUOTIENT_RULE_Q = (23, 24, 25, 26, 27)
+QUOTIENT_RULE_LOG2N = (16, 18, 20, 22, 24, 26)
+QUOTIENT_RULE_LOADS = (0.5, 0.9)
+MEMBER_SHARES = (0.0, 0.5, 1.0)
+
+
+def mixed_keys(members: torch.Tensor, probes: torch.Tensor, n: int,
+               share: float) -> torch.Tensor:
+    """n keys: a ``share`` of them members (cycled where there are fewer),
+    the rest probes."""
+    m = int(n * share)
+    reps = -(-m // max(members.shape[0], 1))
+    return torch.cat([members.repeat(max(reps, 1), 1)[:m],
+                      probes[:n - m]]).contiguous()
+
+
+# the paths the rule sweep and the cells time: both paths forced, and the
+# rule's (contains_vmem: the path at the load it samples)
+QUOTIENT_RULE_PATHS = ("walk", "binned", "rule")
+
+
+def quotient_contains_on(spec, words, keys, path: str) -> torch.Tensor:
+    """The contains wrapper on ``path`` of ``QUOTIENT_RULE_PATHS``."""
+    if path == "rule":
+        return qf.contains_vmem(spec, words, keys)
+    return qf.contains_vmem(spec, words, keys, path=path)
+
+
+def call_ms(fn) -> float:
+    """One call's time (ms) after one untimed call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return max(start.elapsed_time(end), 1e-3)
+
+
+# Calls a timing round of the quotient rule sweep takes, at most: its walks
+# at load 0.5 are host-bound calls of 0.02-0.05 ms whose rounds of REPS
+# calls (0.5 ms) vary by 20-50 % with the host's hiccups
+QUOTIENT_RULE_REPS = 200
+
+
+def rule_reps(fns: dict) -> int:
+    """Calls a timing round of the quotient rule sweep takes: about 10 ms
+    of the fastest path's calls and at most about 50 ms of the slowest's,
+    1 to ``QUOTIENT_RULE_REPS``."""
+    ms = [call_ms(fn) for fn in fns.values()]
+    return max(1, min(QUOTIENT_RULE_REPS, int(10 / min(ms)),
+                      int(50 / max(ms))))
+
+
+def phase_quotient_rule(card: str, errs: dict):
+    """The quotient contains' path rule against both paths timed in turns
+    (rounds of :func:`rule_reps` calls, each led by binned): 8-bit slots (r = 5; 4 at q27), q23 ... q27, tables at loads 0.5 and
+    0.9, batches of 2^16 ... 2^26 keys of which a share of 0, 1/2 or 1 are
+    members (the walk compares along a member's run; binned reads the bins
+    a batch touches). Every path's results are equal at every point, the
+    walk's equal to the plain version's on 2^16 keys, and binned at bins of
+    a quarter the size (or the most bins) and half windows equal too. The
+    rule's path (``contains_vmem``: the rule at the load it samples, kept
+    while the table stays) is timed beside both, each through the wrapper:
+    at each point it fails where it is slower than the faster path beyond
+    the rounds' spread and by more than 5 % and 5 us, or where it ran
+    another path than the rule gives at the sampled load. A point where
+    it was the slower in the sweep's 3 rounds is timed again over
+    ``COUNTING_RULE_RETIME_ROUNDS`` rounds, and judged by those."""
+    smem = sbf.partition_smem_bytes(torch.device("cuda"))
+    probes = gen_keys(1 << max(QUOTIENT_RULE_LOG2N), 36, probe=True)
+    rows, wrong, checked, times, ran, retimed = [], [], 0, {}, {}, []
+    for q_bits in QUOTIENT_RULE_Q:
+        spec = quotient_spec(8, min(5, 31 - q_bits), q_bits)
+        for load in QUOTIENT_RULE_LOADS:
+            members = gen_keys(int(spec.n_slots * load), 4000 + q_bits)
+            table = Q.init(spec, "cuda")
+            for chunk in members.split(qf.KEY_BATCH):
+                qf.add_vmem(spec, table, chunk, None)
+            lb = max(qf.contains_bin_bits(q_bits) - 2,
+                     q_bits - qf.LOG2_MAX_BINS)
+            low = dict(bin_bits=lb, window=qf.contains_window_words(
+                spec, lb) // 2 // 4 * 4)
+            for log2n in QUOTIENT_RULE_LOG2N:
+                n = 1 << log2n
+                for share in MEMBER_SHARES:
+                    keys = mixed_keys(members, probes, n, share)
+                    fns = {p: (lambda p=p, keys=keys: quotient_contains_on(
+                        spec, table, keys, p)) for p in QUOTIENT_RULE_PATHS}
+                    got = {p: fn() for p, fn in fns.items()}
+                    plan = qf.LAST_CONTAINS_PLAN
+                    ran[(q_bits, log2n, load, share)] = (plan["path"],
+                                                         plan["load"])
+                    if plan["path"] != qf.contains_mode(spec, n,
+                                                        plan["load"], smem):
+                        wrong.append((q_bits, log2n, load, share,
+                                      plan["path"], "not the rule's"))
+                    got["low"] = qf._launch_contains(spec, table, keys,
+                                                     "binned", **low)
+                    for p in ("binned", "rule", "low"):
+                        errs["quotient_contains"] = max(
+                            errs["quotient_contains"],
+                            max_err(got[p], got["walk"]))
+                    if log2n == QUOTIENT_RULE_LOG2N[0]:
+                        errs["quotient_contains"] = max(
+                            errs["quotient_contains"],
+                            max_err(got["walk"], qf.contains_plain(
+                                spec, table, keys)))
+                    checked += 4
+                    del got
+                    label = f"quotient rule q{q_bits} {load} 2^{log2n} {share}"
+                    reps = rule_reps(fns)
+                    t = time_turns(fns, label, reps, 3, lead="binned")
+                    best = min(("walk", "binned"), key=lambda p: t[p])
+                    if t["rule"] > t[best]:
+                        first = (f"3 rounds: {t['rule']:.4f} against "
+                                 f"{best} {t[best]:.4f}")
+                        t = time_turns(fns, label, reps,
+                                       COUNTING_RULE_RETIME_ROUNDS,
+                                       lead="binned")
+                        best = min(("walk", "binned"), key=lambda p: t[p])
+                        retimed.append(
+                            f"q{q_bits}/2^{log2n} {load}/{share} "
+                            f"{t['rule']:.4f} against {best} "
+                            f"{t[best]:.4f} ({first})")
+                    times.setdefault((q_bits, log2n), {})[(load, share)] = t
+                    if (t["rule"] > SPREAD[f"{label} {best}"][1]
+                            and t["rule"] > 1.05 * t[best]
+                            and t["rule"] - t[best] > 0.005):
+                        wrong.append((q_bits, log2n, load, share,
+                                      round(t["rule"], 4), best,
+                                      round(t[best], 4)))
+            del members, table
+            torch.cuda.empty_cache()
+    del probes
+    for (q_bits, log2n), t in times.items():
+        rows.append(f"q{q_bits}/2^{log2n} " + "; ".join(
+            f"{load}/{share} " + "/".join(
+                f"{v[p]:.4f}" for p in QUOTIENT_RULE_PATHS)
+            + f" {ran[(q_bits, log2n, load, share)][0]}"
+            for (load, share), v in t.items()))
+    sampled = sorted({(q, load, round(x, 4))
+                      for (q, _, load, _), (_, x) in ran.items()})
+    print(f"quotient contains rule sweep [{card}] (q / keys: at each load / "
+          f"member share walk / binned / the rule's ms, median of 3 rounds "
+          f"in turns, and the rule's path): " + ", ".join(rows)
+          + "; sampled loads (q, load, sample): " + ", ".join(
+              f"q{q} {load} {x}" for q, load, x in sampled))
+    print(f"quotient contains rule: timed again over "
+          f"{COUNTING_RULE_RETIME_ROUNDS} rounds: "
+          + ("; ".join(retimed) if retimed else "none"))
+    if wrong:
+        raise AssertionError(f"quotient contains rule: slower than the "
+                             f"faster path beyond the rounds' spread by more "
+                             f"than 5 % and 5 us, or not the rule's path, at "
+                             f"(q, log2 n, load, share, ...) {wrong}")
+    print(f"quotient contains rule: at each of {len(rows) * 6} points the "
+          f"rule's path is no slower than the faster path beyond the "
+          f"rounds' spread by more than 5 % and 5 us, and it is the rule's "
+          f"at the sampled load; {checked} kernel results equal (every path, "
+          f"binned at smaller bins and half windows, the walk against the "
+          f"plain version at 2^{QUOTIENT_RULE_LOG2N[0]} keys)")
 
 
 def profile_cbf(card: str):
@@ -5075,6 +5447,29 @@ def profile_cbf(card: str):
                  + f"; device total {sum(r[0] for r in rows) / 1e3:.4f} ms"
                  if rows else "no device time recorded (not measured)"))
         del words, keys
+        torch.cuda.empty_cache()
+
+
+def profile_cuckoo(card: str):
+    """``--profile``: device time by kernel of the cuckoo contains in the
+    two cells' shapes (u16 x 4; 16 MiB with 7,549,747 keys, 512 MiB with
+    241,591,910 keys, tables at load 0.9 from ``cuckoo_table_at``)."""
+    for cell, n_buckets, n in (("L2", 1 << 21, 7549747),
+                               ("DRAM", 1 << 26, 241591910)):
+        spec = cuckoo_spec(16, 4, n_buckets)
+        members = gen_keys(min(n, 1 << 24), 852)
+        table = cuckoo_table_at(spec, 0.9, members, 853)
+        keys = mixed_keys(members, members, n, 1.0)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        ckoo.contains_vmem(spec, table, keys)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            ckoo.contains_vmem(spec, table, keys)
+            torch.cuda.synchronize()
+        print(f"profile cuckoo {cell} contains [{card}] ({spec}, load 0.9, "
+              f"{n} keys): {profile_rows(prof)}", flush=True)
+        del members, table, keys
         torch.cuda.empty_cache()
 
 
@@ -5131,9 +5526,10 @@ def profile_quotient(card: str):
     """``--profile``: device time by kernel (``torch.profiler``) of one
     update and one contains in each quotient cell's shapes (L2: q23, a
     2^22-key batch; DRAM-side: q26, a 2^24-key batch): an add and a remove
-    on the table at load 0.5, a table pass and a cluster walk of 2^22 keys,
-    the merge of that table with one of a batch and its resize up: the
-    update's eleven kernels by name."""
+    on the table at load 0.5, the binned contains, the cluster walk and
+    the rule's path on 2^22 keys and the rule's path on every stored key,
+    at load 0.5 and after filling to load 0.9, the merge of that table with
+    one of a batch and its resize up: each kernel by name."""
     for cell, n, batch_n in (("L2", 1 << 22, 1 << 22),
                              ("DRAM", 1 << 25, 1 << 24)):
         spec = Q.spec_for_n(n)
@@ -5144,14 +5540,24 @@ def profile_quotient(card: str):
         batch, probes = gen_keys(batch_n, 851), keys[:SUBSET]
         half = ops.quotient_add(spec, Q.init(spec, "cuda"),
                                 keys[:batch_n])[0]
+        full, more = table.clone(), gen_keys(int(spec.n_slots * 0.4), 854)
+        for chunk in batches(more, batch_n):
+            ops.quotient_add(spec, full, chunk, inplace=True)
+        stored = torch.cat([keys, more])
         calls = {"add": lambda: qf.add_vmem(spec, table.clone(), batch,
                                             None),
                  "remove": lambda: qf.remove_vmem(spec, table.clone(),
                                                   keys[:batch_n], None),
-                 "contains pass 2^22": lambda: qf._launch_contains(
-                     spec, table, probes, "pass"),
+                 "contains binned 2^22": lambda: qf._launch_contains(
+                     spec, table, probes, "binned"),
                  "contains walk 2^22": lambda: qf._launch_contains(
                      spec, table, probes, "walk"),
+                 "contains rule 2^22": lambda: qf.contains_vmem(
+                     spec, table, probes),
+                 "contains every key": lambda: qf.contains_vmem(spec, table,
+                                                                keys),
+                 "contains every key at load 0.9": lambda: qf.contains_vmem(
+                     spec, full, stored),
                  "merge": lambda: qf.merge_vmem(spec, table, half),
                  "resize up": lambda: qf.resize_vmem(
                      spec, table, Q.spec_for_resize(spec, 2 * spec.m_bits))}
@@ -5175,7 +5581,7 @@ def profile_quotient(card: str):
                      + f"; device total {total / 1e3:.4f} ms" if rows
                      else "no device time recorded (not measured)"),
                   flush=True)
-        del keys, table, batch, probes, half
+        del keys, table, batch, probes, half, full, more, stored
         torch.cuda.empty_cache()
 
 
@@ -5594,6 +6000,45 @@ def phase_tuning_main(card: str, errs: dict, out: dict, records: dict,
             "speed_of_light": sol}
 
 
+def quotient_phases(card: str, lap) -> dict:
+    """Phases 3f and 4f and the quotient contains' rule sweep; returns the
+    two kernel records."""
+    qerrs = {"quotient_contains": 0, "quotient_update": 0}
+    phase_quotient_kernels(qerrs)
+    lap("phase 3f")
+    qcells, qlaunches = {}, {}
+    phase_quotient_main("L2", 1 << 22, 1 << 22, qerrs, qcells, qlaunches,
+                        card)
+    phase_quotient_main("DRAM", 1 << 25, 1 << 24, qerrs, qcells, qlaunches,
+                        card)
+    lap("phase 4f")
+    phase_quotient_rule(card, qerrs)
+    lap("quotient contains rule")
+    return quotient_records(qcells, qerrs, qlaunches)
+
+
+def contains_phases(card: str, lap, laps: list) -> int:
+    """``--contains``: the phases of the quotient and cuckoo filters alone
+    (3f, 4f and the quotient contains' rule sweep; 3e cuckoo and 4e cuckoo
+    in both cells), for work on those kernels; prints the two contains
+    records."""
+    qrecords = quotient_phases(card, lap)
+    kerrs = {"cuckoo_contains": 0, "cuckoo_update": 0}
+    phase_cuckoo_kernels(kerrs)
+    lap("phase 3e cuckoo")
+    krecords, klaunches = {}, {}
+    phase_cuckoo_main(kerrs, krecords, klaunches, card)
+    phase_cuckoo_dram(kerrs, krecords, card,
+                      krecords["cuckoo_update"]["main_add_more_ms"])
+    krecords["cuckoo_contains"]["max_abs_err"] = kerrs["cuckoo_contains"]
+    lap("phase 4e cuckoo")
+    print(f"smoke phases: {', '.join(laps)}")
+    print(json.dumps({"kernels": [krecords["cuckoo_contains"],
+                                  qrecords["quotient_contains"]]},
+                     default=str))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5621,8 +6066,11 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         profile_cbf(card)
         profile_quotient(card)
+        profile_cuckoo(card)
         profile_ring(card)
         return 0
+    if sys.argv[1:] == ["--contains"]:
+        return contains_phases(card, lap, laps)
     errs = {k: 0 for k in sbf.LAUNCHES}
     cerrs = {k: 0 for k in cnt.LAUNCHES}
     berrs = {k: 0 for k in cbf.LAUNCHES}
@@ -5699,16 +6147,7 @@ def main() -> int:
     krecords["cuckoo_update"]["max_abs_err"] = kerrs["cuckoo_update"]
     krecords["cuckoo_contains"]["max_abs_err"] = kerrs["cuckoo_contains"]
     lap("phase 4e cuckoo DRAM")
-    qerrs = {"quotient_contains": 0, "quotient_update": 0}
-    phase_quotient_kernels(qerrs)
-    lap("phase 3f")
-    qcells, qlaunches = {}, {}
-    phase_quotient_main("L2", 1 << 22, 1 << 22, qerrs, qcells, qlaunches,
-                        card)
-    phase_quotient_main("DRAM", 1 << 25, 1 << 24, qerrs, qcells, qlaunches,
-                        card)
-    qrecords = quotient_records(qcells, qerrs, qlaunches)
-    lap("phase 4f")
+    qrecords = quotient_phases(card, lap)
     gerrs = {k: 0 for k in kc.LAUNCHES}
     phase_calibrate_kernels(gerrs)
     lap("phase 3g")

@@ -105,10 +105,14 @@ ENTRY_POINTS = {
     # the dependent-load latency probe behind the cuckoo update's floor
     "cuckoo_chase": ("cuckoo", [_vp, _ll, _vp, _vp]),
     # geometry as (log2 n_slots, r_bits, slot_bits, fingerprint salt);
-    # the contains' scratch as (per-slot int32, scan sums, their count,
-    # scalars)
+    # then (path, workspace, its bytes, log2 quotients a bin, window words,
+    # keys a batch, chunks, stream)
     "quotient_contains": ("quotient", [_vp, _vp, _vp, _ll, _i, _i, _i, _u32,
-                                       _i, _vp, _vp, _ll, _vp, _vp]),
+                                       _i, _vp, _ll, _i, _i, _ll, _i, _vp]),
+    "quotient_binned_chunks": ("quotient", [_i, _i]),
+    # the load sample behind the contains' path rule: (table, log2 n_slots,
+    # slot_bits, 2 u64 out, stream)
+    "quotient_load_sample": ("quotient", [_vp, _i, _i, _vp, _vp]),
     # the sorted-stream update: (..., op, workspace, its bytes, tile_slots,
     # merge_tile, bin_bits, bin_cap, key_chunks, stream); merge and resize
     # likewise

@@ -297,23 +297,16 @@ def free_device_bytes(device: torch.device) -> int:
             - torch.cuda.memory_allocated(device))
 
 
-def _binned_slots(spec: FilterSpec, keys: torch.Tensor, bin_bits: int,
-                  chunks: int, sector: int = SECTOR_SLOTS) -> tuple:
-    """One internal batch's slots as the kernels lay them out, for the CPU
-    models: each key's k positions counted by (bin, chunk) (stage 1), each
-    bin's slice the chunks' runs in chunk order, each padded to a whole
-    sector of ``sector`` slots (2, 3), and each position's offset inside its
-    bin (and, for the contains, its key's index) written into
-    its chunk's run in key order, ``FILLER`` into the padding (4; the
-    kernels' order inside a run differs, and neither OR nor a test cares).
-    Returns (bin, offset, key index) of the slots that are not padding."""
-    log2_bin, n_bins = bin_geometry(spec.m_bits, bin_bits)
-    h1, h2 = H.hash_keys(keys)
-    nb = h1.shape[0]
-    pos = V.cbf_positions(spec, h1, h2)                       # (nb, k)
-    bounds = torch.tensor([c * nb // chunks for c in range(chunks + 1)])
-    chunk = torch.searchsorted(bounds, torch.arange(nb), right=True) - 1
-    cell = ((pos >> bin_bits) * chunks + chunk[:, None]).reshape(-1)
+def slot_runs_model(cell: torch.Tensor, n_bins: int, chunks: int,
+                    sector: int) -> tuple:
+    """Where the binned kernels' scatter puts each element, for the CPU
+    models (the cbf, ring and quotient binned paths): elements
+    counted by ``cell`` = bin * chunks + chunk (stage 1); each bin's slice
+    the chunks' runs in chunk order, each padded to a whole sector of
+    ``sector`` slots (2, 3); each element's slot in its chunk's run in
+    element order (4; the kernels' order inside a run differs, and no
+    stage after it cares). Returns (slot of each element, the slots in
+    all, each slot's bin)."""
     counts = torch.bincount(cell, minlength=n_bins * chunks)
     runs = (counts + sector - 1) // sector * sector
     run_at = torch.cumsum(runs, 0) - runs                # bin-major, chunks
@@ -322,16 +315,45 @@ def _binned_slots(spec: FilterSpec, keys: torch.Tensor, bin_bits: int,
     order = torch.argsort(cell, stable=True)             # key order in a run
     rank = torch.arange(cell.numel()) - (torch.cumsum(counts, 0)
                                          - counts)[cell[order]]
-    slot = run_at[cell[order]] + rank
-    work = torch.full((int(lengths.sum()),), FILLER, dtype=torch.int64)
-    work[slot] = pos.reshape(-1)[order] & ((1 << log2_bin) - 1)
-    key = torch.zeros_like(work)
-    key[slot] = order // spec.k
-    live = work != FILLER
-    if int(live.sum()) != cell.numel() or not torch.equal(
-            run_at.reshape(n_bins, chunks)[:, 0], starts):
+    slot = torch.empty_like(cell)
+    slot[order] = run_at[cell[order]] + rank
+    if not torch.equal(run_at.reshape(n_bins, chunks)[:, 0], starts):
         raise AssertionError("the runs do not tile the bins' slices")
-    owner = torch.repeat_interleave(torch.arange(n_bins), lengths)
+    total = int(lengths.sum())
+    if cell.numel() and (int(slot.max()) >= total
+                         or torch.unique(slot).numel() != cell.numel()):
+        raise AssertionError("two elements share a slot")
+    return slot, total, torch.repeat_interleave(torch.arange(n_bins),
+                                                lengths)
+
+
+def chunk_of_model(n: int, chunks: int) -> torch.Tensor:
+    """(n,) the chunk (CTA of the count and scatter kernels) of each key:
+    chunk c takes keys [c n / chunks, (c + 1) n / chunks)."""
+    bounds = torch.tensor([c * n // chunks for c in range(chunks + 1)])
+    return torch.searchsorted(bounds, torch.arange(n), right=True) - 1
+
+
+def _binned_slots(spec: FilterSpec, keys: torch.Tensor, bin_bits: int,
+                  chunks: int, sector: int = SECTOR_SLOTS) -> tuple:
+    """One internal batch's slots as the kernels lay them out, for the CPU
+    models (:func:`slot_runs_model`; each key's k positions are the
+    elements): each position's offset inside its bin (and, for the
+    contains, its key's index) written into its chunk's run, ``FILLER``
+    into the padding. Returns (bin, offset, key index) of the slots that
+    are not padding."""
+    log2_bin, n_bins = bin_geometry(spec.m_bits, bin_bits)
+    h1, h2 = H.hash_keys(keys)
+    nb = h1.shape[0]
+    pos = V.cbf_positions(spec, h1, h2)                       # (nb, k)
+    chunk = chunk_of_model(nb, chunks)
+    cell = ((pos >> bin_bits) * chunks + chunk[:, None]).reshape(-1)
+    slot, total, owner = slot_runs_model(cell, n_bins, chunks, sector)
+    work = torch.full((total,), FILLER, dtype=torch.int64)
+    work[slot] = pos.reshape(-1) & ((1 << log2_bin) - 1)
+    key = torch.zeros_like(work)
+    key[slot] = torch.arange(cell.numel()) // spec.k
+    live = work != FILLER
     return owner[live], work[live], key[live]
 
 

@@ -168,12 +168,14 @@ WORKSPACE_MARGIN = 1 << 28
 # in turns on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 4b: B = 256,
 # 2^20-2^29 counter bytes x 2^16-2^26 keys; PERF.md). Near 2^19 keys a
 # binned call's time follows the host's speed (five launches against
-# one-pass's one), so there the table keeps the path that lost least in 12
-# runs of tools/counting_rule_turns.py: binned at 2^20-2^21 bytes, where
-# one-pass lost by more than 10 % in 13 of 24 runs and binned in none (at
-# 2^22 bytes each lost in 3 of 12: one-pass stays).
+# one-pass's one): with the launch's host work cut (sbf.raw_stream,
+# sbf.device_scope) binned took 0.066-0.106 ms there against one-pass's
+# 0.088-0.116 at 2^20-2^23 bytes in four runs (three of the sweep, one of
+# tools/launch_host_cost.py); at 2^23 bytes one-pass lost by 18 % on a
+# fast host and binned by 12 % on a slow one, and binned lost less often;
+# at 2^24 bytes one-pass stays.
 BINNED_KEYS = {20: (1 << 19, 1 << 21), 21: (1 << 19, 1 << 21),
-               22: (1 << 20, 1 << 22), 23: (1 << 20, 1 << 23),
+               22: (1 << 19, 1 << 22), 23: (1 << 19, 1 << 23),
                24: (1 << 20, 1 << 24), 25: (1 << 20, 1 << 26),
                26: (1 << 21, None), 27: (1 << 21, None),
                28: (1 << 22, None), 29: (1 << 23, None)}
@@ -684,7 +686,7 @@ def _valid_u8(valid: Optional[torch.Tensor], keys: torch.Tensor):
 
 
 def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    return sbf.raw_stream(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -782,7 +784,7 @@ def _launch_update(name: str, spec, filt, keys, valid, op: str,
             None if valid is None else valid.data_ptr(), filt.data_ptr(),
             _salts(device).data_ptr())
     lib = library()
-    with torch.cuda.device(device):
+    with sbf.device_scope(device):
         if path == "one-pass":
             plan = update_plan(spec, n, path, members)
             err = lib.counting_update(*ptrs, n, spec.storage_words,
@@ -811,7 +813,7 @@ def _launch_contains(name: str, spec, filt, keys, geo: ContainsGeometry,
     if n == 0:
         return out
     lib = library()
-    with torch.cuda.device(keys.device):
+    with sbf.device_scope(keys.device):
         err = lib.counting_contains(
             keys.data_ptr(), None if member is None else member.data_ptr(),
             filt.data_ptr(), out.data_ptr(), _salts(keys.device).data_ptr(),

@@ -26,7 +26,12 @@
 //   ORed in, and a primary hit stays a hit), so one kernel serves coop =
 //   "none" and "subtile"; skipping the second load per key is what the
 //   TPU's tile-wide ballot approximates. Bound: one or two random bucket
-//   reads a key, from L2 or DRAM.
+//   reads a key, from L2 or DRAM. Measured slower on the H100 and not
+//   kept (PERF.md, row 20): both buckets' loads issued at once, with one
+//   or two keys a thread (they read the alternate bucket's sector for the
+//   two thirds of the keys that hit their primary one), and a binned
+//   contains that tests bins of primary buckets in shared memory (it reads
+//   the table once an internal batch and a random sector a primary miss).
 //
 // * The update. The words depend on the order of the inserts (which slot is
 //   free, which victim a kick evicts), and the reference order is

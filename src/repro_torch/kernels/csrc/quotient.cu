@@ -2,7 +2,10 @@
 // sorted-stream bulk add / remove, merge and resize.
 //
 // Replaces the Pallas entry points of repro/kernels/quotientfilter.py:
-//   quotient_contains_kernel<SB>   <- contains_vmem (_contains_kernel, which
+//   quotient_contains_kernel<SB>, or the binned contains (qf_tile_stats,
+//   qf_scan_tables, bin8_count_kernel, bin_column_kernel, bin_scan_kernel,
+//   bin8_scatter_kernel, qf_contains_bin<SB>)
+//                                  <- contains_vmem (_contains_kernel, which
 //                          runs core/quotient.py quotient_contains or
 //                          quotient_contains_coop)
 //   quotient_update (the kernels below, one stream of launches)
@@ -29,14 +32,48 @@
 //   TPU's tile-wide early exit has nothing to skip here. Bound: the bytes of
 //   the keys and results, and the 32-byte sectors of the cluster each walk
 //   reads (at most the table once).
-// * the contains' table pass: slots_kernel (the first empty slot and the
-//   load), a multi-block scan of (run start, occupied) pairs from just past
-//   that slot and old_runs_kernel give every quotient's run start once a
-//   call; lookup_kernel then compares a key's remainder along its own run,
-//   with no walk. The walk's cost grows with the cluster length, as 1 / (1 -
-//   load)^2, the pass's with the table: for a batch of at least n_slots / 16
-//   keys, choose_kernel picks one from the load, on the card, and the other
-//   path's launches return at once.
+// * the binned contains (row 22's redesign): for a batch large enough, the
+//   keys are grouped by bin of 2^b quotients and each bin tests its keys
+//   against the slots that hold its runs, staged in shared memory; no key
+//   walks and nothing is indexed by slot. The reference defines the result
+//   by ranks (core/quotient.py): past the first empty slot a0 no cluster
+//   wraps, and a key's run is the run whose rank equals its home's occupied
+//   rank. In absolute order the home of occupied rank o owns the run of
+//   rank (o + W) mod D (D runs, W = run starts less occupied slots before
+//   a0), so a bin [Q0, Q0 + B) whose homes have occupied ranks [k0, k1)
+//   owns the runs (k0 + W) ... (k1 - 1 + W) mod D, and the first
+//   skip = (k0 + W - R(Q0)) mod D run starts at or past Q0 belong to runs
+//   homed before it (R(Q0): run starts before Q0). Per internal batch of at
+//   most `batch` keys:
+//   1-2. qf_tile_stats, qf_scan_tables (the update's stages 1-2, once a
+//      call, with a tile a bin): each bin's exclusive counts of run starts
+//      and occupied slots (k0 and R(Q0) are read off), D and W;
+//   3-6. bin8_count_kernel, bin_column_kernel, bin_scan_kernel,
+//      bin8_scatter_kernel (bin_common.cuh): each key's 8-byte slot
+//      (fingerprint << 32 | index in the batch) into its bin's slice, each
+//      bin's open sector staged in shared memory;
+//   7. qf_contains_bin<SB>: one CTA a bin copies `window` words of the table
+//      from the bin's first slot into shared memory (16-byte cp.async),
+//      then scans the window a word (32 / SB slots) a thread, 512 words a
+//      step: warp shuffles gather the occupied bits of [Q0, Q0 + B), and a
+//      warp scan and the warps' counts rank each run start from Q0 on;
+//      the (skip + j)-th is the start of the bin's j-th run (one slot a
+//      thread, with ballots, took 2 us a step: 48 steps a bin at q26). It
+//      stops once the bin's homes are
+//      counted and all their runs found. A key's home gives its occupied
+//      rank j (a popcount over the bits), its run starts at run_start[j],
+//      and its remainder is compared along the run (sorted). A slot past
+//      the window (long clusters: a load near 1, or a run that starts past
+//      the window) is read through __ldg, so the result never depends on
+//      the window. Bound: per batch the keys read twice, 8 B a slot written
+//      and read, the table's windows read once, the results written once;
+//      the tile pass reads the table once a call.
+//   The cluster walk's cost grows with the batch and the load (1 / (1 -
+//   load)^2 a key), the binned contains' with the batch and the table: the
+//   host rule (quotientfilter.choose_contains_path) picks one from the
+//   batch, the table and its load. qf_load_sample (quotient_load_sample)
+//   counts the slots in use of 128 runs of at most 2048 slots spread over
+//   the table; the host reads that count back once a table state.
 // * the update: the words are a function of the stored fingerprint
 //   multiset, and the flags of the batch order only (an add admits the
 //   first room = n_slots - 1 - stored valid keys; a remove finds a key when
@@ -113,13 +150,9 @@
 #include <cstring>
 #include <type_traits>
 
-#include "bloom_common.cuh"
+#include "bin_common.cuh"
 
 namespace {
-
-constexpr int kScanThreads = 512;
-constexpr int kScanItems = 8;
-constexpr long long kScanTile = kScanThreads * kScanItems;
 
 struct Geometry {
   uint32_t mask;       // n_slots - 1
@@ -154,11 +187,6 @@ __device__ __forceinline__ uint32_t rem_mask(const Geometry& g) {
   return (1u << g.r_bits) - 1u;
 }
 
-// a launch with a gate runs only while the flag it points to is set
-__device__ __forceinline__ bool closed(const unsigned long long* gate) {
-  return gate != nullptr && *gate == 0;
-}
-
 // rem is in the run that starts at slot s (remainders ascending)
 template <int SB>
 __device__ __forceinline__ bool run_holds(const uint32_t* __restrict__ t,
@@ -179,16 +207,12 @@ __device__ __forceinline__ bool run_holds(const uint32_t* __restrict__ t,
 // contains
 // ---------------------------------------------------------------------------
 
+// the cluster walk of one key
 template <int SB>
-__global__ void __launch_bounds__(kThreads)
-    quotient_contains_kernel(const uint2* __restrict__ keys,
-                             const uint32_t* __restrict__ table,
-                             bool* __restrict__ out, int64_t n, Geometry g,
-                             const unsigned long long* gate) {
+__device__ __forceinline__ bool walk_holds(const uint32_t* __restrict__ table,
+                                           uint2 key, const Geometry& g) {
   using L = Lanes<SB>;
-  const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n || closed(gate)) return;
-  const uint32_t fp = fingerprint(keys[i], g);
+  const uint32_t fp = fingerprint(key, g);
   const uint32_t q = fp >> g.r_bits, rem = fp & rem_mask(g);
   bool hit = false;
   if (L::get(table, q) & L::kOcc) {
@@ -205,315 +229,17 @@ __global__ void __launch_bounds__(kThreads)
     }
     hit = run_holds<SB>(table, s, rem, g);
   }
-  out[i] = hit;
+  return hit;
 }
 
-// ---------------------------------------------------------------------------
-// The contains' table pass: multi-block scans (reduce each tile, scan the
-// tile totals in one block, scan each tile again from its offset). A Src
-// functor gives element i, a Dst functor takes (i, exclusive prefix,
-// inclusive prefix).
-// ---------------------------------------------------------------------------
-
-template <class T>
-__device__ __forceinline__ T shfl_up8(T v, int d) {
-  static_assert(sizeof(T) == 8, "scan values are 8 bytes");
-  long long b;
-  memcpy(&b, &v, 8);
-  b = __shfl_up_sync(0xFFFFFFFFu, b, d);
-  T r;
-  memcpy(&r, &b, 8);
-  return r;
-}
-
-struct SumOp {
-  using T = long long;
-  __device__ static T identity() { return 0; }
-  __device__ static T combine(T a, T b) { return a + b; }
-};
-
-// Thread t holds items t * kScanItems ... of the block's tile; each becomes
-// the combine of the tile's items before it. Returns the tile's total.
-template <class Op>
-__device__ typename Op::T block_scan(typename Op::T (&x)[kScanItems]) {
-  using T = typename Op::T;
-  constexpr int kWarps = kScanThreads / 32;
-  __shared__ T warp_total[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T acc = Op::identity();
-#pragma unroll
-  for (int k = 0; k < kScanItems; ++k) {
-    const T v = x[k];
-    x[k] = acc;
-    acc = Op::combine(acc, v);
-  }
-  T inc = acc;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const T y = shfl_up8(inc, d);
-    if (lane >= d) inc = Op::combine(y, inc);
-  }
-  T lane_excl = shfl_up8(inc, 1);
-  if (lane == 0) lane_excl = Op::identity();
-  if (lane == 31) warp_total[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    T w = lane < kWarps ? warp_total[lane] : Op::identity();
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const T y = shfl_up8(w, d);
-      if (lane >= d) w = Op::combine(y, w);
-    }
-    if (lane < kWarps) warp_total[lane] = w;
-  }
-  __syncthreads();
-  const T before = Op::combine(
-      warp == 0 ? Op::identity() : warp_total[warp - 1], lane_excl);
-  const T total = warp_total[kWarps - 1];
-  __syncthreads();                         // warp_total is used again
-#pragma unroll
-  for (int k = 0; k < kScanItems; ++k) x[k] = Op::combine(before, x[k]);
-  return total;
-}
-
-template <class Op, class Src>
-__global__ void __launch_bounds__(kScanThreads)
-    scan_reduce_kernel(Src src, long long n, typename Op::T* aggs,
-                       const unsigned long long* gate) {
-  using T = typename Op::T;
-  if (closed(gate)) return;
-  const long long base = (long long)blockIdx.x * kScanTile +
-                         (long long)threadIdx.x * kScanItems;
-  T x[kScanItems];
-#pragma unroll
-  for (int k = 0; k < kScanItems; ++k)
-    x[k] = base + k < n ? src(base + k) : Op::identity();
-  const T total = block_scan<Op>(x);
-  if (threadIdx.x == 0) aggs[blockIdx.x] = total;
-}
-
-template <class Op>
-__global__ void __launch_bounds__(kScanThreads)
-    scan_aggs_kernel(typename Op::T* aggs, long long nb,
-                     const unsigned long long* gate) {
-  using T = typename Op::T;
-  if (closed(gate)) return;
-  T carry = Op::identity();
-  for (long long c = 0; c < nb; c += kScanTile) {
-    const long long base = c + (long long)threadIdx.x * kScanItems;
-    T x[kScanItems];
-#pragma unroll
-    for (int k = 0; k < kScanItems; ++k)
-      x[k] = base + k < nb ? aggs[base + k] : Op::identity();
-    const T total = block_scan<Op>(x);
-#pragma unroll
-    for (int k = 0; k < kScanItems; ++k)
-      if (base + k < nb) aggs[base + k] = Op::combine(carry, x[k]);
-    carry = Op::combine(carry, total);
-  }
-}
-
-template <class Op, class Src, class Dst>
-__global__ void __launch_bounds__(kScanThreads)
-    scan_apply_kernel(Src src, Dst dst, long long n,
-                      const typename Op::T* aggs,
-                      const unsigned long long* gate) {
-  using T = typename Op::T;
-  if (closed(gate)) return;
-  const long long base = (long long)blockIdx.x * kScanTile +
-                         (long long)threadIdx.x * kScanItems;
-  T x[kScanItems], raw[kScanItems];
-#pragma unroll
-  for (int k = 0; k < kScanItems; ++k)
-    raw[k] = x[k] = base + k < n ? src(base + k) : Op::identity();
-  block_scan<Op>(x);
-  const T off = aggs[blockIdx.x];
-#pragma unroll
-  for (int k = 0; k < kScanItems; ++k) {
-    if (base + k < n) {
-      const T e = Op::combine(off, x[k]);
-      dst(base + k, e, Op::combine(e, raw[k]));
-    }
-  }
-}
-
-long long scan_tiles(long long n) { return (n + kScanTile - 1) / kScanTile; }
-
-template <class Op, class Src, class Dst>
-void run_scan(Src src, Dst dst, long long n, typename Op::T* aggs,
-              cudaStream_t st, const unsigned long long* gate = nullptr) {
-  const long long nb = scan_tiles(n);
-  scan_reduce_kernel<Op><<<unsigned(nb), kScanThreads, 0, st>>>(src, n, aggs,
-                                                                 gate);
-  scan_aggs_kernel<Op><<<1, kScanThreads, 0, st>>>(aggs, nb, gate);
-  scan_apply_kernel<Op><<<unsigned(nb), kScanThreads, 0, st>>>(src, dst, n,
-                                                                aggs, gate);
-}
-
-// scal[0]: the table's first empty slot; scal[1]: its in-use slots;
-// scal[3] / scal[4]: the table pass / cluster walk chosen
-__global__ void init_scalars_kernel(unsigned long long* scal,
-                                    unsigned long long n) {
-  scal[0] = n;
-  scal[1] = 0;
-}
-
-// The contains' choice, on the card (no host sync): the table pass when
-//   n_keys * (walk(load) - lookup) > decode * n_slots,
-// walk(load) = kWalkNs / (1 - load)^2 a key (a linear-probing cluster
-// grows as 1 / (1 - load)^2), from the load that slots_kernel counted.
-// Device ns measured on an H100 80GB HBM3 at 700 W (chip_smoke.py
-// --profile and phase 4f: walks of 0.029 ns a key at load 0.5 and 0.60-0.67
-// at 0.9, lookups of 0.078 ns a key, decodes of 0.023 ns a slot).
-constexpr double kWalkNs = 0.0065;
-constexpr double kLookupNs = 0.078;
-constexpr double kDecodeNs = 0.023;
-
-__global__ void choose_kernel(unsigned long long* scal, long long n_keys,
-                              long long n_slots) {
-  const double free = fmax(1.0 - double(scal[1]) / double(n_slots), 1e-3);
-  const bool pass = double(n_keys) * (kWalkNs / (free * free) - kLookupNs) >
-                    kDecodeNs * double(n_slots);
-  scal[3] = pass;
-  scal[4] = !pass;
-}
-
-// the first empty slot, 0 when there is none (jnp.argmax of all False)
-__device__ __forceinline__ uint32_t first_empty(const unsigned long long* scal,
-                                                uint32_t mask) {
-  const unsigned long long a = scal[0];
-  return a > mask ? 0u : uint32_t(a);
-}
-
-__device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    const unsigned long long o = __shfl_down_sync(0xFFFFFFFFu, v, d);
-    v = o < v ? o : v;
-  }
-  return v;
-}
-
-__device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, d);
-  return v;
-}
-
+// one thread a key
 template <int SB>
 __global__ void __launch_bounds__(kThreads)
-    slots_kernel(const uint32_t* __restrict__ t, uint32_t mask,
-                 unsigned long long* scal) {
-  using L = Lanes<SB>;
-  __shared__ unsigned long long smin[kThreads / 32], ssum[kThreads / 32];
-  unsigned long long first = ~0ull, used = 0;
-  const unsigned long long words = ((unsigned long long)mask + 1) / L::SPW;
-  for (unsigned long long w = (unsigned long long)blockIdx.x * kThreads +
-                              threadIdx.x;
-       w < words; w += (unsigned long long)gridDim.x * kThreads) {
-    const uint32_t word = __ldg(t + w);            // a word's lanes at once
-#pragma unroll
-    for (int j = 0; j < L::SPW; ++j) {
-      if ((word >> (SB * j)) & L::kMeta) {
-        ++used;
-      } else if (w * L::SPW + j < first) {
-        first = w * L::SPW + j;
-      }
-    }
-  }
-  first = warp_min(first);
-  used = warp_sum(used);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    smin[warp] = first;
-    ssum[warp] = used;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    first = lane < kThreads / 32 ? smin[lane] : ~0ull;
-    used = lane < kThreads / 32 ? ssum[lane] : 0;
-    first = warp_min(first);
-    used = warp_sum(used);
-    if (lane == 0) {
-      atomicMin(scal, first);
-      atomicAdd(scal + 1, used);
-    }
-  }
-}
-
-// rotated index i (from just past the first empty slot): (run start,
-// occupied) as (1 << 32, 1) counts
-template <int SB>
-struct DecodeSrc {
-  const uint32_t* t;
-  const unsigned long long* scal;
-  uint32_t mask;
-  __device__ long long operator()(long long i) const {
-    using L = Lanes<SB>;
-    const uint32_t s = (uint32_t(i) + first_empty(scal, mask) + 1u) & mask;
-    const uint32_t l = L::get(t, s);
-    const bool run_start = (l & L::kMeta) && !(l & L::kCont);
-    return ((long long)run_start << 32) | (long long)((l & L::kOcc) != 0);
-  }
-};
-
-template <int SB>
-struct DecodeDst {
-  const uint32_t* t;
-  const unsigned long long* scal;
-  uint32_t mask;
-  int* start_of_rank;    // run k -> its rotated start
-  int* rank_of_q;        // occupied q -> k
-  __device__ void operator()(long long i, long long excl, long long) const {
-    using L = Lanes<SB>;
-    const uint32_t s = (uint32_t(i) + first_empty(scal, mask) + 1u) & mask;
-    const uint32_t l = L::get(t, s);
-    if ((l & L::kMeta) && !(l & L::kCont))
-      start_of_rank[excl >> 32] = int(i);
-    if (l & L::kOcc) rank_of_q[s] = int(excl & 0xFFFFFFFFll);
-  }
-};
-
-// each quotient's old run: its first slot and length (0 when unoccupied);
-// old_start is rank_of_q's storage, read then written by the same thread
-template <int SB>
-__global__ void __launch_bounds__(kThreads)
-    old_runs_kernel(const uint32_t* __restrict__ t, uint32_t mask,
-                    const unsigned long long* scal,
-                    const int* __restrict__ start_of_rank, int* old_start,
-                    int* __restrict__ old_len,
-                    const unsigned long long* gate) {
-  using L = Lanes<SB>;
-  if (closed(gate)) return;        // a capped grid: a closed launch is cheap
-  for (long long q = (long long)blockIdx.x * kThreads + threadIdx.x;
-       q <= mask; q += (long long)gridDim.x * kThreads) {
-    if (!(L::get(t, uint32_t(q)) & L::kOcc)) {
-      old_len[q] = 0;
-      continue;
-    }
-    const uint32_t s0 = (uint32_t(start_of_rank[old_start[q]]) +
-                         first_empty(scal, mask) + 1u) & mask;
-    old_start[q] = int(s0);
-    int len = 1;
-    while (L::get(t, (s0 + uint32_t(len)) & mask) & L::kCont) ++len;
-    old_len[q] = len;
-  }
-}
-
-// the table pass's contains: a key's run starts at run_start[q]
-template <int SB>
-__global__ void __launch_bounds__(kThreads)
-    lookup_kernel(const uint2* __restrict__ keys,
-                  const uint32_t* __restrict__ table,
-                  const int* __restrict__ run_start, bool* __restrict__ out,
-                  int64_t n, Geometry g, const unsigned long long* gate) {
+    quotient_contains_kernel(const uint2* __restrict__ keys,
+                             const uint32_t* __restrict__ table,
+                             bool* __restrict__ out, int64_t n, Geometry g) {
   const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n || closed(gate)) return;
-  const uint32_t fp = fingerprint(keys[i], g);
-  const uint32_t q = fp >> g.r_bits;
-  out[i] = (Lanes<SB>::get(table, q) & Lanes<SB>::kOcc) &&
-           run_holds<SB>(table, uint32_t(__ldg(run_start + q)),
-                         fp & rem_mask(g), g);
+  if (i < n) out[i] = walk_holds<SB>(table, keys[i], g);
 }
 
 #define QF_CHECK()                                   \
@@ -524,64 +250,6 @@ __global__ void __launch_bounds__(kThreads)
 
 unsigned grid_of(long long n) {
   return unsigned((n + kThreads - 1) / kThreads);
-}
-
-// the table pass, step 1: the first empty slot and the stored count
-template <int SB>
-void launch_slots(const uint32_t* table, const Geometry& g,
-                  unsigned long long* scal, cudaStream_t st) {
-  const long long n = (long long)g.mask + 1;
-  const unsigned slot_grid = grid_of(n);
-  init_scalars_kernel<<<1, 1, 0, st>>>(scal, (unsigned long long)n);
-  slots_kernel<SB><<<slot_grid < 1024 ? slot_grid : 1024, kThreads, 0, st>>>(
-      table, g.mask, scal);
-}
-
-// step 2: each quotient's run in `table` (os: first slot, ol: length),
-// from the slot-parallel scan; sr is scratch
-template <int SB>
-int launch_runs(const uint32_t* table, const Geometry& g, int* sr, int* os,
-                int* ol, long long* aggs, unsigned long long* scal,
-                cudaStream_t st, const unsigned long long* gate) {
-  const long long n = (long long)g.mask + 1;
-  run_scan<SumOp>(DecodeSrc<SB>{table, scal, g.mask},
-                  DecodeDst<SB>{table, scal, g.mask, sr, os}, n, aggs, st,
-                  gate);
-  const unsigned grid = grid_of(n) < 8192 ? grid_of(n) : 8192;
-  old_runs_kernel<SB><<<grid, kThreads, 0, st>>>(table, g.mask, scal, sr, os,
-                                                 ol, gate);
-  QF_CHECK();
-  return 0;
-}
-
-enum ContainsMode : int { kWalk = 0, kPass = 1, kAuto = 2 };
-
-// the cluster walk, the table pass, or the choice between them on the card
-template <int SB>
-int launch_contains(const uint2* keys, const uint32_t* table, bool* out,
-                    int64_t n, const Geometry& g, int mode, int* ws_slots,
-                    long long* aggs, unsigned long long* scal,
-                    cudaStream_t st) {
-  const long long slots = (long long)g.mask + 1;
-  const unsigned long long* walk_gate = mode == kAuto ? scal + 4 : nullptr;
-  const unsigned long long* pass_gate = mode == kAuto ? scal + 3 : nullptr;
-  if (mode != kWalk) {
-    launch_slots<SB>(table, g, scal, st);
-    if (mode == kAuto) choose_kernel<<<1, 1, 0, st>>>(scal, n, slots);
-  }
-  if (mode != kPass)
-    quotient_contains_kernel<SB><<<grid_of(n), kThreads, 0, st>>>(
-        keys, table, out, n, g, walk_gate);
-  if (mode != kWalk) {
-    int* const os = ws_slots + slots;
-    const int err = launch_runs<SB>(table, g, ws_slots, os,
-                                    ws_slots + 2 * slots, aggs, scal, st,
-                                    pass_gate);
-    if (err) return err;
-    lookup_kernel<SB><<<grid_of(n), kThreads, 0, st>>>(keys, table, os, out,
-                                                       n, g, pass_gate);
-  }
-  return int(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -731,13 +399,29 @@ __global__ void __launch_bounds__(kTileThreads)
   }
   const long long base = (long long)blockIdx.x * ts;
   unsigned long long packed = 0, first = kNone;
-  for (int s = threadIdx.x; s < ts; s += blockDim.x) {
-    const uint32_t l = L::get(t, uint32_t(base + s));
-    const bool used = l & L::kMeta;
-    packed += ((unsigned long long)used << 42) |
-              ((unsigned long long)(used && !(l & L::kCont)) << 21) |
-              (unsigned long long)((l & L::kOcc) != 0);
-    if (!used && (unsigned long long)(base + s) < first) first = base + s;
+  if (ts % L::SPW == 0) {                   // a word's lanes at once
+    for (int w = threadIdx.x; w < ts / L::SPW; w += blockDim.x) {
+      const uint32_t word = __ldg(t + base / L::SPW + w);
+#pragma unroll
+      for (int j = 0; j < L::SPW; ++j) {
+        const uint32_t l = (word >> (SB * j)) & L::kLane;
+        const bool used = l & L::kMeta;
+        packed += ((unsigned long long)used << 42) |
+                  ((unsigned long long)(used && !(l & L::kCont)) << 21) |
+                  (unsigned long long)((l & L::kOcc) != 0);
+        const unsigned long long s = base + w * L::SPW + j;
+        if (!used && s < first) first = s;
+      }
+    }
+  } else {
+    for (int s = threadIdx.x; s < ts; s += blockDim.x) {
+      const uint32_t l = L::get(t, uint32_t(base + s));
+      const bool used = l & L::kMeta;
+      packed += ((unsigned long long)used << 42) |
+                ((unsigned long long)(used && !(l & L::kCont)) << 21) |
+                (unsigned long long)((l & L::kOcc) != 0);
+      if (!used && (unsigned long long)(base + s) < first) first = base + s;
+    }
   }
   packed = block_all(packed, 0ull, AddF{});
   first = block_all(first, (unsigned long long)kNone, MinF{});
@@ -1683,6 +1367,201 @@ __global__ void __launch_bounds__(kTileThreads)
 
 enum Kind : int { kAdd = 0, kRemove = 1, kMerge = 2, kResize = 3 };
 
+// ---------------------------------------------------------------------------
+// The binned contains
+// ---------------------------------------------------------------------------
+
+constexpr int kBinTestThreads = 512;
+
+// A key's bin (its quotient's top bits) and payload (its fingerprint)
+struct QfBinner {
+  Geometry g;
+  int bin_shift;           // r_bits + log2 quotients a bin
+  __device__ __forceinline__ uint32_t operator()(uint2 key,
+                                                 uint32_t& payload) const {
+    payload = fingerprint(key, g);
+    return payload >> bin_shift;
+  }
+};
+
+// The table's load, for the contains' path rule on the host
+// (quotientfilter.choose_contains_path): the slots in use of kSampleRuns
+// runs of `run` slots spread over the table, one CTA a run, added into
+// out[0] (zeroed before); out[1] gets the slots sampled.
+constexpr int kSampleRuns = 128;         // sampled runs of slots
+constexpr int kSampleSlots = 2048;       // slots a run, at most
+
+template <int SB>
+__global__ void __launch_bounds__(kTileThreads)
+    qf_load_sample(const uint32_t* __restrict__ t, uint32_t mask, int run,
+                   unsigned long long* __restrict__ out) {
+  using L = Lanes<SB>;
+  const unsigned long long stride =
+      ((unsigned long long)mask + 1) / gridDim.x;
+  const unsigned long long base = blockIdx.x * stride;
+  unsigned long long used = 0;
+  for (int s = threadIdx.x; s < run; s += blockDim.x)
+    used += (L::get(t, uint32_t(base + s)) & L::kMeta) != 0;
+  used = block_all(used, 0ull, AddF{});
+  if (threadIdx.x == 0) {
+    atomicAdd(out, used);
+    if (blockIdx.x == 0) out[1] = (unsigned long long)run * gridDim.x;
+  }
+}
+
+// One CTA a bin of 2^lg_bin quotients [q0, q0 + B): the words [w0, w0 +
+// window_words) of the table (w0 the 4-word boundary at or before q0's
+// word, indices mod n_words) staged in shared memory; the scan from q0
+// (occupied bits of the bin's homes, the start of each of its runs); then
+// each slot of [starts[j], ends[j]) tested. Dynamic shared memory: the
+// window, the occupied bits by slot of the window and their prefix
+// (ceil(B / 32) + 1 u32 each) and the runs' starts (B u32).
+template <int SB>
+__global__ void __launch_bounds__(kBinTestThreads)
+    qf_contains_bin(const uint32_t* __restrict__ t, Geometry g, int lg_bin,
+                    int ts, const uint32_t* __restrict__ oex,
+                    const uint32_t* __restrict__ rex,
+                    const unsigned long long* __restrict__ scal,
+                    const uint64_t* __restrict__ slots,
+                    const uint32_t* __restrict__ starts,
+                    const uint32_t* __restrict__ ends,
+                    bool* __restrict__ out, int window_words) {
+  using L = Lanes<SB>;
+  extern __shared__ uint4 smem4[];
+  __shared__ uint32_t warp_runs[kBinTestThreads / 32];
+  __shared__ uint32_t warp_occ[kBinTestThreads / 32];
+  const uint32_t begin = starts[blockIdx.x], end = ends[blockIdx.x];
+  if (begin == end) return;                 // no keys: not read
+  const long long d = (long long)scal[kD];
+  if (d == 0) {                             // an empty table holds nothing
+    for (uint32_t k = begin + threadIdx.x; k < end; k += blockDim.x) {
+      const uint64_t v = slots[k];
+      if (v != kFill8) out[uint32_t(v)] = false;
+    }
+    return;
+  }
+  const uint32_t B = 1u << lg_bin;
+  const uint32_t q0 = uint32_t(blockIdx.x) << lg_bin;
+  const uint32_t n_words = (g.mask + 1u) / L::SPW;
+  const uint32_t w0 = (q0 / L::SPW) & ~3u;
+  const uint32_t ws = w0 * L::SPW;                   // the window's first slot
+  const uint32_t hs = q0 - ws;                       // the bin's, in it
+  const uint32_t win_slots = uint32_t(window_words) * L::SPW;
+  const int nw = int((hs + B + 31u) / 32u);          // occupied-bit words
+  uint32_t* win = reinterpret_cast<uint32_t*>(smem4);
+  uint32_t* occ_bits = win + window_words;
+  uint32_t* occ_pref = occ_bits + nw;
+  uint32_t* run_start = occ_pref + nw;
+  const uint64_t policy = evict_first_policy();
+  for (int j = 4 * threadIdx.x; j < window_words; j += 4 * blockDim.x)
+    bin_copy_async16(win + j, t + ((w0 + uint32_t(j)) & (n_words - 1u)),
+                     policy);
+  // the bin is whole tiles: its homes' first occupied rank and the run
+  // starts before it, read off the tiles' exclusive counts
+  const long long k0 = oex[q0 / uint32_t(ts)], r0 = rex[q0 / uint32_t(ts)];
+  const long long skip = pmod(k0 + (long long)scal[kW] - r0, d);
+  bin_copy_wait_all();
+  __syncthreads();
+  auto lane_at = [&](uint32_t s) -> uint32_t {
+    const uint32_t o = (s - ws) & g.mask;
+    if (o < win_slots) {
+      if (L::SPW == 1) return win[o];
+      return (win[o / L::SPW] >> (SB * (o % L::SPW))) & L::kLane;
+    }
+    return L::get(t, s);                     // past the window
+  };
+  // the scan, a word (SPW slots) a thread and blockDim words a step, from
+  // the window's first slot: occupied bits of the bin's homes by slot in
+  // the window (G = 32 / SPW threads make a 32-bit word), run starts from
+  // q0 on ranked by a warp scan and the warps' counts
+  constexpr int G = 32 / L::SPW;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const long long limit = (2ll * ((long long)g.mask + 1) + hs + B) / L::SPW;
+  long long found = 0, nocc = 0;
+  for (long long c0 = 0; c0 < limit; c0 += blockDim.x) {
+    if (c0 * L::SPW >= hs + B && found >= skip + nocc) break;   // uniform
+    const long long wi = c0 + threadIdx.x;
+    const uint32_t word = wi < window_words
+                              ? win[wi]
+                              : __ldg(t + ((w0 + uint32_t(wi)) &
+                                           (n_words - 1u)));
+    uint32_t occ_n = 0u, rs_n = 0u;
+#pragma unroll
+    for (int j = 0; j < L::SPW; ++j) {
+      const uint32_t l = (word >> (SB * j)) & L::kLane;
+      const long long off = wi * L::SPW + j;             // slot in the window
+      if (off >= hs && off < hs + B && (l & L::kOcc)) occ_n |= 1u << j;
+      if (off >= hs && (l & L::kMeta) && !(l & L::kCont)) rs_n |= 1u << j;
+    }
+    uint32_t ob = occ_n << ((lane % G) * L::SPW);
+#pragma unroll
+    for (int dd = 1; dd < G; dd <<= 1) ob |= __shfl_xor_sync(0xFFFFFFFFu, ob, dd);
+    const long long ow = (wi * L::SPW) >> 5;
+    if (lane % G == 0 && ow < nw) occ_bits[ow] = ob;
+    const uint32_t cnt = __popc(rs_n);
+    uint32_t incl = cnt;
+#pragma unroll
+    for (int dd = 1; dd < 32; dd <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, incl, dd);
+      if (lane >= dd) incl += y;
+    }
+    const uint32_t occs_w = __reduce_add_sync(0xFFFFFFFFu, __popc(occ_n));
+    if (lane == 31) warp_runs[warp] = incl;
+    if (lane == 0) warp_occ[warp] = occs_w;
+    __syncthreads();
+    long long before = found + incl - cnt, runs = 0, occs = 0;
+    for (int k = 0; k < warps; ++k) {
+      const uint32_t v = warp_runs[k];
+      before += k < warp ? v : 0u;
+      runs += v;
+      occs += warp_occ[k];
+    }
+    for (uint32_t m = rs_n; m != 0u; m &= m - 1u, ++before) {
+      const long long j = before - skip;
+      if (j >= 0 && j < (long long)B)
+        run_start[j] = (ws + uint32_t(wi * L::SPW + __ffs(m) - 1)) & g.mask;
+    }
+    found += runs;
+    nocc += occs;
+    __syncthreads();                         // the warps' counts are reused
+  }
+  for (int k = threadIdx.x; k < nw; k += blockDim.x)
+    occ_pref[k] = __popc(occ_bits[k]);
+  __syncthreads();
+  block_scan_array(occ_pref, nw);
+  __syncthreads();
+  const uint32_t rm = rem_mask(g);
+  // each slot's key: the next slot loads while this one is tested
+  uint64_t next = begin + threadIdx.x < end ? __ldcs(slots + begin +
+                                                     threadIdx.x)
+                                            : kFill8;
+  for (uint32_t k = begin + threadIdx.x; k < end; k += blockDim.x) {
+    const uint64_t v = next;
+    next = k + blockDim.x < end ? __ldcs(slots + k + blockDim.x) : kFill8;
+    if (v == kFill8) continue;
+    const uint32_t fp = uint32_t(v >> 32), rem = fp & rm;
+    const uint32_t i = (fp >> g.r_bits) - q0 + hs;    // its home, in the window
+    const uint32_t word = occ_bits[i >> 5], bit = 1u << (i & 31u);
+    bool hit = false;
+    if (word & bit) {
+      uint32_t s = run_start[occ_pref[i >> 5] + __popc(word & (bit - 1u))];
+      uint32_t l = lane_at(s);
+      while (true) {                         // remainders ascend in a run
+        const uint32_t rv = l & rm;
+        if (rv >= rem) {
+          hit = rv == rem;
+          break;
+        }
+        s = (s + 1u) & g.mask;
+        l = lane_at(s);
+        if (!(l & L::kCont)) break;
+      }
+    }
+    out[uint32_t(v)] = hit;
+  }
+}
+
 struct Layout {
   unsigned long long* scal;             // 2 x kScalN
   uint32_t *tu, *tr, *to, *te, *tcf;    // per table tile
@@ -1848,6 +1727,99 @@ int launch_update(const uint2* keys, const uint8_t* valid, uint32_t* table,
       l.scal + kNb, flags, st);
 }
 
+// The binned contains' workspace (quotientfilter.contains_plan carves the
+// same, 256-byte aligned): the scalars, the five tile arrays, the chunks'
+// counts, the bins' starts and ends, and a batch's slots (each chunk's run
+// in a bin padded to 4 slots).
+struct ContainsLayout {
+  unsigned long long* scal;
+  uint32_t *tu, *tr, *to, *te, *tcf;
+  uint32_t *counts, *starts, *ends;
+  uint64_t* slots;
+  long long bytes;
+};
+
+ContainsLayout make_contains_layout(char* base, long long nt, int n_bins,
+                                    int chunks, long long batch) {
+  ContainsLayout l{};
+  long long at = 0;
+  auto take = [&](long long bytes) {
+    char* p = base == nullptr ? nullptr : base + at;
+    at += r256(bytes);
+    return p;
+  };
+  l.scal = reinterpret_cast<unsigned long long*>(take(8 * kScalN));
+  uint32_t** tiles[5] = {&l.tu, &l.tr, &l.to, &l.te, &l.tcf};
+  for (auto p : tiles) *p = reinterpret_cast<uint32_t*>(take(4 * nt));
+  l.counts = reinterpret_cast<uint32_t*>(take(4ll * chunks * n_bins));
+  l.starts = reinterpret_cast<uint32_t*>(take(4ll * n_bins));
+  l.ends = reinterpret_cast<uint32_t*>(take(4ll * n_bins));
+  l.slots = reinterpret_cast<uint64_t*>(
+      take(8 * (batch + 3ll * chunks * n_bins)));
+  l.bytes = at;
+  return l;
+}
+
+enum ContainsPath : int { kWalk = 0, kBinned = 1 };
+
+// table tiles of a binned contains: a tile a bin (the tile pass then
+// launches a CTA a bin, and its scan takes a count a bin)
+int contains_tile_slots(int lg_bin) { return 1 << lg_bin; }
+
+size_t contains_test_smem(int lg_bin, int window_words) {
+  const size_t b = size_t(1) << lg_bin;
+  return 4 * (size_t(window_words) + 2 * ((b + 31) / 32 + 1) + b);
+}
+
+// The cluster walk or the binned contains. The binned path's batches each
+// run the four bin stages and the test; the tile pass runs once a call.
+template <int SB>
+int launch_contains(const uint2* keys, const uint32_t* table, bool* out,
+                    int64_t n, const Geometry& g, int path, char* work,
+                    long long work_bytes, int lg_bin, int window_words,
+                    long long batch, int chunks, cudaStream_t st) {
+  if (path == kWalk) {
+    quotient_contains_kernel<SB><<<grid_of(n), kThreads, 0, st>>>(
+        keys, table, out, n, g);
+    return int(cudaGetLastError());
+  }
+  const long long n_slots = (long long)g.mask + 1;
+  const int ts = contains_tile_slots(lg_bin);
+  const long long nt = n_slots / ts;
+  const int n_bins = int(n_slots >> lg_bin);
+  const Bin8Geometry bg = bin8_geometry(n_bins);
+  // a batch's slots: at most min(n, batch) keys
+  const ContainsLayout l = make_contains_layout(work, nt, n_bins, chunks,
+                                                n < batch ? n : batch);
+  if (l.bytes > work_bytes) return -1;
+  int card_chunks = 0, test_room = 0;
+  cudaError_t err = bin8_prepare<QfBinner>(bg, &card_chunks);
+  if (err == cudaErrorInvalidValue) return -1;
+  // the test kernel's static shared memory (the warps' counts, the block
+  // scan's) leaves the rest of the card's limit to its dynamic part
+  if (err == cudaSuccess) err = raise_smem(qf_contains_bin<SB>, &test_room);
+  if (err != cudaSuccess) return int(err);
+  const size_t test_smem = contains_test_smem(lg_bin, window_words);
+  if (test_smem > size_t(test_room)) return -1;
+  qf_tile_stats<SB><<<unsigned(nt), kTileThreads, 0, st>>>(
+      table, g.mask, ts, nt, l.tu, l.tr, l.to, l.te, l.tcf, nullptr, 0, 0,
+      nullptr);
+  qf_scan_tables<SB><<<1, kTileThreads, 0, st>>>(
+      table, g.mask, ts, nt, l.tu, l.tr, l.to, l.te, l.scal, nullptr, 0, 0,
+      nullptr, nullptr, 0, nullptr, 0, nullptr, nullptr, 0);
+  const QfBinner binner{g, g.r_bits + lg_bin};
+  for (long long first = 0; first < n; first += batch) {
+    const long long nb = n - first < batch ? n - first : batch;
+    bin8_stages(keys + first, nb, bg, chunks, binner, l.counts, l.starts,
+                l.ends, l.slots, st);
+    qf_contains_bin<SB><<<n_bins, kBinTestThreads, test_smem, st>>>(
+        table, g, lg_bin, ts, l.to, l.tr, l.scal, l.slots, l.starts, l.ends,
+        out + first, window_words);
+    QF_CHECK();
+  }
+  return int(cudaGetLastError());
+}
+
 bool bad_geometry(int lg_slots, int r_bits, int slot_bits) {
   return lg_slots < 0 || lg_slots > 29 || r_bits < 1 ||
          r_bits > slot_bits - 3 || lg_slots + r_bits > 31;
@@ -1857,34 +1829,43 @@ bool bad_geometry(int lg_slots, int r_bits, int slot_bits) {
 
 extern "C" {
 
-// keys: (n, 2) int32 [hi, lo], 8-byte aligned; table: (n_words,) int32;
-// out: (n,) bool. lg_slots <= 29, 1 <= r_bits <= slot_bits - 3, lg_slots +
-// r_bits <= 31, slot_bits 8, 16 or 32. mode 0: the cluster walk; 1: the
-// table pass; 2: the pass or the walk, chosen on the card by choose_kernel.
-// The pass takes scratch (ws_slots (3 n_slots,) int32, aggs (n_aggs,)
-// int64 with n_aggs >= ceil(n_slots / 4096), scal (8,) int64); the walk
-// alone takes none.
+// keys: (n, 2) int32 [hi, lo], 8-byte aligned; table: (n_words,) int32,
+// 16-byte aligned; out: (n,) bool. lg_slots <= 29, 1 <= r_bits <=
+// slot_bits - 3, lg_slots + r_bits <= 31, slot_bits 8, 16 or 32. path 0:
+// the cluster walk (no workspace); 1: the binned contains. The binned path
+// takes bins of 2^lg_bin quotients (at most 8192 bins, n_words a multiple
+// of 4), a test CTA's window of window_words table words (a multiple of 4
+// in [4, n_words]), internal batches of at most `batch` keys, `chunks` CTAs
+// of the bin stages (quotient_binned_chunks) and work: work_bytes of device
+// memory, at least quotientfilter.contains_plan's workspace_bytes.
 int quotient_contains(const void* keys, const void* table, void* out,
                       long long n, int lg_slots, int r_bits, int slot_bits,
-                      unsigned fp_salt, int mode, void* ws_slots, void* aggs,
-                      long long n_aggs, void* scal, void* stream) {
+                      unsigned fp_salt, int path, void* work,
+                      long long work_bytes, int lg_bin, int window_words,
+                      long long batch, int chunks, void* stream) {
   if (n <= 0) return 0;
-  if (bad_geometry(lg_slots, r_bits, slot_bits) || mode < kWalk ||
-      mode > kAuto)
+  if (bad_geometry(lg_slots, r_bits, slot_bits) || path < kWalk ||
+      path > kBinned)
     return -1;
-  if (mode != kWalk && (ws_slots == nullptr || scal == nullptr ||
-                        n_aggs < scan_tiles(1ll << lg_slots)))
+  const long long n_words = (1ll << lg_slots) * slot_bits / 32;
+  if (path == kBinned &&
+      (lg_bin < 0 || lg_bin > lg_slots || lg_slots - lg_bin > kLog2MaxBins ||
+       n_words % 4 != 0 || window_words < 4 || window_words % 4 != 0 ||
+       window_words > n_words || batch < 1 || batch > (1ll << 31) ||
+       chunks < 1 ||
+       batch + 3ll * chunks * (1ll << (lg_slots - lg_bin)) > (1ll << 32) - 1 ||
+       work == nullptr))
     return -1;
   const Geometry g{uint32_t((1ull << lg_slots) - 1), r_bits,
                    lg_slots + r_bits, fp_salt};
   const uint2* k = static_cast<const uint2*>(keys);
   const uint32_t* t = static_cast<const uint32_t*>(table);
   bool* o = static_cast<bool*>(out);
-  int* wss = static_cast<int*>(ws_slots);
-  long long* ag = static_cast<long long*>(aggs);
-  unsigned long long* sc = static_cast<unsigned long long*>(scal);
+  char* w = static_cast<char*>(work);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(SB) launch_contains<SB>(k, t, o, n, g, mode, wss, ag, sc, st)
+#define CALL(SB)                                                          \
+  launch_contains<SB>(k, t, o, n, g, path, w, work_bytes, lg_bin,         \
+                      window_words, batch, chunks, st)
   switch (slot_bits) {
     case 8:
       return CALL(8);
@@ -1895,6 +1876,52 @@ int quotient_contains(const void* keys, const void* table, void* out,
   }
 #undef CALL
   return -1;
+}
+
+// table: (n_words,) int32 of 2^lg_slots slots of slot_bits (8, 16 or 32),
+// lg_slots <= 29; out: 2 u64 (zeroed before): the slots in use of a sample
+// of the table (qf_load_sample) and the slots sampled.
+int quotient_load_sample(const void* table, int lg_slots, int slot_bits,
+                         void* out, void* stream) {
+  if (lg_slots < 0 || lg_slots > 29) return -1;
+  const long long n_slots = 1ll << lg_slots;
+  const long long blocks = n_slots < kSampleRuns ? n_slots : kSampleRuns;
+  const int run = int(n_slots / blocks < kSampleSlots ? n_slots / blocks
+                                                      : kSampleSlots);
+  const uint32_t* t = static_cast<const uint32_t*>(table);
+  const uint32_t mask = uint32_t(n_slots - 1);
+  auto* o = static_cast<unsigned long long*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (slot_bits) {
+    case 8:
+      qf_load_sample<8><<<unsigned(blocks), kTileThreads, 0, st>>>(t, mask,
+                                                                   run, o);
+      break;
+    case 16:
+      qf_load_sample<16><<<unsigned(blocks), kTileThreads, 0, st>>>(t, mask,
+                                                                    run, o);
+      break;
+    case 32:
+      qf_load_sample<32><<<unsigned(blocks), kTileThreads, 0, st>>>(t, mask,
+                                                                    run, o);
+      break;
+    default:
+      return -1;
+  }
+  return int(cudaGetLastError());
+}
+
+// The bin stages' CTAs (chunks) of a binned contains in bins of 2^lg_bin
+// quotients of a 2^lg_slots-slot table on the current device, which size
+// its workspace; -1 for a geometry without kernels or an error.
+int quotient_binned_chunks(int lg_slots, int lg_bin) {
+  if (lg_bin < 0 || lg_bin > lg_slots || lg_slots - lg_bin > kLog2MaxBins)
+    return -1;
+  int chunks = 0;
+  if (bin8_prepare<QfBinner>(bin8_geometry(1 << (lg_slots - lg_bin)),
+                             &chunks) != cudaSuccess)
+    return -1;
+  return chunks;
 }
 
 // keys: (n, 2) int32 [hi, lo], n <= 2^24; valid: (n,) uint8 or null (every

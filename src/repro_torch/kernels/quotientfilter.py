@@ -9,7 +9,7 @@ wrapper       replaces (repro/kernels/            CUDA kernels
               quotientfilter.py)                  (csrc/quotient.cu)
 ============= =================================== ==========================
 contains_vmem contains_vmem                       quotient_contains_kernel,
-                                                  or the table pass
+                                                  or the binned contains
 add_vmem      add_vmem (_update_vmem, op add)     quotient_update, add
 remove_vmem   remove_vmem (_update_vmem, op       quotient_update, remove
               remove)
@@ -18,12 +18,18 @@ remove_vmem   remove_vmem (_update_vmem, op       quotient_update, remove
 The JAX package runs these kernels only on a table that fits VMEM and sends
 a larger one to its jnp reference; here one kernel set serves every size,
 as ``kernels.ops`` dispatches it. ``coop`` is validated and both values run
-the same contains kernels: a batch of fewer than ``n_slots / 16`` keys
-walks each key's cluster; for a larger one the card chooses between that
-walk and the table pass (every run's start once a call, then a compare
-along each key's own run) by the table's load (``quotient.cu``
-``choose_kernel``). The tile-wide early exit has nothing to skip in
-either.
+the same contains kernels. The contains has two paths on the card with the
+same results: the cluster walk (one thread a key) and the binned contains
+(the keys grouped by bin of quotients, each bin tested against the slots
+that hold its runs, staged in shared memory; ``quotient.cu`` gives the
+design). :func:`choose_contains_path`, a pure rule of the batch, the
+table and its load fitted to a sweep of both paths on the H100, picks
+one; :func:`table_load` samples the load on the card and keeps it on the
+table tensor until the table changes. ``LAST_CONTAINS_PLAN`` keeps the
+last card call's :func:`contains_plan`; :func:`contains_binned_model` runs the binned
+path's stages in plain PyTorch for tests. A binned call's workspace is
+bounded by the card's free memory (:func:`cap_for_memory`). The tile-wide
+early exit has nothing to skip in either path.
 
 The update is a sorted-stream rebuild (``quotient.cu`` describes its
 eleven kernels): the batch's admitted fingerprints sorted by a counting
@@ -53,29 +59,66 @@ table ``(n_words,)`` and ``valid`` ``(n,)`` uint8 or bool (or ``None``:
 every key valid). For CPU tensors a wrapper runs its plain version; for
 CUDA tensors it launches its kernels or raises. The update wrappers change
 the table in place and return ``(table, flags)``. ``LAUNCHES`` counts
-wrapper calls that launched their kernels (one a call, whose stream is 1,
-7 or 9 contains kernels, 11 update kernels a pass, 10 for a merge or 7
-for a resize); ``LAST_PLAN`` keeps the last card call's
-:func:`update_plan`.
+wrapper calls that launched their kernels (one a call, whose stream is the
+walk, or the binned contains: 2 + 5 kernels a batch; 11 update kernels a
+pass, 10 for a merge or 7 for a resize); ``LAST_PLAN``
+keeps the last card call's :func:`update_plan`.
 """
 from __future__ import annotations
 
-import math
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.core import quotient as Q
 from repro_torch.core.variants import FilterSpec
-from repro_torch.kernels.sbf import COOPS, _on_cuda, _raise_on
+from repro_torch.kernels.cbf import free_device_bytes
+from repro_torch.kernels.sbf import (COOPS, _on_cuda, _raise_on,
+                                     device_scope, partition_smem_bytes,
+                                     raw_stream)
 
 OPS = ("add", "remove")
 _OP_CODE = {"add": 0, "remove": 1}
 SLOT_BITS = (8, 16, 32)        # lane widths with a kernel instance
 MAX_Q_BITS = 29                # positions carry 2 flag bits in a u32
-SCAN_TILE = 4096               # elements a contains scan block takes
-PASS_SLOTS_PER_KEY = 16        # the pass is a choice from n_slots / 16 keys
-CONTAINS_MODES = ("walk", "pass", "auto")
+
+# The contains (quotient.cu). Paths on the card: the cluster walk or the
+# binned contains.
+CONTAINS_PATHS = ("walk", "binned")
+LOG2_MAX_BINS = 13             # 8192 bins: 32 KiB of histogram
+LOG2_ONE_PASS_BINS = 12        # bins the scatter stages in one pass
+MAX_TEST_SMEM = 200 << 10      # a test CTA's shared memory, at most
+CONTAINS_BIN_BITS = 12         # quotients a bin (log2), at least
+SECTOR_SLOTS = 4               # 8-byte slots of a 32-byte sector
+FILLER = (1 << 64) - 1         # a slot that pads a run
+# Keys an internal batch of the binned contains holds: each key stores its
+# result byte at random, so a batch's results should stay in L2
+CONTAINS_KEY_CAP = 1 << 25
+# Device memory a binned call leaves free beside its workspace where the
+# workspace at the cap did not fit
+WORKSPACE_MARGIN = 1 << 28
+# The path rule's cost model (ms, n keys, a table of n_slots at `load`),
+# fitted to a sweep of both paths in turns on an H100 80GB HBM3 at 700 W
+# (chip_smoke.py phase_quotient_rule: 8-bit slots, q23 ... q27, loads 0.5
+# and 0.9, 2^16 ... 2^26 keys, none, half or all of them members):
+#   walk   = WALK_TAIL_MS / (1 - load) + WALK_KEY_NS * n / (1 - load)^2
+#   binned = BINNED_FIXED_MS + BINNED_SLOT_NS * n_slots + BINNED_KEY_NS * n
+# A linear-probing cluster grows as 1 / (1 - load): the walk's longest one
+# sets its tail, and a key walks 1 / (1 - load)^2 slots on average; binned
+# reads the table once (the tile pass, each bin's window) and moves each
+# key through its slots. At load 0.5 the walk wins at every size.
+WALK_TAIL_MS = 0.02
+WALK_KEY_NS = 0.0051
+BINNED_FIXED_MS = 0.071
+BINNED_SLOT_NS = 0.0077
+BINNED_KEY_NS = 0.040
+# Below this many keys the walk runs without a load sample (the sweep's
+# smallest batch)
+LOAD_MIN_KEYS = 1 << 16
+# Slots the load sample reads (quotient.cu kSampleRuns x kSampleSlots): the
+# whole table up to this size
+LOAD_SAMPLE_SLOTS = 128 * 2048
 
 # The sorted-stream update (quotient.cu). Each knob is private: ops passes
 # none of them.
@@ -96,6 +139,8 @@ LAUNCHES = {"contains_vmem": 0, "add_vmem": 0, "remove_vmem": 0,
             "merge_vmem": 0, "resize_vmem": 0}
 # update_plan of the last update, merge or resize on the card
 LAST_PLAN: dict = {}
+# contains_plan of the last contains on the card
+LAST_CONTAINS_PLAN: dict = {}
 
 
 def reset_launches() -> None:
@@ -557,6 +602,238 @@ def resize_stream_model(spec: FilterSpec, table: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The contains: its paths, plan, rule and the binned path's model
+# ---------------------------------------------------------------------------
+
+def contains_bin_bits(q_bits: int) -> int:
+    """Quotients a bin of the binned contains (log2): at least
+    2^CONTAINS_BIN_BITS (the whole table where it is smaller), more where
+    the table would have more than 2^LOG2_ONE_PASS_BINS bins (the scatter
+    then stages every bin at once), and up to 2^LOG2_MAX_BINS bins where a
+    test CTA's shared memory would pass MAX_TEST_SMEM."""
+    b = max(q_bits - LOG2_ONE_PASS_BINS, min(q_bits, CONTAINS_BIN_BITS))
+    if contains_test_smem(b, (1 << b) * 3 // 2 // 4 + 4) > MAX_TEST_SMEM:
+        b = max(q_bits - LOG2_MAX_BINS, min(q_bits, CONTAINS_BIN_BITS))
+    return b
+
+
+def contains_window_words(spec: FilterSpec, bin_bits: int) -> int:
+    """Table words a test CTA stages: the bin's slots and half as many
+    again (runs homed in the bin spill past its end), from the 4-word
+    boundary at or before its first slot; at most the table."""
+    spw = spec.slots_per_word
+    slots = (1 << bin_bits) * 3 // 2
+    words = -(-slots // spw) + 4
+    return min(-(-words // 4) * 4, spec.n_words)
+
+
+def contains_test_smem(bin_bits: int, window_words: int) -> int:
+    """Dynamic shared memory of a test CTA (quotient.cu
+    contains_test_smem): the window, the bin's occupied bits (by slot of
+    the window, one word more) and their prefix, its runs' starts."""
+    b = 1 << bin_bits
+    return 4 * (window_words + 2 * (-(-b // 32) + 1) + b)
+
+
+def binned_fits(spec: FilterSpec, bin_bits: int, window_words: int,
+                smem_bytes: int) -> bool:
+    """Whether the binned kernels take this table, bin and window."""
+    return (0 <= bin_bits <= spec.q_bits
+            and spec.q_bits - bin_bits <= LOG2_MAX_BINS
+            and spec.n_words % 4 == 0
+            and 4 <= window_words <= spec.n_words and window_words % 4 == 0
+            and contains_test_smem(bin_bits, window_words) <= smem_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _binned_fits_at(q_bits: int, slot_bits: int, r_bits: int,
+                    smem_bytes: int) -> bool:
+    """Whether the binned kernels take the table at the card's bins (kept:
+    a contains asks it every call)."""
+    spec = FilterSpec("quotient", (1 << q_bits) * slot_bits, 1,
+                      slot_bits=slot_bits, r_bits=r_bits)
+    bb = contains_bin_bits(q_bits)
+    return binned_fits(spec, bb, contains_window_words(spec, bb), smem_bytes)
+
+
+def choose_contains_path(n: int, q_bits: int, slot_bits: int,
+                         smem_bytes: int, load: Optional[float] = None,
+                         r_bits: int = 1) -> str:
+    """The contains' path on the card, a pure function of the batch (n
+    keys), the table (2^q_bits slots of slot_bits, at ``load``) and the
+    card's shared memory a CTA: the walk below ``LOAD_MIN_KEYS`` keys or
+    where the binned kernels do not take the table, else the path the
+    cost model (``WALK_*``, ``BINNED_*``) finds faster at that load (None:
+    the walk). The rule cannot see the share of members. The path never
+    changes a result."""
+    if (n < LOAD_MIN_KEYS or load is None
+            or not _binned_fits_at(q_bits, slot_bits, r_bits, smem_bytes)):
+        return "walk"
+    free = max(1.0 - load, 1e-3)
+    walk = WALK_TAIL_MS / free + WALK_KEY_NS * 1e-6 * n / (free * free)
+    binned = (BINNED_FIXED_MS + BINNED_SLOT_NS * 1e-6 * (1 << q_bits)
+              + BINNED_KEY_NS * 1e-6 * n)
+    return "binned" if binned < walk else "walk"
+
+
+def contains_plan(spec: FilterSpec, n: int, path: str,
+                  bin_bits: Optional[int] = None,
+                  cap: int = CONTAINS_KEY_CAP, chunks: int = 1,
+                  window: Optional[int] = None) -> dict:
+    """What a contains of n keys runs: ``path``, ``bin_bits`` (quotients a
+    bin, log2), ``n_bins``, ``tile_slots`` and ``table_tiles`` (the tile
+    pass, a tile a bin), ``window_words`` (a test CTA's staged
+    words), ``test_smem``, ``batches`` and ``batch_keys`` (internal
+    batches), ``chunks`` (the bin stages' CTAs, the card's) and
+    ``workspace_bytes`` (quotient.cu ContainsLayout: the scalars, five
+    tile arrays, the chunks' counts, the bins' starts and ends, a batch's
+    8-byte slots with each chunk's run in a bin padded to 4 slots; each
+    region 256-byte aligned). The walk takes no workspace; the (n,) result
+    is not workspace."""
+    if path not in CONTAINS_PATHS:
+        raise ValueError(f"path must be one of {CONTAINS_PATHS}, not "
+                         f"{path!r}")
+    if path == "walk":
+        return {"path": path, "bin_bits": None, "n_bins": 0,
+                "batches": int(n > 0), "batch_keys": n, "chunks": 0,
+                "window_words": 0, "workspace_bytes": 0}
+    bb = contains_bin_bits(spec.q_bits) if bin_bits is None else bin_bits
+    if not 0 <= bb <= spec.q_bits or spec.q_bits - bb > LOG2_MAX_BINS:
+        raise ValueError(f"no binned contains for {spec} in bins of 2^{bb} "
+                         f"quotients")
+    if spec.n_words % 4:
+        raise ValueError(f"the binned contains takes tables of a multiple "
+                         f"of 4 words, not {spec}")
+    ww = contains_window_words(spec, bb) if window is None else window
+    if not (4 <= ww <= spec.n_words and ww % 4 == 0):
+        raise ValueError(f"window={ww} words must be a multiple of 4 in "
+                         f"[4, {spec.n_words}]")
+    if not 1 <= cap <= 1 << 31:
+        raise ValueError(f"a batch must hold 1 .. 2^31 keys, not {cap}")
+    ts = 1 << bb                          # a tile a bin
+    nt = spec.n_slots // ts
+    n_bins = 1 << (spec.q_bits - bb)
+    batch_keys = min(n, cap)
+    regions = ([_r256(8 * 16)] + [_r256(4 * nt)] * 5
+               + [_r256(4 * chunks * n_bins), _r256(4 * n_bins),
+                  _r256(4 * n_bins),
+                  _r256(8 * (batch_keys + 3 * chunks * n_bins))])
+    return {"path": path, "bin_bits": bb, "n_bins": n_bins,
+            "tile_slots": ts, "table_tiles": nt, "window_words": ww,
+            "test_smem": contains_test_smem(bb, ww),
+            "batches": -(-n // cap), "batch_keys": batch_keys,
+            "chunks": chunks, "workspace_bytes": sum(regions)}
+
+
+def cap_for_memory(spec: FilterSpec, n: int, bin_bits: int, cap: int,
+                   chunks: int, window: int, free_bytes: int) -> int:
+    """The largest cap, ``cap`` halved as often as needed, whose binned
+    plan's workspace fits ``free_bytes`` less ``WORKSPACE_MARGIN``. A
+    smaller cap only adds internal batches, so the results stay the same.
+    Raises ``MemoryError`` where a batch of one key does not fit."""
+    room = free_bytes - WORKSPACE_MARGIN
+    while cap >= 1:
+        if contains_plan(spec, n, "binned", bin_bits, cap, chunks,
+                         window)["workspace_bytes"] <= room:
+            return cap
+        cap //= 2
+    raise MemoryError(f"no binned quotient workspace for {n} keys fits "
+                      f"{free_bytes} B of free device memory")
+
+
+def contains_binned_model(spec: FilterSpec, table: torch.Tensor,
+                          keys: torch.Tensor,
+                          bin_bits: Optional[int] = None,
+                          cap: int = CONTAINS_KEY_CAP, chunks: int = 132,
+                          window: Optional[int] = None) -> tuple:
+    """The binned contains' stages in plain PyTorch, for tests: ((n,) bool,
+    plan, stats). The tile pass (each tile's exclusive counts of run
+    starts and occupied slots, D runs, W = run starts less occupied slots
+    before the first empty slot); per internal batch of ``cap`` keys cut
+    into ``chunks`` ranges, each key's slot (fingerprint, index) in its
+    bin's slice (:func:`cbf.slot_runs_model`, 4 slots a sector); then each
+    touched bin [Q0, Q0 + B): its homes' first occupied rank k0 and the run
+    starts before Q0 read off the tiles, skip = (k0 + W - R(Q0)) mod D,
+    the (skip + j)-th run start at or past Q0 (cyclically) the start of the
+    bin's j-th run, a key's run the one of its home's rank in the bin, its
+    remainder compared along the run. ``stats`` counts the bins whose scan
+    went past the window (``scan_spills``) and the keys whose compare read
+    a slot past it (``compare_spills``): the kernel reads those through
+    __ldg, and the result is the same."""
+    from repro_torch.kernels.cbf import chunk_of_model, slot_runs_model
+    table, keys = table.cpu(), keys.cpu()
+    n = keys.shape[0]
+    plan = contains_plan(spec, n, "binned", bin_bits, cap, chunks, window)
+    bb, ts, n_bins = plan["bin_bits"], plan["tile_slots"], plan["n_bins"]
+    n_sl, r, spw = spec.n_slots, spec.r_bits, spec.slots_per_word
+    B = 1 << bb
+    lanes = Q.unpack_slots(spec, table)
+    occ, cont, _, in_use, rem = Q._fields(spec, lanes)
+    run = in_use & ~cont
+    nt = n_sl // ts
+    rex = _cumx(run.view(nt, ts).sum(1))
+    oex = _cumx(occ.view(nt, ts).sum(1))
+    d = int(run.sum())
+    empty = ~in_use
+    if bool(empty.any()):
+        a0 = int(torch.argmax(empty.to(torch.int8)))
+        w = int(run[:a0].sum()) - int(occ[:a0].sum())
+    else:                                      # qf_scan_tables: W = 0
+        w = 0
+    run_starts = run.nonzero().flatten()
+    win_slots = plan["window_words"] * spw
+    out = torch.zeros((n,), dtype=torch.bool)
+    stats = {"bins_tested": 0, "scan_spills": 0, "compare_spills": 0}
+    for first in range(0, n, cap):
+        batch = keys[first:first + cap]
+        nb = batch.shape[0]
+        fp = Q.quotient_hashes(spec, batch)
+        cell = (fp >> (r + bb)) * chunks + chunk_of_model(nb, chunks)
+        slot, total, owner = slot_runs_model(cell, n_bins, chunks,
+                                             SECTOR_SLOTS)
+        work = torch.full((total,), -1, dtype=torch.int64)
+        work[slot] = torch.arange(nb)
+        live = work >= 0
+        for j in torch.unique(owner[live]).tolist():
+            idx = work[live & (owner == j)]
+            stats["bins_tested"] += 1
+            if d == 0:
+                continue                       # an empty table: all False
+            q0 = j << bb
+            k0, r0 = int(oex[q0 // ts]), int(rex[q0 // ts])
+            skip = (k0 + w - r0) % d
+            homes = occ[q0:q0 + B]
+            nocc = int(homes.sum())
+            starts = run_starts[(r0 + skip + torch.arange(nocc)) % d]
+            ws = ((q0 // spw) & ~3) * spw
+            past = (starts - q0) % n_sl >= win_slots - (q0 - ws)
+            stats["scan_spills"] += int(bool(past.any()))
+            q = fp[idx] >> r
+            want = fp[idx] & ((1 << r) - 1)
+            hit = torch.zeros((idx.numel(),), dtype=torch.bool)
+            open_ = occ[q]
+            rank = torch.cumsum(homes.to(torch.int64), 0) - 1
+            s = starts[rank[(q - q0)[open_]]] if nocc else q[open_]
+            at = torch.zeros_like(q)
+            at[open_] = s
+            spilled = torch.zeros_like(open_)
+            first_step = True
+            while bool(open_.any()):
+                lane_rem = rem[at]
+                spilled |= open_ & ((at - ws) % n_sl >= win_slots)
+                if not first_step:             # past the run's end
+                    open_ &= cont[at]
+                done = open_ & (lane_rem >= want)
+                hit |= done & (lane_rem == want)
+                open_ &= ~done
+                at = (at + 1) % n_sl
+                first_step = False
+            stats["compare_spills"] += int(spilled.sum())
+            out[first + idx] = hit
+    return out, plan, stats
+
+
+# ---------------------------------------------------------------------------
 # Layout checks and launches
 # ---------------------------------------------------------------------------
 
@@ -602,17 +879,7 @@ def _geometry(spec: FilterSpec):
 
 
 def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _contains_scratch(spec: FilterSpec, device):
-    """(per-slot int32 arrays, scan block sums, their count, scalars): the
-    scratch of the contains' table pass (row 22, unchanged)."""
-    n_aggs = max(math.ceil(spec.n_slots / SCAN_TILE), 1)
-    return (torch.empty((3 * spec.n_slots,), dtype=torch.int32,
-                        device=device),
-            torch.empty((n_aggs,), dtype=torch.int64, device=device), n_aggs,
-            torch.empty((8,), dtype=torch.int64, device=device))
+    return raw_stream(device)
 
 
 def _workspace(plan: dict, device) -> torch.Tensor:
@@ -659,27 +926,157 @@ def _launch_update(spec, table, keys, valid, op: str, *, bin_bits=None,
     return flags
 
 
-def _launch_contains(spec, table, keys, mode: str) -> torch.Tensor:
-    """The contains kernels: the cluster walk, the table pass, or ("auto")
-    the one the card chooses by the table's load."""
+@functools.lru_cache(maxsize=None)
+def _chunks_on(index: int, q_bits: int, bin_bits: int) -> int:
     from repro_torch.kernels._build import library
+    with torch.cuda.device(index):
+        chunks = library().quotient_binned_chunks(q_bits, bin_bits)
+    if chunks < 1:
+        raise ValueError(f"no binned quotient kernels for 2^{q_bits} slots "
+                         f"in bins of 2^{bin_bits} quotients on cuda:{index}")
+    return chunks
+
+
+def binned_chunks(spec: FilterSpec, bin_bits: int, device) -> int:
+    """The bin stages' CTAs on a CUDA ``device`` (the scatter's CTAs that
+    fill the card), which size the workspace."""
+    device = torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return _chunks_on(index, spec.q_bits, bin_bits)
+
+
+def _contains_workspace(nbytes: int, device) -> torch.Tensor:
+    """A binned call's workspace (a test substitutes a fake). Freed when
+    the call returns: the caching allocator orders its reuse after the
+    call's kernels on the same stream."""
+    return torch.empty((nbytes,), dtype=torch.uint8, device=device)
+
+
+def _version(table: torch.Tensor) -> Optional[int]:
+    """The table's version counter (in-place writes bump it), None for a
+    tensor without one (made under ``torch.inference_mode``)."""
+    try:
+        return table._version
+    except RuntimeError:
+        return None
+
+
+def table_load(spec: FilterSpec, table: torch.Tensor) -> float:
+    """The CUDA table's load from a sample on the card (``qf_load_sample``:
+    the slots in use of 128 runs of at most 2048 slots spread over the
+    table), read back to the host once (a synchronisation) and kept on the
+    tensor until its version counter moves (an in-place torch op, or an
+    update wrapper of this module). A load kept past a write that bypassed
+    both only picks a slower path: the result never depends on it."""
+    return _table_rule(spec, table)[0]
+
+
+def binned_from(spec: FilterSpec, load: float, smem_bytes: int):
+    """The fewest keys from which :func:`choose_contains_path` runs binned
+    on ``spec``'s table at ``load`` (it is monotone in n), or None."""
+    def binned(n):
+        return choose_contains_path(n, spec.q_bits, spec.slot_bits,
+                                    smem_bytes, load, spec.r_bits) == "binned"
+    lo, hi = LOAD_MIN_KEYS, 1 << 40
+    if not binned(hi):
+        return None
+    while lo < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if binned(mid) else (mid + 1, hi)
+    return lo
+
+
+def _table_rule(spec: FilterSpec, table: torch.Tensor) -> tuple:
+    """(load, :func:`binned_from` at it) of a CUDA table: the rule's
+    inputs, worked out once a table state and kept on the tensor (a
+    contains asks them every call)."""
+    version = _version(table)
+    kept = getattr(table, "_quotient_rule", None)
+    if (version is not None and kept is not None and kept[0] == version
+            and (kept[1] is spec or kept[1] == spec)):
+        return kept[2]
+    used, sampled = _sample_load(spec, table)
+    load = used / sampled
+    rule = (load, binned_from(spec, load, partition_smem_bytes(table.device)))
+    if version is not None:
+        table._quotient_rule = (version, spec, rule)
+    return rule
+
+
+def _sample_load(spec: FilterSpec, table: torch.Tensor) -> tuple:
+    """(slots in use, slots sampled) of ``qf_load_sample`` on the card."""
+    from repro_torch.kernels._build import library
+    out = torch.zeros((2,), dtype=torch.int64, device=table.device)
+    with torch.cuda.device(table.device):
+        err = library().quotient_load_sample(
+            table.data_ptr(), spec.q_bits, spec.slot_bits, out.data_ptr(),
+            _stream(table.device))
+    _raise_on(err, "quotient load sample")
+    return tuple(out.tolist())
+
+
+def _card_contains_plan(spec: FilterSpec, table: torch.Tensor, n: int,
+                        device, path, bin_bits, cap: int, window) -> tuple:
+    """(plan, cap, workspace) of a contains on the card: the rule's path
+    (from the table's load where the batch is large enough to ask it)
+    unless one is given; for the binned path the bins, window and
+    workspace, allocated. Where the allocation fails the cap drops to
+    :func:`cap_for_memory`'s from half the cap that failed, until the
+    workspace allocates; ``MemoryError`` where none does."""
+    load = None
+    if path is None:
+        path = "walk"
+        if n >= LOAD_MIN_KEYS:
+            load, first = _table_rule(spec, table)
+            if first is not None and n >= first:
+                path = "binned"
+    if path == "walk":
+        return dict(contains_plan(spec, n, path), load=load), cap, None
+    bb = contains_bin_bits(spec.q_bits) if bin_bits is None else bin_bits
+    ww = contains_window_words(spec, bb) if window is None else window
+    chunks = binned_chunks(spec, bb, device)
+    while True:
+        plan = contains_plan(spec, n, path, bb, cap, chunks, ww)
+        plan["load"] = load
+        try:
+            return plan, cap, _contains_workspace(plan["workspace_bytes"],
+                                                  device)
+        except torch.cuda.OutOfMemoryError:
+            cap = cap_for_memory(spec, n, bb, cap // 2, chunks, ww,
+                                 free_device_bytes(device))
+
+
+def _launch_contains(spec, table, keys, path: Optional[str] = None, *,
+                     bin_bits: Optional[int] = None,
+                     cap: int = CONTAINS_KEY_CAP,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """The contains kernels on the card: ``path`` (the walk or binned) or,
+    None, the rule's path."""
+    from repro_torch.kernels._build import library
+    if path is not None and path not in CONTAINS_PATHS:
+        raise ValueError(f"path must be one of {CONTAINS_PATHS}, not "
+                         f"{path!r}")
     n = keys.shape[0]
     out = torch.empty((n,), dtype=torch.bool, device=keys.device)
     if n == 0:
         return out
-    ws = (None, None, 0, None)
-    if mode != "walk":
-        ws = _contains_scratch(spec, keys.device)
-    ws_slots, aggs, n_aggs, scal = ws
-    ptr = (lambda t: None if t is None else t.data_ptr())
+    plan, cap, work = _card_contains_plan(spec, table, n, keys.device, path,
+                                          bin_bits, cap, window)
+    if plan["path"] != "walk" and table.data_ptr() % 16:
+        raise ValueError("the binned contains takes 16-byte aligned words")
     lib = library()
-    with torch.cuda.device(keys.device):
-        err = lib.quotient_contains(keys.data_ptr(), table.data_ptr(),
-                                    out.data_ptr(), n, *_geometry(spec),
-                                    CONTAINS_MODES.index(mode),
-                                    ptr(ws_slots), ptr(aggs), n_aggs,
-                                    ptr(scal), _stream(keys.device))
+    with device_scope(keys.device):
+        err = lib.quotient_contains(
+            keys.data_ptr(), table.data_ptr(), out.data_ptr(), n,
+            *_geometry(spec), CONTAINS_PATHS.index(plan["path"]),
+            None if work is None else work.data_ptr(),
+            plan["workspace_bytes"], plan["bin_bits"] or 0,
+            plan["window_words"], cap, max(plan["chunks"], 1),
+            _stream(keys.device))
     _raise_on(err, "contains_vmem")
+    LAST_CONTAINS_PLAN.clear()
+    LAST_CONTAINS_PLAN.update(plan)
     return out
 
 
@@ -687,21 +1084,32 @@ def _launch_contains(spec, table, keys, mode: str) -> torch.Tensor:
 # The wrappers
 # ---------------------------------------------------------------------------
 
-def contains_mode(spec: FilterSpec, n: int) -> str:
-    """``"auto"`` (the card chooses the table pass or the walk) for a batch
-    of at least ``n_slots / PASS_SLOTS_PER_KEY`` keys, else ``"walk"``."""
-    return "auto" if n * PASS_SLOTS_PER_KEY >= spec.n_slots else "walk"
+def contains_mode(spec: FilterSpec, n: int, load: Optional[float],
+                  smem_bytes: int = 227 * 1024) -> str:
+    """:func:`choose_contains_path` for an n-key batch into ``spec``'s
+    table at ``load`` on a card with ``smem_bytes`` of shared memory a CTA
+    (the H100's 227 KiB by default)."""
+    return choose_contains_path(n, spec.q_bits, spec.slot_bits, smem_bytes,
+                                load, spec.r_bits)
 
 
 def contains_vmem(spec: FilterSpec, table: torch.Tensor, keys: torch.Tensor,
-                  coop: str = "none") -> torch.Tensor:
-    """Bulk run-scan membership. (n,) bool."""
+                  coop: str = "none", *, path: Optional[str] = None,
+                  bin_bits: Optional[int] = None,
+                  cap: int = CONTAINS_KEY_CAP,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Bulk run-scan membership. (n,) bool. On the card the path is
+    :func:`choose_contains_path`'s at the table's load
+    (:func:`table_load`); the private arguments (tests and the smoke;
+    ``ops`` never passes them): ``path``, ``bin_bits`` (quotients a
+    bin, log2), ``cap`` (keys an internal batch) and ``window`` (table
+    words a test CTA stages)."""
     if coop not in COOPS:
         raise ValueError(f"coop={coop!r} not in {COOPS}")
     if not _check_layout(spec, table, keys):
         return contains_plain(spec, table, keys, coop)
-    out = _launch_contains(spec, table, keys,
-                           contains_mode(spec, keys.shape[0]))
+    out = _launch_contains(spec, table, keys, path, bin_bits=bin_bits,
+                           cap=cap, window=window)
     if keys.shape[0]:
         LAUNCHES["contains_vmem"] += 1
     return out
@@ -717,6 +1125,8 @@ def _update(name: str, spec, table, keys, valid, op: str,
     flags = _launch_update(spec, table, keys, valid, op, **knobs)
     if keys.shape[0]:
         LAUNCHES[name] += 1
+        if _version(table) is not None:   # a kept load (table_load) goes
+            torch.autograd.graph.increment_version(table)      # stale
     return table, flags
 
 

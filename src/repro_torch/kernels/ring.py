@@ -60,7 +60,8 @@ from repro_torch.core import hashing as H
 from repro_torch.core import variants as V
 from repro_torch.core.variants import FilterSpec
 from repro_torch.kernels import sbf
-from repro_torch.kernels.cbf import free_device_bytes
+from repro_torch.kernels.cbf import (chunk_of_model, free_device_bytes,
+                                     slot_runs_model)
 from repro_torch.kernels.sbf import DEFAULT_DMA_DEPTH, DMA_DEPTHS
 
 PATHS = ("one-pass", "binned")
@@ -262,10 +263,10 @@ def contains_binned_model(spec: FilterSpec, rings: torch.Tensor,
     ranges: each key counted by (bin, chunk) (stage 1); each bin's slice
     the chunks' runs in chunk order, each padded to a whole sector of 2
     slots (2, 3); each key's slot (index in the batch, pattern hash, row in
-    the bin) written into its chunk's run in key order, filler slots in the
-    padding (4; the kernels' order inside a run differs, and a test does
-    not care); then each touched bin's rows ORed over the G generations and
-    each slot's mask tested against its row of that OR (5)."""
+    the bin) in its chunk's run, filler slots in the padding (4;
+    :func:`cbf.slot_runs_model`); then each touched bin's rows ORed over
+    the G generations and each slot's mask tested against its row of that
+    OR (5)."""
     G, n_words = rings.shape
     s = spec.s
     n = keys.shape[0]
@@ -280,24 +281,11 @@ def contains_binned_model(spec: FilterSpec, rings: torch.Tensor,
         nb = batch.shape[0]
         h1, h2 = H.hash_keys(batch)
         blk = H.block_index(h2, spec.n_blocks)
-        bounds = torch.tensor([c * nb // chunks for c in range(chunks + 1)])
-        chunk = torch.searchsorted(bounds, torch.arange(nb), right=True) - 1
-        cell = (blk >> shift) * chunks + chunk               # bin-major
-        counts = torch.bincount(cell, minlength=n_bins * chunks)
-        runs = (counts + SECTOR_SLOTS - 1) // SECTOR_SLOTS * SECTOR_SLOTS
-        run_at = torch.cumsum(runs, 0) - runs
-        lengths = runs.reshape(n_bins, chunks).sum(1)
-        starts = torch.cumsum(lengths, 0) - lengths
-        order = torch.argsort(cell, stable=True)
-        rank = torch.arange(nb) - (torch.cumsum(counts, 0)
-                                   - counts)[cell[order]]
-        slot = run_at[cell[order]] + rank
-        index = torch.full((int(lengths.sum()),), FILLER, dtype=torch.int64)
-        index[slot] = order
-        if (int((index != FILLER).sum()) != nb or not torch.equal(
-                run_at.reshape(n_bins, chunks)[:, 0], starts)):
-            raise AssertionError("the runs do not tile the bins' slices")
-        owner = torch.repeat_interleave(torch.arange(n_bins), lengths)
+        cell = (blk >> shift) * chunks + chunk_of_model(nb, chunks)
+        slot, total, owner = slot_runs_model(cell, n_bins, chunks,
+                                             SECTOR_SLOTS)
+        index = torch.full((total,), FILLER, dtype=torch.int64)
+        index[slot] = torch.arange(nb)
         live = index != FILLER
         idx, bins = index[live], owner[live]
         touched = torch.unique(bins)

@@ -78,6 +78,7 @@ return it. ``LAUNCHES`` counts kernel launches per wrapper.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -330,6 +331,24 @@ def _on_cuda(filt: torch.Tensor, keys: torch.Tensor) -> bool:
     if filt.device.type != "cuda":
         raise ValueError(f"unsupported device {filt.device}")
     return True
+
+
+def device_scope(device: torch.device):
+    """The context a launch on CUDA ``device`` runs in: ``torch.cuda.device``
+    only where ``device`` is not the current device (entering it costs more
+    host time than a small batch's launch)."""
+    index = device.index
+    if index is None or index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
+
+
+def raw_stream(device: torch.device) -> int:
+    """The current stream of CUDA ``device`` as a handle for the C entry
+    points, read without building a ``torch.cuda.Stream``."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def _salts(device: torch.device) -> torch.Tensor:

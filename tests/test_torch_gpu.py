@@ -1498,6 +1498,23 @@ def test_cuckoo_kernels_match_plain(cuda, spec, load):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("spec", KSPECS, ids=str)
+def test_cuckoo_contains_matches_plain_at_shares(cuda, spec):
+    """The contains (both coop values) against the plain version at load
+    0.9, with none, half or all of the keys members."""
+    keys, _ = _cuckoo_batch(spec, 0.9, 21, cuda)
+    table, _ = ckoo.add_vmem(spec, F.init(spec, cuda), keys, None)
+    probes = _probes(3000, 22, cuda)
+    for share in (0.0, 0.5, 1.0):
+        m = int(share * keys.shape[0])
+        queries = torch.cat([keys[:m], probes])
+        want = ckoo.contains_plain(spec, table, queries).cpu().numpy()
+        for coop in ckoo.COOPS:
+            np.testing.assert_array_equal(ckoo.contains_vmem(
+                spec, table, queries, coop).cpu().numpy(), want)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [0, 1, 7, 2048, 2049, 5000])
 def test_cuckoo_ops_tiles_match_plain(cuda, n):
     spec = KSPECS[1]
@@ -1680,9 +1697,9 @@ def _quotient_matches_plain(spec, table, keys, valid, gone, probes):
         np.testing.assert_array_equal(
             qf.contains_vmem(spec, want, queries, coop=coop).cpu().numpy(),
             hit)
-    for mode in qf.CONTAINS_MODES:                   # every contains path
+    for path in qf.CONTAINS_PATHS:                   # every contains path
         np.testing.assert_array_equal(
-            qf._launch_contains(spec, want, queries, mode).cpu().numpy(),
+            qf._launch_contains(spec, want, queries, path).cpu().numpy(),
             hit)
     want_rm, found = qf.update_plain(spec, want, gone, None, "remove")
     got_rm, got_found = qf.remove_vmem(spec, want.clone(), gone, None)
@@ -1711,6 +1728,52 @@ def test_quotient_kernels_match_plain(cuda, spec, load):
     more = _keys(spec.n_slots // 4, 7, cuda)
     _quotient_matches_plain(spec, table, more, None, more[::2].contiguous(),
                             probes)
+
+
+# lowered bins, windows and caps of the binned quotient contains
+QLOW = (dict(bin_bits=0, window=4, cap=97), dict(bin_bits=3, window=4,
+                                                  cap=1000),
+        dict(bin_bits=5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", QSPECS, ids=str)
+@pytest.mark.parametrize("load", [0.5, 0.9, 0.95, 1.3])
+def test_quotient_contains_paths_match_plain(cuda, spec, load):
+    """Both contains paths (the walk, binned) at the card's bins, binned at
+    a quotient a bin, 8 and 32 quotients a bin with 4-word windows and
+    small caps, and the rule's path at the sampled load, against the plain
+    version; load 1.3 leaves one empty slot. The sampled load is kept
+    until an update changes the table."""
+    keys, _ = _quotient_batch(spec, load, 23, cuda)
+    table, _ = qf.add_vmem(spec, Q.init(spec, cuda), keys, None)
+    queries = torch.cat([keys, _probes(3000, 24, cuda)])
+    want = qf.contains_plain(spec, table, queries).cpu().numpy()
+    for path in qf.CONTAINS_PATHS:
+        np.testing.assert_array_equal(
+            qf._launch_contains(spec, table, queries, path).cpu().numpy(),
+            want)
+        assert qf.LAST_CONTAINS_PLAN["path"] == path
+    smem = sbf.partition_smem_bytes(cuda)
+    for kw in QLOW:
+        ww = kw.get("window", qf.contains_window_words(spec, kw["bin_bits"]))
+        if not qf.binned_fits(spec, kw["bin_bits"], ww, smem):
+            continue
+        np.testing.assert_array_equal(qf._launch_contains(
+            spec, table, queries, "binned", **kw).cpu().numpy(), want)
+    stored = int(Q.occupied_slots(spec, table))
+    sampled = qf.table_load(spec, table)
+    if spec.n_slots <= qf.LOAD_SAMPLE_SLOTS:          # sampled in full
+        assert sampled == stored / spec.n_slots
+    many = queries.repeat(-(-qf.LOAD_MIN_KEYS // queries.shape[0]), 1)
+    np.testing.assert_array_equal(qf.contains_vmem(
+        spec, table, many).cpu().numpy(), np.tile(want, many.shape[0]
+                                                  // queries.shape[0]))
+    assert qf.LAST_CONTAINS_PLAN["load"] == sampled
+    assert qf.LAST_CONTAINS_PLAN["path"] == qf.contains_mode(
+        spec, many.shape[0], sampled, smem)
+    qf.remove_vmem(spec, table, keys[:1], None)
+    assert table._quotient_rule[0] != table._version
 
 
 @pytest.mark.gpu

@@ -347,8 +347,11 @@ def test_wrappers_run_the_plain_versions_on_the_cpu():
     assert set(TK.LAUNCHES.values()) == {0}
     assert set(TK.LAUNCHES) == {"contains_vmem", "add_vmem", "remove_vmem",
                                 "merge_vmem", "resize_vmem"}
-    assert TK.contains_mode(ts, ts.n_slots // 16 - 1) == "walk"
-    assert TK.contains_mode(ts, ts.n_slots // 16) == "auto"
+    # the contains' rule: the walk below LOAD_MIN_KEYS keys, then by the
+    # table's load
+    assert TK.contains_mode(ts, TK.LOAD_MIN_KEYS - 1, 0.9) == "walk"
+    assert TK.contains_mode(ts, TK.LOAD_MIN_KEYS, 0.9) == "binned"
+    assert TK.contains_mode(ts, TK.LOAD_MIN_KEYS, 0.5) == "walk"
     for bad in (lambda: TK.contains_vmem(ts, table, tk, coop="warp"),
                 lambda: TK.update_plain(ts, table, tk, None, "decay"),
                 lambda: TK.add_vmem(ts, table, tk, tv[:5]),

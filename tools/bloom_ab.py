@@ -25,16 +25,24 @@ times, in turns (CUDA events; median and the rounds' range):
   exit of a key at its first missing load acts (L2: depth 1; DRAM: the
   depth ``ops`` resolves).
 
-Cuckoo: the other checkout's ``cuckoo.cu`` must have the ordered one-CTA
-update's C interface, ``cuckoo_update(keys, valid, table, flags, n, tile,
-bucket_mask, lg_buckets, slot_bits, spb, fp_salt, alt_salt, op, stream)``.
-In the cuckoo cell of ``chip_smoke.py`` (``filter_for_n_items(2^22,
-bits_per_key=16, variant="cuckoo")``, u16 x 4, 16 MiB, the smoke's keys)
-the script checks that both updates give the same words and flags, then
-times them in turns, one call each on a restored table: the add of 2^22
-keys into the empty table, the add of 3,355,443 more (load 0.5 to 0.9),
-the remove of half of them and the add of 2^16 keys at load 0.9; and
-prints this tree's counters of each.
+Cuckoo: the other checkout's ``cuckoo.cu`` must have the windowed
+update's and the one-pass contains' C interfaces, ``cuckoo_update(keys,
+valid, table, flags, order, stats, n, tile, window, step_cap, bucket_mask,
+lg_buckets, slot_bits, spb, fp_salt, alt_salt, op, stream)`` and
+``cuckoo_contains(keys, table, out, n, bucket_mask, lg_buckets, slot_bits,
+spb, fp_salt, alt_salt, stream)``. In the cuckoo cell of ``chip_smoke.py``
+(``filter_for_n_items(2^22, bits_per_key=16, variant="cuckoo")``, u16 x 4,
+16 MiB, the smoke's keys) the script checks that both updates give the
+same words and flags, then times them in turns, one call each on a
+restored table: the add of 2^22 keys into the empty table, the add of
+3,355,443 more (load 0.5 to 0.9), the remove of half of them and the add
+of 2^16 keys at load 0.9; and prints this tree's counters of each. Then,
+there and in the DRAM cell (2^27 keys into 512 MiB, topped up to load
+0.9 as the smoke does), it checks that both trees' contains give the same
+results and times them in turns: the contains of every key and of 2^22
+probes, the other's one-pass kernel against this tree's wrapper and its
+kernel through ctypes, as the other's (20 calls a round in L2, 3 in
+DRAM).
 
 Classical filter: the other checkout's ``cbf.cu`` must have the one-pass
 add's and contains' C interfaces, ``cbf_add(keys, words, salts, n, log2m,
@@ -92,21 +100,23 @@ and prints this tree's path and geometry. Both trees' bank calls skip the
 wrapper's member range check.
 
 Quotient filter: the other checkout's ``quotient.cu`` must have the
-rebuild-once update's C interface, ``quotient_update(keys, fps_in, valid,
-table, new_table, flags, n, lg_slots, r_bits, slot_bits, fp_salt, op,
-ws_slots, ws_keys, aggs, n_aggs, scal, stream)`` and ``quotient_decode(
-table, fps, valid, lg_slots, r_bits, slot_bits, ws_slots, aggs, n_aggs,
-scal, stream)`` (merge and resize: a decode, then the add of the decoded
-fingerprints). In the two quotient cells of ``chip_smoke.py``
-(``filter_for_n_items(n, variant="quotient")``: q23 + r5 in u8 lanes, 8
-MiB, batches of 2^22; q26 + r5, 64 MiB, batches of 2^24; keys to load
-0.9) the script checks that both trees give the same words and flags, then
-times in turns, one call each on a restored table: the first batch's add
-into the empty table, the last batch's add (to load 0.9), the remove of a
-batch at load 0.9, the add of 2^22 keys into the empty table, the merge of
-two tables of half the keys each and the resize one step up; and the
-contains of every key at load 0.9 (the cluster walk, the table pass and
-the card's choice; 20 calls a round).
+sorted-stream update's C interfaces (``quotient_update``,
+``quotient_merge``, ``quotient_resize``, as this tree's) and the table
+pass contains', ``quotient_contains(keys, table, out, n, lg_slots, r_bits,
+slot_bits, fp_salt, mode, ws_slots, aggs, n_aggs, scal, stream)`` (mode 0
+the walk, 1 the table pass, 2 the card's choice). In the two quotient
+cells of ``chip_smoke.py`` (``filter_for_n_items(n, variant="quotient")``:
+q23 + r5 in u8 lanes, 8 MiB, batches of 2^22; q26 + r5, 64 MiB, batches
+of 2^24; keys to load 0.9) the script checks that both trees give the
+same words and flags, then times in turns, one call each on a restored
+table: the first batch's add into the empty table, the last batch's add
+(to load 0.9), the remove of a batch at load 0.9 and the add of 2^22 keys
+into the empty table (this tree's through its wrapper and, as the other's,
+through ctypes), the merge of two tables of half the keys each and the
+resize one step up; and the contains of every key at load 0.9 and of
+2^22 keys (half of them probes): the other's wrapper's mode against this
+tree's rule's path (at the load it samples) and each of its paths forced
+(results equal first; 20 calls a round, 5 in the DRAM-side cell).
 
 Ring contains: the other checkout's ``ring.cu`` must have the
 one-thread-a-key C interface, ``ring_contains(keys, rings, out, salts, n,
@@ -181,15 +191,18 @@ def build_other(checkout: Path, name: str = "bloom") -> ctypes.CDLL:
         lib.counting_update_partitioned.argtypes = [VP, VP, VP, VP, LL, LL,
                                                     U32, U32, I, I, I, I, VP]
     elif name == "quotient":
-        lib.quotient_update.argtypes = [VP, VP, VP, VP, VP, VP, LL, I, I, I,
-                                        U32, I, VP, VP, VP, LL, VP, VP]
-        lib.quotient_decode.argtypes = [VP, VP, VP, I, I, I, VP, VP, LL, VP,
-                                        VP]
+        for fn in ("quotient_update", "quotient_merge", "quotient_resize"):
+            getattr(lib, fn).argtypes = _build.ENTRY_POINTS[fn][1]
         lib.quotient_contains.argtypes = [VP, VP, VP, LL, I, I, I, U32, I,
                                           VP, VP, LL, VP, VP]
     else:
-        lib.cuckoo_update.argtypes = [VP, VP, VP, VP, LL, I, U32, I, I, I,
-                                      U32, U32, I, VP]
+        lib.cuckoo_update.argtypes = _build.ENTRY_POINTS["cuckoo_update"][1]
+        lib.cuckoo_contains.argtypes = [VP, VP, VP, LL, U32, I, I, I, U32,
+                                        U32, VP]
+    for fn in ("quotient_update", "quotient_merge", "quotient_resize",
+               "quotient_contains", "cuckoo_update", "cuckoo_contains"):
+        if hasattr(lib, fn):
+            getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
@@ -284,11 +297,17 @@ def cuckoo_main(checkout: Path) -> None:
     sub = gen_keys(1 << 16, 94)
 
     def other_update(table, keys, op):
-        flags = torch.empty(keys.shape[0], dtype=torch.bool, device="cuda")
+        n = keys.shape[0]
+        flags = torch.empty(n, dtype=torch.bool, device="cuda")
+        order = torch.empty((n, 4), dtype=torch.int32, device="cuda")
+        stats = torch.empty(len(ckoo.STATS), dtype=torch.int64,
+                            device="cuda")
         err = other.cuckoo_update(keys.data_ptr(), None, table.data_ptr(),
-                                  flags.data_ptr(), keys.shape[0],
-                                  F.CUCKOO_ADD_TILE, *ckoo._geometry(spec),
-                                  ckoo._OP_CODE[op], stream)
+                                  flags.data_ptr(), order.data_ptr(),
+                                  stats.data_ptr(), n, F.CUCKOO_ADD_TILE,
+                                  ckoo.WINDOW, ckoo.STEP_CAP,
+                                  *ckoo._geometry(spec), ckoo._OP_CODE[op],
+                                  stream)
         assert err == 0, err
         return table, flags
 
@@ -320,6 +339,49 @@ def cuckoo_main(checkout: Path) -> None:
         counters = ckoo.LAST_UPDATE_STATS[name].read()
         print(f"  this tree's counters: {counters}; other / this "
               f"{res['other'][0] / res['this'][0]:.2f}x", flush=True)
+    cuckoo_contains_turns(other, "L2", spec, full_load, allkeys, 20)
+    del f, empty, half_load, full_load, scratch, keys1, keys2, allkeys
+    torch.cuda.empty_cache()
+    # the DRAM cell, as chip_smoke.py phase_cuckoo_dram builds it
+    f = api.filter_for_n_items(1 << 27, bits_per_key=16, variant="cuckoo",
+                               device="cuda")
+    spec = f.spec
+    keys = torch.cat([gen_keys(1 << 27, 191), gen_keys(
+        int(spec.n_slots * 0.9) - (1 << 27), 192)])
+    g = f.add(keys[: 1 << 27]).add(keys[1 << 27:])
+    cuckoo_contains_turns(other, "DRAM", spec, g.words, keys, 3)
+
+
+def cuckoo_contains_turns(other, label, spec, table, keys, reps) -> None:
+    """The other's contains against this tree's, on every key and on 2^22
+    probes: results checked equal first, then timed in turns, this tree's
+    through its wrapper and, as the other's, its kernel through ctypes."""
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def kernel(lib, k):
+        out = torch.empty(k.shape[0], dtype=torch.bool, device="cuda")
+        err = lib.cuckoo_contains(k.data_ptr(), table.data_ptr(),
+                                  out.data_ptr(), k.shape[0],
+                                  *ckoo._geometry(spec), stream)
+        assert err == 0, err
+        return out
+
+    for what, k in (("every key", keys),
+                    ("2^22 probes", gen_keys(1 << 22, 193, probe=True))):
+        fns = {"other": lambda k=k: kernel(other, k),
+               "this": lambda k=k: ckoo.contains_vmem(spec, table, k),
+               "this kernel": lambda k=k: kernel(_build.library(), k)}
+        want = fns["other"]()
+        for key, fn in fns.items():
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"cuckoo {label} contains {what}: "
+                                     f"{key} differs")
+        res = turns(fns, reps)
+        show(f"cuckoo {label} contains {what} ({k.shape[0]} keys, "
+             f"{spec.n_words * 4 >> 20} MiB; results equal)", res)
+        print(f"  other / this {res['other'][0] / res['this'][0]:.2f}x, "
+              f"other / this kernel "
+              f"{res['other'][0] / res['this kernel'][0]:.2f}x", flush=True)
 
 
 def cbf_main(checkout: Path) -> None:
@@ -770,66 +832,69 @@ def counting_main(checkout: Path) -> None:
 
 class OtherQuotient:
     """The other checkout's quotient update, merge, resize and contains,
-    called as its wrappers called them (scratch allocated each call)."""
+    called as its wrappers called them (workspace and scratch allocated
+    each call)."""
 
     def __init__(self, lib, stream):
         self.lib, self.stream = lib, stream
 
-    def _scratch(self, spec, arrays, n):
-        n_aggs = max(-(-max(spec.n_slots, n) // 4096), 1)
-        return (torch.empty(arrays * spec.n_slots, dtype=torch.int32,
-                            device="cuda"),
-                torch.empty(n_aggs, dtype=torch.int64, device="cuda"),
-                n_aggs, torch.empty(8, dtype=torch.int64, device="cuda"))
-
-    def update(self, spec, table, keys, op, fps=None, valid=None):
-        n = (keys if fps is None else fps).shape[0]
+    def update(self, spec, table, keys, op):
+        n = keys.shape[0]
         flags = torch.empty(n, dtype=torch.bool, device="cuda")
-        ws, aggs, n_aggs, scal = self._scratch(spec, 5, n)
-        ws_keys = torch.empty(2 * n, dtype=torch.int32, device="cuda")
-        new = torch.empty_like(table)
-        err = self.lib.quotient_update(
-            None if keys is None else keys.data_ptr(),
-            None if fps is None else fps.data_ptr(),
-            None if valid is None else valid.data_ptr(), table.data_ptr(),
-            new.data_ptr(), flags.data_ptr(), n, spec.q_bits, spec.r_bits,
-            spec.slot_bits, Q.FP_SALT, qf._OP_CODE[op], ws.data_ptr(),
-            ws_keys.data_ptr(), aggs.data_ptr(), n_aggs, scal.data_ptr(),
-            self.stream)
-        assert err == 0, err
+        plan = qf.update_plan(spec, n, op)
+        work = torch.empty(plan["workspace_bytes"], dtype=torch.uint8,
+                           device="cuda")
+        for first in range(0, n, qf.KEY_BATCH):
+            nb = min(qf.KEY_BATCH, n - first)
+            err = self.lib.quotient_update(
+                keys[first:].data_ptr(), None, table.data_ptr(),
+                flags[first:].data_ptr(), nb, *qf._geometry(spec),
+                qf._OP_CODE[op], work.data_ptr(), plan["workspace_bytes"],
+                qf.TILE_SLOTS, qf.MERGE_TILE, plan["bin_bits"], qf.BIN_CAP,
+                0, self.stream)
+            assert err == 0, err
         return table, flags
 
-    def decode(self, spec, table):
-        fps = torch.empty(spec.n_slots, dtype=torch.int32, device="cuda")
-        valid = torch.empty(spec.n_slots, dtype=torch.uint8, device="cuda")
-        ws, aggs, n_aggs, scal = self._scratch(spec, 3, 0)
-        err = self.lib.quotient_decode(
-            table.data_ptr(), fps.data_ptr(), valid.data_ptr(), spec.q_bits,
-            spec.r_bits, spec.slot_bits, ws.data_ptr(), aggs.data_ptr(),
-            n_aggs, scal.data_ptr(), self.stream)
-        assert err == 0, err
-        return fps, valid
-
     def merge(self, spec, a, b):
-        fps, valid = self.decode(spec, b)
-        out = a.clone()
-        self.update(spec, out, None, "add", fps, valid)
+        plan = qf.update_plan(spec, 0, "merge")
+        out = torch.empty_like(a)
+        work = torch.empty(plan["workspace_bytes"], dtype=torch.uint8,
+                           device="cuda")
+        err = self.lib.quotient_merge(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), spec.q_bits,
+            spec.r_bits, spec.slot_bits, work.data_ptr(),
+            plan["workspace_bytes"], qf.TILE_SLOTS, qf.MERGE_TILE,
+            self.stream)
+        assert err == 0, err
         return out
 
     def resize(self, spec, table, new_spec):
-        fps, valid = self.decode(spec, table)
+        plan = qf.update_plan(spec, 0, "resize", new_spec=new_spec)
         out = Q.init(new_spec, "cuda")
-        self.update(new_spec, out, None, "add", fps, valid)
+        work = torch.empty(plan["workspace_bytes"], dtype=torch.uint8,
+                           device="cuda")
+        err = self.lib.quotient_resize(
+            table.data_ptr(), out.data_ptr(), spec.q_bits, spec.r_bits,
+            new_spec.q_bits, new_spec.r_bits, spec.slot_bits,
+            work.data_ptr(), plan["workspace_bytes"], qf.TILE_SLOTS,
+            qf.MERGE_TILE, self.stream)
+        assert err == 0, err
         return out
 
-    def contains(self, spec, table, keys, mode):
-        out = torch.empty(keys.shape[0], dtype=torch.bool, device="cuda")
-        ws, aggs, n_aggs, scal = self._scratch(spec, 3, 0)
+    def contains(self, spec, table, keys):
+        """The other wrapper's contains: the walk below n_slots / 16 keys,
+        else the card's choice between the walk and the table pass."""
+        n = keys.shape[0]
+        mode = 2 if n * 16 >= spec.n_slots else 0
+        out = torch.empty(n, dtype=torch.bool, device="cuda")
+        n_aggs = max(-(-spec.n_slots // 4096), 1)
+        ws = torch.empty(3 * spec.n_slots, dtype=torch.int32, device="cuda")
+        aggs = torch.empty(n_aggs, dtype=torch.int64, device="cuda")
+        scal = torch.empty(8, dtype=torch.int64, device="cuda")
         err = self.lib.quotient_contains(
-            keys.data_ptr(), table.data_ptr(), out.data_ptr(),
-            keys.shape[0], spec.q_bits, spec.r_bits, spec.slot_bits,
-            Q.FP_SALT, qf.CONTAINS_MODES.index(mode), ws.data_ptr(),
-            aggs.data_ptr(), n_aggs, scal.data_ptr(), self.stream)
+            keys.data_ptr(), table.data_ptr(), out.data_ptr(), n,
+            *qf._geometry(spec), mode, ws.data_ptr(), aggs.data_ptr(),
+            n_aggs, scal.data_ptr(), self.stream)
         assert err == 0, err
         return out
 
@@ -837,6 +902,10 @@ class OtherQuotient:
 def quotient_main(checkout: Path) -> None:
     other = OtherQuotient(build_other(checkout, "quotient"),
                           torch.cuda.current_stream().cuda_stream)
+    # this tree's update kernels called as the other's are (the same C
+    # interface): the wrapper's own host work is not in their times
+    mine = OtherQuotient(_build.library(),
+                         torch.cuda.current_stream().cuda_stream)
     for label, n, batch in (("L2", 1 << 22, 1 << 22),
                             ("DRAM", 1 << 25, 1 << 24)):
         f = api.filter_for_n_items(n, variant="quotient", device="cuda")
@@ -870,7 +939,9 @@ def quotient_main(checkout: Path) -> None:
             del x, fx, y, fy
             res = turns_restored({
                 "other": lambda k=ks, o=op: other.update(spec, scratch, k, o),
-                "this": lambda k=ks, f=fn: f(spec, scratch, k, None)},
+                "this": lambda k=ks, f=fn: f(spec, scratch, k, None),
+                "this (ctypes)": lambda k=ks, o=op: mine.update(
+                    spec, scratch, k, o)},
                 lambda s=start: scratch.copy_(s), rounds=6)
             show(f"quotient {label} {what} ({spec}, {ks.shape[0]} keys; "
                  f"words and flags equal)", res)
@@ -890,16 +961,25 @@ def quotient_main(checkout: Path) -> None:
             show(f"quotient {label} {what} ({spec}; words equal)", res)
             print(f"  other / this {res['other'][0] / res['this'][0]:.2f}x",
                   flush=True)
-        for mode in qf.CONTAINS_MODES:
-            if not torch.equal(other.contains(spec, full, keys, mode),
-                               qf._launch_contains(spec, full, keys, mode)):
-                raise AssertionError(f"quotient {label} contains {mode}")
-            res = turns({
-                "other": lambda m=mode: other.contains(spec, full, keys, m),
-                "this": lambda m=mode: qf._launch_contains(spec, full, keys,
-                                                           m)}, 20)
-            show(f"quotient {label} contains {mode} ({n_all} keys at load "
-                 f"0.9; results equal)", res)
+        sub = torch.cat([keys[: 1 << 21], gen_keys(1 << 21, 830,
+                                                   probe=True)])
+        for what, k in (("every key", keys), ("2^22 keys", sub)):
+            fns = {"other": lambda k=k: other.contains(spec, full, k),
+                   "this": lambda k=k: qf.contains_vmem(spec, full, k),
+                   **{f"this {m}": (lambda k=k, m=m: qf._launch_contains(
+                       spec, full, k, m)) for m in qf.CONTAINS_PATHS}}
+            want = fns["other"]()
+            for key, fn in fns.items():
+                if not torch.equal(fn(), want):
+                    raise AssertionError(f"quotient {label} contains {what}:"
+                                         f" {key} differs")
+            res = turns(fns, 20 if label == "L2" else 5)
+            show(f"quotient {label} contains {what} ({k.shape[0]} keys at "
+                 f"load 0.9; results equal; this tree's rule: "
+                 f"{qf.LAST_CONTAINS_PLAN['path']} at the sampled load "
+                 f"{qf.LAST_CONTAINS_PLAN['load']})", res)
+            print(f"  other / this {res['other'][0] / res['this'][0]:.2f}x",
+                  flush=True)
         del f, keys, chunks, empty, table, before_last, full, a, b, scratch
         torch.cuda.empty_cache()
 
