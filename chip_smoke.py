@@ -220,6 +220,24 @@ the script exits non-zero without printing a result:
    1-4 and 10-13; the step kernel's times and bound (row 24) and
    ``measure_step_us``'s time. ``build/repro_torch/smoke_tuning.json``
    keeps these numbers;
+4h. the filter service (``repro_torch.service``) on the card, after the
+   other phases: the main cell, a ``FilterService`` over a bank of 64 sbf
+   tenants sized for 2^20 keys each at 16 bits a key (128 MiB, past the
+   L2), flushes of 2^16, 2^21 adds (tenant 0 a quarter of them, past its
+   quota) and 2^21 contains (half admitted keys, half fresh) in bursts of
+   2^14 through ``submit_many`` and ``pump()`` on a virtual clock; one
+   bank-kernel launch a flush; no false negative; every flush's words and
+   results, the seq ids and the shed counts equal to the same stream on
+   the plain engine (``torch``) on the card; requests and flushes a second,
+   the flush latency's p50 / p99 and the shares of launch, sync and the
+   rest on the real clock, a ``member_fill`` refresh, a bank clone, the
+   routed id check. Then small counting (removes, decay cadence),
+   windowed (advance cadence), cuckoo (past its load: health sheds),
+   quotient (``grow_capacity``) and ``grow_bank`` passes, each equal flush
+   for flush to the same stream on the CPU (the plain versions), and the
+   recovery drill (``ServiceDriver``, a ``SimulatedFailure`` at step 7,
+   restore from the flush-barrier checkpoint, replay) equal to the clean
+   run;
 5. times with CUDA events (warm-up, then 5 rounds of 20 calls; an update is
    timed on state restored before each call, outside the events) at the
    main path's size and, against the plain version, on 2^22 keys into an
@@ -242,6 +260,10 @@ the cuckoo contains in both cuckoo cells' shapes, of the DRAM windowed
 cell's binned contains and of a DRAM partitioned sbf add batch, and no
 result.
 
+    python3 chip_smoke.py --service
+
+runs the build and phase 4h alone.
+
     python3 chip_smoke.py --contains
 
 runs the build, phases 3f, 4f and the quotient contains' rule sweep, then
@@ -263,6 +285,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import api  # noqa: E402
@@ -281,6 +304,8 @@ from repro_torch import perfmodel as PM  # noqa: E402
 from repro_torch.perfmodel import calibrate as PC  # noqa: E402
 from repro_torch.core import tuning  # noqa: E402
 from repro_torch.roofline import report_utils as RU  # noqa: E402
+from repro_torch import service as S  # noqa: E402
+from repro_torch.runtime.fault_tolerance import SimulatedFailure  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 OPS_PER_S = 67e12              # non-tensor peak (fp32 rate, the guide's table)
@@ -6000,6 +6025,497 @@ def phase_tuning_main(card: str, errs: dict, out: dict, records: dict,
             "speed_of_light": sol}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the filter service on the card
+# ---------------------------------------------------------------------------
+
+SERVICE_TENANTS = 64           # the main cell's bank: 64 sbf members
+SERVICE_N_PER = 1 << 20        # keys a member is sized for: 2 MiB a member
+SERVICE_BATCH = 1 << 16        # the static flush shape
+SERVICE_BURST = 1 << 14        # requests a submit_many call
+SERVICE_REQUESTS = 1 << 21     # adds, then as many contains
+SERVICE_QUOTA = 1 << 12        # pending requests a tenant: tenant 0 passes it
+SERVICE_CKPT = ROOT / "build" / "repro_torch" / "service_ckpt"
+
+
+class VirtualClock:
+    """The service clock of a replayable run: a burst a second."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def service_of(bank, max_batch: int, clock, **policy) -> "S.FilterService":
+    from repro_torch.telemetry import TelemetryConfig
+    cfg = S.ServiceConfig(max_batch=max_batch, flush_deadline=4.0,
+                          admission=S.AdmissionPolicy(**policy),
+                          telemetry=TelemetryConfig(max_spans=1 << 17))
+    return S.FilterService(bank, cfg, clock=clock)
+
+
+def on_flushes(svc, each) -> None:
+    """Call ``each(op)`` after every flush of ``svc`` (the smoke's own
+    hook: it keeps each flush's words and results for the comparisons)."""
+    inner = svc._flush_op
+
+    def flush(op: str, trigger: str) -> None:
+        inner(op, trigger)
+        each(op)
+
+    svc._flush_op = flush
+
+
+def drive(svc, clock, op: str, keys, tenants, maint=None, step0: int = 0
+          ) -> np.ndarray:
+    """``op`` requests in bursts through ``submit_many``, ``pump()`` after
+    each (and a maintenance tick), the virtual clock a burst a second;
+    returns the seq ids."""
+    seqs = []
+    for i, first in enumerate(range(0, keys.shape[0], SERVICE_BURST)):
+        clock.t = float(step0 + i)
+        seqs.append(svc.submit_many(op, keys[first:first + SERVICE_BURST],
+                                    tenants[first:first + SERVICE_BURST]))
+        svc.pump()
+        if maint is not None:
+            maint.tick(svc, step0 + i + 1)
+    return np.concatenate(seqs)
+
+
+def service_flushes(svc, log: list) -> None:
+    """Keep each flush's outcome in ``log``: the filter after an add (the
+    update returned new words) and the results of a contains."""
+    def each(op):
+        if op == "contains":
+            log.append(("contains", svc.take_results()))
+        else:
+            log.append((op, svc.filt))
+    on_flushes(svc, each)
+
+
+def compare_flushes(svc, log: list, label: str) -> list:
+    """Hold each flush of ``svc`` against ``log``'s in order: the same op,
+    words bit for bit, the same results; returns the checked indices."""
+    seen = []
+
+    def each(op):
+        i = len(seen)
+        if i >= len(log) or log[i][0] != op:
+            raise AssertionError(f"{label}: flush {i} is a {op}, the card "
+                                 f"run's a {log[i][0] if i < len(log) else '-'}")
+        if op == "contains":
+            if svc.take_results() != log[i][1]:
+                raise AssertionError(f"{label}: flush {i}'s results differ")
+        elif not torch.equal(svc.filt.words, log[i][1].words.to(
+                svc.filt.device)):
+            raise AssertionError(f"{label}: words after flush {i} differ")
+        seen.append(i)
+    on_flushes(svc, each)
+    return seen
+
+
+def span_stats(svc) -> dict:
+    """Real-clock flush latencies and the shares of launch, sync and the
+    rest (the tracer's clock is the real one in the timed run)."""
+    tr = svc.telemetry.tracer
+    flush = np.asarray([e["dur"] for e in tr.spans("service.flush")])
+    part = {k: sum(e["dur"] for e in tr.spans(f"service.flush.{k}"))
+            for k in ("pad", "launch", "sync", "results")}
+    total = float(flush.sum())
+    return {"flushes": int(flush.size),
+            "p50_ms": float(np.percentile(flush, 50, method="inverted_cdf"))
+            * 1e3,
+            "p99_ms": float(np.percentile(flush, 99, method="inverted_cdf"))
+            * 1e3,
+            "launch_share": part["launch"] / total,
+            "sync_share": part["sync"] / total,
+            "rest_share": 1.0 - (part["launch"] + part["sync"]) / total}
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median wall time of ``fn`` (which waits for the card itself)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def phase_service_main(card: str) -> dict:
+    """The main cell at real size: a bank of 64 sbf tenants, each sized
+    for 2^20 keys at 16 bits a key (2 MiB a member, 128 MiB a bank, past
+    the 50 MB L2), flushes of 2^16; 2^21 adds (tenant 0 a quarter of them,
+    past its quota of pending requests), then 2^21 contains (half keys that
+    were added and admitted, half fresh), in bursts of 2^14 on a virtual
+    clock. Timed on the card's kernels, then run again on the plain engine
+    on the card (``torch``: the words stay on the card): every flush's
+    words and results, the seq ids and the shed counts must be equal, and
+    no admitted key may be missed."""
+    rng = np.random.RandomState(5001)
+    n = SERVICE_REQUESTS
+    keys = H.random_u64x2(n, seed=5001)
+    tenants = np.where(rng.rand(n) < 0.25, 0, rng.randint(
+        1, SERVICE_TENANTS, n)).astype(np.int64)
+    bank = api.filter_for_n_items(SERVICE_N_PER, bits_per_key=16,
+                                  bank=SERVICE_TENANTS, device="cuda")
+    policy = dict(queue_limit=1 << 18, tenant_quota=SERVICE_QUOTA)
+    clock = VirtualClock()
+    svc = service_of(bank, SERVICE_BATCH, clock, **policy)
+    svc.telemetry.tracer.clock = time.perf_counter   # real-clock spans
+    log = []
+    service_flushes(svc, log)
+    sbf.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    add_seqs = drive(svc, clock, "add", keys, tenants)
+    svc.drain()
+    t_add = time.perf_counter() - t0
+    admitted = add_seqs >= 0
+    fresh = H.probe_u64x2(n // 2, seed=5002)
+    pick = rng.choice(np.nonzero(admitted)[0], n // 2, replace=False)
+    q_keys = np.concatenate([keys[pick], fresh])
+    q_ten = np.concatenate([tenants[pick], rng.randint(
+        0, SERVICE_TENANTS, n // 2)]).astype(np.int64)
+    order = rng.permutation(n)
+    q_keys, q_ten = q_keys[order], q_ten[order]
+    member = order < n // 2
+    t1 = time.perf_counter()
+    q_seqs = drive(svc, clock, "contains", q_keys, q_ten,
+                   step0=n // SERVICE_BURST)
+    svc.drain()
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    launches = dict(sbf.LAUNCHES)
+    results = {}
+    for op, out in log:
+        if op == "contains":
+            results.update(out)
+    got = np.asarray([results[int(s)] for s in q_seqs])
+    if not (q_seqs >= 0).all() or not got[member].all():
+        raise AssertionError("service main cell: a false negative on an "
+                             "admitted add, or a contains shed")
+    n_add = sum(1 for op, _ in log if op == "add")
+    n_con = len(log) - n_add
+    if (launches["bank_add_vmem"] != n_add
+            or launches["bank_contains_vmem"] != n_con
+            or sum(launches.values()) != n_add + n_con):
+        raise AssertionError(f"service main cell: launches {launches} for "
+                             f"{n_add} add and {n_con} contains flushes")
+    spans = span_stats(svc)
+    shed = svc.admission.shed_by_tenant.copy()
+    counts = dict(svc.admission.shed_counts)
+    if counts["quota"] == 0 or shed[1:].sum() != 0:
+        raise AssertionError(f"service main cell: shed {counts}, "
+                             f"{int(shed[1:].sum())} outside tenant 0")
+    # the plain engine on the card, the same stream
+    clock2 = VirtualClock()
+    plain = service_of(bank.replace(backend="torch"), SERVICE_BATCH, clock2,
+                       **policy)
+    checked = compare_flushes(plain, log, "service main cell (plain)")
+    t2 = time.perf_counter()
+    p_add = drive(plain, clock2, "add", keys, tenants)
+    plain.drain()
+    p_q = drive(plain, clock2, "contains", q_keys, q_ten,
+                step0=n // SERVICE_BURST)
+    plain.drain()
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t2
+    if (len(checked) != len(log) or not np.array_equal(p_add, add_seqs)
+            or not np.array_equal(p_q, q_seqs)
+            or not np.array_equal(plain.admission.shed_by_tenant, shed)
+            or plain.admission.shed_counts != counts
+            or not torch.equal(plain.filt.words, svc.filt.words)):
+        raise AssertionError("service main cell: the plain engine's run "
+                             "differs (seqs, shed counts or words)")
+    fill_ms = host_ms(lambda: S.member_fill(svc.filt), 10)
+    clone_ms = time_ms(lambda: svc.filt.words.clone(), "service clone", 10, 3)
+    ids = torch.from_numpy(tenants[:SERVICE_BATCH].astype(np.int32)).cuda()
+    check_ms = host_ms(lambda: P.check_ids(ids, SERVICE_TENANTS))
+    add_ms = time_ms(lambda: svc.filt.add(
+        torch.from_numpy(keys[:SERVICE_BATCH].view(np.int32)).cuda(),
+        tenants=ids), "service routed add", 10, 3)
+    out = {"card": card, "engine": svc.filt.backend,
+           "bank_bytes": svc.filt.nbytes, "tenants": SERVICE_TENANTS,
+           "max_batch": SERVICE_BATCH, "requests": 2 * n,
+           "flushes": len(log), "add_flushes": n_add,
+           "contains_flushes": n_con,
+           "requests_per_s": 2 * n / t_all, "flushes_per_s": len(log) / t_all,
+           "add_phase_s": t_add, "contains_phase_s": t_all - t_add,
+           **spans, "member_fill_ms": fill_ms,
+           "health_refreshes": len(log) // S.AdmissionPolicy().health_every,
+           "bank_clone_ms": clone_ms, "routed_id_check_ms": check_ms,
+           "routed_add_call_ms": add_ms, "shed": counts,
+           "admitted_adds": int(admitted.sum()),
+           "launches": {k: v for k, v in launches.items() if v},
+           "plain_run_s": t_plain}
+    print(f"service main cell [{card}]: {out['engine']} bank of "
+          f"{SERVICE_TENANTS} sbf x {bank.spec} ({out['bank_bytes']} B), "
+          f"flushes of {SERVICE_BATCH}: {2 * n} requests in {t_all:.3f} s "
+          f"({out['requests_per_s']:.0f} requests/s, "
+          f"{out['flushes_per_s']:.1f} flushes/s; {n_add} add and {n_con} "
+          f"contains flushes), flush latency p50 {spans['p50_ms']:.4f} ms "
+          f"p99 {spans['p99_ms']:.4f} ms (real clock), shares launch "
+          f"{spans['launch_share']:.3f} sync {spans['sync_share']:.3f} rest "
+          f"{spans['rest_share']:.3f}; member_fill {fill_ms:.4f} ms a "
+          f"refresh; bank clone {clone_ms:.4f} ms, routed id check "
+          f"{check_ms:.4f} ms, a routed add call {add_ms:.4f} ms; shed "
+          f"{counts} (tenant 0 only), {out['admitted_adds']} adds admitted; "
+          f"launches {out['launches']}; plain engine run {t_plain:.2f} s, "
+          f"every flush's words and results, seqs and shed counts equal")
+    return out
+
+
+def small_pass(card: str, label: str, make, policy: dict, maint_cfg, steps,
+               max_batch, mid=None, launches=()):
+    """One service pass on a small bank, on the card and then on the CPU
+    (the plain versions): ``steps`` is a list of per-step request lists
+    [(op, keys, tenants)]; ``mid(svc)`` runs after the middle step (a live
+    change such as grow_bank). Every flush's words and results, the seq
+    ids, shed counts, maintenance events, final words and engine state and
+    the deterministic metrics must be equal. ``launches`` names (module,
+    wrapper) pairs that the card run must have launched."""
+    runs = []
+    for device in ("cuda", "cpu"):
+        clock = VirtualClock()
+        svc = service_of(make(device), max_batch, clock, **policy)
+        maint = S.MaintenanceLoop(maint_cfg) if maint_cfg else None
+        log = []
+        if device == "cuda":
+            for mod, _ in launches:
+                mod.reset_launches()
+            service_flushes(svc, log)
+        else:
+            checked = compare_flushes(svc, runs[0]["log"], label)
+        seqs = []
+        for i, reqs in enumerate(steps):
+            clock.t = float(i)
+            for op, keys, tenants in reqs:
+                seqs.append(svc.submit_many(op, keys, tenants))
+            svc.pump()
+            if maint is not None:
+                maint.tick(svc, i + 1)
+            if mid is not None and i == len(steps) // 2:
+                mid(svc)
+        svc.drain()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            got = {f"{mod.__name__.split('.')[-1]}.{w}": mod.LAUNCHES[w]
+                   for mod, w in launches}
+        runs.append({"log": log, "seqs": np.concatenate(seqs),
+                     "shed": svc.admission.shed_by_tenant.copy(),
+                     "events": maint.events if maint else [],
+                     "words": svc.filt.words.cpu(),
+                     "state": (svc.filt.state.cpu()
+                               if isinstance(svc.filt.state, torch.Tensor)
+                               else svc.filt.state),
+                     "metrics": svc.telemetry.registry.snapshot_state(
+                         deterministic_only=True),
+                     "spec": svc.filt.spec, "svc": svc})
+    card_name = card
+    card, cpu = runs
+    same_state = (torch.equal(card["state"], cpu["state"])
+                  if isinstance(card["state"], torch.Tensor)
+                  else card["state"] == cpu["state"])
+    if (len(checked) != len(card["log"])
+            or not np.array_equal(card["seqs"], cpu["seqs"])
+            or not np.array_equal(card["shed"], cpu["shed"])
+            or card["events"] != cpu["events"] or card["spec"] != cpu["spec"]
+            or not torch.equal(card["words"], cpu["words"]) or not same_state
+            or card["metrics"] != cpu["metrics"]):
+        raise AssertionError(f"service {label}: the card's run differs from "
+                             f"the plain versions'")
+    missing = [k for k, v in got.items() if v == 0]
+    if missing:
+        raise AssertionError(f"service {label}: no launch of {missing}")
+    print(f"service {label} [{card_name}]: {len(card['log'])} flushes, "
+          f"{int((card['seqs'] >= 0).sum())} admitted of "
+          f"{card['seqs'].size}, shed {dict(card['svc'].admission.shed_counts)}"
+          f", maintenance {[e['kind'] for e in card['events']]}; launches "
+          f"{got}; every flush, seqs, shed counts, words, state and metrics "
+          f"equal to the plain versions")
+    return card["svc"], got
+
+
+def service_steps(rng, n_steps: int, n: int, tenants: int, ops, seed: int):
+    """Per-step request lists: each step's ``ops`` ("add" of fresh keys,
+    "remove" of half the last step's adds, "contains" of the last adds and
+    probes), tenants uniform."""
+    steps, last = [], None
+    for i in range(n_steps):
+        keys = H.random_u64x2(n, seed=seed + i)
+        ten = rng.randint(0, tenants, n).astype(np.int64)
+        reqs = []
+        for op in ops:
+            if op == "add":
+                reqs.append(("add", keys, ten))
+            elif op == "remove" and last is not None:
+                reqs.append(("remove", last[0][: n // 2], last[1][: n // 2]))
+            elif op == "contains":
+                probe = H.probe_u64x2(n // 2, seed=seed + 1000 + i)
+                reqs.append(("contains", np.concatenate([keys[: n // 2],
+                                                         probe]),
+                             np.concatenate([ten[: n // 2],
+                                             ten[n // 2:]])))
+        steps.append(reqs)
+        last = (keys, ten)
+    return steps
+
+
+def phase_service_engines(card: str) -> dict:
+    """The other engines behind the service at small sizes, each against
+    its plain versions: a counting bank with removes and the decay cadence,
+    a windowed bank with the advance cadence, a cuckoo bank pushed past its
+    load (admission sheds adds on insert failures), a quotient bank grown
+    in place by ``grow_capacity``, and ``grow_bank`` on a live service."""
+    rng = np.random.RandomState(5100)
+    out = {}
+    steps = service_steps(rng, 8, 1 << 12, 16, ("add", "remove", "contains"),
+                          5100)
+    _, out["counting"] = small_pass(
+        card,
+        "counting bank (16 x 2^14 keys, removes, decay every 3 ticks)",
+        lambda d: api.filter_for_n_items(1 << 14, variant="countingbf",
+                                         bank=16, device=d),
+        {}, S.MaintenanceConfig(decay_every=3), steps, 1 << 12,
+        launches=[(cnt, "bank_update_vmem"), (cnt, "bank_contains_vmem"),
+                  (cnt, "decay")])
+    steps = service_steps(rng, 8, 1 << 12, 16, ("add", "contains"), 5200)
+    _, out["windowed"] = small_pass(
+        card,
+        "windowed bank (16 x 2^14 keys, 4 generations, advance every 2)",
+        lambda d: api.filter_for_n_items(1 << 14, generations=4, bank=16,
+                                         device=d),
+        {}, S.MaintenanceConfig(advance_every=2), steps, 1 << 12,
+        launches=[(sbf, "add_vmem"), (ring, "ring_contains_vmem")])
+    steps = service_steps(rng, 6, 1 << 11, 8, ("add", "contains"), 5300)
+    svc, out["cuckoo"] = small_pass(
+        card, "cuckoo bank (8 x 2^10 slots, pushed past its load)",
+        lambda d: api.make_filter_bank(8, variant="cuckoo", m_bits=1 << 13,
+                                       device=d),
+        {"health_every": 1}, None, steps, 1 << 10,
+        launches=[(ckoo, "add_vmem"), (ckoo, "contains_vmem")])
+    if svc.admission.shed_counts["health"] == 0:
+        raise AssertionError("service cuckoo pass: no add shed on insert "
+                             "failures")
+    steps = service_steps(rng, 12, 1 << 8, 8, ("add", "contains"), 5400)
+    svc, out["quotient"] = small_pass(
+        card, "quotient bank (8 members grown in place by grow_capacity)",
+        lambda d: api.filter_for_n_items(200, variant="quotient",
+                                         target_fpr=1e-3, bank=8, device=d),
+        {"health_every": 1}, S.MaintenanceConfig(resize_every=1), steps,
+        1 << 8, launches=[(qf, "add_vmem"), (qf, "resize_vmem"),
+                          (qf, "contains_vmem")])
+    if svc.filt.spec.m_bits == api.filter_for_n_items(
+            200, variant="quotient", target_fpr=1e-3, device="cpu"
+            ).spec.m_bits:
+        raise AssertionError("service quotient pass: the bank never grew")
+    steps = service_steps(rng, 8, 1 << 12, 8, ("add", "contains"), 5500)
+    steps[5].append(("add", H.random_u64x2(1 << 11, seed=5599),
+                     rng.randint(8, 12, 1 << 11).astype(np.int64)))
+    svc, out["grow_bank"] = small_pass(
+        card,
+        "sbf bank grown 8 -> 12 members on a live service (grow_bank)",
+        lambda d: api.filter_for_n_items(1 << 14, bank=8, device=d),
+        {}, None, steps, 1 << 12,
+        mid=lambda s: S.reshard_service(s, bank=12),
+        launches=[(sbf, "bank_add_vmem"), (sbf, "bank_contains_vmem")])
+    if svc.filt.bank_shape != (12,):
+        raise AssertionError(f"grow_bank pass: bank {svc.filt.bank_shape}")
+    return out
+
+
+def phase_service_recovery(card: str) -> dict:
+    """The recovery drill on the card: ``ServiceDriver`` over a seeded
+    stream (adds and contains of 4096 requests a step into a bank of 16
+    sbf members, flushes of 2^13, a flush-barrier checkpoint every 3
+    steps, written in the background), once clean and once with a
+    ``SimulatedFailure`` at step 7: restored from the last checkpoint and
+    replayed, the final words, every flush's results and the deterministic
+    counter snapshot must equal the clean run's."""
+    import shutil
+
+    tenants = 16
+
+    def stream_fn(step):
+        rng = np.random.RandomState(5600 + step)
+        out = []
+        for op in ("add", "contains"):
+            keys = rng.randint(0, 2 ** 31, (4096, 2)).astype(np.uint32)
+            out.append((op, keys, rng.randint(0, tenants, 4096)))
+        return out
+
+    runs = {}
+    for name, fail_at in (("clean", None), ("failed", 7)):
+        ckpt_dir = SERVICE_CKPT / name
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        bank = api.filter_for_n_items(1 << 16, bank=tenants, device="cuda")
+        svc = service_of(bank, 1 << 13, VirtualClock())
+        maint = S.MaintenanceLoop(S.MaintenanceConfig(
+            checkpoint_every=3, ckpt_dir=str(ckpt_dir)))
+        fired = []
+
+        def hook(step, fail_at=fail_at, fired=fired):
+            if fail_at is not None and step == fail_at and not fired:
+                fired.append(step)
+                raise SimulatedFailure(f"injected at step {step}")
+
+        drv = S.ServiceDriver(svc, stream_fn, maint,
+                              S.ServiceDriverConfig(virtual_dt=1.0),
+                              failure_hook=hook)
+        results = {}
+        feed = drv._feed
+
+        def fed(step, feed=feed, svc=svc, results=results):
+            feed(step)
+            results.update(svc.take_results())
+
+        drv._feed = fed
+        t0 = time.perf_counter()
+        final = drv.run(12)
+        torch.cuda.synchronize()
+        results.update(drv.service.take_results())
+        runs[name] = {"final": final, "drv": drv, "results": results,
+                      "s": time.perf_counter() - t0}
+    clean, failed = runs["clean"], runs["failed"]
+    kinds = [e["kind"] for e in failed["drv"].events]
+    reg = [r["drv"].service.telemetry.registry.snapshot_state(
+        deterministic_only=True) for r in (clean, failed)]
+    if (kinds.count("failure") != 1 or "restore" not in kinds
+            or failed["final"].device.type != "cuda"
+            or not torch.equal(clean["final"].words, failed["final"].words)
+            or clean["results"] != failed["results"] or reg[0] != reg[1]):
+        raise AssertionError(f"service recovery drill: events {kinds}; the "
+                             f"replay differs from the clean run")
+    restore = next(e for e in failed["drv"].events if e["kind"] == "restore")
+    out = {"restored_step": restore["step"],
+           "recovery_s": failed["drv"].recovery_times[0],
+           "clean_s": clean["s"], "failed_s": failed["s"],
+           "results": len(clean["results"])}
+    print(f"service recovery drill [{card}]: failure at step 7, restored at "
+          f"step {out['restored_step']} from the flush-barrier checkpoint on "
+          f"the card, replayed; recovery {out['recovery_s'] * 1e3:.1f} ms; "
+          f"final words, {out['results']} results and the deterministic "
+          f"counters equal to the clean run's (clean {clean['s']:.2f} s, "
+          f"with the failure {failed['s']:.2f} s)")
+    return out
+
+
+def phase_service(card: str) -> dict:
+    """Phase 5: the port's filter service on the card (the main cell, the
+    other engines, the recovery drill)."""
+    t0 = time.perf_counter()
+    out = {"main": phase_service_main(card)}
+    out["engines"] = phase_service_engines(card)
+    out["recovery"] = phase_service_recovery(card)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"service: {json.dumps(out, default=str)}")
+    return out
+
+
 def quotient_phases(card: str, lap) -> dict:
     """Phases 3f and 4f and the quotient contains' rule sweep; returns the
     two kernel records."""
@@ -6071,6 +6587,11 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--contains"]:
         return contains_phases(card, lap, laps)
+    if sys.argv[1:] == ["--service"]:
+        phase_service(card)
+        lap("phase 5 service")
+        print(f"smoke phases: {', '.join(laps)}")
+        return 0
     errs = {k: 0 for k in sbf.LAUNCHES}
     cerrs = {k: 0 for k in cnt.LAUNCHES}
     berrs = {k: 0 for k in cbf.LAUNCHES}
@@ -6157,6 +6678,8 @@ def main() -> int:
     (cache.parent / "smoke_tuning.json").write_text(json.dumps(
         {"card": card, **tuned}, indent=1))
     lap("phase 4g")
+    phase_service(card)
+    lap("phase 5 service")
     print(f"smoke phases: {', '.join(laps)}")
     print(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} "
           f"s, the build included")

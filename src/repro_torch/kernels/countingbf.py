@@ -13,9 +13,13 @@ update_vmem    update_vmem (L2 regime)            counting_update_kernel
                                                   (one-pass) or the binned
                                                   update: counting_bin_
                                                   count_kernel, bin_column_
-                                                  kernel, bin_scan_kernel,
-                                                  counting_bin_scatter_
-                                                  kernel, counting_bin_
+                                                  kernel and bin_scan_kernel
+                                                  (for at most
+                                                  COLUMN_SCAN_BINS bins the
+                                                  count kernel's last CTA
+                                                  does both), counting_bin_
+                                                  scatter_kernel,
+                                                  counting_bin_
                                                   apply_kernel (and, where a
                                                   bin may pass SPLIT_SLOTS,
                                                   counting_bin_parts_kernel,
@@ -145,6 +149,7 @@ SPLIT_SLOTS = 4 * BINNED_CHUNK
 PART_CHUNKS = 2
 PART_SLOTS = PART_CHUNKS * BINNED_CHUNK
 MAX_BINS = 8192                 # the count's and the scan's bins
+COLUMN_SCAN_BINS = 1024         # bins the count kernel's last CTA scans
 MAX_BIN_ROW_BITS = 13           # rows a bin: the apply's 32 KiB histogram
 SCATTER_GROUP_BINS = 4096       # bins a scatter pass stages
 SLOT_BYTES = 8                  # (row in bin << 32) | pattern hash
@@ -167,16 +172,15 @@ WORKSPACE_MARGIN = 1 << 28
 # a bin's apply summing hot rows serially. Fitted to a sweep of both paths
 # in turns on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 4b: B = 256,
 # 2^20-2^29 counter bytes x 2^16-2^26 keys; PERF.md). Near 2^19 keys a
-# binned call's time follows the host's speed (five launches against
-# one-pass's one): with the launch's host work cut (sbf.raw_stream,
-# sbf.device_scope) binned took 0.066-0.106 ms there against one-pass's
-# 0.088-0.116 at 2^20-2^23 bytes in four runs (three of the sweep, one of
-# tools/launch_host_cost.py); at 2^23 bytes one-pass lost by 18 % on a
-# fast host and binned by 12 % on a slow one, and binned lost less often;
-# at 2^24 bytes one-pass stays.
+# binned call's time followed the host's speed while it made five to seven
+# launches (binned lost by 12-22 % at 2^23 bytes on slow hosts); with four
+# (the count kernel's last CTA scans and cuts parts, a kept workspace) its
+# host time is ~24 us against ~69 us on the card, and binned took 0.062-
+# 0.070 ms at 2^20-2^23 bytes against one-pass's 0.088-0.115, and 0.077
+# against 0.085 at 2^24 bytes (so binned from 2^19 keys there too).
 BINNED_KEYS = {20: (1 << 19, 1 << 21), 21: (1 << 19, 1 << 21),
                22: (1 << 19, 1 << 22), 23: (1 << 19, 1 << 23),
-               24: (1 << 20, 1 << 24), 25: (1 << 20, 1 << 26),
+               24: (1 << 19, 1 << 24), 25: (1 << 20, 1 << 26),
                26: (1 << 21, None), 27: (1 << 21, None),
                28: (1 << 22, None), 29: (1 << 23, None)}
 
@@ -526,10 +530,13 @@ def update_plan(spec: FilterSpec, n: int, path: str, members: int = 1,
     of a bin's rows; :func:`binned_bin_row_bits` by default), ``n_bins``,
     ``batches`` (internal batches of at most ``cap`` keys),
     ``batch_keys``, ``chunks`` (the count and scatter CTAs, one a chunk of
-    a batch's keys: the card's SMs), ``split_parts`` (the most parts of
-    ``PART_SLOTS`` slots a batch's bins past ``SPLIT_SLOTS`` can split
-    into, 0 where a batch cannot fill such a bin: the split kernels run
-    where it is not 0 and a bin's counts fit shared memory) and
+    a batch's keys: the card's SMs), ``column_scan`` (``"fused"``: for at
+    most ``COLUMN_SCAN_BINS`` bins the count kernel's last CTA does the
+    column and the scan; else ``"two"``: their kernels), ``split_parts``
+    (the most parts of ``PART_SLOTS`` slots a batch's bins past
+    ``SPLIT_SLOTS`` can split into, 0 where a batch cannot fill such a bin:
+    the split kernels run where it is not 0 and a bin's counts fit shared
+    memory) and
     ``workspace_bytes`` (the device memory a call allocates: per-chunk
     counts, each bin's start, end and first part and the parts, u32,
     padded to 8 words, then a batch's 8-byte slots with each chunk's run in
@@ -541,7 +548,8 @@ def update_plan(spec: FilterSpec, n: int, path: str, members: int = 1,
         return {"path": path, "n": n, "members": members,
                 "total_rows": total_rows, "bin_row_bits": None, "n_bins": 0,
                 "batches": int(n > 0), "batch_keys": n, "chunks": 0,
-                "split_parts": 0, "workspace_bytes": 0}
+                "column_scan": None, "split_parts": 0,
+                "workspace_bytes": 0}
     if not 1 <= cap <= MAX_BATCH:
         raise ValueError(f"a batch must hold 1 .. 2^30 keys, not {cap}")
     batch_keys = min(n, cap)
@@ -556,6 +564,8 @@ def update_plan(spec: FilterSpec, n: int, path: str, members: int = 1,
             "total_rows": total_rows, "bin_row_bits": bin_row_bits,
             "n_bins": n_bins, "batches": -(-n // cap),
             "batch_keys": batch_keys, "chunks": chunks,
+            "column_scan": ("fused" if n_bins <= COLUMN_SCAN_BINS
+                            else "two"),
             "split_parts": (slots // PART_SLOTS if slots > SPLIT_SLOTS
                             else 0),
             "workspace_bytes": (4 * (-(-((chunks + 3) * n_bins + 1) // 8) * 8)
@@ -713,11 +723,27 @@ def binned_chunks(s: int, total_rows: int, bin_row_bits: int,
     return _chunks_on(index, s, total_rows, bin_row_bits)
 
 
+# A binned call's workspace of at most KEPT_WORKSPACE_BYTES (a batch of up
+# to ~2^19 keys, where a call's host time decides its speed) is taken from
+# one kept per device and stream; the stream orders the calls' kernels.
+KEPT_WORKSPACE_BYTES = 1 << 23
+_kept_workspace: dict = {}
+
+
 def _workspace(nbytes: int, device: torch.device) -> torch.Tensor:
-    """A binned call's u32 workspace (a test substitutes a fake). Freed
-    when the call returns: the caching allocator orders its reuse after
-    the call's kernels on the same stream."""
-    return torch.empty(-(-nbytes // 4), dtype=torch.int32, device=device)
+    """A binned call's u32 workspace (a test substitutes a fake): a small
+    one is the device and stream's kept workspace, a larger one is freed
+    when the call returns (the caching allocator orders its reuse after the
+    call's kernels on the same stream)."""
+    if nbytes > KEPT_WORKSPACE_BYTES:
+        return torch.empty(-(-nbytes // 4), dtype=torch.int32, device=device)
+    key = (device.index, sbf.raw_stream(device))
+    kept = _kept_workspace.get(key)
+    if kept is None:
+        kept = torch.empty(KEPT_WORKSPACE_BYTES // 4, dtype=torch.int32,
+                           device=device)
+        _kept_workspace[key] = kept
+    return kept
 
 
 @functools.lru_cache(maxsize=1024)

@@ -53,14 +53,17 @@
 //   batches into DRAM-resident counters and banks): a bin is 2^b
 //   consecutive global rows (a bank's global row is member * n_blocks +
 //   block); a key's slot is 8 bytes, (its row within the bin << 32) | its
-//   pattern hash. Per internal batch of at most `batch` keys, five to seven
+//   pattern hash. Per internal batch of at most `batch` keys, three to seven
 //   kernels on the caller's stream:
 //   1. counting_bin_count_kernel: one CTA a chunk of the batch's keys
 //      counts its valid keys by bin in shared memory;
 //   2. bin_column_kernel: each bin's per-chunk runs, padded to a 32-byte
 //      sector (4 slots);
 //   3. bin_scan_kernel: one CTA scans the <= 8192 bin lengths (both shared
-//      with cbf.cu through bin_common.cuh);
+//      with cbf.cu through bin_common.cuh). For at most kBinThreads bins
+//      (batches near the path rule's smallest, whose binned call is partly
+//      host-bound) the count kernel's last CTA does 2 and 3 (column_scan,
+//      a stream's arrival counter), so neither is launched, and 6 too;
 //   4. counting_bin_scatter_kernel: each chunk writes its keys' slots into
 //      their runs, each bin's open sector staged in shared memory and
 //      written whole (as in cbf.cu: a sector has to leave the SM whole),
@@ -477,15 +480,76 @@ __device__ __forceinline__ bool key_row(const uint2* keys,
   return true;
 }
 
-// counts[c][j]: chunk c's valid keys in bin j.
+// bin_column_kernel and bin_scan_kernel for at most kBinThreads bins, by
+// one CTA, a thread a bin: thread j walks bin j's column (counts[c][j]
+// becomes chunk c's offset in the bin, each run padded to a whole sector of
+// `sector` slots), then the CTA scans the bins' padded lengths into
+// starts[j] and ends[j]. The same u32 sums as the two kernels: the same
+// offsets, starts and ends. The counts are read through L2 (__ldcg): other
+// CTAs of the count kernel wrote them.
+__device__ __forceinline__ void column_scan(uint32_t* __restrict__ counts,
+                                            uint32_t* __restrict__ starts,
+                                            uint32_t* __restrict__ ends,
+                                            int n_bins, int chunks,
+                                            uint32_t sector) {
+  __shared__ uint32_t warp_sums[kBinThreads / 32];
+  const int j = threadIdx.x;
+  const int lane = j & 31, warp = j >> 5;
+  uint32_t total = 0u;
+  if (j < n_bins) {
+#pragma unroll 8
+    for (int c = 0; c < chunks; ++c) {
+      uint32_t* cell = counts + size_t(c) * n_bins + j;
+      const uint32_t v = __ldcg(cell);
+      *cell = total;
+      total += (v + sector - 1u) & ~(sector - 1u);
+    }
+  }
+  uint32_t incl = total;                     // inclusive scan over the warp
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {                           // scan the 32 warp sums
+    uint32_t w = warp_sums[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    warp_sums[lane] = w;
+  }
+  __syncthreads();
+  const uint32_t start =
+      incl - total + (warp > 0 ? warp_sums[warp - 1] : 0u);
+  if (j < n_bins) {
+    starts[j] = start;
+    ends[j] = start + total;
+  }
+}
+
+// counts[c][j]: chunk c's valid keys in bin j. With `done` (at most
+// kBinThreads bins), the CTA that finishes last also turns the counts into
+// each bin's runs and slice (column_scan), so the column and scan kernels
+// are not launched, and with `part_first` it does counting_bin_parts_kernel's
+// work too; `done` is the stream's arrival counter, 0 between calls: the
+// last CTA sets it back to 0.
 __global__ void __launch_bounds__(kBinThreads)
     counting_bin_count_kernel(const uint2* __restrict__ keys,
                               const int32_t* __restrict__ member,
                               const uint8_t* __restrict__ valid,
                               uint32_t* __restrict__ counts, int64_t n,
                               uint32_t block_mask, int bin_row_bits,
-                              int n_bins) {
+                              int n_bins, uint32_t* __restrict__ done,
+                              uint32_t* __restrict__ starts,
+                              uint32_t* __restrict__ ends, uint32_t sector,
+                              uint32_t* __restrict__ part_first) {
   extern __shared__ uint32_t hist[];
+  __shared__ uint32_t arrived;
+  __shared__ uint32_t sums[32];
   for (int j = threadIdx.x; j < n_bins; j += blockDim.x) hist[j] = 0u;
   __syncthreads();
   int64_t first, last;
@@ -498,6 +562,24 @@ __global__ void __launch_bounds__(kBinThreads)
   __syncthreads();
   uint32_t* row = counts + size_t(blockIdx.x) * n_bins;
   for (int j = threadIdx.x; j < n_bins; j += blockDim.x) row[j] = hist[j];
+  if (done == nullptr) return;
+  __threadfence();                           // this CTA's row, to L2 first
+  __syncthreads();
+  if (threadIdx.x == 0) arrived = atomicAdd(done, 1u);
+  __syncthreads();
+  if (arrived != gridDim.x - 1u) return;
+  __threadfence();
+  column_scan(counts, starts, ends, n_bins, int(gridDim.x), sector);
+  if (threadIdx.x == 0) *done = 0u;
+  if (part_first == nullptr) return;
+  __syncthreads();                           // starts and ends, written
+  for (int j = threadIdx.x; j <= n_bins; j += blockDim.x) {
+    const uint32_t len = j < n_bins ? ends[j] - starts[j] : 0u;
+    part_first[j] = len > kSplitSlots ? (len + kPartSlots - 1u) / kPartSlots
+                                      : 0u;
+  }
+  __syncthreads();
+  block_exclusive_scan(part_first, n_bins + 1, sums);
 }
 
 // One CTA a chunk writes its valid keys' slots, (row in bin << 32) |
@@ -968,14 +1050,25 @@ const void* apply_of(int s, int op, bool split) {
 }
 
 // The card's opt-in shared memory a CTA, and its SMs, on the current
-// device (in *dev).
+// device (in *dev); asked once a device.
 int card_limits(int* dev, int* optin, int* sms) {
+  constexpr int kDevices = 64;
+  static int known_optin[kDevices], known_sms[kDevices];
   cudaError_t err = cudaGetDevice(dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
+  if (err != cudaSuccess) return int(err);
+  if (*dev < kDevices && known_sms[*dev] > 0) {
+    *optin = known_optin[*dev];
+    *sms = known_sms[*dev];
+    return 0;
+  }
+  err = cudaDeviceGetAttribute(optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, *dev);
+  if (err == cudaSuccess && *dev < kDevices) {
+    known_optin[*dev] = *optin;
+    known_sms[*dev] = *sms;
+  }
   return int(err);
 }
 
@@ -1151,7 +1244,34 @@ int counting_binned_chunks(int s, unsigned total_rows, int bin_row_bits) {
   return chunks;
 }
 
-// The binned update (seven kernels an internal batch). member, valid: as
+// A stream's arrival counter for the count kernel's last-CTA scan, made
+// and zeroed once a device and stream; each scan sets it back to 0, and a
+// stream runs one count kernel at a time.
+std::mutex arrival_lock;
+std::map<std::pair<int, cudaStream_t>, uint32_t*> arrival_counters;
+
+cudaError_t arrival_counter(int dev, cudaStream_t st, uint32_t** out) {
+  std::lock_guard<std::mutex> hold(arrival_lock);
+  const auto key = std::make_pair(dev, st);
+  const auto found = arrival_counters.find(key);
+  if (found != arrival_counters.end()) {
+    *out = found->second;
+    return cudaSuccess;
+  }
+  uint32_t* counter = nullptr;
+  cudaError_t err = cudaMalloc(&counter, sizeof(uint32_t));
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(counter, 0, sizeof(uint32_t), st);
+  if (err != cudaSuccess) {
+    if (counter != nullptr) cudaFree(counter);
+    return err;
+  }
+  arrival_counters.emplace(key, counter);
+  *out = counter;
+  return cudaSuccess;
+}
+
+// The binned update (three to seven kernels an internal batch). member, valid: as
 // counting_update; total_rows: the counter rows (B * n_blocks for a
 // bank), below 2^32; work: u32 workspace, 8-word aligned: counts (chunks x
 // n_bins), starts, ends (n_bins each), the bins' first parts (n_bins + 1),
@@ -1195,6 +1315,11 @@ int counting_update_binned(const void* keys, const void* member,
   uint32_t split_slots = g.split ? kSplitSlots : ~0u;
   const unsigned column_grid =
       unsigned((g.n_bins + kColumnThreads - 1) / kColumnThreads);
+  uint32_t* done = nullptr;         // the count kernel scans (<= 1024 bins)
+  if (g.n_bins <= kBinThreads) {
+    const cudaError_t err = arrival_counter(dev, st, &done);
+    if (err != cudaSuccess) return int(err);
+  }
   for (long long first = 0; first < n; first += batch) {
     const long long nb = n - first < batch ? n - first : batch;
     const int32_t* m = mem != nullptr ? mem + first : nullptr;
@@ -1204,10 +1329,14 @@ int counting_update_binned(const void* keys, const void* member,
     const long long slots_in = nb + 3LL * chunks * g.n_bins;
     const bool split_bins = g.split && slots_in > kSplitSlots;
     counting_bin_count_kernel<<<chunks, kBinThreads, g.count_smem, st>>>(
-        k2 + first, m, v, counts, nb, block_mask, bin_row_bits, g.n_bins);
-    bin_column_kernel<<<column_grid, kColumnThreads, 0, st>>>(
-        counts, ends, g.n_bins, chunks, kSectorSlots);
-    bin_scan_kernel<<<1, kBinThreads, 0, st>>>(starts, ends, g.n_bins);
+        k2 + first, m, v, counts, nb, block_mask, bin_row_bits, g.n_bins,
+        done, starts, ends, kSectorSlots,
+        done != nullptr && split_bins ? part_first : nullptr);
+    if (done == nullptr) {
+      bin_column_kernel<<<column_grid, kColumnThreads, 0, st>>>(
+          counts, ends, g.n_bins, chunks, kSectorSlots);
+      bin_scan_kernel<<<1, kBinThreads, 0, st>>>(starts, ends, g.n_bins);
+    }
     counting_bin_scatter_kernel<<<chunks, kBinThreads, g.scatter_smem, st>>>(
         k2 + first, m, v, counts, starts, slots, nb, block_mask,
         bin_row_bits, g.n_bins, g.group_bins);
@@ -1218,8 +1347,9 @@ int counting_update_binned(const void* keys, const void* member,
         cudaLaunchKernel(apply, dim3(unsigned(g.n_bins)), dim3(kGroupThreads),
                          apply_args, g.apply_smem, st);
     if (err == cudaSuccess && split_bins) {
-      counting_bin_parts_kernel<<<1, kGroupThreads, 0, st>>>(
-          starts, ends, part_first, g.n_bins);
+      if (done == nullptr)           // else the count kernel's last CTA did
+        counting_bin_parts_kernel<<<1, kGroupThreads, 0, st>>>(
+            starts, ends, part_first, g.n_bins);
       void* split_args[] = {&c,          &slots,  &starts,     &ends,
                             &part_first, &sl,     &total_rows, &n_bins,
                             &bin_row_bits, &k};

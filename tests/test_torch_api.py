@@ -22,6 +22,9 @@ from repro_torch import interop
 from repro_torch.api import registry
 from repro_torch.api.filter import as_keys
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 M = 1 << 16
 GEOMETRIES = [dict(variant="sbf", k=16, block_bits=256),
@@ -259,7 +262,10 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.core.partition, repro_torch.core.fingerprint, "
             "repro_torch.kernels.cuckoofilter, repro_torch.core.quotient, "
             "repro_torch.kernels.quotientfilter, "
-            "repro_torch.window, repro_torch.window.ring; "
+            "repro_torch.window, repro_torch.window.ring, "
+            "repro_torch.service, repro_torch.telemetry, "
+            "repro_torch.checkpoint.checkpoint, "
+            "repro_torch.runtime.fault_tolerance; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); assert not bad, bad")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
@@ -274,7 +280,15 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch/core/partition.py", "repro_torch/core/fingerprint.py",
             "repro_torch/kernels/cuckoofilter.py",
             "repro_torch/core/quotient.py",
-            "repro_torch/kernels/quotientfilter.py"} <= names
+            "repro_torch/kernels/quotientfilter.py",
+            "repro_torch/checkpoint/checkpoint.py",
+            "repro_torch/runtime/fault_tolerance.py"} | {
+                f"repro_torch/telemetry/{m}.py" for m in (
+                    "__init__", "metrics", "tracing", "export", "drift",
+                    "hub")} | {
+                f"repro_torch/service/{m}.py" for m in (
+                    "__init__", "admission", "frontend", "maintenance",
+                    "resharding", "driver")} <= names
     sources.append(ROOT / "chip_smoke.py")
     assert len(sources) > 10
     for path in sources:

@@ -30,6 +30,9 @@ from repro_torch.core import variants as TV
 from repro_torch.kernels import countingbf as TC
 from repro_torch.kernels import ops, sbf
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 M = 1 << 14
 N = 777                       # not a multiple of any tile: padded writes
 BIT_SPECS = {"sbf": dict(k=8), "bbf": dict(k=8), "rbbf": dict(k=4),

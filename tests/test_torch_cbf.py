@@ -27,6 +27,9 @@ from repro_torch.core import hashing as TH
 from repro_torch.core import variants as TV
 from repro_torch.kernels import _build, cbf, ops
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 KS = [1, 7, 11, 32]
 MS = [1 << 10, 1 << 16, 1 << 18]
 N = 2000

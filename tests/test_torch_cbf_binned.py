@@ -24,6 +24,9 @@ from repro_torch.api.filter import as_keys
 from repro_torch.core import variants as TV
 from repro_torch.kernels import cbf
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 N = 2000
 H100_SMEM = 231296          # the H100's opt-in shared memory less the salts
 

@@ -27,6 +27,9 @@ from repro_torch.api.filter import as_keys
 from repro_torch.core import variants as TV
 from repro_torch.kernels import cbf
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 N = 1500
 H100_SMEM = 231296          # the H100's opt-in shared memory less the salts
 ADDED = JH.random_u64x2(N, seed=41)

@@ -35,6 +35,9 @@ from repro_torch.api.filter import as_keys
 from repro_torch.core import variants as TV
 from repro_torch.kernels import ops, sbf
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 M = 1 << 16
 SPEC_ARGS = [("sbf", 1, 2, 32), ("sbf", 2, 2, 64), ("sbf", 4, 3, 128),
              ("sbf", 8, 8, 256), ("sbf", 16, 16, 512),

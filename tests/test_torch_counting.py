@@ -5,14 +5,15 @@ version. Inputs come from ``repro.core.hashing.random_u64x2`` with a seed;
 every comparison is exact (tolerance 0): words as np.uint32, results as
 bool. The four specs are ``tests/test_counting.py``'s ``CSPECS``. The JAX
 kernels run in Pallas interpret mode with the schedules that trace under
-jax 0.9 (``probe="gather"``, ``coop="subtile"`` and ``decay``); no schedule
-or regime changes a result. The CUDA path is tested on the card by
+jax 0.9 (``probe="gather"``, ``coop="subtile"`` and ``decay``), jitted at
+one padded shape a spec; no schedule or regime changes a result. The CUDA path is tested on the card by
 ``tests/test_torch_gpu.py``.
 """
 import dataclasses
 import functools
 import itertools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +33,9 @@ from repro_torch.core import variants as TV
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import countingbf as TC
 from repro_torch.kernels.sbf import Layout
+
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
 
 M = 1 << 14
 CSPEC_ARGS = [(M, 8, 256), (M, 16, 512), (M, 4, 128), (M, 2, 64)]
@@ -209,21 +213,42 @@ def test_bit_references_refuse_counting_specs():
 # The wrappers and ops.counting_* against the JAX kernels (interpret mode)
 # ---------------------------------------------------------------------------
 
+# Every n's batch goes to the JAX kernels padded to one shape (padded keys
+# invalid, padded probes' results dropped), so each kernel compiles once a
+# spec and schedule and the three n share it.
+PAD_KEYS, PAD_QUERIES, PAD_TILE = 1536, 3072, 256
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fns(js, kw_items):
+    kw = dict(kw_items)
+    update = {op: jax.jit(functools.partial(JC.update_vmem, js, op=op,
+                                            tile=PAD_TILE, **kw))
+              for op in ("add", "remove")}
+    contains = jax.jit(functools.partial(JC.contains_vmem, js,
+                                         tile=PAD_TILE, **kw))
+    return update, contains, jax.jit(functools.partial(JC.decay, js))
+
+
+def _padded(keys, valid, size):
+    pk = np.zeros((size, 2), np.uint32)
+    pv = np.zeros((size,), np.uint8)
+    pk[: len(keys)] = keys
+    pv[: len(keys)] = 1 if valid is None else valid
+    return jnp.asarray(pk), jnp.asarray(pv)
+
+
 def _jax_kernels(js, keys, valid, gone, kw):
     """JAX kernels on padded inputs: (add words, remove words, contains on
     keys + probes of the removed filter, decay of it)."""
     n = keys.shape[0]
-    tile = JO._clamp_tile(n, 256)
-    pk, pv = JO._pad_keys_valid(jnp.asarray(keys), tile, jnp.asarray(valid))
-    w_add = JC.update_vmem(js, JV.init(js), pk, pv, "add", tile=tile, **kw)
-    gk, gv = JO._pad_keys_valid(jnp.asarray(gone), tile)
-    w_rm = JC.update_vmem(js, w_add, gk, gv, "remove", tile=tile, **kw)
+    update, contains, decay = _kernel_fns(js, tuple(sorted(kw.items())))
+    w_add = update["add"](JV.init(js), *_padded(keys, valid, PAD_KEYS))
+    w_rm = update["remove"](w_add, *_padded(gone, None, PAD_KEYS))
     q = np.concatenate([keys, JH.probe_u64x2(n, seed=n)])
-    qt = JO._clamp_tile(len(q), 256)
-    hits = JC.contains_vmem(js, w_rm, JO._pad_keys(jnp.asarray(q), qt),
-                            tile=qt, **kw)[: len(q)]
+    hits = contains(w_rm, _padded(q, None, PAD_QUERIES)[0])[: len(q)]
     return (np.asarray(w_add), np.asarray(w_rm), q, np.asarray(hits),
-            np.asarray(JC.decay(js, w_rm)))
+            np.asarray(decay(w_rm)))
 
 
 @pytest.mark.parametrize("args", CSPEC_ARGS, ids=IDS)

@@ -33,6 +33,9 @@ from repro_torch.core import variants as TV
 from repro_torch.kernels import countingbf as TC
 from repro_torch.kernels.sbf import DMA_DEPTHS, Layout
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 M = 1 << 15
 N = 1500
 B = 6                       # bank members
@@ -266,6 +269,7 @@ def test_update_plan_and_workspace():
     assert plan["n_bins"] == 4 * ts.n_blocks >> 13
     one = TC.update_plan(ts, 1000, "one-pass")
     assert one["workspace_bytes"] == 0 and one["batches"] == 1
+    assert one["column_scan"] is None
     assert TC.update_plan(ts, 0, "one-pass")["batches"] == 0
     with pytest.raises(ValueError, match="path"):
         TC.update_plan(ts, 10, "sorted")
@@ -274,6 +278,22 @@ def test_update_plan_and_workspace():
     with pytest.raises(ValueError, match="bins"):
         TC.update_plan(ts, 10, "binned", bin_row_bits=2)    # 2^20 bins
     assert TC.binned_smem_bytes(10) == 4 * (1024 + 8192)
+
+
+@pytest.mark.parametrize("log2b,log2n,bins,column_scan", [
+    (20, 19, 128, "fused"), (23, 19, 128, "fused"), (24, 19, 128, "fused"),
+    (23, 22, 1024, "fused"), (23, 23, 2048, "two"), (29, 26, 8192, "two")])
+def test_column_scan_is_one_launch_for_few_bins(log2b, log2n, bins,
+                                                column_scan):
+    """The rule's binned calls near its smallest batches have at most
+    COLUMN_SCAN_BINS bins: their count kernel does the column and scan."""
+    _, ts = _specs(8, 256, m=(1 << log2b) * 2)       # 2^log2b counter bytes
+    assert TC.choose_update_path(1 << log2n, ts.storage_words,
+                                 ts.storage_words // ts.n_blocks,
+                                 H100_SMEM) == "binned"
+    plan = TC.update_plan(ts, 1 << log2n, "binned", chunks=132)
+    assert plan["n_bins"] == bins and plan["column_scan"] == column_scan
+    assert (plan["n_bins"] <= TC.COLUMN_SCAN_BINS) == (column_scan == "fused")
 
 
 def test_workspace_cap_halves_until_it_fits():

@@ -31,6 +31,9 @@ from repro_torch.core import partition as TP
 from repro_torch.core import variants as TV
 from repro_torch.kernels import countingbf as TC
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 M = 1 << 15
 N = 1500
 H100_SMEM = 231296          # the H100's opt-in shared memory less the salts

@@ -37,6 +37,9 @@ from repro_torch.core import variants as TV
 from repro_torch.kernels import cuckoofilter as TK
 from repro_torch.kernels import ops
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 GEOMETRIES = [(8, 4, 1 << 10), (16, 2, 1 << 11), (16, 4, 1 << 9),
               (8, 8, 1 << 8)]
 IDS = [f"u{sb}x{spb}" for sb, spb, _ in GEOMETRIES]

@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import fingerprint as JF
 from repro.core import hashing as JH
@@ -22,6 +23,9 @@ from repro_torch.api.filter import as_keys
 from repro_torch.core import fingerprint as TF
 from repro_torch.core import variants as TV
 from repro_torch.kernels import cuckoofilter as TK
+
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
 
 GEOMS = list(TK.INSTANCES)
 GEOM_IDS = [f"u{sb}x{spb}" for sb, spb in GEOMS]

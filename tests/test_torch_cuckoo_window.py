@@ -36,6 +36,9 @@ from repro_torch.core import fingerprint as TF
 from repro_torch.core import variants as TV
 from repro_torch.kernels import cuckoofilter as TK
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 # (slot bits, slots a bucket), each with 512 slots
 GEOMS = list(TK.INSTANCES)
 GEOM_IDS = [f"u{sb}x{spb}" for sb, spb in GEOMS]

@@ -40,7 +40,14 @@ its plain version on each path forced (grouped, global) at n_segments 1
 ... 256, with a row of 80 increments and invalid slots. The calibration
 kernels (step, chain, gather) are held against their plain versions, and a
 calibration measured on the card must have five finite, positive
-constants.
+constants. The binned counting update at most ``COLUMN_SCAN_BINS`` bins
+(the count kernel's last CTA does the column and the scan) is held
+against the plain version on two streams, and the profiler must see no
+column or scan kernel launched. The filter
+service on a card bank (sbf in both regimes, counting, windowed, cuckoo,
+quotient) is held flush for flush against the same stream on the CPU;
+``member_fill`` on the card against numpy; the recovery drill on the card
+against an uninterrupted run.
 """
 import gc
 
@@ -48,6 +55,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import api
 from repro_torch.api.filter import as_keys
 from repro_torch.core import hashing as H
 from repro_torch.core import variants as V
@@ -399,6 +407,70 @@ def test_counting_split_bins_match_plain(cuda, block_bits, k, m_bits):
         np.testing.assert_array_equal(
             _u32(words),
             _u32(cnt.update_plain(spec, want, gone, None, "remove")))
+
+
+def _kernel_names(fn):
+    """The names of the CUDA kernels ``fn()`` launched (torch.profiler)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("log2n,bits,bank", [
+    (14, 11, 1), (14, 8, 1), (15, 0, 1), (15, 5, 1), (14, 4, 33)],
+    ids=["1-bin", "2-bins", "512-bins", "16-bins", "bank-1056-bins"])
+def test_counting_fused_column_scan_matches_plain(cuda, log2n, bits, bank):
+    """The binned update at most COLUMN_SCAN_BINS bins, whose count
+    kernel's last CTA does the column and the scan, against the plain
+    version, counters exact, over two internal batches, on the current
+    stream and on a side stream (each stream has its own arrival counter);
+    past that many bins the column and scan kernels. The profiler sees no
+    column, scan or parts kernel where the count kernel scans (its last
+    CTA also cuts over-full bins into parts)."""
+    spec = V.FilterSpec("countingbf", 1 << 17, 8, block_bits=256)
+    rows = bank * spec.n_blocks
+    keys = _multiset(1 << log2n, log2n + bits, cuda)
+    valid = _valid_mask(keys.shape[0], bits, cuda)
+    member = (torch.arange(keys.shape[0], device=cuda, dtype=torch.int32)
+              * 7919 % bank) if bank > 1 else None
+    base = V.init(spec, cuda).repeat(bank, 1) if bank > 1 else V.init(spec,
+                                                                     cuda)
+    want = (cnt.bank_update_plain(spec, base, keys, member, valid, "add")
+            if bank > 1 else cnt.update_plain(spec, base, keys, valid, "add"))
+    name = "bank_update_vmem" if bank > 1 else "update_vmem"
+
+    def run(words):
+        return _update(name, spec, words, keys, valid, "add", member,
+                       path="binned", bin_row_bits=bits,
+                       cap=(keys.shape[0] + 1) // 2)
+    words = base.clone()
+    names = _kernel_names(lambda: run(words))
+    plan = cnt.LAST_UPDATE_PLAN[name]
+    assert plan["n_bins"] == -(-rows // (1 << bits)) and plan["batches"] == 2
+    np.testing.assert_array_equal(_u32(words), _u32(want))
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        again = run(base.clone())
+        twice = run(base.clone())
+    side.synchronize()
+    np.testing.assert_array_equal(_u32(again), _u32(want))
+    np.testing.assert_array_equal(_u32(twice), _u32(want))
+    np.testing.assert_array_equal(_u32(run(base.clone())), _u32(want))
+    count = sum("counting_bin_count_kernel" in n for n in names)
+    column = sum("bin_column_kernel" in n for n in names)
+    scan = sum("bin_scan_kernel" in n for n in names)
+    parts = sum("counting_bin_parts_kernel" in n for n in names)
+    assert count == 2
+    if plan["n_bins"] <= cnt.COLUMN_SCAN_BINS:
+        assert plan["column_scan"] == "fused"
+        assert (column, scan, parts) == (0, 0, 0)
+    else:
+        assert plan["column_scan"] == "two" and (column, scan) == (2, 2)
 
 
 @pytest.mark.gpu
@@ -2052,3 +2124,148 @@ def test_measured_calibration_on_the_card(cuda, tmp_path, monkeypatch):
         assert np.isfinite(v) and v > 0, (name, v)
     assert PC.get_calibration(device=cuda) == calib        # from the cache
     assert PC.get_calibration(device="cpu").backend == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# The filter service on the card
+# ---------------------------------------------------------------------------
+
+SERVICE_BANKS = {
+    "sbf-l2": lambda d: api.filter_for_n_items(1 << 12, bank=8, device=d),
+    "sbf-dram": lambda d: api.make_filter_bank(
+        8, m_bits=1 << 16, backend="cuda-dram", device=d)
+    if d != "cpu" else api.make_filter_bank(8, m_bits=1 << 16, device=d),
+    "countingbf": lambda d: api.filter_for_n_items(
+        1 << 12, variant="countingbf", bank=8, device=d),
+    "windowed": lambda d: api.filter_for_n_items(1 << 12, generations=3,
+                                                 bank=8, device=d),
+    "cuckoo": lambda d: api.make_filter_bank(8, variant="cuckoo",
+                                             m_bits=1 << 13, device=d),
+    "quotient": lambda d: api.filter_for_n_items(300, variant="quotient",
+                                                 bank=8, device=d),
+}
+
+
+def _service_run(make, device, remove: bool):
+    """A short seeded stream through a service on ``device``: every
+    flush's words (host copies) and results, the seq ids and shed counts."""
+    from repro_torch import service as S
+    clock = {"t": 0.0}
+    svc = S.FilterService(make(device), S.ServiceConfig(
+        max_batch=512, flush_deadline=2.0,
+        admission=S.AdmissionPolicy(health_every=2)),
+        clock=lambda: clock["t"])
+    log = []
+    inner = svc._flush_op
+
+    def flush(op, trigger):
+        inner(op, trigger)
+        log.append(svc.take_results() if op == "contains"
+                   else svc.filt.words.cpu())
+    svc._flush_op = flush
+    rng = np.random.RandomState(77)
+    seqs = []
+    for step in range(6):
+        clock["t"] = float(step)
+        keys = H.random_u64x2(700, seed=700 + step)
+        ten = rng.randint(0, 8, 700)
+        seqs.append(svc.submit_many("add", keys, ten))
+        if remove and step:
+            seqs.append(svc.submit_many("remove", keys[:200], ten[:200]))
+        seqs.append(svc.submit_many("contains", np.concatenate(
+            [keys[:300], H.probe_u64x2(300, seed=step)]), ten[:600]))
+        svc.pump()
+    svc.drain()
+    return log, np.concatenate(seqs), svc.admission.shed_by_tenant, svc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(SERVICE_BANKS))
+def test_service_flushes_match_the_plain_versions(cuda, name):
+    """Every flush of a service on a card bank (routed, valid-masked bank
+    calls) against the same stream on the CPU (the plain versions): words
+    bit for bit, results, seq ids and shed counts."""
+    make = SERVICE_BANKS[name]
+    remove = name in ("countingbf", "cuckoo", "quotient")
+    card = _service_run(make, cuda, remove)
+    plain = _service_run(make, "cpu", remove)
+    assert card[3].filt.device.type == "cuda"
+    assert len(card[0]) == len(plain[0])
+    for a, b in zip(card[0], plain[0]):
+        if isinstance(a, dict):
+            assert a == b
+        else:
+            np.testing.assert_array_equal(_u32(a), _u32(b))
+    np.testing.assert_array_equal(card[1], plain[1])
+    np.testing.assert_array_equal(card[2], plain[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["sbf", "cbf", "countingbf"])
+def test_member_fill_on_the_card_matches_numpy(cuda, variant):
+    from repro_torch import service as S
+    kw = {"k": 5} if variant == "cbf" else {}
+    bank = api.make_filter_bank(5, variant=variant, m_bits=1 << 17,
+                                device=cuda, **kw)
+    keys = _keys(40000, 3, cuda)
+    member = torch.randint(0, 5, (40000,), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(3))
+    bank = bank.add(keys, tenants=member)
+    dense = bank.dense_words().cpu().numpy().view(np.uint32)
+    want = np.unpackbits(dense.reshape(5, -1).view(np.uint8),
+                         axis=-1).mean(axis=-1)
+    got = S.member_fill(bank)
+    assert got.dtype == np.float64
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_service_recovery_drill_on_the_card(cuda, tmp_path):
+    """ServiceDriver with a SimulatedFailure midway: restored on the card
+    from the flush-barrier checkpoint and replayed, it ends with the clean
+    run's words, results and deterministic counters."""
+    from repro_torch import service as S
+    from repro_torch.runtime.fault_tolerance import SimulatedFailure
+
+    def stream_fn(step):
+        rng = np.random.RandomState(900 + step)
+        return [(op, rng.randint(0, 2 ** 31, (300, 2)).astype(np.uint32),
+                 rng.randint(0, 4, 300)) for op in ("add", "contains")]
+
+    out = []
+    for fail_at in (None, 5):
+        bank = api.make_filter_bank(4, variant="cuckoo", m_bits=1 << 12,
+                                    device=cuda)
+        svc = S.FilterService(bank, S.ServiceConfig(max_batch=256,
+                                                    flush_deadline=2.5))
+        maint = S.MaintenanceLoop(S.MaintenanceConfig(
+            checkpoint_every=3, ckpt_dir=str(tmp_path / str(fail_at))))
+        fired = []
+
+        def hook(step, fail_at=fail_at, fired=fired):
+            if fail_at is not None and step == fail_at and not fired:
+                fired.append(step)
+                raise SimulatedFailure("injected")
+
+        drv = S.ServiceDriver(svc, stream_fn, maint,
+                              S.ServiceDriverConfig(virtual_dt=1.0),
+                              failure_hook=hook)
+        results = {}
+        feed = drv._feed
+
+        def fed(step, feed=feed, svc=svc, results=results):
+            feed(step)
+            results.update(svc.take_results())
+        drv._feed = fed
+        final = drv.run(9)
+        results.update(drv.service.take_results())
+        out.append((final, results, drv))
+    (a, ra, da), (b, rb, db) = out
+    assert b.device.type == "cuda" and "restore" in [e["kind"]
+                                                     for e in db.events]
+    np.testing.assert_array_equal(_u32(a.words), _u32(b.words))
+    assert torch.equal(a.state, b.state) and ra == rb
+    assert (da.service.telemetry.registry.snapshot_state(
+        deterministic_only=True)
+        == db.service.telemetry.registry.snapshot_state(
+            deterministic_only=True))

@@ -11,6 +11,9 @@ import torch
 from repro.core import hashing as JH
 from repro_torch.core import hashing as TH
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 EDGE_KEYS = np.array([[0, 0], [0xFFFFFFFF, 0xFFFFFFFF], [0, 0xFFFFFFFF],
                       [0xFFFFFFFF, 0], [0x80000000, 1]], np.uint32)
 KEYS = np.concatenate([JH.random_u64x2(4096, seed=7),

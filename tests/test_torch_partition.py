@@ -41,6 +41,9 @@ from repro_torch.core import variants as TV
 from repro_torch.kernels import countingbf as TC
 from repro_torch.kernels import ops, sbf
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 M = 1 << 15
 N = 3000
 BIT_ARGS = {"sbf": dict(k=8), "csbf": dict(k=8, block_bits=512, z=2),

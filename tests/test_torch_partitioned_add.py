@@ -29,6 +29,9 @@ from repro.kernels import ref as JR
 from repro_torch.core import variants as TV
 from repro_torch.kernels import sbf
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 M = 1 << 15
 SMEM = 231296                  # the H100's shared memory a CTA, less salts
 SPECS = {"sbf": dict(k=8, block_bits=256), "csbf": dict(k=8, block_bits=512,

@@ -42,6 +42,9 @@ from repro_torch.kernels import sbf as TS
 from repro_torch.perfmodel import calibrate as PC
 from repro_torch.roofline import report_utils as RU
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 # (variant, m_bits, k, extra FilterSpec fields): every engine family
 SPEC_ARGS = [("sbf", 1 << 18, 8, {"block_bits": 256}),
              ("bbf", 1 << 18, 8, {"block_bits": 256}),
@@ -186,13 +189,32 @@ def test_calibration_caches_keep_the_packages_apart(tmp_path, monkeypatch):
 
 def test_measure_calibration_runs_on_the_cpu(monkeypatch):
     before = dict(kc.LAUNCHES)
-    for name, probe in PC.PROBES.items():
-        v = probe(device="cpu")
-        assert math.isfinite(v) and v >= 0, (name, v)
+    # the real probes run once, inside measure_calibration; later calls
+    # replay their values (the fallback, warning and caching paths below
+    # test measure_calibration's and get_calibration's logic, not probes)
+    real = dict(PC.PROBES)
+    seen = {}
+
+    def recording(name, probe):
+        def run(device=None):
+            seen[name] = probe(device=device)
+            return seen[name]
+        return run
+
+    for name, probe in real.items():
+        monkeypatch.setitem(PC.PROBES, name, recording(name, probe))
     calib = PC.measure_calibration("cpu")
+    assert sorted(seen) == sorted(real)
+    for name, v in seen.items():
+        assert math.isfinite(v) and v >= 0, (name, v)
     assert calib.measured and calib.backend == "cpu"
     assert all(math.isfinite(getattr(calib, f)) and getattr(calib, f) > 0
                for f in CALIB)
+    replay = {name: (lambda v: lambda device=None: v)(v)
+              for name, v in seen.items()}
+    for name, probe in replay.items():
+        monkeypatch.setitem(PC.PROBES, name, probe)
+    assert PC.measure_calibration("cpu") == calib
     # a probe that raises, or returns <= 0, keeps the default for its
     # constant; the result is then not measured, and never cached
     probes = dict(PC.PROBES)

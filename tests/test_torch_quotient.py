@@ -35,6 +35,9 @@ from repro_torch.core import variants as TV
 from repro_torch.kernels import ops
 from repro_torch.kernels import quotientfilter as TK
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 # (slot_bits, r_bits, q_bits)
 GEOMETRIES = [(8, 5, 10), (16, 9, 9), (32, 20, 8), (8, 2, 9)]
 IDS = [f"u{sb}-r{r}-q{q}" for sb, r, q in GEOMETRIES]

@@ -25,6 +25,9 @@ from repro_torch.api import registry
 from repro_torch.core import quotient as TQ
 from repro_torch.core import variants as TV
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 
 def _u32(t):
     return t.cpu().numpy().view(np.uint32)

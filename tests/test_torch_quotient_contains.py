@@ -32,6 +32,9 @@ from repro_torch.core import quotient as TQ
 from repro_torch.core import variants as TV
 from repro_torch.kernels import quotientfilter as TK
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 SMEM = 231296                  # the H100's shared memory a CTA, less salts
 # (slot_bits, r_bits, q_bits)
 GEOMETRIES = [(8, 5, 10), (16, 9, 9), (32, 20, 8)]

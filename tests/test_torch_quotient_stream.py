@@ -34,6 +34,9 @@ from repro_torch.core import quotient as TQ
 from repro_torch.core import variants as TV
 from repro_torch.kernels import quotientfilter as TK
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 # (slot_bits, r_bits, q_bits): r = 2 and the widest r of each lane
 GEOMETRIES = [(8, 2, 10), (8, 5, 10), (16, 2, 9), (16, 13, 9), (32, 2, 8),
               (32, 27, 4)]

@@ -26,6 +26,9 @@ from repro_torch.api.filter import as_keys
 from repro_torch.core import variants as TV
 from repro_torch.kernels import ring
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 SMEM = 231296                  # the H100's shared memory a CTA, less salts
 SPECS = {1: ("rbbf", 1 << 12, dict(k=4)),
          8: ("sbf", 1 << 14, dict(k=8, block_bits=256)),

@@ -40,6 +40,9 @@ from repro_torch.core import variants as TV
 from repro_torch.kernels import ops
 from repro_torch.kernels import sbf as TS
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 M = 1 << 16
 SPEC_ARGS = [("sbf", M, 8, 256, 1), ("sbf", M, 16, 512, 1),
              ("bbf", M, 8, 256, 1), ("rbbf", M, 4, 32, 1),

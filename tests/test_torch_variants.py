@@ -21,6 +21,9 @@ from repro.core import variants as JV
 from repro_torch.api.filter import as_keys
 from repro_torch.core import variants as TV
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 M = 1 << 16
 SPEC_ARGS = [("sbf", M, 8, 256, 1), ("sbf", M, 16, 512, 1),
              ("sbf", M, 4, 128, 1), ("sbf", M, 2, 64, 1),

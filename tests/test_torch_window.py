@@ -32,6 +32,9 @@ from repro_torch.kernels import _build, ops, ring
 from repro_torch.window import WindowedFilter
 from repro_torch.window import ring as TW
 
+# xdist runs several workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
 M = 1 << 14
 BATCH = 64
 GEOMETRIES = [dict(variant="sbf", k=8, block_bits=256),

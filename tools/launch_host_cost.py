@@ -4,9 +4,11 @@ the card, for the two rule sweeps that time host-bound calls in turns
 (``chip_smoke.py``'s ``phase_counting_rule`` and ``phase_quotient_rule``),
 on one NVIDIA card.
 
-    python3 tools/launch_host_cost.py
+    python3 tools/launch_host_cost.py [--counting]
 
-It prints the card's name and power limit first, then:
+(``--counting``: the plumbing and the counting update only, with the
+binned call's host time split into its parts; only the bloom and counting
+libraries are built.) It prints the card's name and power limit first, then:
 
 - the host time a call of the launch plumbing: ``torch.cuda.current_stream``,
   ``sbf.raw_stream``, ``torch.cuda.device`` and ``sbf.device_scope`` on the
@@ -144,6 +146,57 @@ def counting(dev: torch.device) -> None:
         del words
 
 
+def binned_parts(dev: torch.device) -> None:
+    """The host time of a binned counting update at 2^19 keys into 2^23 B
+    by part: the whole wrapper call, the wrapper with its C entry stubbed
+    (Python alone), the workspace's allocation, and the C entry alone (its
+    geometry checks and launches) on a kept workspace; one-pass beside."""
+    spec = V.FilterSpec("countingbf", 1 << 24, 8, block_bits=256)
+    words = V.init(spec, "cuda")
+    keys = cs.gen_keys(1 << 19, 31)
+    lib = _build.library()
+    real = {p: getattr(lib, f) for p, f in (
+        ("binned", "counting_update_binned"), ("one-pass", "counting_update"))}
+
+    def call(path):
+        return cnt._launch_update("update_hbm", spec, words, keys, None,
+                                  "add", path=path)
+
+    calls = 40                 # a binned call's launches stay queued
+    whole = {p: host_us(lambda p=p: call(p), calls) for p in real}
+    stubbed = {}
+    for p, name in (("binned", "counting_update_binned"),
+                    ("one-pass", "counting_update")):
+        setattr(lib, name, lambda *a: 0)
+        try:
+            stubbed[p] = host_us(lambda p=p: call(p), calls)
+        finally:
+            setattr(lib, name, real[p])
+    smem = sbf.partition_smem_bytes(dev)
+    plan, cap, work = cnt._binned_call(spec, keys.shape[0], 1, dev, None,
+                                       cnt.UPDATE_KEY_CAP, smem)
+    alloc = host_us(lambda: cnt._workspace(plan["workspace_bytes"], dev),
+                    calls)
+    ptrs = (keys.data_ptr(), None, None, words.data_ptr(),
+            cnt._salts(dev).data_ptr())
+    stream = cnt._stream(dev)
+    c_binned = host_us(lambda: real["binned"](
+        *ptrs, work.data_ptr(), keys.shape[0], plan["total_rows"],
+        spec.n_blocks - 1, spec.s, spec.k, 0, plan["bin_row_bits"], cap,
+        plan["chunks"], stream), calls)
+    c_one = host_us(lambda: real["one-pass"](
+        *ptrs, keys.shape[0], spec.storage_words, spec.n_blocks - 1, spec.s,
+        spec.k, 0, stream), calls)
+    print(f"counting 2^23 B / 2^19 keys host time by part (us a call, "
+          f"binned / one-pass): whole call {whole['binned']:.2f} / "
+          f"{whole['one-pass']:.2f}, Python with the C entry stubbed "
+          f"{stubbed['binned']:.2f} / {stubbed['one-pass']:.2f}, workspace "
+          f"allocation {alloc:.2f} / -, C entry alone {c_binned:.2f} / "
+          f"{c_one:.2f} ({plan['n_bins']} bins, column and scan "
+          f"{plan['column_scan']})", flush=True)
+    del words, work
+
+
 def quotient() -> None:
     probes = cs.gen_keys(1 << 18, 36, probe=True)
     for q_bits in (26, 27):
@@ -184,11 +237,19 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
+    only_counting = sys.argv[1:] == ["--counting"]
+    if only_counting:
+        _build.SOURCES = ("bloom", "counting")
+        _build.ENTRY_POINTS = {k: v for k, v in _build.ENTRY_POINTS.items()
+                               if v[0] in _build.SOURCES}
     _build.library()
     dev = torch.device("cuda", torch.cuda.current_device())
     plumbing(dev)
+    if only_counting:
+        binned_parts(dev)
     counting(dev)
-    quotient()
+    if not only_counting:
+        quotient()
     return 0
 
 
