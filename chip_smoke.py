@@ -245,7 +245,32 @@ the script exits non-zero without printing a result:
    5); printed with the card's name and power limit, beside the bound and,
    for the blocked add and contains, the sector bound (keys, results and
    one 32-byte sector a key read, and written again for add); and one JSON
-   line with a record per kernel.
+   line with a record per kernel;
+6. serve: ``repro_torch.launch.serve``'s ``build`` and ``run`` at the full
+   width of mistral-nemo-12b (40 layers, d_model 5120, 32 / 8 heads, d_ff
+   14336, vocab 131072; f32 parameters from seed 0, bf16 compute), 16
+   requests of 64 prompt tokens, 32 new tokens, waves of 8, ``--max-len``
+   128: once with the blocked guard (rows 5 and 6) and once with
+   ``--guard-decay-every 8`` (the counting guard: rows 15, 16 and 14);
+   tokens a second, the decode step's p50 and the guard's penalize +
+   observe a step (CUDA events), its share of a step, the launches (one
+   bank contains a step, one bank update an observe, a decay a cadence)
+   and peak memory; the same requests again with the guard's plain engine
+   driving the sampler (blocked: ``torch`` over CUDA tensors; counting:
+   its plain versions on the CPU) and the card's guard in lock step:
+   penalized logits bit for bit, words after every observe, stats and
+   output tokens equal; the f32 model's prefill + decode against one
+   train-mode pass, and finite logits; the model freed after;
+6b. dedup: 2^17 synthetic documents (``dup_fraction=0.2``) through
+   ``DedupFilter(expected_docs=2^27, bits_per_key=16)`` (256 MiB,
+   ``cuda-dram``: rows 3 and 4) and ``TenantDedupFilter`` (64 tenants x
+   2^20 documents, a 128 MiB bank: rows 5 and 6) in batches of 4096, each
+   against the same stage on ``torch`` over CUDA tensors (the same
+   documents, stats and words), keeping no duplicate and dropping exactly
+   the unique documents whose key's block and pattern collide with an
+   earlier batch's, and beyond them at most 4x the FPR's expectation; ``StreamingDedupFilter`` on its window
+   (rows 2 and 18) and cuckoo (rows 20 and 21) engines and
+   ``deduped_batches`` against the CPU; documents a second.
 
 The last line is ``{"ok": true, "device": {...}}``. Needs one CUDA card; the
 script exits non-zero where there is none, or where the repository's
@@ -264,6 +289,10 @@ result.
 
 runs the build and phase 4h alone.
 
+    python3 chip_smoke.py --serve
+
+runs the build and phases 6 and 6b alone.
+
     python3 chip_smoke.py --contains
 
 runs the build, phases 3f, 4f and the quotient contains' rule sweep, then
@@ -273,7 +302,9 @@ records, for work on those kernels.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -306,6 +337,8 @@ from repro_torch.core import tuning  # noqa: E402
 from repro_torch.roofline import report_utils as RU  # noqa: E402
 from repro_torch import service as S  # noqa: E402
 from repro_torch.runtime.fault_tolerance import SimulatedFailure  # noqa: E402
+from repro_torch.data import dedup as DD  # noqa: E402
+from repro_torch.data import pipeline as DP  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 OPS_PER_S = 67e12              # non-tensor peak (fp32 rate, the guide's table)
@@ -6516,6 +6549,461 @@ def phase_service(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The serving side and the dedup stages (phases 6 and 6b)
+# ---------------------------------------------------------------------------
+
+# launch/serve's flags for the full-width cell: mistral-nemo-12b (40
+# layers, d_model 5120, 32 / 8 heads, d_ff 14336, vocab 131072), f32
+# parameters from seed 0, 16 requests of 64 prompt tokens in waves of 8
+SERVE_ARGV = ["--arch", "mistral-nemo-12b", "--no-smoke", "--guard",
+              "--batch", "8", "--requests", "16", "--prompt-len", "64",
+              "--new-tokens", "32", "--max-len", "128", "--device", "cuda"]
+SERVE_DECAY_EVERY = 8
+# prefill + decode against one train-mode pass at f32 on the card: the
+# summation order of a 5120-long dot product changes with the matmul's
+# shape; relative to the largest logit
+MODEL_F32_RTOL = 1e-3
+DEDUP_DOCS = 1 << 17           # synthetic documents through the main stages
+DEDUP_BATCH = 4096             # documents a flush
+DEDUP_TENANTS = 64             # the tenant stage's bank: 64 x 2^20 documents
+
+
+class GuardPair:
+    """Two guards fed the same logits and tokens in lock step: ``drive``'s
+    penalized logits go on to the sampler (on the logits' device);
+    ``check``'s must equal them bit for bit, and its words must equal
+    ``drive``'s after every observe."""
+
+    def __init__(self, drive, check, label: str):
+        self.drive, self.check, self.label = drive, check, label
+        self.observes = 0
+
+    @property
+    def filt(self):
+        return self.drive.filt
+
+    @property
+    def stats(self):
+        return self.drive.stats
+
+    def penalize(self, logits):
+        dev = logits.device
+        a = self.drive.penalize(logits).to(dev)
+        b = self.check.penalize(logits).to(dev)
+        if a.dtype != torch.bfloat16 or not torch.equal(
+                a.view(torch.int16), b.view(torch.int16)):
+            raise AssertionError(f"{self.label}: penalized logits differ "
+                                 f"from the other guard's")
+        return a
+
+    def observe(self, tokens):
+        self.drive.observe(tokens)
+        self.check.observe(tokens)
+        self.observes += 1
+        if not torch.equal(self.drive.filt.words.cpu(),
+                           self.check.filt.words.cpu()):
+            raise AssertionError(f"{self.label}: words differ after observe "
+                                 f"{self.observes}")
+
+
+def event_wrap(times: list, fn, stamps=None):
+    """``fn`` with a pair of CUDA events around each call, appended to
+    ``times`` (and the host clock at each call to ``stamps``)."""
+    def inner(*a, **kw):
+        if stamps is not None:
+            stamps.append(time.perf_counter())
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn(*a, **kw)
+        e.record()
+        times.append((s, e))
+        return out
+    return inner
+
+
+def serve_model_sanity(model, params) -> dict:
+    """The full-width model in f32: finite logits; prefill of 12 tokens
+    then 4 decode steps against one train-mode pass of the 16 tokens."""
+    from repro_torch.models.transformer import lm_forward
+    cfg = model.cfg
+    tok = torch.from_numpy(np.random.RandomState(6000).randint(
+        2, cfg.vocab, (2, 16)).astype(np.int32)).cuda()
+    f32 = torch.float32
+    with torch.inference_mode():
+        full = lm_forward(params, cfg, tok, compute_dtype=f32)
+        last, cache = model.prefill(params, {"tokens": tok[:, :12]},
+                                    max_len=16, compute_dtype=f32)
+        got = [last]
+        for t in range(12, 15):
+            last, cache = model.decode_step(params, cache, tok[:, t:t + 1],
+                                            t, compute_dtype=f32)
+            got.append(last)
+        got = torch.stack(got, dim=1)
+        want = full[:, 11:15]
+        bf = model.prefill(params, {"tokens": tok}, max_len=16)[0]
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not (torch.isfinite(full).all() and torch.isfinite(bf).all()
+            and err <= MODEL_F32_RTOL * scale):
+        raise AssertionError(f"serve model sanity: max |prefill/decode - "
+                             f"train| {err} against {MODEL_F32_RTOL} x "
+                             f"{scale}, or non-finite logits")
+    return {"max_abs_err": err, "max_abs_logit": scale}
+
+
+def serve_pass(card: str, args, model, params, decay: bool) -> dict:
+    """One guarded serve of ``args``' requests through launch/serve's
+    ``build`` and ``run`` on the card, timed; then the same requests with
+    the guard's plain engine driving the sampler and the card's engine
+    checked against it in lock step (blocked bank: ``torch`` over CUDA
+    tensors; counting bank: its plain versions on the CPU, the torch engine
+    taking no counting filter)."""
+    from repro_torch.launch import serve as LS
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.ngram_guard import NGramGuard
+    label = "decay" if decay else "sbf"
+    _, _, engine, reqs = LS.build(args, params=params)
+    guard = engine.guard
+    native = ("counting",) if decay else ("cuda-l2", "cuda-dram")
+    if guard.filt.backend not in native:
+        raise AssertionError(f"serve {label}: guard engine "
+                             f"{guard.filt.backend!r}, not {native}")
+    pen, obs, dec, stamps = [], [], [], []
+    guard.penalize = event_wrap(pen, guard.penalize, stamps)
+    guard.observe = event_wrap(obs, guard.observe)
+    engine._decode = event_wrap(dec, engine._decode)
+    mods = (cnt,) if decay else (sbf,)
+    for mod in mods:
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = LS.run(args, model, engine, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    st = guard.stats
+    steps = len(pen)
+    want = ({"bank_update_vmem": len(obs), "bank_contains_vmem": steps,
+             "decay": st.decays} if decay else
+            {"bank_add_vmem": len(obs), "bank_contains_vmem": steps})
+    want = {k: v for k, v in want.items() if v}
+    if (steps != args.new_tokens * len(reqs) // args.batch
+            or launches != want or (decay and st.decays == 0)):
+        raise AssertionError(f"serve {label}: launches {launches}, want "
+                             f"{want} for {steps} steps")
+    g_ms = [p[0].elapsed_time(p[1]) + o[0].elapsed_time(o[1])
+            for p, o in zip(pen, obs)]
+    d_ms = [s.elapsed_time(e) for s, e in dec]
+    step_ms = float(np.median(np.diff(stamps))) * 1e3
+    n_tok = sum(len(o) for o in outs)
+    # the plain engine drives the sampler; the card's guard checked in
+    # lock step
+    kw = dict(batch=args.batch, n=3, top_k=64,
+              decay_every=args.guard_decay_every)
+    plain = NGramGuard(device="cpu" if decay else "cuda", **kw)
+    if not decay:
+        plain.filt = plain.filt.replace(backend="torch")
+    twin = NGramGuard(device="cuda", **kw)
+    pair = GuardPair(plain, twin, f"serve {label}")
+    check = Engine(model, params, batch=args.batch, max_len=args.max_len,
+                   guard=pair)
+    t1 = time.perf_counter()
+    plain_outs = check.generate(reqs)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    if (plain_outs != outs or pair.observes != len(obs)
+            or plain.stats != st or twin.stats != st):
+        raise AssertionError(f"serve {label}: the plain engine's tokens or "
+                             f"stats differ ({plain.stats} / {twin.stats} "
+                             f"against {st})")
+    out = {"engine": guard.filt.backend, "tokens": n_tok,
+           "tokens_per_s": n_tok / wall, "wall_s": wall,
+           "decode_p50_ms": float(np.median(d_ms)),
+           "guard_ms_per_step": float(np.median(g_ms)),
+           "penalize_ms": float(np.median([s.elapsed_time(e)
+                                           for s, e in pen])),
+           "observe_ms": float(np.median([s.elapsed_time(e)
+                                          for s, e in obs])),
+           "step_ms_p50": step_ms,
+           "guard_share": float(np.median(g_ms)) / step_ms,
+           "launches": launches, "peak_bytes": peak,
+           "stats": dataclasses.asdict(st), "plain_check_s": plain_s}
+    print(f"serve {label} [{card}]: mistral-nemo-12b at full width, f32 "
+          f"parameters, bf16 compute; {len(reqs)} requests x "
+          f"{args.new_tokens} tokens in waves of {args.batch}: "
+          f"{out['tokens_per_s']:.1f} tokens a second ({n_tok} in "
+          f"{wall:.3f} s, prefill included); decode step p50 "
+          f"{out['decode_p50_ms']:.3f} ms (CUDA events); a step of the loop "
+          f"p50 {step_ms:.3f} ms (host clock); guard penalize + observe "
+          f"{out['guard_ms_per_step']:.4f} ms a step (penalize "
+          f"{out['penalize_ms']:.4f}, observe {out['observe_ms']:.4f}; "
+          f"CUDA events), {100 * out['guard_share']:.2f} % of a step; "
+          f"guard engine {out['engine']!r}, launches {launches} over "
+          f"{steps} steps; guard stats {out['stats']}; peak memory "
+          f"{peak} B; the plain engine's tokens, penalized logits (bit for "
+          f"bit), words after every observe and stats equal")
+    return out
+
+
+def phase_serve(card: str) -> dict:
+    """Phase 6: ``repro_torch.launch.serve`` at full width on the card,
+    with the blocked guard and the time-decayed counting guard."""
+    from repro_torch.launch import serve as LS
+    gc.collect()
+    torch.cuda.empty_cache()        # the earlier phases' cached blocks
+    t0 = time.perf_counter()
+    args = LS.parse_args(SERVE_ARGV)
+    model, params, _, _ = LS.build(args)
+    cfg = model.cfg
+    if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+            cfg.vocab) != (40, 5120, 32, 8, 14336, 131072):
+        raise AssertionError(f"serve: not mistral-nemo-12b's width: {cfg}")
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "params": model.param_count(),
+           "param_bytes": 4 * model.param_count()}     # f32 at rest
+    out["sanity"] = serve_model_sanity(model, params)
+    out["sbf"] = serve_pass(card, args, model, params, decay=False)
+    out["decay"] = serve_pass(card, LS.parse_args(
+        SERVE_ARGV + ["--guard-decay-every", str(SERVE_DECAY_EVERY)]),
+        model, params, decay=True)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"serve [{card}]: {out['params']} parameters ({out['param_bytes']}"
+          f" B f32) initialised in {out['init_s']:.1f} s; f32 prefill + "
+          f"decode against one train pass: max |err| "
+          f"{out['sanity']['max_abs_err']:.3g} of logits up to "
+          f"{out['sanity']['max_abs_logit']:.3g}; phase {out['phase_s']:.1f}"
+          f" s")
+    return out
+
+
+def dedup_run(make, stream, mods=()) -> dict:
+    """One pass of a dedup stage over ``stream`` (a list): the kept items,
+    the stage, its wall time and the launches of ``mods``' wrappers."""
+    for mod in mods:
+        mod.reset_launches()
+    stage = make()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kept = list(stage.filter_stream(iter(stream)))
+    torch.cuda.synchronize()
+    return {"kept": kept, "stage": stage, "s": time.perf_counter() - t0,
+            "launches": {f"{mod.__name__.split('.')[-1]}.{k}": v
+                         for mod in mods for k, v in mod.LAUNCHES.items()
+                         if v}}
+
+
+def plain_stage(stage):
+    """``stage`` with its filter on the plain engine over the same CUDA
+    tensors (``torch``)."""
+    stage.filt = stage.filt.replace(backend="torch")
+    return stage
+
+
+def same_kept(a: list, b: list) -> bool:
+    """The same items (the corpus' own objects), in the same order."""
+    return len(a) == len(b) and all(
+        (x is y) if not isinstance(x, tuple) else
+        (x[0] is y[0] and x[1] == y[1]) for x, y in zip(a, b))
+
+
+def hash_collisions(rows: np.ndarray, spec, tenants: bool) -> set:
+    """The unique items a right filter drops all the same: those whose key
+    lands on the same member, block and word masks as a unique item of an
+    earlier batch, so that all its bits are set when it is looked up.
+    ``rows``: the stream's (tenant and) signature rows, in order. The
+    block comes from the key's ``SEED_BLOCK`` hash and the masks from its
+    ``SEED_PATTERN`` hash, and the two are dependent (ROADMAP queue 3):
+    two keys equal in one are mostly equal in the other too, so n unique
+    keys of a member collide up to about n^2 / 2^33 times, where
+    independent hashes would give next to none."""
+    _, first = np.unique(rows, axis=0, return_index=True)
+    first = np.sort(first)
+    h1, h2 = H.hash_keys(torch.from_numpy(rows[first, -2:].astype(np.int64)))
+    blocks = H.block_index(h2, spec.n_blocks).numpy()
+    masks = V.block_patterns(spec, h1).numpy()
+    members = rows[first, 0] if tenants else np.zeros(len(first), np.int64)
+    earliest, out = {}, set()
+    for i, member, block, mask in zip(first, members, blocks, masks):
+        j = earliest.setdefault((int(member), int(block), mask.tobytes()), i)
+        if j // DEDUP_BATCH < i // DEDUP_BATCH:
+            out.add(tuple(rows[i].tolist()))
+    return out
+
+
+def dedup_guarantees(label: str, stream: list, kept: list, filt,
+                     tenants: bool) -> dict:
+    """No exact duplicate kept; the unique items dropped are exactly the
+    hash collisions (``hash_collisions``), and at most 4x the theory's
+    expected false positives at the final load besides."""
+    def rows(items):
+        if not tenants:
+            return DD.doc_signatures_batch(items)
+        sig = DD.doc_signatures_batch([d for d, _ in items])
+        ten = np.array([t for _, t in items], np.uint32)[:, None]
+        return np.concatenate([ten, sig], axis=1)
+    stream_rows, kept_rows = rows(stream), rows(kept)
+    uniq = set(map(tuple, stream_rows.tolist()))
+    kept_set = set(map(tuple, kept_rows.tolist()))
+    if len(kept_set) != len(kept):
+        raise AssertionError(f"dedup {label}: an exact duplicate was kept")
+    dropped = uniq - kept_set
+    collided = hash_collisions(stream_rows, filt.spec, tenants)
+    n_member = len(uniq) // (DEDUP_TENANTS if tenants else 1) + 1
+    fpr = filt.fpr_theory(n_member)
+    allowed = int(4 * len(uniq) * fpr)
+    if collided - dropped or len(dropped - collided) > allowed:
+        raise AssertionError(
+            f"dedup {label}: {len(dropped)} unique documents dropped: "
+            f"{len(dropped & collided)} of the {len(collided)} hash "
+            f"collisions and {len(dropped - collided)} others (allowed "
+            f"{allowed})")
+    return {"unique": len(uniq), "unique_dropped": len(dropped),
+            "hash_collisions": len(collided),
+            "other_dropped": len(dropped - collided), "allowed": allowed,
+            "fpr_theory": fpr,
+            "collided_signatures": sorted(r[-2:] for r in collided)}
+
+
+def dedup_main(card: str, label: str, make, plain, stream, mods,
+               tenants: bool, want_engine: str) -> dict:
+    """A dedup stage at real size on the card, then on the plain engine on
+    the card (``torch`` over CUDA tensors): the same documents kept, the
+    same stats, bit-identical words; no duplicate kept, unique documents
+    dropped only within the FPR."""
+    card_run = dedup_run(make, stream, mods)
+    stage = card_run["stage"]
+    if stage.filt.backend != want_engine or not card_run["launches"]:
+        raise AssertionError(f"dedup {label}: engine {stage.filt.backend!r}"
+                             f", launches {card_run['launches']}")
+    plain_run = dedup_run(plain, stream)
+    pst = plain_run["stage"]
+    if (pst.filt.backend != "torch" or pst.filt.device.type != "cuda"
+            or not same_kept(card_run["kept"], plain_run["kept"])
+            or stage.stats != pst.stats
+            or not torch.equal(stage.filt.words, pst.filt.words)):
+        raise AssertionError(f"dedup {label}: the plain engine's run "
+                             f"differs (kept documents, stats or words)")
+    out = {"engine": stage.filt.backend, "bytes": stage.filt.nbytes,
+           "docs": len(stream), "kept": len(card_run["kept"]),
+           "docs_per_s": len(stream) / card_run["s"], "s": card_run["s"],
+           "plain_s": plain_run["s"], "launches": card_run["launches"],
+           **dedup_guarantees(label, stream, card_run["kept"], stage.filt,
+                              tenants)}
+    print(f"dedup {label} [{card}]: {out['engine']} filter of "
+          f"{out['bytes']} B, {len(stream)} documents in batches of "
+          f"{DEDUP_BATCH}: {out['docs_per_s']:.0f} documents a second "
+          f"({out['s']:.3f} s), {out['kept']} kept; launches "
+          f"{out['launches']}; {out['unique_dropped']} of "
+          f"{out['unique']} unique documents dropped: the "
+          f"{out['hash_collisions']} hash collisions (signatures "
+          f"{[[hex(x) for x in r] for r in out['collided_signatures']]}) "
+          f"and {out['other_dropped']} others (allowed {out['allowed']} at "
+          f"FPR {out['fpr_theory']:.3g}), no duplicate kept; the "
+          f"plain engine on the card ({out['plain_s']:.3f} s) kept the same "
+          f"documents with the same stats and words")
+    return out
+
+
+def dedup_small(card: str, label: str, make, stream, mods) -> dict:
+    """A streaming stage on the card against the same stage on the CPU
+    (the plain versions of its engine): the same documents kept, the same
+    stats and words."""
+    card_run = dedup_run(lambda: make("cuda"), stream,
+                         list(dict.fromkeys(m for m, _ in mods)))
+    cpu_run = dedup_run(lambda: make("cpu"), stream)
+    a, b = card_run["stage"], cpu_run["stage"]
+    fa = a.window if a.engine == "window" else a.filt
+    fb = b.window if b.engine == "window" else b.filt
+    words = (fa.rings, fb.rings) if a.engine == "window" else (fa.words,
+                                                                fb.words)
+    missing = [f"{m.__name__.split('.')[-1]}.{w}" for m, w in mods
+               if m.LAUNCHES[w] == 0]
+    if (missing or not same_kept(card_run["kept"], cpu_run["kept"])
+            or a.stats != b.stats
+            or not torch.equal(words[0].cpu(), words[1])):
+        raise AssertionError(f"dedup {label}: the card's run differs from "
+                             f"the plain versions' (or no launch of "
+                             f"{missing})")
+    print(f"dedup {label} [{card}]: {len(stream)} documents, "
+          f"{len(card_run['kept'])} kept, {a.stats.advances} advances, "
+          f"{len(stream) / card_run['s']:.0f} documents a second; launches "
+          f"{card_run['launches']}; kept documents, stats and words equal "
+          f"to the plain versions on the CPU")
+    return {"docs_per_s": len(stream) / card_run["s"],
+            "kept": len(card_run["kept"]), "launches": card_run["launches"]}
+
+
+def phase_dedup(card: str) -> dict:
+    """Phase 6b: the dedup stages and the data pipeline on the card."""
+    t0 = time.perf_counter()
+    docs = list(DP.synthetic_corpus(DP.CorpusConfig(
+        n_docs=DEDUP_DOCS, dup_fraction=0.2, seed=6100)))
+    rng = np.random.RandomState(6101)
+    pairs = list(zip(docs, rng.randint(0, DEDUP_TENANTS, len(docs))))
+    out = {"corpus_s": time.perf_counter() - t0}
+    out["dedup"] = dedup_main(
+        card, "DedupFilter (2^27 documents at 16 bits a key)",
+        lambda: DD.DedupFilter(expected_docs=1 << 27, bits_per_key=16,
+                               batch_docs=DEDUP_BATCH, device="cuda"),
+        lambda: plain_stage(DD.DedupFilter(
+            expected_docs=1 << 27, bits_per_key=16, batch_docs=DEDUP_BATCH,
+            device="cuda")),
+        docs, (sbf,), tenants=False, want_engine="cuda-dram")
+    out["tenant"] = dedup_main(
+        card, f"TenantDedupFilter ({DEDUP_TENANTS} tenants x 2^20 documents)",
+        lambda: DD.TenantDedupFilter(DEDUP_TENANTS, 1 << 20,
+                                     bits_per_key=16,
+                                     batch_docs=DEDUP_BATCH, device="cuda"),
+        lambda: plain_stage(DD.TenantDedupFilter(
+            DEDUP_TENANTS, 1 << 20, bits_per_key=16, batch_docs=DEDUP_BATCH,
+            device="cuda")),
+        pairs, (sbf,), tenants=True, want_engine="cuda-dram")
+    small = docs[: 1 << 15]
+    out["window"] = dedup_small(
+        card, "StreamingDedupFilter window (2^14 documents, 4 generations)",
+        lambda d: DD.StreamingDedupFilter(window_docs=1 << 14,
+                                          batch_docs=1024, device=d),
+        small, ((sbf, "add_vmem"), (ring, "ring_contains_vmem")))
+    out["cuckoo"] = dedup_small(
+        card, "StreamingDedupFilter cuckoo (2^14 documents, per-key removes)",
+        lambda d: DD.StreamingDedupFilter(window_docs=1 << 14,
+                                          batch_docs=1024, engine="cuckoo",
+                                          device=d),
+        small, ((ckoo, "add_vmem"), (ckoo, "contains_vmem"),
+                (ckoo, "remove_vmem")))
+    cfg = DP.CorpusConfig(n_docs=1 << 13, dup_fraction=0.2, seed=6200)
+    sbf.reset_launches()
+    t1 = time.perf_counter()
+    got = list(DP.deduped_batches(cfg, batch_size=8, seq_len=2048,
+                                  device="cuda"))
+    torch.cuda.synchronize()
+    t_pipe = time.perf_counter() - t1
+    launches = {k: v for k, v in sbf.LAUNCHES.items() if v}
+    want = list(DP.deduped_batches(cfg, batch_size=8, seq_len=2048,
+                                   device="cpu"))
+    if (len(got) != len(want) or not launches
+            or not all(np.array_equal(a, b) for a, b in zip(got, want))):
+        raise AssertionError("dedup deduped_batches: the card's batches "
+                             "differ from the plain versions'")
+    out["pipeline"] = {"batches": len(got), "s": t_pipe,
+                       "launches": launches}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"dedup deduped_batches [{card}]: {cfg.n_docs} documents -> "
+          f"{len(got)} batches of 8 x 2048 in {t_pipe:.3f} s; launches "
+          f"{launches}; equal to the plain versions on the CPU; corpus "
+          f"set-up {out['corpus_s']:.1f} s; phase {out['phase_s']:.1f} s")
+    return out
+
+
 def quotient_phases(card: str, lap) -> dict:
     """Phases 3f and 4f and the quotient contains' rule sweep; returns the
     two kernel records."""
@@ -6590,6 +7078,13 @@ def main() -> int:
     if sys.argv[1:] == ["--service"]:
         phase_service(card)
         lap("phase 5 service")
+        print(f"smoke phases: {', '.join(laps)}")
+        return 0
+    if sys.argv[1:] == ["--serve"]:
+        phase_serve(card)
+        lap("phase 6 serve")
+        phase_dedup(card)
+        lap("phase 6b dedup")
         print(f"smoke phases: {', '.join(laps)}")
         return 0
     errs = {k: 0 for k in sbf.LAUNCHES}
@@ -6680,6 +7175,10 @@ def main() -> int:
     lap("phase 4g")
     phase_service(card)
     lap("phase 5 service")
+    phase_serve(card)
+    lap("phase 6 serve")
+    phase_dedup(card)
+    lap("phase 6b dedup")
     print(f"smoke phases: {', '.join(laps)}")
     print(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} "
           f"s, the build included")

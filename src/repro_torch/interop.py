@@ -157,3 +157,44 @@ def keys_to_torch(np_keys: np.ndarray, device=None) -> torch.Tensor:
     port's ``(n, 2)`` int32 tensor on ``device`` (``None`` = the card)."""
     from repro_torch import resolve_device
     return as_keys(np_keys, resolve_device(device))
+
+
+def params_from_jax(tree: dict, cfg, device=None) -> dict:
+    """The port's parameters (``repro_torch.models``) for the JAX package's
+    parameter tree ``tree`` of ``cfg`` (``repro.models.Model.init``, its
+    leaves as numpy arrays), on ``device`` (``None`` = the card).
+
+    The JAX tree keeps the head and tail layers as lists and the layer
+    groups as ``tree["groups"][str(i)]``, the i-th block of the pattern
+    with every leaf stacked over a leading ``n_groups`` axis (``jax.vmap``
+    of the block init). The port's ``params["layers"]`` is flat in the
+    order the JAX forward runs them: head, then for each group g each
+    block i of the pattern (slice g of ``groups[str(i)]``), then tail."""
+    from repro_torch import resolve_device
+    from repro_torch.models import transformer as T
+
+    dev = resolve_device(device)
+
+    def conv(x):
+        return torch.from_numpy(np.array(x, copy=True)).to(dev)
+
+    def walk(node, pick=None):
+        if isinstance(node, dict):
+            return {k: walk(v, pick) for k, v in node.items()}
+        return conv(node if pick is None else np.asarray(node)[pick])
+
+    head, pattern, n_groups, tail = T._layer_plan(cfg)
+    if len(tree["head"]) != len(head) or len(tree["tail"]) != len(tail):
+        raise ValueError(f"the tree's head/tail ({len(tree['head'])}, "
+                         f"{len(tree['tail'])} layers) do not match "
+                         f"{cfg.name}'s plan ({len(head)}, {len(tail)})")
+    groups = tree.get("groups") or {}
+    layers = [walk(p) for p in tree["head"]]
+    for g in range(n_groups):
+        layers += [walk(groups[str(i)], g) for i in range(len(pattern))]
+    layers += [walk(p) for p in tree["tail"]]
+    out = {"embed": walk(tree["embed"]),
+           "final_norm": walk(tree["final_norm"]), "layers": layers}
+    if "lm_head" in tree:
+        out["lm_head"] = walk(tree["lm_head"])
+    return out

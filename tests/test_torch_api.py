@@ -63,6 +63,31 @@ def test_make_filter_without_a_device_needs_the_card(monkeypatch):
         interop.keys_to_torch(JH.random_u64x2(4))
 
 
+def test_model_without_a_device_needs_the_card(monkeypatch):
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import layers as TL
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import lm_init
+    cfg = smoke_config(get_config("mistral-nemo-12b"))
+    model = build_model(cfg)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: model.init(torch.Generator().manual_seed(0)),
+                 lambda: model.init(None),
+                 lambda: lm_init(torch.Generator(), cfg),
+                 lambda: model.init_cache(1, 8),
+                 lambda: TL.rmsnorm_init(8)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    # with a card, the default is the card: a generator on the CPU is
+    # refused before anything is drawn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="generator"):
+        model.init(torch.Generator().manual_seed(0))
+    assert TL.init_device() == torch.device("cuda")
+    p = model.init(torch.Generator().manual_seed(0), device="cpu")
+    assert p["embed"]["table"].device.type == "cpu"
+
+
 @pytest.mark.parametrize("engine", ["jnp", "pallas-vmem"])
 def test_jax_state_roundtrip(engine):
     keys = JH.random_u64x2(1500, seed=2)
@@ -265,7 +290,11 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.window, repro_torch.window.ring, "
             "repro_torch.service, repro_torch.telemetry, "
             "repro_torch.checkpoint.checkpoint, "
-            "repro_torch.runtime.fault_tolerance; "
+            "repro_torch.runtime.fault_tolerance, repro_torch.configs, "
+            "repro_torch.models, repro_torch.models.model, "
+            "repro_torch.serving.engine, repro_torch.serving.ngram_guard, "
+            "repro_torch.launch.serve, repro_torch.data.dedup, "
+            "repro_torch.data.pipeline; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); assert not bad, bad")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
@@ -289,6 +318,11 @@ def test_port_imports_neither_jax_nor_repro():
                 f"repro_torch/service/{m}.py" for m in (
                     "__init__", "admission", "frontend", "maintenance",
                     "resharding", "driver")} <= names
+    assert {f"repro_torch/{m}.py" for m in (
+        "configs/__init__", "configs/base", "configs/mistral_nemo_12b",
+        "models/layers", "models/attention", "models/transformer",
+        "models/model", "serving/ngram_guard", "serving/engine",
+        "launch/serve", "data/dedup", "data/pipeline")} <= names
     sources.append(ROOT / "chip_smoke.py")
     assert len(sources) > 10
     for path in sources:

@@ -303,8 +303,27 @@ def test_training_driver_survives_failure_like_jax(variant, tmp_path):
     assert restore["step"] == 8
 
 
-def test_training_driver_replays_like_jax(tmp_path):
+class _Clock:
+    """A scripted ``time`` for the drivers' straggler watch: every step
+    takes 1 s, but the step run ``slow``-th (counted from 0, replays
+    included) takes 10 s."""
+
+    def __init__(self, slow: int):
+        self.now, self.calls, self.slow = 0.0, 0, slow
+
+    def perf_counter(self) -> float:
+        if self.calls % 2:                    # the end of a step
+            self.now += 10.0 if self.calls // 2 == self.slow else 1.0
+        self.calls += 1
+        return self.now
+
+
+def test_training_driver_replays_like_jax(tmp_path, monkeypatch):
+    # steps 0-5, the failure at 6, the replay of 4 and 5, then step 6 on:
+    # the 11th step run is step 8, the slow one
+    monkeypatch.setattr(JFT, "time", _Clock(slow=10))
     jfinal, jdrv = _run("jax", tmp_path / "j", fail_at=6)
+    monkeypatch.setattr(TFT, "time", _Clock(slow=10))
     final, drv = _run("port", tmp_path / "p", fail_at=6)
     replayed = [m["step"] for m in drv.metrics_log]
     assert replayed == [m["step"] for m in jdrv.metrics_log]
@@ -313,6 +332,11 @@ def test_training_driver_replays_like_jax(tmp_path):
         [m["fill"] for m in jdrv.metrics_log]
     assert ([(e["kind"], e["step"]) for e in drv.events]
             == [(e["kind"], e["step"]) for e in jdrv.events])
+    slow = [(e["step"], e["dt"], e["ewma"]) for e in drv.events
+            if e["kind"] == "straggler"]
+    assert slow == [(e["step"], e["dt"], e["ewma"]) for e in jdrv.events
+                    if e["kind"] == "straggler"]
+    assert [s for s, _, _ in slow] == [8]
     ref = tapi.make_filter_bank(T, m_bits=1 << 13, device="cpu")
     for step in range(STEPS):
         b = _batch_fn(step)

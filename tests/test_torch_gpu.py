@@ -47,7 +47,10 @@ column or scan kernel launched. The filter
 service on a card bank (sbf in both regimes, counting, windowed, cuckoo,
 quotient) is held flush for flush against the same stream on the CPU;
 ``member_fill`` on the card against numpy; the recovery drill on the card
-against an uninterrupted run.
+against an uninterrupted run. The serve loop's n-gram guard on its native
+engines (blocked and counting banks) against its plain versions, fed the
+same logits and tokens, and the ``DedupFilter`` and ``TenantDedupFilter``
+stages against the plain engine on the card.
 """
 import gc
 
@@ -2269,3 +2272,82 @@ def test_service_recovery_drill_on_the_card(cuda, tmp_path):
         deterministic_only=True)
         == db.service.telemetry.registry.snapshot_state(
             deterministic_only=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decay", [None, 6], ids=["blocked", "decay"])
+def test_ngram_guard_on_the_card_matches_plain(cuda, decay):
+    """The serve loop's guard on its native engine (the blocked bank
+    kernels; the counting bank's update, contains and decay) against the
+    same guard on its plain versions (blocked: ``torch`` over CUDA
+    tensors; counting: the CPU), fed the same bf16 logits (ties included)
+    and tokens: penalized logits bit for bit, words after every observe,
+    stats; and one bank launch a penalize and an observe."""
+    from repro_torch.serving.ngram_guard import NGramGuard
+    B, V, K = 8, 128, 64
+    kw = dict(batch=B, n=3, top_k=K, decay_every=decay)
+    card = NGramGuard(device=cuda, **kw)
+    plain = NGramGuard(device="cpu" if decay else cuda, **kw)
+    if not decay:
+        plain.filt = plain.filt.replace(backend="torch")
+    assert card.filt.backend == ("counting" if decay else "cuda-l2")
+    mod = cnt if decay else sbf
+    mod.reset_launches()
+    rng = np.random.RandomState(11)
+    for step in range(24):
+        logits = torch.from_numpy(np.round(rng.randn(B, V) * 2).astype(
+            np.float32) / 2).to(cuda, torch.bfloat16)
+        a, b = card.penalize(logits), plain.penalize(logits)
+        assert torch.equal(a.view(torch.int16),
+                           b.to(cuda).view(torch.int16))
+        toks = torch.topk(a.float(), 2, dim=-1).indices[:, step % 2]
+        toks[0] = step % 3                       # sequence 0 loops
+        card.observe(toks)
+        plain.observe(toks)
+        np.testing.assert_array_equal(_u32(card.filt.words),
+                                      _u32(plain.filt.words))
+    assert card.stats == plain.stats and card.stats.penalized > 0
+    launches = {k: v for k, v in mod.LAUNCHES.items() if v}
+    want = ({"bank_update_vmem": 24, "bank_contains_vmem": 24,
+             "decay": card.stats.decays} if decay else
+            {"bank_add_vmem": 24, "bank_contains_vmem": 24})
+    assert launches == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", ["dedup", "tenant"])
+def test_dedup_stage_on_the_card_matches_plain(cuda, stage):
+    """A dedup stage on the card's kernels against the same stage on the
+    plain engine on the card (``torch`` over CUDA tensors): the same kept
+    documents, stats and words."""
+    from repro_torch.data import dedup as DD
+    from repro_torch.data import pipeline as DP
+    docs = list(DP.synthetic_corpus(DP.CorpusConfig(
+        n_docs=3000, dup_fraction=0.3, doc_len_min=8, doc_len_max=64,
+        seed=21)))
+    if stage == "tenant":
+        stream = list(zip(docs, np.random.RandomState(22).randint(0, 8,
+                                                                  3000)))
+
+        def make():
+            return DD.TenantDedupFilter(8, 1 << 12, batch_docs=512,
+                                        device=cuda)
+    else:
+        stream = docs
+
+        def make():
+            return DD.DedupFilter(expected_docs=1 << 14, batch_docs=512,
+                                  device=cuda)
+    sbf.reset_launches()
+    a, b = make(), make()
+    b.filt = b.filt.replace(backend="torch")
+    kept_a = list(a.filter_stream(iter(stream)))
+    kept_b = list(b.filter_stream(iter(stream)))
+    assert a.filt.backend == "cuda-l2" and b.filt.backend == "torch"
+    assert len(kept_a) == len(kept_b) < len(stream)
+    for x, y in zip(kept_a, kept_b):
+        assert (x[0] is y[0] and x[1] == y[1]) if stage == "tenant" \
+            else x is y
+    assert a.stats == b.stats
+    np.testing.assert_array_equal(_u32(a.filt.words), _u32(b.filt.words))
+    assert sum(sbf.LAUNCHES.values()) >= 6
